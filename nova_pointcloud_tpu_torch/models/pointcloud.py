@@ -1,0 +1,403 @@
+"""Point-cloud diffusion transformer (port of
+``nova_pointcloud_tpu/models/pointcloud.py``: DepthAwarePosEncoding,
+ClusterBlock, PreLNBlock, BlockStack, NOVAPointCloudTransformer).
+
+Serving only: no dropout, no gradients needed. Module and parameter names
+follow the flax tree (``models/convert.py`` maps one onto the other):
+``nn.Linear`` holds flax's ``Dense`` kernel transposed, ``nn.LayerNorm``
+(eps 1e-6, flax's default) its ``scale``/``bias``, and each
+``MultiHeadAttention`` projection the flax ``(D, H, hd)`` kernel flattened.
+
+``dtype`` is the compute dtype, as the flax modules' ``dtype``: ``None``
+promotes inputs and parameters, ``torch.bfloat16`` is the serving setting
+on the card. A ``PreLNBlock`` has three forwards:
+
+- the float path (``forward`` with no qparams);
+- the int8 serving path (``forward`` with the block's qparams), through the
+  two fused kernels of ``ops/kernels/fused_block.py``;
+- ``calibration_forward``, the plain mirror of the int8 path that records
+  the activation ranges of its quant sites.
+"""
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nova_pointcloud_tpu_torch.models.embeddings import timestep_freq_embed
+from nova_pointcloud_tpu_torch.ops.kernels.fused_block import (
+    attention_block_vmem_bytes, fused_attention_block, fused_ln_int8_mlp)
+from nova_pointcloud_tpu_torch.ops.pointops import cdist
+from nova_pointcloud_tpu_torch.ops.quantization import (
+    int8_matmul, quantize_serving_params, quantize_weight)
+from nova_pointcloud_tpu_torch.utils.device import resolve_device
+
+# name -> (depth, embed_dim, num_heads), as the JAX registry
+PC_ARCHES = {
+    "pc_d8w768": (8, 768, 12),
+    "pc_d32w768": (32, 768, 12),
+    "pc_d32w1024": (32, 1024, 16),
+    "pc_d32w1536": (32, 1536, 16),
+    "pc_d48w768": (48, 768, 12),
+    "pc_d48w1024": (48, 1024, 16),
+    "pc_d48w1536": (48, 1536, 16),
+    "pc_d2w64": (2, 64, 2),  # tests
+    "pc_d4w256": (4, 256, 4),  # conditioning micro-A/B
+}
+LN_EPS = 1e-6
+FLASH_MIN_KEYS = 1024  # the JAX model runs its Pallas flash kernel from here
+
+
+def _compute_dtype(x: torch.Tensor, p: torch.Tensor, dtype) -> torch.dtype:
+    return dtype if dtype is not None else torch.promote_types(x.dtype, p.dtype)
+
+
+def dense(x: torch.Tensor, lin: nn.Linear, dtype=None) -> torch.Tensor:
+    """flax ``Dense``: computes in ``dtype``, else in the promoted dtype."""
+    dt = _compute_dtype(x, lin.weight, dtype)
+    bias = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x.to(dt), lin.weight.to(dt), bias)
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype=None) -> torch.Tensor:
+    """flax ``LayerNorm``: statistics in float32, eps 1e-6."""
+    dt = _compute_dtype(x, norm.weight, dtype)
+    y = F.layer_norm(x.float(), (x.shape[-1],), norm.weight.float(),
+                     norm.bias.float(), LN_EPS)
+    return y.to(dt)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, hd) attention as flax's ``dot_product_attention``: q scaled
+    by 1/sqrt(hd), float32 logits and softmax. Plain torch below 1024 keys;
+    from 1024 keys on the card the JAX model runs its Pallas flash kernel,
+    which is not ported yet, so that raises rather than run something else."""
+    if q.is_cuda and k.shape[1] >= FLASH_MIN_KEYS:
+        raise NotImplementedError(
+            "float attention at >= 1024 keys needs the flash_attention kernel "
+            "(ROADMAP.md, kernel queue: ops/pallas/flash_attention.py "
+            "flash_attention), not yet ported")
+    q = q / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` (self-attention, no dropout)."""
+
+    def __init__(self, dim: int, num_heads: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = nn.Linear(dim, dim, device=device)
+        self.key = nn.Linear(dim, dim, device=device)
+        self.value = nn.Linear(dim, dim, device=device)
+        self.out = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        b, t, d = x.shape
+        heads = (b, t, self.num_heads, d // self.num_heads)
+        q = dense(x, self.query, dtype).reshape(heads)
+        k = dense(x, self.key, dtype).reshape(heads)
+        v = dense(x, self.value, dtype).reshape(heads)
+        return dense(dot_product_attention(q, k, v).reshape(b, t, d),
+                     self.out, dtype)
+
+
+class DepthAwarePosEncoding(nn.Module):
+    """Sincos encoding of xyz with learnable per-axis scales."""
+
+    def __init__(self, embed_dim: int, device=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.axis_scales = nn.Parameter(torch.ones(3, device=device))
+
+    def forward(self, coords: torch.Tensor) -> torch.Tensor:
+        scaled = coords * self.axis_scales.to(coords.dtype)
+        d6 = self.embed_dim // 6
+        div = 10000.0 ** (torch.arange(d6, dtype=torch.float32,
+                                       device=coords.device) * 6 / self.embed_dim)
+        parts = []
+        for axis in range(3):
+            angle = scaled[..., axis:axis + 1] / div
+            parts += [torch.sin(angle), torch.cos(angle)]
+        pe = torch.cat(parts, dim=-1)
+        return F.pad(pe, (0, self.embed_dim - pe.shape[-1]))
+
+
+class ClusterBlock(nn.Module):
+    """Learnable soft spatial clustering: coords (B, N, 3) -> (B, 1, D)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, num_clusters: int = 8,
+                 device=None):
+        super().__init__()
+        self.cluster_centers = nn.Parameter(torch.zeros(num_clusters, 3, device=device))
+        self.feat_fc1 = nn.Linear(3, 64, device=device)
+        self.feat_ln1 = nn.LayerNorm(64, eps=LN_EPS, device=device)
+        self.feat_fc2 = nn.Linear(64, embed_dim, device=device)
+        self.feat_ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
+        self.cluster_attn = MultiHeadAttention(embed_dim, num_heads, device)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
+
+    def forward(self, coords: torch.Tensor, dtype=None) -> torch.Tensor:
+        dt = torch.promote_types(coords.dtype, self.cluster_centers.dtype)
+        coords = coords.to(dt)
+        centers = self.cluster_centers.to(dt)
+        d = cdist(coords, centers[None].expand(coords.shape[0], -1, -1))
+        w = torch.softmax(-d, dim=-1)  # (B, N, K)
+        wsum = torch.sum(w, dim=1) + 1e-8  # (B, K)
+        wcenters = torch.einsum("bnk,bnd->bkd", w, coords) / wsum[..., None]
+        h = torch.relu(layer_norm(dense(wcenters, self.feat_fc1), self.feat_ln1))
+        h = layer_norm(dense(h, self.feat_fc2), self.feat_ln2)
+        h = self.cluster_attn(h, dtype)
+        h = dense(h, self.out_proj, dtype)
+        return torch.mean(h, dim=1, keepdim=True)
+
+
+def _amax(v: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(v)).float()
+
+
+class PreLNBlock(nn.Module):
+    """norm_first TransformerEncoderLayer equivalent (relu MLP)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 attn_core: str = "bf16", device=None):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.num_heads = num_heads
+        self.attn_core = attn_core
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.attn = MultiHeadAttention(dim, num_heads, device)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.fc1 = nn.Linear(dim, hidden, device=device)
+        self.fc2 = nn.Linear(hidden, dim, device=device)
+
+    def forward(self, x: torch.Tensor, qparams: Optional[Dict] = None,
+                dtype=None) -> torch.Tensor:
+        if qparams is not None:
+            return self.int8_forward(x, qparams)
+        h = self.attn(layer_norm(x, self.norm1), dtype)
+        x = x + h
+        h = layer_norm(x, self.norm2)
+        h = dense(torch.relu(dense(h, self.fc1, dtype)), self.fc2, dtype)
+        return x + h
+
+    def _qkv_bias(self) -> torch.Tensor:
+        a = self.attn
+        return torch.cat([a.query.bias, a.key.bias, a.value.bias])
+
+    def int8_forward(self, x: torch.Tensor, q: Dict) -> torch.Tensor:
+        """Serving path: the attention and MLP sub-blocks as the two fused
+        int8 kernels, with this block's pre-quantized weights ``q`` (and its
+        calibrated ``a_*`` scales, when present)."""
+        d, t = x.shape[-1], x.shape[-2]
+        if attention_block_vmem_bytes(t, d) > 14 * 2**20:
+            raise NotImplementedError(
+                f"at T={t}, D={d} the JAX model takes the split serving path "
+                f"(fused_ln_int8_matmul + int8_matmul_residual; ROADMAP.md "
+                f"kernel queue rows 3-4), not yet ported")
+        x = fused_attention_block(
+            x, self.norm1.weight, self.norm1.bias, q["wqkv_q"], q["wqkv_s"],
+            self._qkv_bias(), q["out_q"], q["out_s"], self.attn.out.bias,
+            num_heads=self.num_heads, a_in=q.get("a_ln1"), a_av=q.get("a_av"),
+            core=self.attn_core, a_smax=q.get("a_smax"))
+        return fused_ln_int8_mlp(
+            x, self.norm2.weight, self.norm2.bias, q["fc1_q"], q["fc1_s"],
+            self.fc1.bias, q["fc2_q"], q["fc2_s"], self.fc2.bias,
+            a_in=q.get("a_ln2"), a_mid=q.get("a_mid"))
+
+    def calibration_forward(self, x: torch.Tensor
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Plain mirror of the int8 serving path (per-row dynamic quant) that
+        returns the per-site ranges: max|.| at the post-LN1 input
+        (``a_ln1``), the attention output (``a_av``), the post-LN2 input
+        (``a_ln2``), the post-relu mid (``a_mid``), and the max attention
+        logit (``a_smax``)."""
+        d, heads = x.shape[-1], self.num_heads
+        a = self.attn
+        stats = {}
+        xf = x.float()
+        h = layer_norm(xf, self.norm1)
+        stats["a_ln1"] = _amax(h)
+        wqkv = torch.cat([a.query.weight.t(), a.key.weight.t(),
+                          a.value.weight.t()], dim=1)
+        qkv = int8_matmul(h, quantize_weight(wqkv), torch.float32) \
+            + self._qkv_bias().float()
+        b, t, _ = qkv.shape
+        hd = d // heads
+        q, k, v = [c.reshape(b, t, heads, hd) for c in torch.chunk(qkv, 3, dim=-1)]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q * (hd ** -0.5), k)
+        stats["a_smax"] = torch.amax(logits).float()
+        probs = torch.softmax(logits, dim=-1)
+        av = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, d)
+        stats["a_av"] = _amax(av)
+        xf = xf + (int8_matmul(av, quantize_weight(a.out.weight.t()), torch.float32)
+                   + a.out.bias.float())
+        h2 = layer_norm(xf, self.norm2)
+        stats["a_ln2"] = _amax(h2)
+        m = torch.relu(int8_matmul(h2, quantize_weight(self.fc1.weight.t()),
+                                   torch.float32) + self.fc1.bias.float())
+        stats["a_mid"] = _amax(m)
+        o = int8_matmul(m, quantize_weight(self.fc2.weight.t()), torch.float32) \
+            + self.fc2.bias.float()
+        return (xf + o).to(x.dtype), stats
+
+
+class BlockStack(nn.Module):
+    """Depth-stacked PreLN blocks: a Python loop over ``layers``.
+
+    qparams / stats trees carry a leading depth axis under ``"block"``, as
+    the JAX ``nn.scan`` stack's do."""
+
+    def __init__(self, depth: int, dim: int, num_heads: int,
+                 attn_core: str = "bf16", device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            PreLNBlock(dim, num_heads, attn_core=attn_core, device=device)
+            for _ in range(depth))
+
+    def forward(self, h: torch.Tensor, qparams: Optional[Dict] = None,
+                dtype=None) -> torch.Tensor:
+        stacked = None if qparams is None else qparams["block"]
+        for i, block in enumerate(self.layers):
+            q = None if stacked is None else {k: v[i] for k, v in stacked.items()}
+            h = block(h, q, dtype)
+        return h
+
+    def calibration_forward(self, h: torch.Tensor):
+        per = []
+        for block in self.layers:
+            h, s = block.calibration_forward(h)
+            per.append(s)
+        return h, {"block": {k: torch.stack([s[k] for s in per]) for k in per[0]}}
+
+
+class NOVAPointCloudTransformer(nn.Module):
+    """Unified pc diffusion backbone; (B, N, 3) noisy points -> (B, N, 3) pred.
+
+    ``quantize`` selects the int8 serving path (the fused kernels) for the
+    block stack; its qparams come from the caller (the pipeline quantizes
+    once per call) or are built in the forward. ``device``: ``cuda`` unless
+    ``"cpu"`` is asked for (utils/device.py)."""
+
+    def __init__(self, arch: str = "pc_d8w768", point_cloud_size: int = 2048,
+                 patch_size: int = 1, text_token_dim: Optional[int] = None,
+                 text_pool: str = "masked", num_clusters: int = 8,
+                 use_depth_pe: bool = False, quantize: bool = False,
+                 attn_core: str = "bf16", dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        if arch not in PC_ARCHES:
+            raise KeyError(f"unknown pc arch {arch!r}; known: {sorted(PC_ARCHES)}")
+        if text_pool not in ("masked", "mean"):
+            raise ValueError(f"text_pool must be 'masked' or 'mean', got {text_pool!r}")
+        dev = resolve_device(device)
+        depth, dim, heads = PC_ARCHES[arch]
+        self.arch, self.patch_size = arch, patch_size
+        self.point_cloud_size = point_cloud_size
+        self.text_token_dim, self.text_pool = text_token_dim, text_pool
+        self.quantize, self.attn_core, self.dtype = quantize, attn_core, dtype
+        self.point_embed = nn.Linear(patch_size * 3, dim, device=dev)
+        self.pos_embed = nn.Parameter(torch.zeros(1, self.num_tokens, dim, device=dev))
+        self.depth_pe = DepthAwarePosEncoding(dim, dev) if use_depth_pe else None
+        self.cluster = ClusterBlock(dim, heads, num_clusters, dev)
+        self.time_fc1 = nn.Linear(256, dim, device=dev)
+        self.time_fc2 = nn.Linear(dim, dim, device=dev)
+        self.text_embed = (nn.Linear(text_token_dim, dim, device=dev)
+                           if text_token_dim else None)
+        self.blocks = BlockStack(depth, dim, heads, attn_core, dev)
+        self.final_norm = nn.LayerNorm(dim, eps=LN_EPS, device=dev)
+        self.output_proj = nn.Linear(dim, patch_size * 3, device=dev)
+
+    @property
+    def num_tokens(self) -> int:
+        return self.point_cloud_size // self.patch_size
+
+    @property
+    def device(self) -> torch.device:
+        return self.pos_embed.device
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "NOVAPointCloudTransformer":
+        """Seeded random init after the flax initializers: Dense kernels
+        lecun-normal (std 1/sqrt(fan_in), untruncated), zero biases, unit
+        LayerNorms, pos_embed N(0, 0.02), cluster centers N(0, 0.1), and the
+        zero-init output head. ``generator`` lives on the model's device."""
+        def normal(p, std):
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
+                                dtype=torch.float32) * std)
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                normal(mod.weight, mod.in_features ** -0.5)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        normal(self.pos_embed, 0.02)
+        normal(self.cluster.cluster_centers, 0.1)
+        if self.depth_pe is not None:
+            self.depth_pe.axis_scales.fill_(1.0)
+        self.output_proj.weight.zero_()
+        return self
+
+    def _embed(self, x: torch.Tensor, timestep: torch.Tensor,
+               text_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        dt = self.dtype
+        b, n, _ = x.shape
+        p = self.patch_size
+        tok = x.reshape(b, n // p, p * 3)
+        coords = torch.mean(x.reshape(b, n // p, p, 3), dim=2)  # patch centers
+        h = dense(tok, self.point_embed, dt)
+        h = h + self.pos_embed[:, : h.shape[1]].to(h.dtype)
+        if self.depth_pe is not None:
+            h = h + self.depth_pe(coords).to(h.dtype)
+        h = h + self.cluster(coords, dt).to(h.dtype)
+        t_freq = timestep_freq_embed(timestep.float(), 256)
+        t_emb = dense(t_freq.to(h.dtype), self.time_fc1, dt)
+        t_emb = dense(F.silu(t_emb), self.time_fc2, dt)
+        h = h + t_emb[:, None, :]
+        if text_embeds is not None and self.text_embed is not None:
+            t = dense(text_embeds, self.text_embed, dt)
+            if self.text_pool == "masked":
+                # pool over real token slots (encoders pad with zero rows)
+                live = torch.any(text_embeds != 0, dim=-1, keepdim=True).to(t.dtype)
+                denom = torch.clamp(torch.sum(live, dim=1, keepdim=True), min=1.0)
+                pooled = torch.sum(t * live, dim=1, keepdim=True) / denom
+            else:
+                pooled = torch.mean(t, dim=1, keepdim=True)
+            h = h + pooled
+        return h
+
+    def _head(self, h: torch.Tensor, shape) -> torch.Tensor:
+        h = layer_norm(h, self.final_norm, self.dtype)
+        return dense(h, self.output_proj, self.dtype).reshape(shape).float()
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, timestep: torch.Tensor,
+                text_embeds: Optional[torch.Tensor] = None,
+                qparams: Optional[Dict] = None) -> torch.Tensor:
+        """``qparams``: the tree of ``quantize_serving_params`` (optionally
+        merged with calibrated act scales); used when ``quantize`` is set."""
+        h = self._embed(x, timestep, text_embeds)
+        if self.quantize:
+            if qparams is None:
+                qparams = quantize_serving_params(self)
+            h = self.blocks(h, qparams["blocks"]["layers"], self.dtype)
+        else:
+            h = self.blocks(h, None, self.dtype)
+        return self._head(h, x.shape)
+
+    @torch.no_grad()
+    def calibration_forward(self, x: torch.Tensor, timestep: torch.Tensor,
+                            text_embeds: Optional[torch.Tensor] = None):
+        """Forward through the blocks' calibration mirrors; returns the
+        prediction and the act-stats tree (``{"blocks": {"layers":
+        {"block": {site: (depth,)}}}}``, the JAX collection's layout)."""
+        h = self._embed(x, timestep, text_embeds)
+        h, stats = self.blocks.calibration_forward(h)
+        return self._head(h, x.shape), {"blocks": {"layers": stats}}

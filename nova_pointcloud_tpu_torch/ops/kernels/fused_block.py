@@ -1,0 +1,335 @@
+"""Fused int8 serving kernels of the PreLN block, for Hopper.
+
+Counterpart of ``nova_pointcloud_tpu/ops/pallas/fused_block.py``. Each TPU
+kernel on the flagship path has here
+
+- a wrapper with the JAX function's signature, which launches the CUDA
+  kernel (``csrc/<name>.cu``, built at first use by ``_build.py``) for a
+  CUDA tensor, and runs the plain version for a CPU tensor;
+- a plain PyTorch version of the same function (``*_plain``), which the CPU
+  tests hold against the JAX kernels in interpret mode and which
+  ``chip_smoke.py`` holds the CUDA kernels against on the card;
+- a launch count in ``LAUNCHES``, raised by one each time the wrapper
+  launches its kernel and nowhere else.
+
+A CUDA launch never falls back: a shape the kernel does not take raises.
+``use_plain_kernels()`` routes CUDA tensors to the plain versions, to run a
+whole path with and without its kernels; the pipeline never turns it on.
+
+    fused_ln_int8_mlp:     y = x + (q8(relu((q8(LN(x)) @ W1)·sx·s1 + b1)) @ W2)·sx2·s2 + b2
+    fused_attention_block: y = x + q8(softmax(q kᵀ/√hd) v) @ Wo·sxo·so + bo,
+                           q|k|v = q8(LN(x)) @ Wqkv·sx·s + b
+
+LayerNorm eps is 1e-6 (flax's default, the pc blocks' norm). Quant sites
+are static (calibrated amax, multiply by 1/s) when their ``a_*`` are given,
+else per row (divide by s).
+"""
+
+import contextlib
+import ctypes
+from typing import Optional
+
+import torch
+
+from nova_pointcloud_tpu_torch.ops.quantization import (int_dot,
+                                                        quantize_activations,
+                                                        quantize_static)
+
+LAUNCHES = {"fused_attention_block": 0, "fused_ln_int8_mlp": 0}
+ATTN_CORES = ("f32", "bf16", "int8")  # index = the kernel's core code
+LN_EPS = 1e-6
+
+
+class _Route:
+    plain_on_cuda = False
+
+
+_route = _Route()
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def use_plain_kernels():
+    """Inside this block the wrappers run their plain versions on CUDA
+    tensors too (and count nothing)."""
+    prev = _route.plain_on_cuda
+    _route.plain_on_cuda = True
+    try:
+        yield
+    finally:
+        _route.plain_on_cuda = prev
+
+
+def _plain_route(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device} for a fused kernel")
+    return _route.plain_on_cuda
+
+
+def _check_act_scales(**sites):
+    """Calibrated static amax scalars must be given all-or-none per kernel."""
+    given = {k: v is not None for k, v in sites.items()}
+    if any(given.values()) and not all(given.values()):
+        missing = [k for k, g in given.items() if not g]
+        raise ValueError(
+            f"static activation scales are all-or-none: got "
+            f"{[k for k, g in given.items() if g]} but {missing} is None — "
+            f"was this site recorded during pipeline.calibrate()?")
+
+
+def attention_block_vmem_bytes(t: int, d: int, sb: int = 1) -> int:
+    """The JAX kernel's per-program VMEM estimate, kept so the fused/split
+    decision (fused when <= 14 MiB) is the JAX model's
+    (models/pointcloud.PreLNBlock)."""
+    return (sb * (4 * t * d          # x (f32 working copy)
+                  + 4 * t * 3 * d    # dequantized qkv
+                  + 4 * t * d)       # concatenated head outputs
+            + 2 * 4 * t * t          # scores/probs in flight
+            + 4 * d * d              # wqkv + wo int8
+            + 4 * 10 * max(d, 128))  # scale/bias rows, sx columns, slack
+
+
+# -- plain versions ------------------------------------------------------------
+
+def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + LN_EPS) * scale.float() + bias.float()
+
+
+def _quant(x: torch.Tensor, amax):
+    return quantize_activations(x) if amax is None else quantize_static(x, amax)
+
+
+def fused_ln_int8_mlp_plain(x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2,
+                            a_in=None, a_mid=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_ln_int8_mlp`."""
+    _check_act_scales(a_in=a_in, a_mid=a_mid)
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1]).float()
+    h = _ln(xf, ln_scale, ln_bias)
+    q, sx = _quant(h, a_in)
+    a = int_dot(q, w1q) * sx * s1.float() + b1.float()
+    a = torch.clamp(a, min=0.0)  # relu
+    q2, sx2 = _quant(a, a_mid)
+    o = int_dot(q2, w2q) * sx2 * s2.float() + b2.float()
+    return (xf + o).to(x.dtype).reshape(shape)
+
+
+def _attn_core(q, k, v, scale: float, core: str, smax=None) -> torch.Tensor:
+    """softmax(q kᵀ·scale) v over (..., T, hd), as the JAX _attn_core_head."""
+    if core == "int8":
+        q8, sq = quantize_activations(q * scale)
+        k8, sk = quantize_activations(k)
+        s = int_dot(q8, k8.transpose(-1, -2)) * sq * sk.transpose(-1, -2)
+    elif core == "bf16":
+        s = torch.matmul(q.to(torch.bfloat16).float(),
+                         k.to(torch.bfloat16).float().transpose(-1, -2)) * scale
+    else:
+        s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if smax is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        e = torch.exp(torch.clamp(s - smax, max=20.0))
+        p = e / torch.clamp(torch.sum(e, dim=-1, keepdim=True), min=1e-30)
+    if core == "int8":
+        v8, sv = quantize_activations(v)
+        p8, sp = quantize_activations(p * sv.transpose(-1, -2))
+        return int_dot(p8, v8) * sp
+    if core == "bf16":
+        return torch.matmul(p.to(torch.bfloat16).float(), v.to(torch.bfloat16).float())
+    return torch.matmul(p, v)
+
+
+def fused_attention_block_plain(x, ln_scale, ln_bias, wqkv_q, wqkv_s, bqkv,
+                                wo_q, wo_s, bo, num_heads: int, a_in=None,
+                                a_av=None, core: str = "f32",
+                                a_smax=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_attention_block`."""
+    _check_act_scales(a_in=a_in, a_av=a_av)
+    if core not in ATTN_CORES:
+        raise ValueError(f"core must be one of {ATTN_CORES}, got {core!r}")
+    b, t, d = x.shape
+    hd = d // num_heads
+    xf = x.reshape(b * t, d).float()
+    h = _ln(xf, ln_scale, ln_bias)
+    q8, sx = _quant(h, a_in)
+    qkv = int_dot(q8, wqkv_q) * sx * wqkv_s.float() + bqkv.float()  # (b*t, 3d)
+    q, k, v = qkv.reshape(b, t, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    smax = None if a_smax is None else torch.as_tensor(
+        a_smax, dtype=torch.float32, device=x.device)
+    av = _attn_core(q, k, v, hd ** -0.5, core, smax)  # (b, H, t, hd)
+    av = av.permute(0, 2, 1, 3).reshape(b * t, d)
+    q8o, sxo = _quant(av, a_av)
+    o = int_dot(q8o, wo_q) * sxo * wo_s.float() + bo.float()
+    return (xf + o).reshape(b, t, d).to(x.dtype)
+
+
+# -- CUDA wrappers -------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "fused_ln_int8_mlp": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "fused_attention_block": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                              _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
+                              _P, _P, _P, _P],
+}
+
+
+def _lib(name: str):
+    from nova_pointcloud_tpu_torch.ops.kernels import _build
+
+    lib = _build.load(name)
+    fn = getattr(lib, "nova_" + name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        lib.nova_error_string.argtypes = [ctypes.c_int]
+        lib.nova_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _dtype_flag(t: torch.Tensor, what: str) -> int:
+    if t.dtype == torch.bfloat16:
+        return 1
+    if t.dtype == torch.float32:
+        return 0
+    raise TypeError(f"{what} must be float32 or bfloat16, got {t.dtype}")
+
+
+def _vectors(*vs):
+    """LN params and biases, contiguous, all float32 or all bfloat16."""
+    if len({v.dtype for v in vs}) != 1:
+        raise TypeError(f"LN params and biases must share one dtype, got "
+                        f"{[v.dtype for v in vs]}")
+    return [v.contiguous() for v in vs], _dtype_flag(vs[0], "LN params and biases")
+
+
+def _int8_weight(w, shape, dev, what):
+    """(in, out) int8 weight -> the kernels' K-major (out, in) contiguous
+    operand: free for the pre-quantized serving weights, which are K-major
+    already (ops/quantization.quantize_weight_kmajor); a copy otherwise."""
+    if w.dtype != torch.int8 or tuple(w.shape) != shape or w.device != dev:
+        raise ValueError(f"{what} must be int8 {shape} on {dev}, got "
+                         f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    return w.t().contiguous()
+
+
+def _f32(v, dev):
+    return torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
+
+
+def _amax(a, dev):
+    return None if a is None else _f32(a, dev).reshape(())
+
+
+def _run(lib, fn, args):
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel launch failed: "
+                           f"{lib.nova_error_string(rc).decode()} (error {rc})")
+
+
+def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
+                      s2, b2, a_in=None, a_mid=None) -> torch.Tensor:
+    """x (..., D) -> x + MLP(LN(x)) with int8 products, in x's dtype.
+
+    w1q (D, F) int8 with per-channel scales s1 (F,); w2q (F, D) / s2 (D,).
+    ``a_in`` / ``a_mid``: calibrated amax of the post-LN input and the
+    post-relu mid activation (static quant), or both None (per row)."""
+    if _plain_route(x):
+        return fused_ln_int8_mlp_plain(x, ln_scale, ln_bias, w1q, s1, b1, w2q,
+                                       s2, b2, a_in, a_mid)
+    _check_act_scales(a_in=a_in, a_mid=a_mid)
+    dev, shape = x.device, x.shape
+    d = shape[-1]
+    f = w1q.shape[-1]
+    if d % 128 or f % 128:
+        raise NotImplementedError(
+            f"the CUDA MLP kernel needs D and F multiples of 128, got D={d}, F={f}")
+    xf = x.reshape(-1, d).contiguous()
+    m = xf.shape[0]
+    x_bf16 = _dtype_flag(xf, "x")
+    w1q = _int8_weight(w1q, (d, f), dev, "w1q")
+    w2q = _int8_weight(w2q, (f, d), dev, "w2q")
+    s1, s2 = _f32(s1, dev), _f32(s2, dev)
+    (ln_w, ln_b, b1, b2), vec_bf16 = _vectors(ln_scale, ln_bias, b1, b2)
+    a_in, a_mid = _amax(a_in, dev), _amax(a_mid, dev)
+    q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
+    sx1 = torch.empty((m,), dtype=torch.float32, device=dev)
+    q2 = torch.empty((m, f), dtype=torch.int8, device=dev)
+    mid = None if a_in is not None else torch.empty((m, f), dtype=torch.float32, device=dev)
+    sx2 = torch.empty((m,), dtype=torch.float32, device=dev)
+    y = torch.empty_like(xf)
+    lib, fn = _lib("fused_ln_int8_mlp")
+    _run(lib, fn, [
+        _ptr(xf), x_bf16, m, d, f, _ptr(ln_w), _ptr(ln_b), _ptr(b1), _ptr(b2),
+        vec_bf16, _ptr(w1q), _ptr(s1), _ptr(w2q), _ptr(s2), _ptr(a_in),
+        _ptr(a_mid), _ptr(q1), _ptr(sx1), _ptr(q2), _ptr(mid), _ptr(sx2),
+        _ptr(y), torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["fused_ln_int8_mlp"] += 1
+    return y.reshape(shape)
+
+
+def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
+                          bqkv, wo_q, wo_s, bo, num_heads: int, a_in=None,
+                          a_av=None, core: str = "f32",
+                          a_smax=None) -> torch.Tensor:
+    """The whole PreLN attention sub-block, x (B, T, D) -> (B, T, D).
+
+    wqkv_q (D, 3D) int8 + per-channel scales wqkv_s (3D,); wo_q (D, D) int8
+    + wo_s (D,). ``a_in`` / ``a_av``: calibrated amax of the post-LN input
+    and the attention output (static quant), or both None (per row).
+    ``core``: precision of the attention-core products ("f32", "bf16",
+    "int8"). ``a_smax``: calibrated max logit replacing the row max."""
+    if _plain_route(x):
+        return fused_attention_block_plain(x, ln_scale, ln_bias, wqkv_q, wqkv_s,
+                                           bqkv, wo_q, wo_s, bo, num_heads,
+                                           a_in, a_av, core, a_smax)
+    _check_act_scales(a_in=a_in, a_av=a_av)
+    if core not in ATTN_CORES:
+        raise ValueError(f"core must be one of {ATTN_CORES}, got {core!r}")
+    dev = x.device
+    b, t, d = x.shape
+    hd = d // num_heads
+    if t != 128 or hd != 64 or d % 128:
+        raise NotImplementedError(
+            f"the CUDA attention-block kernel takes T=128 tokens and head dim 64 "
+            f"(D a multiple of 128), got T={t}, D={d}, heads={num_heads}")
+    x = x.contiguous()
+    x_bf16 = _dtype_flag(x, "x")
+    wqkv_q = _int8_weight(wqkv_q, (d, 3 * d), dev, "wqkv_q")
+    wo_q = _int8_weight(wo_q, (d, d), dev, "wo_q")
+    wqkv_s, wo_s = _f32(wqkv_s, dev), _f32(wo_s, dev)
+    (ln_w, ln_b, bqkv, bo), vec_bf16 = _vectors(ln_scale, ln_bias, bqkv, bo)
+    a_in, a_av, a_smax = _amax(a_in, dev), _amax(a_av, dev), _amax(a_smax, dev)
+    m = b * t
+    q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
+    sx1 = torch.empty((m,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((m, 3 * d), device=dev,
+                      dtype=torch.bfloat16 if core == "bf16" else torch.float32)
+    av8 = torch.empty((m, d), dtype=torch.int8, device=dev)
+    avf = None if a_av is not None else torch.empty((m, d), dtype=torch.float32, device=dev)
+    sxo = torch.empty((m,), dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    lib, fn = _lib("fused_attention_block")
+    _run(lib, fn, [
+        _ptr(x), x_bf16, b, t, d, num_heads, _ptr(ln_w), _ptr(ln_b),
+        _ptr(bqkv), _ptr(bo), vec_bf16, _ptr(wqkv_q), _ptr(wqkv_s), _ptr(wo_q),
+        _ptr(wo_s), _ptr(a_in), _ptr(a_av), _ptr(a_smax),
+        ATTN_CORES.index(core), float(hd ** -0.5), _ptr(q1), _ptr(sx1),
+        _ptr(qkv), _ptr(av8), _ptr(avf), _ptr(sxo), _ptr(y),
+        torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["fused_attention_block"] += 1
+    return y

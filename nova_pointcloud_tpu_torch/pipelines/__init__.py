@@ -1,0 +1,2 @@
+from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import (  # noqa: F401
+    NOVAPointCloudGenerationPipeline, NOVAPointCloudPipelineOutput)

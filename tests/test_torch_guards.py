@@ -1,0 +1,122 @@
+"""Guards of the port package: it imports without CUDA and without JAX,
+its entry points never run quietly on the CPU, and the CPU runs no kernel."""
+
+import ast
+import importlib
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import nova_pointcloud_tpu_torch
+from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer, PreLNBlock
+from nova_pointcloud_tpu_torch.models.text_encoders.dummy import DummyTextEncoder
+from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES, fused_block
+from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import NOVAPointCloudGenerationPipeline
+from nova_pointcloud_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "nova_pointcloud_tpu_torch"
+BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "nova_pointcloud_tpu"}
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
+
+
+def test_port_imports_nothing_of_jax():
+    offenders = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                          for n in names if n.split(".")[0] in BANNED_ROOTS]
+    assert not offenders, offenders
+
+
+def test_every_module_imports_without_cuda_or_jax():
+    """In a fresh interpreter: import every module of the port and
+    chip_smoke.py; none of them may pull in JAX."""
+    mods = [m.name for m in pkgutil.walk_packages(nova_pointcloud_tpu_torch.__path__,
+                                                  "nova_pointcloud_tpu_torch.")]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import chip_smoke, chip_ab\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(BANNED_ROOTS)!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    for m in mods:
+        importlib.import_module(m)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=64)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
+    model = NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=64, device="cpu")
+    assert model.device == torch.device("cpu")
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    x = torch.empty((2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_block.fused_ln_int8_mlp(x, *([None] * 8))
+
+
+def test_cpu_serving_runs_no_kernel():
+    fused_block.reset_launch_counts()
+    model = NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=32, text_token_dim=16,
+                                      quantize=True, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    torch.nn.init.normal_(model.output_proj.weight, std=0.05)
+    pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4))
+    pipe.calibrate(["a chair"], num_points=32, num_diffusion_steps=2)
+    out = pipe(["a chair"], num_points=32, num_diffusion_steps=2, guidance_trunc=800.0,
+               generator=torch.Generator().manual_seed(1))
+    assert out.point_clouds.shape == (1, 32, 3) and np.isfinite(out.point_clouds).all()
+    assert np.all(np.abs(out.point_clouds) <= 1.0) and out.colors.min() >= 0.0
+    assert LAUNCHES == {"fused_attention_block": 0, "fused_ln_int8_mlp": 0}
+
+
+def test_unported_paths_raise():
+    model = NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=32, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NOVAPointCloudGenerationPipeline(model, mesh=object())
+    pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipe(["a chair"], num_points=32, use_autoregressive=True)
+    # per-point tokens at T=1024, D=768 need the split serving path
+    block = PreLNBlock(768, 12, device="cpu")
+    with pytest.raises(NotImplementedError, match="split serving path"):
+        block.int8_forward(torch.zeros((1, 1024, 768)), {})
+
+
+def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
+    """Without a card (this CPU run), and alone in a directory without the
+    package, chip_smoke.py exits non-zero and prints no result line."""
+    for cwd in (REPO, tmp_path):
+        script = REPO / "chip_smoke.py"
+        if cwd == tmp_path:
+            script = tmp_path / "chip_smoke.py"
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
