@@ -4,11 +4,12 @@
 
 Run from the root of a tree (this checkout, or another commit unpacked with
 ``git archive`` into a gitignored directory such as ``build/``). It builds the
-kernels, checks each against its plain version once, times each per launch
-at both batch sizes of the flagship path (CUDA events), and times the
-flagship pipeline (p50 of 3 calls at batch 128, after a 2-step
-calibration). It prints one line, ``AB {json}``. To compare two trees,
-run both in one session on one card, alternating: A, B, B, A.
+kernels, checks each flagship kernel against its plain version once, times
+each kernel per launch at both batch sizes of its path (CUDA events), and
+times the three pipelines (p50 of 3 calls: the flagship at batch 128 after a
+2-step calibration, the per-point float and int8 paths at batch 8). It
+prints one line, ``AB {json}``. To compare two trees, run both in one job
+on one card, alternating: A, B, B, A.
 """
 
 import json
@@ -37,18 +38,43 @@ def main(label: str) -> None:
             res[f"{name}_{n}_err"] = [err.max().item(), err.mean().item()]
             res[f"{name}_{n}_ms"] = cs.sync_ms(lambda: kernel(*ops, **kw), 20)
             del ops, err
+    d, t = cs.PP_D, cs.PP_T
+    for b in (2 * cs.PP_BATCH, cs.PP_BATCH):
+        x, lns, lnb, wq, ws, bias, _ = cs._proj_operands(gen, (b, t), d, 3 * d)
+        res[f"fused_ln_int8_matmul_{b * t}_ms"] = cs.sync_ms(
+            lambda: cs.fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, bias), 20)
+        x, _, _, wq, ws, bias, r = cs._proj_operands(gen, (b, t), d, d)
+        res[f"int8_matmul_residual_{b * t}_ms"] = cs.sync_ms(
+            lambda: cs.fb.int8_matmul_residual(x, r, wq, ws, bias), 20)
+        q, k, v = cs._flash_operands(gen, b, cs.PP_HEADS, t, t, cs.PP_HD)
+        res[f"flash_attention_{b}_ms"] = cs.sync_ms(
+            lambda: cs.fa.flash_attention_with_lse(q, k, v), 20)
+        del x, r, q, k, v
     pipe = cs._make_pipeline()
     pipe.calibrate(prompt_embeds=pipe.encode_prompt(cs.PROMPTS), num_points=cs.POINTS,
                    num_diffusion_steps=2)
-    cs._sample(pipe, seed=9)
+    res["pipeline_p50_s"] = _p50(pipe, cs.PROMPTS)
+    res["samples_per_s"] = cs.BATCH / res["pipeline_p50_s"]
+    del pipe
+    for label, quantize in (("path_a", False), ("path_b", True)):
+        pipe = cs._make_per_point_pipeline(quantize)
+        if quantize:
+            pipe.calibrate(prompt_embeds=pipe.encode_prompt(cs.PP_PROMPTS),
+                           num_points=cs.POINTS, num_diffusion_steps=2)
+        res[f"{label}_p50_s"] = _p50(pipe, cs.PP_PROMPTS)
+        res[f"{label}_samples_per_s"] = cs.PP_BATCH / res[f"{label}_p50_s"]
+        del pipe
+    print("AB " + json.dumps(res), flush=True)
+
+
+def _p50(pipe, prompts) -> float:
+    cs._sample(pipe, seed=9, prompts=prompts)  # warm-up
     times = []
     for i in range(3):
         t0 = time.perf_counter()
-        cs._sample(pipe, seed=20 + i)
+        cs._sample(pipe, seed=20 + i, prompts=prompts)
         times.append(time.perf_counter() - t0)
-    res["pipeline_p50_s"] = float(np.percentile(times, 50))
-    res["samples_per_s"] = cs.BATCH / res["pipeline_p50_s"]
-    print("AB " + json.dumps(res), flush=True)
+    return float(np.percentile(times, 50))
 
 
 if __name__ == "__main__":

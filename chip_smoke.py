@@ -9,19 +9,30 @@ result line:
 2. build every CUDA kernel of the main path from the sources in this
    checkout (one nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card at the
-   flagship shapes, every variant (attention cores f32/bf16/int8 x static /
-   per-row activations x calibrated softmax offset on/off; MLP static /
-   per-row);
-4. drive the main path through the user-facing entry points: flagship
-   t2pc serving (pc_d48w1024, 2048 points at patch 16, DummyTextEncoder(256,
-   32), DDPM squaredcos_cap_v2 with 25 steps, CFG 7.5 with guidance
-   truncation at 800, int8 with calibrated static scales, bf16 attention
-   core, batch 128) on seeded random weights with a non-zero output head;
-   count the kernel launches of that call, check the output, and hold it
-   against the same call with the plain versions substituted;
-5. time each kernel per launch at both batch sizes of the main path, its
-   plain version, and the pipeline's samples/s (CUDA events and
-   torch.cuda.synchronize).
+   shapes its path gives it, every variant (attention cores f32/bf16/int8 x
+   static / per-row activations x calibrated softmax offset on/off; MLP
+   static / per-row, at the flagship's and the per-point path's widths; the
+   split-path projections at both batch sizes, a ragged row count, D=1024
+   and mixed dtypes; flash attention with no bias,
+   key bias, full bias, fully masked rows, Lq != Lk off the tiles,
+   float32);
+4. drive each path through the user-facing entry points, on seeded random
+   weights with a non-zero output head, DummyTextEncoder(256, 32), DDPM
+   squaredcos_cap_v2 with 25 steps, CFG 7.5 with guidance truncation at 800:
+   - flagship t2pc serving (pc_d48w1024, 2048 points at patch 16, int8 with
+     calibrated static scales, bf16 attention core, batch 128);
+   - per-point float serving (path A: build_pipeline's defaults, pc_d8w768,
+     2048 points at patch 1 = 2048 tokens, bf16, batch 8): flash attention;
+   - per-point int8 serving (path B: the same model with quantize=True,
+     calibrated, batch 8): the split path's two kernels and the MLP kernel;
+   for each, set the launch counts to 0, run one call, read the counts,
+   check the output, and hold it against the same call with the plain
+   versions substituted;
+5. time each kernel per launch at both batch sizes of its path, its plain
+   version, one library call where one computes the same function, and each
+   pipeline's samples/s (CUDA events and torch.cuda.synchronize);
+6. profile one call of each path (torch.profiler): device time by kernel and
+   the device's idle share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
@@ -41,8 +52,10 @@ try:
     from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer
     from nova_pointcloud_tpu_torch.models.text_encoders.dummy import DummyTextEncoder
     from nova_pointcloud_tpu_torch.ops.kernels import _build
+    from nova_pointcloud_tpu_torch.ops.kernels import flash_attention as fa
     from nova_pointcloud_tpu_torch.ops.kernels import fused_block as fb
     from nova_pointcloud_tpu_torch.ops.quantization import quantize_weight_kmajor
+    from nova_pointcloud_tpu_torch.pipelines.builder import build_pipeline
     from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import (
         NOVAPointCloudGenerationPipeline)
     from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
@@ -62,10 +75,18 @@ DEPTH, D, HEADS, F = 48, 1024, 16, 4096
 T = POINTS // PATCH
 # H100 SXM dense peaks (NVIDIA data sheet) at the full 700 W power limit
 PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
-SOURCES = {"fused_attention_block": "nova_pointcloud_tpu_torch/csrc/fused_attention_block.cu",
-           "fused_ln_int8_mlp": "nova_pointcloud_tpu_torch/csrc/fused_ln_int8_mlp.cu"}
+# the per-point paths: pc_d8w768, every point a token
+PP_ARCH, PP_PATCH, PP_BATCH = "pc_d8w768", 1, 8
+PP_DEPTH, PP_D, PP_HEADS, PP_F, PP_HD = 8, 768, 12, 3072, 64
+PP_T = POINTS // PP_PATCH
+KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
+           "int8_matmul_residual", "flash_attention")
+SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
 REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:412",
-            "fused_ln_int8_mlp": "nova_pointcloud_tpu/ops/pallas/fused_block.py:133"}
+            "fused_ln_int8_mlp": "nova_pointcloud_tpu/ops/pallas/fused_block.py:133",
+            "fused_ln_int8_matmul": "nova_pointcloud_tpu/ops/pallas/fused_block.py:204",
+            "int8_matmul_residual": "nova_pointcloud_tpu/ops/pallas/fused_block.py:264",
+            "flash_attention": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:525"}
 OUT_DIR = "build"
 DEV = "cuda"
 
@@ -183,6 +204,27 @@ def _kernels():
 FLAGSHIP_SHAPE = {"attention": 2 * BATCH, "mlp": 2 * BATCH * T}  # the CFG steps' 2x batch
 
 
+def _tol_check(name, label, y, ref, tol_max_rel=2.0 ** -6, tol_mean_rel=2.0 ** -10,
+               like=None):
+    """One comparison under the max / mean gates; records and prints it."""
+    ref = ref.float()
+    err = (y.float() - ref).abs()
+    tol_max = tol_max_rel * ref.abs().max().item()
+    tol_mean = tol_mean_rel * ref.abs().mean().item()
+    e_max, e_mean = err.max().item(), err.mean().item()
+    ok = bool(torch.isfinite(y).all()) and e_max <= tol_max and e_mean <= tol_mean
+    if like is not None:
+        ok = ok and y.dtype == like.dtype and y.shape == like.shape
+    print(f"  {name} {label} {tuple(y.shape)}: max_abs_err {e_max:.3e} (tol {tol_max:.3e}) "
+          f"mean {e_mean:.3e} (tol {tol_mean:.3e}) {'ok' if ok else 'FAIL'}")
+    report["checks"].append(dict(kernel=name, variant=label, max_abs_err=e_max,
+                                 tol_max=tol_max, mean_abs_err=e_mean, tol_mean=tol_mean,
+                                 ok=ok))
+    k = report["kernels"].setdefault(name, {})
+    k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e_max)
+    return ok
+
+
 @phase("3 kernels vs plain")
 def check_kernels():
     """Tolerance: kernel and plain version compute the same int8 codes and
@@ -193,7 +235,6 @@ def check_kernels():
     gen = torch.Generator(device=DEV).manual_seed(1234)
     bad = []
     for name, (kind, kernel, plain) in _kernels().items():
-        worst = 0.0
         # every variant at the CFG steps' 2x batch, the flagship variant
         # (the first) also at the 1x batch of the steps after truncation
         cases = [(FLAGSHIP_SHAPE[kind], v) for v in _variants(kind)]
@@ -202,28 +243,179 @@ def check_kernels():
             ops = _kernel_operands(gen, n, kind)
             y = kernel(*ops, **kw)
             torch.cuda.synchronize()
-            ref = plain(*ops, **kw).float()
-            err = (y.float() - ref).abs()
-            tol_max = 2.0 ** -6 * ref.abs().max().item()
-            tol_mean = 2.0 ** -10 * ref.abs().mean().item()
-            e_max, e_mean = err.max().item(), err.mean().item()
-            ok = (bool(torch.isfinite(y).all()) and e_max <= tol_max and e_mean <= tol_mean
-                  and y.dtype == ops[0].dtype and y.shape == ops[0].shape)
-            print(f"  {name} {label} {tuple(ops[0].shape)}: max_abs_err {e_max:.3e} "
-                  f"(tol {tol_max:.3e}) mean {e_mean:.3e} (tol {tol_mean:.3e}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            report["checks"].append(dict(kernel=name, variant=label, max_abs_err=e_max,
-                                         tol_max=tol_max, mean_abs_err=e_mean,
-                                         tol_mean=tol_mean, ok=ok))
-            worst = max(worst, e_max)
-            if not ok:
+            if not _tol_check(name, label, y, plain(*ops, **kw), like=ops[0]):
                 bad.append(f"{name} {label}")
-            del y, ref, err, ops
+            del y, ops
             torch.cuda.empty_cache()
-        report["kernels"].setdefault(name, {})["max_abs_err"] = worst
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     fb.reset_launch_counts()  # these launches were comparisons, not the main path
+
+
+def _proj_operands(gen, lead, k, n, x_dtype=torch.bfloat16, res_dtype=torch.bfloat16):
+    """Operands of the split path's two projections: x (*lead, k), LN
+    params, K-major int8 weight (k, n) with scales, bias, residual (*lead, n)."""
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEV) * std
+
+    x = randn(*lead, k).to(x_dtype)
+    lns = (1.0 + randn(k, std=0.1)).to(torch.bfloat16)
+    lnb = randn(k, std=0.1).to(torch.bfloat16)
+    wq, ws = quantize_weight_kmajor(randn(n, k, std=k ** -0.5))
+    b = randn(n, std=0.02).to(torch.bfloat16)
+    res = randn(*lead, n).to(res_dtype)
+    return x, lns, lnb, wq, ws, b, res
+
+
+def _pp_mlp_operands(gen, m):
+    """Operands of fused_ln_int8_mlp at the per-point width: x (m, 768),
+    W1 (768, 3072), W2 (3072, 768)."""
+    xm, lns, lnb, w1, s1, b1, _ = _proj_operands(gen, (m,), PP_D, PP_F)
+    _, _, _, w2, s2, b2, _ = _proj_operands(gen, (1,), PP_F, PP_D)
+    return xm, lns, lnb, w1, s1, b1, w2, s2, b2
+
+
+@phase("3b split-path kernels vs plain")
+def check_split_kernels():
+    """fused_ln_int8_matmul and int8_matmul_residual at the per-point path's
+    shapes (batch 16 and 8 of 2048 tokens, D=768), a row count that is no
+    multiple of any tile, D=1024, and x / residual of differing dtypes; then
+    fused_ln_int8_mlp at that path's width (D=768, F=3072) at both batch
+    sizes and a ragged row count, with static and per-row activation scales.
+    Tolerance as phase 3: the same int8 codes, f32 sums in another order."""
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((2 * PP_BATCH, PP_T), PP_D, bf16, bf16), ((PP_BATCH, PP_T), PP_D, bf16, bf16),
+             ((16461,), PP_D, bf16, bf16), ((PP_BATCH, PP_T), 1024, bf16, bf16),
+             ((3, 1000), PP_D, bf16, f32), ((3, 1000), PP_D, f32, bf16)]
+    bad = []
+    for lead, d, xdt, rdt in cases:
+        x, lns, lnb, wq, ws, b, _ = _proj_operands(gen, lead, d, 3 * d, xdt)
+        y = fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, b)
+        torch.cuda.synchronize()
+        ref = fb.fused_ln_int8_matmul_plain(x, lns, lnb, wq, ws, b)
+        if not _tol_check("fused_ln_int8_matmul", f"x={xdt} {d}->{3 * d}", y, ref, like=ref):
+            bad.append(f"fused_ln_int8_matmul {lead} {d}")
+        del x, y, ref
+        x, _, _, wq, ws, b, res = _proj_operands(gen, lead, d, d, xdt, rdt)
+        y = fb.int8_matmul_residual(x, res, wq, ws, b)
+        torch.cuda.synchronize()
+        ref = fb.int8_matmul_residual_plain(x, res, wq, ws, b)
+        if not _tol_check("int8_matmul_residual", f"x={xdt} res={rdt} {d}->{d}", y, ref,
+                          like=res):
+            bad.append(f"int8_matmul_residual {lead} {d}")
+        del x, y, ref, res
+        torch.cuda.empty_cache()
+    for m in (2 * PP_BATCH * PP_T, PP_BATCH * PP_T, 16461):
+        ops = _pp_mlp_operands(gen, m)
+        for label, kw in _variants("mlp"):
+            y = fb.fused_ln_int8_mlp(*ops, **kw)
+            torch.cuda.synchronize()
+            ref = fb.fused_ln_int8_mlp_plain(*ops, **kw)
+            if not _tol_check("fused_ln_int8_mlp", f"{label} {PP_D}->{PP_F}->{PP_D}", y, ref,
+                              like=ops[0]):
+                bad.append(f"fused_ln_int8_mlp {m} {label}")
+            del y, ref
+        del ops
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    fb.reset_launch_counts()
+
+
+def _flash_operands(gen, b, h, lq, lk, d, dtype=torch.bfloat16):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    return randn(b, h, lq, d), randn(b, h, lk, d), randn(b, h, lk, d)
+
+
+def _flash_bias(gen, kind, b, lq, lk):
+    """The bias forms of the kernel: "key" masks ~40% of the keys and the
+    whole first 96 (leading key tiles dead before any live key), "dead"
+    masks every key of sample 0, "full" is block-causal in blocks of 100."""
+    if kind == "none":
+        return None
+    ninf = float("-inf")
+    if kind in ("key", "dead"):
+        m = torch.rand((b, 1, 1, lk), generator=gen, device=DEV) > 0.4
+        m[..., :96] = False
+        m[..., 100] = True
+        bias = torch.where(m, 0.0, ninf) + 0.1 * torch.randn((b, 1, 1, lk), generator=gen,
+                                                             device=DEV)
+        if kind == "dead":
+            bias[0] = ninf
+        return bias
+    pos_q = torch.arange(lq, device=DEV)[:, None] // 100
+    pos_k = torch.arange(lk, device=DEV)[None, :] // 100
+    return torch.where(pos_q >= pos_k, 0.0, ninf)[None, None]
+
+
+@phase("3c flash attention vs plain")
+def check_flash():
+    """Tolerances. bf16: the kernel rounds the unnormalised probabilities
+    to bf16 for the second product (relative 2^-9 each, averaging out over
+    the keys) and the output to bf16, the plain version rounds the output
+    only: max error <= 2^-6 max|o| (4 bf16 ulps at the largest output), mean
+    <= 2^-8 mean|o|. f32: f32 sums in another order, max <= 1e-4 max|o|,
+    mean <= 1e-5 mean|o|. lse is f32 on both sides (sums of f32
+    probabilities): max <= 1e-4 absolute, and exactly 1e30 on dead rows."""
+    gen = torch.Generator(device=DEV).manual_seed(777)
+    B, H, L = 2 * PP_BATCH, PP_HEADS, PP_T
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("none", B, H, L, L, 64, bf16), ("key", B, H, L, L, 64, bf16),
+             ("full", B, H, L, L, 64, bf16), ("dead", B, H, L, L, 64, bf16),
+             ("none", PP_BATCH, H, L, L, 64, bf16),
+             ("key", 2, H, 1000, 1531, 64, bf16), ("full", 2, H, 333, 1531, 64, bf16),
+             ("none", 2, H, 1000, 1531, 64, f32),
+             ("dead", 2, H, 515, 1000, 64, f32), ("full", 2, H, 515, 1000, 64, f32)]
+    bad = []
+    for kind, b, h, lq, lk, d, dt in cases:
+        q, k, v = _flash_operands(gen, b, h, lq, lk, d, dt)
+        bias = _flash_bias(gen, kind, b, lq, lk)
+        o, lse = fa.flash_attention_with_lse(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_attention_plain(q, k, v, bias)
+        label = f"bias={kind} {str(dt)[6:]} Lk={lk}"
+        rel = (2.0 ** -6, 2.0 ** -8) if dt == bf16 else (1e-4, 1e-5)
+        ok = _tol_check("flash_attention", label, o, ref_o, *rel, like=ref_o)
+        e_lse = (lse - ref_lse).abs().max().item()
+        ok_lse = (bool(torch.isfinite(lse).all()) and e_lse <= 1e-4
+                  and lse.shape == (b, h, lq) and lse.dtype == f32)
+        if kind == "dead":
+            ok_lse = ok_lse and bool((lse[0] == 1e30).all()) and bool((o[0] == 0).all())
+        print(f"    lse max_abs_err {e_lse:.3e} (tol 1e-4) {'ok' if ok_lse else 'FAIL'}")
+        report["checks"].append(dict(kernel="flash_attention", variant=label + " lse",
+                                     max_abs_err=e_lse, ok=ok_lse))
+        if not (ok and ok_lse):
+            bad.append(label)
+        del q, k, v, o, lse, ref_o, ref_lse, bias
+        torch.cuda.empty_cache()
+    # the model's layout: (B, L, H, D) projections read and written in place
+    q, k, v = (t.transpose(1, 2) for t in _flash_operands(gen, 2, L, H, H, 64))
+    o, _ = fa.flash_attention_with_lse(q, k, v)
+    ref_o, _ = fa.flash_attention_plain(q, k, v)
+    if not (_tol_check("flash_attention", "strided (B, L, H, D) view", o, ref_o, 2.0 ** -6,
+                       2.0 ** -8, like=ref_o) and o.stride() == q.stride()):
+        bad.append("strided view")
+    # a gradient through the CUDA kernel is refused, not recomputed plainly
+    try:
+        qg = q.detach().clone().requires_grad_()
+        fa.flash_attention(qg, k, v).float().sum().backward()
+        bad.append("backward did not raise")
+    except NotImplementedError as e:
+        print(f"  flash_attention backward raises: {e}")
+    if bad:
+        raise AssertionError(f"flash_attention disagrees with its plain version: {bad}")
+    fb.reset_launch_counts()
+
+
+def _record_launches(name, path, n):
+    """A kernel's ``launches`` is its count on the first path that runs it
+    (the flagship for the two kernels of the first slice); every path's
+    count goes under ``launches_by_path``."""
+    k = report["kernels"].setdefault(name, {})
+    k.setdefault("launches", n)
+    k.setdefault("launches_by_path", {})[path] = n
 
 
 def _make_pipeline():
@@ -247,8 +439,11 @@ def _make_pipeline():
 PROMPTS = [f"a chair {i}" for i in range(BATCH)]
 
 
-def _sample(pipe, seed=1, **kw):
-    out = pipe(PROMPTS, num_points=POINTS, num_diffusion_steps=STEPS,
+PP_PROMPTS = PROMPTS[:PP_BATCH]
+
+
+def _sample(pipe, seed=1, prompts=None, **kw):
+    out = pipe(prompts or PROMPTS, num_points=POINTS, num_diffusion_steps=STEPS,
                guidance_scale=GUIDANCE, guidance_trunc=TRUNC,
                generator=torch.Generator(device=DEV).manual_seed(seed),
                output_type="pt", **kw)
@@ -271,9 +466,11 @@ def main_path():
     out = _sample(pipe, latents=latents)
     launches = dict(fb.LAUNCHES)
     expected = DEPTH * STEPS
-    print(f"launches in one pipeline call: {launches} (expected {expected} each)")
+    counts_ok = launches == {n: expected if n in _kernels() else 0 for n in KERNELS}
+    print(f"launches in one pipeline call: {launches} (expected {expected} of each flagship "
+          f"kernel, 0 of the others): {'ok' if counts_ok else 'FAIL'}")
     for name in _kernels():
-        report["kernels"].setdefault(name, {})["launches"] = launches[name]
+        _record_launches(name, "flagship", launches[name])
     pts, cols = out.point_clouds.float(), out.colors.float()
     ok = (tuple(pts.shape) == (BATCH, POINTS, 3) and bool(torch.isfinite(pts).all())
           and pts.abs().max().item() <= 1.0 and 0.0 <= cols.min().item()
@@ -325,24 +522,145 @@ def main_path():
                               mean_abs_int8_vs_float=int8_vs_float,
                               forward_rel_err=rel, forward_rel_floor=rel_floor,
                               output_ok=ok)
-    if not (ok and agree and fwd_ok and all(v == expected for v in launches.values())
-            and not any(plain_launches.values())):
+    if not (ok and agree and fwd_ok and counts_ok and not any(plain_launches.values())):
         raise AssertionError("main path check failed")
     return pipe
 
 
-def _bound_ms(kind, n):
-    """Least time for the work: bytes (x in, y out, weights) over HBM rate,
-    or operations over the peak rate of their type, whichever is larger."""
-    if kind == "mlp":
-        ops_s = 4 * n * D * F / PEAK_INT8_OPS
-        bytes_ = 2 * n * D * 2 + 2 * D * F
+def _nonzero_head(model, gen):
+    with torch.no_grad():  # a non-zero head, so the cloud depends on every block
+        model.output_proj.weight.copy_(
+            torch.randn(model.output_proj.weight.shape, generator=gen, device=DEV) * 0.02)
+
+
+def _make_per_point_pipeline(quantize):
+    """Path A (float): the port's build_pipeline with its defaults
+    (pc_d8w768, 2048 points, patch 1, text dim 256). Path B (int8): the same
+    model built with quantize=True, which build_pipeline has no switch for."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    if quantize:
+        model = NOVAPointCloudTransformer(
+            arch=PP_ARCH, point_cloud_size=POINTS, patch_size=PP_PATCH, text_token_dim=256,
+            quantize=True, dtype=torch.bfloat16, device=DEV)
+        model.init_weights(gen)
+        pipe = NOVAPointCloudGenerationPipeline(
+            model, DDPMScheduler(beta_schedule="squaredcos_cap_v2"))
     else:
-        rows = n * T
-        ops_s = 2 * rows * D * 4 * D / PEAK_INT8_OPS + 4 * n * T * T * D / PEAK_BF16_FLOPS
-        bytes_ = 2 * rows * D * 2 + 4 * D * D
-    bytes_s = bytes_ / PEAK_BYTES
+        config = {"pipeline": {"name": "NOVAPointCloudGenerationPipeline"}, "model": {},
+                  "scheduler": {"class_name": "DDPMScheduler",
+                                "beta_schedule": "squaredcos_cap_v2"}}
+        pipe, _ = build_pipeline(config, seed=0, dtype=torch.bfloat16, device=DEV)
+        assert (pipe.model.arch, pipe.model.patch_size, pipe.model.num_tokens) == \
+            (PP_ARCH, PP_PATCH, PP_T), "build_pipeline's defaults are not the per-point model"
+    _nonzero_head(pipe.model, gen)
+    pipe.model.to(torch.bfloat16)  # serving: bf16 weights
+    pipe.text_encoder = DummyTextEncoder(256, 32)  # build_pipeline leaves it to the caller
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    print(f"{PP_ARCH} ({'int8' if quantize else 'float'}): {n_params / 1e6:.1f}M parameters, "
+          f"T={PP_T} tokens, batch {PP_BATCH}")
+    return pipe
+
+
+def _per_point_path(label, quantize, expected, tol_fn):
+    """One per-point pipeline call with the counts at 0 just before and read
+    just after; output checks; the same call under use_plain_kernels(); the
+    1e-6-shift floor of the kernel path against itself."""
+    pipe = _make_per_point_pipeline(quantize)
+    if quantize:
+        t0 = time.perf_counter()
+        pipe.calibrate(prompt_embeds=pipe.encode_prompt(PP_PROMPTS), num_points=POINTS,
+                       num_diffusion_steps=STEPS,
+                       generator=torch.Generator(device=DEV).manual_seed(2))
+        print(f"calibrate (batch {PP_BATCH}, T={PP_T}): {time.perf_counter() - t0:.1f} s")
+    _sample(pipe, seed=9, prompts=PP_PROMPTS)  # warm-up
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    latents = torch.randn((PP_BATCH, POINTS, 3), generator=gen, device=DEV)
+    fb.reset_launch_counts()
+    out = _sample(pipe, prompts=PP_PROMPTS, latents=latents)
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {n: expected.get(n, 0) for n in KERNELS}
+    print(f"launches in one {label} call: {launches} (expected {expected}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    pts, cols = out.point_clouds.float(), out.colors.float()
+    ok = (tuple(pts.shape) == (PP_BATCH, POINTS, 3) and bool(torch.isfinite(pts).all())
+          and pts.abs().max().item() <= 1.0 and 0.0 <= cols.min().item()
+          and cols.max().item() <= 1.0 and pts.std().item() > 0.05)
+    print(f"output {tuple(pts.shape)} finite, in [-1, 1], std {pts.std().item():.4f}: "
+          f"{'ok' if ok else 'FAIL'}")
+    fb.reset_launch_counts()
+    with fb.use_plain_kernels():
+        plain = _sample(pipe, prompts=PP_PROMPTS, latents=latents)
+    plain_launches = dict(fb.LAUNCHES)
+    vs_plain = (pts - plain.point_clouds.float()).abs().mean().item()
+    shifted = latents + 1e-6 * torch.randn(latents.shape, generator=gen, device=DEV)
+    floor = (pts - _sample(pipe, prompts=PP_PROMPTS, latents=shifted).point_clouds.float()
+             ).abs().mean().item()
+    tol, why = tol_fn(floor)
+    agree = vs_plain <= tol
+    print(f"{label}: kernels vs plain run: mean |diff| {vs_plain:.3e} (tol {why} = {tol:.3e}; "
+          f"floor, kernels vs kernels with latents moved by 1e-6: {floor:.3e}); plain run "
+          f"launched {plain_launches}: {'ok' if agree else 'FAIL'}")
+    report[label] = dict(launches=launches, plain_launches=plain_launches,
+                         mean_abs_vs_plain=vs_plain, floor_mean_abs=floor, tol=tol,
+                         output_ok=ok, output_std=pts.std().item())
+    for name in expected:
+        _record_launches(name, label, launches[name])
+    if not (ok and agree and counts_ok and not any(plain_launches.values())):
+        raise AssertionError(f"{label} check failed")
+    return pipe
+
+
+PATH_A_LAUNCHES = {"flash_attention": PP_DEPTH * STEPS}
+PATH_B_LAUNCHES = {n: PP_DEPTH * STEPS for n in
+                   ("fused_ln_int8_matmul", "int8_matmul_residual", "fused_ln_int8_mlp")}
+PATH_A_TOL = 6e-3
+
+
+@phase("4b per-point float path (A)")
+def path_a():
+    """bf16 float serving is continuous up to bf16 roundings: kernel and
+    plain run differ in where P and the output are rounded. Gate: mean
+    |diff| of the clouds <= PATH_A_TOL = 6e-3, which is 1e-2 of the output's
+    scale (std 0.61 on these weights); measured 1.8e-3, the same as the
+    kernel path against itself with the latents moved by 1e-6."""
+    return _per_point_path("path_a", False, PATH_A_LAUNCHES,
+                           lambda floor: (PATH_A_TOL, "fixed"))
+
+
+@phase("4c per-point int8 path (B)")
+def path_b():
+    """int8 is discontinuous (phase 4): gated against its own measured floor."""
+    return _per_point_path("path_b", True, PATH_B_LAUNCHES,
+                           lambda floor: (2 * floor + 1e-3, "2 x floor + 1e-3"))
+
+
+def _bound(ops_s, nbytes):
+    """Least time for the work in ms: its operations over the peak rate of
+    their type (``ops_s``, seconds), or its bytes (each input read once, each
+    output written once) over the memory rate, whichever is larger."""
+    bytes_s = nbytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _bound_ms(kind, n):
+    """Bounds of the flagship kernels: n rows (MLP) or samples (attention)."""
+    if kind == "mlp":
+        return _bound(4 * n * D * F / PEAK_INT8_OPS, 2 * n * D * 2 + 2 * D * F)
+    rows = n * T
+    return _bound(2 * rows * D * 4 * D / PEAK_INT8_OPS + 4 * n * T * T * D / PEAK_BF16_FLOPS,
+                  2 * rows * D * 2 + 4 * D * D)
+
+
+def _time_kernel(name, shape_key, kernel, plain, bound, library=None, iters=20):
+    ms = sync_ms(kernel, iters)
+    plain_ms = sync_ms(plain, 3)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+               library_ms=None if library is None else sync_ms(library, iters))
+    lib = "" if library is None else f", library {row['library_ms']:.3f} ms"
+    print(f"  {name} {shape_key}: {ms:.3f} ms/launch, plain {plain_ms:.3f} ms{lib}, bound "
+          f"{bound[0]:.3f} ms ({bound[1]}), {bound[0] / ms:.1%} of bound")
+    report["kernels"].setdefault(name, {}).setdefault("by_shape", {})[str(shape_key)] = row
+    return row
 
 
 @phase("5 timing")
@@ -350,21 +668,15 @@ def timing(pipe):
     gen = torch.Generator(device=DEV).manual_seed(5)
     for name, (kind, kernel, plain) in _kernels().items():
         kw = dict(_variants(kind)[0][1])  # flagship: static acts (+ bf16 core, smax)
-        rows = {}
         for mult in (2, 1):
             n = FLAGSHIP_SHAPE[kind] * mult // 2
             ops = _kernel_operands(gen, n, kind)
-            ms = sync_ms(lambda: kernel(*ops, **kw), 20)
-            plain_ms = sync_ms(lambda: plain(*ops, **kw), 3)
-            bound, by = _bound_ms(kind, n)
-            rows[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-            print(f"  {name} {tuple(ops[0].shape)}: {ms:.3f} ms/launch, plain {plain_ms:.3f} ms, "
-                  f"bound {bound:.3f} ms ({by}), {bound / ms:.1%} of bound")
+            row = _time_kernel(name, tuple(ops[0].shape), lambda: kernel(*ops, **kw),
+                               lambda: plain(*ops, **kw), _bound_ms(kind, n))
+            if mult == 2:  # the kernels line quotes the CFG steps' 2x batch
+                report["kernels"][name].update(row)
             del ops
             torch.cuda.empty_cache()
-        k = report["kernels"].setdefault(name, {})
-        k["by_shape"] = rows
-        k.update(rows[FLAGSHIP_SHAPE[kind]])
     fb.reset_launch_counts()
     if pipe is None:
         raise AssertionError("no pipeline: the main path failed")
@@ -377,22 +689,31 @@ def timing(pipe):
     print(f"pipeline: batch {BATCH}, {STEPS} steps, p50 {p50:.3f} s per call, "
           f"{BATCH / p50:.2f} samples/s (times {[round(t, 3) for t in times]})")
     report["pipeline"].update(batch=BATCH, p50_s=p50, samples_per_s=BATCH / p50, times_s=times)
-    profile_call(pipe)
 
 
-def profile_call(pipe):
-    """Device time by kernel over one pipeline call (torch.profiler), and
-    the device's idle share of that call's wall time. Reported only: the
-    profiler is untried on some machines, and its absence fails nothing."""
+PORT_KERNEL_NAMES = ("gemm_s8_kernel", "row_quant_kernel", "attn_core_", "flash_fwd_")
+
+
+def profile_call(sample, label="flagship"):
+    """Device time by kernel over one pipeline call ``sample()``
+    (torch.profiler), and the device's idle share of that call's wall time.
+    Reported only: the profiler is untried on some machines, and its absence
+    fails nothing."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _sample(pipe, seed=30)
+            sample()
             wall_us = (time.perf_counter() - t0) * 1e6
+        from torch.autograd import DeviceType
+
         by_name = {}
         for e in prof.key_averages():
+            # device-side events only: an operator's own entry repeats the
+            # time of the kernels it launched
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0.0)
@@ -402,16 +723,95 @@ def profile_call(pipe):
         print(f"profiler: not available ({type(e).__name__}: {e})")
         return
     busy = sum(by_name.values())
-    ours = {k: v for k, v in by_name.items()
-            if any(n in k for n in ("gemm_s8_kernel", "row_quant_kernel", "attn_core_"))}
-    print(f"profiled call: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+    ours = {k: v for k, v in by_name.items() if any(n in k for n in PORT_KERNEL_NAMES)}
+    print(f"profiled {label} call: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
           f"(idle share {1 - busy / wall_us:.1%}), port kernels {sum(ours.values()) / 1e3:.1f} ms")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {v / 1e3:9.1f} ms  {k[:100]}")
-    report["profile"] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                             port_kernels_ms=sum(ours.values()) / 1e3,
-                             top={k[:100]: v / 1e3 for k, v in sorted(
-                                 by_name.items(), key=lambda kv: -kv[1])[:20]})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
+    report["profile" if label == "flagship" else f"profile_{label}"] = dict(
+        wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+        port_kernels_ms=sum(ours.values()) / 1e3, top={k[:100]: v / 1e3 for k, v in top})
+
+
+@phase("5b timing of the per-point kernels and paths")
+def timing_per_point(pipe_a, pipe_b):
+    """Each new kernel at the 2x (CFG steps) and 1x batch of its path; the
+    entry of the kernels line is the 2x one. Bounds: each input read once and
+    each output written once over the memory rate, or the operations over
+    the int8 / bf16 peak, whichever is larger."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    d, hd, h = PP_D, PP_HD, PP_HEADS
+    for mult in (2, 1):
+        b = PP_BATCH * mult
+        m = b * PP_T
+        x, lns, lnb, wq, ws, bias, _ = _proj_operands(gen, (b, PP_T), d, 3 * d)
+        row = _time_kernel(
+            "fused_ln_int8_matmul", (m, d, 3 * d),
+            lambda: fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, bias),
+            lambda: fb.fused_ln_int8_matmul_plain(x, lns, lnb, wq, ws, bias),
+            _bound(2 * m * d * 3 * d / PEAK_INT8_OPS,
+                   2 * m * d + 2 * m * 3 * d + 3 * d * d + (2 * d + 3 * d) * 2 + 3 * d * 4))
+        if mult == 2:
+            report["kernels"]["fused_ln_int8_matmul"].update(row)
+        x, _, _, wq, ws, bias, res = _proj_operands(gen, (b, PP_T), d, d)
+        row = _time_kernel(
+            "int8_matmul_residual", (m, d, d),
+            lambda: fb.int8_matmul_residual(x, res, wq, ws, bias),
+            lambda: fb.int8_matmul_residual_plain(x, res, wq, ws, bias),
+            _bound(2 * m * d * d / PEAK_INT8_OPS, 3 * 2 * m * d + d * d + d * 2 + d * 4))
+        if mult == 2:
+            report["kernels"]["int8_matmul_residual"].update(row)
+        del x, res
+        q, k, v = _flash_operands(gen, b, h, PP_T, PP_T, hd)
+        row = _time_kernel(
+            "flash_attention", (b, h, PP_T, hd),
+            lambda: fa.flash_attention_with_lse(q, k, v),
+            lambda: fa.flash_attention_plain(q, k, v),
+            _bound(4 * b * h * PP_T * PP_T * hd / PEAK_BF16_FLOPS,
+                   4 * b * h * PP_T * hd * 2 + b * h * PP_T * 4),
+            library=lambda: F.scaled_dot_product_attention(q, k, v))
+        if mult == 2:
+            report["kernels"]["flash_attention"].update(row)
+        # the same MLP kernel at this path's width (its entry in the kernels
+        # line stays the flagship's)
+        mlp_ops = _pp_mlp_operands(gen, m)
+        kw = _variants("mlp")[0][1]  # static a_ln2 / a_mid, as path B passes them
+        _time_kernel(
+            "fused_ln_int8_mlp", (m, d, PP_F),
+            lambda: fb.fused_ln_int8_mlp(*mlp_ops, **kw),
+            lambda: fb.fused_ln_int8_mlp_plain(*mlp_ops, **kw),
+            _bound(4 * m * d * PP_F / PEAK_INT8_OPS, 2 * m * d * 2 + 2 * d * PP_F))
+        del q, k, v, mlp_ops
+        torch.cuda.empty_cache()
+    fb.reset_launch_counts()
+    for label, pipe in (("path_a", pipe_a), ("path_b", pipe_b)):
+        if pipe is None:
+            raise AssertionError(f"no pipeline: {label} failed")
+        times = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            _sample(pipe, seed=20 + i, prompts=PP_PROMPTS)
+            times.append(time.perf_counter() - t0)
+        p50 = float(np.percentile(times, 50))
+        print(f"{label}: batch {PP_BATCH}, {STEPS} steps, p50 {p50:.3f} s per call, "
+              f"{PP_BATCH / p50:.2f} samples/s (times {[round(t, 3) for t in times]})")
+        report[label].update(batch=PP_BATCH, p50_s=p50, samples_per_s=PP_BATCH / p50,
+                             times_s=times)
+
+
+@phase("6 profiles")
+def profiles(pipe, pipe_a, pipe_b):
+    """One profiled call of each path, after every timing: the profiler's
+    hooks stay on the launch path once it has run, and would slow the
+    host side of the per-launch timings."""
+    if pipe is not None:
+        profile_call(lambda: _sample(pipe, seed=30))
+    for label, p in (("path_a", pipe_a), ("path_b", pipe_b)):
+        if p is not None:
+            profile_call(lambda: _sample(p, seed=30, prompts=PP_PROMPTS), label)
 
 
 def main():
@@ -424,16 +824,27 @@ def main():
     build()
     if "2 build" not in failures:
         check_kernels()
+        check_split_kernels()
+        check_flash()
         pipe = main_path()
+        pipe_a = path_a()
+        pipe_b = path_b()
         timing(pipe)
+        timing_per_point(pipe_a, pipe_b)
+        profiles(pipe, pipe_a, pipe_b)
     kernels = []
-    for name in _kernels():
+    for name in KERNELS:
         k = report["kernels"].get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": k.get("launches"),
                         "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
                         "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
-                        "bound_by": k.get("bound_by"), "library_ms": None})
+                        "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
+                        "launches_by_path": k.get("launches_by_path")})
+        missing = [key for key, val in kernels[-1].items()
+                   if val is None and key != "library_ms"]
+        if missing or not kernels[-1]["launches"]:
+            failures.append(f"kernels line: {name} lacks {missing or 'launches'}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -35,26 +35,6 @@ constexpr int AHD = 64;           // head dim the core handles
 constexpr int KLD = AHD + 8;      // padded K / V row (bf16): conflict-free ldmatrix
 enum { CORE_F32 = 0, CORE_BF16 = 1, CORE_INT8 = 2 };
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 __device__ __forceinline__ void store_av(float v, long idx, const float* a_av, int8_t* av8,
                                          float* avf) {
   if (a_av != nullptr)

@@ -15,6 +15,7 @@
 #pragma once
 
 #include "quant.cuh"
+#include "tensor_core.cuh"
 
 namespace nova {
 
@@ -42,33 +43,6 @@ struct EpiParams {
   void* out;
   int out_bf16;
 };
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16-byte global -> shared copy; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Two adjacent output columns (col, col + 1) of one row; ws / bs are their
 // weight scales and biases.

@@ -12,14 +12,18 @@ follow the flax tree (``models/convert.py`` maps one onto the other):
 promotes inputs and parameters, ``torch.bfloat16`` is the serving setting
 on the card. A ``PreLNBlock`` has three forwards:
 
-- the float path (``forward`` with no qparams);
+- the float path (``forward`` with no qparams), its attention routed by
+  ``attn_impl`` through ``ops/attention.py`` (the flash kernel from 1024
+  keys on the card);
 - the int8 serving path (``forward`` with the block's qparams), through the
-  two fused kernels of ``ops/kernels/fused_block.py``;
+  fused kernels of ``ops/kernels/fused_block.py``: the one-kernel attention
+  sub-block where the JAX model takes it, else the split path (LN + QKV
+  kernel, plain attention core, out-projection + residual kernel), then the
+  MLP kernel;
 - ``calibration_forward``, the plain mirror of the int8 path that records
   the activation ranges of its quant sites.
 """
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,8 +31,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from nova_pointcloud_tpu_torch.models.embeddings import timestep_freq_embed
+from nova_pointcloud_tpu_torch.ops.attention import (dot_product_attention,
+                                                     make_attention_fn)
+from nova_pointcloud_tpu_torch.ops.kernels import fused_block
 from nova_pointcloud_tpu_torch.ops.kernels.fused_block import (
-    attention_block_vmem_bytes, fused_attention_block, fused_ln_int8_mlp)
+    fused_attention_block, fused_ln_int8_matmul, fused_ln_int8_mlp,
+    int8_matmul_residual)
 from nova_pointcloud_tpu_torch.ops.pointops import cdist
 from nova_pointcloud_tpu_torch.ops.quantization import (
     int8_matmul, quantize_serving_params, quantize_weight)
@@ -47,7 +55,7 @@ PC_ARCHES = {
     "pc_d4w256": (4, 256, 4),  # conditioning micro-A/B
 }
 LN_EPS = 1e-6
-FLASH_MIN_KEYS = 1024  # the JAX model runs its Pallas flash kernel from here
+FUSED_ATTENTION_MAX_BYTES = 14 * 2**20  # the JAX model's fused / split rule
 
 
 def _compute_dtype(x: torch.Tensor, p: torch.Tensor, dtype) -> torch.dtype:
@@ -69,29 +77,19 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype=None) -> torch.Tensor:
     return y.to(dt)
 
 
-def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
-    """(B, L, H, hd) attention as flax's ``dot_product_attention``: q scaled
-    by 1/sqrt(hd), float32 logits and softmax. Plain torch below 1024 keys;
-    from 1024 keys on the card the JAX model runs its Pallas flash kernel,
-    which is not ported yet, so that raises rather than run something else."""
-    if q.is_cuda and k.shape[1] >= FLASH_MIN_KEYS:
-        raise NotImplementedError(
-            "float attention at >= 1024 keys needs the flash_attention kernel "
-            "(ROADMAP.md, kernel queue: ops/pallas/flash_attention.py "
-            "flash_attention), not yet ported")
-    q = q / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
 class MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` (self-attention, no dropout)."""
+    """flax ``MultiHeadDotProductAttention`` (self-attention, no dropout).
 
-    def __init__(self, dim: int, num_heads: int, device=None):
+    ``attn_impl``: the dispatcher policy of ``ops/attention.py`` ("auto",
+    "pallas", "sdpa" / "xla"); ``None`` is flax's default core with no
+    dispatcher (the ClusterBlock's 8-token attention)."""
+
+    def __init__(self, dim: int, num_heads: int, device=None,
+                 attn_impl: Optional[str] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.attention_fn = (dot_product_attention if attn_impl is None
+                             else make_attention_fn(attn_impl))
         self.query = nn.Linear(dim, dim, device=device)
         self.key = nn.Linear(dim, dim, device=device)
         self.value = nn.Linear(dim, dim, device=device)
@@ -103,8 +101,7 @@ class MultiHeadAttention(nn.Module):
         q = dense(x, self.query, dtype).reshape(heads)
         k = dense(x, self.key, dtype).reshape(heads)
         v = dense(x, self.value, dtype).reshape(heads)
-        return dense(dot_product_attention(q, k, v).reshape(b, t, d),
-                     self.out, dtype)
+        return dense(self.attention_fn(q, k, v).reshape(b, t, d), self.out, dtype)
 
 
 class DepthAwarePosEncoding(nn.Module):
@@ -165,13 +162,13 @@ class PreLNBlock(nn.Module):
     """norm_first TransformerEncoderLayer equivalent (relu MLP)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attn_core: str = "bf16", device=None):
+                 attn_core: str = "bf16", device=None, attn_impl: str = "auto"):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.num_heads = num_heads
         self.attn_core = attn_core
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        self.attn = MultiHeadAttention(dim, num_heads, device)
+        self.attn = MultiHeadAttention(dim, num_heads, device, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
@@ -191,24 +188,36 @@ class PreLNBlock(nn.Module):
         return torch.cat([a.query.bias, a.key.bias, a.value.bias])
 
     def int8_forward(self, x: torch.Tensor, q: Dict) -> torch.Tensor:
-        """Serving path: the attention and MLP sub-blocks as the two fused
-        int8 kernels, with this block's pre-quantized weights ``q`` (and its
+        """Serving path: the attention and MLP sub-blocks as fused int8
+        kernels, with this block's pre-quantized weights ``q`` (and its
         calibrated ``a_*`` scales, when present)."""
-        d, t = x.shape[-1], x.shape[-2]
-        if attention_block_vmem_bytes(t, d) > 14 * 2**20:
-            raise NotImplementedError(
-                f"at T={t}, D={d} the JAX model takes the split serving path "
-                f"(fused_ln_int8_matmul + int8_matmul_residual; ROADMAP.md "
-                f"kernel queue rows 3-4), not yet ported")
-        x = fused_attention_block(
-            x, self.norm1.weight, self.norm1.bias, q["wqkv_q"], q["wqkv_s"],
-            self._qkv_bias(), q["out_q"], q["out_s"], self.attn.out.bias,
-            num_heads=self.num_heads, a_in=q.get("a_ln1"), a_av=q.get("a_av"),
-            core=self.attn_core, a_smax=q.get("a_smax"))
+        x = self._int8_attention(x, q)
         return fused_ln_int8_mlp(
             x, self.norm2.weight, self.norm2.bias, q["fc1_q"], q["fc1_s"],
             self.fc1.bias, q["fc2_q"], q["fc2_s"], self.fc2.bias,
             a_in=q.get("a_ln2"), a_mid=q.get("a_mid"))
+
+    def _int8_attention(self, x: torch.Tensor, q: Dict) -> torch.Tensor:
+        b, t, d = x.shape
+        if fused_block.attention_block_vmem_bytes(t, d) <= FUSED_ATTENTION_MAX_BYTES:
+            return fused_attention_block(
+                x, self.norm1.weight, self.norm1.bias, q["wqkv_q"], q["wqkv_s"],
+                self._qkv_bias(), q["out_q"], q["out_s"], self.attn.out.bias,
+                num_heads=self.num_heads, a_in=q.get("a_ln1"), a_av=q.get("a_av"),
+                core=self.attn_core, a_smax=q.get("a_smax"))
+        # long sequences (per-point tokens): the split path, as the JAX model.
+        # Its two kernels quantize per row (the calibrated a_ln1 / a_av /
+        # a_smax are unused here); the core between them is plain, in the
+        # activation dtype throughout (scores and softmax too).
+        qkv = fused_ln_int8_matmul(x, self.norm1.weight, self.norm1.bias,
+                                   q["wqkv_q"], q["wqkv_s"], self._qkv_bias())
+        hd = d // self.num_heads
+        qh, kh, vh = [a.reshape(b, t, self.num_heads, hd)
+                      for a in torch.chunk(qkv, 3, dim=-1)]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qh * (hd ** -0.5), kh)
+        probs = torch.softmax(scores, dim=-1).to(vh.dtype)
+        av = torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(b, t, d)
+        return int8_matmul_residual(av, x, q["out_q"], q["out_s"], self.attn.out.bias)
 
     def calibration_forward(self, x: torch.Tensor
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -254,10 +263,11 @@ class BlockStack(nn.Module):
     the JAX ``nn.scan`` stack's do."""
 
     def __init__(self, depth: int, dim: int, num_heads: int,
-                 attn_core: str = "bf16", device=None):
+                 attn_core: str = "bf16", device=None, attn_impl: str = "auto"):
         super().__init__()
         self.layers = nn.ModuleList(
-            PreLNBlock(dim, num_heads, attn_core=attn_core, device=device)
+            PreLNBlock(dim, num_heads, attn_core=attn_core, device=device,
+                       attn_impl=attn_impl)
             for _ in range(depth))
 
     def forward(self, h: torch.Tensor, qparams: Optional[Dict] = None,
@@ -281,15 +291,16 @@ class NOVAPointCloudTransformer(nn.Module):
 
     ``quantize`` selects the int8 serving path (the fused kernels) for the
     block stack; its qparams come from the caller (the pipeline quantizes
-    once per call) or are built in the forward. ``device``: ``cuda`` unless
+    once per call) or are built in the forward. ``attn_impl`` is the float
+    path's attention policy (ops/attention.py). ``device``: ``cuda`` unless
     ``"cpu"`` is asked for (utils/device.py)."""
 
     def __init__(self, arch: str = "pc_d8w768", point_cloud_size: int = 2048,
                  patch_size: int = 1, text_token_dim: Optional[int] = None,
                  text_pool: str = "masked", num_clusters: int = 8,
                  use_depth_pe: bool = False, quantize: bool = False,
-                 attn_core: str = "bf16", dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 attn_impl: str = "auto", attn_core: str = "bf16",
+                 dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         if arch not in PC_ARCHES:
             raise KeyError(f"unknown pc arch {arch!r}; known: {sorted(PC_ARCHES)}")
@@ -301,6 +312,7 @@ class NOVAPointCloudTransformer(nn.Module):
         self.point_cloud_size = point_cloud_size
         self.text_token_dim, self.text_pool = text_token_dim, text_pool
         self.quantize, self.attn_core, self.dtype = quantize, attn_core, dtype
+        self.attn_impl = attn_impl
         self.point_embed = nn.Linear(patch_size * 3, dim, device=dev)
         self.pos_embed = nn.Parameter(torch.zeros(1, self.num_tokens, dim, device=dev))
         self.depth_pe = DepthAwarePosEncoding(dim, dev) if use_depth_pe else None
@@ -309,7 +321,7 @@ class NOVAPointCloudTransformer(nn.Module):
         self.time_fc2 = nn.Linear(dim, dim, device=dev)
         self.text_embed = (nn.Linear(text_token_dim, dim, device=dev)
                            if text_token_dim else None)
-        self.blocks = BlockStack(depth, dim, heads, attn_core, dev)
+        self.blocks = BlockStack(depth, dim, heads, attn_core, dev, attn_impl)
         self.final_norm = nn.LayerNorm(dim, eps=LN_EPS, device=dev)
         self.output_proj = nn.Linear(dim, patch_size * 3, device=dev)
 

@@ -25,9 +25,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "fused_attention_block": "fused_attention_block.cu",
     "fused_ln_int8_mlp": "fused_ln_int8_mlp.cu",
+    "fused_ln_int8_matmul": "fused_ln_int8_matmul.cu",
+    "int8_matmul_residual": "int8_matmul_residual.cu",
+    "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# The int8 kernels round a*b+c twice, as their plain versions do (every int8
+# code agrees); the attention core has no such identity to keep.
+FMAD = {"flash_attention": "-fmad=true"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,8 +46,12 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str):
+    return [*NVCC_FLAGS, FMAD.get(name, "-fmad=false")]
+
+
 def _library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         if src.suffix == ".cuh" or src.name == SOURCES[name]:
             h.update(src.name.encode())
@@ -64,7 +74,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     t0 = time.perf_counter()
     for n, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        cmd = [nvcc, *_flags(n), "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

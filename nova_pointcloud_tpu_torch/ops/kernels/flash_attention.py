@@ -1,0 +1,167 @@
+"""Flash attention (forward) for Hopper.
+
+Counterpart of ``nova_pointcloud_tpu/ops/pallas/flash_attention.py``
+``flash_attention``: ``softmax(q kᵀ/√d + bias) v`` by online softmax over key
+tiles with float32 accumulation, the (Lq, Lk) scores never in device memory,
+and the row log-sum-exp ``lse`` saved for a backward pass.
+
+- :func:`flash_attention` has the JAX function's signature (its TPU block
+  sizes ``blk_q`` / ``blk_k`` are dropped: the CUDA kernel masks ragged
+  tails itself). For CUDA tensors it launches ``csrc/flash_attention.cu``;
+  for CPU tensors it runs :func:`flash_attention_plain`. It never falls back
+  from one to the other: what the kernel does not take raises.
+- :func:`flash_attention_plain` is the plain PyTorch version, differentiable
+  by autograd, returning ``(o, lse)``.
+- ``LAUNCHES["flash_attention"]`` counts the kernel's launches.
+
+The CUDA kernel takes float32 or bfloat16 q, k, v of one dtype with head dim
+64 (other head dims raise), any Lq and Lk, and the three bias forms of the TPU
+kernel. Its backward kernels (dK/dV and dQ) are not ported yet: asking for a
+gradient through the CUDA kernel raises ``NotImplementedError``.
+
+Bias forms (4-D, as the JAX function): ``None``; a key bias ``(B or 1, 1, 1,
+Lk)``, read in the kernel with the batch index (no per-head copies); a full
+bias ``(1, 1, Lq, Lk)`` shared by every batch and head. ``-inf`` entries
+mask; a row whose keys are all masked gives ``o = 0`` and ``lse = +1e30``.
+"""
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from nova_pointcloud_tpu_torch.ops.kernels._launch import (LAUNCHES, dtype_flag, lib,
+                                                           plain_route, ptr, run)
+
+NEG_INF = -1e30
+CUDA_HEAD_DIM = 64
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P]
+
+
+def _normalize_bias(bias: Optional[torch.Tensor], b: int, lq: int, lk: int
+                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """4-D bias -> (key bias (B, Lk), full bias (Lq, Lk)), one of them set,
+    with the JAX function's shape rules and errors."""
+    if bias is None:
+        return None, None
+    if bias.ndim != 4:
+        raise ValueError(f"bias must be 4D, got {tuple(bias.shape)}")
+    if bias.shape[1] != 1:
+        raise ValueError("per-head bias unsupported in the flash kernel")
+    if bias.shape[-1] not in (1, lk):
+        raise ValueError(f"bias last dim must be 1 or Lk={lk}, got "
+                         f"{tuple(bias.shape)} (broadcastable-but-mismatched "
+                         f"shapes belong on the sdpa path)")
+    if bias.shape[2] == 1:  # (B or 1, 1, 1, Lk)
+        return torch.broadcast_to(bias[:, 0, 0, :], (b, lk)), None
+    if bias.shape[0] == 1 and bias.shape[2] == lq:  # (1, 1, Lq, Lk)
+        return None, torch.broadcast_to(bias[0, 0], (lq, lk))
+    raise ValueError(f"unsupported bias shape {tuple(bias.shape)}")
+
+
+def _plain(q, k, v, key_bias, full_bias):
+    d = q.shape[-1]
+    s = torch.matmul(q.float() * d ** -0.5, k.float().transpose(-1, -2))  # (B, H, Lq, Lk)
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    if full_bias is not None:
+        s = s + full_bias.float()
+    m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=NEG_INF)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    dead = l == 0.0  # every key masked by -inf
+    safe = torch.where(dead, torch.ones_like(l), l)
+    o = torch.matmul(p, v.float()) / safe
+    lse = torch.where(dead, torch.full_like(l, -NEG_INF), m + torch.log(safe))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the flash kernel: q, k, v (B, H, L, D) ->
+    o (B, H, Lq, D) in q's dtype and lse (B, H, Lq) float32. Float32 scores
+    and sums; differentiable by autograd."""
+    key_bias, full_bias = _normalize_bias(bias, q.shape[0], q.shape[2], k.shape[2])
+    return _plain(q, k, v, key_bias, full_bias)
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: last dim contiguous, the other strides
+    and the base address multiples of 16 bytes; a copy only when needed."""
+    per16 = 16 // t.element_size()
+    ok = (t.stride(3) == 1 and all(s % per16 == 0 for s in t.stride()[:3])
+          and t.data_ptr() % 16 == 0)
+    return t if ok else t.contiguous()
+
+
+def _launch(q, k, v, key_bias, full_bias):
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dev = q.device
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    is_bf16 = dtype_flag(q, "q, k, v")
+    if d != CUDA_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA flash kernel takes head dim {CUDA_HEAD_DIM}, got {d}")
+    if k.shape != (b, h, lk, d) or v.shape != k.shape or k.device != dev or v.device != dev:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"must be (B, H, L, D) on one device")
+    q, k, v = _strided(q), _strided(k), _strided(v)
+    o = torch.empty_like(q)  # q's strides: a (B, L, H, D) view stays one
+    if o.stride(3) != 1:
+        o = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_long * 12)(*[s for t in (q, k, v, o) for s in t.stride()[:3]])
+    if key_bias is not None:
+        key_bias = key_bias.to(device=dev, dtype=torch.float32).contiguous()
+    if full_bias is not None:
+        full_bias = full_bias.to(device=dev, dtype=torch.float32).contiguous()
+    so, fn = lib("flash_attention", _ARGTYPES)
+    run(so, fn, [ptr(q), ptr(k), ptr(v), is_bf16, b, h, lq, lk, d,
+                 ctypes.addressof(strides), ptr(key_bias), ptr(full_bias),
+                 float(d ** -0.5), ptr(o), ptr(lse),
+                 torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["flash_attention"] += 1
+    return o, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA forward; ``lse`` and the operands are saved so the backward
+    kernels can be added without touching it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, full_bias):
+        o, lse = _launch(q, k, v, key_bias, full_bias)
+        ctx.save_for_backward(q, k, v, key_bias, full_bias, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, grad_o, grad_lse):
+        raise NotImplementedError(
+            "the backward of the CUDA flash_attention kernel (dK/dV and dQ) is "
+            "not ported yet: ROADMAP.md, queue 2, row 7")
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` returning ``(o, lse)``; lse (B, H, Lq) float32."""
+    key_bias, full_bias = _normalize_bias(bias, q.shape[0], q.shape[2], k.shape[2])
+    if plain_route(q):
+        return _plain(q, k, v, key_bias, full_bias)
+    return _FlashAttention.apply(q, k, v, key_bias, full_bias)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v: (B, H, L, D) -> (B, H, Lq, D) in q's dtype.
+
+    bias: None | (B or 1, 1, 1, Lk) key bias | (1, 1, Lq, Lk) full bias;
+    other shapes raise ``ValueError`` (they belong on the sdpa path). Biases
+    are mask constants: they get no gradient."""
+    return flash_attention_with_lse(q, k, v, bias)[0]

@@ -1,7 +1,7 @@
 """Fused int8 serving kernels of the PreLN block, for Hopper.
 
 Counterpart of ``nova_pointcloud_tpu/ops/pallas/fused_block.py``. Each TPU
-kernel on the flagship path has here
+kernel of the PreLN block's serving paths has here
 
 - a wrapper with the JAX function's signature, which launches the CUDA
   kernel (``csrc/<name>.cu``, built at first use by ``_build.py``) for a
@@ -19,57 +19,30 @@ whole path with and without its kernels; the pipeline never turns it on.
     fused_ln_int8_mlp:     y = x + (q8(relu((q8(LN(x)) @ W1)·sx·s1 + b1)) @ W2)·sx2·s2 + b2
     fused_attention_block: y = x + q8(softmax(q kᵀ/√hd) v) @ Wo·sxo·so + bo,
                            q|k|v = q8(LN(x)) @ Wqkv·sx·s + b
+    fused_ln_int8_matmul:  y = (q8(LN(x)) @ W)·sx·s + b          (split path, QKV)
+    int8_matmul_residual:  y = res + (q8(x) @ W)·sx·s + b        (split path, out)
 
 LayerNorm eps is 1e-6 (flax's default, the pc blocks' norm). Quant sites
 are static (calibrated amax, multiply by 1/s) when their ``a_*`` are given,
-else per row (divide by s).
+else per row (divide by s); the two split-path kernels quantize per row only.
+The JAX functions' ``block_m`` (a TPU tile height) is dropped: the CUDA
+kernels mask ragged rows themselves.
 """
 
-import contextlib
 import ctypes
-from typing import Optional
 
 import torch
 
+from nova_pointcloud_tpu_torch.ops.kernels._launch import (  # noqa: F401
+    LAUNCHES, dtype_flag as _dtype_flag, lib as _load_lib,
+    plain_route as _plain_route,
+    ptr as _ptr, reset_launch_counts, run as _run, use_plain_kernels)
 from nova_pointcloud_tpu_torch.ops.quantization import (int_dot,
                                                         quantize_activations,
                                                         quantize_static)
 
-LAUNCHES = {"fused_attention_block": 0, "fused_ln_int8_mlp": 0}
 ATTN_CORES = ("f32", "bf16", "int8")  # index = the kernel's core code
 LN_EPS = 1e-6
-
-
-class _Route:
-    plain_on_cuda = False
-
-
-_route = _Route()
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-@contextlib.contextmanager
-def use_plain_kernels():
-    """Inside this block the wrappers run their plain versions on CUDA
-    tensors too (and count nothing)."""
-    prev = _route.plain_on_cuda
-    _route.plain_on_cuda = True
-    try:
-        yield
-    finally:
-        _route.plain_on_cuda = prev
-
-
-def _plain_route(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device} for a fused kernel")
-    return _route.plain_on_cuda
 
 
 def _check_act_scales(**sites):
@@ -171,6 +144,22 @@ def fused_attention_block_plain(x, ln_scale, ln_bias, wqkv_q, wqkv_s, bqkv,
     return (xf + o).reshape(b, t, d).to(x.dtype)
 
 
+def fused_ln_int8_matmul_plain(x, ln_scale, ln_bias, wq, s, b) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_ln_int8_matmul`."""
+    xf = x.reshape(-1, x.shape[-1]).float()
+    q, sx = quantize_activations(_ln(xf, ln_scale, ln_bias))
+    y = int_dot(q, wq) * sx * s.float() + b.float()
+    return y.to(x.dtype).reshape(x.shape[:-1] + (wq.shape[-1],))
+
+
+def int8_matmul_residual_plain(x, residual, wq, s, b) -> torch.Tensor:
+    """Plain PyTorch version of :func:`int8_matmul_residual`."""
+    q, sx = quantize_activations(x.reshape(-1, x.shape[-1]))
+    a = int_dot(q, wq) * sx * s.float() + b.float()
+    rf = residual.reshape(-1, wq.shape[-1]).float()
+    return (rf + a).to(residual.dtype).reshape(residual.shape)
+
+
 # -- CUDA wrappers -------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -180,32 +169,15 @@ _ARGTYPES = {
     "fused_attention_block": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
                               _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
                               _P, _P, _P, _P],
+    "fused_ln_int8_matmul": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                             _P, _P, _P],
+    "int8_matmul_residual": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
+                             _P, _P, _P],
 }
 
 
 def _lib(name: str):
-    from nova_pointcloud_tpu_torch.ops.kernels import _build
-
-    lib = _build.load(name)
-    fn = getattr(lib, "nova_" + name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        lib.nova_error_string.argtypes = [ctypes.c_int]
-        lib.nova_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _dtype_flag(t: torch.Tensor, what: str) -> int:
-    if t.dtype == torch.bfloat16:
-        return 1
-    if t.dtype == torch.float32:
-        return 0
-    raise TypeError(f"{what} must be float32 or bfloat16, got {t.dtype}")
+    return _load_lib(name, _ARGTYPES[name])
 
 
 def _vectors(*vs):
@@ -232,13 +204,6 @@ def _f32(v, dev):
 
 def _amax(a, dev):
     return None if a is None else _f32(a, dev).reshape(())
-
-
-def _run(lib, fn, args):
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel launch failed: "
-                           f"{lib.nova_error_string(rc).decode()} (error {rc})")
 
 
 def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
@@ -333,3 +298,71 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
         torch.cuda.current_stream(dev).cuda_stream])
     LAUNCHES["fused_attention_block"] += 1
     return y
+
+
+def _gemm_dims(k: int, n: int, what: str) -> None:
+    if k % 128 or n % 128 or k > 1024:
+        raise NotImplementedError(
+            f"the CUDA {what} kernel needs in and out widths that are multiples "
+            f"of 128 and an in width <= 1024 (row_quant_kernel holds one row of "
+            f"at most 1024 values in registers), got in={k}, out={n}: ROADMAP.md, "
+            f"queue 1, item 2")
+
+
+def fused_ln_int8_matmul(x: torch.Tensor, ln_scale, ln_bias, wq, s, b) -> torch.Tensor:
+    """LN(x) -> per-row int8 quant -> one int8 product: x (..., D) ->
+    (..., O) in x's dtype.
+
+    wq (D, O) int8 with per-channel scales s (O,), bias b (O,). The QKV
+    projection of the split serving path: O = 3D, head-split by the caller."""
+    if _plain_route(x):
+        return fused_ln_int8_matmul_plain(x, ln_scale, ln_bias, wq, s, b)
+    dev, d = x.device, x.shape[-1]
+    n = wq.shape[-1]
+    _gemm_dims(d, n, "fused_ln_int8_matmul")
+    xf = x.reshape(-1, d).contiguous()
+    m = xf.shape[0]
+    x_bf16 = _dtype_flag(xf, "x")
+    wq = _int8_weight(wq, (d, n), dev, "wq")
+    s = _f32(s, dev)
+    (ln_w, ln_b, b), vec_bf16 = _vectors(ln_scale, ln_bias, b)
+    q = torch.empty((m, d), dtype=torch.int8, device=dev)
+    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    so, fn = _lib("fused_ln_int8_matmul")
+    _run(so, fn, [_ptr(xf), x_bf16, m, d, n, _ptr(ln_w), _ptr(ln_b), _ptr(b),
+                  vec_bf16, _ptr(wq), _ptr(s), _ptr(q), _ptr(sx), _ptr(y),
+                  torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["fused_ln_int8_matmul"] += 1
+    return y.reshape(x.shape[:-1] + (n,))
+
+
+def int8_matmul_residual(x: torch.Tensor, residual: torch.Tensor, wq, s,
+                         b) -> torch.Tensor:
+    """residual + (q8(x) @ wq)·sx·s + b in float32, cast to residual's dtype.
+
+    x (..., D_in); residual (..., D_out); wq (D_in, D_out) int8, scales s and
+    bias b (D_out,). The attention out-projection of the split serving path."""
+    if _plain_route(x):
+        return int8_matmul_residual_plain(x, residual, wq, s, b)
+    dev, k = x.device, x.shape[-1]
+    n = wq.shape[-1]
+    _gemm_dims(k, n, "int8_matmul_residual")
+    xf = x.reshape(-1, k).contiguous()
+    rf = residual.reshape(-1, n).contiguous()
+    m = xf.shape[0]
+    if rf.shape[0] != m or rf.device != dev:
+        raise ValueError(f"x {tuple(x.shape)} and residual {tuple(residual.shape)} "
+                         f"must share their leading dims and device")
+    wq = _int8_weight(wq, (k, n), dev, "wq")
+    s, b = _f32(s, dev), b.contiguous()
+    q = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    y = torch.empty_like(rf)
+    so, fn = _lib("int8_matmul_residual")
+    _run(so, fn, [_ptr(xf), _dtype_flag(xf, "x"), m, k, n, _ptr(rf),
+                  _dtype_flag(rf, "residual"), _ptr(b), _dtype_flag(b, "b"),
+                  _ptr(wq), _ptr(s), _ptr(q), _ptr(sx), _ptr(y),
+                  torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["int8_matmul_residual"] += 1
+    return y.reshape(residual.shape)

@@ -13,15 +13,21 @@ import pytest
 import torch
 
 import nova_pointcloud_tpu_torch
+from nova_pointcloud_tpu_torch.models import pointcloud
 from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer, PreLNBlock
 from nova_pointcloud_tpu_torch.models.text_encoders.dummy import DummyTextEncoder
-from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES, fused_block
+from nova_pointcloud_tpu_torch.ops.attention import attention
+from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES, flash_attention, fused_block
+from nova_pointcloud_tpu_torch.pipelines.builder import build_pipeline
 from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import NOVAPointCloudGenerationPipeline
+from nova_pointcloud_tpu_torch.schedulers.builder import build_scheduler
 from nova_pointcloud_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "nova_pointcloud_tpu_torch"
 BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "nova_pointcloud_tpu"}
+KERNEL_NAMES = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
+                "int8_matmul_residual", "flash_attention")
 
 
 def _port_sources():
@@ -44,11 +50,17 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_every_module_imports_without_cuda_or_jax():
-    """In a fresh interpreter: import every module of the port and
-    chip_smoke.py; none of them may pull in JAX."""
+    """In a fresh interpreter where ``import yaml`` fails: import every
+    module of the port and chip_smoke.py; none of them may pull in JAX."""
     mods = [m.name for m in pkgutil.walk_packages(nova_pointcloud_tpu_torch.__path__,
                                                   "nova_pointcloud_tpu_torch.")]
+    assert {"nova_pointcloud_tpu_torch.ops.attention",
+            "nova_pointcloud_tpu_torch.ops.kernels.flash_attention",
+            "nova_pointcloud_tpu_torch.pipelines.builder",
+            "nova_pointcloud_tpu_torch.schedulers.builder",
+            "nova_pointcloud_tpu_torch.utils.config"} <= set(mods)
     code = ("import importlib, sys\n"
+            "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import chip_smoke, chip_ab\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -92,7 +104,29 @@ def test_cpu_serving_runs_no_kernel():
                generator=torch.Generator().manual_seed(1))
     assert out.point_clouds.shape == (1, 32, 3) and np.isfinite(out.point_clouds).all()
     assert np.all(np.abs(out.point_clouds) <= 1.0) and out.colors.min() >= 0.0
-    assert LAUNCHES == {"fused_attention_block": 0, "fused_ln_int8_mlp": 0}
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
+
+
+@pytest.mark.parametrize("path", ["split_int8", "float_pallas"])
+def test_cpu_per_point_serving_runs_no_kernel(path, monkeypatch):
+    """The slice-2 routes on CPU tensors: the split int8 path (forced at this
+    size) and the float path through the flash wrapper run plain versions."""
+    fused_block.reset_launch_counts()
+    quantize = path == "split_int8"
+    if quantize:
+        monkeypatch.setattr(fused_block, "attention_block_vmem_bytes", lambda t, d: 1 << 40)
+        monkeypatch.setattr(pointcloud, "fused_attention_block", None)  # must not be called
+    model = NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=32, text_token_dim=16,
+                                      quantize=quantize, attn_impl="pallas", device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    torch.nn.init.normal_(model.output_proj.weight, std=0.05)
+    pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4))
+    if quantize:
+        pipe.calibrate(["a chair"], num_points=32, num_diffusion_steps=2)
+    out = pipe(["a chair"], num_points=32, num_diffusion_steps=2, guidance_trunc=800.0,
+               generator=torch.Generator().manual_seed(1))
+    assert out.point_clouds.shape == (1, 32, 3) and np.isfinite(out.point_clouds).all()
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
 
 
 def test_unported_paths_raise():
@@ -102,10 +136,30 @@ def test_unported_paths_raise():
     pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe(["a chair"], num_points=32, use_autoregressive=True)
-    # per-point tokens at T=1024, D=768 need the split serving path
-    block = PreLNBlock(768, 12, device="cpu")
-    with pytest.raises(NotImplementedError, match="split serving path"):
-        block.int8_forward(torch.zeros((1, 1024, 768)), {})
+    # sequence-parallel attention, the NOVA pipelines, the flow-matching
+    # scheduler and mesh construction wait for their slices
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PreLNBlock(64, 2, device="cpu", attn_impl="ring")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention(*(torch.zeros((1, 2, 8, 32)),) * 3, impl="ring:sequence")
+    cfg = {"pipeline": {"name": "NOVAPipeline"}, "model": {},
+           "scheduler": {"class_name": "DDPMScheduler"}}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_pipeline(cfg, device="cpu")
+    cfg["pipeline"]["name"] = "NOVAPointCloudGenerationPipeline"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_pipeline(cfg, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_scheduler({})  # the default class is the flow-matching scheduler
+    with pytest.raises(KeyError, match="Unknown scheduler"):
+        build_scheduler({"class_name": "NoSuchScheduler"})
+
+
+def test_flash_backward_on_the_card_is_refused():
+    """The CUDA forward's autograd node raises in backward (its kernels are
+    not ported); the node itself needs no card to be asked."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 2, row 7"):
+        flash_attention._FlashAttention.backward(None, None, None)
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
