@@ -5,9 +5,11 @@
 Run from the root of a tree (this checkout, or another commit unpacked with
 ``git archive`` into a gitignored directory such as ``build/``). It builds the
 kernels, checks each flagship kernel against its plain version once, times
-each kernel per launch at both batch sizes of its path (CUDA events), and
-times the three pipelines (p50 of 3 calls: the flagship at batch 128 after a
-2-step calibration, the per-point float and int8 paths at batch 8). It
+each kernel per launch at both batch sizes of its path (CUDA events; the
+t2i kernels at the t2i path's shapes), and times the pipelines (p50 of 3
+calls: t2i int8 at batch 4 after a 2-step calibration, the flagship at batch
+128 after a 2-step calibration, the per-point float and int8 paths at batch
+8). It
 prints one line, ``AB {json}``. To compare two trees, run both in one job
 on one card, alternating: A, B, B, A.
 """
@@ -50,6 +52,31 @@ def main(label: str) -> None:
         res[f"flash_attention_{b}_ms"] = cs.sync_ms(
             lambda: cs.fa.flash_attention_with_lse(q, k, v), 20)
         del x, r, q, k, v
+    L = cs.T2I_L["full"]
+    ops = cs._t2i_mlp_operands(gen, (cs.T2I_ROWS, L))
+    kw = cs._t2i_variants("mlp")[0][1]
+    res["fused_int8_mlp_postln_ms"] = cs.sync_ms(
+        lambda: cs.fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw), 20)
+    q, k, v, _ = cs._static_attention_operands(gen, L, "none")
+    smax = torch.tensor(9.0, device="cuda")
+    res["flash_attention_static_ms"] = cs.sync_ms(
+        lambda: cs.fa.flash_attention_static(q, k, v, smax), 20)
+    ops = cs._diffusion_operands(gen, cs.T2I_ROWS * cs.T2I_PAD_P)
+    kw = cs._t2i_variants("diffusion")[0][1]
+    res["fused_int8_diffusion_block_ms"] = cs.sync_ms(
+        lambda: cs.fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw), 200)
+    del ops, q, k, v
+    pipe = cs._make_t2i_pipeline(quantize=True)
+    pipe.calibrate(cs.T2I_PROMPTS, num_inference_steps=2, num_diffusion_steps=2)
+    cs._t2i_sample(pipe, ar_steps=4, seed=9)  # warm-up
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        cs._t2i_sample(pipe, seed=20 + i)
+        times.append(time.perf_counter() - t0)
+    res["t2i_int8_p50_s"] = float(np.percentile(times, 50))
+    res["t2i_int8_samples_per_s"] = cs.T2I_BATCH / res["t2i_int8_p50_s"]
+    del pipe
     pipe = cs._make_pipeline()
     pipe.calibrate(prompt_embeds=pipe.encode_prompt(cs.PROMPTS), num_points=cs.POINTS,
                    num_diffusion_steps=2)

@@ -34,6 +34,38 @@ result line:
 6. profile one call of each path (torch.profiler): device time by kernel and
    the device's idle share.
 
+The NOVA text-to-image slice adds, in their places in that order:
+
+3d. its kernels against their plain versions on the card at the t2i path's
+    shapes: fused_int8_mlp_postln (static / per row, 8 x 288 and 8 x 1280
+    rows, f32 and bf16 residual streams), fused_int8_diffusion_block
+    (static / per row, 200 rows and a ragged count), flash_attention_static
+    (bf16 and int8 score cores, no bias / a visibility bias with -inf keys
+    and a fully masked sample, L = 288, 768, 1280), int8_linear (the
+    ViT's qkv and out projections) and flash_attention at the t2i float
+    path's (8, 16, 1280, 64) with and without its visibility bias; also the
+    widened row pass (the split path's kernels at D=1536);
+4d. NOVA t2i int8 serving as bench.py --mode t2i: NOVATransformer(vit_d16w1024,
+    vit_d32w1024, mlp_d6w1024) at full width and depth, bf16 weights,
+    flow-matching Euler, DummyTextEncoder(256, 32), calibrated (16 AR steps,
+    margin 1.05), then one call at 64 AR x 25 diffusion steps, CFG 5.0 with
+    no truncation, batch 4, latent output: exact launch counts (2032
+    flash_attention_static, 2032 fused_int8_mlp_postln, 9450
+    fused_int8_diffusion_block, 4064 int8_linear, 0 of every other TPU
+    kernel), finite latents with a spread; a call at 16 AR steps held
+    against the same call with the plain versions (gate 2 x floor + 1e-3;
+    floor: the kernel path against itself with the AR noise moved by 1e-6);
+    one encoder pass + one head eval held against plain (relative, 2 x floor
+    + 1e-3);
+4e. the same model with quantize=False: the dispatcher's flash_attention
+    launches (1344 by its 1024-key rule) and the one-step check against
+    plain (the whole float call is chaotic on random weights);
+5c. times of the t2i kernels (the MLP and the static attention at L = 1280
+    and 768, the diffusion block at 200 rows), their plain versions, bounds,
+    F.scaled_dot_product_attention beside the static attention, and both
+    t2i paths' samples/s (p50 of 3 calls, batch 4);
+6.  (in the profiles phase) one profiled t2i int8 call.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -49,6 +81,7 @@ import numpy as np
 import torch
 
 try:
+    from nova_pointcloud_tpu_torch.models.nova import NOVATransformer
     from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer
     from nova_pointcloud_tpu_torch.models.text_encoders.dummy import DummyTextEncoder
     from nova_pointcloud_tpu_torch.ops.kernels import _build
@@ -56,9 +89,11 @@ try:
     from nova_pointcloud_tpu_torch.ops.kernels import fused_block as fb
     from nova_pointcloud_tpu_torch.ops.quantization import quantize_weight_kmajor
     from nova_pointcloud_tpu_torch.pipelines.builder import build_pipeline
+    from nova_pointcloud_tpu_torch.pipelines.nova import NOVAPipeline
     from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import (
         NOVAPointCloudGenerationPipeline)
     from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
+    from nova_pointcloud_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
     _PORT_IMPORT_ERROR = None
 except ImportError as e:  # reported by main(): the script needs the checkout
     _PORT_IMPORT_ERROR = e
@@ -79,14 +114,28 @@ PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
 PP_ARCH, PP_PATCH, PP_BATCH = "pc_d8w768", 1, 8
 PP_DEPTH, PP_D, PP_HEADS, PP_F, PP_HD = 8, 768, 12, 3072, 64
 PP_T = POINTS // PP_PATCH
+# NOVA t2i serving (bench.py --mode t2i): batch 4 x CFG 2, 64 AR steps (63
+# non-empty) x 25 diffusion steps, 32 x 32 latent patches
+T2I_ARCH = ("vit_d16w1024", "vit_d32w1024", "mlp_d6w1024")
+T2I_BATCH, T2I_AR, T2I_DIFF, T2I_CAL_AR, T2I_GUIDANCE = 4, 64, 25, 16, 5.0
+T2I_CMP_AR = 16  # AR steps of the plain / floor comparisons (the plain run is slow)
+T2I_BASE, T2I_VIDEO_BASE = (32, 32), (1, 16, 16)
+T2I_VIT_LAYERS, T2I_V_LAYERS, T2I_DIFF_BLOCKS = 32, 16, 6
+T2I_PROMPTS = [f"a scene {i}" for i in range(T2I_BATCH)]
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
-           "int8_matmul_residual", "flash_attention")
+           "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
+           "fused_int8_diffusion_block", "flash_attention_static", "int8_linear")
 SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
 REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:412",
             "fused_ln_int8_mlp": "nova_pointcloud_tpu/ops/pallas/fused_block.py:133",
             "fused_ln_int8_matmul": "nova_pointcloud_tpu/ops/pallas/fused_block.py:204",
             "int8_matmul_residual": "nova_pointcloud_tpu/ops/pallas/fused_block.py:264",
-            "flash_attention": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:525"}
+            "flash_attention": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:525",
+            "fused_int8_mlp_postln": "nova_pointcloud_tpu/ops/pallas/fused_block.py:555",
+            "fused_int8_diffusion_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:665",
+            "flash_attention_static": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:424",
+            # no TPU kernel: the JAX model's int8 projections are plain XLA
+            "int8_linear": "nova_pointcloud_tpu/models/vit.py:83"}
 OUT_DIR = "build"
 DEV = "cuda"
 
@@ -279,7 +328,8 @@ def _pp_mlp_operands(gen, m):
 def check_split_kernels():
     """fused_ln_int8_matmul and int8_matmul_residual at the per-point path's
     shapes (batch 16 and 8 of 2048 tokens, D=768), a row count that is no
-    multiple of any tile, D=1024, and x / residual of differing dtypes; then
+    multiple of any tile, D=1024, D=1536 (pc_d48w1536's width: rows staged in
+    shared memory), and x / residual of differing dtypes; then
     fused_ln_int8_mlp at that path's width (D=768, F=3072) at both batch
     sizes and a ragged row count, with static and per-row activation scales.
     Tolerance as phase 3: the same int8 codes, f32 sums in another order."""
@@ -287,6 +337,7 @@ def check_split_kernels():
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((2 * PP_BATCH, PP_T), PP_D, bf16, bf16), ((PP_BATCH, PP_T), PP_D, bf16, bf16),
              ((16461,), PP_D, bf16, bf16), ((PP_BATCH, PP_T), 1024, bf16, bf16),
+             ((PP_BATCH, PP_T), 1536, bf16, bf16),  # wider than one register-held row
              ((3, 1000), PP_D, bf16, f32), ((3, 1000), PP_D, f32, bf16)]
     bad = []
     for lead, d, xdt, rdt in cases:
@@ -634,6 +685,365 @@ def path_b():
                            lambda floor: (2 * floor + 1e-3, "2 x floor + 1e-3"))
 
 
+T2I_L = {"video": 32 + T2I_VIDEO_BASE[1] * T2I_VIDEO_BASE[2],  # text + video tokens
+         "full": 256 + T2I_BASE[0] * T2I_BASE[1]}             # video states + image
+T2I_ROWS = 2 * T2I_BATCH  # CFG
+T2I_PAD_P = 25  # predicted tokens per AR step (the cosine schedule's largest count)
+
+
+def _t2i_mlp_operands(gen, lead, x_dtype=torch.float32):
+    """fused_int8_mlp_postln at the ViT's width: x (*lead, 1024) (the image
+    encoder's residual stream is f32: flax promotes the bf16 weights' output
+    against the f32 canvas), W1 (1024, 4096), W2 (4096, 1024), bf16 vectors."""
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEV) * std
+
+    bf16 = torch.bfloat16
+    x = randn(*lead, D).to(x_dtype)
+    w1, s1 = quantize_weight_kmajor(randn(F, D, std=D ** -0.5))
+    w2, s2 = quantize_weight_kmajor(randn(D, F, std=F ** -0.5))
+    return [x, w1, s1, randn(F, std=0.02).to(bf16), w2, s2, randn(D, std=0.02).to(bf16),
+            (1.0 + randn(D, std=0.1)).to(bf16), randn(D, std=0.1).to(bf16)]
+
+
+def _diffusion_operands(gen, m):
+    """fused_int8_diffusion_block at the head's width: x, zc (m, 1024) bf16,
+    Ws (1024, 3072), W1, W2 (1024, 1024), bf16 vectors; the stats bias is
+    wide enough that scale / shift / gate are far from 0 / 0 / 0."""
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEV) * std
+
+    bf16 = torch.bfloat16
+    ws, ss = quantize_weight_kmajor(randn(3 * D, D, std=D ** -0.5))
+    w1, s1 = quantize_weight_kmajor(randn(D, D, std=D ** -0.5))
+    w2, s2 = quantize_weight_kmajor(randn(D, D, std=D ** -0.5))
+    return [randn(m, D).to(bf16), randn(m, D).to(bf16), ws, ss, randn(3 * D, std=0.3).to(bf16),
+            w1, s1, randn(D, std=0.02).to(bf16), w2, s2, randn(D, std=0.02).to(bf16),
+            (1.0 + randn(D, std=0.1)).to(bf16), randn(D, std=0.1).to(bf16)]
+
+
+def _static_attention_operands(gen, L, bias_kind, rows=T2I_ROWS):
+    """q, k, v as the ViT hands them over: (B, H, L, 64) views of one (B, L,
+    3, H, 64) bf16 projection; a visibility bias masks ~40% of the keys
+    after a 256-key prefix, and every key of sample 1 (a fully masked row)."""
+    qkv = torch.randn((rows, L, 3, HEADS, 64), generator=gen, device=DEV).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = None
+    if bias_kind == "visibility":
+        keep = torch.rand((rows, 1, 1, L), generator=gen, device=DEV) > 0.4
+        keep[..., :256] = True
+        bias = torch.where(keep, 0.0, float("-inf"))
+        bias[1] = float("-inf")
+    return q, k, v, bias
+
+
+def _t2i_variants(kind):
+    s = lambda v: torch.tensor(v, device=DEV)  # noqa: E731
+    if kind == "mlp":
+        return [("static", dict(a_x=s(4.0), a_gelu=s(3.0))), ("per-row", {})]
+    return [("static", dict(a_z=s(4.0), a_h=s(6.0), a_silu=s(3.0))), ("per-row", {})]
+
+
+@phase("3d t2i kernels vs plain")
+def check_nova_kernels():
+    """Each NOVA kernel against its plain version at the t2i path's shapes,
+    every variant, and the PR 2 flash kernel at the t2i float path's
+    (8, 16, 1280, 64) with and without its visibility bias. Tolerances: the
+    int8 kernels' (phase 3: max <= 2^-6 max|y|, mean <= 2^-10 mean|y|); for
+    both attentions flash bf16's (phase 3c: max <= 2^-6 max|o|, mean <= 2^-8
+    mean|o|), and exactly 0 on the fully masked sample."""
+    gen = torch.Generator(device=DEV).manual_seed(4242)
+    bad = []
+    for L in (T2I_L["video"], T2I_L["full"]):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            ops = _t2i_mlp_operands(gen, (T2I_ROWS, L), x_dtype)
+            for label, kw in _t2i_variants("mlp"):
+                y = fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw)
+                torch.cuda.synchronize()
+                ref = fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw)
+                if not _tol_check("fused_int8_mlp_postln", f"{label} L={L} x={x_dtype}", y, ref,
+                                  like=ops[0]):
+                    bad.append(f"mlp_postln {label} {L} {x_dtype}")
+                del y, ref
+            del ops
+    for m in (T2I_ROWS * T2I_PAD_P, 77):
+        ops = _diffusion_operands(gen, m)
+        for label, kw in _t2i_variants("diffusion"):
+            y = fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+            torch.cuda.synchronize()
+            ref = fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw)
+            if not _tol_check("fused_int8_diffusion_block", f"{label} rows={m}", y, ref,
+                              like=ops[0]):
+                bad.append(f"diffusion {label} {m}")
+    smax = torch.tensor(9.0, device=DEV)
+    for L in (T2I_L["video"], 768, T2I_L["full"]):
+        for core in ("bf16", "int8"):
+            for bias_kind in ("none", "visibility"):
+                q, k, v, bias = _static_attention_operands(gen, L, bias_kind)
+                kw = (dict(a_q=torch.tensor(4.5, device=DEV), a_k=torch.tensor(4.5, device=DEV))
+                      if core == "int8" else {})
+                o = fa.flash_attention_static(q, k, v, smax, bias, **kw)
+                torch.cuda.synchronize()
+                ref = fa.flash_attention_static_plain(q, k, v, smax, bias, **kw)
+                label = f"core={core} bias={bias_kind} L={L}"
+                ok = _tol_check("flash_attention_static", label, o, ref, 2.0 ** -6, 2.0 ** -8,
+                                like=ref)
+                if bias is not None:
+                    dead_ok = bool((o[1] == 0).all())
+                    print(f"    fully masked sample gives 0: {dead_ok}")
+                    ok = ok and dead_ok
+                if not ok:
+                    bad.append(f"static attention {label}")
+                del q, k, v, o, ref
+    for bias_kind in ("none", "visibility"):  # the t2i float path's flash calls
+        q, k, v, bias = _static_attention_operands(gen, T2I_L["full"], bias_kind)
+        o = fa.flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref, _ = fa.flash_attention_plain(q, k, v, bias)
+        label = f"bias={bias_kind} L={T2I_L['full']}"
+        ok = _tol_check("flash_attention", label, o, ref, 2.0 ** -6, 2.0 ** -8, like=ref)
+        if bias is not None:
+            dead_ok = bool((o[1] == 0).all())
+            print(f"    fully masked sample gives 0: {dead_ok}")
+            ok = ok and dead_ok
+        if not ok:
+            bad.append(f"flash_attention {label}")
+        del q, k, v, o, ref
+    for n in (3 * D, D):  # the qkv and out projections, f32 residual in, bf16 out
+        x = torch.randn((T2I_ROWS, T2I_L["full"], D), generator=gen, device=DEV)
+        w, ws = quantize_weight_kmajor(
+            torch.randn((n, D), generator=gen, device=DEV) * D ** -0.5)
+        b = (torch.randn((n,), generator=gen, device=DEV) * 0.1).to(torch.bfloat16)
+        y = fb.int8_linear(x, w, ws, b, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not _tol_check("int8_linear", f"{D}->{n}", y, fb.int8_linear_plain(
+                x, w, ws, b, torch.bfloat16)):
+            bad.append(f"int8_linear {n}")
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    fb.reset_launch_counts()
+
+
+def _make_t2i_pipeline(quantize, state_dict=None):
+    """bench.py --mode t2i's model at full width and depth, seeded random
+    weights with the zero-initialised AdaLN projections (and the biases)
+    filled, so every diffusion block's gate and modulation depend on its
+    inputs; bf16 weights and compute dtype, as the bench serves."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = NOVATransformer(arch=T2I_ARCH, image_dim=4, image_base_size=T2I_BASE,
+                            video_base_size=T2I_VIDEO_BASE, patch_size=2, text_token_dim=256,
+                            text_token_len=32, quantize=quantize, attn_core="bf16",
+                            dtype=torch.bfloat16, device=DEV)
+    if state_dict is None:
+        model.init_weights(gen)
+        model.fill_zero_init(gen)
+    else:
+        model.load_state_dict(state_dict)
+    model.to(torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"NOVA t2i {'int8' if quantize else 'float'} {T2I_ARCH}: {n_params / 1e6:.1f}M "
+          f"parameters, {model.num_image_tokens} image tokens, batch {T2I_BATCH}")
+    return NOVAPipeline(model, FlowMatchEulerScheduler(),
+                        text_encoder=DummyTextEncoder(256, 32))
+
+
+def _t2i_noise(pipe, seed, ar_steps=T2I_AR):
+    """The prediction order and every AR step's initial noise, drawn up front
+    (the pipeline draws the same from its generator when not given), so the
+    comparisons can replay a call with one input moved."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    _, counts, _, pad_p = pipe._schedule(ar_steps, T2I_DIFF)
+    ni, pd = pipe.model.num_image_tokens, pipe.model.patch_dim
+    order = torch.argsort(torch.rand((T2I_BATCH, ni), generator=gen, device=DEV), dim=1)
+    noise = torch.randn((len(counts), T2I_BATCH, pad_p, pd), generator=gen, device=DEV)
+    return order, noise
+
+
+def _t2i_sample(pipe, ar_steps=T2I_AR, seed=1, order=None, noise=None):
+    out = pipe(T2I_PROMPTS, num_inference_steps=ar_steps, num_diffusion_steps=T2I_DIFF,
+               guidance_scale=T2I_GUIDANCE, guidance_trunc=0.0,
+               generator=torch.Generator(device=DEV).manual_seed(seed), order=order,
+               noise=noise, output_type="latent")
+    torch.cuda.synchronize()
+    return out.latents.float()
+
+
+def _t2i_compare(pipe, label, ar_steps):
+    """The call under use_plain_kernels() and the kernel path with every AR
+    step's noise moved by 1e-6 (the floor), against the kernel call; gate
+    2 x floor + 1e-3."""
+    order, noise = _t2i_noise(pipe, seed=3, ar_steps=ar_steps)
+    lat = _t2i_sample(pipe, ar_steps, order=order, noise=noise)
+    fb.reset_launch_counts()
+    with fb.use_plain_kernels():
+        plain = _t2i_sample(pipe, ar_steps, order=order, noise=noise)
+    plain_launches = dict(fb.LAUNCHES)
+    moved = noise + 1e-6 * torch.randn(noise.shape, device=DEV,
+                                       generator=torch.Generator(device=DEV).manual_seed(4))
+    floor = (lat - _t2i_sample(pipe, ar_steps, order=order, noise=moved)).abs().mean().item()
+    vs_plain = (lat - plain).abs().mean().item()
+    scale = lat.abs().mean().item()
+    tol = 2 * floor + 1e-3
+    ok = vs_plain <= tol and not any(plain_launches.values())
+    print(f"{label} ({ar_steps} AR steps): kernels vs plain run mean |diff| {vs_plain:.3e} "
+          f"(tol 2 x floor + 1e-3 = {tol:.3e}; floor, kernels vs kernels with the AR noise "
+          f"moved by 1e-6: {floor:.3e}; "
+          f"mean |latent| {scale:.3e}); plain run launched {plain_launches}: "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok, dict(mean_abs_vs_plain=vs_plain, floor_mean_abs=floor, tol=tol,
+                    mean_abs_latent=scale, compare_ar_steps=ar_steps,
+                    plain_launches=plain_launches)
+
+
+def _t2i_step_check(pipe, label, kernel, expected):
+    """One image-encoder pass of the masking phase (half the tokens visible,
+    256 + 1024 keys: every layer on the path's attention kernel) and one
+    diffusion-head eval, kernels against plain, relative mean error gated at
+    2 x floor + 1e-3 (floor: kernels against kernels with the canvas and
+    x_t moved by 1e-6); ``expected`` launches of ``kernel`` in the pass."""
+    from nova_pointcloud_tpu_torch.models.guidance import GuidanceConfig
+
+    model, qp = pipe.model, pipe.serving_qparams()
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    ni, pd = model.num_image_tokens, model.patch_dim
+    with torch.no_grad():
+        c = pipe.encode_prompt(T2I_PROMPTS, guidance=GuidanceConfig(guidance_scale=T2I_GUIDANCE))
+        cond = model.encode_video(model.bos_frame(T2I_ROWS), c, 1, qparams=qp)
+        canvas = torch.randn((T2I_BATCH, ni, pd), generator=gen, device=DEV)
+        mask = (torch.rand((T2I_BATCH, ni, 1), generator=gen, device=DEV) < 0.5).float()
+        x_t = torch.randn((T2I_ROWS, T2I_PAD_P, pd), generator=gen, device=DEV)
+        t = torch.full((T2I_ROWS,), 500.0, device=DEV)
+
+        def step(cv, xt):
+            z = model.encode_image_step(model.tokens_from_patches(cv).repeat(2, 1, 1),
+                                        mask.repeat(2, 1, 1), cond, qparams=qp)
+            zs = z[:, :T2I_PAD_P]
+            return z.float(), model.denoise_step(xt, t, zs, qparams=qp).float()
+
+        fb.reset_launch_counts()
+        z, pred = step(canvas, x_t)
+        launches = fb.LAUNCHES[kernel]
+        with fb.use_plain_kernels():
+            z_p, pred_p = step(canvas, x_t)
+        z_m, pred_m = step(canvas + 1e-6 * torch.randn(canvas.shape, generator=gen, device=DEV),
+                           x_t + 1e-6 * torch.randn(x_t.shape, generator=gen, device=DEV))
+    torch.cuda.synchronize()
+    res, ok = {}, launches == expected
+    for name, a, p, m in (("encode_image_step", z, z_p, z_m), ("denoise_step", pred, pred_p,
+                                                                 pred_m)):
+        scale = p.abs().mean()
+        rel = ((a - p).abs().mean() / scale).item()
+        floor = ((a - m).abs().mean() / scale).item()
+        good = bool(torch.isfinite(a).all()) and rel <= 2 * floor + 1e-3
+        ok = ok and good
+        print(f"{label} one {name}, kernels vs plain: mean |diff| / mean |plain| {rel:.3e} "
+              f"(tol 2 x floor + 1e-3 = {2 * floor + 1e-3:.3e}; floor, inputs moved by 1e-6: "
+              f"{floor:.3e}): {'ok' if good else 'FAIL'}")
+        res[name] = dict(rel_err=rel, rel_floor=floor)
+    print(f"{label} one step: {launches} {kernel} launches (expected {expected}): "
+          f"{'ok' if launches == expected else 'FAIL'}")
+    return ok, res
+
+
+def _t2i_call_counted(pipe, label, expected):
+    """One call at the bench shape with the counts at 0 just before and read
+    just after; output checks."""
+    fb.reset_launch_counts()
+    lat = _t2i_sample(pipe, seed=1)
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {n: expected.get(n, 0) for n in KERNELS}
+    print(f"launches in one {label} call: {launches} (expected {expected}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    shape = (T2I_BATCH, 2 * T2I_BASE[0], 2 * T2I_BASE[1], 4)
+    ok = (tuple(lat.shape) == shape and bool(torch.isfinite(lat).all())
+          and lat.std().item() > 0.05)
+    print(f"latents {tuple(lat.shape)} finite, std {lat.std().item():.4f}: "
+          f"{'ok' if ok else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, label, launches[name])
+    return counts_ok and ok, dict(launches=launches, output_ok=ok,
+                                  output_std=lat.std().item())
+
+
+S_T2I = 63  # non-empty AR steps of 64 over 1024 tokens
+T2I_INT8_LAUNCHES = {
+    "flash_attention_static": T2I_V_LAYERS + T2I_VIT_LAYERS * S_T2I,
+    "fused_int8_mlp_postln": T2I_V_LAYERS + T2I_VIT_LAYERS * S_T2I,
+    "fused_int8_diffusion_block": T2I_DIFF_BLOCKS * T2I_DIFF * S_T2I,
+    "int8_linear": 2 * (T2I_V_LAYERS + T2I_VIT_LAYERS * S_T2I)}
+
+
+def _flash_route_launches(pipe):
+    """flash_attention launches of one float call by the dispatcher's rule
+    (ops/attention.flash_route): per image-encoder pass, the decoder half
+    sees all 256 + 1024 keys; the encoder half sees 256 + its visible bucket
+    (128, 256, 512) in the gather phases and 1280 in the masking phase; the
+    video encoder sees 288. Each layer with >= 1024 keys launches once."""
+    from nova_pointcloud_tpu_torch.ops.attention import flash_route
+    from nova_pointcloud_tpu_torch.pipelines.nova import bucket_plan
+
+    _, counts, starts, _ = pipe._schedule(T2I_AR, T2I_DIFF)
+    ni = pipe.model.num_image_tokens
+    half = T2I_VIT_LAYERS // 2
+    n = T2I_V_LAYERS * flash_route(T2I_L["video"], T2I_L["video"], 64, None, "auto", True)
+    for s_b, s_e, bucket in bucket_plan(starts, ni):
+        lk = 256 + (ni if bucket is None else bucket)
+        bias = (T2I_ROWS, 1, 1, lk)
+        enc = flash_route(lk, lk, 64, bias, "auto", True)
+        dec = flash_route(T2I_L["full"], T2I_L["full"], 64, None, "auto", True)
+        n += (s_e - s_b) * half * (int(enc) + int(dec))
+    return n
+
+
+@phase("4d t2i int8 path")
+def t2i_int8():
+    pipe = _make_t2i_pipeline(quantize=True)
+    t0 = time.perf_counter()
+    fb.reset_launch_counts()
+    pipe.calibrate(T2I_PROMPTS, num_inference_steps=T2I_CAL_AR, num_diffusion_steps=T2I_DIFF,
+                   guidance_scale=T2I_GUIDANCE,
+                   generator=torch.Generator(device=DEV).manual_seed(2), margin=1.05)
+    torch.cuda.synchronize()
+    cal_launches = {k: v for k, v in fb.LAUNCHES.items() if v}
+    print(f"calibrate ({T2I_CAL_AR} AR steps, plain mirrors, the dispatcher's attention): "
+          f"{time.perf_counter() - t0:.1f} s, launches {cal_launches}")
+    _t2i_sample(pipe, ar_steps=4, seed=9)  # warm-up: kernel loads, allocator
+    ok, rec = _t2i_call_counted(pipe, "t2i_int8", T2I_INT8_LAUNCHES)
+    agree, cmp = _t2i_compare(pipe, "t2i_int8", T2I_CMP_AR)
+    step_ok, step = _t2i_step_check(pipe, "t2i_int8", "flash_attention_static",
+                                    T2I_VIT_LAYERS)
+    report["t2i_int8"] = dict(rec, calibration_launches=cal_launches, one_step=step, **cmp)
+    if not (ok and agree and step_ok):
+        raise AssertionError("t2i int8 check failed")
+    return pipe
+
+
+@phase("4e t2i float path")
+def t2i_float(pipe_int8):
+    """quantize=False on the same weights: the dispatcher's attention, the
+    flash kernel from 1024 keys. The whole bf16 float call is chaotic on
+    these random weights (CFG 5, 63 AR steps): the kernel path against
+    itself with the noise moved by 1e-6 differs by about the latents' own
+    size (PERF.md), so no whole-call comparison with the plain run can
+    gate it. The flash kernel is held at this path's shapes in phase 3d;
+    here the one-step check (one encoder pass, every layer on the flash
+    kernel, and one head eval) holds the path against plain, as phase 4's
+    one forward."""
+    if pipe_int8 is None:
+        raise AssertionError("no t2i weights: the int8 path failed")
+    pipe = _make_t2i_pipeline(quantize=False, state_dict=pipe_int8.model.state_dict())
+    expected = _flash_route_launches(pipe)
+    print(f"flash_attention launches by the dispatcher's >= {1024}-key rule: {expected}")
+    _t2i_sample(pipe, ar_steps=4, seed=9)  # warm-up
+    ok, rec = _t2i_call_counted(pipe, "t2i_float", {"flash_attention": expected})
+    step_ok, step = _t2i_step_check(pipe, "t2i_float", "flash_attention", T2I_VIT_LAYERS)
+    report["t2i_float"] = dict(rec, expected_flash=expected, one_step=step)
+    if not (ok and step_ok and expected == 1344):
+        raise AssertionError("t2i float check failed")
+    return pipe
+
+
 def _bound(ops_s, nbytes):
     """Least time for the work in ms: its operations over the peak rate of
     their type (``ops_s``, seconds), or its bytes (each input read once, each
@@ -691,7 +1101,8 @@ def timing(pipe):
     report["pipeline"].update(batch=BATCH, p50_s=p50, samples_per_s=BATCH / p50, times_s=times)
 
 
-PORT_KERNEL_NAMES = ("gemm_s8_kernel", "row_quant_kernel", "attn_core_", "flash_fwd_")
+PORT_KERNEL_NAMES = ("gemm_s8_kernel", "row_quant_kernel", "row_op_kernel", "attn_core_",
+                     "flash_fwd_", "flash_static_kernel", "static_qk_quant_kernel")
 
 
 def profile_call(sample, label="flagship"):
@@ -802,8 +1213,83 @@ def timing_per_point(pipe_a, pipe_b):
                              times_s=times)
 
 
+@phase("5c timing of the t2i kernels and paths")
+def timing_t2i(pipe_int8, pipe_float):
+    """The MLP and the static attention at L = 1280 (the full phase and the
+    decoder half) and 768 (the largest gather bucket), 8 rows each; the
+    diffusion block at 200 rows. Bounds: the int8 / bf16 operations over
+    their peaks or the bytes (each input read once, each output written
+    once) over the memory rate, whichever is larger."""
+    import torch.nn.functional as Fn
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    for L in (T2I_L["full"], 768):
+        m = T2I_ROWS * L
+        ops = _t2i_mlp_operands(gen, (T2I_ROWS, L))
+        kw = _t2i_variants("mlp")[0][1]
+        row = _time_kernel(
+            "fused_int8_mlp_postln", (m, D, F),
+            lambda: fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw),
+            lambda: fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw),
+            _bound(4 * m * D * F / PEAK_INT8_OPS,
+                   2 * m * D * 4 + 2 * D * F + (F + 3 * D) * 2 + (F + D) * 4))
+        if L == T2I_L["full"]:
+            report["kernels"]["fused_int8_mlp_postln"].update(row)
+        del ops
+        q, k, v, _ = _static_attention_operands(gen, L, "none")
+        smax = torch.tensor(9.0, device=DEV)
+        bh = T2I_ROWS * HEADS
+        row = _time_kernel(
+            "flash_attention_static", (T2I_ROWS, HEADS, L, 64),
+            lambda: fa.flash_attention_static(q, k, v, smax),
+            lambda: fa.flash_attention_static_plain(q, k, v, smax),
+            _bound(4 * bh * L * L * 64 / PEAK_BF16_FLOPS, 4 * bh * L * 64 * 2),
+            library=lambda: Fn.scaled_dot_product_attention(q, k, v))
+        if L == T2I_L["full"]:
+            report["kernels"]["flash_attention_static"].update(row)
+        del q, k, v
+        x = torch.randn((m, D), generator=gen, device=DEV)
+        w, ws = quantize_weight_kmajor(torch.randn((3 * D, D), generator=gen, device=DEV)
+                                       * D ** -0.5)
+        b = torch.zeros((3 * D,), device=DEV, dtype=torch.bfloat16)
+        row = _time_kernel(
+            "int8_linear", (m, D, 3 * D),
+            lambda: fb.int8_linear(x, w, ws, b, torch.bfloat16),
+            lambda: fb.int8_linear_plain(x, w, ws, b, torch.bfloat16),
+            _bound(2 * m * D * 3 * D / PEAK_INT8_OPS, m * D * 4 + m * 3 * D * 2 + 3 * D * D))
+        if L == T2I_L["full"]:
+            report["kernels"]["int8_linear"].update(row)
+        del x
+    m = T2I_ROWS * T2I_PAD_P
+    ops = _diffusion_operands(gen, m)
+    kw = _t2i_variants("diffusion")[0][1]
+    row = _time_kernel(
+        "fused_int8_diffusion_block", (m, D),
+        lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw),
+        lambda: fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw),
+        _bound(2 * m * D * 5 * D / PEAK_INT8_OPS,
+               3 * m * D * 2 + 5 * D * D + (3 * D + 4 * D) * 2 + 5 * D * 4), iters=200)
+    report["kernels"]["fused_int8_diffusion_block"].update(row)
+    torch.cuda.empty_cache()
+    fb.reset_launch_counts()
+    for label, pipe in (("t2i_int8", pipe_int8), ("t2i_float", pipe_float)):
+        if pipe is None:
+            raise AssertionError(f"no pipeline: {label} failed")
+        times = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            _t2i_sample(pipe, seed=20 + i)
+            times.append(time.perf_counter() - t0)
+        p50 = float(np.percentile(times, 50))
+        print(f"{label}: batch {T2I_BATCH}, {T2I_AR} AR x {T2I_DIFF} diffusion steps, p50 "
+              f"{p50:.3f} s per call, {T2I_BATCH / p50:.3f} samples/s "
+              f"(times {[round(t, 3) for t in times]})")
+        report[label].update(batch=T2I_BATCH, p50_s=p50, samples_per_s=T2I_BATCH / p50,
+                             times_s=times)
+
+
 @phase("6 profiles")
-def profiles(pipe, pipe_a, pipe_b):
+def profiles(pipe, pipe_a, pipe_b, pipe_t2i):
     """One profiled call of each path, after every timing: the profiler's
     hooks stay on the launch path once it has run, and would slow the
     host side of the per-launch timings."""
@@ -812,6 +1298,8 @@ def profiles(pipe, pipe_a, pipe_b):
     for label, p in (("path_a", pipe_a), ("path_b", pipe_b)):
         if p is not None:
             profile_call(lambda: _sample(p, seed=30, prompts=PP_PROMPTS), label)
+    if pipe_t2i is not None:
+        profile_call(lambda: _t2i_sample(pipe_t2i, seed=30), "t2i_int8")
 
 
 def main():
@@ -826,12 +1314,16 @@ def main():
         check_kernels()
         check_split_kernels()
         check_flash()
+        check_nova_kernels()
         pipe = main_path()
         pipe_a = path_a()
         pipe_b = path_b()
+        pipe_t2i = t2i_int8()
+        pipe_t2i_f = t2i_float(pipe_t2i)
         timing(pipe)
         timing_per_point(pipe_a, pipe_b)
-        profiles(pipe, pipe_a, pipe_b)
+        timing_t2i(pipe_t2i, pipe_t2i_f)
+        profiles(pipe, pipe_a, pipe_b, pipe_t2i)
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})
@@ -851,6 +1343,8 @@ def main():
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         sys.exit(1)
+    # again beside the results, so the end of the output names the card
+    print(f"card (nvidia-smi name, power limit): {report['device']['smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

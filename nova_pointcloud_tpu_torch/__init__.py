@@ -7,7 +7,10 @@ passes ``device="cpu"`` (utils/device.py).
 
 Ported so far: text-to-point-cloud serving (pipelines/pointcloud_gen,
 pipelines/builder): the patched flagship and the per-point (2048-token) int8
-and float paths, with hand-written CUDA kernels for the four fused int8 block
-kernels (ops/kernels/fused_block.py) and the flash attention forward
-(ops/kernels/flash_attention.py); sources in csrc/.
+and float paths; NOVA text-to-image serving (pipelines/nova, models/nova):
+int8 and float, latent output. Hand-written CUDA kernels for the six fused
+int8 block kernels and the ViT's int8 projections
+(ops/kernels/fused_block.py), the flash attention forward and the
+calibrated static-offset attention (ops/kernels/flash_attention.py); sources
+in csrc/.
 """

@@ -19,6 +19,24 @@ namespace nova {
 
 constexpr float kLnEps = 1e-6f;  // flax nn.LayerNorm default, used by the pc blocks
 
+// x / (1 + exp(-x)), as fused_block._silu
+__device__ __forceinline__ float silu_f(float x) { return x / (1.0f + expf(-x)); }
+
+// exact-erf gelu with erf by Abramowitz-Stegun 7.1.26 (max error 1.5e-7), the
+// polynomial of fused_block._erf, so kernel and plain version quantize the
+// same values: 0.5 * x * (1 + erf(x / sqrt(2)))
+__device__ __forceinline__ float gelu_as(float x) {
+  const float z = x * 0.70710678118654752f;
+  const float sgn = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+  const float az = fabsf(z);
+  const float t = 1.0f / (1.0f + 0.3275911f * az);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float erf = sgn * (1.0f - poly * expf(-az * az));
+  return 0.5f * x * (1.0f + erf);
+}
+
 __device__ __forceinline__ float ld_any(const void* p, long i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
               : reinterpret_cast<const float*>(p)[i];
@@ -70,7 +88,8 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
 }
 
 // One block of 128 threads per row of x (M, K), the row held in registers
-// (MAXV values a thread, K <= 128 * MAXV): optional LayerNorm (two-pass
+// (MAXV values a thread, K <= 128 * MAXV; launch_row_quant takes it for
+// K <= 1024 and row_op_kernel below for wider rows): optional LayerNorm (two-pass
 // mean/var, eps 1e-6, as fused_block._ln), then int8 quantization of the
 // row, static when amax_static is given, else per row. Writes q (M, K) and
 // the row scale sx (M).
@@ -130,22 +149,130 @@ __global__ void __launch_bounds__(kRowThreads)
   if (threadIdx.x == 0) sx[blockIdx.x] = s_row;
 }
 
+// Rows of any width: one block of 256 threads per row of x (M, K), the row
+// staged in shared memory (K floats) instead of registers. OP selects what
+// happens to the row (each thread reads and writes only its own elements,
+// k = tid + i * 256, so only the reductions synchronise):
+//   ROW_QUANT         [LN_affine(x)] -> int8 q, row scale sx (static or per row)
+//   ROW_SILU_QUANT    silu(x) -> int8                      (diffusion cond z)
+//   ROW_ADALN_QUANT   LN(x) * (1 + scale) + shift -> int8  (AdaLN-zero, no affine)
+//   ROW_POSTLN_RESID  y = x_res + LN_affine(x)             (post-norm residual)
+//   ROW_POSTLN_GATE   y = LN_affine(x) * gate + x_res      (gated residual)
+// LayerNorm is two-pass (mean, then mean of squared deviations), as
+// fused_block._ln, with the eps given.
+enum { ROW_QUANT = 0, ROW_SILU_QUANT = 1, ROW_ADALN_QUANT = 2, ROW_POSTLN_RESID = 3,
+       ROW_POSTLN_GATE = 4 };
+constexpr int kRowOpThreads = 256;
+constexpr int kRowOpMaxK = 56 * 1024;  // K floats of dynamic shared memory, under 227 KB
+
+struct RowParams {
+  const void* x;
+  int x_bf16, K;
+  const void* ln_w;  // affine LN params (ROW_QUANT: nullptr = no LN)
+  const void* ln_b;
+  int vec_bf16;
+  float eps;
+  const float* amax_static;  // quant ops: calibrated amax, or nullptr = per row
+  int8_t* q;
+  float* sx;
+  const float* mod;  // ROW_ADALN_QUANT: scale at [0, K), shift at [K, 2K) of each
+  int mod_ld;        // row of a (M, mod_ld) f32 matrix; ROW_POSTLN_GATE: gate at mod
+  const void* res;   // ROW_POSTLN_*: the residual (M, K)
+  int res_bf16;
+  void* y;
+  int y_bf16;
+};
+
+template <int OP>
+__global__ void __launch_bounds__(kRowOpThreads) row_op_kernel(RowParams p) {
+  extern __shared__ float srow[];
+  __shared__ float red[33];
+  const int K = p.K, tid = threadIdx.x;
+  const long base = static_cast<long>(blockIdx.x) * K;
+  const float* mod = p.mod != nullptr ? p.mod + static_cast<long>(blockIdx.x) * p.mod_ld : nullptr;
+  for (int k = tid; k < K; k += kRowOpThreads) {
+    const float v = ld_any(p.x, base + k, p.x_bf16);
+    srow[k] = OP == ROW_SILU_QUANT ? silu_f(v) : v;
+  }
+  const bool ln = OP != ROW_SILU_QUANT && (OP != ROW_QUANT || p.ln_w != nullptr);
+  if (ln) {
+    float s = 0.0f;
+    for (int k = tid; k < K; k += kRowOpThreads) s += srow[k];
+    const float mu = block_reduce(s, red, false) / static_cast<float>(K);
+    float d2 = 0.0f;
+    for (int k = tid; k < K; k += kRowOpThreads) {
+      const float d = srow[k] - mu;
+      d2 += d * d;
+    }
+    const float var = block_reduce(d2, red, false) / static_cast<float>(K);
+    const float rstd = 1.0f / sqrtf(var + p.eps);
+    for (int k = tid; k < K; k += kRowOpThreads) {
+      float v = (srow[k] - mu) * rstd;
+      if (OP == ROW_ADALN_QUANT) {
+        v = v * (1.0f + mod[k]) + mod[K + k];
+      } else {
+        v = v * ld_any(p.ln_w, k, p.vec_bf16) + ld_any(p.ln_b, k, p.vec_bf16);
+      }
+      if (OP == ROW_POSTLN_RESID) {
+        st_any(p.y, base + k, ld_any(p.res, base + k, p.res_bf16) + v, p.y_bf16);
+      } else if (OP == ROW_POSTLN_GATE) {
+        st_any(p.y, base + k, v * mod[k] + ld_any(p.res, base + k, p.res_bf16), p.y_bf16);
+      } else {
+        srow[k] = v;
+      }
+    }
+  }
+  if (OP == ROW_POSTLN_RESID || OP == ROW_POSTLN_GATE) return;
+  float s_row, mul = 1.0f;
+  const bool is_static = p.amax_static != nullptr;
+  if (is_static) {
+    s_row = static_scale(p.amax_static);
+    mul = 1.0f / s_row;
+  } else {
+    float m = 0.0f;
+    for (int k = tid; k < K; k += kRowOpThreads) m = fmaxf(m, fabsf(srow[k]));
+    s_row = fmaxf(block_reduce(m, red, true) / 127.0f, 1e-8f);
+  }
+  for (int k = tid; k < K; k += kRowOpThreads)
+    p.q[base + k] = q8_rint(is_static ? srow[k] * mul : srow[k] / s_row);
+  if (tid == 0) p.sx[blockIdx.x] = s_row;
+}
+
+template <int OP>
+inline cudaError_t launch_row_op(const RowParams& p, int M, cudaStream_t stream) {
+  if (M <= 0 || p.K <= 0 || p.K > kRowOpMaxK) return cudaErrorInvalidValue;
+  const int smem = p.K * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(row_op_kernel<OP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  row_op_kernel<OP><<<M, kRowOpThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// LN (eps 1e-6, when ln_w is given) + int8 quant of each row. Rows of up to
+// 1024 values are held in registers (row_quant_kernel); wider rows are staged
+// in shared memory (row_op_kernel), so K has no practical limit.
 inline cudaError_t launch_row_quant(const void* x, int x_bf16, int M, int K,
                                     const void* ln_w, const void* ln_b, int vec_bf16,
                                     const float* amax_static, int8_t* q, float* sx,
                                     cudaStream_t stream) {
-  if (K <= 8 * kRowThreads)
+  if (K <= 8 * kRowThreads) {
     row_quant_kernel<8><<<M, kRowThreads, 0, stream>>>(x, x_bf16, K, ln_w, ln_b, vec_bf16,
                                                        amax_static, q, sx);
-  else if (K <= 32 * kRowThreads)
-    row_quant_kernel<32><<<M, kRowThreads, 0, stream>>>(x, x_bf16, K, ln_w, ln_b, vec_bf16,
-                                                        amax_static, q, sx);
-  else if (K <= 64 * kRowThreads)
-    row_quant_kernel<64><<<M, kRowThreads, 0, stream>>>(x, x_bf16, K, ln_w, ln_b, vec_bf16,
-                                                        amax_static, q, sx);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return cudaGetLastError();
+  }
+  RowParams p = {};
+  p.x = x;
+  p.x_bf16 = x_bf16;
+  p.K = K;
+  p.ln_w = ln_w;
+  p.ln_b = ln_b;
+  p.vec_bf16 = vec_bf16;
+  p.eps = kLnEps;
+  p.amax_static = amax_static;
+  p.q = q;
+  p.sx = sx;
+  return launch_row_op<ROW_QUANT>(p, M, stream);
 }
 
 }  // namespace nova

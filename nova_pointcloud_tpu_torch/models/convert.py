@@ -1,16 +1,21 @@
 """Convert the JAX model's parameters into the port's ``state_dict``.
 
 Input: the flax param pytree of ``nova_pointcloud_tpu``'s
-``NOVAPointCloudTransformer`` with numpy leaves (``jax.tree.map(np.asarray,
-params)``); this module never imports JAX. Mapping:
+``NOVAPointCloudTransformer`` or ``NOVATransformer`` with numpy leaves
+(``jax.tree.map(np.asarray, params)``); this module never imports JAX.
+Mapping:
 
 - ``Dense`` kernel (in, out) -> ``nn.Linear.weight`` (out, in); bias as is.
 - ``LayerNorm`` scale / bias -> weight / bias.
 - ``MultiHeadDotProductAttention`` (under ``attn`` / ``cluster_attn``):
   query/key/value kernels (D, H, hd) -> (D, D) transposed, biases (H, hd)
   -> (D,); the out kernel (H, hd, D) -> (D, D) transposed.
-- The scanned stack ``blocks/layers/block/...`` carries a leading depth
-  axis: leaf ``[i]`` goes to ``blocks.layers.{i}....``.
+- A scanned stack (``<parent>/layers/block/...`` in the pc model,
+  ``<vit>/enc_layers/block/...`` and ``<vit>/dec_layers/block/...`` in the
+  NOVA ViTs) carries a leading depth axis: leaf ``[i]`` goes to
+  ``<parent>.layers.{i}....`` (``<vit>.enc_layers.{i}....``).
+- Everything else (the NOVA diffusion head's ``blocks_{i}``, raw parameters
+  such as ``null_prompt`` or ``bos_token``) keeps its path, dot-joined.
 
 ``convert_tree`` carries the ``qparams`` and act-scale trees across: they
 have the same keys and shapes on both sides.
@@ -23,7 +28,7 @@ import torch
 
 _MHA_PARENTS = ("attn", "cluster_attn")
 _MHA_PROJ = ("query", "key", "value", "out")
-_STACK = ("blocks", "layers", "block")
+_SCANS = ("layers", "enc_layers", "dec_layers")  # nn.scan stacks: <scan>/block/...
 
 
 def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -55,17 +60,25 @@ def _convert_leaf(path: Tuple[str, ...], v: np.ndarray, lead: int):
     return name, v
 
 
+def _stack_index(path: Tuple[str, ...]):
+    """Index of the ``block`` key of a scanned stack in ``path``, or None."""
+    for j in range(1, len(path) - 1):
+        if path[j] == "block" and path[j - 1] in _SCANS:
+            return j
+    return None
+
+
 def convert_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """flax param tree (numpy leaves) -> the port's ``state_dict``."""
     out = {}
     for path, v in _leaves(params):
-        stacked = path[:3] == _STACK
-        suffix, arr = _convert_leaf(path, v, 1 if stacked else 0)
-        if stacked:
-            rest = ".".join(path[3:-1] + (suffix,))
+        j = _stack_index(path)
+        suffix, arr = _convert_leaf(path, v, 0 if j is None else 1)
+        if j is not None:
+            head = ".".join(path[:j])
+            rest = ".".join(path[j + 1:-1] + (suffix,))
             for i in range(arr.shape[0]):
-                out[f"blocks.layers.{i}.{rest}"] = torch.from_numpy(
-                    np.ascontiguousarray(arr[i]))
+                out[f"{head}.{i}.{rest}"] = torch.from_numpy(np.ascontiguousarray(arr[i]))
         else:
             out[".".join(path[:-1] + (suffix,))] = torch.from_numpy(
                 np.ascontiguousarray(arr))

@@ -1,9 +1,29 @@
-"""Embedding helpers (port of the parts of
-``nova_pointcloud_tpu/models/embeddings.py`` that the pc model uses)."""
+"""Positional and conditioning embeddings (port of
+``nova_pointcloud_tpu/models/embeddings.py``): the timestep features of the
+pc model, and what NOVA t2i serving needs:
+
+- ``sincos_2d`` / ``sincos_time`` tables (host numpy, copied);
+- ``PosEmbed`` (additive 2D sincos), ``VideoPosEmbed`` (2D sincos + learned
+  time MLP; the motion embed waits for t2v);
+- ``PatchEmbed`` (+ ``patchify`` / ``unpatchify`` in NOVA's (p_h, p_w, C)
+  layout), including ``pre_patchified=True``;
+- ``TextEmbed`` (learned null-prompt bank, proj + LayerNorm);
+- ``MaskTokens`` (BOS / mask tokens).
+
+Parameter names are the flax modules' (``models/convert.py``). RoPE is not
+ported: a ``rotary_pos_embed`` model raises (models/nova.py).
+"""
 
 import math
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch import nn
+
+from nova_pointcloud_tpu_torch.models.layers import dense, layer_norm, silu
+
+TORCH_LN_EPS = 1e-5  # the reference's plain nn.LayerNorm(dim)
 
 
 def timestep_freq_embed(timestep: torch.Tensor, freq_dim: int = 256) -> torch.Tensor:
@@ -14,3 +34,144 @@ def timestep_freq_embed(timestep: torch.Tensor, freq_dim: int = 256) -> torch.Te
                                   device=timestep.device) * (-log_theta / half))
     emb = timestep[..., None].float() * freq
     return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+
+
+def sincos_2d(dim: int, h: int, w: int, base_hw: Tuple[int, int]) -> np.ndarray:
+    """2D sincos table (h*w, dim)."""
+    quarter = dim // 4
+    freq = 1.0 / (10000 ** (np.arange(quarter, dtype=np.float32) / quarter))
+    grid_h = np.arange(h, dtype=np.float32) * (base_hw[0] / h)
+    grid_w = np.arange(w, dtype=np.float32) * (base_hw[1] / w)
+    gw, gh = np.meshgrid(grid_w, grid_h)  # indexing="xy"
+    fw = gw.reshape(-1, 1) * freq[None]
+    fh = gh.reshape(-1, 1) * freq[None]
+    return np.concatenate([np.sin(fw), np.cos(fw), np.sin(fh), np.cos(fh)],
+                          axis=-1).astype(np.float32)
+
+
+def sincos_time(num: int, base_t: int, freq_dim: int = 128) -> np.ndarray:
+    """Per-frame sincos (num, 1, 2*freq_dim)."""
+    freq = 1.0 / (10000 ** (np.arange(freq_dim, dtype=np.float32) / freq_dim))
+    grid = np.arange(num, dtype=np.float32) / (num / base_t)
+    f = grid[:, None, None] * freq[None, None, :]
+    return np.concatenate([np.sin(f), np.cos(f)], axis=-1).astype(np.float32)
+
+
+class PosEmbed(nn.Module):
+    """Additive 2D sincos position embedding (no parameters)."""
+
+    def __init__(self, dim: int, base_size: Tuple[int, int] = (16, 16)):
+        super().__init__()
+        self.dim, self.base_size = dim, tuple(base_size)
+
+    def forward(self, x: torch.Tensor, hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        h, w = hw or self.base_size
+        table = torch.from_numpy(sincos_2d(self.dim, h, w, self.base_size)).to(x.device)
+        return x + table.to(x.dtype)
+
+
+class VideoPosEmbed(nn.Module):
+    """2D sincos space + learned-MLP time embedding."""
+
+    def __init__(self, dim: int, base_size: Tuple[int, int, int] = (16, 16, 16),
+                 device=None):
+        super().__init__()
+        self.dim, self.base_size = dim, tuple(base_size)
+        self.time_fc1 = nn.Linear(256, dim, device=device)
+        self.time_fc2 = nn.Linear(dim, dim, device=device)
+        self.time_norm = nn.LayerNorm(dim, eps=TORCH_LN_EPS, device=device)
+
+    def time_embed(self, num_frames: int) -> torch.Tensor:
+        """(num_frames, 1, dim) learned projection of the time sincos."""
+        sincos = torch.from_numpy(sincos_time(num_frames, self.base_size[0])).to(
+            self.time_fc1.weight.device)
+        h = dense(silu(dense(sincos, self.time_fc1)), self.time_fc2)
+        return layer_norm(h, self.time_norm, TORCH_LN_EPS)
+
+    def forward(self, x: torch.Tensor, hw: Optional[Tuple[int, int]] = None,
+                add_time: bool = True) -> torch.Tensor:
+        # x: (B, T, N, D) or (B, N, D)
+        if x.ndim == 4 and add_time:
+            x = x + self.time_embed(x.shape[1])[None].to(x.dtype)
+        h, w = hw or self.base_size[1:]
+        table = torch.from_numpy(sincos_2d(self.dim, h, w, self.base_size[1:])).to(x.device)
+        return x + table.to(x.dtype)
+
+
+def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, h*w, p*p*C), (p_h, p_w, C) innermost."""
+    b, h, w, c = x.shape
+    p = patch_size
+    x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
+def unpatchify(x: torch.Tensor, patch_size: int, hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, h*w, p*p*C) -> (B, H, W, C), the inverse of :func:`patchify`."""
+    b, n, d = x.shape
+    p = patch_size
+    h, w = hw
+    c = d // (p * p)
+    x = x.reshape(b, h, w, p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * p, w * p, c)
+
+
+class PatchEmbed(nn.Module):
+    """Linear patch projection, channels-last."""
+
+    def __init__(self, embed_dim: int, patch_size: int, in_channels: int, device=None):
+        super().__init__()
+        self.embed_dim, self.patch_size = embed_dim, patch_size
+        self.proj = nn.Linear(patch_size * patch_size * in_channels, embed_dim, device=device)
+
+    def forward(self, x: torch.Tensor, pre_patchified: bool = False) -> torch.Tensor:
+        # (B, H, W, C) or (B, T, H, W, C) -> tokens (B[, T], N, D)
+        if pre_patchified:  # (B, N, p*p*C) already in patch space
+            return dense(x, self.proj)
+        video = x.ndim == 5
+        if video:
+            b, t = x.shape[:2]
+            x = x.reshape((b * t,) + x.shape[2:])
+        tokens = dense(patchify(x, self.patch_size), self.proj)
+        if video:
+            tokens = tokens.reshape(b, t, tokens.shape[1], self.embed_dim)
+        return tokens
+
+
+class TextEmbed(nn.Module):
+    """Project encoder hidden states into the model dim, with a learned
+    null-prompt bank (CFG negatives, padding)."""
+
+    def __init__(self, token_dim: int, embed_dim: int, num_tokens: int = 256,
+                 max_positions: int = 512, device=None):
+        super().__init__()
+        self.num_tokens = num_tokens
+        self.null_prompt = nn.Parameter(torch.zeros(max_positions, token_dim, device=device))
+        self.proj = nn.Linear(token_dim, embed_dim, device=device)
+        self.norm = nn.LayerNorm(embed_dim, eps=TORCH_LN_EPS, device=device)
+
+    def null_embeds(self, batch: int, length: Optional[int] = None) -> torch.Tensor:
+        bank = self.null_prompt[: (length or self.num_tokens)]
+        return bank[None].expand((batch,) + tuple(bank.shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(dense(x, self.proj), self.norm, TORCH_LN_EPS)
+
+
+class MaskTokens(nn.Module):
+    """Learned BOS / mask tokens."""
+
+    def __init__(self, embed_dim: int, device=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.bos_token = nn.Parameter(torch.zeros(1, embed_dim, device=device))
+        self.mask_token = nn.Parameter(torch.zeros(1, embed_dim, device=device))
+
+    def apply_mask(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x*(1-mask) + mask_token*mask; mask (B, N, 1), 1 = masked."""
+        mask = mask.to(x.dtype)
+        return x * (1.0 - mask) + self.mask_token.to(x.dtype) * mask
+
+    def bos(self, shape: Sequence[int]) -> torch.Tensor:
+        """The BOS token broadcast to (..., embed_dim)."""
+        return self.bos_token.expand(tuple(shape) + (self.embed_dim,))

@@ -1,0 +1,252 @@
+"""NOVA core: masked-AR transformer with a per-token diffusion head (port of
+``nova_pointcloud_tpu/models/nova.py``, the serving methods of
+``NOVATransformer`` that text-to-image sampling calls).
+
+The module owns the parameters and exposes step methods that the pipeline
+(pipelines/nova.py) orchestrates: ``embed_text`` / ``null_text``,
+``bos_frame``, ``encode_video`` (T=1: the BOS frame with the text prefix),
+``tokens_from_patches``, ``encode_image_step`` (masked or bucket-gathered
+encoder half) and ``denoise_step`` (the diffusion head). Shapes are
+channels-last, as in the JAX package.
+
+Each step method takes the model's serving tree ``qparams`` (the int8 path,
+``ops/quantization.quantize_serving_params`` plus calibrated scales) and,
+where the JAX package sows calibration stats, ``calibrate=True``, which makes
+it return ``(out, stats)``. Not ported yet, and raising: RoPE, label (c2i)
+conditioning, video models (T > 1, motion embed, the AdaLN mixer, KV-cached
+frame decode), MoE, and training.
+"""
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from nova_pointcloud_tpu_torch.models.diffusion_mlp import DiffusionMLP
+from nova_pointcloud_tpu_torch.models.embeddings import (MaskTokens, PatchEmbed, PosEmbed,
+                                                         TextEmbed, VideoPosEmbed)
+from nova_pointcloud_tpu_torch.models.vit import VisionTransformer
+from nova_pointcloud_tpu_torch.utils.device import resolve_device
+
+# arch name -> (depth, embed_dim, num_heads), as the JAX registry
+VIT_ARCHES = {
+    "vit_d16w768": (16, 768, 12),
+    "vit_d16w1024": (16, 1024, 16),
+    "vit_d16w1536": (16, 1536, 16),
+    "vit_d32w768": (32, 768, 12),
+    "vit_d32w1024": (32, 1024, 16),
+    "vit_d32w1536": (32, 1536, 16),
+    # tiny arches for tests / golden configs
+    "vit_d2w64": (2, 64, 2),
+    "vit_d4w128": (4, 128, 4),
+    "vit_d48w1024": (48, 1024, 16),
+    "vit_d48w1536": (48, 1536, 16),
+}
+MLP_ARCHES = {
+    "mlp_d3w1280": (3, 1280),
+    "mlp_d6w768": (6, 768),
+    "mlp_d6w1024": (6, 1024),
+    "mlp_d6w1536": (6, 1536),
+    "mlp_d2w64": (2, 64),
+    "mlp_d3w128": (3, 128),
+}
+
+
+def _sub(qparams: Optional[Dict], name: str) -> Optional[Dict]:
+    return None if qparams is None else qparams[name]
+
+
+class NOVATransformer(nn.Module):
+    """Unified AR-diffusion core; latents (B, T, H, W, C), T=1 for images.
+
+    ``quantize``: the int8 serving path in both ViTs and the diffusion head
+    (the kernels on the card, their plain versions on the CPU).
+    ``dtype``: the compute dtype of the Dense layers, as the flax modules'
+    (``torch.bfloat16`` with bf16 weights is the serving setting).
+    ``device``: ``cuda`` unless ``"cpu"`` is asked for."""
+
+    def __init__(self, arch: Tuple[str, str, str], image_dim: int = 4,
+                 image_base_size: Tuple[int, int] = (16, 16),
+                 video_base_size: Tuple[int, int, int] = (1, 8, 8), patch_size: int = 2,
+                 text_token_dim: Optional[int] = None, text_token_len: int = 256,
+                 num_classes: Optional[int] = None, rotary_pos_embed: bool = False,
+                 video_mixer_rank: Optional[int] = None, attn_impl: str = "auto",
+                 quantize: bool = False, dtype: Optional[torch.dtype] = None,
+                 attn_core: str = "bf16", num_experts: int = 0, device=None):
+        super().__init__()
+        unported = {"rotary_pos_embed=True (RoPE)": rotary_pos_embed,
+                    "label conditioning (c2i)": bool(num_classes and not text_token_dim),
+                    "video models (video_base_size[0] > 1: motion embed)":
+                        video_base_size[0] > 1,
+                    "the AdaLN video mixer": video_mixer_rank is not None}
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(f"NOVATransformer with {what} is not ported yet: "
+                                          f"ROADMAP.md, module queue, NOVA")
+        dev = resolve_device(device)
+        self.arch = tuple(arch)
+        self.image_dim, self.patch_size = image_dim, patch_size
+        self.image_base_size = tuple(image_base_size)
+        self.video_base_size = tuple(video_base_size)
+        self.text_token_dim, self.text_token_len = text_token_dim, text_token_len
+        self.quantize, self.dtype, self.attn_core = quantize, dtype, attn_core
+        dv, wv, hv = VIT_ARCHES[arch[0]]
+        di, wi, hi = VIT_ARCHES[arch[1]]
+        dd, wd = MLP_ARCHES[arch[2]]
+        if wv != wi:
+            raise ValueError(f"video/image encoder widths must match ({arch[0]} vs {arch[1]})")
+        kw = dict(attn_impl=attn_impl, quantize=quantize, dtype=dtype, attn_core=attn_core,
+                  num_experts=num_experts, device=dev)
+        self.video_patch_embed = PatchEmbed(wv, self.video_patch_size, image_dim, dev)
+        self.image_patch_embed = PatchEmbed(wi, patch_size, image_dim, dev)
+        self.video_encoder = VisionTransformer(dv, wv, hv, **kw)
+        self.image_encoder = VisionTransformer(di, wi, hi, **kw)
+        self.image_decoder = DiffusionMLP(dd, wd, cond_dim=wi, out_dim=self.patch_dim,
+                                          quantize=quantize, dtype=dtype, device=dev)
+        self.mask_tokens = MaskTokens(wi, dev)
+        self.text_embed = (TextEmbed(text_token_dim, wi, text_token_len, device=dev)
+                           if text_token_dim else None)
+        self.video_pos_embed = VideoPosEmbed(wv, self.video_base_size, dev)
+        self.image_pos_embed = PosEmbed(wi, self.image_base_size)
+
+    # -- derived sizes ------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.mask_tokens.bos_token.device
+
+    @property
+    def video_patch_size(self) -> int:
+        return self.patch_size * 2
+
+    @property
+    def num_image_tokens(self) -> int:
+        return self.image_base_size[0] * self.image_base_size[1]
+
+    @property
+    def num_video_tokens(self) -> int:  # per frame
+        return self.video_base_size[1] * self.video_base_size[2]
+
+    @property
+    def latent_hw(self) -> Tuple[int, int]:
+        return (self.image_base_size[0] * self.patch_size,
+                self.image_base_size[1] * self.patch_size)
+
+    @property
+    def patch_dim(self) -> int:
+        return self.patch_size ** 2 * self.image_dim
+
+    @property
+    def embed_dim(self) -> int:
+        return VIT_ARCHES[self.arch[1]][1]
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "NOVATransformer":
+        """Seeded random init after the flax initializers: Dense kernels
+        normal with std 1/sqrt(fan_in), zero biases, unit LayerNorms, the
+        null prompt and the BOS / mask tokens N(0, 0.02), and the AdaLN
+        projections zero (as ``AdaLayerNormZero``'s kernel_init). A serving
+        smoke test with zero AdaLN projections runs every diffusion block as
+        the identity: fill them (``fill_zero_init``) to exercise the blocks.
+        ``generator`` lives on the model's device."""
+        def normal(p, std):
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
+                                dtype=torch.float32) * std)
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                normal(mod.weight, mod.in_features ** -0.5)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        for p in (self.mask_tokens.bos_token, self.mask_tokens.mask_token):
+            normal(p, 0.02)
+        if self.text_embed is not None:
+            normal(self.text_embed.null_prompt, 0.02)
+        for blk in self.image_decoder.blocks():
+            blk.norm1.proj.weight.zero_()
+        self.image_decoder.norm.proj.weight.zero_()
+        return self
+
+    @torch.no_grad()
+    def fill_zero_init(self, generator: torch.Generator, std: float = 0.02
+                       ) -> "NOVATransformer":
+        """Seeded non-zero values for the zero-initialised AdaLN projections
+        (and every bias), so each diffusion block's gate, scale and shift
+        depend on its inputs."""
+        adaln = [blk.norm1.proj for blk in self.image_decoder.blocks()]
+        adaln.append(self.image_decoder.norm.proj)
+        for lin in adaln:
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator,
+                                         device=lin.weight.device) * std)
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator,
+                                           device=mod.bias.device) * std)
+        return self
+
+    # -- conditioning -------------------------------------------------------
+    @torch.no_grad()
+    def embed_text(self, text_embeds: torch.Tensor) -> torch.Tensor:
+        """Raw encoder states -> model-dim text tokens."""
+        return self.text_embed(text_embeds)
+
+    @torch.no_grad()
+    def null_text(self, batch: int, length: Optional[int] = None) -> torch.Tensor:
+        """Model-dim null-prompt tokens (CFG negatives)."""
+        return self.text_embed(self.text_embed.null_embeds(batch, length))
+
+    @torch.no_grad()
+    def bos_frame(self, batch: int) -> torch.Tensor:
+        """(B, 1, Nv, D) raw BOS tokens, no position."""
+        return self.mask_tokens.bos((batch, 1, self.num_video_tokens))
+
+    @torch.no_grad()
+    def encode_video(self, c_vid: torch.Tensor, c_text: Optional[torch.Tensor],
+                     num_frames: int, qparams: Optional[Dict] = None,
+                     calibrate: bool = False):
+        """c_vid (B, T, Nv, D) raw [BOS, frames..] tokens -> states (B, T*Nv, D).
+        T=1 only (no block-causal bias, no mixer)."""
+        b, t, nv, d = c_vid.shape
+        if t > 1 or num_frames > 1:
+            raise NotImplementedError("encode_video with T > 1 (t2v) is not ported yet: "
+                                      "ROADMAP.md, module queue, NOVA t2v")
+        c_vid = self.video_pos_embed(c_vid)
+        states, stats = self.video_encoder(c_vid.reshape(b, t * nv, d), c=c_text,
+                                           qparams=_sub(qparams, "video_encoder"),
+                                           calibrate=calibrate)
+        return (states, {"video_encoder": stats}) if calibrate else states
+
+    @torch.no_grad()
+    def encode_image_step(self, tokens: torch.Tensor, mask: torch.Tensor,
+                          cond: Optional[torch.Tensor], visible_bucket: Optional[int] = None,
+                          qparams: Optional[Dict] = None, calibrate: bool = False):
+        """Masked-token image encoding for one AR step: tokens (B, Ni, D)
+        patch embeddings (no position), mask (B, Ni, 1) with 1 = masked, cond
+        (B, Lc, D). ``visible_bucket``: the static bound on the visible
+        count; the encoder half then gathers the visible tokens."""
+        z = self.mask_tokens.apply_mask(tokens, mask)
+        z = self.image_pos_embed(z)
+        visible = 1.0 - mask[..., 0]
+        z, stats = self.image_encoder(z, c=cond, visible=visible,
+                                      visible_bucket=visible_bucket,
+                                      qparams=_sub(qparams, "image_encoder"),
+                                      calibrate=calibrate)
+        return (z, {"image_encoder": stats}) if calibrate else z
+
+    @torch.no_grad()
+    def tokens_from_patches(self, patches: torch.Tensor) -> torch.Tensor:
+        """(B, Ni, patch_dim) patchified canvas -> (B, Ni, D) tokens."""
+        return self.image_patch_embed(patches, pre_patchified=True)
+
+    @torch.no_grad()
+    def denoise_step(self, x_t: torch.Tensor, timestep: torch.Tensor, z: torch.Tensor,
+                     stg_rows: Optional[int] = None, qparams: Optional[Dict] = None,
+                     calibrate: bool = False):
+        """One eval of the per-token diffusion head: x_t (B, P, patch_dim),
+        timestep (B,) or (B, P), z (B, P, D)."""
+        if calibrate:
+            out, stats = self.image_decoder.calibration_forward(x_t, timestep, z)
+            return out, {"image_decoder": stats}
+        return self.image_decoder(x_t, timestep, z, stg_rows=stg_rows,
+                                  qparams=_sub(qparams, "image_decoder"))

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nova_pointcloud_tpu_torch.models.embeddings import timestep_freq_embed
+from nova_pointcloud_tpu_torch.models.layers import _compute_dtype, dense
 from nova_pointcloud_tpu_torch.ops.attention import (dot_product_attention,
                                                      make_attention_fn)
 from nova_pointcloud_tpu_torch.ops.kernels import fused_block
@@ -56,17 +57,6 @@ PC_ARCHES = {
 }
 LN_EPS = 1e-6
 FUSED_ATTENTION_MAX_BYTES = 14 * 2**20  # the JAX model's fused / split rule
-
-
-def _compute_dtype(x: torch.Tensor, p: torch.Tensor, dtype) -> torch.dtype:
-    return dtype if dtype is not None else torch.promote_types(x.dtype, p.dtype)
-
-
-def dense(x: torch.Tensor, lin: nn.Linear, dtype=None) -> torch.Tensor:
-    """flax ``Dense``: computes in ``dtype``, else in the promoted dtype."""
-    dt = _compute_dtype(x, lin.weight, dtype)
-    bias = None if lin.bias is None else lin.bias.to(dt)
-    return F.linear(x.to(dt), lin.weight.to(dt), bias)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype=None) -> torch.Tensor:

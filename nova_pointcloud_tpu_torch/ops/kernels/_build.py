@@ -28,6 +28,10 @@ SOURCES = {
     "fused_ln_int8_matmul": "fused_ln_int8_matmul.cu",
     "int8_matmul_residual": "int8_matmul_residual.cu",
     "flash_attention": "flash_attention.cu",
+    "fused_int8_mlp_postln": "fused_int8_mlp_postln.cu",
+    "fused_int8_diffusion_block": "fused_int8_diffusion_block.cu",
+    "flash_attention_static": "flash_attention_static.cu",
+    "int8_linear": "int8_linear.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -17,7 +17,9 @@ import torch
 
 LAUNCHES = {"fused_attention_block": 0, "fused_ln_int8_mlp": 0,
             "fused_ln_int8_matmul": 0, "int8_matmul_residual": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "fused_int8_mlp_postln": 0,
+            "fused_int8_diffusion_block": 0, "flash_attention_static": 0,
+            "int8_linear": 0}
 
 
 class _Route:

@@ -23,6 +23,15 @@ Bias forms (4-D, as the JAX function): ``None``; a key bias ``(B or 1, 1, 1,
 Lk)``, read in the kernel with the batch index (no per-head copies); a full
 bias ``(1, 1, Lq, Lk)`` shared by every batch and head. ``-inf`` entries
 mask; a row whose keys are all masked gives ``o = 0`` and ``lse = +1e30``.
+
+:func:`flash_attention_static` is the serving attention of the NOVA ViT after
+calibration (the JAX ``flash_attention_static``): the calibrated max logit
+``smax`` replaces the running max, ``p = bf16(exp(min(s - smax, 20)))`` is
+summed into both ``p v`` and the denominator, and the score product is bf16
+or, with the calibrated ``a_q`` / ``a_k``, int8. Its CUDA kernel
+(``csrc/flash_attention_static.cu``) takes head dim 64 and a key bias or none;
+:func:`flash_attention_static_plain` is its plain version, and
+``LAUNCHES["flash_attention_static"]`` counts its launches.
 """
 
 import ctypes
@@ -32,6 +41,7 @@ import torch
 
 from nova_pointcloud_tpu_torch.ops.kernels._launch import (LAUNCHES, dtype_flag, lib,
                                                            plain_route, ptr, run)
+from nova_pointcloud_tpu_torch.ops.quantization import int_dot
 
 NEG_INF = -1e30
 CUDA_HEAD_DIM = 64
@@ -165,3 +175,102 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     other shapes raise ``ValueError`` (they belong on the sdpa path). Biases
     are mask constants: they get no gradient."""
     return flash_attention_with_lse(q, k, v, bias)[0]
+
+
+# -- static-offset serving attention ------------------------------------------
+
+_STATIC_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _P, _P,
+                    _P, _I, _P]
+
+
+def _static_key_bias(bias: Optional[torch.Tensor], b: int, lk: int) -> Optional[torch.Tensor]:
+    """None or a key bias (B or 1, 1, 1, Lk) -> None or (B, Lk) float32."""
+    if bias is None:
+        return None
+    if bias.ndim != 4 or bias.shape[1] != 1 or bias.shape[2] != 1:
+        raise ValueError(f"static kernel needs a key bias, got {tuple(bias.shape)}")
+    return torch.broadcast_to(bias[:, 0, 0, :], (b, lk)).float()
+
+
+def _int8_core(a_q, a_k) -> bool:
+    return a_q is not None and a_k is not None
+
+
+def flash_attention_static_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smax,
+                                 bias: Optional[torch.Tensor] = None, a_q=None,
+                                 a_k=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention_static`."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dev = q.device
+    kb = _static_key_bias(bias, b, lk)
+    if kb is None:
+        kb = torch.zeros((b, lk), dtype=torch.float32, device=dev)
+    kb = (kb - torch.as_tensor(smax, dtype=torch.float32, device=dev))[:, None, None, :]
+    if _int8_core(a_q, a_k):
+        aq = torch.clamp(torch.as_tensor(a_q, dtype=torch.float32, device=dev), min=1e-30)
+        ak = torch.clamp(torch.as_tensor(a_k, dtype=torch.float32, device=dev), min=1e-30)
+        c127 = torch.tensor(127.0, device=dev)
+        qx = torch.clamp(torch.round(q.float() * (c127 / aq)), -127, 127).to(torch.int8)
+        kx = torch.clamp(torch.round(k.float() * (c127 / ak)), -127, 127).to(torch.int8)
+        s = int_dot(qx, kx.transpose(-1, -2)) * (aq * ak / (127.0 * 127.0) * d ** -0.5) + kb
+    else:
+        qs = (q.to(torch.bfloat16).float() * d ** -0.5).to(torch.bfloat16).float()
+        s = torch.matmul(qs, k.to(torch.bfloat16).float().transpose(-1, -2)) + kb
+    p = torch.exp(torch.clamp(s, max=20.0)).to(torch.bfloat16).float()
+    o = torch.matmul(p, v.to(torch.bfloat16).float())
+    l = torch.sum(p, dim=-1, keepdim=True)
+    return (o / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def flash_attention_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smax,
+                           bias: Optional[torch.Tensor] = None, a_q=None,
+                           a_k=None) -> torch.Tensor:
+    """Serving attention with a calibrated static softmax offset.
+
+    q, k, v: (B, H, L, D) -> (B, H, Lq, D) in q's dtype. ``smax``: the
+    calibrated max attention logit (scalar); scores are offset by it and
+    clipped at +20 before exp. ``bias``: None or a key bias (B, 1, 1, Lk).
+    ``a_q`` / ``a_k``: calibrated amax of q and k; with both given the score
+    product runs in int8. Forward only. On the card the output is allocated
+    in the (B, L, H, D) layout and returned as its (B, H, L, D) view, so the
+    caller's merge of the heads is free."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    kb = _static_key_bias(bias, b, lk)
+    if plain_route(q):
+        return flash_attention_static_plain(q, k, v, smax, bias, a_q, a_k)
+    dev = q.device
+    if d != CUDA_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA static attention kernel takes head dim {CUDA_HEAD_DIM}, got {d}")
+    if k.shape != (b, h, lk, d) or v.shape != k.shape or k.device != dev or v.device != dev:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"must be (B, H, L, D) on one device")
+    int8_core = _int8_core(a_q, a_k)
+    out_bf16 = dtype_flag(q, "q")
+    dtype_flag(k, "k")
+    if not int8_core:  # the bf16 score core reads bf16 q and k (as the JAX function)
+        q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    elif q.dtype != k.dtype:
+        raise TypeError(f"q and k must share one dtype, got {q.dtype}, {k.dtype}")
+    q, k, v = _strided(q), _strided(k), _strided(v.to(torch.bfloat16))
+    o = torch.empty((b, lq, h, d), dtype=torch.bfloat16 if out_bf16 else torch.float32,
+                    device=dev).transpose(1, 2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    smax = torch.as_tensor(smax, **f32).reshape(()).contiguous()
+    kb = None if kb is None else kb.contiguous()
+    a_q8 = a_k8 = q8 = k8 = None
+    if int8_core:
+        a_q8 = torch.as_tensor(a_q, **f32).reshape(()).contiguous()
+        a_k8 = torch.as_tensor(a_k, **f32).reshape(()).contiguous()
+        q8 = torch.empty((b, h, lq, d), dtype=torch.int8, device=dev)
+        k8 = torch.empty((b, h, lk, d), dtype=torch.int8, device=dev)
+    strides = (ctypes.c_long * 12)(*[s for t in (q, k, v, o) for s in t.stride()[:3]])
+    so, fn = lib("flash_attention_static", _STATIC_ARGTYPES)
+    run(so, fn, [ptr(q), ptr(k), ptr(v), dtype_flag(q, "q"), b, h, lq, lk, d,
+                 ctypes.addressof(strides), ptr(kb), ptr(smax), ptr(a_q8), ptr(a_k8),
+                 float(d ** -0.5), ptr(q8), ptr(k8), ptr(o), out_bf16,
+                 torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["flash_attention_static"] += 1
+    return o

@@ -22,11 +22,25 @@ whole path with and without its kernels; the pipeline never turns it on.
     fused_ln_int8_matmul:  y = (q8(LN(x)) @ W)·sx·s + b          (split path, QKV)
     int8_matmul_residual:  y = res + (q8(x) @ W)·sx·s + b        (split path, out)
 
-LayerNorm eps is 1e-6 (flax's default, the pc blocks' norm). Quant sites
-are static (calibrated amax, multiply by 1/s) when their ``a_*`` are given,
-else per row (divide by s); the two split-path kernels quantize per row only.
-The JAX functions' ``block_m`` (a TPU tile height) is dropped: the CUDA
-kernels mask ragged rows themselves.
+and the NOVA blocks' kernels:
+
+    fused_int8_mlp_postln:      y = x + LN_eps(q8(gelu(q8(x) @ W1·sx·s1 + b1)) @ W2·sa·s2 + b2)
+    fused_int8_diffusion_block: (scale|shift|gate) = q8(silu(zc)) @ Ws·sz·ss + bs,
+                                h = LN(x)·(1 + scale) + shift,
+                                o = q8(silu(q8(h) @ W1·sh·s1 + b1)) @ W2·sa·s2 + b2,
+                                y = LN_eps(o)·gate + x
+    int8_linear:                y = cast(q8(x) @ W·sx·s) + cast(b)   (ViT attention
+                                projections; plain XLA in the JAX model, no TPU kernel)
+
+The pc blocks' LayerNorm eps is 1e-6 (flax's default); the NOVA kernels take
+their post-norm eps from the caller (1e-5, torch's default, in the models) and
+keep 1e-6 for the AdaLN. gelu is exact-erf gelu with erf by the
+Abramowitz-Stegun polynomial of the JAX kernel (``_erf``), silu is
+``x / (1 + exp(-x))``. Quant sites are static (calibrated amax, multiply by
+1/s) when their ``a_*`` are given, else per row (divide by s); the two
+split-path kernels and ``int8_linear`` quantize per row only. The JAX
+functions' ``block_m`` (a TPU tile height) is dropped: the CUDA kernels mask
+ragged rows themselves.
 """
 
 import ctypes
@@ -37,7 +51,7 @@ from nova_pointcloud_tpu_torch.ops.kernels._launch import (  # noqa: F401
     LAUNCHES, dtype_flag as _dtype_flag, lib as _load_lib,
     plain_route as _plain_route,
     ptr as _ptr, reset_launch_counts, run as _run, use_plain_kernels)
-from nova_pointcloud_tpu_torch.ops.quantization import (int_dot,
+from nova_pointcloud_tpu_torch.ops.quantization import (int8_matmul, int_dot,
                                                         quantize_activations,
                                                         quantize_static)
 
@@ -70,10 +84,35 @@ def attention_block_vmem_bytes(t: int, d: int, sb: int = 1) -> int:
 
 # -- plain versions ------------------------------------------------------------
 
-def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + LN_EPS) * scale.float() + bias.float()
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+        eps: float = LN_EPS) -> torch.Tensor:
+    return _normalize(x, eps) * scale.float() + bias.float()
+
+
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """erf by Abramowitz-Stegun 7.1.26 (max error 1.5e-7), the JAX kernel's
+    polynomial: the CUDA kernel uses it too, so both sides quantize the same
+    gelu values."""
+    sign = torch.sign(x)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return sign * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * x * (1.0 + _erf(x * (2.0 ** -0.5)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x / (1.0 + torch.exp(-x))
 
 
 def _quant(x: torch.Tensor, amax):
@@ -160,6 +199,47 @@ def int8_matmul_residual_plain(x, residual, wq, s, b) -> torch.Tensor:
     return (rf + a).to(residual.dtype).reshape(residual.shape)
 
 
+def fused_int8_mlp_postln_plain(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias,
+                                a_x=None, a_gelu=None, ln_eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_int8_mlp_postln`."""
+    _check_act_scales(a_x=a_x, a_gelu=a_gelu)
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1]).float()
+    q, sx = _quant(xf, a_x)
+    a = gelu_erf(int_dot(q, w1q) * sx * s1.float() + b1.float())
+    q2, sx2 = _quant(a, a_gelu)
+    o = int_dot(q2, w2q) * sx2 * s2.float() + b2.float()
+    o = _ln(o, ln_scale, ln_bias, ln_eps)
+    return (xf + o).to(x.dtype).reshape(shape)
+
+
+def fused_int8_diffusion_block_plain(x, zc, wstats_q, stats_s, stats_b, w1q, s1, b1,
+                                     w2q, s2, b2, n2_scale, n2_bias, a_z=None, a_h=None,
+                                     a_silu=None, n2_eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_int8_diffusion_block`."""
+    _check_act_scales(a_z=a_z, a_h=a_h, a_silu=a_silu)
+    shape, d = x.shape, x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    z = silu(zc.reshape(-1, d).float())
+    qz, sz = _quant(z, a_z)
+    stats = int_dot(qz, wstats_q) * sz * stats_s.float() + stats_b.float()
+    scale, shift, gate = stats[:, :d], stats[:, d:2 * d], stats[:, 2 * d:]
+    h = _normalize(xf, LN_EPS) * (1.0 + scale) + shift  # AdaLN-zero: no affine
+    qh, sh = _quant(h, a_h)
+    a = silu(int_dot(qh, w1q) * sh * s1.float() + b1.float())
+    qa, sa = _quant(a, a_silu)
+    o = int_dot(qa, w2q) * sa * s2.float() + b2.float()
+    o = _ln(o, n2_scale, n2_bias, n2_eps)
+    return (o * gate + xf).to(x.dtype).reshape(shape)
+
+
+def int8_linear_plain(x, wq, s, b=None, out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`int8_linear`."""
+    out_dtype = out_dtype or x.dtype
+    y = int8_matmul(x, (wq, s), out_dtype)
+    return y if b is None else y + b.to(out_dtype)
+
+
 # -- CUDA wrappers -------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -173,6 +253,12 @@ _ARGTYPES = {
                              _P, _P, _P],
     "int8_matmul_residual": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                              _P, _P, _P],
+    "fused_int8_mlp_postln": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "fused_int8_diffusion_block": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                                   _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "int8_linear": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -300,13 +386,15 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
     return y
 
 
+ROW_MAX_K = 56 * 1024  # csrc/quant.cuh kRowOpMaxK: a row staged in shared memory
+
+
 def _gemm_dims(k: int, n: int, what: str) -> None:
-    if k % 128 or n % 128 or k > 1024:
+    if k % 128 or n % 128 or k > ROW_MAX_K:
         raise NotImplementedError(
             f"the CUDA {what} kernel needs in and out widths that are multiples "
-            f"of 128 and an in width <= 1024 (row_quant_kernel holds one row of "
-            f"at most 1024 values in registers), got in={k}, out={n}: ROADMAP.md, "
-            f"queue 1, item 2")
+            f"of 128 and an in width <= {ROW_MAX_K} (the row pass stages one row "
+            f"in shared memory), got in={k}, out={n}")
 
 
 def fused_ln_int8_matmul(x: torch.Tensor, ln_scale, ln_bias, wq, s, b) -> torch.Tensor:
@@ -366,3 +454,125 @@ def int8_matmul_residual(x: torch.Tensor, residual: torch.Tensor, wq, s,
                   torch.cuda.current_stream(dev).cuda_stream])
     LAUNCHES["int8_matmul_residual"] += 1
     return y.reshape(residual.shape)
+
+
+def fused_int8_mlp_postln(x: torch.Tensor, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias,
+                          a_x=None, a_gelu=None, ln_eps: float = 1e-6) -> torch.Tensor:
+    """The NOVA ViT block's post-norm MLP residual, x (..., D) -> x +
+    LN(MLP(x)) with int8 products and exact-erf gelu, in x's dtype.
+
+    w1q (D, F) int8 with per-channel scales s1 (F,); w2q (F, D) / s2 (D,).
+    ``a_x`` / ``a_gelu``: calibrated amax of the block input and the post-gelu
+    mid activation (static quant), or both None (per row). ``ln_eps``: the
+    post-norm's eps."""
+    if _plain_route(x):
+        return fused_int8_mlp_postln_plain(x, w1q, s1, b1, w2q, s2, b2, ln_scale,
+                                           ln_bias, a_x, a_gelu, ln_eps)
+    _check_act_scales(a_x=a_x, a_gelu=a_gelu)
+    dev, shape = x.device, x.shape
+    d, f = shape[-1], w1q.shape[-1]
+    _gemm_dims(d, f, "fused_int8_mlp_postln")
+    _gemm_dims(f, d, "fused_int8_mlp_postln")
+    xf = x.reshape(-1, d).contiguous()
+    m = xf.shape[0]
+    x_bf16 = _dtype_flag(xf, "x")
+    w1q = _int8_weight(w1q, (d, f), dev, "w1q")
+    w2q = _int8_weight(w2q, (f, d), dev, "w2q")
+    s1, s2 = _f32(s1, dev), _f32(s2, dev)
+    (b1, b2, ln_w, ln_b), vec_bf16 = _vectors(b1, b2, ln_scale, ln_bias)
+    a_x, a_gelu = _amax(a_x, dev), _amax(a_gelu, dev)
+    q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
+    sx1 = torch.empty((m,), dtype=torch.float32, device=dev)
+    q2 = torch.empty((m, f), dtype=torch.int8, device=dev)
+    mid = None if a_x is not None else torch.empty((m, f), dtype=torch.float32, device=dev)
+    sx2 = torch.empty((m,), dtype=torch.float32, device=dev)
+    o = torch.empty((m, d), dtype=torch.float32, device=dev)
+    y = torch.empty_like(xf)
+    so, fn = _lib("fused_int8_mlp_postln")
+    _run(so, fn, [
+        _ptr(xf), x_bf16, m, d, f, _ptr(b1), _ptr(b2), _ptr(ln_w), _ptr(ln_b), vec_bf16,
+        float(ln_eps), _ptr(w1q), _ptr(s1), _ptr(w2q), _ptr(s2), _ptr(a_x), _ptr(a_gelu),
+        _ptr(q1), _ptr(sx1), _ptr(q2), _ptr(mid), _ptr(sx2), _ptr(o), _ptr(y),
+        torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["fused_int8_mlp_postln"] += 1
+    return y.reshape(shape)
+
+
+def fused_int8_diffusion_block(x: torch.Tensor, zc: torch.Tensor, wstats_q, stats_s,
+                               stats_b, w1q, s1, b1, w2q, s2, b2, n2_scale, n2_bias,
+                               a_z=None, a_h=None, a_silu=None,
+                               n2_eps: float = 1e-6) -> torch.Tensor:
+    """One DiffusionMLP block (AdaLN-zero gated residual MLP), x, zc (..., D)
+    -> (..., D) in x's dtype, with int8 products.
+
+    wstats_q (D, 3D) int8 + stats_s / stats_b (3D,): the AdaLN stats
+    projection; w1q, w2q (D, D) + scales and biases: the silu MLP; n2_*: the
+    post-norm's affine params, ``n2_eps`` its eps (the AdaLN keeps 1e-6).
+    ``a_z`` / ``a_h`` / ``a_silu``: calibrated amax of silu(zc), the modulated
+    hidden and the post-silu mid (static quant), or all None (per row)."""
+    if _plain_route(x):
+        return fused_int8_diffusion_block_plain(x, zc, wstats_q, stats_s, stats_b, w1q,
+                                                s1, b1, w2q, s2, b2, n2_scale, n2_bias,
+                                                a_z, a_h, a_silu, n2_eps)
+    _check_act_scales(a_z=a_z, a_h=a_h, a_silu=a_silu)
+    dev, shape = x.device, x.shape
+    d = shape[-1]
+    _gemm_dims(d, 3 * d, "fused_int8_diffusion_block")
+    xf = x.reshape(-1, d).contiguous()
+    zf = zc.reshape(-1, d).contiguous()
+    m = xf.shape[0]
+    if zf.shape[0] != m or zf.device != dev:
+        raise ValueError(f"x {tuple(x.shape)} and zc {tuple(zc.shape)} must share their "
+                         f"shape and device")
+    wstats_q = _int8_weight(wstats_q, (d, 3 * d), dev, "wstats_q")
+    w1q = _int8_weight(w1q, (d, d), dev, "w1q")
+    w2q = _int8_weight(w2q, (d, d), dev, "w2q")
+    stats_s, s1, s2 = _f32(stats_s, dev), _f32(s1, dev), _f32(s2, dev)
+    (bs, b1, b2, n2_w, n2_b), vec_bf16 = _vectors(stats_b, b1, b2, n2_scale, n2_bias)
+    a_z, a_h, a_silu = _amax(a_z, dev), _amax(a_h, dev), _amax(a_silu, dev)
+    i8, f32 = torch.int8, torch.float32
+    qz, qh, qa = (torch.empty((m, d), dtype=i8, device=dev) for _ in range(3))
+    sz, sh, sa = (torch.empty((m,), dtype=f32, device=dev) for _ in range(3))
+    stats = torch.empty((m, 3 * d), dtype=f32, device=dev)
+    mid = None if a_z is not None else torch.empty((m, d), dtype=f32, device=dev)
+    o = torch.empty((m, d), dtype=f32, device=dev)
+    y = torch.empty_like(xf)
+    so, fn = _lib("fused_int8_diffusion_block")
+    _run(so, fn, [
+        _ptr(xf), _dtype_flag(xf, "x"), _ptr(zf), _dtype_flag(zf, "zc"), m, d, _ptr(bs),
+        _ptr(b1), _ptr(b2), _ptr(n2_w), _ptr(n2_b), vec_bf16, float(n2_eps),
+        _ptr(wstats_q), _ptr(stats_s), _ptr(w1q), _ptr(s1), _ptr(w2q), _ptr(s2),
+        _ptr(a_z), _ptr(a_h), _ptr(a_silu), _ptr(qz), _ptr(sz), _ptr(stats), _ptr(qh),
+        _ptr(sh), _ptr(qa), _ptr(mid), _ptr(sa), _ptr(o), _ptr(y),
+        torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["fused_int8_diffusion_block"] += 1
+    return y.reshape(shape)
+
+
+def int8_linear(x: torch.Tensor, wq, s, b=None, out_dtype=None) -> torch.Tensor:
+    """Per-row int8 quant of x (..., K), one int8 product with wq (K, N) and
+    per-channel scales s (N,), cast to ``out_dtype`` (default x's dtype), then
+    the bias b (N,) or None added in that dtype: the JAX ViT attention's
+    ``_int8_proj`` rounding order (the product is rounded before the bias)."""
+    if _plain_route(x):
+        return int8_linear_plain(x, wq, s, b, out_dtype)
+    out_dtype = out_dtype or x.dtype
+    dev, k = x.device, x.shape[-1]
+    n = wq.shape[-1]
+    _gemm_dims(k, n, "int8_linear")
+    xf = x.reshape(-1, k).contiguous()
+    m = xf.shape[0]
+    wq = _int8_weight(wq, (k, n), dev, "wq")
+    s = _f32(s, dev)
+    if b is not None:
+        b = b.contiguous()
+    q = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    so, fn = _lib("int8_linear")
+    _run(so, fn, [_ptr(xf), _dtype_flag(xf, "x"), m, k, n, _ptr(b),
+                  0 if b is None else _dtype_flag(b, "b"), _ptr(wq), _ptr(s), _ptr(q),
+                  _ptr(sx), _ptr(y), _dtype_flag(y, "out_dtype"),
+                  torch.cuda.current_stream(dev).cuda_stream])
+    LAUNCHES["int8_linear"] += 1
+    return y.reshape(x.shape[:-1] + (n,))

@@ -1,7 +1,9 @@
 """Int8 (w8a8) quantization for serving, as plain torch.
 
-Port of ``nova_pointcloud_tpu/ops/quantization.py`` (the PreLN-block branch
-of ``quantize_serving_params``). Symmetric quantization:
+Port of ``nova_pointcloud_tpu/ops/quantization.py``: the PreLN-block
+(point-cloud), ViT-block and DiffusionMLP-block branches of
+``quantize_serving_params``, and the calibration merge. Symmetric
+quantization:
 
     y = (q(x) @ q(W)) * s_x * s_w,   q(v) = round(v / s) in [-127, 127]
 
@@ -97,9 +99,11 @@ def quantize_weight_kmajor(w_out_in: torch.Tensor) -> Tuple[torch.Tensor, torch.
     return q.transpose(-1, -2), scales.squeeze(-1)
 
 
-def _stack(leaves):
-    """Stack per-layer leaves on a new depth axis, keeping K-major int8
-    weights K-major."""
+def stack_layers(leaves):
+    """Stack per-layer leaves (or trees of them) on a new depth axis, keeping
+    K-major int8 weights K-major."""
+    if isinstance(leaves[0], dict):
+        return {k: stack_layers([t[k] for t in leaves]) for k in leaves[0]}
     if leaves[0].dtype == torch.int8:
         return torch.stack([q.transpose(-1, -2) for q in leaves]).transpose(-1, -2)
     return torch.stack(leaves)
@@ -107,6 +111,42 @@ def _stack(leaves):
 
 def _is_preln_block(module) -> bool:
     return all(hasattr(module, k) for k in ("attn", "fc1", "fc2", "norm1", "norm2"))
+
+
+def _is_vit_block(module) -> bool:
+    """A models/vit.Block (post-LN, MLP under ``mlp``)."""
+    return (all(hasattr(module, k) for k in ("attn", "mlp", "norm1", "norm2"))
+            and hasattr(module.mlp, "fc1"))
+
+
+def _quantize_vit_block(block) -> dict:
+    """ViT Block -> serving q-leaves: the fused post-LN MLP's weights and the
+    attention's int8 qkv / out projections (nested under ``attn``)."""
+    q = {}
+    q["fc1_q"], q["fc1_s"] = quantize_weight_kmajor(block.mlp.fc1.weight)
+    q["fc2_q"], q["fc2_s"] = quantize_weight_kmajor(block.mlp.fc2.weight)
+    attn = {}
+    attn["qkv_q"], attn["qkv_s"] = quantize_weight_kmajor(block.attn.qkv.weight)
+    attn["proj_q"], attn["proj_s"] = quantize_weight_kmajor(block.attn.proj.weight)
+    q["attn"] = attn
+    return q
+
+
+def _is_diffusion_block(module) -> bool:
+    """A models/diffusion_mlp.DiffusionBlock."""
+    return (all(hasattr(module, k) for k in ("norm1", "proj", "norm2"))
+            and hasattr(module.proj, "fc1") and hasattr(module.norm1, "proj"))
+
+
+def _quantize_diffusion_block(block) -> dict:
+    """DiffusionBlock -> q-leaves for fused_int8_diffusion_block."""
+    q = {}
+    q["stats_q"], q["stats_s"] = quantize_weight_kmajor(block.norm1.proj.weight)
+    q["fc1_q"], q["fc1_s"] = quantize_weight_kmajor(block.proj.fc1.weight)
+    q["fc2_q"], q["fc2_s"] = quantize_weight_kmajor(block.proj.fc2.weight)
+    return q
+
+
 
 
 def _quantize_preln_block(block) -> dict:
@@ -122,21 +162,27 @@ def _quantize_preln_block(block) -> dict:
     return q
 
 
+_BLOCK_KINDS = ((_is_preln_block, _quantize_preln_block),
+                (_is_vit_block, _quantize_vit_block),
+                (_is_diffusion_block, _quantize_diffusion_block))
+
+
 @torch.no_grad()
 def quantize_serving_params(module: torch.nn.Module) -> dict:
     """Build the "qparams" tree: pre-quantized int8 weights for every
-    PreLNBlock, at the block's module path.
+    PreLNBlock, ViT Block and DiffusionBlock, at the block's module path.
 
     Mirrors the JAX tree: a ``ModuleList`` of blocks (the port's counterpart
     of the scanned stack) gives ``{"block": {leaf: (depth, ...)}}``, so the
     port's tree has the JAX tree's keys and shapes. Run once per pipeline
     call, outside the step loop."""
-    if _is_preln_block(module):
-        return _quantize_preln_block(module)
+    for is_kind, quantize in _BLOCK_KINDS:
+        if is_kind(module):
+            return quantize(module)
     if isinstance(module, torch.nn.ModuleList):
-        if len(module) and all(_is_preln_block(m) for m in module):
-            per = [_quantize_preln_block(m) for m in module]
-            return {"block": {k: _stack([p[k] for p in per]) for k in per[0]}}
+        for is_kind, quantize in _BLOCK_KINDS:
+            if len(module) and all(is_kind(m) for m in module):
+                return {"block": stack_layers([quantize(m) for m in module])}
         return {}
     out = {}
     for name, child in module.named_children():

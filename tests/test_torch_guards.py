@@ -14,20 +14,25 @@ import torch
 
 import nova_pointcloud_tpu_torch
 from nova_pointcloud_tpu_torch.models import pointcloud
+from nova_pointcloud_tpu_torch.models.nova import NOVATransformer
 from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer, PreLNBlock
 from nova_pointcloud_tpu_torch.models.text_encoders.dummy import DummyTextEncoder
 from nova_pointcloud_tpu_torch.ops.attention import attention
 from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES, flash_attention, fused_block
 from nova_pointcloud_tpu_torch.pipelines.builder import build_pipeline
+from nova_pointcloud_tpu_torch.pipelines.nova import NOVAPipeline
 from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import NOVAPointCloudGenerationPipeline
 from nova_pointcloud_tpu_torch.schedulers.builder import build_scheduler
 from nova_pointcloud_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
+NOVA_TINY = dict(arch=("vit_d2w64", "vit_d2w64", "mlp_d2w64"), image_base_size=(8, 8),
+                 video_base_size=(1, 2, 2), text_token_dim=16, text_token_len=4)
 PKG = REPO / "nova_pointcloud_tpu_torch"
 BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "nova_pointcloud_tpu"}
 KERNEL_NAMES = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
-                "int8_matmul_residual", "flash_attention")
+                "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
+                "fused_int8_diffusion_block", "flash_attention_static", "int8_linear")
 
 
 def _port_sources():
@@ -58,7 +63,13 @@ def test_every_module_imports_without_cuda_or_jax():
             "nova_pointcloud_tpu_torch.ops.kernels.flash_attention",
             "nova_pointcloud_tpu_torch.pipelines.builder",
             "nova_pointcloud_tpu_torch.schedulers.builder",
-            "nova_pointcloud_tpu_torch.utils.config"} <= set(mods)
+            "nova_pointcloud_tpu_torch.utils.config",
+            "nova_pointcloud_tpu_torch.models.nova",
+            "nova_pointcloud_tpu_torch.models.vit",
+            "nova_pointcloud_tpu_torch.models.diffusion_mlp",
+            "nova_pointcloud_tpu_torch.pipelines.nova",
+            "nova_pointcloud_tpu_torch.schedulers.flow_match",
+            "nova_pointcloud_tpu_torch.ops.masking"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -84,6 +95,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     model = NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=64, device="cpu")
     assert model.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NOVATransformer(**NOVA_TINY)
+    assert NOVATransformer(**NOVA_TINY, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -174,3 +188,64 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
                            text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_cpu_nova_serving_runs_no_kernel(quantize):
+    """NOVA t2i on CPU tensors (int8 calibrated, and float): the wrappers run
+    their plain versions and count nothing."""
+    fused_block.reset_launch_counts()
+    model = NOVATransformer(**NOVA_TINY, quantize=quantize, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    model.init_weights(g).fill_zero_init(g)
+    pipe = NOVAPipeline(model, text_encoder=DummyTextEncoder(16, 4))
+    if quantize:
+        pipe.calibrate(["a scene"], num_inference_steps=3, num_diffusion_steps=2)
+    out = pipe(["a scene", "a cat"], num_inference_steps=4, num_diffusion_steps=2,
+               generator=torch.Generator().manual_seed(1))
+    assert out.latents.shape == (2, 16, 16, 4) and torch.isfinite(out.latents).all()
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def test_nova_unported_paths_raise():
+    model = NOVATransformer(**NOVA_TINY, device="cpu")
+    pipe = NOVAPipeline(model, text_encoder=DummyTextEncoder(16, 4))
+    for kw in (dict(output_type="pil"), dict(max_latent_length=3),
+               dict(latents=torch.zeros(1, 16, 16, 4))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pipe(["a scene"], num_inference_steps=2, num_diffusion_steps=1, **kw)
+    for kw in (dict(vae=object()), dict(mesh=object()),
+               dict(scheduler=build_scheduler({"class_name": "DDPMScheduler"}))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            NOVAPipeline(model, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipe.enable_host_offload()
+    for kw in (dict(rotary_pos_embed=True), dict(video_base_size=(3, 2, 2)),
+               dict(video_mixer_rank=4), dict(text_token_dim=None, num_classes=10),
+               dict(num_experts=4), dict(attn_impl="ring")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            NOVATransformer(**{**NOVA_TINY, **kw}, device="cpu")
+
+
+def test_nova_kernel_wrappers_refuse_shapes_on_the_card(monkeypatch):
+    """On the card a shape the kernels do not take raises before any launch
+    and never runs the plain version (the route is forced to the card's
+    here; the checks come before anything touches CUDA)."""
+    monkeypatch.setattr(fused_block, "_plain_route", lambda x: False)
+    monkeypatch.setattr(flash_attention, "plain_route", lambda x: False)
+    for name in ("fused_int8_mlp_postln_plain", "fused_int8_diffusion_block_plain",
+                 "int8_linear_plain"):
+        monkeypatch.setattr(fused_block, name, None)  # must not be called
+    monkeypatch.setattr(flash_attention, "flash_attention_static_plain", None)
+    i8 = torch.int8
+    with pytest.raises(NotImplementedError, match="multiples of 128"):
+        fused_block.fused_int8_mlp_postln(torch.zeros(4, 96), torch.zeros(96, 384, dtype=i8),
+                                          *([None] * 7))
+    with pytest.raises(NotImplementedError, match="multiples of 128"):
+        fused_block.fused_int8_diffusion_block(torch.zeros(4, 96), torch.zeros(4, 96),
+                                               *([None] * 11))
+    with pytest.raises(NotImplementedError, match="multiples of 128"):
+        fused_block.int8_linear(torch.zeros(4, 100), torch.zeros(100, 128, dtype=i8), None)
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(NotImplementedError, match="head dim 64"):
+        flash_attention.flash_attention_static(q, q, q, torch.tensor(1.0))
