@@ -66,10 +66,42 @@ The NOVA text-to-image slice adds, in their places in that order:
     t2i paths' samples/s (p50 of 3 calls, batch 4);
 6.  (in the profiles phase) one profiled t2i int8 call.
 
+The NOVA t2i training slice adds:
+
+3e. the flash backward kernels (dK/dV, dQ) against their plain version at
+    the training shape (8, 16, 1280, 64), bf16 and f32: no bias; a key bias
+    with -inf keys and a fully masked sample (its gradients exactly 0); a
+    full bias; a ragged Lq != Lk;
+4f. t2i training as bench.py --mode train --train-arch t2i:
+    NOVATransformer(vit_d16w1024, vit_d32w1024, mlp_d6w1024) at full width
+    and depth, seeded init_weights (zero AdaLN, as the JAX initialisers),
+    f32 master weights, bf16 compute, remat on, AdamW (constant lr 1e-4,
+    wd 0.02, betas 0.9 / 0.95) with the T2I freeze rules, batch 8 in the
+    records layout: exact launches in one step of NOVATrainT2IPipeline.train
+    (16 flash_attention_dkv, 16 flash_attention_dq, 32 flash_attention:
+    the decoder half's 16 layers at 1280 keys, their forward run again by
+    remat; 0 of every other kernel), finite loss and gradients, the
+    backward kernels on the tensors of every one of the step's 16 backward
+    calls against the plain backward (flash bf16 tolerance), the f32 step
+    through the kernels against the f32 plain step (relative L2 of the whole
+    gradient, gate 2 x floor + 1e-6; floor: the f32 plain step against
+    itself with the latents moved by 1e-6), and the loss of one fixed batch
+    with fixed draws falling over 10 steps; the bf16 step against the plain
+    bf16 step is printed as a reading with no gate (the plain bf16 step is
+    over 1 in relative L2 from the plain f32 step on random weights, so a
+    tolerance built on that floor cannot fail);
+5d. times of the backward kernels, their plain version, the SDPA backward
+    (from a graph built once) beside the port's whole backward through
+    autograd and the sum dK/dV + dQ, and the bounds; the training step (p50 of 5 after 2 warm-ups),
+    samples/s, peak memory, the step's FLOPs (FlopCounterMode for the
+    library ops, the flash kernels' counted from their shapes) and TFLOP/s;
+6.  (in the profiles phase) one profiled training step.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -92,6 +124,10 @@ try:
     from nova_pointcloud_tpu_torch.pipelines.nova import NOVAPipeline
     from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import (
         NOVAPointCloudGenerationPipeline)
+    from nova_pointcloud_tpu_torch.engine.lr_schedules import constant_lr
+    from nova_pointcloud_tpu_torch.engine.optim import build_optimizer
+    from nova_pointcloud_tpu_torch.ops import masking
+    from nova_pointcloud_tpu_torch.pipelines.train_nova import NOVATrainT2IPipeline
     from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
     from nova_pointcloud_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
     _PORT_IMPORT_ERROR = None
@@ -122,10 +158,20 @@ T2I_CMP_AR = 16  # AR steps of the plain / floor comparisons (the plain run is s
 T2I_BASE, T2I_VIDEO_BASE = (32, 32), (1, 16, 16)
 T2I_VIT_LAYERS, T2I_V_LAYERS, T2I_DIFF_BLOCKS = 32, 16, 6
 T2I_PROMPTS = [f"a scene {i}" for i in range(T2I_BATCH)]
+# t2i training (bench.py --mode train --train-arch t2i): batch 8, 1024 image
+# tokens, remat; the decoder half's 16 layers see 256 + 1024 keys
+TRAIN_BATCH, TRAIN_LR, TRAIN_FALL_STEPS = 8, 1e-4, 10
+TRAIN_FLASH_LAYERS = T2I_VIT_LAYERS // 2
+TRAIN_LAUNCHES = {"flash_attention_dkv": TRAIN_FLASH_LAYERS,
+                  "flash_attention_dq": TRAIN_FLASH_LAYERS,
+                  "flash_attention": 2 * TRAIN_FLASH_LAYERS}  # remat runs each forward twice
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
-           "fused_int8_diffusion_block", "flash_attention_static", "int8_linear")
+           "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
+           "flash_attention_dkv", "flash_attention_dq")
 SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
+SOURCES["flash_attention_dkv"] = SOURCES["flash_attention_dq"] = (
+    "nova_pointcloud_tpu_torch/csrc/flash_attention_bwd.cu")
 REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:412",
             "fused_ln_int8_mlp": "nova_pointcloud_tpu/ops/pallas/fused_block.py:133",
             "fused_ln_int8_matmul": "nova_pointcloud_tpu/ops/pallas/fused_block.py:204",
@@ -135,7 +181,9 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
             "fused_int8_diffusion_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:665",
             "flash_attention_static": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:424",
             # no TPU kernel: the JAX model's int8 projections are plain XLA
-            "int8_linear": "nova_pointcloud_tpu/models/vit.py:83"}
+            "int8_linear": "nova_pointcloud_tpu/models/vit.py:83",
+            "flash_attention_dkv": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
+            "flash_attention_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
 OUT_DIR = "build"
 DEV = "cuda"
 
@@ -254,8 +302,9 @@ FLAGSHIP_SHAPE = {"attention": 2 * BATCH, "mlp": 2 * BATCH * T}  # the CFG steps
 
 
 def _tol_check(name, label, y, ref, tol_max_rel=2.0 ** -6, tol_mean_rel=2.0 ** -10,
-               like=None):
-    """One comparison under the max / mean gates; records and prints it."""
+               like=None, quiet=False):
+    """One comparison under the max / mean gates; records it and, unless
+    ``quiet``, prints it."""
     ref = ref.float()
     err = (y.float() - ref).abs()
     tol_max = tol_max_rel * ref.abs().max().item()
@@ -264,8 +313,9 @@ def _tol_check(name, label, y, ref, tol_max_rel=2.0 ** -6, tol_mean_rel=2.0 ** -
     ok = bool(torch.isfinite(y).all()) and e_max <= tol_max and e_mean <= tol_mean
     if like is not None:
         ok = ok and y.dtype == like.dtype and y.shape == like.shape
-    print(f"  {name} {label} {tuple(y.shape)}: max_abs_err {e_max:.3e} (tol {tol_max:.3e}) "
-          f"mean {e_mean:.3e} (tol {tol_mean:.3e}) {'ok' if ok else 'FAIL'}")
+    if not quiet:
+        print(f"  {name} {label} {tuple(y.shape)}: max_abs_err {e_max:.3e} (tol {tol_max:.3e}) "
+              f"mean {e_mean:.3e} (tol {tol_mean:.3e}) {'ok' if ok else 'FAIL'}")
     report["checks"].append(dict(kernel=name, variant=label, max_abs_err=e_max,
                                  tol_max=tol_max, mean_abs_err=e_mean, tol_mean=tol_mean,
                                  ok=ok))
@@ -448,13 +498,17 @@ def check_flash():
     if not (_tol_check("flash_attention", "strided (B, L, H, D) view", o, ref_o, 2.0 ** -6,
                        2.0 ** -8, like=ref_o) and o.stride() == q.stride()):
         bad.append("strided view")
-    # a gradient through the CUDA kernel is refused, not recomputed plainly
-    try:
-        qg = q.detach().clone().requires_grad_()
-        fa.flash_attention(qg, k, v).float().sum().backward()
-        bad.append("backward did not raise")
-    except NotImplementedError as e:
-        print(f"  flash_attention backward raises: {e}")
+    # its backward in that layout: do arrives as a (B, L, H, D) view too
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o, lse = fa.flash_attention_with_lse(*ins)
+    do = torch.randn((2, L, H, 64), generator=gen, device=DEV).to(torch.bfloat16).transpose(1, 2)
+    grads = torch.autograd.grad(o, ins, do)
+    ref = fa.flash_attention_bwd_plain(q, k, v, None, None, o.detach(), lse, do)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        kernel = "flash_attention_dq" if name == "dq" else "flash_attention_dkv"
+        if not _tol_check(kernel, f"{name} strided (B, L, H, D) view", g, r, 2.0 ** -6,
+                          2.0 ** -8, like=r):
+            bad.append(f"strided backward {name}")
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain version: {bad}")
     fb.reset_launch_counts()
@@ -1044,6 +1098,327 @@ def t2i_float(pipe_int8):
     return pipe
 
 
+def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
+    """One flash forward + backward through the kernels against the plain
+    backward on the kernels' own (o, lse) and the same do; ``dead``: a
+    sample whose keys are all masked, its gradients exactly 0."""
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o, lse = fa.flash_attention_with_lse(*ins, bias)
+    do = torch.randn(o.shape, generator=gen, device=DEV).to(dt)
+    grads = torch.autograd.grad(o, ins, do)
+    torch.cuda.synchronize()
+    kb, fbias = fa._normalize_bias(bias, q.shape[0], q.shape[2], k.shape[2])
+    ref = fa.flash_attention_bwd_plain(q, k, v, kb, fbias, o.detach(), lse, do)
+    rel = (2.0 ** -6, 2.0 ** -8) if dt == torch.bfloat16 else (1e-4, 1e-5)
+    ok = True
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        kernel = "flash_attention_dq" if name == "dq" else "flash_attention_dkv"
+        ok = _tol_check(kernel, f"{name} {label}", g, r, *rel, like=r) and ok
+        if dead is not None:
+            zero = bool((g[dead] == 0).all())
+            print(f"    {name} of the fully masked sample exactly 0: {zero}")
+            ok = ok and zero
+    return ok
+
+
+@phase("3e flash backward vs plain")
+def check_flash_backward():
+    """The dK/dV and dQ kernels at the training shape (8, 16, 1280, 64), bf16
+    and f32, every bias form, and a ragged Lq != Lk off the tiles. The
+    plain version gets the kernels' own forward output and lse. Tolerances:
+    bf16 as the flash forward's (max <= 2^-6 max|g|, mean <= 2^-8 mean|g|:
+    the kernels round p and ds to bf16 as mma operands, the plain version
+    only its outputs); f32 1e-4 / 1e-5 relative (f32 sums in another
+    order); a fully masked sample's gradients exactly 0."""
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    L, bad = T2I_L["full"], []
+    for dt in (torch.bfloat16, torch.float32):
+        for kind in ("none", "visibility", "full"):
+            q, k, v, bias = _static_attention_operands(
+                gen, L, "visibility" if kind == "visibility" else "none")
+            q, k, v = q.to(dt), k.to(dt), v.to(dt)
+            if kind == "full":
+                bias = _flash_bias(gen, "full", T2I_ROWS, L, L)
+            label = f"bias={kind} {str(dt)[6:]} (8, 16, {L}, 64)"
+            if not _bwd_check(label, q, k, v, bias, dt, gen,
+                              dead=1 if kind == "visibility" else None):
+                bad.append(label)
+            del q, k, v, bias
+        q, k, v = _flash_operands(gen, 2, HEADS, 1000, 1531, 64, dt)
+        bias = _flash_bias(gen, "key", 2, 1000, 1531)
+        label = f"bias=key {str(dt)[6:]} Lq=1000 Lk=1531"
+        if not _bwd_check(label, q, k, v, bias, dt, gen):
+            bad.append(label)
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"the flash backward disagrees with its plain version: {bad}")
+    fb.reset_launch_counts()
+
+
+def _train_model(dtype=torch.bfloat16, state_dict=None):
+    """bench.py --mode train --train-arch t2i's model at full width and
+    depth: f32 master weights, ``dtype`` compute, remat on; seeded
+    init_weights (the JAX initialisers' zero AdaLN) unless a state dict is
+    given."""
+    model = NOVATransformer(arch=T2I_ARCH, image_dim=4, image_base_size=T2I_BASE,
+                            video_base_size=T2I_VIDEO_BASE, patch_size=2, text_token_dim=256,
+                            text_token_len=32, noise_scheduler=FlowMatchEulerScheduler(),
+                            remat=True, dtype=dtype, device=DEV)
+    if state_dict is None:
+        model.init_weights(torch.Generator(device=DEV).manual_seed(0))
+    else:
+        model.load_state_dict(state_dict)
+    return model
+
+
+def _train_pipe(model):
+    opt = build_optimizer(model, constant_lr(TRAIN_LR), weight_decay=0.02, betas=(0.9, 0.95))
+    return NOVATrainT2IPipeline(model, optimizer=opt, ema_decay=None, log_every=1)
+
+
+def _train_batch(seed):
+    """Batch 8 in the records layout: fp16 VAE moments (mean N(0, 0.8^2),
+    logvar -6) and f32 caption embeddings N(0, 1)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    lat = (TRAIN_BATCH, 2 * T2I_BASE[0], 2 * T2I_BASE[1], 4)
+    return {"moments": torch.cat([torch.randn(lat, generator=gen, device=DEV) * 0.8,
+                                  torch.full(lat, -6.0, device=DEV)], -1).half(),
+            "text_embeds": torch.randn((TRAIN_BATCH, 32, 256), generator=gen, device=DEV)}
+
+
+def _train_draws(model, seed):
+    """Every random draw of one step, fixed: latent eps, prompt drop, mask,
+    timesteps, noise."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    ni, rows = model.num_image_tokens, model.loss_repeat * TRAIN_BATCH
+    lat = (TRAIN_BATCH, 2 * T2I_BASE[0], 2 * T2I_BASE[1], 4)
+    mask, _ = masking.sample_train_mask(gen, TRAIN_BATCH, ni, device=DEV)
+    return {"latent_eps": torch.randn(lat, generator=gen, device=DEV),
+            "drop": torch.rand((TRAIN_BATCH,), generator=gen, device=DEV) < 0.1, "mask": mask,
+            "timesteps": model.noise_scheduler.sample_timesteps(gen, (rows, ni), device=DEV),
+            "noise": torch.randn((rows, ni, model.patch_dim), generator=gen, device=DEV)}
+
+
+def _step_grads(pipe, batch, draws):
+    """Loss and gradients (f32, name -> tensor) of one step; no update."""
+    pipe.trainer.optimizer.zero_grad()
+    loss, _ = pipe.loss_fn(batch, None, draws=draws)
+    loss.backward()
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad.detach().float())
+             for n, p in pipe.model.named_parameters()}
+    pipe.trainer.optimizer.zero_grad()
+    return float(loss.detach()), grads
+
+
+def _rel_l2(a, b, label=None):
+    """Relative L2 distance of two gradient dicts as one vector; with a
+    ``label``, prints the three tensors that hold most of the difference."""
+    diff = {n: float(torch.sum(torch.square(a[n] - b[n]))) for n in b}
+    num, den = sum(diff.values()), sum(float(torch.sum(torch.square(b[n]))) for n in b)
+    if label is not None:
+        top = sorted(diff, key=diff.get, reverse=True)[:3]
+        print(f"  {label}: most of the difference in " + ", ".join(
+            f"{n} ({diff[n] / max(num, 1e-30):.0%})" for n in top))
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+@phase("4f t2i training")
+def t2i_train():
+    model = _train_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = _train_pipe(model)
+    print(f"NOVA t2i training {T2I_ARCH}: {n_params / 1e6:.1f}M parameters (f32 master, bf16 "
+          f"compute, remat), batch {TRAIN_BATCH}, {model.num_image_tokens} image tokens")
+    batch = _train_batch(1)
+    pipe.train(iter([batch]), 1)  # warm-up: kernel loads, allocator, Adam state
+    fb.reset_launch_counts()
+    out = pipe.train(iter([_train_batch(2)]), pipe.trainer.step + 1)
+    torch.cuda.synchronize()
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {n: TRAIN_LAUNCHES.get(n, 0) for n in KERNELS}
+    print(f"launches in one training step: {launches} (expected {TRAIN_LAUNCHES}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    for name, n in TRAIN_LAUNCHES.items():
+        _record_launches(name, "t2i_train", launches[name])
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    print(f"step loss {out['loss']:.4f}, parameters finite after the steps: {finite}")
+
+    # one step's gradients on fixed draws. (a) Every backward call of the
+    # step: the kernels on the step's own tensors against the plain backward
+    # at the flash bf16 tolerance; this holds the bf16 kernels on the path.
+    # (b) f32 kernels vs f32 plain, floor the f32 plain step against itself
+    # with the latents moved by 1e-6. (c) A reading, not a gate: bf16 kernels
+    # vs bf16 plain beside the plain bf16 step's distance from the plain f32
+    # step, which exceeds 1 on these random weights (the 32-layer post-LN
+    # ViT's bf16 gradient is chaotic), so no tolerance built on it can fail.
+    draws = _train_draws(model, 3)
+    calls = []  # per backward call: (ok, worst err / tol of dq, dk, dv)
+    launch_bwd = fa._launch_bwd
+
+    def check(*args):
+        grads = launch_bwd(*args)
+        ref = fa.flash_attention_bwd_plain(*args)
+        ok, worst = True, []
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            kernel = "flash_attention_dq" if name == "dq" else "flash_attention_dkv"
+            ok = _tol_check(kernel, f"{name} of the step's backward call {len(calls) + 1} (do "
+                            f"strides {tuple(args[-1].stride())})", g, r, 2.0 ** -6, 2.0 ** -8,
+                            like=r, quiet=True) and ok
+            c = report["checks"][-1]
+            worst.append(max(c["max_abs_err"] / max(c["tol_max"], 1e-30),
+                             c["mean_abs_err"] / max(c["tol_mean"], 1e-30)))
+        calls.append((ok, worst))
+        return grads
+
+    fa._launch_bwd = check
+    try:
+        loss_k, g_k = _step_grads(pipe, batch, draws)
+    finally:
+        fa._launch_bwd = launch_bwd
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    in_path = len(calls) == TRAIN_FLASH_LAYERS and all(ok for ok, _ in calls)
+    worst = [max((w[i] for _, w in calls), default=float("nan")) for i in range(3)]
+    print(f"  every backward call of the step ({len(calls)}, expected {TRAIN_FLASH_LAYERS}) vs "
+          f"the plain backward on its own tensors, flash bf16 tolerance: worst error / "
+          f"tolerance dq {worst[0]:.3f}, dk {worst[1]:.3f}, dv {worst[2]:.3f}; failing calls "
+          f"{[i + 1 for i, (ok, _) in enumerate(calls) if not ok]}: "
+          f"{'ok' if in_path else 'FAIL'}")
+    del calls
+    with fb.use_plain_kernels():
+        loss_p, g_p = _step_grads(pipe, batch, draws)
+    twin = _train_pipe(_train_model(None, model.state_dict()))
+    loss_32k, g_32k = _step_grads(twin, batch, draws)
+    moved = dict(draws, latent_eps=draws["latent_eps"] + 1e-6 * torch.randn(
+        draws["latent_eps"].shape, generator=torch.Generator(device=DEV).manual_seed(4),
+        device=DEV))
+    with fb.use_plain_kernels():
+        loss_32, g_32 = _step_grads(twin, batch, draws)
+        _, g_32m = _step_grads(twin, batch, moved)
+    del twin
+    vs_plain, floor = _rel_l2(g_k, g_p, "kernels vs plain"), _rel_l2(g_p, g_32, "bf16 vs f32")
+    vs_plain32, floor32 = _rel_l2(g_32k, g_32), _rel_l2(g_32m, g_32)
+    del g_p, g_32, g_32k, g_32m
+    torch.cuda.empty_cache()
+    tol32 = 2 * floor32 + 1e-6
+    grad_ok = grads_finite and np.isfinite(loss_k) and in_path and vs_plain32 <= tol32
+    print(f"one step's gradients (relative L2 of the whole vector): f32 kernels vs plain "
+          f"{vs_plain32:.3e} (tol 2 x floor + 1e-6 = {tol32:.3e}; floor, f32 plain vs itself "
+          f"with the latents moved by 1e-6: {floor32:.3e}); finite: {grads_finite}: "
+          f"{'ok' if grad_ok else 'FAIL'}")
+    print(f"  reading, no gate: bf16 kernels vs plain {vs_plain:.3e} beside the plain bf16 "
+          f"step's distance from the plain f32 step {floor:.3e} (over 1: the bf16 gradient "
+          f"is chaotic on these weights); losses {loss_k:.6f} / plain {loss_p:.6f} / f32 "
+          f"{loss_32k:.6f} / f32 plain {loss_32:.6f}")
+
+    # the loss of one fixed batch with fixed draws falls
+    losses = [float(pipe.trainer.train_step(batch, draws=draws)["loss"])
+              for _ in range(TRAIN_FALL_STEPS)]
+    fall_ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    print(f"fixed batch and draws, {TRAIN_FALL_STEPS} steps: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} ({[round(x, 5) for x in losses]}): {'ok' if fall_ok else 'FAIL'}")
+    report["t2i_train"] = dict(params_m=n_params / 1e6, launches=launches,
+                               in_path_worst_err_over_tol=worst,
+                               grad_bf16_reading_vs_plain=vs_plain,
+                               grad_bf16_reading_plain_vs_f32=floor,
+                               grad_f32_rel_l2_vs_plain=vs_plain32, grad_f32_floor=floor32,
+                               losses=losses, step_loss=out["loss"])
+    if not (counts_ok and finite and grad_ok and fall_ok):
+        raise AssertionError("t2i training check failed")
+    return pipe
+
+
+def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
+    """FLOPs of the flash kernels of one training step, from their shapes:
+    forward 4 BH Lq Lk d (twice: remat), dK/dV 8 and dQ 6 BH Lq Lk d."""
+    per = bh * lq * lk * d
+    return TRAIN_FLASH_LAYERS * (2 * 4 + 8 + 6) * per
+
+
+@phase("5d timing of the backward kernels and the training step")
+def timing_train(pipe):
+    """dK/dV and dQ per launch at (8, 16, 1280, 64) bf16, their plain
+    version (the whole plain backward), the SDPA backward (all three
+    gradients, from a graph built once) and their bounds (the
+    operations over the bf16 peak, or the bytes: q, k, v, do, lse and delta
+    read once, the gradients written once); then the training step."""
+    import torch.nn.functional as Fn
+    from torch.utils.flop_counter import FlopCounterMode
+
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    L, bh = T2I_L["full"], T2I_ROWS * HEADS
+    q, k, v, _ = _static_attention_operands(gen, L, "none")
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device=DEV).to(torch.bfloat16)
+    operands, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            Fn.scaled_dot_product_attention(ins[0], ins[1], ins[2])
+
+    # the backward alone, from a graph built once (retain_graph): SDPA's
+    # (dq, dk, dv) and the port's whole autograd backward (delta, dK/dV, dQ)
+    o_lib = Fn.scaled_dot_product_attention(*ins)
+    library = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 20)
+    o_port = fa.flash_attention(*ins)
+    port_bwd = sync_ms(lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), 20)
+    del o_lib, o_port
+    # the forward kernel at this shape too (its kernels-line entry stays path A's)
+    _time_kernel("flash_attention", (T2I_ROWS, HEADS, L, 64),
+                 lambda: fa.flash_attention_with_lse(q, k, v),
+                 lambda: fa.flash_attention_plain(q, k, v),
+                 _bound(4 * bh * L * L * 64 / PEAK_BF16_FLOPS, 4 * bh * L * 64 * 2 + bh * L * 4),
+                 library=sdpa_fwd)
+    plain_ms = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
+    io = bh * L * 64 * 2
+    pair = 0.0
+    for name, mult, nbytes in (("flash_attention_dkv", 8, 4 * io + 2 * bh * L * 4 + 2 * io),
+                               ("flash_attention_dq", 6, 4 * io + 2 * bh * L * 4 + io)):
+        ms = sync_ms(lambda: fa.run_bwd(operands, (name,)), 20)
+        pair += ms
+        bound = _bound(mult * bh * L * L * 64 / PEAK_BF16_FLOPS, nbytes)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=library)
+        print(f"  {name} {(T2I_ROWS, HEADS, L, 64)}: {ms:.3f} ms/launch, plain backward "
+              f"{plain_ms:.3f} ms, SDPA backward {library:.3f} ms, bound {bound[0]:.3f} ms "
+              f"({bound[1]}), {bound[0] / ms:.1%} of bound")
+        report["kernels"][name].update(row)
+    print(f"  the whole backward at {(T2I_ROWS, HEADS, L, 64)}, like for like: dK/dV + dQ "
+          f"{pair:.3f} ms, the port's autograd backward {port_bwd:.3f} ms, SDPA's backward "
+          f"{library:.3f} ms (dq, dk and dv; library_ms of both kernels)")
+    report.setdefault("t2i_train", {}).update(bwd_pair_ms=pair, bwd_autograd_ms=port_bwd, sdpa_bwd_ms=library)
+    del q, k, v, o, lse, do, operands, ins
+    torch.cuda.empty_cache()
+    fb.reset_launch_counts()
+    if pipe is None:
+        raise AssertionError("no training pipeline: phase 4f failed")
+    data = itertools.repeat(_train_batch(4))
+    pipe.train(data, pipe.trainer.step + 2)  # warm-ups
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe.train(data, pipe.trainer.step + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.percentile(times, 50))
+    with FlopCounterMode(display=False) as counter:
+        pipe.train(data, pipe.trainer.step + 1)
+    lib_flops = counter.get_total_flops()
+    flash = _flash_flops(L, L)
+    tflops = (lib_flops + flash) / p50 / 1e12
+    print(f"t2i training: batch {TRAIN_BATCH}, p50 {p50:.3f} s per step, "
+          f"{TRAIN_BATCH / p50:.2f} samples/s (times {[round(t, 3) for t in times]}); peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; FLOPs per step {lib_flops / 1e12:.2f} T (library "
+          f"ops, FlopCounterMode) + {flash / 1e12:.2f} T (flash kernels, from shapes) = "
+          f"{tflops:.1f} TFLOP/s, {tflops * 1e12 / PEAK_BF16_FLOPS:.1%} of the bf16 peak")
+    report["t2i_train"].update(batch=TRAIN_BATCH, p50_s=p50, samples_per_s=TRAIN_BATCH / p50,
+                               times_s=times, peak_bytes=peak, library_flops=lib_flops,
+                               flash_flops=flash, tflop_s=tflops)
+
+
 def _bound(ops_s, nbytes):
     """Least time for the work in ms: its operations over the peak rate of
     their type (``ops_s``, seconds), or its bytes (each input read once, each
@@ -1102,7 +1477,7 @@ def timing(pipe):
 
 
 PORT_KERNEL_NAMES = ("gemm_s8_kernel", "row_quant_kernel", "row_op_kernel", "attn_core_",
-                     "flash_fwd_", "flash_static_kernel", "static_qk_quant_kernel")
+                     "flash_fwd_", "flash_static_kernel", "static_qk_quant_kernel", "flash_bwd_")
 
 
 def profile_call(sample, label="flagship"):
@@ -1289,10 +1664,10 @@ def timing_t2i(pipe_int8, pipe_float):
 
 
 @phase("6 profiles")
-def profiles(pipe, pipe_a, pipe_b, pipe_t2i):
-    """One profiled call of each path, after every timing: the profiler's
-    hooks stay on the launch path once it has run, and would slow the
-    host side of the per-launch timings."""
+def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train):
+    """One profiled call of each path (one step of training), after every
+    timing: the profiler's hooks stay on the launch path once it has run,
+    and would slow the host side of the per-launch timings."""
     if pipe is not None:
         profile_call(lambda: _sample(pipe, seed=30))
     for label, p in (("path_a", pipe_a), ("path_b", pipe_b)):
@@ -1300,6 +1675,14 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i):
             profile_call(lambda: _sample(p, seed=30, prompts=PP_PROMPTS), label)
     if pipe_t2i is not None:
         profile_call(lambda: _t2i_sample(pipe_t2i, seed=30), "t2i_int8")
+    if pipe_train is not None:
+        data = itertools.repeat(_train_batch(5))
+
+        def step():
+            pipe_train.train(data, pipe_train.trainer.step + 1)
+            torch.cuda.synchronize()
+
+        profile_call(step, "t2i_train")
 
 
 def main():
@@ -1315,15 +1698,18 @@ def main():
         check_split_kernels()
         check_flash()
         check_nova_kernels()
+        check_flash_backward()
         pipe = main_path()
         pipe_a = path_a()
         pipe_b = path_b()
         pipe_t2i = t2i_int8()
         pipe_t2i_f = t2i_float(pipe_t2i)
+        pipe_train = t2i_train()
         timing(pipe)
         timing_per_point(pipe_a, pipe_b)
         timing_t2i(pipe_t2i, pipe_t2i_f)
-        profiles(pipe, pipe_a, pipe_b, pipe_t2i)
+        timing_train(pipe_train)
+        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train)
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})

@@ -18,13 +18,17 @@ Mapping:
   such as ``null_prompt`` or ``bos_token``) keeps its path, dot-joined.
 
 ``convert_tree`` carries the ``qparams`` and act-scale trees across: they
-have the same keys and shapes on both sides.
+have the same keys and shapes on both sides. ``jax_param_paths`` goes the
+other way for a model: each port parameter's JAX path and JAX rank, which
+the optimizer's masks are defined on (engine/optim.py). A JAX gradient tree
+has the param tree's structure, so ``convert_params`` names its leaves too.
 """
 
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _MHA_PARENTS = ("attn", "cluster_attn")
 _MHA_PROJ = ("query", "key", "value", "out")
@@ -90,3 +94,33 @@ def convert_tree(tree):
     if isinstance(tree, dict):
         return {k: convert_tree(v) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree))
+
+
+def jax_param_paths(model: nn.Module) -> Dict[str, Tuple[str, int]]:
+    """Port parameter name -> (its JAX param path, "a/b/kernel", and the JAX
+    leaf's rank): the inverse of :func:`convert_params`'s naming. A leaf of a
+    scanned stack has one more axis in JAX (the depth), an attention
+    projection of a ``MultiHeadDotProductAttention`` one more (heads)."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            leaf = pname
+            if isinstance(mod, nn.Linear):
+                leaf = {"weight": "kernel"}.get(pname, pname)
+            elif isinstance(mod, nn.LayerNorm):
+                leaf = {"weight": "scale"}.get(pname, pname)
+            parts = mod_name.split(".") if mod_name else []
+            path, ndim, i = [], p.ndim, 0
+            while i < len(parts):
+                if parts[i] in _SCANS and i + 1 < len(parts) and parts[i + 1].isdigit():
+                    path += [parts[i], "block"]
+                    ndim += 1
+                    i += 2
+                    continue
+                path.append(parts[i])
+                i += 1
+            if (len(path) > 1 and path[-2] in _MHA_PARENTS and path[-1] in _MHA_PROJ
+                    and (leaf == "kernel" or path[-1] != "out")):
+                ndim += 1
+            out[".".join(parts + [pname])] = ("/".join(path + [leaf]), ndim)
+    return out

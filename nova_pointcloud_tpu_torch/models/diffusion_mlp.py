@@ -32,7 +32,8 @@ ADALN_EPS = 1e-6
 
 
 def _amax(v: torch.Tensor) -> torch.Tensor:
-    return torch.amax(torch.abs(v)).float()
+    """A calibration statistic: a measurement, carrying no gradient."""
+    return torch.amax(torch.abs(v)).detach().float()
 
 
 class Projector(nn.Module):

@@ -7,7 +7,8 @@ pc model, and what NOVA t2i serving needs:
   time MLP; the motion embed waits for t2v);
 - ``PatchEmbed`` (+ ``patchify`` / ``unpatchify`` in NOVA's (p_h, p_w, C)
   layout), including ``pre_patchified=True``;
-- ``TextEmbed`` (learned null-prompt bank, proj + LayerNorm);
+- ``TextEmbed`` (learned null-prompt bank, proj + LayerNorm, train-time
+  prompt dropout to the bank);
 - ``MaskTokens`` (BOS / mask tokens).
 
 Parameter names are the flax modules' (``models/convert.py``). RoPE is not
@@ -140,19 +141,33 @@ class PatchEmbed(nn.Module):
 
 class TextEmbed(nn.Module):
     """Project encoder hidden states into the model dim, with a learned
-    null-prompt bank (CFG negatives, padding)."""
+    null-prompt bank (CFG negatives, padding, train-time prompt dropout)."""
 
     def __init__(self, token_dim: int, embed_dim: int, num_tokens: int = 256,
-                 max_positions: int = 512, device=None):
+                 max_positions: int = 512, dropout: float = 0.1, device=None):
         super().__init__()
-        self.num_tokens = num_tokens
+        self.num_tokens, self.dropout = num_tokens, dropout
         self.null_prompt = nn.Parameter(torch.zeros(max_positions, token_dim, device=device))
         self.proj = nn.Linear(token_dim, embed_dim, device=device)
         self.norm = nn.LayerNorm(embed_dim, eps=TORCH_LN_EPS, device=device)
 
+    def null_bank(self) -> torch.Tensor:
+        return self.null_prompt
+
     def null_embeds(self, batch: int, length: Optional[int] = None) -> torch.Tensor:
-        bank = self.null_prompt[: (length or self.num_tokens)]
+        bank = self.null_bank()[: (length or self.num_tokens)]
         return bank[None].expand((batch,) + tuple(bank.shape))
+
+    def drop_prompts(self, embeds: torch.Tensor, generator: Optional[torch.Generator] = None,
+                     drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Train-time CFG dropout: each prompt is replaced whole by the null
+        bank's rows with probability ``dropout``. ``drop`` (B,) bool gives the
+        draw (else uniform < dropout from ``generator``)."""
+        bank = self.null_bank()[: embeds.shape[1]].to(embeds.dtype)
+        if drop is None:
+            drop = torch.rand((embeds.shape[0],), generator=generator,
+                              device=embeds.device) < self.dropout
+        return torch.where(drop.to(embeds.device)[:, None, None], bank[None], embeds)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(dense(x, self.proj), self.norm, TORCH_LN_EPS)

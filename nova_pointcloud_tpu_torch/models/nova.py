@@ -1,20 +1,22 @@
 """NOVA core: masked-AR transformer with a per-token diffusion head (port of
-``nova_pointcloud_tpu/models/nova.py``, the serving methods of
-``NOVATransformer`` that text-to-image sampling calls).
+``nova_pointcloud_tpu/models/nova.py``: ``NOVATransformer``'s text-to-image
+serving methods and its training loss).
 
-The module owns the parameters and exposes step methods that the pipeline
-(pipelines/nova.py) orchestrates: ``embed_text`` / ``null_text``,
-``bos_frame``, ``encode_video`` (T=1: the BOS frame with the text prefix),
-``tokens_from_patches``, ``encode_image_step`` (masked or bucket-gathered
-encoder half) and ``denoise_step`` (the diffusion head). Shapes are
-channels-last, as in the JAX package.
+The module owns the parameters and exposes step methods that the pipelines
+orchestrate: ``embed_text`` / ``null_text``, ``bos_frame``, ``encode_video``
+(T=1: the BOS frame with the text prefix), ``tokens_from_patches``,
+``encode_image_step`` (masked or bucket-gathered encoder half),
+``denoise_step`` (the diffusion head), and ``train_losses`` (= ``forward``),
+the TAM + MAM + token-wise diffusion loss of one training batch. Shapes are
+channels-last, as in the JAX package. The step methods are differentiable;
+the serving pipelines run them under ``torch.no_grad()``.
 
 Each step method takes the model's serving tree ``qparams`` (the int8 path,
 ``ops/quantization.quantize_serving_params`` plus calibrated scales) and,
 where the JAX package sows calibration stats, ``calibrate=True``, which makes
 it return ``(out, stats)``. Not ported yet, and raising: RoPE, label (c2i)
 conditioning, video models (T > 1, motion embed, the AdaLN mixer, KV-cached
-frame decode), MoE, and training.
+frame decode, t2v training), MoE.
 """
 
 from typing import Dict, Optional, Tuple
@@ -24,8 +26,10 @@ from torch import nn
 
 from nova_pointcloud_tpu_torch.models.diffusion_mlp import DiffusionMLP
 from nova_pointcloud_tpu_torch.models.embeddings import (MaskTokens, PatchEmbed, PosEmbed,
-                                                         TextEmbed, VideoPosEmbed)
+                                                         TextEmbed, VideoPosEmbed, patchify)
 from nova_pointcloud_tpu_torch.models.vit import VisionTransformer
+from nova_pointcloud_tpu_torch.ops import masking
+from nova_pointcloud_tpu_torch.ops.losses import masked_diffusion_mse
 from nova_pointcloud_tpu_torch.utils.device import resolve_device
 
 # arch name -> (depth, embed_dim, num_heads), as the JAX registry
@@ -62,7 +66,11 @@ class NOVATransformer(nn.Module):
     ``quantize``: the int8 serving path in both ViTs and the diffusion head
     (the kernels on the card, their plain versions on the CPU).
     ``dtype``: the compute dtype of the Dense layers, as the flax modules'
-    (``torch.bfloat16`` with bf16 weights is the serving setting).
+    (``torch.bfloat16`` with bf16 weights is the serving setting; bf16 with
+    f32 weights the training one: each layer casts its weights inside
+    autograd, so gradients land in f32 on them). ``noise_scheduler``,
+    ``loss_repeat`` and ``remat`` (per-block recompute in the backward) are
+    the training settings, as in the JAX module.
     ``device``: ``cuda`` unless ``"cpu"`` is asked for."""
 
     def __init__(self, arch: Tuple[str, str, str], image_dim: int = 4,
@@ -70,7 +78,8 @@ class NOVATransformer(nn.Module):
                  video_base_size: Tuple[int, int, int] = (1, 8, 8), patch_size: int = 2,
                  text_token_dim: Optional[int] = None, text_token_len: int = 256,
                  num_classes: Optional[int] = None, rotary_pos_embed: bool = False,
-                 video_mixer_rank: Optional[int] = None, attn_impl: str = "auto",
+                 video_mixer_rank: Optional[int] = None, loss_repeat: int = 4,
+                 noise_scheduler=None, remat: bool = False, attn_impl: str = "auto",
                  quantize: bool = False, dtype: Optional[torch.dtype] = None,
                  attn_core: str = "bf16", num_experts: int = 0, device=None):
         super().__init__()
@@ -90,13 +99,14 @@ class NOVATransformer(nn.Module):
         self.video_base_size = tuple(video_base_size)
         self.text_token_dim, self.text_token_len = text_token_dim, text_token_len
         self.quantize, self.dtype, self.attn_core = quantize, dtype, attn_core
+        self.loss_repeat, self.noise_scheduler = loss_repeat, noise_scheduler
         dv, wv, hv = VIT_ARCHES[arch[0]]
         di, wi, hi = VIT_ARCHES[arch[1]]
         dd, wd = MLP_ARCHES[arch[2]]
         if wv != wi:
             raise ValueError(f"video/image encoder widths must match ({arch[0]} vs {arch[1]})")
         kw = dict(attn_impl=attn_impl, quantize=quantize, dtype=dtype, attn_core=attn_core,
-                  num_experts=num_experts, device=dev)
+                  num_experts=num_experts, remat=remat, device=dev)
         self.video_patch_embed = PatchEmbed(wv, self.video_patch_size, image_dim, dev)
         self.image_patch_embed = PatchEmbed(wi, patch_size, image_dim, dev)
         self.video_encoder = VisionTransformer(dv, wv, hv, **kw)
@@ -186,22 +196,18 @@ class NOVATransformer(nn.Module):
         return self
 
     # -- conditioning -------------------------------------------------------
-    @torch.no_grad()
     def embed_text(self, text_embeds: torch.Tensor) -> torch.Tensor:
         """Raw encoder states -> model-dim text tokens."""
         return self.text_embed(text_embeds)
 
-    @torch.no_grad()
     def null_text(self, batch: int, length: Optional[int] = None) -> torch.Tensor:
         """Model-dim null-prompt tokens (CFG negatives)."""
         return self.text_embed(self.text_embed.null_embeds(batch, length))
 
-    @torch.no_grad()
     def bos_frame(self, batch: int) -> torch.Tensor:
         """(B, 1, Nv, D) raw BOS tokens, no position."""
         return self.mask_tokens.bos((batch, 1, self.num_video_tokens))
 
-    @torch.no_grad()
     def encode_video(self, c_vid: torch.Tensor, c_text: Optional[torch.Tensor],
                      num_frames: int, qparams: Optional[Dict] = None,
                      calibrate: bool = False):
@@ -217,7 +223,6 @@ class NOVATransformer(nn.Module):
                                            calibrate=calibrate)
         return (states, {"video_encoder": stats}) if calibrate else states
 
-    @torch.no_grad()
     def encode_image_step(self, tokens: torch.Tensor, mask: torch.Tensor,
                           cond: Optional[torch.Tensor], visible_bucket: Optional[int] = None,
                           qparams: Optional[Dict] = None, calibrate: bool = False):
@@ -234,12 +239,10 @@ class NOVATransformer(nn.Module):
                                       calibrate=calibrate)
         return (z, {"image_encoder": stats}) if calibrate else z
 
-    @torch.no_grad()
     def tokens_from_patches(self, patches: torch.Tensor) -> torch.Tensor:
         """(B, Ni, patch_dim) patchified canvas -> (B, Ni, D) tokens."""
         return self.image_patch_embed(patches, pre_patchified=True)
 
-    @torch.no_grad()
     def denoise_step(self, x_t: torch.Tensor, timestep: torch.Tensor, z: torch.Tensor,
                      stg_rows: Optional[int] = None, qparams: Optional[Dict] = None,
                      calibrate: bool = False):
@@ -250,3 +253,72 @@ class NOVATransformer(nn.Module):
             return out, {"image_decoder": stats}
         return self.image_decoder(x_t, timestep, z, stg_rows=stg_rows,
                                   qparams=_sub(qparams, "image_decoder"))
+
+    # -- training -------------------------------------------------------------
+    def train_losses(self, x: torch.Tensor, text_embeds: Optional[torch.Tensor] = None,
+                     labels: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """TAM + MAM + token-wise diffusion loss of one batch, T = 1 (t2i).
+
+        x: (B, H, W, C) or (B, 1, H, W, C) clean latents (float32). The text
+        prompts drop to the null bank (CFG dropout), the BOS frame with the
+        text prefix goes through the video encoder, a training mask (ratio
+        >= 0.7) hides tokens from the image encoder's visible-token gather
+        (bucket ``round(0.3 Ni)``), and the diffusion head regresses the
+        flow-matching target of every token, tiled ``loss_repeat`` times with
+        fresh timesteps and noise; the loss is the MSE over the masked
+        tokens. Random draws come from ``generator``; ``draws`` may give any
+        of them instead: ``drop`` (B,) bool, ``mask`` (B, Ni, 1),
+        ``timesteps`` (R*B, Ni) int, ``noise`` (R*B, Ni, patch_dim)."""
+        if labels is not None or self.text_embed is None:
+            raise NotImplementedError("label-conditioned (c2i) training is not ported yet: "
+                                      "ROADMAP.md, module queue, NOVA training")
+        if x.ndim == 4:
+            x = x[:, None]
+        b, t = x.shape[:2]
+        if t > 1:
+            raise NotImplementedError("video (T > 1, t2v) training is not ported yet: "
+                                      "ROADMAP.md, module queue, NOVA training")
+        sched = self.noise_scheduler
+        if sched is None or not hasattr(sched, "train_sigmas"):
+            raise NotImplementedError("NOVA training takes the flow-matching noise scheduler; "
+                                      "others are not ported yet: ROADMAP.md, module queue, "
+                                      "NOVA training")
+        draws = draws or {}
+        dev = self.device
+        ni, nv = self.num_image_tokens, self.num_video_tokens
+        c_text = None
+        if text_embeds is not None:  # train-time CFG dropout, then the projection
+            c_text = self.embed_text(self.text_embed.drop_prompts(
+                text_embeds.to(dev), generator, draws.get("drop")))
+        states = self.encode_video(self.bos_frame(b), c_text, 1)  # (B, Nv, D)
+
+        z_tok = self.image_patch_embed(x).reshape(b * t, ni, -1)
+        mask = draws.get("mask")
+        if mask is None:
+            mask, _ = masking.sample_train_mask(generator, b * t, ni, device=dev)
+        mask = mask.to(dev, torch.float32)
+        cond = states.reshape(b * t, nv, -1)
+        bucket = int(round((1.0 - masking.TRAIN_MASK_RATIO_MIN) * ni))
+        z = self.encode_image_step(z_tok, mask, cond, visible_bucket=max(bucket, 1))
+
+        rep = self.loss_repeat
+        x_patches = patchify(x.reshape((b * t,) + tuple(x.shape[2:])), self.patch_size)
+        z_r = z.repeat(rep, 1, 1)
+        x_r = x_patches.repeat(rep, 1, 1).float()
+        mask_r = mask.repeat(rep, 1, 1)
+        tsteps = draws.get("timesteps")
+        if tsteps is None:
+            tsteps = sched.sample_timesteps(generator, z_r.shape[:2], device=dev)
+        noise = draws.get("noise")
+        if noise is None:
+            noise = torch.randn(x_r.shape, generator=generator, device=dev)
+        noise = noise.to(dev, torch.float32)
+        x_t, model_t = sched.add_noise(x_r, noise, tsteps.to(dev))
+        pred = self.denoise_step(x_t.to(z_r.dtype), model_t, z_r)
+        return {"loss": masked_diffusion_mse(pred, sched.target(x_r, noise), mask_r)}
+
+    def forward(self, x: torch.Tensor, text_embeds: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None, **kwargs) -> Dict[str, torch.Tensor]:
+        return self.train_losses(x, text_embeds, labels, **kwargs)

@@ -25,14 +25,20 @@ versions, on the CPU):
 
 A calibration forward (``calibrate=True``) records the ranges its quant sites
 see (``a_smax``, ``a_q``, ``a_k`` under ``attn``; ``a_x``, ``a_gelu``) through
-the block's plain MLP mirror and the dispatcher attention. KV caches, RoPE,
-MoE blocks and the pipeline-parallel runner are not ported yet and raise.
+the block's plain MLP mirror and the dispatcher attention.
+
+The float path is differentiable (training). ``remat`` recomputes each block
+in the backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
+stacks' ``nn.remat``: a flash attention layer then runs its forward twice per
+step. KV caches, RoPE, MoE blocks and the pipeline-parallel runner are not
+ported yet and raise.
 """
 
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nova_pointcloud_tpu_torch.models.embeddings import TORCH_LN_EPS
 from nova_pointcloud_tpu_torch.models.layers import dense, gelu, layer_norm
@@ -47,7 +53,8 @@ from nova_pointcloud_tpu_torch.ops.quantization import (int8_matmul, quantize_se
 
 
 def _amax(v: torch.Tensor) -> torch.Tensor:
-    return torch.amax(torch.abs(v)).float()
+    """A calibration statistic: a measurement, carrying no gradient."""
+    return torch.amax(torch.abs(v)).detach().float()
 
 
 def layer_slice(tree, i: int):
@@ -113,7 +120,8 @@ class Attention(nn.Module):
             s = torch.matmul(qh.float() * hd ** -0.5, kh.float().transpose(-1, -2))
             if bias is not None:
                 s = s + bias
-            stats = {"a_smax": torch.amax(s).float(), "a_q": _amax(qh), "a_k": _amax(kh)}
+            stats = {"a_smax": torch.amax(s).detach().float(), "a_q": _amax(qh),
+                     "a_k": _amax(kh)}
         smax = None if q is None else q.get("a_smax")
         key_bias = bias is None or (bias.ndim == 4 and bias.shape[1] == 1
                                     and bias.shape[2] == 1)
@@ -193,12 +201,13 @@ class VisionTransformer(nn.Module):
     def __init__(self, depth: int, embed_dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  encoder_depth: Optional[int] = None, attn_impl: str = "auto",
                  quantize: bool = False, dtype=None, attn_core: str = "bf16",
-                 num_experts: int = 0, device=None):
+                 num_experts: int = 0, remat: bool = False, device=None):
         super().__init__()
         if num_experts > 1:
             raise NotImplementedError("MoE blocks are not ported yet: ROADMAP.md, module "
                                       "queue, NOVA training")
         self.depth, self.embed_dim, self.num_heads = depth, embed_dim, num_heads
+        self.remat = remat
         self.enc_depth = depth // 2 if encoder_depth is None else encoder_depth
 
         def blocks(n):
@@ -214,7 +223,11 @@ class VisionTransformer(nn.Module):
         layers = getattr(self, name)
         stacked = None if qparams is None else qparams[name]["block"]
         per = []
+        remat = self.remat and torch.is_grad_enabled() and stacked is None and not calibrate
         for i, blk in enumerate(layers):
+            if remat:
+                h = checkpoint(lambda x, b, blk=blk: blk(x, b)[0], h, bias, use_reentrant=False)
+                continue
             h, s = blk(h, bias, None if stacked is None else layer_slice(stacked, i), calibrate)
             per.append(s)
         if calibrate and per and per[0] is not None:

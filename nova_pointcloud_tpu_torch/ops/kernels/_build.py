@@ -32,12 +32,13 @@ SOURCES = {
     "fused_int8_diffusion_block": "fused_int8_diffusion_block.cu",
     "flash_attention_static": "flash_attention_static.cu",
     "int8_linear": "int8_linear.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # The int8 kernels round a*b+c twice, as their plain versions do (every int8
-# code agrees); the attention core has no such identity to keep.
-FMAD = {"flash_attention": "-fmad=true"}
+# code agrees); the attention cores have no such identity to keep.
+FMAD = {"flash_attention": "-fmad=true", "flash_attention_bwd": "-fmad=true"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

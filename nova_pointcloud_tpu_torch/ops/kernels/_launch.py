@@ -19,7 +19,7 @@ LAUNCHES = {"fused_attention_block": 0, "fused_ln_int8_mlp": 0,
             "fused_ln_int8_matmul": 0, "int8_matmul_residual": 0,
             "flash_attention": 0, "fused_int8_mlp_postln": 0,
             "fused_int8_diffusion_block": 0, "flash_attention_static": 0,
-            "int8_linear": 0}
+            "int8_linear": 0, "flash_attention_dkv": 0, "flash_attention_dq": 0}
 
 
 class _Route:
@@ -55,11 +55,12 @@ def plain_route(x: torch.Tensor) -> bool:
     return _route.plain_on_cuda
 
 
-def lib(name: str, argtypes):
-    """The built library of kernel ``name`` and its entry point ``nova_<name>``."""
+def lib(name: str, argtypes, library: Optional[str] = None):
+    """The built library of kernel ``name`` (or the named ``library``, which
+    holds several kernels) and its entry point ``nova_<name>``."""
     from nova_pointcloud_tpu_torch.ops.kernels import _build
 
-    so = _build.load(name)
+    so = _build.load(library or name)
     fn = getattr(so, "nova_" + name)
     if fn.argtypes is None:
         fn.argtypes = argtypes

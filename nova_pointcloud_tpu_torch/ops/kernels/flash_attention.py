@@ -1,28 +1,35 @@
-"""Flash attention (forward) for Hopper.
+"""Flash attention (forward and backward) for Hopper.
 
 Counterpart of ``nova_pointcloud_tpu/ops/pallas/flash_attention.py``
 ``flash_attention``: ``softmax(q kᵀ/√d + bias) v`` by online softmax over key
 tiles with float32 accumulation, the (Lq, Lk) scores never in device memory,
-and the row log-sum-exp ``lse`` saved for a backward pass.
+and the row log-sum-exp ``lse`` saved for the backward pass, which
+recomputes the probabilities from it (the JAX ``_flash_bwd``).
 
 - :func:`flash_attention` has the JAX function's signature (its TPU block
-  sizes ``blk_q`` / ``blk_k`` are dropped: the CUDA kernel masks ragged
-  tails itself). For CUDA tensors it launches ``csrc/flash_attention.cu``;
-  for CPU tensors it runs :func:`flash_attention_plain`. It never falls back
-  from one to the other: what the kernel does not take raises.
-- :func:`flash_attention_plain` is the plain PyTorch version, differentiable
-  by autograd, returning ``(o, lse)``.
-- ``LAUNCHES["flash_attention"]`` counts the kernel's launches.
+  sizes ``blk_q`` / ``blk_k`` are dropped: the CUDA kernels mask ragged
+  tails themselves). It is differentiable: for CUDA tensors the forward
+  launches ``csrc/flash_attention.cu`` and the backward the two kernels of
+  ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ); for CPU tensors the
+  forward runs :func:`flash_attention_plain` and the backward
+  :func:`flash_attention_bwd_plain`. It never falls back from a kernel to its
+  plain version: what a kernel does not take raises.
+- :func:`flash_attention_plain` is the plain PyTorch forward, differentiable
+  by autograd, returning ``(o, lse)``; :func:`flash_attention_bwd_plain` is
+  the plain backward, written as the JAX kernels' math.
+- ``LAUNCHES["flash_attention"]``, ``LAUNCHES["flash_attention_dkv"]`` and
+  ``LAUNCHES["flash_attention_dq"]`` count the kernels' launches.
 
-The CUDA kernel takes float32 or bfloat16 q, k, v of one dtype with head dim
+The CUDA kernels take float32 or bfloat16 q, k, v of one dtype with head dim
 64 (other head dims raise), any Lq and Lk, and the three bias forms of the TPU
-kernel. Its backward kernels (dK/dV and dQ) are not ported yet: asking for a
-gradient through the CUDA kernel raises ``NotImplementedError``.
+kernel. Biases are mask constants: their gradient is zero, as the JAX VJP
+declares it.
 
 Bias forms (4-D, as the JAX function): ``None``; a key bias ``(B or 1, 1, 1,
 Lk)``, read in the kernel with the batch index (no per-head copies); a full
 bias ``(1, 1, Lq, Lk)`` shared by every batch and head. ``-inf`` entries
-mask; a row whose keys are all masked gives ``o = 0`` and ``lse = +1e30``.
+mask; a row whose keys are all masked gives ``o = 0`` and ``lse = +1e30``,
+and no gradient.
 
 :func:`flash_attention_static` is the serving attention of the NOVA ViT after
 calibration (the JAX ``flash_attention_static``): the calibrated max logit
@@ -31,7 +38,7 @@ summed into both ``p v`` and the denominator, and the score product is bf16
 or, with the calibrated ``a_q`` / ``a_k``, int8. Its CUDA kernel
 (``csrc/flash_attention_static.cu``) takes head dim 64 and a key bias or none;
 :func:`flash_attention_static_plain` is its plain version, and
-``LAUNCHES["flash_attention_static"]`` counts its launches.
+``LAUNCHES["flash_attention_static"]`` counts its launches. Forward only.
 """
 
 import ctypes
@@ -139,22 +146,128 @@ def _launch(q, k, v, key_bias, full_bias):
     return o, lse
 
 
+_BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P,
+                 _P, _P]
+_LQ_PAD = 128  # lse / delta rows are padded to the dQ kernel's query tile
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              key_bias: Optional[torch.Tensor],
+                              full_bias: Optional[torch.Tensor], o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels (the JAX ``_flash_bwd``):
+    q, k, v, o, do (B, H, L, D), the saved lse (B, H, Lq), ``key_bias``
+    (B, Lk) / ``full_bias`` (Lq, Lk) or None -> (dq, dk, dv) in the inputs'
+    dtypes. Float32 throughout: ``delta = sum(do * o)`` from the saved output,
+    ``p = exp(s - lse)``, ``dv = pᵀ do``, ``ds = p (do vᵀ - delta) / √d``,
+    ``dk = dsᵀ q``, ``dq = ds k``. A row with lse = 1e30 (every key masked)
+    has p = 0 and gives nothing."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = torch.sum(dof * o.float(), dim=-1, keepdim=True)
+    s = torch.matmul(qf * scale, kf.transpose(-1, -2))
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    if full_bias is not None:
+        s = s + full_bias.float()
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dq = torch.matmul(ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+BWD_KERNELS = ("flash_attention_dkv", "flash_attention_dq")
+
+
+def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
+    """Every check of the backward kernels, then their ctypes arguments and
+    the outputs (dq, dk, dv) they write."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dev = q.device
+    if not (q.dtype == k.dtype == v.dtype == o.dtype == do.dtype):
+        raise TypeError(f"q, k, v, o, do must share one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {o.dtype}, {do.dtype}")
+    is_bf16 = dtype_flag(q, "q, k, v")
+    if d != CUDA_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA flash backward kernels take head dim {CUDA_HEAD_DIM}, got {d}")
+    if (k.shape != (b, h, lk, d) or v.shape != k.shape or o.shape != q.shape
+            or do.shape != q.shape or lse.shape != (b, h, lq)
+            or any(t.device != dev for t in (k, v, o, do, lse))):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"must be (B, H, L, D) (lse (B, H, Lq)) on one device")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32, got {lse.dtype}")
+    q, k, v, do = _strided(q), _strided(k), _strided(v), _strided(do)
+    lqp = -(-lq // _LQ_PAD) * _LQ_PAD
+    delta = torch.sum(do.float() * o.float(), dim=-1).reshape(b * h, lq)
+    delta = torch.nn.functional.pad(delta, (0, lqp - lq)).contiguous()
+    lse_p = torch.nn.functional.pad(lse.reshape(b * h, lq), (0, lqp - lq),
+                                    value=-NEG_INF).contiguous()
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+                  for n in (lq, lk, lk))
+    strides = (ctypes.c_long * 21)(*[s for t in (q, k, v, do, dq, dk, dv)
+                                     for s in t.stride()[:3]])
+    if key_bias is not None:
+        key_bias = key_bias.to(device=dev, dtype=torch.float32).contiguous()
+    if full_bias is not None:
+        full_bias = full_bias.to(device=dev, dtype=torch.float32).contiguous()
+    args = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_p), ptr(delta), is_bf16, b, h, lq, lk, lqp,
+            d, ctypes.addressof(strides), ptr(key_bias), ptr(full_bias), float(d ** -0.5),
+            ptr(dq), ptr(dk), ptr(dv), torch.cuda.current_stream(dev).cuda_stream]
+    # the tensors behind the pointers live as long as the arguments
+    keep = (q, k, v, do, lse_p, delta, key_bias, full_bias, strides)
+    return (args, keep), (dq, dk, dv)
+
+
+def run_bwd(operands, names=BWD_KERNELS) -> None:
+    """Launch the named backward kernels on prepared operands."""
+    args, _ = operands
+    for name in names:
+        so, fn = lib(name, _BWD_ARGTYPES, library="flash_attention_bwd")
+        run(so, fn, args)
+        LAUNCHES[name] += 1
+
+
+def _launch_bwd(q, k, v, key_bias, full_bias, o, lse, do):
+    """The dK/dV and dQ kernels; every check before either launch."""
+    operands, grads = _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do)
+    run_bwd(operands)
+    return grads
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The CUDA forward; ``lse`` and the operands are saved so the backward
-    kernels can be added without touching it."""
+    """Flash attention with its backward: the CUDA kernels for CUDA tensors,
+    the plain versions for CPU tensors (or inside ``use_plain_kernels()``),
+    chosen once in the forward. ``lse`` carries no gradient; the biases get
+    a zero one."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, full_bias):
-        o, lse = _launch(q, k, v, key_bias, full_bias)
+        ctx.plain = plain_route(q)
+        if ctx.plain:
+            o, lse = _plain(q, k, v, key_bias, full_bias)
+        else:
+            o, lse = _launch(q, k, v, key_bias, full_bias)
         ctx.save_for_backward(q, k, v, key_bias, full_bias, o, lse)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, grad_o, grad_lse):
-        raise NotImplementedError(
-            "the backward of the CUDA flash_attention kernel (dK/dV and dQ) is "
-            "not ported yet: ROADMAP.md, queue 2, row 7")
+        q, k, v, key_bias, full_bias, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if ctx.plain else _launch_bwd
+        dq, dk, dv = bwd(q, k, v, key_bias, full_bias, o, lse, grad_o)
+
+        def zero(bias, i):
+            return torch.zeros_like(bias) if ctx.needs_input_grad[i] else None
+
+        return dq, dk, dv, zero(key_bias, 3), zero(full_bias, 4)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,8 +275,6 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention` returning ``(o, lse)``; lse (B, H, Lq) float32."""
     key_bias, full_bias = _normalize_bias(bias, q.shape[0], q.shape[2], k.shape[2])
-    if plain_route(q):
-        return _plain(q, k, v, key_bias, full_bias)
     return _FlashAttention.apply(q, k, v, key_bias, full_bias)
 
 
@@ -173,7 +284,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     bias: None | (B or 1, 1, 1, Lk) key bias | (1, 1, Lq, Lk) full bias;
     other shapes raise ``ValueError`` (they belong on the sdpa path). Biases
-    are mask constants: they get no gradient."""
+    are mask constants: their gradient is zero."""
     return flash_attention_with_lse(q, k, v, bias)[0]
 
 

@@ -6,11 +6,14 @@
   (the JAX package draws them from a key; the two streams never match)
 - a fixed-size padded slice of the order per AR step, its one-hot union,
   and the key-side bias that hides masked tokens from attention
+- the training mask: one truncated-normal mask ratio per call in [0.7, 1],
+  the visible set the first ``round((1 - ratio) N)`` of a per-sample random
+  permutation
 
-``block_causal_bias`` and the training mask wait for t2v and NOVA training
-(ROADMAP.md).
+``block_causal_bias`` waits for t2v (ROADMAP.md).
 """
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,6 +32,40 @@ def pred_boundaries(counts: np.ndarray) -> Tuple[np.ndarray, int]:
     """Return (cumulative start offsets (S,), max padded count)."""
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     return starts.astype(np.int32), int(counts.max())
+
+
+def truncated_normal(generator: Optional[torch.Generator], lower: float, upper: float,
+                     loc: float = 0.0, scale: float = 1.0, shape: Tuple[int, ...] = (),
+                     device=None) -> torch.Tensor:
+    """Normal(loc, scale) truncated to [lower, upper] (unstandardised
+    bounds), by the inverse CDF of a uniform draw in float64."""
+    a = (lower - loc) / scale
+    b = (upper - loc) / scale
+    cdf = lambda x: 0.5 * math.erfc(-x / math.sqrt(2.0))  # noqa: E731
+    u = torch.rand(tuple(shape), generator=generator, device=device, dtype=torch.float64)
+    p = cdf(a) + u * (cdf(b) - cdf(a))
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * p - 1.0)
+    return (torch.clamp(z, a, b) * scale + loc).float()
+
+
+# lower bound of the train mask ratio; bounds the visible count of the
+# training pass's static gather bucket (models/vit.py)
+TRAIN_MASK_RATIO_MIN = 0.7
+
+
+def sample_train_mask(generator: Optional[torch.Generator], batch: int, num_tokens: int,
+                      mask_ratios: Tuple[float, float, float] = (TRAIN_MASK_RATIO_MIN, 1.0, 0.25),
+                      device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MAR-style training mask: one truncnorm(lo, hi, sigma) ratio per
+    call (loc 1), the first ``round((1 - ratio) N)`` tokens of a random
+    per-sample order visible. Returns ``mask`` (B, N, 1) float32 with 1 =
+    masked and ``rank`` (B, N) int64, each token's position in the order."""
+    lo, hi, sigma = mask_ratios
+    ratio = truncated_normal(generator, lo, hi, loc=1.0, scale=sigma, device=device)
+    num_visible = torch.round((1.0 - ratio) * num_tokens).to(torch.int64)
+    order = random_pred_order(generator, batch, num_tokens, device)
+    rank = torch.argsort(order, dim=1)
+    return (rank >= num_visible).float()[..., None], rank
 
 
 def random_pred_order(generator: Optional[torch.Generator], batch: int, num_tokens: int,

@@ -1,17 +1,20 @@
 """Flow-matching (rectified flow) Euler scheduler (port of
-``nova_pointcloud_tpu/schedulers/flow_match.py``, inference side).
+``nova_pointcloud_tpu/schedulers/flow_match.py``).
 
-Shifted sigmas ``shift*s/(1+(shift-1)*s)``, a linspace over the shifted train
-table's timesteps re-shifted, a trailing 0, and the Euler step
-``x += pred * (sigma[i+1] - sigma[i])``. The schedule is host numpy, as in the
-JAX package; the step runs on the sample's device. The training side
-(timestep sampling, ``add_noise``) and ``scale_noise`` (i2v) wait for their
-slices (ROADMAP.md).
+Shifted sigmas ``shift*s/(1+(shift-1)*s)``. Inference: a linspace over the
+shifted train table's timesteps re-shifted, a trailing 0, and the Euler step
+``x += pred * (sigma[i+1] - sigma[i])``; the schedule is host numpy, as in the
+JAX package, and the step runs on the sample's device. Training:
+logit-normal timesteps ``int(sigmoid(N(0, 1)) * T)`` drawn from an explicit
+``torch.Generator`` (the JAX package draws them from a key; the two streams
+never match), the per-timestep sigma table, ``add_noise`` returning
+``(x_t, model_t)`` and the regression ``target``. ``scale_noise`` (i2v)
+waits for its slice (ROADMAP.md).
 """
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +42,37 @@ class FlowMatchEulerScheduler:
     use_dynamic_shifting: bool = False
     prediction_type: str = "flow"  # model target = noise - x0
 
+    # -- training ---------------------------------------------------------
+    def sample_timesteps(self, generator: Optional[torch.Generator], shape: Sequence[int],
+                         device=None) -> torch.Tensor:
+        """Logit-normal timesteps: ``int32(sigmoid(N(0, 1)) * T)``."""
+        dist = torch.sigmoid(torch.randn(tuple(shape), generator=generator, device=device))
+        return (dist * self.num_train_timesteps).to(torch.int32)
+
+    def train_sigmas(self) -> np.ndarray:
+        """Per-train-timestep sigma table, descending in t."""
+        s = np.arange(1, self.num_train_timesteps + 1, dtype=np.float32)[::-1]
+        s = s / self.num_train_timesteps
+        if not self.use_dynamic_shifting:
+            s = _apply_shift(s, self.shift)
+        return s.astype(np.float32)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward process: ``(sigma * noise + (1 - sigma) * x0, sigma * T)``
+        with ``sigma = train_sigmas()[t]``; the model is conditioned on the
+        second value."""
+        table = torch.from_numpy(self.train_sigmas()).to(x0.device)
+        sigma = table[t.long()]
+        model_t = sigma * self.num_train_timesteps
+        sigma = sigma.reshape(tuple(sigma.shape) + (1,) * (x0.ndim - sigma.ndim)).to(x0.dtype)
+        return sigma * noise + (1.0 - sigma) * x0, model_t
+
+    def target(self, x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """The flow-matching regression target."""
+        return noise - x0
+
+    # -- inference --------------------------------------------------------
     def set_timesteps(self, num_inference_steps: int, shift: Optional[float] = None,
                       mu: Optional[float] = None) -> FlowMatchSchedule:
         """linspace over t between the shifted train table's ends, then re-shift."""

@@ -22,7 +22,11 @@ from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES, flash_attention, fus
 from nova_pointcloud_tpu_torch.pipelines.builder import build_pipeline
 from nova_pointcloud_tpu_torch.pipelines.nova import NOVAPipeline
 from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import NOVAPointCloudGenerationPipeline
+from nova_pointcloud_tpu_torch.pipelines.train_nova import (NOVATrainC2IPipeline,
+                                                            NOVATrainT2IPipeline,
+                                                            NOVATrainT2VPipeline)
 from nova_pointcloud_tpu_torch.schedulers.builder import build_scheduler
+from nova_pointcloud_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
 from nova_pointcloud_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,7 +36,8 @@ PKG = REPO / "nova_pointcloud_tpu_torch"
 BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "nova_pointcloud_tpu"}
 KERNEL_NAMES = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
                 "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
-                "fused_int8_diffusion_block", "flash_attention_static", "int8_linear")
+                "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
+                "flash_attention_dkv", "flash_attention_dq")
 
 
 def _port_sources():
@@ -69,7 +74,15 @@ def test_every_module_imports_without_cuda_or_jax():
             "nova_pointcloud_tpu_torch.models.diffusion_mlp",
             "nova_pointcloud_tpu_torch.pipelines.nova",
             "nova_pointcloud_tpu_torch.schedulers.flow_match",
-            "nova_pointcloud_tpu_torch.ops.masking"} <= set(mods)
+            "nova_pointcloud_tpu_torch.ops.masking",
+            "nova_pointcloud_tpu_torch.ops.losses",
+            "nova_pointcloud_tpu_torch.models.autoencoders.modeling_utils",
+            "nova_pointcloud_tpu_torch.engine.lr_schedules",
+            "nova_pointcloud_tpu_torch.engine.optim",
+            "nova_pointcloud_tpu_torch.engine.ema",
+            "nova_pointcloud_tpu_torch.engine.trainer",
+            "nova_pointcloud_tpu_torch.utils.logging",
+            "nova_pointcloud_tpu_torch.pipelines.train_nova"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -169,11 +182,19 @@ def test_unported_paths_raise():
         build_scheduler({"class_name": "NoSuchScheduler"})
 
 
-def test_flash_backward_on_the_card_is_refused():
-    """The CUDA forward's autograd node raises in backward (its kernels are
-    not ported); the node itself needs no card to be asked."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 2, row 7"):
-        flash_attention._FlashAttention.backward(None, None, None)
+def test_flash_backward_on_the_card_is_refused(monkeypatch):
+    """A backward on the card that its kernels do not take (head dim 32)
+    raises before any launch and never runs the plain backward instead; the
+    autograd node needs no card to be asked."""
+    import types
+
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain", None)  # must not run
+    x = torch.zeros((1, 2, 8, 32))
+    ctx = types.SimpleNamespace(plain=False, needs_input_grad=(True,) * 3 + (False,) * 2,
+                                saved_tensors=(x, x, x, None, None, x, torch.zeros((1, 2, 8))))
+    with pytest.raises(NotImplementedError, match="head dim 64"):
+        flash_attention._FlashAttention.backward(ctx, x, None)
+    assert not any(LAUNCHES.values())
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
@@ -249,3 +270,50 @@ def test_nova_kernel_wrappers_refuse_shapes_on_the_card(monkeypatch):
     q = torch.zeros(1, 2, 8, 32)
     with pytest.raises(NotImplementedError, match="head dim 64"):
         flash_attention.flash_attention_static(q, q, q, torch.tensor(1.0))
+
+
+def _train_batch(b=2):
+    g = torch.Generator().manual_seed(0)
+    return {"moments": torch.cat([torch.randn((b, 16, 16, 4), generator=g),
+                                  torch.full((b, 16, 16, 4), -6.0)], -1).half(),
+            "text_embeds": torch.randn((b, 4, 16), generator=g)}
+
+
+def test_training_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The training model defaults to the card and raises without it; on a
+    CPU model the pipeline, the trainer's generator and the step stay on the
+    CPU, and the flash route runs its plain forward and backward."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NOVATransformer(**NOVA_TINY, noise_scheduler=FlowMatchEulerScheduler(), remat=True)
+    fused_block.reset_launch_counts()
+    model = NOVATransformer(**NOVA_TINY, noise_scheduler=FlowMatchEulerScheduler(), remat=True,
+                            attn_impl="pallas", dtype=torch.bfloat16, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    pipe = NOVATrainT2IPipeline(model, log_every=1)
+    assert pipe.trainer.generator.device == torch.device("cpu")
+    out = pipe.train(iter([_train_batch()] * 2), 2)
+    assert np.isfinite(out["loss"]) and pipe.trainer.step == 2
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def test_unported_training_paths_raise():
+    model = NOVATransformer(**NOVA_TINY, noise_scheduler=FlowMatchEulerScheduler(), device="cpu")
+    for cls in (NOVATrainT2VPipeline, NOVATrainC2IPipeline):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cls(model)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NOVATrainT2IPipeline(model, vae=object())
+    x = torch.zeros((1, 16, 16, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.train_losses(torch.zeros((1, 2, 16, 16, 4)), torch.zeros((1, 4, 16)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.train_losses(x, labels=torch.zeros((1,), dtype=torch.long))
+    ddpm = NOVATransformer(**NOVA_TINY, noise_scheduler=build_scheduler(
+        {"class_name": "DDPMScheduler"}), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ddpm.train_losses(x, torch.zeros((1, 4, 16)))
+    from nova_pointcloud_tpu_torch.engine.optim import build_optimizer
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_optimizer(model, 1e-4, accum_steps=4)
