@@ -68,19 +68,26 @@ The NOVA text-to-image slice adds, in their places in that order:
 
 The NOVA t2i training slice adds:
 
-3e. the flash backward kernels (dK/dV, dQ) against their plain version at
-    the training shape (8, 16, 1280, 64), bf16 and f32: no bias; a key bias
-    with -inf keys and a fully masked sample (its gradients exactly 0); a
-    full bias; a ragged Lq != Lk;
+3e. the flash backward kernels against their plain version at the training
+    shape (8, 16, 1280, 64), bf16 (prep, the one-pass dkvq kernel on wgmma
+    and TMA, cast) and f32 (prep, the SIMT dK/dV and dQ kernels): no bias; a
+    key bias with -inf keys and a fully masked sample (its gradients exactly
+    0); a full bias; a ragged Lq != Lk; the prep and cast kernels exactly
+    equal to their plain versions; two bf16 backward runs on the same
+    tensors: dk and dv bitwise equal (a gate), max |dq1 - dq2| printed (the
+    atomic f32 dQ sums run in no fixed order);
 4f. t2i training as bench.py --mode train --train-arch t2i:
     NOVATransformer(vit_d16w1024, vit_d32w1024, mlp_d6w1024) at full width
     and depth, seeded init_weights (zero AdaLN, as the JAX initialisers),
     f32 master weights, bf16 compute, remat on, AdamW (constant lr 1e-4,
     wd 0.02, betas 0.9 / 0.95) with the T2I freeze rules, batch 8 in the
     records layout: exact launches in one step of NOVATrainT2IPipeline.train
-    (16 flash_attention_dkv, 16 flash_attention_dq, 32 flash_attention:
-    the decoder half's 16 layers at 1280 keys, their forward run again by
-    remat; 0 of every other kernel), finite loss and gradients, the
+    (16 each of flash_attention_bwd_prep, flash_attention_bwd_dkvq,
+    flash_attention_bwd_dq_cast, 32 flash_attention: the decoder half's 16
+    layers at 1280 keys, their forward run again by remat; 0 of every other
+    kernel) and in the f32 step's loss and gradients (16 prep, 16
+    flash_attention_dkv, 16 flash_attention_dq, 32 flash_attention), finite
+    loss and gradients, the
     backward kernels on the tensors of every one of the step's 16 backward
     calls against the plain backward (flash bf16 tolerance), the f32 step
     through the kernels against the f32 plain step (relative L2 of the whole
@@ -90,9 +97,12 @@ The NOVA t2i training slice adds:
     bf16 step is printed as a reading with no gate (the plain bf16 step is
     over 1 in relative L2 from the plain f32 step on random weights, so a
     tolerance built on that floor cannot fail);
-5d. times of the backward kernels, their plain version, the SDPA backward
-    (from a graph built once) beside the port's whole backward through
-    autograd and the sum dK/dV + dQ, and the bounds; the training step (p50 of 5 after 2 warm-ups),
+5d. times of the bf16 backward's kernels (prep, dkvq, cast) and of the f32
+    route's dK/dV and dQ, their plain version, the SDPA backward (from a
+    graph built once) beside the port's whole backward through autograd and
+    the kernels' sum, the bounds, and the whole backward's joint bound (10
+    BH Lq Lk d FLOPs) with the dkvq kernel's ptxas registers and spills;
+    the training step (p50 of 5 after 2 warm-ups),
     samples/s, peak memory, the step's FLOPs (FlopCounterMode for the
     library ops, the flash kernels' counted from their shapes) and TFLOP/s;
 6.  (in the profiles phase) one profiled training step.
@@ -146,6 +156,7 @@ DEPTH, D, HEADS, F = 48, 1024, 16, 4096
 T = POINTS // PATCH
 # H100 SXM dense peaks (NVIDIA data sheet) at the full 700 W power limit
 PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 # the per-point paths: pc_d8w768, every point a token
 PP_ARCH, PP_PATCH, PP_BATCH = "pc_d8w768", 1, 8
 PP_DEPTH, PP_D, PP_HEADS, PP_F, PP_HD = 8, 768, 12, 3072, 64
@@ -162,16 +173,25 @@ T2I_PROMPTS = [f"a scene {i}" for i in range(T2I_BATCH)]
 # tokens, remat; the decoder half's 16 layers see 256 + 1024 keys
 TRAIN_BATCH, TRAIN_LR, TRAIN_FALL_STEPS = 8, 1e-4, 10
 TRAIN_FLASH_LAYERS = T2I_VIT_LAYERS // 2
-TRAIN_LAUNCHES = {"flash_attention_dkv": TRAIN_FLASH_LAYERS,
-                  "flash_attention_dq": TRAIN_FLASH_LAYERS,
+TRAIN_LAUNCHES = {"flash_attention_bwd_prep": TRAIN_FLASH_LAYERS,
+                  "flash_attention_bwd_dkvq": TRAIN_FLASH_LAYERS,
+                  "flash_attention_bwd_dq_cast": TRAIN_FLASH_LAYERS,
                   "flash_attention": 2 * TRAIN_FLASH_LAYERS}  # remat runs each forward twice
+# the f32 step of the same model (phase 4f's exactness check): the f32 route
+TRAIN_F32_LAUNCHES = {"flash_attention_bwd_prep": TRAIN_FLASH_LAYERS,
+                      "flash_attention_dkv": TRAIN_FLASH_LAYERS,
+                      "flash_attention_dq": TRAIN_FLASH_LAYERS,
+                      "flash_attention": 2 * TRAIN_FLASH_LAYERS}
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
-           "flash_attention_dkv", "flash_attention_dq")
+           "flash_attention_dkv", "flash_attention_dq", "flash_attention_bwd_prep",
+           "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast")
 SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
-SOURCES["flash_attention_dkv"] = SOURCES["flash_attention_dq"] = (
-    "nova_pointcloud_tpu_torch/csrc/flash_attention_bwd.cu")
+BWD_SOURCE_KERNELS = ("flash_attention_dkv", "flash_attention_dq", "flash_attention_bwd_prep",
+                      "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast")
+SOURCES.update(dict.fromkeys(BWD_SOURCE_KERNELS,
+                             "nova_pointcloud_tpu_torch/csrc/flash_attention_bwd.cu"))
 REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:412",
             "fused_ln_int8_mlp": "nova_pointcloud_tpu/ops/pallas/fused_block.py:133",
             "fused_ln_int8_matmul": "nova_pointcloud_tpu/ops/pallas/fused_block.py:204",
@@ -182,8 +202,16 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
             "flash_attention_static": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:424",
             # no TPU kernel: the JAX model's int8 projections are plain XLA
             "int8_linear": "nova_pointcloud_tpu/models/vit.py:83",
+            # the f32 route of the two backward kernels
             "flash_attention_dkv": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
-            "flash_attention_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
+            "flash_attention_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346",
+            # _flash_bwd's delta (XLA, line 261) and lse rows
+            "flash_attention_bwd_prep": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:254",
+            # the bf16 dK/dV kernel, and the dQ kernel's products (one pass)
+            "flash_attention_bwd_dkvq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
+            # the dQ kernel's output
+            "flash_attention_bwd_dq_cast":
+                "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
 OUT_DIR = "build"
 DEV = "cuda"
 
@@ -505,8 +533,8 @@ def check_flash():
     grads = torch.autograd.grad(o, ins, do)
     ref = fa.flash_attention_bwd_plain(q, k, v, None, None, o.detach(), lse, do)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-        kernel = "flash_attention_dq" if name == "dq" else "flash_attention_dkv"
-        if not _tol_check(kernel, f"{name} strided (B, L, H, D) view", g, r, 2.0 ** -6,
+        if not _tol_check(_bwd_kernel(name, torch.bfloat16),
+                          f"{name} strided (B, L, H, D) view", g, r, 2.0 ** -6,
                           2.0 ** -8, like=r):
             bad.append(f"strided backward {name}")
     if bad:
@@ -1098,6 +1126,14 @@ def t2i_float(pipe_int8):
     return pipe
 
 
+def _bwd_kernel(grad, dt):
+    """The kernel a gradient of the backward is held against: the bf16
+    route's one-pass kernel, or the f32 route's dK/dV or dQ kernel."""
+    if dt == torch.bfloat16:
+        return "flash_attention_bwd_dkvq"
+    return "flash_attention_dq" if grad == "dq" else "flash_attention_dkv"
+
+
 def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
     """One flash forward + backward through the kernels against the plain
     backward on the kernels' own (o, lse) and the same do; ``dead``: a
@@ -1112,8 +1148,7 @@ def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
     rel = (2.0 ** -6, 2.0 ** -8) if dt == torch.bfloat16 else (1e-4, 1e-5)
     ok = True
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-        kernel = "flash_attention_dq" if name == "dq" else "flash_attention_dkv"
-        ok = _tol_check(kernel, f"{name} {label}", g, r, *rel, like=r) and ok
+        ok = _tol_check(_bwd_kernel(name, dt), f"{name} {label}", g, r, *rel, like=r) and ok
         if dead is not None:
             zero = bool((g[dead] == 0).all())
             print(f"    {name} of the fully masked sample exactly 0: {zero}")
@@ -1121,15 +1156,63 @@ def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
     return ok
 
 
+def _prep_cast_check(q, k, v, dt, gen):
+    """The prep kernel against its plain version (delta in XLA's order, lse
+    rows; exact: the same f32 operations in the same order) and, in bf16,
+    the cast kernel against its plain version on the dkvq kernel's own
+    workspace (exact: one rounding)."""
+    b, h, lq, _ = q.shape
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device=DEV).to(dt)
+    launches, grads = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    fa.run_bwd(launches, ("flash_attention_bwd_prep",))
+    lse_rows, delta = launches[0][3][3:5]
+    ref_lse, ref_delta = fa.bwd_prep_plain(o, do, lse, fa.bwd_plan(b, h, lq, lq)["lqp"],
+                                           dt == torch.bfloat16)
+    tag = f"{str(dt)[6:]} {tuple(q.shape)}, exact"
+    ok = _tol_check("flash_attention_bwd_prep", f"delta {tag}", delta, ref_delta, 0.0, 0.0)
+    ok = _tol_check("flash_attention_bwd_prep", f"lse rows {tag}", lse_rows, ref_lse,
+                    0.0, 0.0) and ok
+    if dt == torch.bfloat16:
+        fa.run_bwd(launches, ("flash_attention_bwd_dkvq",))
+        ws = launches[1][3][8].clone()
+        fa.run_bwd(launches, ("flash_attention_bwd_dq_cast",))
+        ok = _tol_check("flash_attention_bwd_dq_cast", f"dq {tag}", grads[0],
+                        fa.bwd_dq_cast_plain(ws, b, h, lq, q.shape[-1] ** -0.5), 0.0, 0.0,
+                        like=grads[0]) and ok
+    return ok
+
+
+def _bwd_repeatability(q, k, v, gen):
+    """Two backward runs on the same tensors: dk and dv bitwise equal (a
+    gate: each block writes them once); dq's largest difference printed (a
+    reading: the f32 atomic sums of dQ run in no fixed order)."""
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*ins)
+    do = torch.randn(o.shape, generator=gen, device=DEV).to(q.dtype)
+    g1 = torch.autograd.grad(o, ins, do, retain_graph=True)
+    g2 = torch.autograd.grad(o, ins, do)
+    torch.cuda.synchronize()
+    dq_diff = (g1[0].float() - g2[0].float()).abs().max().item()
+    same = all(torch.equal(a, b) for a, b in zip(g1[1:], g2[1:]))
+    print(f"  repeatability, two backward runs on the same tensors {tuple(q.shape)}: max |dq1 - "
+          f"dq2| {dq_diff:.3e} (dq max {g1[0].float().abs().max().item():.3e}; reading); dk and "
+          f"dv bitwise equal: {same}")
+    report["bwd_repeatability"] = dict(dq_max_abs_diff=dq_diff, dk_dv_equal=same)
+    return same
+
+
 @phase("3e flash backward vs plain")
 def check_flash_backward():
-    """The dK/dV and dQ kernels at the training shape (8, 16, 1280, 64), bf16
-    and f32, every bias form, and a ragged Lq != Lk off the tiles. The
-    plain version gets the kernels' own forward output and lse. Tolerances:
-    bf16 as the flash forward's (max <= 2^-6 max|g|, mean <= 2^-8 mean|g|:
-    the kernels round p and ds to bf16 as mma operands, the plain version
-    only its outputs); f32 1e-4 / 1e-5 relative (f32 sums in another
-    order); a fully masked sample's gradients exactly 0."""
+    """The backward kernels at the training shape (8, 16, 1280, 64), bf16
+    (prep, dkvq, cast) and f32 (prep, dK/dV, dQ), every bias form, and a
+    ragged Lq != Lk off the tiles. The plain version gets the kernels' own
+    forward output and lse. Tolerances: bf16 as the flash forward's (max <=
+    2^-6 max|g|, mean <= 2^-8 mean|g|: the kernels round p and ds to bf16
+    as wgmma operands, the plain version only its outputs); f32 1e-4 / 1e-5
+    relative (f32 sums in another order); a fully masked sample's gradients
+    exactly 0; the prep and cast kernels exact against their plain versions;
+    dk and dv of two runs bitwise equal."""
     gen = torch.Generator(device=DEV).manual_seed(31)
     L, bad = T2I_L["full"], []
     for dt in (torch.bfloat16, torch.float32):
@@ -1143,6 +1226,11 @@ def check_flash_backward():
             if not _bwd_check(label, q, k, v, bias, dt, gen,
                               dead=1 if kind == "visibility" else None):
                 bad.append(label)
+            if kind == "none":
+                if not _prep_cast_check(q, k, v, dt, gen):
+                    bad.append(f"prep / cast {str(dt)[6:]}")
+                if dt == torch.bfloat16 and not _bwd_repeatability(q, k, v, gen):
+                    bad.append("dk, dv repeatability")
             del q, k, v, bias
         q, k, v = _flash_operands(gen, 2, HEADS, 1000, 1531, 64, dt)
         bias = _flash_bias(gen, "key", 2, 1000, 1531)
@@ -1260,8 +1348,7 @@ def t2i_train():
         ref = fa.flash_attention_bwd_plain(*args)
         ok, worst = True, []
         for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-            kernel = "flash_attention_dq" if name == "dq" else "flash_attention_dkv"
-            ok = _tol_check(kernel, f"{name} of the step's backward call {len(calls) + 1} (do "
+            ok = _tol_check(_bwd_kernel(name, g.dtype), f"{name} of the step's backward call {len(calls) + 1} (do "
                             f"strides {tuple(args[-1].stride())})", g, r, 2.0 ** -6, 2.0 ** -8,
                             like=r, quiet=True) and ok
             c = report["checks"][-1]
@@ -1287,7 +1374,15 @@ def t2i_train():
     with fb.use_plain_kernels():
         loss_p, g_p = _step_grads(pipe, batch, draws)
     twin = _train_pipe(_train_model(None, model.state_dict()))
+    fb.reset_launch_counts()
     loss_32k, g_32k = _step_grads(twin, batch, draws)
+    torch.cuda.synchronize()
+    launches32 = dict(fb.LAUNCHES)
+    counts32_ok = launches32 == {n: TRAIN_F32_LAUNCHES.get(n, 0) for n in KERNELS}
+    print(f"launches in the f32 step's loss and gradients: {launches32} (expected "
+          f"{TRAIN_F32_LAUNCHES}, else 0): {'ok' if counts32_ok else 'FAIL'}")
+    for name in ("flash_attention_dkv", "flash_attention_dq"):
+        _record_launches(name, "t2i_train_f32", launches32[name])
     moved = dict(draws, latent_eps=draws["latent_eps"] + 1e-6 * torch.randn(
         draws["latent_eps"].shape, generator=torch.Generator(device=DEV).manual_seed(4),
         device=DEV))
@@ -1317,30 +1412,47 @@ def t2i_train():
     print(f"fixed batch and draws, {TRAIN_FALL_STEPS} steps: loss {losses[0]:.5f} -> "
           f"{losses[-1]:.5f} ({[round(x, 5) for x in losses]}): {'ok' if fall_ok else 'FAIL'}")
     report["t2i_train"] = dict(params_m=n_params / 1e6, launches=launches,
+                               launches_f32_step=launches32,
                                in_path_worst_err_over_tol=worst,
                                grad_bf16_reading_vs_plain=vs_plain,
                                grad_bf16_reading_plain_vs_f32=floor,
                                grad_f32_rel_l2_vs_plain=vs_plain32, grad_f32_floor=floor32,
                                losses=losses, step_loss=out["loss"])
-    if not (counts_ok and finite and grad_ok and fall_ok):
+    if not (counts_ok and counts32_ok and finite and grad_ok and fall_ok):
         raise AssertionError("t2i training check failed")
     return pipe
 
 
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
-    forward 4 BH Lq Lk d (twice: remat), dK/dV 8 and dQ 6 BH Lq Lk d."""
+    forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
+    function's own count: s, do vᵀ, pᵀ do, dsᵀ q, ds k)."""
     per = bh * lq * lk * d
-    return TRAIN_FLASH_LAYERS * (2 * 4 + 8 + 6) * per
+    return TRAIN_FLASH_LAYERS * (2 * 4 + 10) * per
+
+
+def _ptxas_report(kernel):
+    """The ``-Xptxas -v`` lines (registers, spills) of one kernel of
+    flash_attention_bwd.cu from this checkout's build log."""
+    lines, on = [], False
+    for line in _build.build_log("flash_attention_bwd").splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        elif on and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    return "; ".join(lines)
 
 
 @phase("5d timing of the backward kernels and the training step")
 def timing_train(pipe):
-    """dK/dV and dQ per launch at (8, 16, 1280, 64) bf16, their plain
-    version (the whole plain backward), the SDPA backward (all three
-    gradients, from a graph built once) and their bounds (the
-    operations over the bf16 peak, or the bytes: q, k, v, do, lse and delta
-    read once, the gradients written once); then the training step."""
+    """The bf16 backward's kernels (prep, dkvq, cast) per launch at (8, 16,
+    1280, 64), the f32 route's dK/dV and dQ at the same shape in f32, their
+    plain version (the whole plain backward), one library call where one
+    computes the same function (SDPA's backward for the gradients, from a
+    graph built once; a strided copy for the cast), their bounds (the
+    operations over the peak rate of their type, or the bytes: each input
+    read once, each output written once), the whole backward through
+    autograd against its joint bound; then the training step."""
     import torch.nn.functional as Fn
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1349,7 +1461,7 @@ def timing_train(pipe):
     q, k, v, _ = _static_attention_operands(gen, L, "none")
     o, lse = fa.flash_attention_with_lse(q, k, v)
     do = torch.randn(o.shape, generator=gen, device=DEV).to(torch.bfloat16)
-    operands, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    launches, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
     def sdpa_fwd():
@@ -1357,7 +1469,7 @@ def timing_train(pipe):
             Fn.scaled_dot_product_attention(ins[0], ins[1], ins[2])
 
     # the backward alone, from a graph built once (retain_graph): SDPA's
-    # (dq, dk, dv) and the port's whole autograd backward (delta, dK/dV, dQ)
+    # (dq, dk, dv) and the port's whole autograd backward (prep, dkvq, cast)
     o_lib = Fn.scaled_dot_product_attention(*ins)
     library = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 20)
     o_port = fa.flash_attention(*ins)
@@ -1370,24 +1482,57 @@ def timing_train(pipe):
                  _bound(4 * bh * L * L * 64 / PEAK_BF16_FLOPS, 4 * bh * L * 64 * 2 + bh * L * 4),
                  library=sdpa_fwd)
     plain_ms = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
-    io = bh * L * 64 * 2
-    pair = 0.0
-    for name, mult, nbytes in (("flash_attention_dkv", 8, 4 * io + 2 * bh * L * 4 + 2 * io),
-                               ("flash_attention_dq", 6, 4 * io + 2 * bh * L * 4 + io)):
-        ms = sync_ms(lambda: fa.run_bwd(operands, (name,)), 20)
-        pair += ms
-        bound = _bound(mult * bh * L * L * 64 / PEAK_BF16_FLOPS, nbytes)
+    plan = fa.bwd_plan(T2I_ROWS, HEADS, L, L)
+    io, rows, ws_bytes = bh * L * 64 * 2, bh * plan["lqp"] * 4, bh * plan["lqp"] * 64 * 4
+    ws, dq = launches[1][3][8], torch.empty_like(q)
+    bounds = {  # (operations in seconds, bytes)
+        "flash_attention_bwd_prep": (2 * bh * L * 64 / PEAK_F32_FLOPS, 2 * io + bh * L * 4 + 2 * rows),
+        "flash_attention_bwd_dkvq": (10 * bh * L * L * 64 / PEAK_BF16_FLOPS,
+                                     4 * io + 2 * rows + 2 * io + ws_bytes),
+        "flash_attention_bwd_dq_cast": (0.0, ws_bytes + io)}
+    libs = {"flash_attention_bwd_dkvq": library,
+            "flash_attention_bwd_dq_cast": sync_ms(
+                lambda: torch.mul(ws[:, :L].view(T2I_ROWS, HEADS, L, 64), 0.125, out=dq), 20)}
+    total = 0.0
+    for name in fa.BWD_KERNELS:
+        ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), 20)
+        total += ms
+        bound = _bound(*bounds[name])
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                   library_ms=library)
+                   library_ms=libs.get(name))
+        lib_txt = "" if row["library_ms"] is None else f", library {row['library_ms']:.3f} ms"
         print(f"  {name} {(T2I_ROWS, HEADS, L, 64)}: {ms:.3f} ms/launch, plain backward "
-              f"{plain_ms:.3f} ms, SDPA backward {library:.3f} ms, bound {bound[0]:.3f} ms "
-              f"({bound[1]}), {bound[0] / ms:.1%} of bound")
+              f"{plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms ({bound[1]}), "
+              f"{bound[0] / ms:.1%} of bound")
         report["kernels"][name].update(row)
-    print(f"  the whole backward at {(T2I_ROWS, HEADS, L, 64)}, like for like: dK/dV + dQ "
-          f"{pair:.3f} ms, the port's autograd backward {port_bwd:.3f} ms, SDPA's backward "
-          f"{library:.3f} ms (dq, dk and dv; library_ms of both kernels)")
-    report.setdefault("t2i_train", {}).update(bwd_pair_ms=pair, bwd_autograd_ms=port_bwd, sdpa_bwd_ms=library)
-    del q, k, v, o, lse, do, operands, ins
+    ptxas = _ptxas_report("flash_bwd_dkvq")
+    joint = _bound(10 * bh * L * L * 64 / PEAK_BF16_FLOPS, 8 * io + bh * L * 4)
+    print(f"  the whole backward at {(T2I_ROWS, HEADS, L, 64)} bf16: prep + dkvq + cast "
+          f"{total:.3f} ms, through autograd {port_bwd:.3f} ms, SDPA's backward {library:.3f} ms "
+          f"(dq, dk and dv); joint bound {joint[0]:.3f} ms ({joint[1]}: 10 BH Lq Lk d FLOPs), "
+          f"{joint[0] / port_bwd:.1%} of it through autograd; dkvq ptxas: {ptxas}")
+    report.setdefault("t2i_train", {}).update(
+        bwd_kernels_ms=total, bwd_autograd_ms=port_bwd, sdpa_bwd_ms=library,
+        bwd_joint_bound_ms=joint[0], dkvq_ptxas=ptxas)
+    del launches, ins, ws, dq
+    # the f32 route's kernels at the same shape in f32
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    launches, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_lib = Fn.scaled_dot_product_attention(*ins)
+    library32 = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 3)
+    del o_lib, ins
+    plain32 = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
+    for name, mult, nbytes in (("flash_attention_dkv", 8, 2 * (4 * io + 2 * io) + 2 * rows),
+                               ("flash_attention_dq", 6, 2 * (4 * io + io) + 2 * rows)):
+        ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), 3)
+        bound = _bound(mult * bh * L * L * 64 / PEAK_F32_FLOPS, nbytes)
+        report["kernels"][name].update(dict(ms=ms, plain_ms=plain32, bound_ms=bound[0],
+                                            bound_by=bound[1], library_ms=library32))
+        print(f"  {name} f32 {(T2I_ROWS, HEADS, L, 64)}: {ms:.3f} ms/launch, plain backward "
+              f"{plain32:.3f} ms, SDPA f32 backward {library32:.3f} ms, bound {bound[0]:.3f} ms "
+              f"({bound[1]}, f32 at 67 TFLOP/s), {bound[0] / ms:.1%} of bound")
+    del q, k, v, o, lse, do, launches
     torch.cuda.empty_cache()
     fb.reset_launch_counts()
     if pipe is None:

@@ -19,7 +19,9 @@ LAUNCHES = {"fused_attention_block": 0, "fused_ln_int8_mlp": 0,
             "fused_ln_int8_matmul": 0, "int8_matmul_residual": 0,
             "flash_attention": 0, "fused_int8_mlp_postln": 0,
             "fused_int8_diffusion_block": 0, "flash_attention_static": 0,
-            "int8_linear": 0, "flash_attention_dkv": 0, "flash_attention_dq": 0}
+            "int8_linear": 0, "flash_attention_dkv": 0, "flash_attention_dq": 0,
+            "flash_attention_bwd_prep": 0, "flash_attention_bwd_dkvq": 0,
+            "flash_attention_bwd_dq_cast": 0}
 
 
 class _Route:

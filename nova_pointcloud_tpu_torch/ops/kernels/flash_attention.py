@@ -9,16 +9,24 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
 - :func:`flash_attention` has the JAX function's signature (its TPU block
   sizes ``blk_q`` / ``blk_k`` are dropped: the CUDA kernels mask ragged
   tails themselves). It is differentiable: for CUDA tensors the forward
-  launches ``csrc/flash_attention.cu`` and the backward the two kernels of
-  ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ); for CPU tensors the
-  forward runs :func:`flash_attention_plain` and the backward
+  launches ``csrc/flash_attention.cu`` and the backward the kernels of
+  ``csrc/flash_attention_bwd.cu``: in bf16 the prep kernel (delta and lse
+  rows), the one-pass dkvq kernel (wgmma and TMA: dK, dV, and dQ summed into
+  an f32 workspace) and the cast of that workspace to dq; in f32 the prep
+  kernel and the SIMT dK/dV and dQ kernels. For CPU tensors the forward runs
+  :func:`flash_attention_plain` and the backward
   :func:`flash_attention_bwd_plain`. It never falls back from a kernel to its
   plain version: what a kernel does not take raises.
 - :func:`flash_attention_plain` is the plain PyTorch forward, differentiable
   by autograd, returning ``(o, lse)``; :func:`flash_attention_bwd_plain` is
-  the plain backward, written as the JAX kernels' math.
-- ``LAUNCHES["flash_attention"]``, ``LAUNCHES["flash_attention_dkv"]`` and
-  ``LAUNCHES["flash_attention_dq"]`` count the kernels' launches.
+  the plain backward, written as the JAX kernels' math;
+  :func:`bwd_prep_plain` and :func:`bwd_dq_cast_plain` are the plain
+  versions of the prep and cast kernels, :func:`bwd_plan` the bf16 launch
+  plan.
+- ``LAUNCHES[name]`` counts each kernel's launches: ``flash_attention``;
+  ``flash_attention_bwd_prep``, ``flash_attention_bwd_dkvq``,
+  ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_dkv``,
+  ``flash_attention_dq`` (f32).
 
 The CUDA kernels take float32 or bfloat16 q, k, v of one dtype with head dim
 64 (other head dims raise), any Lq and Lk, and the three bias forms of the TPU
@@ -147,8 +155,21 @@ def _launch(q, k, v, key_bias, full_bias):
 
 
 _BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P,
-                 _P, _P]
-_LQ_PAD = 128  # lse / delta rows are padded to the dQ kernel's query tile
+                 _P, _P]  # the f32 kernels
+_PREP_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P]
+_DKVQ_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P,
+                  _I, _I, _I, _P]
+_CAST_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _F, _P, _P]
+_LQ_PAD = 128  # lse / delta / dq workspace rows are padded to a multiple of this
+LOG2E = 1.4426950408889634
+# the bf16 kernel's tiling (csrc/flash_attention_bwd.cu): blocks of 128 keys,
+# two warpgroups of 64 keys each; each streams query tiles of 64 through its
+# own ring of BWD_STAGES stages
+BWD_BLOCK_K, BWD_BLOCK_Q, BWD_STAGES = 128, 64, 2
+
+BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkvq",
+               "flash_attention_bwd_dq_cast")  # bf16, in launch order
+BWD_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_dkv", "flash_attention_dq")
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -179,12 +200,67 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-BWD_KERNELS = ("flash_attention_dkv", "flash_attention_dq")
+def bwd_prep_plain(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, lqp: int,
+                   log2: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the prep kernel: o, do (B, H, Lq, D), lse (B, H, Lq)
+    -> (lse rows, delta rows), each (B*H, lqp) float32, padded with 1e30 and
+    0. ``delta = sum(do * o)`` in float32 in the JAX function's order on the
+    CPU (XLA: each half of the head dim summed in sequence from 0, then the
+    two halves), so it equals ``jnp.sum(dout.f32 * out.f32, -1)`` bit for
+    bit at head dim 64; lse in units of log 2 when ``log2``."""
+    b, h, lq, d = o.shape
+    prod = (do.float() * o.float()).reshape(b * h, lq, d)
+    halves = []
+    for part in (prod[..., :d // 2], prod[..., d // 2:]):
+        acc = torch.zeros(part.shape[:-1], dtype=torch.float32, device=o.device)
+        for i in range(part.shape[-1]):
+            acc = acc + part[..., i]
+        halves.append(acc)
+    delta = (torch.zeros_like(halves[0]) + halves[0]) + halves[1]
+    rows = lse.reshape(b * h, lq).float()
+    if log2:
+        rows = rows * torch.tensor(LOG2E, dtype=torch.float32, device=o.device)
+    pad = (0, lqp - lq)
+    return (torch.nn.functional.pad(rows, pad, value=-NEG_INF),
+            torch.nn.functional.pad(delta, pad))
+
+
+def bwd_dq_cast_plain(ws: torch.Tensor, b: int, h: int, lq: int, scale: float) -> torch.Tensor:
+    """Plain version of the cast kernel: the f32 dq workspace (B*H, Lqp, D)
+    times ``scale`` (the softmax scale, which the dkvq kernel leaves out of
+    ds) -> dq (B, H, Lq, D) bf16, allocated in the (B, L, H, D) layout."""
+    d = ws.shape[-1]
+    dq = torch.empty((b, lq, h, d), dtype=torch.bfloat16, device=ws.device).transpose(1, 2)
+    dq.copy_(ws[:, :lq].reshape(b, h, lq, d) * torch.tensor(scale, dtype=torch.float32))
+    return dq
+
+
+def bwd_plan(b: int, h: int, lq: int, lk: int) -> dict:
+    """The bf16 backward's launch plan, as ``csrc/flash_attention_bwd.cu``
+    lays out the dkvq kernel's shared memory (which checks it), for each of
+    its two warpgroups: K and V of its 64 keys, its query-tile ring (q, do;
+    lse and delta rows), its ds hi / lo tiles, two f32 dq buffers, its
+    mbarriers; and 1024 bytes to align the swizzled tiles."""
+    tile = 64 * CUDA_HEAD_DIM * 2
+    rows_at = (4 * tile + 2 * BWD_STAGES * 2 * tile + 4 * tile
+               + 4 * BWD_BLOCK_Q * CUDA_HEAD_DIM * 4)
+    bars_at = rows_at + 2 * BWD_STAGES * 2 * BWD_BLOCK_Q * 4
+    smem = -(-(bars_at + 2 * (BWD_STAGES + 1) * 8) // 16) * 16 + 1024
+    lqp = -(-lq // _LQ_PAD) * _LQ_PAD
+    key_tiles = -(-lk // BWD_BLOCK_K)
+    return dict(lqp=lqp, key_tiles=key_tiles, q_tiles=-(-lq // BWD_BLOCK_Q),
+                grid=(key_tiles, b * h), smem_bytes=smem, workspace=(b * h, lqp, CUDA_HEAD_DIM))
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
-    """Every check of the backward kernels, then their ctypes arguments and
-    the outputs (dq, dk, dv) they write."""
+    """Every check of the backward kernels, then their launches in order
+    (name, argtypes, ctypes arguments, the tensors behind the pointers) and
+    the outputs (dq, dk, dv) they write. bf16: prep, dkvq, cast; f32: prep,
+    dK/dV, dQ."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dev = q.device
@@ -203,41 +279,68 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
                          f"must be (B, H, L, D) (lse (B, H, Lq)) on one device")
     if lse.dtype != torch.float32:
         raise TypeError(f"lse must be float32, got {lse.dtype}")
-    q, k, v, do = _strided(q), _strided(k), _strided(v), _strided(do)
-    lqp = -(-lq // _LQ_PAD) * _LQ_PAD
-    delta = torch.sum(do.float() * o.float(), dim=-1).reshape(b * h, lq)
-    delta = torch.nn.functional.pad(delta, (0, lqp - lq)).contiguous()
-    lse_p = torch.nn.functional.pad(lse.reshape(b * h, lq), (0, lqp - lq),
-                                    value=-NEG_INF).contiguous()
+    plan = bwd_plan(b, h, lq, lk)
+    if is_bf16 and (b * h > 65535 or b * h * plan["lqp"] >= 2 ** 31):
+        raise ValueError(f"B*H = {b * h} over the grid's 65535 rows, or B*H*Lq over the "
+                         f"dq workspace map's 2^31 rows")
+    q, k, v, o, do = (_strided(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    lqp = plan["lqp"]
+    f32 = dict(dtype=torch.float32, device=dev)
+    lse_rows, delta = torch.empty((b * h, lqp), **f32), torch.empty((b * h, lqp), **f32)
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
                   for n in (lq, lk, lk))
-    strides = (ctypes.c_long * 21)(*[s for t in (q, k, v, do, dq, dk, dv)
-                                     for s in t.stride()[:3]])
     if key_bias is not None:
         key_bias = key_bias.to(device=dev, dtype=torch.float32).contiguous()
     if full_bias is not None:
         full_bias = full_bias.to(device=dev, dtype=torch.float32).contiguous()
-    args = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_p), ptr(delta), is_bf16, b, h, lq, lk, lqp,
-            d, ctypes.addressof(strides), ptr(key_bias), ptr(full_bias), float(d ** -0.5),
-            ptr(dq), ptr(dk), ptr(dv), torch.cuda.current_stream(dev).cuda_stream]
-    # the tensors behind the pointers live as long as the arguments
-    keep = (q, k, v, do, lse_p, delta, key_bias, full_bias, strides)
-    return (args, keep), (dq, dk, dv)
+    stream = _stream(dev)
+
+    def strides(*ts):
+        return (ctypes.c_long * (3 * len(ts)))(*[s for t in ts for s in t.stride()[:3]])
+
+    prep_s = strides(o, do)
+    launches = [("flash_attention_bwd_prep", _PREP_ARGTYPES,
+                 [ptr(o), ptr(do), ptr(lse), is_bf16, b, h, lq, lqp, d,
+                  ctypes.addressof(prep_s), is_bf16, ptr(lse_rows), ptr(delta), stream],
+                 (o, do, lse, lse_rows, delta, prep_s))]
+    scale = float(d ** -0.5)
+    if is_bf16:
+        ws = torch.zeros(plan["workspace"], **f32)
+        main_s, cast_s = strides(q, k, v, do, dk, dv), strides(dq)
+        launches += [
+            ("flash_attention_bwd_dkvq", _DKVQ_ARGTYPES,
+             [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp, d,
+              ctypes.addressof(main_s), ptr(key_bias), ptr(full_bias), scale, ptr(ws), ptr(dk),
+              ptr(dv), plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"], stream],
+             (q, k, v, do, lse_rows, delta, key_bias, full_bias, ws, main_s)),
+            ("flash_attention_bwd_dq_cast", _CAST_ARGTYPES,
+             [ptr(ws), b, h, lq, lqp, d, ctypes.addressof(cast_s), scale, ptr(dq), stream],
+             (ws, cast_s))]
+    else:
+        all_s = strides(q, k, v, do, dq, dk, dv)
+        args = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), is_bf16, b, h, lq,
+                lk, lqp, d, ctypes.addressof(all_s), ptr(key_bias), ptr(full_bias), scale,
+                ptr(dq), ptr(dk), ptr(dv), stream]
+        keep = (q, k, v, do, lse_rows, delta, key_bias, full_bias, all_s)
+        launches += [(name, _BWD_ARGTYPES, args, keep) for name in BWD_F32_KERNELS[1:]]
+    return launches, (dq, dk, dv)
 
 
-def run_bwd(operands, names=BWD_KERNELS) -> None:
-    """Launch the named backward kernels on prepared operands."""
-    args, _ = operands
-    for name in names:
-        so, fn = lib(name, _BWD_ARGTYPES, library="flash_attention_bwd")
-        run(so, fn, args)
-        LAUNCHES[name] += 1
+def run_bwd(launches, names=None) -> None:
+    """Launch the prepared backward kernels in order (only the named ones
+    if ``names`` is given)."""
+    for name, argtypes, args, _ in launches:
+        if names is None or name in names:
+            so, fn = lib(name, argtypes, library="flash_attention_bwd")
+            run(so, fn, args)
+            LAUNCHES[name] += 1
 
 
 def _launch_bwd(q, k, v, key_bias, full_bias, o, lse, do):
-    """The dK/dV and dQ kernels; every check before either launch."""
-    operands, grads = _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do)
-    run_bwd(operands)
+    """The backward kernels; every check before the first launch."""
+    launches, grads = _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do)
+    run_bwd(launches)
     return grads
 
 

@@ -138,10 +138,20 @@ def test_bias_cotangent_is_zero(kind):
 
 def test_cuda_backward_checks_before_launch(monkeypatch):
     """What the backward kernels do not take raises before anything is
-    built (the kernel route is forced here on CPU tensors, which it never
-    is outside this test)."""
+    built or launched (the kernel route is forced here on CPU tensors, which
+    it never is outside this test): the launch raises if it is reached."""
     monkeypatch.setattr(tfa, "plain_route", lambda x: False)
     monkeypatch.setattr(tfa, "flash_attention_bwd_plain", None)  # must not be called
+    monkeypatch.setattr(tfa, "_stream", lambda dev: 0)
+
+    class Launched(Exception):
+        pass
+
+    def launched(*a, **kw):
+        raise Launched(a[0])
+
+    monkeypatch.setattr(tfa, "lib", launched)
+    monkeypatch.setattr(tfa, "run", launched)
 
     def args(d=64, dtype=torch.float32, lk=8, lse_dtype=torch.float32, **over):
         q = torch.zeros((1, 2, 8, d), dtype=dtype)
@@ -164,6 +174,20 @@ def test_cuda_backward_checks_before_launch(monkeypatch):
         tfa._launch_bwd(**args(lse=torch.zeros((1, 2, 7))))
     with pytest.raises(TypeError, match="lse must be float32"):
         tfa._launch_bwd(**args(lse_dtype=torch.float64))
+    for dtype in (torch.bfloat16, torch.float32):  # the bf16 and f32 argument lists
+        for d in (32, 128):
+            with pytest.raises(NotImplementedError, match="head dim 64"):
+                tfa._launch_bwd(**args(d=d, dtype=dtype))
+        with pytest.raises(ValueError, match="one device"):
+            tfa._launch_bwd(**args(dtype=dtype, lse=torch.zeros((1, 2, 9))))
+        # every check passed: the first thing reached is the prep kernel's launch
+        with pytest.raises(Launched, match="flash_attention_bwd_prep"):
+            tfa._launch_bwd(**args(dtype=dtype))
+    # the bf16 grid holds B*H <= 65535 rows
+    wide = torch.zeros((1, 65536, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="65535"):
+        tfa._launch_bwd(q=wide, k=wide, v=wide, key_bias=None, full_bias=None, o=wide,
+                        lse=torch.zeros((1, 65536, 1)), do=wide)
     # the autograd node takes the kernel route it chose in the forward
     x = torch.zeros((1, 2, 8, 32))
     ctx = types.SimpleNamespace(plain=False, needs_input_grad=(True,) * 3 + (False,) * 2,

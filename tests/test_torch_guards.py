@@ -37,11 +37,13 @@ BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "nova_pointcloud_tpu"}
 KERNEL_NAMES = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
                 "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
                 "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
-                "flash_attention_dkv", "flash_attention_dq")
+                "flash_attention_dkv", "flash_attention_dq", "flash_attention_bwd_prep",
+                "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast")
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py",
+                                        REPO / "chip_bwd_probe.py"]
 
 
 def test_port_imports_nothing_of_jax():
