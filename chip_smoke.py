@@ -107,6 +107,20 @@ The NOVA t2i training slice adds:
     library ops, the flash kernels' counted from their shapes) and TFLOP/s;
 6.  (in the profiles phase) one profiled training step.
 
+The redesign of the forward kernels for Hopper (flash_attention's bf16
+route and flash_attention_static on csrc/flash_fwd.cuh: wgmma and TMA)
+keeps phases 3c and 3d as they were and adds to the timing phases:
+
+5b. flash_attention at path A's shapes and 5c flash_attention_static (bf16
+    core at L = 1280 and 768, and the int8 core at 1280) also timed from a
+    CUDA graph of 20 launches captured once, beside the event time, and
+    SDPA the same way; the ptxas registers, spills and wgmma notes of each
+    instance of the forward kernel (5b: no bias, key bias, full bias; 5c:
+    bf16 and int8 cores with and without a key bias) and its SASS, which
+    must hold wgmma (HGMMA, IGMMA for the int8 core) and TMA loads
+    (UTMALDG) and no mma.sync (the phase fails otherwise);
+5d. the forward at the training shape graph-timed too.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -118,6 +132,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -248,6 +263,36 @@ def sync_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Mean ms per call of ``fn`` replayed from a CUDA graph of ``n`` calls
+    captured once (CUDA events around ``reps`` replays): the device time of
+    back-to-back launches without the host's time per call (a wrapper's
+    checks, allocations and ctypes call), which ``sync_ms`` takes in where
+    the kernel is shorter. Warmed up on a side stream first, as capture
+    needs."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (n * reps)
 
 
 @phase("1 device")
@@ -1431,16 +1476,75 @@ def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     return TRAIN_FLASH_LAYERS * (2 * 4 + 10) * per
 
 
-def _ptxas_report(kernel):
-    """The ``-Xptxas -v`` lines (registers, spills) of one kernel of
-    flash_attention_bwd.cu from this checkout's build log."""
-    lines, on = [], False
-    for line in _build.build_log("flash_attention_bwd").splitlines():
+def _ptxas_report(kernel, library="flash_attention_bwd"):
+    """The ``-Xptxas -v`` lines (registers, spills) of the kernel of
+    ``library`` whose mangled name holds ``kernel``, from this checkout's
+    build log, and a count of ptxas's wgmma notes on it (C751x: wgmma
+    serialized, or a warpgroup arrive injected)."""
+    lines, on, notes = [], False, 0
+    for line in _build.build_log(library).splitlines():
         if "Compiling entry function" in line:
             on = kernel in line
+        elif "(C751" in line:
+            notes += kernel in line
         elif on and ("registers" in line or "spill" in line):
             lines.append(line.split(":", 1)[-1].strip())
-    return "; ".join(lines)
+    return "; ".join(lines + [f"{notes} wgmma notes (C751x)"])
+
+
+# the instances of csrc/flash_fwd.cuh's attn_fwd_kernel<STATIC, INT8, KBIAS,
+# FBIAS> in each library, by the mangled template arguments
+FWD_INSTANCES = {
+    "flash_attention": {"no bias": "attn_fwd_kernelILb0ELb0ELb0ELb0E",
+                        "key bias": "attn_fwd_kernelILb0ELb0ELb1ELb0E",
+                        "full bias": "attn_fwd_kernelILb0ELb0ELb0ELb1E"},
+    "flash_attention_static": {"bf16": "attn_fwd_kernelILb1ELb0ELb0ELb0E",
+                               "bf16 key bias": "attn_fwd_kernelILb1ELb0ELb1ELb0E",
+                               "int8": "attn_fwd_kernelILb1ELb1ELb0ELb0E",
+                               "int8 key bias": "attn_fwd_kernelILb1ELb1ELb1ELb0E"}}
+
+
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+
+
+def _sass_ops(library):
+    """Counts of the tensor-core and TMA instructions in each function of
+    the built ``library`` (``cuobjdump -sass``): {mangled name: {op: n}}."""
+    so = _build._library_path(library)
+    sass = subprocess.run([str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                counts[fn][op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
+def _fwd_ptxas(name):
+    """Print and record the ptxas report of each instance of ``name``'s
+    forward kernel and its SASS: every instance issues wgmma (HGMMA; IGMMA
+    for the int8 score core) and TMA loads (UTMALDG) and no mma.sync (HMMA,
+    IMMA), and no function of the library is an mma.sync attention kernel
+    of the first design; raises otherwise."""
+    out, sass = {}, _sass_ops(name)
+    gone = [fn for fn in sass if "flash_fwd_bf16_kernel" in fn or "flash_static_kernel" in fn]
+    bad = [f"{name}: first-design kernel {fn}" for fn in gone]
+    for label, mangled in FWD_INSTANCES[name].items():
+        ops = next(c for fn, c in sass.items() if mangled in fn)
+        out[label] = f"{_ptxas_report(mangled, library=name)}; SASS " + ", ".join(
+            f"{op} {n}" for op, n in ops.items())
+        print(f"  {name} ptxas ({label}): {out[label]}")
+        int8 = "int8" in label
+        if not (ops["HGMMA"] and ops["UTMALDG"] and (ops["IGMMA"] or not int8)
+                and ops["HMMA"] == ops["IMMA"] == 0):
+            bad.append(f"{name} ({label}): {ops}")
+    report["kernels"].setdefault(name, {})["ptxas"] = out
+    if bad:
+        raise AssertionError(f"the forward kernels are not on wgmma and TMA: {bad}")
 
 
 @phase("5d timing of the backward kernels and the training step")
@@ -1480,7 +1584,7 @@ def timing_train(pipe):
                  lambda: fa.flash_attention_with_lse(q, k, v),
                  lambda: fa.flash_attention_plain(q, k, v),
                  _bound(4 * bh * L * L * 64 / PEAK_BF16_FLOPS, 4 * bh * L * 64 * 2 + bh * L * 4),
-                 library=sdpa_fwd)
+                 library=sdpa_fwd, graph=True)
     plain_ms = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
     plan = fa.bwd_plan(T2I_ROWS, HEADS, L, L)
     io, rows, ws_bytes = bh * L * 64 * 2, bh * plan["lqp"] * 4, bh * plan["lqp"] * 64 * 4
@@ -1581,14 +1685,23 @@ def _bound_ms(kind, n):
                   2 * rows * D * 2 + 4 * D * D)
 
 
-def _time_kernel(name, shape_key, kernel, plain, bound, library=None, iters=20):
+def _time_kernel(name, shape_key, kernel, plain, bound, library=None, iters=20, graph=False):
+    """Event-timed ms per launch of the kernel, its plain version and the
+    library call; with ``graph`` also the kernel and the library call
+    replayed from a CUDA graph (``graph_ms``)."""
     ms = sync_ms(kernel, iters)
     plain_ms = sync_ms(plain, 3)
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                library_ms=None if library is None else sync_ms(library, iters))
     lib = "" if library is None else f", library {row['library_ms']:.3f} ms"
-    print(f"  {name} {shape_key}: {ms:.3f} ms/launch, plain {plain_ms:.3f} ms{lib}, bound "
-          f"{bound[0]:.3f} ms ({bound[1]}), {bound[0] / ms:.1%} of bound")
+    if graph:
+        row["graph_ms"] = graph_ms(kernel)
+        if library is not None:
+            row["library_graph_ms"] = graph_ms(library)
+            lib += f" (graph {row['library_graph_ms']:.3f})"
+    graph_txt = f" (graph {row['graph_ms']:.3f})" if graph else ""
+    print(f"  {name} {shape_key}: {ms:.3f} ms/launch{graph_txt}, plain {plain_ms:.3f} ms{lib}, "
+          f"bound {bound[0]:.3f} ms ({bound[1]}), {bound[0] / ms:.1%} of bound")
     report["kernels"].setdefault(name, {}).setdefault("by_shape", {})[str(shape_key)] = row
     return row
 
@@ -1622,7 +1735,7 @@ def timing(pipe):
 
 
 PORT_KERNEL_NAMES = ("gemm_s8_kernel", "row_quant_kernel", "row_op_kernel", "attn_core_",
-                     "flash_fwd_", "flash_static_kernel", "static_qk_quant_kernel", "flash_bwd_")
+                     "attn_fwd_kernel", "flash_fwd_", "static_qk_quant_kernel", "flash_bwd_")
 
 
 def profile_call(sample, label="flagship"):
@@ -1703,7 +1816,7 @@ def timing_per_point(pipe_a, pipe_b):
             lambda: fa.flash_attention_plain(q, k, v),
             _bound(4 * b * h * PP_T * PP_T * hd / PEAK_BF16_FLOPS,
                    4 * b * h * PP_T * hd * 2 + b * h * PP_T * 4),
-            library=lambda: F.scaled_dot_product_attention(q, k, v))
+            library=lambda: F.scaled_dot_product_attention(q, k, v), graph=True)
         if mult == 2:
             report["kernels"]["flash_attention"].update(row)
         # the same MLP kernel at this path's width (its entry in the kernels
@@ -1717,6 +1830,7 @@ def timing_per_point(pipe_a, pipe_b):
             _bound(4 * m * d * PP_F / PEAK_INT8_OPS, 2 * m * d * 2 + 2 * d * PP_F))
         del q, k, v, mlp_ops
         torch.cuda.empty_cache()
+    _fwd_ptxas("flash_attention")
     fb.reset_launch_counts()
     for label, pipe in (("path_a", pipe_a), ("path_b", pipe_b)):
         if pipe is None:
@@ -1764,9 +1878,18 @@ def timing_t2i(pipe_int8, pipe_float):
             lambda: fa.flash_attention_static(q, k, v, smax),
             lambda: fa.flash_attention_static_plain(q, k, v, smax),
             _bound(4 * bh * L * L * 64 / PEAK_BF16_FLOPS, 4 * bh * L * 64 * 2),
-            library=lambda: Fn.scaled_dot_product_attention(q, k, v))
+            library=lambda: Fn.scaled_dot_product_attention(q, k, v), graph=True)
         if L == T2I_L["full"]:
             report["kernels"]["flash_attention_static"].update(row)
+            # the int8 score core (no ported path runs it): the quant pass and
+            # the kernel; q k^T's operations at the int8 rate
+            aq = torch.tensor(4.5, device=DEV)
+            _time_kernel(
+                "flash_attention_static", (T2I_ROWS, HEADS, L, 64, "int8 core"),
+                lambda: fa.flash_attention_static(q, k, v, smax, a_q=aq, a_k=aq),
+                lambda: fa.flash_attention_static_plain(q, k, v, smax, a_q=aq, a_k=aq),
+                _bound(2 * bh * L * L * 64 / PEAK_INT8_OPS + 2 * bh * L * L * 64 / PEAK_BF16_FLOPS,
+                       4 * bh * L * 64 * 2), graph=True)
         del q, k, v
         x = torch.randn((m, D), generator=gen, device=DEV)
         w, ws = quantize_weight_kmajor(torch.randn((3 * D, D), generator=gen, device=DEV)
@@ -1790,6 +1913,7 @@ def timing_t2i(pipe_int8, pipe_float):
         _bound(2 * m * D * 5 * D / PEAK_INT8_OPS,
                3 * m * D * 2 + 5 * D * D + (3 * D + 4 * D) * 2 + 5 * D * 4), iters=200)
     report["kernels"]["fused_int8_diffusion_block"].update(row)
+    _fwd_ptxas("flash_attention_static")
     torch.cuda.empty_cache()
     fb.reset_launch_counts()
     for label, pipe in (("t2i_int8", pipe_int8), ("t2i_float", pipe_float)):

@@ -59,6 +59,8 @@
 //
 // The TMA descriptors are encoded on the host with cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint: the library links no -lcuda.
+// The mbarrier, TMA, descriptor and wgmma helpers and the map encoder are
+// hopper.cuh's, shared with the forward kernels.
 //
 // What bounds it on this card: operations. The function does 10 B*H*Lq*Lk*d
 // FLOPs (s, do v^T, p^T do, ds^T q, ds k), 12 with the lo product: 0.136 ms
@@ -71,8 +73,7 @@
 // clock64 breakdown per tile, in PERF.md), so the tensor cores idle while
 // both warpgroups do element work.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
+#include "hopper.cuh"
 
 #include "quant.cuh"
 
@@ -80,17 +81,6 @@ namespace nova {
 
 constexpr float kBwdLog2e = 1.4426950408889634f;
 constexpr float kDeadLse = 1e30f;  // lse of a row with every key masked, and of padding
-
-__device__ __forceinline__ float ex2b(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
 
 struct FlashBwdParams {
   const void* q;
@@ -222,146 +212,6 @@ constexpr int OFF_ROWS = OFF_DQ + 4 * DQ_BUF;             // + (w STAGES + s) 51
 constexpr int OFF_BAR = OFF_ROWS + 2 * STAGES * 2 * QB * 4;
 constexpr int N_BARS = 2 * (STAGES + 1);                  // per warpgroup: full[s], kv
 constexpr int DKVQ_SMEM = ((OFF_BAR + N_BARS * 8 + 15) / 16) * 16 + 1024;  // + alignment
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// waits until the phase of parity `parity` has completed; traps (a launch
-// error, not a hung card) if it never does
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    if (++polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-// adds a 64-row x 32-float box from (128B-swizzled) shared memory into the
-// f32 workspace at (col, row)
-__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, uint32_t src, int col,
-                                                  int row) {
-  asm volatile(
-      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row)
-      : "memory");
-}
-// shared-memory loads and stores by 32-bit shared address: through a
-// generic pointer the compiler emits generic ld / st, several times slower
-__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ void sts_u32(uint32_t addr, unsigned v) {
-  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ void sts_f2(uint32_t addr, float a, float b) {
-  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-
-// wgmma shared-memory descriptor of a 128B-swizzled tile with 128-byte rows
-// (64 bf16) and 8-row groups 1024 bytes apart. K-major (the product's k
-// dimension along the row): LBO unused (1). MN-major (k along the rows): one
-// 64-wide swizzle atom along m / n, so LBO is never stepped; it is set to the
-// same 1024 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, bool mn_major) {
-  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(mn_major ? 64 : 1) << 16;
-  d |= static_cast<uint64_t>(64) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads or writes of registers that an
-// in-flight wgmma uses across this point
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(unsigned (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-#define NOVA_WG_D32                                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-#define NOVA_WG_REGS                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64, f32) (+)= A B, both from shared memory; TA / TB: MN-major
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " NOVA_WG_REGS
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : NOVA_WG_D32
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-// d (64 x 64, f32) (+)= A B, A (64 x 16 bf16) from registers, B from shared
-// memory; TB: MN-major
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4], uint64_t db,
-                                         int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " NOVA_WG_REGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : NOVA_WG_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
-}
 
 struct DkvqParams {
   const float* lse2;   // (B*H, Lqp), units of log 2
@@ -503,7 +353,7 @@ __global__ void __launch_bounds__(DKVQ_THREADS, 1)
           if (qrow < p.Lq && key < p.Lk)
             x += p.fbias[static_cast<long>(qrow) * p.Lk + key] * kBwdLog2e;
         }
-        st[i] = ex2b(x - ((e & 1) ? l2.y : l2.x));
+        st[i] = ex2(x - ((e & 1) ? l2.y : l2.x));
       }
     }
     // dV += P^T dO: P^T's accumulator fragments are A fragments (k =
@@ -820,44 +670,6 @@ inline bool fill_params(FlashBwdParams& p, const void* q, const void* k, const v
   p.Lqp = Lqp;
   p.scale = scale;
   return true;
-}
-
-// cuTensorMapEncodeTiled of libcuda, found at run time (the library links no -lcuda)
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
-}
-
-// a 4-D map (d, L, H, B) over a bf16 (B, H, L, 64) view, boxes of 64 rows,
-// 128-byte swizzle, rows past L read as zeros
-inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const long* s) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  for (int i = 0; i < 3; ++i)
-    if (s[i] <= 0 || (s[i] * 2) % 16 != 0) return false;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(BHD), static_cast<cuuint64_t>(L),
-                        static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2] * 2), static_cast<cuuint64_t>(s[1] * 2),
-                           static_cast<cuuint64_t>(s[0] * 2)};
-  cuuint32_t box[4] = {BHD, 64, 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // a 2-D map (64, rows) over the f32 dq workspace, boxes of 64 rows x 32

@@ -1,0 +1,297 @@
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// (flash_attention.cu, flash_attention_static.cu, flash_attention_bwd.cu):
+// mbarriers, TMA tensor and bulk copies, shared-memory access by 32-bit
+// address, ldmatrix, named barriers, wgmma shared-memory descriptors
+// (128B and 64B swizzle, none), wgmma wrappers (bf16 m64n64k16, m64n128k16
+// and m64n8k16, s8 m64n128k32) and, on the host, the TMA map encoder reached through the
+// runtime's driver entry point, so that no library links -lcuda.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cudaTypedefs.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace nova {
+
+// 2^x by the special-function unit; ex2(-inf) = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// waits until the phase of parity `parity` has completed; traps (a launch
+// error, not a hung card) if it never does
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// adds a 64-row x 32-float box from (128B-swizzled) shared memory into the
+// f32 workspace at (col, row)
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, uint32_t src, int col,
+                                                  int row) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row)
+      : "memory");
+}
+// shared-memory loads and stores by 32-bit shared address: through a
+// generic pointer the compiler emits generic ld / st, several times slower
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts_u32(uint32_t addr, unsigned v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts_f2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+// atomic add on a shared-memory word; returns the old value
+__device__ __forceinline__ uint32_t atom_add_shared(uint32_t addr, uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;" : "=r"(old) : "r"(addr), "r"(v) : "memory");
+  return old;
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// wgmma shared-memory descriptor of a 128B-swizzled tile with 128-byte rows
+// (64 bf16) and 8-row groups 1024 bytes apart. K-major (the product's k
+// dimension along the row): LBO unused (1). MN-major (k along the rows): one
+// 64-wide swizzle atom along m / n, so LBO is never stepped; it is set to the
+// same 1024 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, bool mn_major) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(mn_major ? 64 : 1) << 16;
+  d |= static_cast<uint64_t>(64) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+// the same for a K-major 64B-swizzled tile with 64-byte rows (64 int8) and
+// 8-row groups 512 bytes apart
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1) << 16;
+  d |= static_cast<uint64_t>(32) << 32;
+  d |= static_cast<uint64_t>(2) << 62;
+  return d;
+}
+
+// the same for a tile without swizzle: 8-row x 16-byte core matrices, the
+// next along k `lbo` bytes on, the next along m / n `sbo` bytes on
+__device__ __forceinline__ uint64_t desc_noswizzle(uint32_t addr, int lbo, int sbo) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(lbo >> 4) << 16;
+  d |= static_cast<uint64_t>(sbo >> 4) << 32;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma uses across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define NOVA_WG_D32(c)                                                                       \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), \
+      c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), c(d[17]),        \
+      c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]),        \
+      c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+#define NOVA_WG_D64(c)                                                                       \
+  NOVA_WG_D32(c), c(d[32]), c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]),      \
+      c(d[39]), c(d[40]), c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), c(d[46]),        \
+      c(d[47]), c(d[48]), c(d[49]), c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]),        \
+      c(d[55]), c(d[56]), c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define NOVA_WG_REGS32                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define NOVA_WG_REGS64                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// Accumulator element i of a thread of an m64nN wgmma (f32 or s32): row
+// 16 warp + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t + (i & 1), with
+// g = lane / 4 and t = lane % 4. The A fragments of a 16-bit m64k16 step
+// from registers have the same layout: a[e] holds the pair of element
+// 2 e of an m64n16 accumulator.
+
+// d (64 x 64, f32) (+)= A B, both from shared memory; TA / TB: MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " NOVA_WG_REGS32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : NOVA_WG_D32("+f")
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+// d (64 x 64, f32) (+)= A B, A (64 x 16 bf16) from registers, B from shared
+// memory; TB: MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " NOVA_WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : NOVA_WG_D32("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+// d (64 x 128, f32) (+)= A B, A (64 x 16 bf16) and B (128 x 16 bf16) both
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " NOVA_WG_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : NOVA_WG_D64("+f")
+      : "l"(da), "l"(db), "r"(acc));
+}
+// d (64 x 8, f32) (+)= A B, A (64 x 16 bf16) from registers, B (K-major)
+// from shared memory
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const unsigned (&a)[4], uint64_t db,
+                                            int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+// d (64 x 128, s32) (+)= A B, A (64 x 32 s8) and B (128 x 32 s8), both
+// K-major in shared memory (the only layout of 8-bit wgmma)
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " NOVA_WG_REGS64
+      ", %64, %65, p;\n}\n"
+      : NOVA_WG_D64("+r")
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// ---------------------------------------------------------------------------
+// host: TMA maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled of libcuda, found at run time (the library links no -lcuda)
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }
+  return fn;
+}
+
+// a 4-D map (d, L, H, B) over a (B, H, L, 64) view with element strides s
+// (batch, head, row): 64 elements of `elem_bytes` bytes a row (128 bytes for
+// bf16, 128B swizzle; 64 bytes for int8, 64B swizzle), boxes of `box_rows`
+// rows, rows past L read as zeros (within each (b, h))
+inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const long* s,
+                     int box_rows = 64, int elem_bytes = 2) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (s[i] <= 0 || (s[i] * elem_bytes) % 16 != 0) return false;
+  const cuuint64_t eb = static_cast<cuuint64_t>(elem_bytes);
+  cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(H),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * eb, static_cast<cuuint64_t>(s[1]) * eb,
+                           static_cast<cuuint64_t>(s[0]) * eb};
+  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(m, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                4, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                elem_bytes == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace nova

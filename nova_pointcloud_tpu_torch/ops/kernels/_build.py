@@ -37,8 +37,10 @@ SOURCES = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # The int8 kernels round a*b+c twice, as their plain versions do (every int8
-# code agrees); the attention cores have no such identity to keep.
-FMAD = {"flash_attention": "-fmad=true", "flash_attention_bwd": "-fmad=true"}
+# code agrees); the attention cores have no such identity to keep (the static
+# kernel's int8 quant pass only multiplies, so contraction leaves its codes).
+FMAD = {"flash_attention": "-fmad=true", "flash_attention_bwd": "-fmad=true",
+        "flash_attention_static": "-fmad=true"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

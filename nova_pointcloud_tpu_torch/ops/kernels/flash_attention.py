@@ -9,7 +9,9 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
 - :func:`flash_attention` has the JAX function's signature (its TPU block
   sizes ``blk_q`` / ``blk_k`` are dropped: the CUDA kernels mask ragged
   tails themselves). It is differentiable: for CUDA tensors the forward
-  launches ``csrc/flash_attention.cu`` and the backward the kernels of
+  launches ``csrc/flash_attention.cu`` (bf16: the wgmma and TMA main loop of
+  ``csrc/flash_fwd.cuh``, launched as :func:`fwd_plan` lays it out; f32: a
+  SIMT kernel) and the backward the kernels of
   ``csrc/flash_attention_bwd.cu``: in bf16 the prep kernel (delta and lse
   rows), the one-pass dkvq kernel (wgmma and TMA: dK, dV, and dQ summed into
   an f32 workspace) and the cast of that workspace to dq; in f32 the prep
@@ -44,12 +46,15 @@ calibration (the JAX ``flash_attention_static``): the calibrated max logit
 ``smax`` replaces the running max, ``p = bf16(exp(min(s - smax, 20)))`` is
 summed into both ``p v`` and the denominator, and the score product is bf16
 or, with the calibrated ``a_q`` / ``a_k``, int8. Its CUDA kernel
-(``csrc/flash_attention_static.cu``) takes head dim 64 and a key bias or none;
+(``csrc/flash_attention_static.cu``: the forward's main loop without the
+running max, bf16 or s8 wgmma for the scores) takes head dim 64 and a key
+bias or none;
 :func:`flash_attention_static_plain` is its plain version, and
 ``LAUNCHES["flash_attention_static"]`` counts its launches. Forward only.
 """
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -61,8 +66,13 @@ from nova_pointcloud_tpu_torch.ops.quantization import int_dot
 NEG_INF = -1e30
 CUDA_HEAD_DIM = 64
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P]
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P, _F, _P, _P, _I, _I, _P]
+# the forward kernels' tiling (csrc/flash_fwd.cuh, shared by flash_attention
+# and flash_attention_static): a persistent grid of work items of 192 query
+# rows (three warpgroups of 64), key tiles of 128 through a ring of FWD_STAGES
+FWD_WARPGROUPS, FWD_BLOCK_K, FWD_STAGES = 3, 128, 4
+FWD_BLOCK_Q = 64 * FWD_WARPGROUPS
 
 
 def _normalize_bias(bias: Optional[torch.Tensor], b: int, lq: int, lk: int
@@ -115,14 +125,81 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernel reads it: last dim contiguous, the other strides
-    and the base address multiples of 16 bytes; a copy only when needed."""
+    and the base address multiples of 16 bytes; a copy (a new, aligned
+    allocation) only when needed."""
     per16 = 16 // t.element_size()
     ok = (t.stride(3) == 1 and all(s % per16 == 0 for s in t.stride()[:3])
           and t.data_ptr() % 16 == 0)
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def fwd_plan(b: int, h: int, lq: int, lk: int, sms: int) -> dict:
+    """The launch plan of the forward kernels (``flash_attention``'s bf16
+    route and ``flash_attention_static``, both score cores), as
+    ``csrc/flash_fwd.cuh`` lays out its shared memory (the kernel checks the
+    grid and the bytes): two q slots of 64 rows per warpgroup, FWD_STAGES
+    stages of a K and a V tile of 128 keys and their 128 key-bias values
+    (int8 tiles use part of that room), the mbarriers (one a stage, two a
+    warpgroup) and release counts, a 256-byte tile of ones (the static
+    kernel's row sums on the tensor cores), and 1024 bytes to align the
+    swizzled tiles. One block per SM (``sms``) walks the (batch, head,
+    192-row) items."""
+    q_slot, kv_slot, kb_slot = 64 * CUDA_HEAD_DIM * 2, FWD_BLOCK_K * CUDA_HEAD_DIM * 2, FWD_BLOCK_K * 4
+    cnt_at = (2 * FWD_WARPGROUPS * q_slot + FWD_STAGES * (2 * kv_slot + kb_slot)
+              + (FWD_STAGES + 2 * FWD_WARPGROUPS) * 8)
+    q_tiles, key_tiles = -(-lq // FWD_BLOCK_Q), -(-lk // FWD_BLOCK_K)
+    items = b * h * q_tiles
+    grid = min(items, sms)
+    return dict(q_tiles=q_tiles, key_tiles=key_tiles, items=items, grid=(grid,),
+                stages=FWD_STAGES, smem_bytes=-(-(cnt_at + 4 * FWD_STAGES) // 128) * 128 + 256 + 1024,
+                last_keys=lk - (key_tiles - 1) * FWD_BLOCK_K,
+                tiles_per_block=-(-items // grid) * key_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(dev) -> int:
+    """Streaming multiprocessors of the card that holds ``dev``."""
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def _key_bias_rows(kb: Optional[torch.Tensor], lk: int, dev) -> Tuple[Optional[torch.Tensor], int]:
+    """A (B, Lk) key bias as the forward kernels bulk-copy it: float32 rows,
+    16-byte aligned, at a row stride that is a multiple of 4 floats (0 for
+    one row shared by every batch); a copy padded to a multiple of 4 keys
+    only when the view is not so. -> (rows, row stride)."""
+    if kb is None:
+        return None, 0
+    kb = kb.to(device=dev, dtype=torch.float32)
+    if (lk % 4 == 0 and kb.stride(1) == 1 and kb.stride(0) % 4 == 0
+            and kb.data_ptr() % 16 == 0):
+        return kb, kb.stride(0)
+    rows = torch.zeros((kb.shape[0], -(-lk // 4) * 4), dtype=torch.float32, device=dev)
+    rows[:, :lk] = kb
+    return rows, rows.stride(0)
+
+
+def _checked_plan(b: int, h: int, lq: int, lk: int, dev) -> dict:
+    """:func:`fwd_plan` on ``dev``'s card; raises where the kernel's int
+    counts of items and key tiles would overflow."""
+    plan = fwd_plan(b, h, lq, lk, _sms(dev))
+    if plan["items"] * plan["key_tiles"] >= 2 ** 31:
+        raise ValueError(f"{plan['items']} work items of {plan['key_tiles']} key tiles: over the "
+                         f"kernel's int range")
+    return plan
+
+
+def _stream(dev) -> int:
+    """The current CUDA stream of ``dev`` as a pointer (the raw query:
+    ``torch.cuda.current_stream`` takes about 10 us of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _launch(q, k, v, key_bias, full_bias):
+    """The forward kernel; every check before the launch."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dev = q.device
@@ -135,21 +212,23 @@ def _launch(q, k, v, key_bias, full_bias):
     if k.shape != (b, h, lk, d) or v.shape != k.shape or k.device != dev or v.device != dev:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"must be (B, H, L, D) on one device")
+    if key_bias is not None and full_bias is not None:
+        raise ValueError("a key bias and a full bias cannot be combined")
+    plan = _checked_plan(b, h, lq, lk, dev)
     q, k, v = _strided(q), _strided(k), _strided(v)
     o = torch.empty_like(q)  # q's strides: a (B, L, H, D) view stays one
     if o.stride(3) != 1:
         o = torch.empty(q.shape, dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
     strides = (ctypes.c_long * 12)(*[s for t in (q, k, v, o) for s in t.stride()[:3]])
-    if key_bias is not None:
-        key_bias = key_bias.to(device=dev, dtype=torch.float32).contiguous()
+    kb, kb_sb = _key_bias_rows(key_bias, lk, dev)
     if full_bias is not None:
         full_bias = full_bias.to(device=dev, dtype=torch.float32).contiguous()
     so, fn = lib("flash_attention", _ARGTYPES)
     run(so, fn, [ptr(q), ptr(k), ptr(v), is_bf16, b, h, lq, lk, d,
-                 ctypes.addressof(strides), ptr(key_bias), ptr(full_bias),
-                 float(d ** -0.5), ptr(o), ptr(lse),
-                 torch.cuda.current_stream(dev).cuda_stream])
+                 ctypes.addressof(strides), ptr(kb), kb_sb, ptr(full_bias),
+                 float(d ** -0.5), ptr(o), ptr(lse), plan["grid"][0], plan["smem_bytes"],
+                 _stream(dev)])
     LAUNCHES["flash_attention"] += 1
     return o, lse
 
@@ -250,10 +329,6 @@ def bwd_plan(b: int, h: int, lq: int, lk: int) -> dict:
     key_tiles = -(-lk // BWD_BLOCK_K)
     return dict(lqp=lqp, key_tiles=key_tiles, q_tiles=-(-lq // BWD_BLOCK_Q),
                 grid=(key_tiles, b * h), smem_bytes=smem, workspace=(b * h, lqp, CUDA_HEAD_DIM))
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
@@ -378,7 +453,12 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention` returning ``(o, lse)``; lse (B, H, Lq) float32."""
     key_bias, full_bias = _normalize_bias(bias, q.shape[0], q.shape[2], k.shape[2])
-    return _FlashAttention.apply(q, k, v, key_bias, full_bias)
+    ins = (q, k, v, key_bias, full_bias)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ins):
+        return _FlashAttention.apply(*ins)
+    # nothing to differentiate (serving): the same kernel without the
+    # autograd node, whose bookkeeping costs host time on every call
+    return _plain(*ins) if plain_route(q) else _launch(*ins)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -393,8 +473,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # -- static-offset serving attention ------------------------------------------
 
-_STATIC_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _P, _P,
-                    _P, _I, _P]
+_STATIC_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P, _P, _P, _F, _P, _P,
+                    _P, _I, _I, _I, _P]
 
 
 def _static_key_bias(bias: Optional[torch.Tensor], b: int, lk: int) -> Optional[torch.Tensor]:
@@ -407,7 +487,12 @@ def _static_key_bias(bias: Optional[torch.Tensor], b: int, lk: int) -> Optional[
 
 
 def _int8_core(a_q, a_k) -> bool:
-    return a_q is not None and a_k is not None
+    """True for the int8 score core; a_q and a_k come together or not at all."""
+    if (a_q is None) != (a_k is None):
+        raise ValueError("the int8 score core needs both a_q and a_k, got "
+                         f"a_q={'set' if a_q is not None else None}, "
+                         f"a_k={'set' if a_k is not None else None}")
+    return a_q is not None
 
 
 def flash_attention_static_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smax,
@@ -437,23 +522,11 @@ def flash_attention_static_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return (o / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-def flash_attention_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smax,
-                           bias: Optional[torch.Tensor] = None, a_q=None,
-                           a_k=None) -> torch.Tensor:
-    """Serving attention with a calibrated static softmax offset.
-
-    q, k, v: (B, H, L, D) -> (B, H, Lq, D) in q's dtype. ``smax``: the
-    calibrated max attention logit (scalar); scores are offset by it and
-    clipped at +20 before exp. ``bias``: None or a key bias (B, 1, 1, Lk).
-    ``a_q`` / ``a_k``: calibrated amax of q and k; with both given the score
-    product runs in int8. Forward only. On the card the output is allocated
-    in the (B, L, H, D) layout and returned as its (B, H, L, D) view, so the
-    caller's merge of the heads is free."""
+def _launch_static(q, k, v, smax, kb, a_q, a_k):
+    """The static kernel (and, for the int8 core, its quant pass); every
+    check before the launch. kb: None or the (B, Lk) key bias."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    kb = _static_key_bias(bias, b, lk)
-    if plain_route(q):
-        return flash_attention_static_plain(q, k, v, smax, bias, a_q, a_k)
     dev = q.device
     if d != CUDA_HEAD_DIM:
         raise NotImplementedError(
@@ -468,12 +541,13 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm
         q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
     elif q.dtype != k.dtype:
         raise TypeError(f"q and k must share one dtype, got {q.dtype}, {k.dtype}")
+    plan = _checked_plan(b, h, lq, lk, dev)
     q, k, v = _strided(q), _strided(k), _strided(v.to(torch.bfloat16))
     o = torch.empty((b, lq, h, d), dtype=torch.bfloat16 if out_bf16 else torch.float32,
                     device=dev).transpose(1, 2)
     f32 = dict(dtype=torch.float32, device=dev)
     smax = torch.as_tensor(smax, **f32).reshape(()).contiguous()
-    kb = None if kb is None else kb.contiguous()
+    kb, kb_sb = _key_bias_rows(kb, lk, dev)
     a_q8 = a_k8 = q8 = k8 = None
     if int8_core:
         a_q8 = torch.as_tensor(a_q, **f32).reshape(()).contiguous()
@@ -483,8 +557,27 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm
     strides = (ctypes.c_long * 12)(*[s for t in (q, k, v, o) for s in t.stride()[:3]])
     so, fn = lib("flash_attention_static", _STATIC_ARGTYPES)
     run(so, fn, [ptr(q), ptr(k), ptr(v), dtype_flag(q, "q"), b, h, lq, lk, d,
-                 ctypes.addressof(strides), ptr(kb), ptr(smax), ptr(a_q8), ptr(a_k8),
-                 float(d ** -0.5), ptr(q8), ptr(k8), ptr(o), out_bf16,
-                 torch.cuda.current_stream(dev).cuda_stream])
+                 ctypes.addressof(strides), ptr(kb), kb_sb, ptr(smax), ptr(a_q8), ptr(a_k8),
+                 float(d ** -0.5), ptr(q8), ptr(k8), ptr(o), out_bf16, plan["grid"][0],
+                 plan["smem_bytes"], _stream(dev)])
     LAUNCHES["flash_attention_static"] += 1
     return o
+
+
+def flash_attention_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, smax,
+                           bias: Optional[torch.Tensor] = None, a_q=None,
+                           a_k=None) -> torch.Tensor:
+    """Serving attention with a calibrated static softmax offset.
+
+    q, k, v: (B, H, L, D) -> (B, H, Lq, D) in q's dtype. ``smax``: the
+    calibrated max attention logit (scalar); scores are offset by it and
+    clipped at +20 before exp. ``bias``: None or a key bias (B, 1, 1, Lk).
+    ``a_q`` / ``a_k``: calibrated amax of q and k; with both given the score
+    product runs in int8 (one without the other raises). Forward only. On
+    the card the output is allocated in the (B, L, H, D) layout and returned
+    as its (B, H, L, D) view, so the caller's merge of the heads is free."""
+    kb = _static_key_bias(bias, q.shape[0], k.shape[2])
+    _int8_core(a_q, a_k)
+    if plain_route(q):
+        return flash_attention_static_plain(q, k, v, smax, bias, a_q, a_k)
+    return _launch_static(q, k, v, smax, kb, a_q, a_k)
