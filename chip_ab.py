@@ -1,27 +1,38 @@
 """A/B timing of one tree of the PyTorch/CUDA port on one GPU.
 
     python3 chip_ab.py LABEL
+    python3 chip_ab.py --compare LABEL_A LABEL_B
 
 Run from the root of a tree (this checkout, or another commit unpacked with
-``git archive`` into a gitignored directory such as ``build/``). It builds the
-kernels, checks each flagship kernel against its plain version once, times
-each kernel per launch at both batch sizes of its path (CUDA events; the
-t2i kernels at the t2i path's shapes), and times the pipelines (p50 of 3
-calls: t2i int8 at batch 4 after a 2-step calibration, the flagship at batch
-128 after a 2-step calibration, the per-point float and int8 paths at batch
-8). It
-prints one line, ``AB {json}``. To compare two trees, run both in one job
-on one card, alternating: A, B, B, A.
+``git archive`` into a gitignored directory such as ``build/old``); the
+script may live in another tree (``cd build/old && python3 ../../chip_ab.py
+old``): it imports ``chip_smoke`` and the port from the directory it is run
+in. It builds the kernels, checks each flagship kernel against its plain
+version once, times each kernel per launch at both batch sizes of its path
+(CUDA events; fused_ln_int8_mlp also at path B's width, and it and
+fused_int8_diffusion_block also from a CUDA graph; the t2i kernels at the
+t2i path's shapes), and times the pipelines (p50 of 3 calls: t2i int8 at
+batch 4 after a 2-step calibration, the flagship at batch 128 after a
+2-step calibration, the per-point float and int8 paths at batch 8). It
+prints one line, ``AB {json}``, and saves fused_ln_int8_mlp's outputs on
+fixed inputs to ``build/ab/LABEL.pt`` under the directory it is run in;
+``--compare`` (run where both were saved, after copying one next to the
+other) prints the largest |A - B| of each. To compare two trees, run both in
+one job on one card, alternating: A, B, B, A.
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
-import chip_smoke as cs
+sys.path.insert(0, os.getcwd())  # the tree this is run in, wherever the script lies
+import chip_smoke as cs  # noqa: E402
+
+AB_DIR = os.path.join("build", "ab")
 
 
 def main(label: str) -> None:
@@ -40,6 +51,20 @@ def main(label: str) -> None:
             res[f"{name}_{n}_err"] = [err.max().item(), err.mean().item()]
             res[f"{name}_{n}_ms"] = cs.sync_ms(lambda: kernel(*ops, **kw), 20)
             del ops, err
+    mlp_kw = dict(cs._variants("mlp")[0][1])
+    for n in (cs.FLAGSHIP_SHAPE["mlp"], cs.FLAGSHIP_SHAPE["mlp"] // 2):
+        ops = cs._kernel_operands(gen, n, "mlp")
+        res[f"fused_ln_int8_mlp_{n}_graph_ms"] = cs.graph_ms(
+            lambda: cs.fb.fused_ln_int8_mlp(*ops, **mlp_kw))
+        del ops
+    n = 2 * cs.PP_BATCH * cs.PP_T  # path B's width, the CFG steps' 2x batch
+    ops = cs._pp_mlp_operands(gen, n)
+    res[f"fused_ln_int8_mlp_{n}x{cs.PP_D}_ms"] = cs.sync_ms(
+        lambda: cs.fb.fused_ln_int8_mlp(*ops, **mlp_kw), 20)
+    res[f"fused_ln_int8_mlp_{n}x{cs.PP_D}_graph_ms"] = cs.graph_ms(
+        lambda: cs.fb.fused_ln_int8_mlp(*ops, **mlp_kw))
+    del ops
+    _save_mlp_outputs(label)
     d, t = cs.PP_D, cs.PP_T
     for b in (2 * cs.PP_BATCH, cs.PP_BATCH):
         x, lns, lnb, wq, ws, bias, _ = cs._proj_operands(gen, (b, t), d, 3 * d)
@@ -65,6 +90,8 @@ def main(label: str) -> None:
     kw = cs._t2i_variants("diffusion")[0][1]
     res["fused_int8_diffusion_block_ms"] = cs.sync_ms(
         lambda: cs.fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw), 200)
+    res["fused_int8_diffusion_block_graph_ms"] = cs.graph_ms(
+        lambda: cs.fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw))
     del ops, q, k, v
     pipe = cs._make_t2i_pipeline(quantize=True)
     pipe.calibrate(cs.T2I_PROMPTS, num_inference_steps=2, num_diffusion_steps=2)
@@ -94,6 +121,35 @@ def main(label: str) -> None:
     print("AB " + json.dumps(res), flush=True)
 
 
+def _save_mlp_outputs(label: str) -> None:
+    """fused_ln_int8_mlp's outputs on inputs drawn from a fixed seed (the
+    flagship's 2x and 1x batch, path B's width, static and per-row scales),
+    for --compare."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    outs = {}
+    for case, n in (("flagship", cs.FLAGSHIP_SHAPE["mlp"]), ("flagship",
+                                                             cs.FLAGSHIP_SHAPE["mlp"] // 2),
+                    ("path_b", 2 * cs.PP_BATCH * cs.PP_T)):
+        ops = (cs._kernel_operands(gen, n, "mlp") if case == "flagship"
+               else cs._pp_mlp_operands(gen, n))
+        for variant, kw in cs._variants("mlp"):
+            outs[f"{case} {n} {variant}"] = cs.fb.fused_ln_int8_mlp(*ops, **kw).cpu()
+        del ops
+    os.makedirs(AB_DIR, exist_ok=True)
+    torch.save(outs, os.path.join(AB_DIR, f"{label}.pt"))
+
+
+def compare(a: str, b: str) -> None:
+    """The largest |A - B| of each saved output of fused_ln_int8_mlp."""
+    oa, ob = (torch.load(os.path.join(AB_DIR, f"{x}.pt")) for x in (a, b))
+    res = {}
+    for key in oa:
+        res[key] = (oa[key].float() - ob[key].float()).abs().max().item()
+        print(f"  {key}: max |{a} - {b}| = {res[key]} (bitwise equal: "
+              f"{torch.equal(oa[key], ob[key])})")
+    print("AB_COMPARE " + json.dumps(res), flush=True)
+
+
 def _p50(pipe, prompts) -> float:
     cs._sample(pipe, seed=9, prompts=prompts)  # warm-up
     times = []
@@ -105,4 +161,7 @@ def _p50(pipe, prompts) -> float:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "tree")
+    if len(sys.argv) == 4 and sys.argv[1] == "--compare":
+        compare(sys.argv[2], sys.argv[3])
+    else:
+        main(sys.argv[1] if len(sys.argv) > 1 else "tree")

@@ -1,0 +1,211 @@
+"""Where the time of the redesigned int8 kernels goes, on one GPU.
+
+    python3 chip_int8_probe.py
+
+Run from the root of a tree. It builds copies of ``csrc/`` under
+``build/int8_probe/``, each with one edit, and times each against the
+source as built, in turns (as built, the copy, the copy, as built; CUDA
+events and a CUDA graph of 20 launches, ``chip_smoke.graph_ms``):
+
+- ``fused_ln_int8_mlp`` (row 2) at the flagship's 32768 / 16384 rows and
+  path B's width (32768 x 768), static scales:
+  - ``products only``: the GEMM's epilogue stores nothing (the branch
+    around it is never taken), so the two products, the LN row pass and
+    the loads ahead of the epilogue remain;
+  - ``lockstep``: the two consumer warpgroups meet at one named barrier of
+    256 threads each tile, as a first version did, in place of one each;
+  - ``inverse per element``: the int8 output's 1 / scale computed in the
+    epilogue of every element pair, as the mma.sync GEMM's epilogue did,
+    in place of once a launch (the same value);
+- ``fused_int8_diffusion_block`` (row 6) at the head's 200 rows, static
+  scales:
+  - ``phase stamps``: ``%globaltimer`` read by each block after each phase
+    (before the grid barrier that ends it) and at the start, reduced over
+    the blocks (the earliest start, the latest end of each phase) into a
+    device array; printed as microseconds from the start, and timed too.
+
+The copy ``products only`` computes wrong outputs on purpose; it is timed,
+not checked. The last line is ``PROBE {json}``.
+"""
+
+import ctypes
+import json
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "int8_probe"
+SRC = cs._build.CSRC
+
+PRODUCTS_ONLY = [
+    ("int8_wgmma.cuh", "        if (row0 < M)\n          epilogue_sx<EPI>(",
+     "        if (row0 < M && acc[4 * j] == 0x7f7f7f7f)\n          epilogue_sx<EPI>(", 1),
+    ("int8_wgmma.cuh", "        if (row0 + 8 < M)\n          epilogue_sx<EPI>(",
+     "        if (row0 + 8 < M && acc[4 * j + 2] == 0x7f7f7f7f)\n          epilogue_sx<EPI>(", 1)]
+LOCKSTEP = [("int8_wgmma.cuh", "    named_sync(1 + c, 128);", "    named_sync(1, 256);", 2)]
+PER_ELEMENT = [("int8_epilogue.cuh", "    q.x = q8_rint(epi_act<EPI>(v0) * out_inv);\n"
+                "    q.y = q8_rint(epi_act<EPI>(v1) * out_inv);",
+                "    const float inv = 1.0f / static_scale(ep.out_amax);\n"
+                "    q.x = q8_rint(epi_act<EPI>(v0) * inv);\n    q.y = q8_rint(epi_act<EPI>(v1) * inv);",
+                1)]
+STAMP_FN = """
+__device__ unsigned long long nova_int8_probe[16];
+// the block's time at mark i: the earliest over the blocks for the start,
+// the latest for the end of each phase
+__device__ __forceinline__ void stamp(int i) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (i == 0)
+      atomicMin(&nova_int8_probe[0], t);
+    else
+      atomicMax(&nova_int8_probe[i], t);
+  }
+}
+"""
+STAMPS = [
+    ("fused_int8_diffusion_block.cu", "namespace nova {\nnamespace dfb {\n",
+     "namespace nova {\nnamespace dfb {\n" + STAMP_FN, 1),
+    ("fused_int8_diffusion_block.cu", "  // P1: silu(zc) -> qz (warps 0-3)",
+     "  stamp(0);\n  // P1: silu(zc) -> qz (warps 0-3)", 1),
+    ("fused_int8_diffusion_block.cu", "  grid_barrier();\n  // P2: stats, gate, h",
+     "  stamp(1);\n  grid_barrier();\n  // P2: stats, gate, h", 1),
+    ("fused_int8_diffusion_block.cu",
+     "  gemm_phase<PH_STATS, STATIC, BF16>(p, p.qz, 0, g0, ng, r0, r1, wbar, smem);\n"
+     "  grid_barrier();",
+     "  gemm_phase<PH_STATS, STATIC, BF16>(p, p.qz, 0, g0, ng, r0, r1, wbar, smem);\n  stamp(2);\n"
+     "  grid_barrier();", 1),
+    ("fused_int8_diffusion_block.cu",
+     "  gemm_phase<PH_FC1, STATIC, BF16>(p, p.qh, 3 * p.gpb, g0, ng, r0, r1, wbar + 8, smem);\n"
+     "  grid_barrier();",
+     "  gemm_phase<PH_FC1, STATIC, BF16>(p, p.qh, 3 * p.gpb, g0, ng, r0, r1, wbar + 8, smem);\n"
+     "  stamp(3);\n  grid_barrier();", 1),
+    ("fused_int8_diffusion_block.cu",
+     "  gemm_phase<PH_FC2, STATIC, BF16>(p, p.qa, 4 * p.gpb, g0, ng, r0, r1, wbar + 16, smem);\n"
+     "  grid_barrier();",
+     "  gemm_phase<PH_FC2, STATIC, BF16>(p, p.qa, 4 * p.gpb, g0, ng, r0, r1, wbar + 16, smem);\n"
+     "  stamp(4);\n  grid_barrier();", 1),
+    ("fused_int8_diffusion_block.cu", "  row_phase<ROW_POSTLN_GATE>(p, ry, srow);\n}",
+     "  row_phase<ROW_POSTLN_GATE>(p, ry, srow);\n  stamp(5);\n}", 1),
+    ("fused_int8_diffusion_block.cu", '\n// workspace: ws_bytes at a 256-byte boundary',
+     '\nextern "C" int nova_int8_probe_read(unsigned long long* out, int reset) {\n'
+     "  if (reset) {\n    unsigned long long init[16];\n"
+     "    for (int i = 0; i < 16; ++i) init[i] = i == 0 ? ~0ull : 0ull;\n"
+     "    return cudaMemcpyToSymbol(nova::dfb::nova_int8_probe, init, sizeof(init));\n  }\n"
+     "  return cudaMemcpyFromSymbol(out, nova::dfb::nova_int8_probe, 16 * sizeof(*out));\n}\n"
+     "\n// workspace: ws_bytes at a 256-byte boundary", 1)]
+PHASES = ["P1 silu(zc) + x's statistics", "P2 stats + AdaLN", "P4 fc1", "P5 fc2",
+          "P6 post-LN, gate, residual"]
+
+
+def _copy(tag, edits):
+    """csrc/ copied to build/int8_probe/<tag>/ with the edits; each edit's
+    text must occur in the source as often as stated (the script fails when
+    the source moves on)."""
+    dst = OUT / tag / "csrc"
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(SRC, dst)
+    for fname, old, new, count in edits:
+        f = dst / fname
+        text = f.read_text()
+        if text.count(old) != count:
+            raise AssertionError(f"{tag}: {old[:60]!r} occurs {text.count(old)} times in "
+                                 f"{fname}, not {count}")
+        f.write_text(text.replace(old, new))
+    return dst
+
+
+def _load(name, csrc):
+    """The library of kernel ``name`` built from ``csrc``; the loaded one
+    stays as it was."""
+    keep = cs._build._loaded.pop(name, None)
+    cs._build.CSRC = csrc
+    try:
+        return cs._build.load(name)
+    finally:
+        cs._build.CSRC = SRC
+        cs._build._loaded[name] = keep
+
+
+def _turns(name, libs, call, iters):
+    """Event and graph ms of ``call`` with each library in turns (A, B, B, A):
+    {tag: [events, graph]} as the mean of the two readings."""
+    out = {tag: [0.0, 0.0] for tag in libs}
+    for tag in list(libs) + list(libs)[::-1]:
+        cs._build._loaded[name] = libs[tag]
+        out[tag][0] += cs.sync_ms(call, iters) / 2
+        out[tag][1] += cs.graph_ms(call) / 2
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        cs._fail("CUDA is not available: this script runs on the GPU only", 2)
+    cs._build.build_all(["fused_ln_int8_mlp", "fused_int8_diffusion_block"])
+    res = {}
+    mlp = {"as built": cs._build.load("fused_ln_int8_mlp"),
+           "products only": _load("fused_ln_int8_mlp", _copy("products", PRODUCTS_ONLY)),
+           "lockstep": _load("fused_ln_int8_mlp", _copy("lockstep", LOCKSTEP)),
+           "inverse per element": _load("fused_ln_int8_mlp", _copy("inverse", PER_ELEMENT))}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    kw = cs._variants("mlp")[0][1]
+    for label, ops in (("32768", cs._kernel_operands(gen, 32768, "mlp")),
+                       ("16384", cs._kernel_operands(gen, 16384, "mlp")),
+                       ("32768x768", list(cs._pp_mlp_operands(gen, 32768)))):
+        for tag in ("products only", "lockstep", "inverse per element"):
+            t = _turns("fused_ln_int8_mlp", {"as built": mlp["as built"], tag: mlp[tag]},
+                       lambda: cs.fb.fused_ln_int8_mlp(*ops, **kw), 20)
+            res[f"row2 {label} {tag}"] = t
+            print(f"row 2 at {label}: as built {t['as built'][0]:.3f} ms (graph "
+                  f"{t['as built'][1]:.3f}), {tag} {t[tag][0]:.3f} (graph {t[tag][1]:.3f})")
+        del ops
+        torch.cuda.empty_cache()
+    cs._build._loaded["fused_ln_int8_mlp"] = mlp["as built"]
+
+    name = "fused_int8_diffusion_block"
+    built = cs._build.load(name)
+    stamped = _load(name, _copy("stamps", STAMPS))
+    read = stamped.nova_int8_probe_read
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    ops = cs._diffusion_operands(gen, cs.T2I_ROWS * cs.T2I_PAD_P)
+    kw = cs._t2i_variants("diffusion")[0][1]
+    call = lambda: cs.fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)  # noqa: E731
+    t = _turns(name, {"as built": built, "phase stamps": stamped}, call, 200)
+    res["row6 200"] = t
+    print(f"row 6 at 200 rows: as built {t['as built'][0]:.4f} ms (graph "
+          f"{t['as built'][1]:.4f}), with phase stamps {t['phase stamps'][0]:.4f} (graph "
+          f"{t['phase stamps'][1]:.4f})")
+    cs._build._loaded[name] = stamped
+    marks = []
+    for _ in range(5):
+        call()
+        torch.cuda.synchronize()
+        read(None, 1)
+        call()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 16)()
+        read(buf, 0)
+        marks.append([(buf[i] - buf[0]) / 1e3 for i in range(1, 6)])
+    cs._build._loaded[name] = built
+    ends = [sorted(m[i] for m in marks)[2] for i in range(5)]  # the median of 5 calls
+    res["row6 phase ends us"] = dict(zip(PHASES, ends))
+    prev = 0.0
+    for label, end in zip(PHASES, ends):
+        print(f"  {label}: ends at {end:.2f} us ({end - prev:.2f} us after the last phase)")
+        prev = end
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card (nvidia-smi name, power limit): {smi}")
+    res["card"] = smi
+    print("PROBE " + json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

@@ -121,6 +121,23 @@ keeps phases 3c and 3d as they were and adds to the timing phases:
     (UTMALDG) and no mma.sync (the phase fails otherwise);
 5d. the forward at the training shape graph-timed too.
 
+The redesign of fused_ln_int8_mlp (its two products on the wgmma s8 + TMA
+GEMM of csrc/int8_wgmma.cuh) and of fused_int8_diffusion_block (one
+persistent launch with grid barriers) keeps phases 3, 3b and 3d (3d adds
+the diffusion block at 20 rows, too few for two row parts, and with f32 x
+and zc) and adds:
+
+5.  fused_ln_int8_mlp also timed from a CUDA graph, beside torch._int_mm's
+    time for its two products at the same shapes (a yardstick of the GEMM
+    part only; the port never calls it), and the ptxas report and SASS of
+    each instance of its GEMM, which must hold s8 wgmma (IGMMA) and TMA
+    loads (UTMALDG), no mma.sync (IMMA), no spills and no C7514 note (the
+    phase fails otherwise); 5b the same at path B's width;
+5c. fused_int8_mlp_postln, fused_int8_diffusion_block and int8_linear also
+    timed from a CUDA graph;
+6.  (first in the profiles phase) the device kernels of 10 calls of
+    fused_int8_diffusion_block, which must be 10.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -893,15 +910,17 @@ def check_nova_kernels():
                     bad.append(f"mlp_postln {label} {L} {x_dtype}")
                 del y, ref
             del ops
-    for m in (T2I_ROWS * T2I_PAD_P, 77):
+    for m, x_dtype in ((T2I_ROWS * T2I_PAD_P, torch.bfloat16), (77, torch.bfloat16),
+                       (20, torch.bfloat16), (T2I_ROWS * T2I_PAD_P, torch.float32)):
         ops = _diffusion_operands(gen, m)
+        ops[0], ops[1] = ops[0].to(x_dtype), ops[1].to(x_dtype)
         for label, kw in _t2i_variants("diffusion"):
             y = fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
             torch.cuda.synchronize()
             ref = fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw)
-            if not _tol_check("fused_int8_diffusion_block", f"{label} rows={m}", y, ref,
-                              like=ops[0]):
-                bad.append(f"diffusion {label} {m}")
+            if not _tol_check("fused_int8_diffusion_block", f"{label} rows={m} x={x_dtype}", y,
+                              ref, like=ops[0]):
+                bad.append(f"diffusion {label} {m} {x_dtype}")
     smax = torch.tensor(9.0, device=DEV)
     for L in (T2I_L["video"], 768, T2I_L["full"]):
         for core in ("bf16", "int8"):
@@ -1547,6 +1566,70 @@ def _fwd_ptxas(name):
         raise AssertionError(f"the forward kernels are not on wgmma and TMA: {bad}")
 
 
+# the instances of csrc/int8_wgmma.cuh's gemm_s8_wgmma_kernel<EPI> in
+# fused_ln_int8_mlp's library, by the mangled epilogue
+GEMM_INSTANCES = {"fc1 relu -> int8 (static)": "gemm_s8_wgmma_kernelILi1E",
+                  "fc1 relu -> f32 (per row)": "gemm_s8_wgmma_kernelILi2E",
+                  "fc2 + residual": "gemm_s8_wgmma_kernelILi3E"}
+
+
+def _ptxas_numbers(kernel, library):
+    """(registers, spill bytes stored + loaded, C7514 notes: every wgmma
+    serialized) of the kernel of ``library`` whose mangled name holds
+    ``kernel``, from this checkout's build log."""
+    regs, spills, serial, on = None, None, 0, False
+    for line in _build.build_log(library).splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        elif "(C7514)" in line:
+            serial += kernel in line
+        elif on and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = nums[1] + nums[2]  # stack frame, spill stores, spill loads
+        elif on and "Used" in line and "registers" in line:
+            regs = int(line.split("Used", 1)[1].split()[0])
+    return regs, spills, serial
+
+
+def _gemm_ptxas():
+    """Print and record the ptxas report and the SASS of each instance of
+    fused_ln_int8_mlp's GEMM: every instance issues s8 wgmma (IGMMA) and TMA
+    loads (UTMALDG) and no mma.sync (IMMA), with no spills and no C7514
+    note; no function of the library is the mma.sync GEMM of the first
+    design (its products never fall back to it); raises otherwise."""
+    out, sass = {}, _sass_ops("fused_ln_int8_mlp")
+    bad = [f"mma.sync GEMM {fn}" for fn, c in sass.items()
+           if "gemm_s8_kernel" in fn or c["IMMA"] or c["HMMA"]]
+    for label, mangled in GEMM_INSTANCES.items():
+        ops = next(c for fn, c in sass.items() if mangled in fn)
+        regs, spills, serial = _ptxas_numbers(mangled, "fused_ln_int8_mlp")
+        out[label] = (f"{_ptxas_report(mangled, library='fused_ln_int8_mlp')}; {serial} C7514; "
+                      f"SASS " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+        print(f"  fused_ln_int8_mlp ptxas ({label}): {out[label]}")
+        if not (ops["IGMMA"] and ops["UTMALDG"] and ops["IMMA"] == 0 and spills == 0
+                and serial == 0):
+            bad.append(f"{label}: {ops}, {spills} spill bytes, {serial} C7514")
+    report["kernels"].setdefault("fused_ln_int8_mlp", {})["ptxas"] = out
+    if bad:
+        raise AssertionError(f"fused_ln_int8_mlp's GEMM is not on wgmma and TMA: {bad}")
+
+
+def _int_mm_ms(gen, m, d, f):
+    """torch._int_mm's time for the MLP's two products, (m, d) x (d, f) and
+    (m, f) x (f, d), on random int8 codes, the weights in the K-major layout
+    the kernel reads (a column-major operand for _int_mm): a yardstick of the
+    GEMM part only (no LayerNorm, quant or epilogue), used nowhere in the
+    port; None where the call refuses these operands."""
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8)
+    q1, q2, w1, w2 = codes(m, d), codes(m, f), codes(f, d).t(), codes(d, f).t()
+    try:
+        return sync_ms(lambda: (torch._int_mm(q1, w1), torch._int_mm(q2, w2)), 10)
+    except RuntimeError as e:
+        print(f"  torch._int_mm: refused ({e})")
+        return None
+
+
 @phase("5d timing of the backward kernels and the training step")
 def timing_train(pipe):
     """The bf16 backward's kernels (prep, dkvq, cast) per launch at (8, 16,
@@ -1715,11 +1798,16 @@ def timing(pipe):
             n = FLAGSHIP_SHAPE[kind] * mult // 2
             ops = _kernel_operands(gen, n, kind)
             row = _time_kernel(name, tuple(ops[0].shape), lambda: kernel(*ops, **kw),
-                               lambda: plain(*ops, **kw), _bound_ms(kind, n))
+                               lambda: plain(*ops, **kw), _bound_ms(kind, n),
+                               graph=kind == "mlp")
+            del ops
+            if kind == "mlp":
+                row["int_mm_ms"] = _int_mm_ms(gen, n, D, F)
+                print(f"    torch._int_mm, its two products alone: {row['int_mm_ms']} ms")
             if mult == 2:  # the kernels line quotes the CFG steps' 2x batch
                 report["kernels"][name].update(row)
-            del ops
             torch.cuda.empty_cache()
+    _gemm_ptxas()
     fb.reset_launch_counts()
     if pipe is None:
         raise AssertionError("no pipeline: the main path failed")
@@ -1734,7 +1822,8 @@ def timing(pipe):
     report["pipeline"].update(batch=BATCH, p50_s=p50, samples_per_s=BATCH / p50, times_s=times)
 
 
-PORT_KERNEL_NAMES = ("gemm_s8_kernel", "row_quant_kernel", "row_op_kernel", "attn_core_",
+PORT_KERNEL_NAMES = ("gemm_s8_kernel", "gemm_s8_wgmma_kernel", "diffusion_block_kernel",
+                     "row_quant_kernel", "row_op_kernel", "attn_core_",
                      "attn_fwd_kernel", "flash_fwd_", "static_qk_quant_kernel", "flash_bwd_")
 
 
@@ -1823,12 +1912,14 @@ def timing_per_point(pipe_a, pipe_b):
         # line stays the flagship's)
         mlp_ops = _pp_mlp_operands(gen, m)
         kw = _variants("mlp")[0][1]  # static a_ln2 / a_mid, as path B passes them
-        _time_kernel(
+        row = _time_kernel(
             "fused_ln_int8_mlp", (m, d, PP_F),
             lambda: fb.fused_ln_int8_mlp(*mlp_ops, **kw),
             lambda: fb.fused_ln_int8_mlp_plain(*mlp_ops, **kw),
-            _bound(4 * m * d * PP_F / PEAK_INT8_OPS, 2 * m * d * 2 + 2 * d * PP_F))
+            _bound(4 * m * d * PP_F / PEAK_INT8_OPS, 2 * m * d * 2 + 2 * d * PP_F), graph=True)
         del q, k, v, mlp_ops
+        row["int_mm_ms"] = _int_mm_ms(gen, m, d, PP_F)
+        print(f"    torch._int_mm, its two products alone: {row['int_mm_ms']} ms")
         torch.cuda.empty_cache()
     _fwd_ptxas("flash_attention")
     fb.reset_launch_counts()
@@ -1866,7 +1957,7 @@ def timing_t2i(pipe_int8, pipe_float):
             lambda: fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw),
             lambda: fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw),
             _bound(4 * m * D * F / PEAK_INT8_OPS,
-                   2 * m * D * 4 + 2 * D * F + (F + 3 * D) * 2 + (F + D) * 4))
+                   2 * m * D * 4 + 2 * D * F + (F + 3 * D) * 2 + (F + D) * 4), graph=True)
         if L == T2I_L["full"]:
             report["kernels"]["fused_int8_mlp_postln"].update(row)
         del ops
@@ -1899,7 +1990,8 @@ def timing_t2i(pipe_int8, pipe_float):
             "int8_linear", (m, D, 3 * D),
             lambda: fb.int8_linear(x, w, ws, b, torch.bfloat16),
             lambda: fb.int8_linear_plain(x, w, ws, b, torch.bfloat16),
-            _bound(2 * m * D * 3 * D / PEAK_INT8_OPS, m * D * 4 + m * 3 * D * 2 + 3 * D * D))
+            _bound(2 * m * D * 3 * D / PEAK_INT8_OPS, m * D * 4 + m * 3 * D * 2 + 3 * D * D),
+            graph=True)
         if L == T2I_L["full"]:
             report["kernels"]["int8_linear"].update(row)
         del x
@@ -1911,7 +2003,8 @@ def timing_t2i(pipe_int8, pipe_float):
         lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw),
         lambda: fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw),
         _bound(2 * m * D * 5 * D / PEAK_INT8_OPS,
-               3 * m * D * 2 + 5 * D * D + (3 * D + 4 * D) * 2 + 5 * D * 4), iters=200)
+               3 * m * D * 2 + 5 * D * D + (3 * D + 4 * D) * 2 + 5 * D * 4), iters=200,
+        graph=True)
     report["kernels"]["fused_int8_diffusion_block"].update(row)
     _fwd_ptxas("flash_attention_static")
     torch.cuda.empty_cache()
@@ -1932,11 +2025,43 @@ def timing_t2i(pipe_int8, pipe_float):
                              times_s=times)
 
 
+def _diffusion_kernels_per_call(calls=10):
+    """The device kernels of ``calls`` calls of fused_int8_diffusion_block at
+    the head's 200 rows (static scales), from a torch.profiler trace: one a
+    call, the kernel itself (its workspace comes from torch.empty, which
+    launches nothing); raises otherwise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    ops = _diffusion_operands(gen, T2I_ROWS * T2I_PAD_P)
+    kw = _t2i_variants("diffusion")[0][1]
+    fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA and not e.key.startswith("Mem"):
+            kernels[e.key] = kernels.get(e.key, 0) + e.count
+    n = sum(kernels.values())
+    print(f"fused_int8_diffusion_block: {n} device kernels in {calls} calls: {kernels}")
+    report["kernels"].setdefault("fused_int8_diffusion_block", {})["device_kernels_per_call"] = (
+        n / calls)
+    if n != calls or not all("diffusion_block_kernel" in k for k in kernels):
+        raise AssertionError(f"fused_int8_diffusion_block ran {n} device kernels in {calls} calls "
+                             f"({kernels}), not one a call")
+
+
 @phase("6 profiles")
 def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
-    and would slow the host side of the per-launch timings."""
+    and would slow the host side of the per-launch timings. First, the
+    diffusion block's device kernels in 10 calls (gated at 10)."""
+    _diffusion_kernels_per_call()
     if pipe is not None:
         profile_call(lambda: _sample(pipe, seed=30))
     for label, p in (("path_a", pipe_a), ("path_b", pipe_b)):

@@ -3,8 +3,10 @@
 // mbarriers, TMA tensor and bulk copies, shared-memory access by 32-bit
 // address, ldmatrix, named barriers, wgmma shared-memory descriptors
 // (128B and 64B swizzle, none), wgmma wrappers (bf16 m64n64k16, m64n128k16
-// and m64n8k16, s8 m64n128k32) and, on the host, the TMA map encoder reached through the
-// runtime's driver entry point, so that no library links -lcuda.
+// and m64n8k16, s8 m64n128k32 and m64n256k32), setmaxnreg and, on the host,
+// the TMA map encoder reached through the runtime's driver entry point, so
+// that no library links -lcuda. The int8 GEMM (int8_wgmma.cuh) and the
+// diffusion block use them too.
 #pragma once
 
 #include <cuda.h>
@@ -23,10 +25,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+#ifndef NOVA_PACK_BF16  // also in tensor_core.cuh / hopper.cuh: a source may include both
+#define NOVA_PACK_BF16
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
 }
+#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -66,6 +71,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// a (c0, c1) box of a 2-D map (c0 the contiguous dimension)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
@@ -86,6 +103,11 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, uint32
 __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
   float2 v;
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ unsigned lds_u32(uint32_t addr) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
   return v;
 }
 __device__ __forceinline__ void sts_u32(uint32_t addr, unsigned v) {
@@ -246,6 +268,46 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 256, s32) (+)= A B, A (64 x 32 s8) and B (256 x 32 s8), both
+// K-major in shared memory
+#define NOVA_WG_D128(c) NOVA_WG_D64(c), c(d[64]), c(d[65]), c(d[66]), c(d[67]), c(d[68]), \
+      c(d[69]), c(d[70]), c(d[71]), c(d[72]), c(d[73]), c(d[74]), c(d[75]), c(d[76]), \
+      c(d[77]), c(d[78]), c(d[79]), c(d[80]), c(d[81]), c(d[82]), c(d[83]), c(d[84]), \
+      c(d[85]), c(d[86]), c(d[87]), c(d[88]), c(d[89]), c(d[90]), c(d[91]), c(d[92]), \
+      c(d[93]), c(d[94]), c(d[95]), c(d[96]), c(d[97]), c(d[98]), c(d[99]), c(d[100]), \
+      c(d[101]), c(d[102]), c(d[103]), c(d[104]), c(d[105]), c(d[106]), c(d[107]), \
+      c(d[108]), c(d[109]), c(d[110]), c(d[111]), c(d[112]), c(d[113]), c(d[114]), \
+      c(d[115]), c(d[116]), c(d[117]), c(d[118]), c(d[119]), c(d[120]), c(d[121]), \
+      c(d[122]), c(d[123]), c(d[124]), c(d[125]), c(d[126]), c(d[127])
+#define NOVA_WG_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, " \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " NOVA_WG_REGS128
+      ", %128, %129, p;\n}\n"
+      : NOVA_WG_D128("+r")
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// the registers of a warpgroup: all its threads give up (dec) or take (inc)
+// registers up to N a thread
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // host: TMA maps
 // ---------------------------------------------------------------------------
@@ -292,6 +354,24 @@ inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const
                 elem_bytes == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D map over a K-major int8 matrix (rows, K) row-major: boxes of 128
+// bytes of K by `box_rows` rows, 128B swizzle (the layout of desc_sw128),
+// rows past `rows` read as zeros
+inline bool kmajor_map(CUtensorMap* m, const void* ptr, int rows, int K, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || K % 16 != 0 ||
+      rows <= 0 || box_rows <= 0 || box_rows > 256)
+    return false;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t elem[2] = {1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace nova

@@ -14,7 +14,7 @@
 // no wgmma.
 #pragma once
 
-#include "quant.cuh"
+#include "int8_epilogue.cuh"
 #include "tensor_core.cuh"
 
 namespace nova {
@@ -23,108 +23,6 @@ constexpr int GBM = 128, GBN = 128, GBK = 128, GSTAGES = 3;
 constexpr int GLD = GBK + 16;  // padded smem row (bytes)
 constexpr int GSTAGE_BYTES = (GBM + GBN) * GLD;
 constexpr int GSMEM_BYTES = GSTAGES * GSTAGE_BYTES;  // 110592: dynamic shared memory
-
-enum {
-  EPI_STORE = 0,
-  EPI_RELU_Q8 = 1,
-  EPI_RELU_F32 = 2,
-  EPI_RESIDUAL = 3,
-  EPI_GELU_Q8 = 4,
-  EPI_GELU_F32 = 5,
-  EPI_SILU_Q8 = 6,
-  EPI_SILU_F32 = 7,
-  EPI_CAST_BIAS = 8
-};
-
-// v = acc * sx[row] * w_scale[col] + bias[col], then per EPI:
-//   EPI_STORE      out = v                       (f32 or bf16)
-//   EPI_*_Q8       out = q8_static(act(v))       (int8, calibrated out_amax)
-//   EPI_*_F32      out = act(v)                  (f32; quantized per row after)
-//   EPI_RESIDUAL   out = resid + v               (resid's dtype)
-//   EPI_CAST_BIAS  out = cast(cast(acc * sx * w_scale) + cast(bias)), the
-//                  cast to the output dtype before the bias is added, in that
-//                  dtype (nova_pointcloud_tpu/models/vit.py Attention._int8_proj);
-//                  bias may be nullptr (no bias)
-// with act relu, gelu (gelu_as) or silu (silu_f).
-struct EpiParams {
-  const float* sx_rows;  // per-row activation scale, or nullptr and
-  const float* sx_amax;  // the calibrated amax of a static quant site
-  const float* w_scale;  // (N,) per-output-channel weight scales
-  const void* bias;
-  int bias_bf16;
-  const float* out_amax;  // EPI_*_Q8
-  const void* resid;      // EPI_RESIDUAL, (M, N)
-  int resid_bf16;
-  void* out;
-  int out_bf16;
-};
-
-template <int EPI>
-__device__ __forceinline__ float epi_act(float v) {
-  if (EPI == EPI_RELU_Q8 || EPI == EPI_RELU_F32) return fmaxf(v, 0.0f);
-  if (EPI == EPI_GELU_Q8 || EPI == EPI_GELU_F32) return gelu_as(v);
-  if (EPI == EPI_SILU_Q8 || EPI == EPI_SILU_F32) return silu_f(v);
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Two adjacent output columns (col, col + 1) of one row; ws / bs are their
-// weight scales and biases.
-template <int EPI>
-__device__ __forceinline__ void epilogue(const EpiParams& ep, int N, int row, int col,
-                                         const float* ws, const float* bs, int c0, int c1) {
-  constexpr bool kQ8 = EPI == EPI_RELU_Q8 || EPI == EPI_GELU_Q8 || EPI == EPI_SILU_Q8;
-  constexpr bool kF32 = EPI == EPI_RELU_F32 || EPI == EPI_GELU_F32 || EPI == EPI_SILU_F32;
-  const float sx = ep.sx_rows != nullptr ? ep.sx_rows[row] : static_scale(ep.sx_amax);
-  const long o = static_cast<long>(row) * N + col;
-  if (EPI == EPI_CAST_BIAS) {
-    float v0 = static_cast<float>(c0) * sx * ws[0];
-    float v1 = static_cast<float>(c1) * sx * ws[1];
-    if (ep.out_bf16) {
-      v0 = round_bf16(v0);
-      v1 = round_bf16(v1);
-    }
-    if (ep.bias != nullptr) {
-      v0 = v0 + (ep.out_bf16 ? round_bf16(bs[0]) : bs[0]);
-      v1 = v1 + (ep.out_bf16 ? round_bf16(bs[1]) : bs[1]);
-    }
-    if (ep.out_bf16)
-      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
-          __floats2bfloat162_rn(v0, v1);
-    else
-      *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) = make_float2(v0, v1);
-    return;
-  }
-  const float v0 = static_cast<float>(c0) * sx * ws[0] + bs[0];
-  const float v1 = static_cast<float>(c1) * sx * ws[1] + bs[1];
-  if (EPI == EPI_STORE) {
-    if (ep.out_bf16)
-      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
-          __floats2bfloat162_rn(v0, v1);
-    else
-      *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) = make_float2(v0, v1);
-  } else if (kQ8) {
-    const float inv = 1.0f / static_scale(ep.out_amax);
-    char2 q;
-    q.x = q8_rint(epi_act<EPI>(v0) * inv);
-    q.y = q8_rint(epi_act<EPI>(v1) * inv);
-    *reinterpret_cast<char2*>(reinterpret_cast<int8_t*>(ep.out) + o) = q;
-  } else if (kF32) {
-    *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) =
-        make_float2(epi_act<EPI>(v0), epi_act<EPI>(v1));
-  } else {
-    const float r0 = ld_any(ep.resid, o, ep.resid_bf16) + v0;
-    const float r1 = ld_any(ep.resid, o + 1, ep.resid_bf16) + v1;
-    if (ep.out_bf16)
-      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
-          __floats2bfloat162_rn(r0, r1);
-    else
-      *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) = make_float2(r0, r1);
-  }
-}
 
 // Requires N % 128 == 0, K % 128 == 0 (checked by the host launcher).
 template <int EPI>

@@ -149,19 +149,19 @@ __global__ void __launch_bounds__(kRowThreads)
   if (threadIdx.x == 0) sx[blockIdx.x] = s_row;
 }
 
-// Rows of any width: one block of 256 threads per row of x (M, K), the row
-// staged in shared memory (K floats) instead of registers. OP selects what
-// happens to the row (each thread reads and writes only its own elements,
-// k = tid + i * 256, so only the reductions synchronise):
+// Rows of any width, the row staged in shared memory (K floats) instead of
+// registers: one block of 256 threads per row of x (M, K) (row_op_kernel),
+// or, called as a device function, one warp per row (the one-launch
+// diffusion block). OP selects what happens to the row (each thread reads
+// and writes only its own elements, k = tid + i * NT, so only the
+// reductions synchronise):
 //   ROW_QUANT         [LN_affine(x)] -> int8 q, row scale sx (static or per row)
 //   ROW_SILU_QUANT    silu(x) -> int8                      (diffusion cond z)
-//   ROW_ADALN_QUANT   LN(x) * (1 + scale) + shift -> int8  (AdaLN-zero, no affine)
 //   ROW_POSTLN_RESID  y = x_res + LN_affine(x)             (post-norm residual)
 //   ROW_POSTLN_GATE   y = LN_affine(x) * gate + x_res      (gated residual)
 // LayerNorm is two-pass (mean, then mean of squared deviations), as
 // fused_block._ln, with the eps given.
-enum { ROW_QUANT = 0, ROW_SILU_QUANT = 1, ROW_ADALN_QUANT = 2, ROW_POSTLN_RESID = 3,
-       ROW_POSTLN_GATE = 4 };
+enum { ROW_QUANT = 0, ROW_SILU_QUANT = 1, ROW_POSTLN_RESID = 3, ROW_POSTLN_GATE = 4 };
 constexpr int kRowOpThreads = 256;
 constexpr int kRowOpMaxK = 56 * 1024;  // K floats of dynamic shared memory, under 227 KB
 
@@ -175,50 +175,81 @@ struct RowParams {
   const float* amax_static;  // quant ops: calibrated amax, or nullptr = per row
   int8_t* q;
   float* sx;
-  const float* mod;  // ROW_ADALN_QUANT: scale at [0, K), shift at [K, 2K) of each
-  int mod_ld;        // row of a (M, mod_ld) f32 matrix; ROW_POSTLN_GATE: gate at mod
+  const float* mod;  // ROW_POSTLN_GATE: the gate, at [0, K) of each row of a
+  int mod_ld;        // (M, mod_ld) f32 matrix
   const void* res;   // ROW_POSTLN_*: the residual (M, K)
   int res_bf16;
   void* y;
   int y_bf16;
 };
 
-template <int OP>
-__global__ void __launch_bounds__(kRowOpThreads) row_op_kernel(RowParams p) {
-  extern __shared__ float srow[];
-  __shared__ float red[33];
-  const int K = p.K, tid = threadIdx.x;
-  const long base = static_cast<long>(blockIdx.x) * K;
-  const float* mod = p.mod != nullptr ? p.mod + static_cast<long>(blockIdx.x) * p.mod_ld : nullptr;
-  for (int k = tid; k < K; k += kRowOpThreads) {
-    const float v = ld_any(p.x, base + k, p.x_bf16);
-    srow[k] = OP == ROW_SILU_QUANT ? silu_f(v) : v;
+// Sum or max over the NT threads that share a row: one warp (NT = 32,
+// shuffles only; red unused) or the block (red: shared float[33]).
+template <int NT>
+__device__ __forceinline__ float group_reduce(float v, float* red, bool is_max) {
+  if constexpr (NT == 32) return is_max ? warp_max(v) : warp_sum(v);
+  return block_reduce(v, red, is_max);
+}
+
+// Row `row` by the NT threads tid = 0 .. NT - 1; srow: K floats of shared
+// memory of this group's own. The loops that read device memory issue U
+// loads a thread before they use any (a warp's row is 32 values a thread at
+// K = 1024).
+template <int OP, int NT, int U = 8>
+__device__ __forceinline__ void row_op(const RowParams& p, long row, float* srow, float* red,
+                                       int tid) {
+  const int K = p.K;
+  const long base = row * K;
+  const float* mod = p.mod != nullptr ? p.mod + row * p.mod_ld : nullptr;
+  for (int k0 = tid; k0 < K; k0 += U * NT) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * NT;
+      v[u] = k < K ? ld_any(p.x, base + k, p.x_bf16) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * NT;
+      if (k < K) srow[k] = OP == ROW_SILU_QUANT ? silu_f(v[u]) : v[u];
+    }
   }
   const bool ln = OP != ROW_SILU_QUANT && (OP != ROW_QUANT || p.ln_w != nullptr);
   if (ln) {
     float s = 0.0f;
-    for (int k = tid; k < K; k += kRowOpThreads) s += srow[k];
-    const float mu = block_reduce(s, red, false) / static_cast<float>(K);
+    for (int k = tid; k < K; k += NT) s += srow[k];
+    const float mu = group_reduce<NT>(s, red, false) / static_cast<float>(K);
     float d2 = 0.0f;
-    for (int k = tid; k < K; k += kRowOpThreads) {
+    for (int k = tid; k < K; k += NT) {
       const float d = srow[k] - mu;
       d2 += d * d;
     }
-    const float var = block_reduce(d2, red, false) / static_cast<float>(K);
+    const float var = group_reduce<NT>(d2, red, false) / static_cast<float>(K);
     const float rstd = 1.0f / sqrtf(var + p.eps);
-    for (int k = tid; k < K; k += kRowOpThreads) {
-      float v = (srow[k] - mu) * rstd;
-      if (OP == ROW_ADALN_QUANT) {
-        v = v * (1.0f + mod[k]) + mod[K + k];
-      } else {
-        v = v * ld_any(p.ln_w, k, p.vec_bf16) + ld_any(p.ln_b, k, p.vec_bf16);
+    for (int k0 = tid; k0 < K; k0 += U * NT) {
+      float w[U], b[U], res[U], gate[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u * NT;
+        const bool in = k < K;
+        w[u] = in ? ld_any(p.ln_w, k, p.vec_bf16) : 0.0f;
+        b[u] = in ? ld_any(p.ln_b, k, p.vec_bf16) : 0.0f;
+        res[u] = in && OP != ROW_QUANT ? ld_any(p.res, base + k, p.res_bf16) : 0.0f;
+        gate[u] = in && OP == ROW_POSTLN_GATE ? mod[k] : 0.0f;
       }
-      if (OP == ROW_POSTLN_RESID) {
-        st_any(p.y, base + k, ld_any(p.res, base + k, p.res_bf16) + v, p.y_bf16);
-      } else if (OP == ROW_POSTLN_GATE) {
-        st_any(p.y, base + k, v * mod[k] + ld_any(p.res, base + k, p.res_bf16), p.y_bf16);
-      } else {
-        srow[k] = v;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u * NT;
+        if (k >= K) continue;
+        float v = (srow[k] - mu) * rstd;
+        v = v * w[u] + b[u];
+        if (OP == ROW_POSTLN_RESID) {
+          st_any(p.y, base + k, res[u] + v, p.y_bf16);
+        } else if (OP == ROW_POSTLN_GATE) {
+          st_any(p.y, base + k, v * gate[u] + res[u], p.y_bf16);
+        } else {
+          srow[k] = v;
+        }
       }
     }
   }
@@ -230,12 +261,19 @@ __global__ void __launch_bounds__(kRowOpThreads) row_op_kernel(RowParams p) {
     mul = 1.0f / s_row;
   } else {
     float m = 0.0f;
-    for (int k = tid; k < K; k += kRowOpThreads) m = fmaxf(m, fabsf(srow[k]));
-    s_row = fmaxf(block_reduce(m, red, true) / 127.0f, 1e-8f);
+    for (int k = tid; k < K; k += NT) m = fmaxf(m, fabsf(srow[k]));
+    s_row = fmaxf(group_reduce<NT>(m, red, true) / 127.0f, 1e-8f);
   }
-  for (int k = tid; k < K; k += kRowOpThreads)
+  for (int k = tid; k < K; k += NT)
     p.q[base + k] = q8_rint(is_static ? srow[k] * mul : srow[k] / s_row);
-  if (tid == 0) p.sx[blockIdx.x] = s_row;
+  if (tid == 0) p.sx[row] = s_row;
+}
+
+template <int OP>
+__global__ void __launch_bounds__(kRowOpThreads) row_op_kernel(RowParams p) {
+  extern __shared__ float srow[];
+  __shared__ float red[33];
+  row_op<OP, kRowOpThreads>(p, blockIdx.x, srow, red, threadIdx.x);
 }
 
 template <int OP>

@@ -51,9 +51,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* smem)
                : "r"(addr));
 }
 
+#ifndef NOVA_PACK_BF16  // also in tensor_core.cuh / hopper.cuh: a source may include both
+#define NOVA_PACK_BF16
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
 }
+#endif
 
 }  // namespace nova

@@ -11,6 +11,7 @@ nowhere else.
 
 import contextlib
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -90,3 +91,19 @@ def run(so, fn, args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel launch failed: "
                            f"{so.nova_error_string(rc).decode()} (error {rc})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sms(dev) -> int:
+    """Streaming multiprocessors of the card that holds ``dev``."""
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def stream(dev) -> int:
+    """The current CUDA stream of ``dev`` as a pointer (the raw query:
+    ``torch.cuda.current_stream`` takes about 10 us of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)

@@ -54,13 +54,13 @@ bias or none;
 """
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from nova_pointcloud_tpu_torch.ops.kernels._launch import (LAUNCHES, dtype_flag, lib,
                                                            plain_route, ptr, run)
+from nova_pointcloud_tpu_torch.ops.kernels._launch import sms as _sms, stream as _stream
 from nova_pointcloud_tpu_torch.ops.quantization import int_dot
 
 NEG_INF = -1e30
@@ -156,16 +156,6 @@ def fwd_plan(b: int, h: int, lq: int, lk: int, sms: int) -> dict:
                 tiles_per_block=-(-items // grid) * key_tiles)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sms(dev) -> int:
-    """Streaming multiprocessors of the card that holds ``dev``."""
-    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-
-
 def _key_bias_rows(kb: Optional[torch.Tensor], lk: int, dev) -> Tuple[Optional[torch.Tensor], int]:
     """A (B, Lk) key bias as the forward kernels bulk-copy it: float32 rows,
     16-byte aligned, at a row stride that is a multiple of 4 floats (0 for
@@ -190,12 +180,6 @@ def _checked_plan(b: int, h: int, lq: int, lk: int, dev) -> dict:
         raise ValueError(f"{plan['items']} work items of {plan['key_tiles']} key tiles: over the "
                          f"kernel's int range")
     return plan
-
-
-def _stream(dev) -> int:
-    """The current CUDA stream of ``dev`` as a pointer (the raw query:
-    ``torch.cuda.current_stream`` takes about 10 us of host time a call)."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _launch(q, k, v, key_bias, full_bias):

@@ -44,13 +44,15 @@ ragged rows themselves.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from nova_pointcloud_tpu_torch.ops.kernels._launch import (  # noqa: F401
     LAUNCHES, dtype_flag as _dtype_flag, lib as _load_lib,
     plain_route as _plain_route,
-    ptr as _ptr, reset_launch_counts, run as _run, use_plain_kernels)
+    ptr as _ptr, reset_launch_counts, run as _run, sms as _sms, stream as _stream,
+    use_plain_kernels)
 from nova_pointcloud_tpu_torch.ops.quantization import (int8_matmul, int_dot,
                                                         quantize_activations,
                                                         quantize_static)
@@ -240,12 +242,106 @@ def int8_linear_plain(x, wq, s, b=None, out_dtype=None) -> torch.Tensor:
     return y if b is None else y + b.to(out_dtype)
 
 
+# -- launch plans --------------------------------------------------------------
+
+SMEM_LIMIT = 232448  # a block's shared memory on the H100
+# csrc/int8_wgmma.cuh: output tiles of 128 x 256, k-steps of 128 bytes through
+# a ring of WG_STAGES stages (a 16 KB A tile and a 32 KB W tile each), a full
+# and an empty mbarrier a stage, a tile's 256 column scales and biases for each
+# of the two consumer warpgroups, 1 KB to align the swizzled tiles
+WG_BLOCK_M, WG_BLOCK_N, WG_BLOCK_K, WG_STAGES = 128, 256, 128, 4
+WG_SMEM = (WG_STAGES * (WG_BLOCK_M + WG_BLOCK_N) * WG_BLOCK_K + 2 * WG_STAGES * 8
+           + 2 * 2 * WG_BLOCK_N * 4 + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(m: int, n: int, k: int, sms: int) -> dict:
+    """The launch plan of one product on the wgmma GEMM (``csrc/
+    int8_wgmma.cuh``, which checks the grid and the bytes): a persistent grid
+    of at most one block an SM (``sms``) over the (m, n) tiles. Cached (a
+    wrapper asks for it at every call): the same dict for the same arguments,
+    to be read, not changed."""
+    m_tiles, n_tiles = -(-m // WG_BLOCK_M), -(-n // WG_BLOCK_N)
+    tiles = m_tiles * n_tiles
+    grid = min(tiles, sms)
+    return dict(m_tiles=m_tiles, n_tiles=n_tiles, tiles=tiles, k_tiles=k // WG_BLOCK_K,
+                grid=(grid,), stages=WG_STAGES, smem_bytes=WG_SMEM,
+                tiles_per_block=-(-tiles // grid))
+
+
+@functools.lru_cache(maxsize=256)
+def mlp_plan(m: int, d: int, f: int, sms: int) -> dict:
+    """:func:`fused_ln_int8_mlp`'s two products: fc1 (m, d) x (d, f) and fc2
+    (m, f) x (f, d)."""
+    return dict(fc1=gemm_plan(m, f, d, sms), fc2=gemm_plan(m, d, f, sms))
+
+
+# csrc/fused_int8_diffusion_block.cu: 256 threads, activation row chunks of
+# 128 rows through a ring of 4 stages of 128 bytes of k (rows padded by 16),
+# at most 2 groups of 8 output columns a block, 10 column vectors of those
+# groups, workspace arrays at 256-byte boundaries
+DFB_WARPS, DFB_ROWS, DFB_BLOCK_K, DFB_STAGES, DFB_MAX_GROUPS = 8, 128, 128, 4, 2
+DFB_COLUMN_VECTORS, DFB_WS_ALIGN = 10, 256
+# (name, bytes an element, per row or per element); "mid" on the per-row path only
+DFB_WORKSPACE = (("qz", 1, "md"), ("qh", 1, "md"), ("qa", 1, "md"), ("sz", 4, "m"),
+                 ("sh", 4, "m"), ("sa", 4, "m"), ("mu", 4, "m"), ("rstd", 4, "m"),
+                 ("gate", 4, "md"), ("o", 4, "md"), ("mid", 4, "md"))
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def _diffusion_smem(d: int, gpb: int) -> int:
+    ring = DFB_STAGES * DFB_ROWS * (DFB_BLOCK_K + 16)
+    off_bar = _align(5 * gpb * 8 * (d + 16), 128) + max(ring, DFB_WARPS * d * 4)
+    return off_bar + 32 + DFB_COLUMN_VECTORS * DFB_MAX_GROUPS * 8 * 4
+
+
+@functools.lru_cache(maxsize=256)
+def diffusion_plan(m: int, d: int, sms: int, static: bool) -> dict:
+    """The launch plan of :func:`fused_int8_diffusion_block`'s one launch, as
+    ``csrc/fused_int8_diffusion_block.cu`` lays it out (and checks): one
+    block an SM at most. The blocks split each product's output columns into
+    units of ``groups_per_block`` groups of 8 and, where the units still
+    cover the columns with two row parts (and there are 32 rows or more),
+    the rows into two parts of ``part_rows``, so a block streams half the
+    activations. Shared memory: the block's weight rows (5 x 8 a group: the
+    stats' scale, shift and gate, fc1, fc2) at D + 16 bytes each, then the
+    activation ring (or, in the row phases, a staged row a warp), three
+    mbarriers, the block's column vectors. Also the phases and the grid
+    barriers between them, and the workspace's arrays at 256-byte
+    boundaries. Cached, as :func:`gemm_plan`."""
+    groups = d // 8
+    grid = min(sms, groups)
+    gpb2 = -(-groups // (grid // 2)) if grid % 2 == 0 else DFB_MAX_GROUPS + 1
+    parts = 2 if (m >= 32 and gpb2 <= DFB_MAX_GROUPS
+                  and _diffusion_smem(d, gpb2) <= SMEM_LIMIT) else 1
+    gpb = -(-groups // (grid // parts))
+    offsets, end = {}, 0
+    for name, size, per in DFB_WORKSPACE:
+        if name == "mid" and static:
+            continue
+        offsets[name] = _align(end, DFB_WS_ALIGN)
+        end = offsets[name] + size * (m * d if per == "md" else m)
+    phases = ["silu_quant_z+ln_stats_x", "stats+adaln", "fc1", "fc2", "postln_gate"]
+    if not static:
+        phases[2:2] = ["quant_h"]
+        phases[4:4] = ["quant_a"]
+    part_rows = m if parts == 1 else _align(-(-m // 2), 16)
+    return dict(grid=(grid,), groups=groups, groups_per_block=gpb, row_parts=parts,
+                part_rows=part_rows, busy_blocks=parts * -(-groups // gpb),
+                weight_slab_bytes=5 * gpb * 8 * (d + 16), smem_bytes=_diffusion_smem(d, gpb),
+                phases=phases, barriers=len(phases) - 1,
+                row_chunks=-(-part_rows // DFB_ROWS), workspace=offsets, workspace_bytes=end)
+
+
 # -- CUDA wrappers -------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _ARGTYPES = {
     "fused_ln_int8_mlp": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "fused_attention_block": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
                               _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
                               _P, _P, _P, _P],
@@ -256,8 +352,8 @@ _ARGTYPES = {
     "fused_int8_mlp_postln": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "fused_int8_diffusion_block": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                                   _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                                   _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                                   _P, _I, _I, _P],
     "int8_linear": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
 }
 
@@ -285,11 +381,24 @@ def _int8_weight(w, shape, dev, what):
 
 
 def _f32(v, dev):
+    if (isinstance(v, torch.Tensor) and v.dtype == torch.float32 and v.device == dev
+            and v.is_contiguous()):
+        return v  # the serving path's case: no new tensor
     return torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
 
 
 def _amax(a, dev):
-    return None if a is None else _f32(a, dev).reshape(())
+    """A calibrated amax as the kernels read it: one float32 on ``dev``."""
+    if a is None:
+        return None
+    a = _f32(a, dev)
+    return a if a.numel() == 1 else a.reshape(())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte boundary (TMA and bulk copies
+    read from 16-byte-aligned addresses only)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
@@ -298,7 +407,9 @@ def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
 
     w1q (D, F) int8 with per-channel scales s1 (F,); w2q (F, D) / s2 (D,).
     ``a_in`` / ``a_mid``: calibrated amax of the post-LN input and the
-    post-relu mid activation (static quant), or both None (per row)."""
+    post-relu mid activation (static quant), or both None (per row). On a
+    CUDA tensor both products run on the wgmma GEMM as :func:`mlp_plan` lays
+    them out."""
     if _plain_route(x):
         return fused_ln_int8_mlp_plain(x, ln_scale, ln_bias, w1q, s1, b1, w2q,
                                        s2, b2, a_in, a_mid)
@@ -312,11 +423,12 @@ def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
     xf = x.reshape(-1, d).contiguous()
     m = xf.shape[0]
     x_bf16 = _dtype_flag(xf, "x")
-    w1q = _int8_weight(w1q, (d, f), dev, "w1q")
-    w2q = _int8_weight(w2q, (f, d), dev, "w2q")
+    w1q = _aligned(_int8_weight(w1q, (d, f), dev, "w1q"))
+    w2q = _aligned(_int8_weight(w2q, (f, d), dev, "w2q"))
     s1, s2 = _f32(s1, dev), _f32(s2, dev)
     (ln_w, ln_b, b1, b2), vec_bf16 = _vectors(ln_scale, ln_bias, b1, b2)
     a_in, a_mid = _amax(a_in, dev), _amax(a_mid, dev)
+    plan = mlp_plan(m, d, f, _sms(dev))
     q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
     sx1 = torch.empty((m,), dtype=torch.float32, device=dev)
     q2 = torch.empty((m, f), dtype=torch.int8, device=dev)
@@ -328,7 +440,8 @@ def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
         _ptr(xf), x_bf16, m, d, f, _ptr(ln_w), _ptr(ln_b), _ptr(b1), _ptr(b2),
         vec_bf16, _ptr(w1q), _ptr(s1), _ptr(w2q), _ptr(s2), _ptr(a_in),
         _ptr(a_mid), _ptr(q1), _ptr(sx1), _ptr(q2), _ptr(mid), _ptr(sx2),
-        _ptr(y), torch.cuda.current_stream(dev).cuda_stream])
+        _ptr(y), plan["fc1"]["grid"][0], plan["fc2"]["grid"][0], plan["fc1"]["smem_bytes"],
+        _stream(dev)])
     LAUNCHES["fused_ln_int8_mlp"] += 1
     return y.reshape(shape)
 
@@ -524,27 +637,30 @@ def fused_int8_diffusion_block(x: torch.Tensor, zc: torch.Tensor, wstats_q, stat
     if zf.shape[0] != m or zf.device != dev:
         raise ValueError(f"x {tuple(x.shape)} and zc {tuple(zc.shape)} must share their "
                          f"shape and device")
-    wstats_q = _int8_weight(wstats_q, (d, 3 * d), dev, "wstats_q")
-    w1q = _int8_weight(w1q, (d, d), dev, "w1q")
-    w2q = _int8_weight(w2q, (d, d), dev, "w2q")
+    plan = diffusion_plan(m, d, _sms(dev), static=a_z is not None)
+    if plan["groups_per_block"] > DFB_MAX_GROUPS or plan["smem_bytes"] > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the CUDA diffusion-block kernel takes at most {DFB_MAX_GROUPS} groups of 8 "
+            f"columns a block in {SMEM_LIMIT} bytes of shared memory, got D={d}: "
+            f"{plan['groups_per_block']} groups, {plan['smem_bytes']} bytes")
+    wstats_q = _aligned(_int8_weight(wstats_q, (d, 3 * d), dev, "wstats_q"))
+    w1q = _aligned(_int8_weight(w1q, (d, d), dev, "w1q"))
+    w2q = _aligned(_int8_weight(w2q, (d, d), dev, "w2q"))
     stats_s, s1, s2 = _f32(stats_s, dev), _f32(s1, dev), _f32(s2, dev)
     (bs, b1, b2, n2_w, n2_b), vec_bf16 = _vectors(stats_b, b1, b2, n2_scale, n2_bias)
     a_z, a_h, a_silu = _amax(a_z, dev), _amax(a_h, dev), _amax(a_silu, dev)
-    i8, f32 = torch.int8, torch.float32
-    qz, qh, qa = (torch.empty((m, d), dtype=i8, device=dev) for _ in range(3))
-    sz, sh, sa = (torch.empty((m,), dtype=f32, device=dev) for _ in range(3))
-    stats = torch.empty((m, 3 * d), dtype=f32, device=dev)
-    mid = None if a_z is not None else torch.empty((m, d), dtype=f32, device=dev)
-    o = torch.empty((m, d), dtype=f32, device=dev)
-    y = torch.empty_like(xf)
+    # one allocation: y, then the kernel's workspace
+    y_bytes = m * d * xf.element_size()
+    ws_at = _align(y_bytes, DFB_WS_ALIGN)
+    buf = torch.empty((ws_at + plan["workspace_bytes"],), dtype=torch.uint8, device=dev)
+    y = buf[:y_bytes].view(xf.dtype).view(m, d)
     so, fn = _lib("fused_int8_diffusion_block")
     _run(so, fn, [
         _ptr(xf), _dtype_flag(xf, "x"), _ptr(zf), _dtype_flag(zf, "zc"), m, d, _ptr(bs),
         _ptr(b1), _ptr(b2), _ptr(n2_w), _ptr(n2_b), vec_bf16, float(n2_eps),
         _ptr(wstats_q), _ptr(stats_s), _ptr(w1q), _ptr(s1), _ptr(w2q), _ptr(s2),
-        _ptr(a_z), _ptr(a_h), _ptr(a_silu), _ptr(qz), _ptr(sz), _ptr(stats), _ptr(qh),
-        _ptr(sh), _ptr(qa), _ptr(mid), _ptr(sa), _ptr(o), _ptr(y),
-        torch.cuda.current_stream(dev).cuda_stream])
+        _ptr(a_z), _ptr(a_h), _ptr(a_silu), _ptr(buf) + ws_at, plan["workspace_bytes"],
+        _ptr(y), plan["grid"][0], plan["smem_bytes"], _stream(dev)])
     LAUNCHES["fused_int8_diffusion_block"] += 1
     return y.reshape(shape)
 
