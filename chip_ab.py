@@ -9,16 +9,22 @@ script may live in another tree (``cd build/old && python3 ../../chip_ab.py
 old``): it imports ``chip_smoke`` and the port from the directory it is run
 in. It builds the kernels, checks each flagship kernel against its plain
 version once, times each kernel per launch at both batch sizes of its path
-(CUDA events; fused_ln_int8_mlp also at path B's width, and it and
-fused_int8_diffusion_block also from a CUDA graph; the t2i kernels at the
-t2i path's shapes), and times the pipelines (p50 of 3 calls: t2i int8 at
-batch 4 after a 2-step calibration, the flagship at batch 128 after a
-2-step calibration, the per-point float and int8 paths at batch 8). It
-prints one line, ``AB {json}``, and saves fused_ln_int8_mlp's outputs on
-fixed inputs to ``build/ab/LABEL.pt`` under the directory it is run in;
-``--compare`` (run where both were saved, after copying one next to the
-other) prints the largest |A - B| of each. To compare two trees, run both in
-one job on one card, alternating: A, B, B, A.
+(CUDA events; fused_attention_block and fused_ln_int8_mlp also from a CUDA
+graph, fused_ln_int8_mlp also at path B's width; the t2i kernels at the t2i
+path's shapes, fused_int8_mlp_postln at 8 x 1280 and 8 x 768 rows, it and
+fused_int8_diffusion_block also from a CUDA graph), and times the pipelines
+(p50 of 3 calls: t2i int8 at batch 4 after a 2-step calibration, the
+flagship at batch 128 after a 2-step calibration, the per-point float and
+int8 paths at batch 8). It prints one line, ``AB {json}``, and saves to
+``build/ab/LABEL.pt`` under the directory it is run in the outputs of
+fused_ln_int8_mlp, fused_attention_block and fused_int8_mlp_postln on fixed
+inputs, and fused_int8_mlp_postln's int8 mid rows (fc1's q2, caught where
+the wrapper allocates them). ``--compare`` (run where both were saved, after
+copying one next to the other) prints the largest |A - B| of each, whether
+they are bitwise equal, and whether each output is within phase 3's
+tolerance of the other (max <= 2^-6 max|y|, mean <= 2^-10 mean|y|). To
+compare two trees, run both in one job on one card, alternating: A, B, B,
+A.
 """
 
 import json
@@ -50,6 +56,8 @@ def main(label: str) -> None:
             err = (kernel(*ops, **kw).float() - plain(*ops, **kw).float()).abs()
             res[f"{name}_{n}_err"] = [err.max().item(), err.mean().item()]
             res[f"{name}_{n}_ms"] = cs.sync_ms(lambda: kernel(*ops, **kw), 20)
+            if kind == "attention":
+                res[f"{name}_{n}_graph_ms"] = cs.graph_ms(lambda: kernel(*ops, **kw))
             del ops, err
     mlp_kw = dict(cs._variants("mlp")[0][1])
     for n in (cs.FLAGSHIP_SHAPE["mlp"], cs.FLAGSHIP_SHAPE["mlp"] // 2):
@@ -77,11 +85,17 @@ def main(label: str) -> None:
         res[f"flash_attention_{b}_ms"] = cs.sync_ms(
             lambda: cs.fa.flash_attention_with_lse(q, k, v), 20)
         del x, r, q, k, v
+    _save_int8_outputs(label)
     L = cs.T2I_L["full"]
-    ops = cs._t2i_mlp_operands(gen, (cs.T2I_ROWS, L))
     kw = cs._t2i_variants("mlp")[0][1]
-    res["fused_int8_mlp_postln_ms"] = cs.sync_ms(
-        lambda: cs.fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw), 20)
+    for rows in (L, 768):  # the decoder half's 8 x 1280 rows, the largest bucket's 8 x 768
+        ops = cs._t2i_mlp_operands(gen, (cs.T2I_ROWS, rows))
+        key = "fused_int8_mlp_postln" + ("" if rows == L else f"_{cs.T2I_ROWS * rows}")
+        res[f"{key}_ms"] = cs.sync_ms(
+            lambda: cs.fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw), 20)
+        res[f"{key}_graph_ms"] = cs.graph_ms(
+            lambda: cs.fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw))
+        del ops
     q, k, v, _ = cs._static_attention_operands(gen, L, "none")
     smax = torch.tensor(9.0, device="cuda")
     res["flash_attention_static_ms"] = cs.sync_ms(
@@ -139,14 +153,59 @@ def _save_mlp_outputs(label: str) -> None:
     torch.save(outs, os.path.join(AB_DIR, f"{label}.pt"))
 
 
+def _save_int8_outputs(label: str) -> None:
+    """Rows 1 and 5's outputs on inputs drawn from a fixed seed (row 1 at
+    the flagship's 2x and 1x batch, the bf16 core, static and per-row
+    scales; row 5 at 8 x 1280 and 8 x 768 rows, f32 x, static and per row),
+    and row 5's int8 mid rows (fc1's q2: the (M, F) int8 tensor its wrapper
+    allocates), for --compare."""
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    outs = {}
+    for n in (cs.FLAGSHIP_SHAPE["attention"], cs.FLAGSHIP_SHAPE["attention"] // 2):
+        ops = cs._kernel_operands(gen, n, "attention")
+        for variant, kw in cs._variants("attention")[:4]:  # the bf16 core's four
+            outs[f"row1 {n} {variant}"] = cs.fb.fused_attention_block(*ops, **kw).cpu()
+        del ops
+    real_empty = torch.empty
+    for rows in (cs.T2I_L["full"], 768):
+        m = cs.T2I_ROWS * rows
+        ops = cs._t2i_mlp_operands(gen, (cs.T2I_ROWS, rows))
+        for variant, kw in cs._t2i_variants("mlp"):
+            made = []
+
+            def empty(*a, **k):
+                t = real_empty(*a, **k)
+                made.append(t)
+                return t
+            torch.empty = empty
+            try:
+                y = cs.fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw)
+            finally:
+                torch.empty = real_empty
+            q2, = [t for t in made if t.dtype == torch.int8 and tuple(t.shape) == (m, cs.F)]
+            outs[f"row5 {m} {variant}"] = y.cpu()
+            outs[f"row5 {m} {variant} q2"] = q2.cpu()
+        del ops
+    os.makedirs(AB_DIR, exist_ok=True)
+    torch.save(outs, os.path.join(AB_DIR, f"{label}_int8.pt"))
+
+
 def compare(a: str, b: str) -> None:
-    """The largest |A - B| of each saved output of fused_ln_int8_mlp."""
-    oa, ob = (torch.load(os.path.join(AB_DIR, f"{x}.pt")) for x in (a, b))
+    """The largest |A - B| of each saved output, whether they are bitwise
+    equal, and (rows 1 and 5's y) whether B is within phase 3's tolerance
+    of A."""
     res = {}
-    for key in oa:
-        res[key] = (oa[key].float() - ob[key].float()).abs().max().item()
-        print(f"  {key}: max |{a} - {b}| = {res[key]} (bitwise equal: "
-              f"{torch.equal(oa[key], ob[key])})")
+    for suffix in ("", "_int8"):
+        oa, ob = (torch.load(os.path.join(AB_DIR, f"{x}{suffix}.pt")) for x in (a, b))
+        for key in oa:
+            ya, yb = oa[key].float(), ob[key].float()
+            err = (ya - yb).abs()
+            within = bool(err.max() <= 2.0 ** -6 * ya.abs().max()
+                          and err.mean() <= 2.0 ** -10 * ya.abs().mean())
+            res[key] = dict(max=err.max().item(), bitwise=torch.equal(oa[key], ob[key]),
+                            within_tolerance=within)
+            print(f"  {key}: max |{a} - {b}| = {res[key]['max']} (bitwise equal: "
+                  f"{res[key]['bitwise']}, within phase 3's tolerance: {within})")
     print("AB_COMPARE " + json.dumps(res), flush=True)
 
 

@@ -24,14 +24,25 @@ events and a CUDA graph of 20 launches, ``chip_smoke.graph_ms``):
     the blocks (the earliest start, the latest end of each phase) into a
     device array; printed as microseconds from the start, and timed too.
 
-The copy ``products only`` computes wrong outputs on purpose; it is timed,
-not checked. The last line is ``PROBE {json}``.
+- ``fused_int8_mlp_postln`` (row 5) at 8 x 1280 and 8 x 768 rows, static
+  scales:
+  - ``no gelu``: fc1's epilogue quantizes and stores its values without the
+    gelu (the identity in its place);
+  - ``no exchange``: fc2 normalizes each block's columns by their own
+    sums, without the two exchanges over the cluster;
+  and each kernel's device time (torch.profiler) in rows 5 and 1 (the
+  flagship's 2x and 1x batch) as built.
+
+``python3 chip_int8_probe.py rows15`` runs the rows 1 and 5 part alone.
+The copies ``products only``, ``no gelu`` and ``no exchange`` compute wrong
+outputs on purpose; they are timed, not checked. The last line is ``PROBE {json}``.
 """
 
 import ctypes
 import json
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import torch
@@ -53,6 +64,18 @@ PER_ELEMENT = [("int8_epilogue.cuh", "    q.x = q8_rint(epi_act<EPI>(v0) * out_i
                 "    const float inv = 1.0f / static_scale(ep.out_amax);\n"
                 "    q.x = q8_rint(epi_act<EPI>(v0) * inv);\n    q.y = q8_rint(epi_act<EPI>(v1) * inv);",
                 1)]
+# row 5's fc1 with its gelu replaced by the identity (the int8 quant and
+# stores stay): what the gelu costs in the epilogue (wrong outputs, timed only)
+NO_GELU = [("int8_epilogue.cuh",
+            "  if (EPI == EPI_GELU_Q8 || EPI == EPI_GELU_F32) return gelu_as(v);",
+            "  if (EPI == EPI_GELU_Q8 || EPI == EPI_GELU_F32) return v;", 1)]
+# row 5's fc2 without its two cluster exchanges (each block normalizes with
+# its own columns' sums: wrong outputs, timed only)
+NO_EXCHANGE = [
+    ("fused_int8_mlp_postln.cu", "      exchange(0, sum0, sum1, mu0, mu1);\n",
+     "      mu0 = sum0;\n      mu1 = sum1;\n", 1),
+    ("fused_int8_mlp_postln.cu", "      exchange(1, d0, d1, var0, var1);\n",
+     "      var0 = d0;\n      var1 = d1;\n", 1)]
 STAMP_FN = """
 __device__ unsigned long long nova_int8_probe[16];
 // the block's time at mark i: the earliest over the blocks for the start,
@@ -145,11 +168,70 @@ def _turns(name, libs, call, iters):
     return out
 
 
+def _breakdown(call, calls=20):
+    """Device us a call of each kernel ``call()`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+            out[e.key.split("(")[0][:60]] = us / calls
+    return out
+
+
+def rows_1_5(res):
+    """Each kernel's device time in rows 1 and 5 as built (torch.profiler);
+    row 5 against its copies without the gelu and without the cluster
+    exchanges (the profiler runs after the timed turns: its hooks slow
+    later launches' host side)."""
+    name = "fused_int8_mlp_postln"
+    libs = {"as built": cs._build.load(name),
+            "no gelu": _load(name, _copy("nogelu", NO_GELU)),
+            "no exchange": _load(name, _copy("noexchange", NO_EXCHANGE))}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    kw5 = dict(cs._t2i_variants("mlp")[0][1], ln_eps=1e-5)
+    calls = []
+    for L in (cs.T2I_L["full"], 768):
+        ops = cs._t2i_mlp_operands(gen, (cs.T2I_ROWS, L))
+        call = lambda ops=ops: cs.fb.fused_int8_mlp_postln(*ops, **kw5)  # noqa: E731
+        label = f"row5 {cs.T2I_ROWS * L}"
+        for tag in ("no gelu", "no exchange"):
+            t = _turns(name, {"as built": libs["as built"], tag: libs[tag]}, call, 20)
+            res[f"{label} {tag}"] = t
+            print(f"{label}: as built {t['as built'][0]:.4f} ms (graph "
+                  f"{t['as built'][1]:.4f}), {tag} {t[tag][0]:.4f} (graph {t[tag][1]:.4f})")
+        calls.append((label, call))
+    cs._build._loaded[name] = libs["as built"]
+    kw1 = cs._variants("attention")[0][1]
+    for n in (2 * cs.BATCH, cs.BATCH):
+        ops = cs._kernel_operands(gen, n, "attention")
+        calls.append((f"row1 {n}", lambda ops=ops: cs.fb.fused_attention_block(*ops, **kw1)))
+    for label, call in calls:
+        b = _breakdown(call)
+        res[f"{label} kernels us"] = b
+        print(f"  {label}: " + ", ".join(f"{k} {v:.1f} us" for k, v in b.items()))
+
+
 def main():
     if not torch.cuda.is_available():
         cs._fail("CUDA is not available: this script runs on the GPU only", 2)
-    cs._build.build_all(["fused_ln_int8_mlp", "fused_int8_diffusion_block"])
     res = {}
+    if sys.argv[1:] == ["rows15"]:
+        cs._build.build_all(["fused_attention_block", "fused_int8_mlp_postln"])
+        rows_1_5(res)
+        _card(res)
+        return
+    cs._build.build_all(["fused_ln_int8_mlp", "fused_int8_diffusion_block",
+                         "fused_attention_block", "fused_int8_mlp_postln"])
     mlp = {"as built": cs._build.load("fused_ln_int8_mlp"),
            "products only": _load("fused_ln_int8_mlp", _copy("products", PRODUCTS_ONLY)),
            "lockstep": _load("fused_ln_int8_mlp", _copy("lockstep", LOCKSTEP)),
@@ -200,6 +282,11 @@ def main():
     for label, end in zip(PHASES, ends):
         print(f"  {label}: ends at {end:.2f} us ({end - prev:.2f} us after the last phase)")
         prev = end
+    rows_1_5(res)
+    _card(res)
+
+
+def _card(res):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card (nvidia-smi name, power limit): {smi}")

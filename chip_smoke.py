@@ -37,8 +37,8 @@ result line:
 The NOVA text-to-image slice adds, in their places in that order:
 
 3d. its kernels against their plain versions on the card at the t2i path's
-    shapes: fused_int8_mlp_postln (static / per row, 8 x 288 and 8 x 1280
-    rows, f32 and bf16 residual streams), fused_int8_diffusion_block
+    shapes: fused_int8_mlp_postln (static / per row, 8 x 288, 8 x 300
+    (ragged), 8 x 768 and 8 x 1280 rows, f32 and bf16 residual streams), fused_int8_diffusion_block
     (static / per row, 200 rows and a ragged count), flash_attention_static
     (bf16 and int8 score cores, no bias / a visibility bias with -inf keys
     and a fully masked sample, L = 288, 768, 1280), int8_linear (the
@@ -137,6 +137,28 @@ and zc) and adds:
     timed from a CUDA graph;
 6.  (first in the profiles phase) the device kernels of 10 calls of
     fused_int8_diffusion_block, which must be 10.
+
+The redesign of fused_attention_block (its bf16 core's QKV product and
+attention in one wgmma + TMA kernel, the other products on the wgmma GEMM)
+and of fused_int8_mlp_postln (fc1 on the wgmma GEMM, fc2 with the post-LN
+and the residual in its epilogue, over thread-block clusters of D / 256
+blocks) keeps phases 3 and 3d and widens them: phase 3 holds every
+attention variant at the 1x batch too, phase 3d the post-LN MLP at 8 x 768
+and a ragged 8 x 300 rows too. It adds:
+
+5.  fused_attention_block also timed from a CUDA graph, with its byte floor
+    (what the design moves through device memory) beside the first
+    design's, which also wrote and read the bf16 qkv rows; the ptxas and
+    SASS gate over the three int8 libraries (rows 2, 1 and 5): every wgmma
+    instance issues IGMMA and UTMALDG, row 1's core HGMMA too, with no
+    spills and no C7514 note, and no function of them issues mma.sync or
+    is the mma.sync GEMM;
+5c. fused_int8_mlp_postln with its byte floor beside the first design's
+    (which also wrote and read the f32 product) and its fc2 plan's waves;
+6.  (first in the profiles phase) the device kernels of 10 static calls of
+    fused_attention_block (the LN pass, the QKV + core kernel, the
+    out-projection) and of fused_int8_mlp_postln (the quant pass, fc1, fc2
+    + post-LN), which must be 30 each.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
@@ -420,14 +442,18 @@ def check_kernels():
     the same f32 math in another summation order; an f32 difference of one
     ulp can flip an int8 code (moving one row by ~1e-3) or a bf16 output by
     one ulp. Max error <= 4 bf16 ulps of max|y| (2^-6 max|y|) and mean error
-    <= 2^-10 mean|y| pass; a wrong fragment, scale or bias fails both."""
+    <= 2^-10 mean|y| pass; a wrong fragment, scale or bias fails both.
+    Every attention variant at both flagship batches, the MLP's at the 2x
+    batch and its flagship variant at the 1x."""
     gen = torch.Generator(device=DEV).manual_seed(1234)
     bad = []
     for name, (kind, kernel, plain) in _kernels().items():
-        # every variant at the CFG steps' 2x batch, the flagship variant
-        # (the first) also at the 1x batch of the steps after truncation
+        # every variant at the CFG steps' 2x batch; at the 1x batch of the
+        # steps after truncation every attention variant and the MLP's
+        # flagship variant (the first)
         cases = [(FLAGSHIP_SHAPE[kind], v) for v in _variants(kind)]
-        cases.append((FLAGSHIP_SHAPE[kind] // 2, _variants(kind)[0]))
+        cases += [(FLAGSHIP_SHAPE[kind] // 2, v)
+                  for v in (_variants(kind) if kind == "attention" else _variants(kind)[:1])]
         for n, (label, kw) in cases:
             ops = _kernel_operands(gen, n, kind)
             y = kernel(*ops, **kw)
@@ -898,7 +924,7 @@ def check_nova_kernels():
     mean|o|), and exactly 0 on the fully masked sample."""
     gen = torch.Generator(device=DEV).manual_seed(4242)
     bad = []
-    for L in (T2I_L["video"], T2I_L["full"]):
+    for L in (T2I_L["video"], 300, 768, T2I_L["full"]):  # 300: ragged rows
         for x_dtype in (torch.float32, torch.bfloat16):
             ops = _t2i_mlp_operands(gen, (T2I_ROWS, L), x_dtype)
             for label, kw in _t2i_variants("mlp"):
@@ -1527,8 +1553,9 @@ SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
 
 
 def _sass_ops(library):
-    """Counts of the tensor-core and TMA instructions in each function of
-    the built ``library`` (``cuobjdump -sass``): {mangled name: {op: n}}."""
+    """Counts of the tensor-core and TMA instructions, and of all
+    instructions, in each function of the built ``library`` (``cuobjdump
+    -sass``): {mangled name: {op: n}}."""
     so = _build._library_path(library)
     sass = subprocess.run([str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -1536,10 +1563,11 @@ def _sass_ops(library):
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            counts[fn] = dict.fromkeys(SASS_OPS + ("instructions",), 0)
         elif fn is not None:
             for op in SASS_OPS:
                 counts[fn][op] += f" {op}." in line or f" {op} " in line
+            counts[fn]["instructions"] += line.lstrip().startswith("/*") and "*/" in line[4:]
     return counts
 
 
@@ -1566,11 +1594,21 @@ def _fwd_ptxas(name):
         raise AssertionError(f"the forward kernels are not on wgmma and TMA: {bad}")
 
 
-# the instances of csrc/int8_wgmma.cuh's gemm_s8_wgmma_kernel<EPI> in
-# fused_ln_int8_mlp's library, by the mangled epilogue
-GEMM_INSTANCES = {"fc1 relu -> int8 (static)": "gemm_s8_wgmma_kernelILi1E",
-                  "fc1 relu -> f32 (per row)": "gemm_s8_wgmma_kernelILi2E",
-                  "fc2 + residual": "gemm_s8_wgmma_kernelILi3E"}
+# the wgmma instances of each int8 library, by their mangled names:
+# csrc/int8_wgmma.cuh's gemm_s8_wgmma_kernel<EPI> (by the epilogue), row 1's
+# QKV + bf16 core kernel, row 5's fc2 + post-LN kernel<x is bf16>
+INT8_INSTANCES = {
+    "fused_ln_int8_mlp": {"fc1 relu -> int8 (static)": "gemm_s8_wgmma_kernelILi1E",
+                          "fc1 relu -> f32 (per row)": "gemm_s8_wgmma_kernelILi2E",
+                          "fc2 + residual": "gemm_s8_wgmma_kernelILi3E"},
+    "fused_attention_block": {"qkv + bf16 core": "attn_qkv_core_kernel",
+                              "qkv -> f32 (f32 / int8 cores)": "gemm_s8_wgmma_kernelILi0E",
+                              "out-projection + residual": "gemm_s8_wgmma_kernelILi3E"},
+    "fused_int8_mlp_postln": {"fc1 gelu -> int8 (static)": "gemm_s8_wgmma_kernelILi4E",
+                              "fc1 gelu -> f32 (per row)": "gemm_s8_wgmma_kernelILi5E",
+                              "fc2 + post-LN, f32 x": "fc2_postln_kernelILb0E",
+                              "fc2 + post-LN, bf16 x": "fc2_postln_kernelILb1E"}}
+HGMMA_INSTANCES = ("attn_qkv_core_kernel",)  # the bf16 products of the attention core
 
 
 def _ptxas_numbers(kernel, library):
@@ -1591,27 +1629,31 @@ def _ptxas_numbers(kernel, library):
     return regs, spills, serial
 
 
-def _gemm_ptxas():
-    """Print and record the ptxas report and the SASS of each instance of
-    fused_ln_int8_mlp's GEMM: every instance issues s8 wgmma (IGMMA) and TMA
-    loads (UTMALDG) and no mma.sync (IMMA), with no spills and no C7514
-    note; no function of the library is the mma.sync GEMM of the first
-    design (its products never fall back to it); raises otherwise."""
-    out, sass = {}, _sass_ops("fused_ln_int8_mlp")
-    bad = [f"mma.sync GEMM {fn}" for fn, c in sass.items()
-           if "gemm_s8_kernel" in fn or c["IMMA"] or c["HMMA"]]
-    for label, mangled in GEMM_INSTANCES.items():
-        ops = next(c for fn, c in sass.items() if mangled in fn)
-        regs, spills, serial = _ptxas_numbers(mangled, "fused_ln_int8_mlp")
-        out[label] = (f"{_ptxas_report(mangled, library='fused_ln_int8_mlp')}; {serial} C7514; "
-                      f"SASS " + ", ".join(f"{op} {n}" for op, n in ops.items()))
-        print(f"  fused_ln_int8_mlp ptxas ({label}): {out[label]}")
-        if not (ops["IGMMA"] and ops["UTMALDG"] and ops["IMMA"] == 0 and spills == 0
-                and serial == 0):
-            bad.append(f"{label}: {ops}, {spills} spill bytes, {serial} C7514")
-    report["kernels"].setdefault("fused_ln_int8_mlp", {})["ptxas"] = out
+def _int8_ptxas():
+    """Print and record the ptxas report and the SASS of each wgmma instance
+    of the int8 libraries (rows 2, 1 and 5): every instance issues s8
+    wgmma (IGMMA) and TMA loads (UTMALDG), row 1's core bf16 wgmma (HGMMA)
+    too, with no spills and no C7514 note; no function of the libraries
+    issues mma.sync (IMMA, HMMA) or is the mma.sync GEMM of the first design
+    (gemm_s8_kernel); raises otherwise."""
+    bad = []
+    for library, instances in INT8_INSTANCES.items():
+        out, sass = {}, _sass_ops(library)
+        bad += [f"{library}: mma.sync {fn}" for fn, c in sass.items()
+                if "gemm_s8_kernel" in fn or c["IMMA"] or c["HMMA"]]
+        for label, mangled in instances.items():
+            ops = next(c for fn, c in sass.items() if mangled in fn)
+            regs, spills, serial = _ptxas_numbers(mangled, library)
+            out[label] = (f"{_ptxas_report(mangled, library=library)}; {serial} C7514; "
+                          f"SASS " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+            print(f"  {library} ptxas ({label}): {out[label]}")
+            if not (ops["IGMMA"] and ops["UTMALDG"] and ops["IMMA"] == ops["HMMA"] == 0
+                    and (ops["HGMMA"] or mangled not in HGMMA_INSTANCES)
+                    and spills == 0 and serial == 0):
+                bad.append(f"{library} {label}: {ops}, {spills} spill bytes, {serial} C7514")
+        report["kernels"].setdefault(library, {})["ptxas"] = out
     if bad:
-        raise AssertionError(f"fused_ln_int8_mlp's GEMM is not on wgmma and TMA: {bad}")
+        raise AssertionError(f"the int8 kernels are not all on wgmma and TMA: {bad}")
 
 
 def _int_mm_ms(gen, m, d, f):
@@ -1768,6 +1810,32 @@ def _bound_ms(kind, n):
                   2 * rows * D * 2 + 4 * D * D)
 
 
+def _attention_floors(n):
+    """Row 1's byte floors in ms at n samples: what the design moves through
+    device memory (x read by the LN pass and again as the residual, y
+    written, the int8 q1 and attention rows each written and read, the
+    weights, the row scales), and the first design's, which also wrote the
+    bf16 qkv rows (M x 3D) and read them back."""
+    rows = n * T
+    new = 3 * rows * D * 2 + 2 * rows * D + 2 * rows * D + 4 * D * D + 2 * rows * 4
+    return new / PEAK_BYTES * 1e3, (new + 2 * rows * 3 * D * 2) / PEAK_BYTES * 1e3
+
+
+def _postln_floors(m, x_bytes):
+    """Row 5's byte floors in ms at m rows: x read by the quant pass and
+    again as the residual, y written, the int8 x and mid rows each written
+    and read, the weights, the row scales; and the first design's, which
+    also wrote the f32 product (M x D) and read it back in its row pass."""
+    new = 3 * m * D * x_bytes + 2 * m * D + 2 * m * F + 2 * D * F + 2 * m * 4
+    return new / PEAK_BYTES * 1e3, (new + 2 * m * D * 4) / PEAK_BYTES * 1e3
+
+
+def _print_floors(name, row, new, old, extra=""):
+    row.update(byte_floor_ms=new, first_design_byte_floor_ms=old)
+    print(f"    {name}: byte floor of this design {new:.4f} ms, of the first design "
+          f"{old:.4f} ms; operation bound {row['bound_ms']:.4f} ms{extra}")
+
+
 def _time_kernel(name, shape_key, kernel, plain, bound, library=None, iters=20, graph=False):
     """Event-timed ms per launch of the kernel, its plain version and the
     library call; with ``graph`` also the kernel and the library call
@@ -1798,16 +1866,17 @@ def timing(pipe):
             n = FLAGSHIP_SHAPE[kind] * mult // 2
             ops = _kernel_operands(gen, n, kind)
             row = _time_kernel(name, tuple(ops[0].shape), lambda: kernel(*ops, **kw),
-                               lambda: plain(*ops, **kw), _bound_ms(kind, n),
-                               graph=kind == "mlp")
+                               lambda: plain(*ops, **kw), _bound_ms(kind, n), graph=True)
             del ops
+            if kind == "attention":
+                _print_floors(name, row, *_attention_floors(n))
             if kind == "mlp":
                 row["int_mm_ms"] = _int_mm_ms(gen, n, D, F)
                 print(f"    torch._int_mm, its two products alone: {row['int_mm_ms']} ms")
             if mult == 2:  # the kernels line quotes the CFG steps' 2x batch
                 report["kernels"][name].update(row)
             torch.cuda.empty_cache()
-    _gemm_ptxas()
+    _int8_ptxas()
     fb.reset_launch_counts()
     if pipe is None:
         raise AssertionError("no pipeline: the main path failed")
@@ -1823,7 +1892,8 @@ def timing(pipe):
 
 
 PORT_KERNEL_NAMES = ("gemm_s8_kernel", "gemm_s8_wgmma_kernel", "diffusion_block_kernel",
-                     "row_quant_kernel", "row_op_kernel", "attn_core_",
+                     "row_quant_kernel", "row_op_kernel", "attn_core_", "attn_qkv_core_kernel",
+                     "fc2_postln_kernel",
                      "attn_fwd_kernel", "flash_fwd_", "static_qk_quant_kernel", "flash_bwd_")
 
 
@@ -1958,6 +2028,12 @@ def timing_t2i(pipe_int8, pipe_float):
             lambda: fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw),
             _bound(4 * m * D * F / PEAK_INT8_OPS,
                    2 * m * D * 4 + 2 * D * F + (F + 3 * D) * 2 + (F + D) * 4), graph=True)
+        fc2 = fb.mlp_postln_plan(m, D, F, fb._sms(torch.device(DEV)),
+                                 fb._clusters(torch.device(DEV), D // 256))["fc2"]
+        _print_floors("fused_int8_mlp_postln", row, *_postln_floors(m, 4),
+                      f"; fc2: {fc2['m_tiles']} m-tiles over {fc2['clusters']} clusters of "
+                      f"{fc2['cluster']}, {fc2['waves']:.2f} waves")
+        row["fc2_waves"] = fc2["waves"]
         if L == T2I_L["full"]:
             report["kernels"]["fused_int8_mlp_postln"].update(row)
         del ops
@@ -2025,34 +2101,55 @@ def timing_t2i(pipe_int8, pipe_float):
                              times_s=times)
 
 
-def _diffusion_kernels_per_call(calls=10):
-    """The device kernels of ``calls`` calls of fused_int8_diffusion_block at
-    the head's 200 rows (static scales), from a torch.profiler trace: one a
-    call, the kernel itself (its workspace comes from torch.empty, which
-    launches nothing); raises otherwise."""
+def _kernels_per_call(name, call, expected, calls=10):
+    """The device kernels of ``calls`` calls of ``call()`` (kernel ``name``
+    at its path's shape), from a torch.profiler trace: exactly ``expected``
+    (kernel-name substrings) once each a call, and nothing else (outputs
+    and workspaces come from torch.empty, which launches nothing); raises
+    otherwise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=DEV).manual_seed(8)
-    ops = _diffusion_operands(gen, T2I_ROWS * T2I_PAD_P)
-    kw = _t2i_variants("diffusion")[0][1]
-    fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+            call()
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == DeviceType.CUDA and not e.key.startswith("Mem"):
             kernels[e.key] = kernels.get(e.key, 0) + e.count
     n = sum(kernels.values())
-    print(f"fused_int8_diffusion_block: {n} device kernels in {calls} calls: {kernels}")
-    report["kernels"].setdefault("fused_int8_diffusion_block", {})["device_kernels_per_call"] = (
-        n / calls)
-    if n != calls or not all("diffusion_block_kernel" in k for k in kernels):
-        raise AssertionError(f"fused_int8_diffusion_block ran {n} device kernels in {calls} calls "
-                             f"({kernels}), not one a call")
+    print(f"{name}: {n} device kernels in {calls} calls: {kernels}")
+    report["kernels"].setdefault(name, {})["device_kernels_per_call"] = n / calls
+    each = [sum(c for k, c in kernels.items() if want in k) for want in expected]
+    if n != len(expected) * calls or each != [calls] * len(expected):
+        raise AssertionError(f"{name} ran {n} device kernels in {calls} calls ({kernels}), not "
+                             f"{len(expected)} a call: {list(expected)}")
+
+
+def _device_kernels_per_call():
+    """Row 6's one kernel a call (head's 200 rows), and the three of a
+    static call of rows 1 (the flagship's 1x batch: LN pass, QKV + core,
+    out-projection) and 5 (8 x 1280 rows: x quant pass, fc1, fc2 + post-LN)."""
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    ops = _diffusion_operands(gen, T2I_ROWS * T2I_PAD_P)
+    kw = _t2i_variants("diffusion")[0][1]
+    _kernels_per_call("fused_int8_diffusion_block",
+                      lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw),
+                      ("diffusion_block_kernel",))
+    ops = _kernel_operands(gen, BATCH, "attention")
+    kw = _variants("attention")[0][1]
+    _kernels_per_call("fused_attention_block", lambda: fb.fused_attention_block(*ops, **kw),
+                      ("row_quant_kernel", "attn_qkv_core_kernel", "gemm_s8_wgmma_kernel"))
+    ops = _t2i_mlp_operands(gen, (T2I_ROWS, T2I_L["full"]))
+    kw = _t2i_variants("mlp")[0][1]
+    _kernels_per_call("fused_int8_mlp_postln",
+                      lambda: fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw),
+                      ("row_quant_kernel", "gemm_s8_wgmma_kernel", "fc2_postln_kernel"))
+    del ops
+    torch.cuda.empty_cache()
 
 
 @phase("6 profiles")
@@ -2060,8 +2157,8 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
-    diffusion block's device kernels in 10 calls (gated at 10)."""
-    _diffusion_kernels_per_call()
+    device kernels of 10 calls of rows 6 (gated at 10), 1 and 5 (at 30)."""
+    _device_kernels_per_call()
     if pipe is not None:
         profile_call(lambda: _sample(pipe, seed=30))
     for label, p in (("path_a", pipe_a), ("path_b", pipe_b)):

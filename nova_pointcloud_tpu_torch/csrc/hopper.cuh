@@ -3,9 +3,11 @@
 // mbarriers, TMA tensor and bulk copies, shared-memory access by 32-bit
 // address, ldmatrix, named barriers, wgmma shared-memory descriptors
 // (128B and 64B swizzle, none), wgmma wrappers (bf16 m64n64k16, m64n128k16
-// and m64n8k16, s8 m64n128k32 and m64n256k32), setmaxnreg and, on the host,
-// the TMA map encoder reached through the runtime's driver entry point, so
-// that no library links -lcuda. The int8 GEMM (int8_wgmma.cuh) and the
+// and m64n8k16, s8 m64n128k32, m64n192k32 and m64n256k32), setmaxnreg,
+// thread-block clusters (ranks, distributed shared memory, remote mbarrier
+// arrivals) and, on the host, the TMA map encoder reached through
+// cudaGetDriverEntryPoint, so that no library links -lcuda. The int8
+// GEMM (int8_wgmma.cuh), the int8 attention and post-LN MLP blocks and the
 // diffusion block use them too.
 #pragma once
 
@@ -295,6 +297,111 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64
       ", %128, %129, p;\n}\n"
       : NOVA_WG_D128("+r")
       : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 192, s32) (+)= A B, A (64 x 32 s8) and B (192 x 32 s8), both
+// K-major in shared memory
+#define NOVA_WG_D96(c) NOVA_WG_D64(c), c(d[64]), c(d[65]), c(d[66]), c(d[67]), c(d[68]), \
+      c(d[69]), c(d[70]), c(d[71]), c(d[72]), c(d[73]), c(d[74]), c(d[75]), c(d[76]), \
+      c(d[77]), c(d[78]), c(d[79]), c(d[80]), c(d[81]), c(d[82]), c(d[83]), c(d[84]), \
+      c(d[85]), c(d[86]), c(d[87]), c(d[88]), c(d[89]), c(d[90]), c(d[91]), c(d[92]), \
+      c(d[93]), c(d[94]), c(d[95])
+#define NOVA_WG_REGS96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95}"
+__device__ __forceinline__ void wgmma_s8_n192(int (&d)[96], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 " NOVA_WG_REGS96
+      ", %96, %97, p;\n}\n"
+      : NOVA_WG_D96("+r")
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 128, f32) (+)= A B, A (64 x 16 bf16) from registers, B (128 x 16
+// bf16) K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const unsigned (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " NOVA_WG_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : NOVA_WG_D64("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// shared memory written by threads (the generic proxy), made visible to
+// wgmma and TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: a block's rank, the cluster's index and count,
+// another block's shared memory (distributed shared memory), its mbarriers,
+// and the barrier of all the cluster's threads
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+// the address of shared-memory word `addr` in the block of rank `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+// arrives on an mbarrier of any block of the cluster (a mapa address),
+// releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote_bar)
+               : "memory");
+}
+// mbar_wait with acquire at cluster scope: what other blocks wrote before
+// arriving is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// every thread of every block of the cluster (release, then acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
 }
 
 // the registers of a warpgroup: all its threads give up (dec) or take (inc)

@@ -39,6 +39,9 @@
 //     one just issued) before releasing that stage; its first and last
 //     steps are peeled, so no wait or accumulate flag is chosen at run time
 //     (ptxas serializes every wgmma of a loop that does: its C7514 note).
+// The ring, the producer's stage loads and a consumer's products (Ring) are
+// also the main loop of row 5's fc2 + post-LN kernel
+// (fused_int8_mlp_postln.cu), which walks the tiles by cluster.
 #pragma once
 
 #include "hopper.cuh"
@@ -60,6 +63,76 @@ constexpr int SMEM = OFF_EPI + CONSUMERS * EPI_BYTES + 1024;  // + 1024 to align
 constexpr int JB = 4;  // 8-column groups whose residuals the epilogue loads at once
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
+// The ring of STAGES stages (an A tile and a W tile each) with a full and
+// an empty mbarrier a stage, as the producer and each consumer walk it.
+struct Ring {
+  uint32_t base, full, empty;
+  int s;
+  uint32_t phase;
+  __device__ __forceinline__ explicit Ring(uint32_t b)
+      : base(b), full(b + OFF_BAR), empty(b + OFF_BAR + STAGES * 8), s(0), phase(0) {}
+  __device__ __forceinline__ void advance() {
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  // by one thread, before the block's first barrier
+  __device__ __forceinline__ void init() const {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, CONSUMERS * 4);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the producer: the k-stages of output tile (mt, nt)
+  __device__ __forceinline__ void load_tile(const CUtensorMap* tm_a, const CUtensorMap* tm_w,
+                                            int mt, int nt, int ktiles) {
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(empty + 8 * s, phase ^ 1);  // a fresh barrier passes parity 1
+      const uint32_t dst = base + s * STAGE_BYTES;
+      mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+      tma_load_2d(dst, tm_a, full + 8 * s, kt * BK, mt * BM);
+      tma_load_2d(dst + A_BYTES, tm_w, full + 8 * s, kt * BK, nt * BN);
+      advance();
+    }
+  }
+  // consumer warpgroup c: one tile's products into its 64 x 256 int32
+  // accumulator, each stage released once read. The loop waits for at most
+  // one wgmma group (the stage before the one just issued); its first and
+  // last steps are peeled, so no wait or accumulate flag is chosen at run
+  // time.
+  __device__ __forceinline__ void products(int (&acc)[128], int ktiles, int c, int lane) {
+    auto issue = [&](int slot, bool first) {
+      const uint64_t da = desc_sw128(base + slot * STAGE_BYTES + c * 64 * BK, false);
+      const uint64_t dw = desc_sw128(base + slot * STAGE_BYTES + A_BYTES, false);
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_s8_n256(acc, da + 2 * kk, dw + 2 * kk, !first || kk > 0);
+      wgmma_commit();
+    };
+    auto release = [&](int slot) {
+      if (lane == 0) mbar_arrive(empty + 8 * slot);
+    };
+    mbar_wait(full + 8 * s, phase);
+    wgmma_fence();
+    issue(s, true);
+    int prev = s;
+    advance();
+    for (int kt = 1; kt < ktiles; ++kt) {
+      mbar_wait(full + 8 * s, phase);
+      issue(s, false);
+      wgmma_wait<1>();  // the stage before this one is read
+      release(prev);
+      prev = s;
+      advance();
+    }
+    wgmma_wait<0>();
+    release(prev);
+    fence_regs(acc);
+  }
+};
+
 template <int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
@@ -69,34 +142,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x;
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);  // warp-uniform
-  const uint32_t full = base + OFF_BAR, empty = full + STAGES * 8;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMERS * 4);  // lane 0 of every consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  Ring ring(base);
+  if (tid == 0) ring.init();
   __syncthreads();
 
   if (wg == 0) {  // the producer
     setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == 0) {
-      int s = 0;
-      uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int mt = tile / n_tiles, nt = tile - mt * n_tiles;
-        for (int kt = 0; kt < ktiles; ++kt) {
-          mbar_wait(empty + 8 * s, phase ^ 1);  // a fresh barrier passes parity 1
-          const uint32_t dst = base + s * STAGE_BYTES;
-          mbar_expect_tx(full + 8 * s, STAGE_BYTES);
-          tma_load_2d(dst, &tm_a, full + 8 * s, kt * BK, mt * BM);
-          tma_load_2d(dst + A_BYTES, &tm_w, full + 8 * s, kt * BK, nt * BN);
-          if (++s == STAGES) {
-            s = 0;
-            phase ^= 1;
-          }
-        }
+        const int mt = tile / n_tiles;
+        ring.load_tile(&tm_a, &tm_w, mt, tile - mt * n_tiles, ktiles);
       }
     }
     return;
@@ -111,28 +166,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t s_ws = base + OFF_EPI + c * EPI_BYTES, s_bs = s_ws + BN * 4;
   constexpr bool kQ8 = EPI == EPI_RELU_Q8 || EPI == EPI_GELU_Q8 || EPI == EPI_SILU_Q8;
   const float out_inv = kQ8 ? epi_out_inv(ep) : 0.0f;
-  int s = 0;
-  uint32_t phase = 0;
   int acc[128];
-  // the four k-steps of 32 bytes of the stage in slot `slot`
-  auto issue = [&](int slot, bool first) {
-    const uint32_t a_tile = base + slot * STAGE_BYTES + c * 64 * BK;
-    const uint64_t da = desc_sw128(a_tile, false);
-    const uint64_t dw = desc_sw128(base + slot * STAGE_BYTES + A_BYTES, false);
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk)
-      wgmma_s8_n256(acc, da + 2 * kk, dw + 2 * kk, !first || kk > 0);
-    wgmma_commit();
-  };
-  auto release = [&](int slot) {
-    if (lane == 0) mbar_arrive(empty + 8 * slot);
-  };
-  auto advance = [&]() {
-    if (++s == STAGES) {
-      s = 0;
-      phase ^= 1;
-    }
-  };
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int mt = tile / n_tiles, nt = tile - mt * n_tiles;
@@ -162,22 +196,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
 
-    mbar_wait(full + 8 * s, phase);
-    wgmma_fence();
-    issue(s, true);
-    int prev = s;
-    advance();
-    for (int kt = 1; kt < ktiles; ++kt) {
-      mbar_wait(full + 8 * s, phase);
-      issue(s, false);
-      wgmma_wait<1>();  // the stage before this one is read
-      release(prev);
-      prev = s;
-      advance();
-    }
-    wgmma_wait<0>();
-    release(prev);
-    fence_regs(acc);
+    ring.products(acc, ktiles, c, lane);
 
     named_sync(1 + c, 128);  // this warpgroup's last epilogue has read the staged columns
 #pragma unroll

@@ -157,11 +157,10 @@ __global__ void __launch_bounds__(kRowThreads)
 // reductions synchronise):
 //   ROW_QUANT         [LN_affine(x)] -> int8 q, row scale sx (static or per row)
 //   ROW_SILU_QUANT    silu(x) -> int8                      (diffusion cond z)
-//   ROW_POSTLN_RESID  y = x_res + LN_affine(x)             (post-norm residual)
 //   ROW_POSTLN_GATE   y = LN_affine(x) * gate + x_res      (gated residual)
 // LayerNorm is two-pass (mean, then mean of squared deviations), as
 // fused_block._ln, with the eps given.
-enum { ROW_QUANT = 0, ROW_SILU_QUANT = 1, ROW_POSTLN_RESID = 3, ROW_POSTLN_GATE = 4 };
+enum { ROW_QUANT = 0, ROW_SILU_QUANT = 1, ROW_POSTLN_GATE = 4 };
 constexpr int kRowOpThreads = 256;
 constexpr int kRowOpMaxK = 56 * 1024;  // K floats of dynamic shared memory, under 227 KB
 
@@ -177,7 +176,7 @@ struct RowParams {
   float* sx;
   const float* mod;  // ROW_POSTLN_GATE: the gate, at [0, K) of each row of a
   int mod_ld;        // (M, mod_ld) f32 matrix
-  const void* res;   // ROW_POSTLN_*: the residual (M, K)
+  const void* res;   // ROW_POSTLN_GATE: the residual (M, K)
   int res_bf16;
   void* y;
   int y_bf16;
@@ -243,9 +242,7 @@ __device__ __forceinline__ void row_op(const RowParams& p, long row, float* srow
         if (k >= K) continue;
         float v = (srow[k] - mu) * rstd;
         v = v * w[u] + b[u];
-        if (OP == ROW_POSTLN_RESID) {
-          st_any(p.y, base + k, res[u] + v, p.y_bf16);
-        } else if (OP == ROW_POSTLN_GATE) {
+        if (OP == ROW_POSTLN_GATE) {
           st_any(p.y, base + k, v * gate[u] + res[u], p.y_bf16);
         } else {
           srow[k] = v;
@@ -253,7 +250,7 @@ __device__ __forceinline__ void row_op(const RowParams& p, long row, float* srow
       }
     }
   }
-  if (OP == ROW_POSTLN_RESID || OP == ROW_POSTLN_GATE) return;
+  if (OP == ROW_POSTLN_GATE) return;
   float s_row, mul = 1.0f;
   const bool is_static = p.amax_static != nullptr;
   if (is_static) {

@@ -276,6 +276,82 @@ def mlp_plan(m: int, d: int, f: int, sms: int) -> dict:
     return dict(fc1=gemm_plan(m, f, d, sms), fc2=gemm_plan(m, d, f, sms))
 
 
+# csrc/fused_attention_block.cu, attn_qkv_core_kernel: one tile is a sample's
+# ATTN_T rows x one head's q, k and v columns (3 x 64); k-steps of 128 bytes
+# through a ring of 4 stages (a 16 KB A tile and three 8 KB weight boxes
+# each), a full and an empty mbarrier a stage, K and V of the tile in bf16,
+# the tile's 192 column scales and biases for each of the two consumer
+# warpgroups, 1 KB to align the swizzled tiles
+ATTN_T, ATTN_HD, QKVC_STAGES = 128, 64, 4
+QKVC_SMEM = (QKVC_STAGES * (ATTN_T + 3 * ATTN_HD) * WG_BLOCK_K + 2 * ATTN_T * ATTN_HD * 2
+             + 2 * QKVC_STAGES * 8 + 2 * 2 * 3 * ATTN_HD * 4 + 1024)
+
+
+def _attn_dims(t: int, d: int, heads: int) -> None:
+    if t != ATTN_T or heads <= 0 or d != heads * ATTN_HD or d % WG_BLOCK_K:
+        raise NotImplementedError(
+            f"the CUDA attention-block kernel takes T={ATTN_T} tokens and head dim "
+            f"{ATTN_HD} (D a multiple of 128), got T={t}, D={d}, heads={heads}")
+
+
+@functools.lru_cache(maxsize=256)
+def attn_block_plan(b: int, t: int, d: int, heads: int, sms: int) -> dict:
+    """:func:`fused_attention_block`'s launch plan: ``core``, the bf16
+    core's one kernel for the QKV product and the attention (a persistent
+    grid of at most one block an SM over the b x heads (sample, head) tiles,
+    head fastest), checked by ``csrc/fused_attention_block.cu``; ``qkv``,
+    the QKV product of the f32 and int8 cores on the wgmma GEMM; ``out``,
+    the out-projection on it. Raises NotImplementedError for what the
+    kernels do not take. Cached, as :func:`gemm_plan`."""
+    _attn_dims(t, d, heads)
+    m, tiles = b * t, b * heads
+    grid = min(tiles, sms)
+    core = dict(tiles=tiles, block_m=ATTN_T, block_n=3 * ATTN_HD, k_tiles=d // WG_BLOCK_K,
+                grid=(grid,), stages=QKVC_STAGES, smem_bytes=QKVC_SMEM,
+                tiles_per_block=-(-tiles // grid))
+    return dict(core=core, qkv=gemm_plan(m, 3 * d, d, sms), out=gemm_plan(m, d, d, sms))
+
+
+# csrc/fused_int8_mlp_postln.cu, fc2_postln_kernel: the wgmma GEMM's tiles and
+# ring, 4 column vectors (scales, biases, LN weights and biases) a consumer,
+# the row sums of two exchanges for two tile parities and their mbarriers;
+# a cluster of D / 256 blocks, at most the portable 8
+PLN_MAX_CLUSTER = 8
+PLN_SMEM = (WG_STAGES * (WG_BLOCK_M + WG_BLOCK_N) * WG_BLOCK_K + 2 * WG_STAGES * 8
+            + 2 * 4 * WG_BLOCK_N * 4 + 2 * 2 * 2 * 64 * 4 + 2 * 2 * 2 * 8 + 1024)
+
+
+def _postln_dims(d: int, f: int) -> int:
+    """The cluster size of the post-LN fc2 for width d (f: the mid width)."""
+    if d % WG_BLOCK_N or d // WG_BLOCK_N > PLN_MAX_CLUSTER or f % WG_BLOCK_K:
+        raise NotImplementedError(
+            f"the CUDA post-LN MLP kernel spreads a row over a cluster of D / "
+            f"{WG_BLOCK_N} blocks: D must be a multiple of {WG_BLOCK_N} up to "
+            f"{PLN_MAX_CLUSTER * WG_BLOCK_N}, got D={d}, F={f}")
+    return d // WG_BLOCK_N
+
+
+@functools.lru_cache(maxsize=256)
+def mlp_postln_plan(m: int, d: int, f: int, sms: int, clusters: int) -> dict:
+    """:func:`fused_int8_mlp_postln`'s launch plan: ``fc1`` on the wgmma
+    GEMM; ``fc2``, the product with the post-LN and the residual in its
+    epilogue, as clusters of D / 256 blocks (block rank r owns the n-tile r
+    of its cluster's m-tile; the clusters walk the m-tiles). ``clusters``:
+    how many such clusters the card runs at once
+    (cudaOccupancyMaxActiveClusters, ``_clusters``). ``waves``: m-tiles
+    over active clusters. Raises NotImplementedError for what the kernel
+    does not take. Cached, as :func:`gemm_plan`."""
+    size = _postln_dims(d, f)
+    if clusters < 1:
+        raise NotImplementedError(f"the card runs no cluster of {size} fc2 blocks")
+    m_tiles = -(-m // WG_BLOCK_M)
+    active = min(m_tiles, clusters)
+    fc2 = dict(m_tiles=m_tiles, n_tiles=size, k_tiles=f // WG_BLOCK_K, cluster=size,
+               clusters=active, grid=(active * size,), stages=WG_STAGES, smem_bytes=PLN_SMEM,
+               waves=m_tiles / active, tiles_per_cluster=-(-m_tiles // active))
+    return dict(fc1=gemm_plan(m, f, d, sms), fc2=fc2)
+
+
 # csrc/fused_int8_diffusion_block.cu: 256 threads, activation row chunks of
 # 128 rows through a ring of 4 stages of 128 bytes of k (rows padded by 16),
 # at most 2 groups of 8 output columns a block, 10 column vectors of those
@@ -344,13 +420,14 @@ _ARGTYPES = {
                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "fused_attention_block": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
                               _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
-                              _P, _P, _P, _P],
+                              _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fused_ln_int8_matmul": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
                              _P, _P, _P],
     "int8_matmul_residual": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                              _P, _P, _P],
     "fused_int8_mlp_postln": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _P,
-                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P],
     "fused_int8_diffusion_block": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                                    _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                                    _P, _I, _I, _P],
@@ -399,6 +476,22 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it at a 16-byte boundary (TMA and bulk copies
     read from 16-byte-aligned addresses only)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(index: int, size: int) -> int:
+    so, fn = _load_lib("fused_int8_mlp_postln_clusters", [_I, _P], "fused_int8_mlp_postln")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _run(so, fn, [size, ctypes.addressof(n)])
+    return n.value
+
+
+def _clusters(dev, size: int) -> int:
+    """How many clusters of ``size`` blocks of the post-LN fc2 kernel the
+    card that holds ``dev`` runs at once (cudaOccupancyMaxActiveClusters)."""
+    return _active_clusters(dev.index if dev.index is not None else torch.cuda.current_device(),
+                            size)
 
 
 def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
@@ -456,7 +549,9 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
     + wo_s (D,). ``a_in`` / ``a_av``: calibrated amax of the post-LN input
     and the attention output (static quant), or both None (per row).
     ``core``: precision of the attention-core products ("f32", "bf16",
-    "int8"). ``a_smax``: calibrated max logit replacing the row max."""
+    "int8"). ``a_smax``: calibrated max logit replacing the row max. On a
+    CUDA tensor the bf16 core's QKV product and attention run as one kernel
+    that keeps q, k and v on chip (:func:`attn_block_plan`)."""
     if _plain_route(x):
         return fused_attention_block_plain(x, ln_scale, ln_bias, wqkv_q, wqkv_s,
                                            bqkv, wo_q, wo_s, bo, num_heads,
@@ -466,23 +561,20 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
         raise ValueError(f"core must be one of {ATTN_CORES}, got {core!r}")
     dev = x.device
     b, t, d = x.shape
-    hd = d // num_heads
-    if t != 128 or hd != 64 or d % 128:
-        raise NotImplementedError(
-            f"the CUDA attention-block kernel takes T=128 tokens and head dim 64 "
-            f"(D a multiple of 128), got T={t}, D={d}, heads={num_heads}")
+    _attn_dims(t, d, num_heads)
     x = x.contiguous()
     x_bf16 = _dtype_flag(x, "x")
-    wqkv_q = _int8_weight(wqkv_q, (d, 3 * d), dev, "wqkv_q")
-    wo_q = _int8_weight(wo_q, (d, d), dev, "wo_q")
+    wqkv_q = _aligned(_int8_weight(wqkv_q, (d, 3 * d), dev, "wqkv_q"))
+    wo_q = _aligned(_int8_weight(wo_q, (d, d), dev, "wo_q"))
     wqkv_s, wo_s = _f32(wqkv_s, dev), _f32(wo_s, dev)
     (ln_w, ln_b, bqkv, bo), vec_bf16 = _vectors(ln_scale, ln_bias, bqkv, bo)
     a_in, a_av, a_smax = _amax(a_in, dev), _amax(a_av, dev), _amax(a_smax, dev)
+    plan = attn_block_plan(b, t, d, num_heads, _sms(dev))
     m = b * t
     q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
     sx1 = torch.empty((m,), dtype=torch.float32, device=dev)
-    qkv = torch.empty((m, 3 * d), device=dev,
-                      dtype=torch.bfloat16 if core == "bf16" else torch.float32)
+    # the bf16 core keeps q, k and v on chip: no (m, 3d) tensor
+    qkv = None if core == "bf16" else torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
     av8 = torch.empty((m, d), dtype=torch.int8, device=dev)
     avf = None if a_av is not None else torch.empty((m, d), dtype=torch.float32, device=dev)
     sxo = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -492,9 +584,11 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
         _ptr(x), x_bf16, b, t, d, num_heads, _ptr(ln_w), _ptr(ln_b),
         _ptr(bqkv), _ptr(bo), vec_bf16, _ptr(wqkv_q), _ptr(wqkv_s), _ptr(wo_q),
         _ptr(wo_s), _ptr(a_in), _ptr(a_av), _ptr(a_smax),
-        ATTN_CORES.index(core), float(hd ** -0.5), _ptr(q1), _ptr(sx1),
-        _ptr(qkv), _ptr(av8), _ptr(avf), _ptr(sxo), _ptr(y),
-        torch.cuda.current_stream(dev).cuda_stream])
+        ATTN_CORES.index(core), float(ATTN_HD ** -0.5),
+        _ptr(q1), _ptr(sx1), _ptr(qkv), _ptr(av8), _ptr(avf), _ptr(sxo), _ptr(y),
+        plan["core"]["grid"][0], plan["core"]["smem_bytes"], plan["qkv"]["grid"][0],
+        plan["qkv"]["smem_bytes"], plan["out"]["grid"][0], plan["out"]["smem_bytes"],
+        _stream(dev)])
     LAUNCHES["fused_attention_block"] += 1
     return y
 
@@ -577,7 +671,9 @@ def fused_int8_mlp_postln(x: torch.Tensor, w1q, s1, b1, w2q, s2, b2, ln_scale, l
     w1q (D, F) int8 with per-channel scales s1 (F,); w2q (F, D) / s2 (D,).
     ``a_x`` / ``a_gelu``: calibrated amax of the block input and the post-gelu
     mid activation (static quant), or both None (per row). ``ln_eps``: the
-    post-norm's eps."""
+    post-norm's eps. On a CUDA tensor fc2 runs as clusters of D / 256
+    blocks with the post-LN and the residual in its epilogue
+    (:func:`mlp_postln_plan`)."""
     if _plain_route(x):
         return fused_int8_mlp_postln_plain(x, w1q, s1, b1, w2q, s2, b2, ln_scale,
                                            ln_bias, a_x, a_gelu, ln_eps)
@@ -586,27 +682,29 @@ def fused_int8_mlp_postln(x: torch.Tensor, w1q, s1, b1, w2q, s2, b2, ln_scale, l
     d, f = shape[-1], w1q.shape[-1]
     _gemm_dims(d, f, "fused_int8_mlp_postln")
     _gemm_dims(f, d, "fused_int8_mlp_postln")
-    xf = x.reshape(-1, d).contiguous()
+    size = _postln_dims(d, f)
+    xf = _aligned(x.reshape(-1, d).contiguous())
     m = xf.shape[0]
     x_bf16 = _dtype_flag(xf, "x")
-    w1q = _int8_weight(w1q, (d, f), dev, "w1q")
-    w2q = _int8_weight(w2q, (f, d), dev, "w2q")
+    w1q = _aligned(_int8_weight(w1q, (d, f), dev, "w1q"))
+    w2q = _aligned(_int8_weight(w2q, (f, d), dev, "w2q"))
     s1, s2 = _f32(s1, dev), _f32(s2, dev)
     (b1, b2, ln_w, ln_b), vec_bf16 = _vectors(b1, b2, ln_scale, ln_bias)
     a_x, a_gelu = _amax(a_x, dev), _amax(a_gelu, dev)
+    plan = mlp_postln_plan(m, d, f, _sms(dev), _clusters(dev, size))
     q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
     sx1 = torch.empty((m,), dtype=torch.float32, device=dev)
     q2 = torch.empty((m, f), dtype=torch.int8, device=dev)
     mid = None if a_x is not None else torch.empty((m, f), dtype=torch.float32, device=dev)
     sx2 = torch.empty((m,), dtype=torch.float32, device=dev)
-    o = torch.empty((m, d), dtype=torch.float32, device=dev)
     y = torch.empty_like(xf)
+    fc1, fc2 = plan["fc1"], plan["fc2"]
     so, fn = _lib("fused_int8_mlp_postln")
     _run(so, fn, [
         _ptr(xf), x_bf16, m, d, f, _ptr(b1), _ptr(b2), _ptr(ln_w), _ptr(ln_b), vec_bf16,
         float(ln_eps), _ptr(w1q), _ptr(s1), _ptr(w2q), _ptr(s2), _ptr(a_x), _ptr(a_gelu),
-        _ptr(q1), _ptr(sx1), _ptr(q2), _ptr(mid), _ptr(sx2), _ptr(o), _ptr(y),
-        torch.cuda.current_stream(dev).cuda_stream])
+        _ptr(q1), _ptr(sx1), _ptr(q2), _ptr(mid), _ptr(sx2), _ptr(y), fc1["grid"][0],
+        fc1["smem_bytes"], fc2["grid"][0], fc2["cluster"], fc2["smem_bytes"], _stream(dev)])
     LAUNCHES["fused_int8_mlp_postln"] += 1
     return y.reshape(shape)
 
