@@ -10,16 +10,23 @@ old``): it imports ``chip_smoke`` and the port from the directory it is run
 in. It builds the kernels, checks each flagship kernel against its plain
 version once, times each kernel per launch at both batch sizes of its path
 (CUDA events; fused_attention_block and fused_ln_int8_mlp also from a CUDA
-graph, fused_ln_int8_mlp also at path B's width; the t2i kernels at the t2i
-path's shapes, fused_int8_mlp_postln at 8 x 1280 and 8 x 768 rows, it and
-fused_int8_diffusion_block also from a CUDA graph), and times the pipelines
+graph, fused_ln_int8_mlp also at path B's width; fused_ln_int8_matmul also
+from a graph; the t2i kernels at the t2i path's shapes, fused_int8_mlp_postln
+at 8 x 1280 and 8 x 768 rows, it and fused_int8_diffusion_block also from a
+CUDA graph; int8_linear at every (M, N) of the t2i int8 call, by events and
+from a graph), and times the pipelines
 (p50 of 3 calls: t2i int8 at batch 4 after a 2-step calibration, the
 flagship at batch 128 after a 2-step calibration, the per-point float and
 int8 paths at batch 8). It prints one line, ``AB {json}``, and saves to
 ``build/ab/LABEL.pt`` under the directory it is run in the outputs of
 fused_ln_int8_mlp, fused_attention_block and fused_int8_mlp_postln on fixed
 inputs, and fused_int8_mlp_postln's int8 mid rows (fc1's q2, caught where
-the wrapper allocates them). ``--compare`` (run where both were saved, after
+the wrapper allocates them), and under ``build/ab/LABEL_linear.pt`` the
+outputs of int8_linear at every (M, N) of the t2i int8 call (and with an
+f32 output, and without a bias), of fused_ln_int8_matmul at path B's 2x and
+1x batch and a ragged row count, and of int8_matmul_residual at path B's 2x
+batch (its row pass is the one without LayerNorm). ``--compare`` (run where
+both were saved, after
 copying one next to the other) prints the largest |A - B| of each, whether
 they are bitwise equal, and whether each output is within phase 3's
 tolerance of the other (max <= 2^-6 max|y|, mean <= 2^-10 mean|y|). To
@@ -39,6 +46,21 @@ sys.path.insert(0, os.getcwd())  # the tree this is run in, wherever the script 
 import chip_smoke as cs  # noqa: E402
 
 AB_DIR = os.path.join("build", "ab")
+# int8_linear's rows in the t2i int8 call (chip_smoke.T2I_LINEAR_M, kept
+# here: the script also runs against trees whose chip_smoke lacks it)
+LINEAR_M = (8 * 288, 8 * 384, 8 * 512, 8 * 768, 8 * 1280)
+
+
+def _linear_operands(gen, m, n):
+    """x (m, 1024), f32 for qkv (n = 3072), bf16 for the out-projection
+    (n = 1024); the K-major int8 weight, its scales, a bf16 bias."""
+    x = torch.randn((m, cs.D), generator=gen, device="cuda")
+    if n == cs.D:
+        x = x.to(torch.bfloat16)
+    w, ws = cs.quantize_weight_kmajor(torch.randn((n, cs.D), generator=gen, device="cuda")
+                                      * cs.D ** -0.5)
+    b = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    return x, w, ws, b
 
 
 def main(label: str) -> None:
@@ -78,6 +100,8 @@ def main(label: str) -> None:
         x, lns, lnb, wq, ws, bias, _ = cs._proj_operands(gen, (b, t), d, 3 * d)
         res[f"fused_ln_int8_matmul_{b * t}_ms"] = cs.sync_ms(
             lambda: cs.fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, bias), 20)
+        res[f"fused_ln_int8_matmul_{b * t}_graph_ms"] = cs.graph_ms(
+            lambda: cs.fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, bias))
         x, _, _, wq, ws, bias, r = cs._proj_operands(gen, (b, t), d, d)
         res[f"int8_matmul_residual_{b * t}_ms"] = cs.sync_ms(
             lambda: cs.fb.int8_matmul_residual(x, r, wq, ws, bias), 20)
@@ -86,6 +110,14 @@ def main(label: str) -> None:
             lambda: cs.fa.flash_attention_with_lse(q, k, v), 20)
         del x, r, q, k, v
     _save_int8_outputs(label)
+    for m in LINEAR_M:
+        for n in (3 * cs.D, cs.D):
+            x, w, ws, bias = _linear_operands(gen, m, n)
+            call = lambda: cs.fb.int8_linear(x, w, ws, bias, torch.bfloat16)  # noqa: E731
+            res[f"int8_linear_{m}x{n}_ms"] = cs.sync_ms(call, 20)
+            res[f"int8_linear_{m}x{n}_graph_ms"] = cs.graph_ms(call)
+            del x
+    _save_linear_outputs(label)
     L = cs.T2I_L["full"]
     kw = cs._t2i_variants("mlp")[0][1]
     for rows in (L, 768):  # the decoder half's 8 x 1280 rows, the largest bucket's 8 x 768
@@ -190,12 +222,40 @@ def _save_int8_outputs(label: str) -> None:
     torch.save(outs, os.path.join(AB_DIR, f"{label}_int8.pt"))
 
 
+def _save_linear_outputs(label: str) -> None:
+    """int8_linear's outputs on inputs drawn from a fixed seed at every (M,
+    N) of the t2i int8 call (bf16 out), with an f32 output and without a
+    bias at 8 x 1280 rows; fused_ln_int8_matmul's at path B's 2x and 1x
+    batch and 16461 rows; int8_matmul_residual's at path B's 2x batch; for
+    --compare."""
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    outs = {}
+    for m in LINEAR_M:
+        for n in (3 * cs.D, cs.D):
+            x, w, ws, b = _linear_operands(gen, m, n)
+            outs[f"int8_linear {m}x{n}"] = cs.fb.int8_linear(x, w, ws, b, torch.bfloat16).cpu()
+            if m == LINEAR_M[-1]:
+                outs[f"int8_linear {m}x{n} f32 out"] = cs.fb.int8_linear(
+                    x, w, ws, b, torch.float32).cpu()
+                outs[f"int8_linear {m}x{n} no bias"] = cs.fb.int8_linear(
+                    x, w, ws, None, torch.bfloat16).cpu()
+            del x
+    d, t = cs.PP_D, cs.PP_T
+    for lead in ((2 * cs.PP_BATCH, t), (cs.PP_BATCH, t), (16461,)):
+        x, lns, lnb, wq, ws, b, _ = cs._proj_operands(gen, lead, d, 3 * d)
+        outs[f"row3 {lead}"] = cs.fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, b).cpu()
+    x, _, _, wq, ws, b, r = cs._proj_operands(gen, (2 * cs.PP_BATCH, t), d, d)
+    outs["row4 (16, 2048)"] = cs.fb.int8_matmul_residual(x, r, wq, ws, b).cpu()
+    os.makedirs(AB_DIR, exist_ok=True)
+    torch.save(outs, os.path.join(AB_DIR, f"{label}_linear.pt"))
+
+
 def compare(a: str, b: str) -> None:
     """The largest |A - B| of each saved output, whether they are bitwise
     equal, and (rows 1 and 5's y) whether B is within phase 3's tolerance
     of A."""
     res = {}
-    for suffix in ("", "_int8"):
+    for suffix in ("", "_int8", "_linear"):
         oa, ob = (torch.load(os.path.join(AB_DIR, f"{x}{suffix}.pt")) for x in (a, b))
         for key in oa:
             ya, yb = oa[key].float(), ob[key].float()

@@ -35,7 +35,38 @@ events and a CUDA graph of 20 launches, ``chip_smoke.graph_ms``):
 
 ``python3 chip_int8_probe.py rows15`` runs the rows 1 and 5 part alone.
 The copies ``products only``, ``no gelu`` and ``no exchange`` compute wrong
-outputs on purpose; they are timed, not checked. The last line is ``PROBE {json}``.
+outputs on purpose; they are timed, not checked.
+
+``python3 chip_int8_probe.py linear`` probes the two kernels on the wgmma
+GEMM's store epilogues, ``int8_linear`` at every (M, N) of the t2i int8
+call (chip_smoke.T2I_LINEAR_M: M = 2304, 3072, 4096, 6144, 10240; qkv N =
+3072 with f32 x, the out-projection N = 1024 with bf16 x; K = 1024; bf16
+out) and ``fused_ln_int8_matmul`` (row 3) at path B's 32768 and 16384 rows
+(768 -> 2304, bf16):
+
+- as built: each kernel's device time by kernel (torch.profiler), so the
+  row pass's and the GEMM's time apart, beside the event and graph times;
+- ``direct stores``: copies whose bf16 output goes out from the
+  accumulator's registers by the threads (the f32 output's path, the first
+  wgmma design's), not through shared memory by TMA, in the same shared
+  memory layout; outputs bitwise as built's;
+- ``no output stores``: copies that stage the output tile but issue no TMA
+  store (wrong outputs, timed only): the products, the row pass and the
+  epilogue's arithmetic;
+- ``block per row`` (``int8_linear``): a copy whose row pass without
+  LayerNorm is the first design's (one 128-thread block a row, scalar
+  loads, byte stores) in place of one warp a row, also split by the
+  profiler; outputs bitwise as built's (and row 5's at 8 x 1280 rows,
+  static and per row, whose x quant pass it is too);
+- the tile widths: both kernels with 128 x 256 and with 128 x 128 tiles
+  (``gemm_plan(..., block_n, tma_store)`` in place of ``store_plan``'s
+  choice), the narrow tiles' outputs bitwise the wide tiles'.
+
+Each variant is timed in turns against as built (as built, the variant,
+the variant, as built; CUDA events and a graph of 20 launches). The copies
+build in parallel.
+
+The last line is ``PROBE {json}``.
 """
 
 import ctypes
@@ -58,7 +89,8 @@ PRODUCTS_ONLY = [
      "        if (row0 < M && acc[4 * j] == 0x7f7f7f7f)\n          epilogue_sx<EPI>(", 1),
     ("int8_wgmma.cuh", "        if (row0 + 8 < M)\n          epilogue_sx<EPI>(",
      "        if (row0 + 8 < M && acc[4 * j + 2] == 0x7f7f7f7f)\n          epilogue_sx<EPI>(", 1)]
-LOCKSTEP = [("int8_wgmma.cuh", "    named_sync(1 + c, 128);", "    named_sync(1, 256);", 2)]
+# (the third occurrence is the TMA-store epilogue's, which row 2 does not run)
+LOCKSTEP = [("int8_wgmma.cuh", "named_sync(1 + c, 128);", "named_sync(1, 256);", 3)]
 PER_ELEMENT = [("int8_epilogue.cuh", "    q.x = q8_rint(epi_act<EPI>(v0) * out_inv);\n"
                 "    q.y = q8_rint(epi_act<EPI>(v1) * out_inv);",
                 "    const float inv = 1.0f / static_scale(ep.out_amax);\n"
@@ -76,6 +108,18 @@ NO_EXCHANGE = [
      "      mu0 = sum0;\n      mu1 = sum1;\n", 1),
     ("fused_int8_mlp_postln.cu", "      exchange(1, d0, d1, var0, var1);\n",
      "      var0 = d0;\n      var1 = d1;\n", 1)]
+# the no-LN row pass as the first design ran it: one block a row
+BLOCK_PER_ROW = [("quant.cuh", "  if (ln_w == nullptr && K <= kQuantMaxK && K % 16 == 0 &&",
+                  "  if (false && ln_w == nullptr && K <= kQuantMaxK && K % 16 == 0 &&", 1)]
+# the bf16 output of the store epilogues from the registers (epilogue_sx),
+# not staged for TMA, in the TMA-store instances' shared memory layout
+DIRECT_STORES = [("int8_wgmma.cuh", "    if constexpr (TMA_OUT) {\n      // the bf16 pairs",
+                  "    if constexpr (false) {\n      // the bf16 pairs", 1)]
+# the staged output tile never stored (wrong outputs, timed only)
+NO_OUTPUT_STORES = [
+    ("int8_wgmma.cuh",
+     "          tma_store_2d(&tm_out, out_s + b * 8192, n0 + 64 * b, mt * BM + 64 * c);",
+     "          if (M < 0) tma_store_2d(&tm_out, out_s + b * 8192, n0 + 64 * b, mt * BM);", 1)]
 STAMP_FN = """
 __device__ unsigned long long nova_int8_probe[16];
 // the block's time at mark i: the earliest over the blocks for the start,
@@ -125,6 +169,27 @@ STAMPS = [
      "\n// workspace: ws_bytes at a 256-byte boundary", 1)]
 PHASES = ["P1 silu(zc) + x's statistics", "P2 stats + AdaLN", "P4 fc1", "P5 fc2",
           "P6 post-LN, gate, residual"]
+
+
+def _prebuild(jobs):
+    """Build the library of each (name, csrc copy) not yet built, one nvcc
+    each, all at once."""
+    procs = []
+    for name, csrc in jobs:
+        cs._build.CSRC = csrc
+        out = cs._build._library_path(name)
+        cs._build.CSRC = SRC
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [cs._build.nvcc_path(), *cs._build._flags(name), "-o", str(out),
+               str(csrc / cs._build.SOURCES[name])]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True)))
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name} copy failed to build:\n{log}")
 
 
 def _copy(tag, edits):
@@ -221,10 +286,156 @@ def rows_1_5(res):
         print(f"  {label}: " + ", ".join(f"{k} {v:.1f} us" for k, v in b.items()))
 
 
+LINEAR_N = {"qkv": 3 * cs.D, "proj": cs.D}
+
+
+def _bitwise(a, b):
+    return bool(torch.equal(a, b))
+
+
+def _force_width(fb, w):
+    """store_plan replaced by the plan of w-wide tiles."""
+    return lambda m, n, k, sms, tma: fb.gemm_plan(m, n, k, sms, w, tma)
+
+
+def _tile_turns(fb, call):
+    """Event and graph ms of ``call`` with 256- and 128-wide tiles in turns,
+    and the outputs of each."""
+    keep = fb.store_plan
+    tt, ys = {w: [0.0, 0.0] for w in (256, 128)}, {}
+    try:
+        for w in (256, 128, 128, 256):
+            fb.store_plan = _force_width(fb, w)
+            ys[w] = call()
+            tt[w][0] += cs.sync_ms(call, 20) / 2
+            tt[w][1] += cs.graph_ms(call) / 2
+    finally:
+        fb.store_plan = keep
+    return tt, ys
+
+
+def _variant_turns(name, libs, call):
+    """as built against each other variant in turns: {variant: {tag: [events,
+    graph]}}."""
+    return {tag: _turns(name, {"as built": libs["as built"], tag: libs[tag]}, call, 20)
+            for tag in libs if tag != "as built"}
+
+
+def linear(res):
+    """int8_linear and row 3: the row pass / GEMM split as built, the
+    variants and the tile widths in turns against as built."""
+    fb = cs.fb
+    name1, name3, name5 = "int8_linear", "fused_ln_int8_matmul", "fused_int8_mlp_postln"
+    copies = {"direct stores": _copy("direct", DIRECT_STORES),
+              "no output stores": _copy("nostores", NO_OUTPUT_STORES),
+              "block per row": _copy("blockrow", BLOCK_PER_ROW)}
+    _prebuild([(n, copies[tag]) for n, tags in ((name1, copies), (name3, list(copies)[:2]),
+                                                (name5, ["block per row"])) for tag in tags])
+    libs = {"as built": cs._build.load(name1),
+            **{tag: _load(name1, copies[tag]) for tag in copies}}
+    libs3 = {"as built": cs._build.load(name3),
+             **{tag: _load(name3, copies[tag]) for tag in list(copies)[:2]}}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    calls = []
+    for m in cs.T2I_LINEAR_M:
+        for which in LINEAR_N:
+            n = LINEAR_N[which]
+            x, w, ws, b = cs._linear_operands(gen, m, n)
+            call = lambda x=x, w=w, ws=ws, b=b: fb.int8_linear(  # noqa: E731
+                x, w, ws, b, torch.bfloat16)
+            label = f"int8_linear {m}x{cs.D}->{n}"
+            y = call()
+            ref = fb.int8_linear_plain(x, w, ws, b, torch.bfloat16)
+            err = (y.float() - ref.float()).abs()
+            ok = bool(err.max() <= 2.0 ** -6 * ref.float().abs().max()
+                      and err.mean() <= 2.0 ** -10 * ref.float().abs().mean())
+            bitwise = {}
+            for tag in ("direct stores", "block per row"):
+                cs._build._loaded[name1] = libs[tag]
+                bitwise[tag] = _bitwise(y, call())
+            cs._build._loaded[name1] = libs["as built"]
+            t = _variant_turns(name1, libs, call)
+            tt, ys = _tile_turns(fb, call)
+            bitwise["128 x 128 tiles"] = _bitwise(ys[256], ys[128])
+            plan = fb.store_plan(m, n, cs.D, 132, True)
+            res[label] = dict(turns=t, tile_256=tt[256], tile_128=tt[128], within_tolerance=ok,
+                              max_err=err.max().item(), block_n=plan["block_n"],
+                              bitwise=bitwise,
+                              waves_256=fb.gemm_plan(m, n, cs.D, 132, 256, True)["waves"],
+                              waves_128=fb.gemm_plan(m, n, cs.D, 132, 128, True)["waves"])
+            _print_variants(label, res[label])
+            calls.append((label, call))
+            del y, ref, ys
+    built5 = cs._build.load(name5)
+    rows5 = _load(name5, copies["block per row"])
+    ops = cs._t2i_mlp_operands(gen, (cs.T2I_ROWS, cs.T2I_L["full"]))
+    for variant, kw in cs._t2i_variants("mlp"):
+        y = fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw)
+        cs._build._loaded[name5] = rows5
+        y2 = fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw)
+        cs._build._loaded[name5] = built5
+        res[f"row5 {variant} block_per_row_bitwise"] = _bitwise(y, y2)
+        print(f"row 5 {variant}: block per row bitwise as built: {_bitwise(y, y2)}")
+    del ops
+    d = cs.PP_D
+    for lead in ((2 * cs.PP_BATCH, cs.PP_T), (cs.PP_BATCH, cs.PP_T)):
+        x, lns, lnb, wq, ws, bias, _ = cs._proj_operands(gen, lead, d, 3 * d)
+        call = lambda x=x, lns=lns, lnb=lnb, wq=wq, ws=ws, bias=bias: (  # noqa: E731
+            fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, bias))
+        m = lead[0] * lead[1]
+        label = f"row3 {m}x{d}->{3 * d}"
+        y = call()
+        ref = fb.fused_ln_int8_matmul_plain(x, lns, lnb, wq, ws, bias)
+        err = (y.float() - ref.float()).abs()
+        ok = bool(err.max() <= 2.0 ** -6 * ref.float().abs().max()
+                  and err.mean() <= 2.0 ** -10 * ref.float().abs().mean())
+        cs._build._loaded[name3] = libs3["direct stores"]
+        bitwise = {"direct stores": _bitwise(y, call())}
+        cs._build._loaded[name3] = libs3["as built"]
+        t = _variant_turns(name3, libs3, call)
+        tt, ys = _tile_turns(fb, call)
+        bitwise["128 x 128 tiles"] = _bitwise(ys[256], ys[128])
+        plan = fb.store_plan(m, 3 * d, d, 132, True)
+        res[label] = dict(turns=t, tile_256=tt[256], tile_128=tt[128], within_tolerance=ok,
+                          max_err=err.max().item(), block_n=plan["block_n"], bitwise=bitwise,
+                          waves_256=fb.gemm_plan(m, 3 * d, d, 132, 256, True)["waves"],
+                          waves_128=fb.gemm_plan(m, 3 * d, d, 132, 128, True)["waves"])
+        _print_variants(label, res[label])
+        calls.append((label, call))
+        del y, ref, ys
+    for label, call in calls:  # the profiler last: its hooks slow later launches
+        b = _breakdown(call)
+        res[f"{label} kernels us"] = b
+        print(f"  {label}: " + ", ".join(f"{k} {v:.1f} us" for k, v in b.items()))
+        if label.startswith(name1):
+            cs._build._loaded[name1] = libs["block per row"]
+            b = _breakdown(call)
+            cs._build._loaded[name1] = libs["as built"]
+            res[f"{label} block per row kernels us"] = b
+            print(f"  {label}, block per row: "
+                  + ", ".join(f"{k} {v:.1f} us" for k, v in b.items()))
+
+
+def _print_variants(label, r):
+    parts = [f"{tag} {v[tag][0]:.4f} (graph {v[tag][1]:.4f}) against as built "
+             f"{v['as built'][0]:.4f} (graph {v['as built'][1]:.4f})"
+             for tag, v in r["turns"].items()]
+    print(f"{label} ({r['block_n']}-wide tiles, plain tolerance {r['within_tolerance']}): "
+          + "; ".join(parts)
+          + f"; tiles 128 x 256 {r['tile_256'][0]:.4f} (graph {r['tile_256'][1]:.4f}, "
+          f"{r['waves_256']:.2f} waves), 128 x 128 {r['tile_128'][0]:.4f} (graph "
+          f"{r['tile_128'][1]:.4f}, {r['waves_128']:.2f} waves); bitwise {r['bitwise']}")
+
+
 def main():
     if not torch.cuda.is_available():
         cs._fail("CUDA is not available: this script runs on the GPU only", 2)
     res = {}
+    if sys.argv[1:] == ["linear"]:
+        cs._build.build_all()
+        linear(res)
+        _card(res)
+        return
     if sys.argv[1:] == ["rows15"]:
         cs._build.build_all(["fused_attention_block", "fused_int8_mlp_postln"])
         rows_1_5(res)

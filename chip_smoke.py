@@ -160,6 +160,31 @@ and a ragged 8 x 300 rows too. It adds:
     out-projection) and of fused_int8_mlp_postln (the quant pass, fc1, fc2
     + post-LN), which must be 30 each.
 
+The move of int8_linear and fused_ln_int8_matmul off the mma.sync GEMM
+onto the wgmma GEMM (a bf16 output stored by TMA from shared memory; the
+plan taking 128 x 128 tiles where they fill the last wave of a few waves
+better) and the row pass without LayerNorm as one warp a row keeps the
+phases and widens them:
+
+3d. int8_linear at every (M, N) of the t2i int8 call: M = 8 x 288 (the
+    video encoder), 8 x (256 + 128, 256, 512 and 1024 tokens) (the image
+    encoder's bucket phases and its decoder), qkv (f32 x) and the
+    out-projection (bf16 x);
+5.  the ptxas and SASS gate also over int8_linear's and
+    fused_ln_int8_matmul's libraries (both tile widths, the bf16 output
+    stored by TMA or an f32 one by the threads): IGMMA and UTMALDG, UTMASTG
+    in the TMA-store instances, no IMMA, no mma.sync GEMM, no spills, no
+    C7514;
+5b. fused_ln_int8_matmul and int8_matmul_residual also timed from a CUDA
+    graph, and torch._int_mm on codes of fused_ln_int8_matmul's product
+    (a yardstick of its GEMM alone);
+5c. int8_linear at the out-projection's shape too (8 x 1280 and 8 x 768
+    rows, 1024 -> 1024, bf16 x), both with torch._int_mm's time for the
+    product alone;
+6.  (first in the profiles phase) the device kernels of 10 calls of
+    int8_linear and of fused_ln_int8_matmul, which must be 20 each (the
+    row pass and the wgmma GEMM).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -859,6 +884,26 @@ T2I_L = {"video": 32 + T2I_VIDEO_BASE[1] * T2I_VIDEO_BASE[2],  # text + video to
          "full": 256 + T2I_BASE[0] * T2I_BASE[1]}             # video states + image
 T2I_ROWS = 2 * T2I_BATCH  # CFG
 T2I_PAD_P = 25  # predicted tokens per AR step (the cosine schedule's largest count)
+# int8_linear's rows in the t2i int8 call and its launches at each, qkv and
+# out-projection alike: the video encoder's 16 layers at 8 x 288 rows; the
+# image encoder's 16 layers at 8 x (256 + the bucket) over the sampler's
+# bucket phases (20, 9, 13 and 21 of the 63 AR steps at 128, 256, 512 and
+# all 1024 tokens); its decoder's 16 layers at 8 x 1280 in every AR step
+T2I_LINEAR_M = {T2I_ROWS * T2I_L["video"]: 16, T2I_ROWS * 384: 320, T2I_ROWS * 512: 144,
+                T2I_ROWS * 768: 208, T2I_ROWS * T2I_L["full"]: 1344}
+
+
+def _linear_operands(gen, m, n):
+    """int8_linear at the ViT's width: x (m, 1024), f32 for the qkv
+    projection (n = 3D, the residual stream) and bf16 for the
+    out-projection (n = D, the attention's output); the K-major int8
+    weight (1024, n) and its scales, a bf16 bias."""
+    x = torch.randn((m, D), generator=gen, device=DEV)
+    if n == D:
+        x = x.to(torch.bfloat16)
+    w, ws = quantize_weight_kmajor(torch.randn((n, D), generator=gen, device=DEV) * D ** -0.5)
+    b = (torch.randn((n,), generator=gen, device=DEV) * 0.1).to(torch.bfloat16)
+    return x, w, ws, b
 
 
 def _t2i_mlp_operands(gen, lead, x_dtype=torch.float32):
@@ -981,16 +1026,14 @@ def check_nova_kernels():
         if not ok:
             bad.append(f"flash_attention {label}")
         del q, k, v, o, ref
-    for n in (3 * D, D):  # the qkv and out projections, f32 residual in, bf16 out
-        x = torch.randn((T2I_ROWS, T2I_L["full"], D), generator=gen, device=DEV)
-        w, ws = quantize_weight_kmajor(
-            torch.randn((n, D), generator=gen, device=DEV) * D ** -0.5)
-        b = (torch.randn((n,), generator=gen, device=DEV) * 0.1).to(torch.bfloat16)
-        y = fb.int8_linear(x, w, ws, b, torch.bfloat16)
-        torch.cuda.synchronize()
-        if not _tol_check("int8_linear", f"{D}->{n}", y, fb.int8_linear_plain(
-                x, w, ws, b, torch.bfloat16)):
-            bad.append(f"int8_linear {n}")
+    for m in T2I_LINEAR_M:  # the qkv (f32 x) and out (bf16 x) projections, bf16 out
+        for n in (3 * D, D):
+            x, w, ws, b = _linear_operands(gen, m, n)
+            y = fb.int8_linear(x, w, ws, b, torch.bfloat16)
+            torch.cuda.synchronize()
+            if not _tol_check("int8_linear", f"{m}x{D}->{n} x={x.dtype}", y,
+                              fb.int8_linear_plain(x, w, ws, b, torch.bfloat16)):
+                bad.append(f"int8_linear {m} {n}")
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -1549,7 +1592,7 @@ FWD_INSTANCES = {
                                "int8 key bias": "attn_fwd_kernelILb1ELb1ELb1ELb0E"}}
 
 
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
 
 
 def _sass_ops(library):
@@ -1595,9 +1638,20 @@ def _fwd_ptxas(name):
 
 
 # the wgmma instances of each int8 library, by their mangled names:
-# csrc/int8_wgmma.cuh's gemm_s8_wgmma_kernel<EPI> (by the epilogue), row 1's
-# QKV + bf16 core kernel, row 5's fc2 + post-LN kernel<x is bf16>
+# csrc/int8_wgmma.cuh's gemm_s8_wgmma_kernel<EPI, tile width, TMA store>
+# (by the epilogue), row 1's QKV + bf16 core kernel, row 5's fc2 + post-LN
+# kernel<x is bf16>
 INT8_INSTANCES = {
+    "int8_linear": {
+        "cast + bias, 128 x 256, TMA store": "gemm_s8_wgmma_kernelILi8ELi256ELb1E",
+        "cast + bias, 128 x 128, TMA store": "gemm_s8_wgmma_kernelILi8ELi128ELb1E",
+        "cast + bias, 128 x 256, f32 out": "gemm_s8_wgmma_kernelILi8ELi256ELb0E",
+        "cast + bias, 128 x 128, f32 out": "gemm_s8_wgmma_kernelILi8ELi128ELb0E"},
+    "fused_ln_int8_matmul": {
+        "store, 128 x 256, TMA store": "gemm_s8_wgmma_kernelILi0ELi256ELb1E",
+        "store, 128 x 128, TMA store": "gemm_s8_wgmma_kernelILi0ELi128ELb1E",
+        "store, 128 x 256, f32 out": "gemm_s8_wgmma_kernelILi0ELi256ELb0E",
+        "store, 128 x 128, f32 out": "gemm_s8_wgmma_kernelILi0ELi128ELb0E"},
     "fused_ln_int8_mlp": {"fc1 relu -> int8 (static)": "gemm_s8_wgmma_kernelILi1E",
                           "fc1 relu -> f32 (per row)": "gemm_s8_wgmma_kernelILi2E",
                           "fc2 + residual": "gemm_s8_wgmma_kernelILi3E"},
@@ -1609,6 +1663,9 @@ INT8_INSTANCES = {
                               "fc2 + post-LN, f32 x": "fc2_postln_kernelILb0E",
                               "fc2 + post-LN, bf16 x": "fc2_postln_kernelILb1E"}}
 HGMMA_INSTANCES = ("attn_qkv_core_kernel",)  # the bf16 products of the attention core
+# the instances that store a bf16 output by TMA (UTMASTG)
+TMA_STORE_INSTANCES = tuple(m for lib in ("int8_linear", "fused_ln_int8_matmul")
+                            for label, m in INT8_INSTANCES[lib].items() if "TMA store" in label)
 
 
 def _ptxas_numbers(kernel, library):
@@ -1631,7 +1688,8 @@ def _ptxas_numbers(kernel, library):
 
 def _int8_ptxas():
     """Print and record the ptxas report and the SASS of each wgmma instance
-    of the int8 libraries (rows 2, 1 and 5): every instance issues s8
+    of the int8 libraries (int8_linear, rows 3, 2, 1 and 5): every instance
+    issues s8
     wgmma (IGMMA) and TMA loads (UTMALDG), row 1's core bf16 wgmma (HGMMA)
     too, with no spills and no C7514 note; no function of the libraries
     issues mma.sync (IMMA, HMMA) or is the mma.sync GEMM of the first design
@@ -1649,6 +1707,7 @@ def _int8_ptxas():
             print(f"  {library} ptxas ({label}): {out[label]}")
             if not (ops["IGMMA"] and ops["UTMALDG"] and ops["IMMA"] == ops["HMMA"] == 0
                     and (ops["HGMMA"] or mangled not in HGMMA_INSTANCES)
+                    and (ops["UTMASTG"] or mangled not in TMA_STORE_INSTANCES)
                     and spills == 0 and serial == 0):
                 bad.append(f"{library} {label}: {ops}, {spills} spill bytes, {serial} C7514")
         report["kernels"].setdefault(library, {})["ptxas"] = out
@@ -1656,17 +1715,18 @@ def _int8_ptxas():
         raise AssertionError(f"the int8 kernels are not all on wgmma and TMA: {bad}")
 
 
-def _int_mm_ms(gen, m, d, f):
-    """torch._int_mm's time for the MLP's two products, (m, d) x (d, f) and
-    (m, f) x (f, d), on random int8 codes, the weights in the K-major layout
-    the kernel reads (a column-major operand for _int_mm): a yardstick of the
-    GEMM part only (no LayerNorm, quant or epilogue), used nowhere in the
-    port; None where the call refuses these operands."""
+def _int_mm_ms(gen, *products):
+    """torch._int_mm's time for the int8 products (m, k, n) of a kernel
+    (the MLP's two: (m, d, f) and (m, f, d)), on random int8 codes, the
+    weights in the K-major layout the kernel reads (a column-major operand
+    for _int_mm): a yardstick of the GEMM part only (no LayerNorm, quant or
+    epilogue), used nowhere in the port; None where the call refuses these
+    operands."""
     def codes(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8)
-    q1, q2, w1, w2 = codes(m, d), codes(m, f), codes(f, d).t(), codes(d, f).t()
+    pairs = [(codes(m, k), codes(n, k).t()) for m, k, n in products]
     try:
-        return sync_ms(lambda: (torch._int_mm(q1, w1), torch._int_mm(q2, w2)), 10)
+        return sync_ms(lambda: [torch._int_mm(a, w) for a, w in pairs], 10)
     except RuntimeError as e:
         print(f"  torch._int_mm: refused ({e})")
         return None
@@ -1871,7 +1931,7 @@ def timing(pipe):
             if kind == "attention":
                 _print_floors(name, row, *_attention_floors(n))
             if kind == "mlp":
-                row["int_mm_ms"] = _int_mm_ms(gen, n, D, F)
+                row["int_mm_ms"] = _int_mm_ms(gen, (n, D, F), (n, F, D))
                 print(f"    torch._int_mm, its two products alone: {row['int_mm_ms']} ms")
             if mult == 2:  # the kernels line quotes the CFG steps' 2x batch
                 report["kernels"][name].update(row)
@@ -1892,7 +1952,7 @@ def timing(pipe):
 
 
 PORT_KERNEL_NAMES = ("gemm_s8_kernel", "gemm_s8_wgmma_kernel", "diffusion_block_kernel",
-                     "row_quant_kernel", "row_op_kernel", "attn_core_", "attn_qkv_core_kernel",
+                     "row_quant_kernel", "row_quant_warp_kernel", "row_op_kernel", "attn_core_", "attn_qkv_core_kernel",
                      "fc2_postln_kernel",
                      "attn_fwd_kernel", "flash_fwd_", "static_qk_quant_kernel", "flash_bwd_")
 
@@ -1956,7 +2016,13 @@ def timing_per_point(pipe_a, pipe_b):
             lambda: fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, bias),
             lambda: fb.fused_ln_int8_matmul_plain(x, lns, lnb, wq, ws, bias),
             _bound(2 * m * d * 3 * d / PEAK_INT8_OPS,
-                   2 * m * d + 2 * m * 3 * d + 3 * d * d + (2 * d + 3 * d) * 2 + 3 * d * 4))
+                   2 * m * d + 2 * m * 3 * d + 3 * d * d + (2 * d + 3 * d) * 2 + 3 * d * 4),
+            graph=True)
+        plan = fb.store_plan(m, 3 * d, d, fb._sms(torch.device(DEV)), True)
+        row.update(block_n=plan["block_n"], waves=plan["waves"],
+                   int_mm_ms=_int_mm_ms(gen, (m, d, 3 * d)))
+        print(f"    128 x {plan['block_n']} tiles, {plan['waves']:.2f} waves; "
+              f"torch._int_mm, its product alone: {row['int_mm_ms']} ms")
         if mult == 2:
             report["kernels"]["fused_ln_int8_matmul"].update(row)
         x, _, _, wq, ws, bias, res = _proj_operands(gen, (b, PP_T), d, d)
@@ -1964,7 +2030,8 @@ def timing_per_point(pipe_a, pipe_b):
             "int8_matmul_residual", (m, d, d),
             lambda: fb.int8_matmul_residual(x, res, wq, ws, bias),
             lambda: fb.int8_matmul_residual_plain(x, res, wq, ws, bias),
-            _bound(2 * m * d * d / PEAK_INT8_OPS, 3 * 2 * m * d + d * d + d * 2 + d * 4))
+            _bound(2 * m * d * d / PEAK_INT8_OPS, 3 * 2 * m * d + d * d + d * 2 + d * 4),
+            graph=True)
         if mult == 2:
             report["kernels"]["int8_matmul_residual"].update(row)
         del x, res
@@ -1988,7 +2055,7 @@ def timing_per_point(pipe_a, pipe_b):
             lambda: fb.fused_ln_int8_mlp_plain(*mlp_ops, **kw),
             _bound(4 * m * d * PP_F / PEAK_INT8_OPS, 2 * m * d * 2 + 2 * d * PP_F), graph=True)
         del q, k, v, mlp_ops
-        row["int_mm_ms"] = _int_mm_ms(gen, m, d, PP_F)
+        row["int_mm_ms"] = _int_mm_ms(gen, (m, d, PP_F), (m, PP_F, d))
         print(f"    torch._int_mm, its two products alone: {row['int_mm_ms']} ms")
         torch.cuda.empty_cache()
     _fwd_ptxas("flash_attention")
@@ -2058,19 +2125,23 @@ def timing_t2i(pipe_int8, pipe_float):
                 _bound(2 * bh * L * L * 64 / PEAK_INT8_OPS + 2 * bh * L * L * 64 / PEAK_BF16_FLOPS,
                        4 * bh * L * 64 * 2), graph=True)
         del q, k, v
-        x = torch.randn((m, D), generator=gen, device=DEV)
-        w, ws = quantize_weight_kmajor(torch.randn((3 * D, D), generator=gen, device=DEV)
-                                       * D ** -0.5)
-        b = torch.zeros((3 * D,), device=DEV, dtype=torch.bfloat16)
-        row = _time_kernel(
-            "int8_linear", (m, D, 3 * D),
-            lambda: fb.int8_linear(x, w, ws, b, torch.bfloat16),
-            lambda: fb.int8_linear_plain(x, w, ws, b, torch.bfloat16),
-            _bound(2 * m * D * 3 * D / PEAK_INT8_OPS, m * D * 4 + m * 3 * D * 2 + 3 * D * D),
-            graph=True)
-        if L == T2I_L["full"]:
-            report["kernels"]["int8_linear"].update(row)
-        del x
+        for n in (3 * D, D):  # qkv (f32 x), the out-projection (bf16 x)
+            x, w, ws, b = _linear_operands(gen, m, n)
+            row = _time_kernel(
+                "int8_linear", (m, D, n),
+                lambda: fb.int8_linear(x, w, ws, b, torch.bfloat16),
+                lambda: fb.int8_linear_plain(x, w, ws, b, torch.bfloat16),
+                _bound(2 * m * D * n / PEAK_INT8_OPS,
+                       m * D * x.element_size() + m * n * 2 + n * D + n * 2 + n * 4),
+                graph=True)
+            plan = fb.store_plan(m, n, D, fb._sms(torch.device(DEV)), True)
+            row.update(block_n=plan["block_n"], waves=plan["waves"],
+                       int_mm_ms=_int_mm_ms(gen, (m, D, n)))
+            print(f"    128 x {plan['block_n']} tiles, {plan['waves']:.2f} waves; "
+                  f"torch._int_mm, its product alone: {row['int_mm_ms']} ms")
+            if L == T2I_L["full"] and n == 3 * D:
+                report["kernels"]["int8_linear"].update(row)
+            del x
     m = T2I_ROWS * T2I_PAD_P
     ops = _diffusion_operands(gen, m)
     kw = _t2i_variants("diffusion")[0][1]
@@ -2101,54 +2172,71 @@ def timing_t2i(pipe_int8, pipe_float):
                              times_s=times)
 
 
-def _kernels_per_call(name, call, expected, calls=10):
-    """The device kernels of ``calls`` calls of ``call()`` (kernel ``name``
-    at its path's shape), from a torch.profiler trace: exactly ``expected``
-    (kernel-name substrings) once each a call, and nothing else (outputs
-    and workspaces come from torch.empty, which launches nothing); raises
-    otherwise."""
+def _kernels_per_call(groups, calls=10):
+    """The device kernels of ``calls`` calls of each ``(name, call,
+    expected)`` in ``groups`` (kernel ``name`` at its path's shape), from one
+    torch.profiler trace (each trace costs seconds of set-up): each
+    ``expected`` kernel-name substring once a call of every group that names
+    it, and nothing else (outputs and workspaces come from torch.empty, which
+    launches nothing); raises otherwise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    call()
+    for _, call, _ in groups:
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
+        for _, call, _ in groups:
+            for _ in range(calls):
+                call()
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == DeviceType.CUDA and not e.key.startswith("Mem"):
             kernels[e.key] = kernels.get(e.key, 0) + e.count
     n = sum(kernels.values())
-    print(f"{name}: {n} device kernels in {calls} calls: {kernels}")
-    report["kernels"].setdefault(name, {})["device_kernels_per_call"] = n / calls
-    each = [sum(c for k, c in kernels.items() if want in k) for want in expected]
-    if n != len(expected) * calls or each != [calls] * len(expected):
-        raise AssertionError(f"{name} ran {n} device kernels in {calls} calls ({kernels}), not "
-                             f"{len(expected)} a call: {list(expected)}")
+    names = [name for name, _, _ in groups]
+    print(f"{' + '.join(names)}: {n} device kernels in {calls} calls each: {kernels}")
+    wants = [want for _, _, expected in groups for want in expected]
+    for name, _, expected in groups:
+        report["kernels"].setdefault(name, {})["device_kernels_per_call"] = len(expected)
+    each = {want: sum(c for k, c in kernels.items() if want in k) for want in wants}
+    if n != len(wants) * calls or any(each[w] != calls * wants.count(w) for w in each):
+        raise AssertionError(f"{names} ran {n} device kernels in {calls} calls each "
+                             f"({kernels}), not {wants} once a call")
 
 
 def _device_kernels_per_call():
-    """Row 6's one kernel a call (head's 200 rows), and the three of a
-    static call of rows 1 (the flagship's 1x batch: LN pass, QKV + core,
-    out-projection) and 5 (8 x 1280 rows: x quant pass, fc1, fc2 + post-LN)."""
+    """Row 6's one kernel a call (head's 200 rows); the three of a static
+    call of rows 1 (the flagship's 1x batch: LN pass, QKV + core,
+    out-projection) and 5 (8 x 1280 rows: x quant pass, fc1, fc2 + post-LN);
+    the two of row 3 (path B's 2x batch: the LN pass, the wgmma GEMM with
+    its TMA-store epilogue) in row 1's trace and of int8_linear (8 x 1280
+    rows, qkv: the row pass, the wgmma GEMM) in row 5's."""
     gen = torch.Generator(device=DEV).manual_seed(8)
     ops = _diffusion_operands(gen, T2I_ROWS * T2I_PAD_P)
     kw = _t2i_variants("diffusion")[0][1]
-    _kernels_per_call("fused_int8_diffusion_block",
-                      lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw),
-                      ("diffusion_block_kernel",))
-    ops = _kernel_operands(gen, BATCH, "attention")
-    kw = _variants("attention")[0][1]
-    _kernels_per_call("fused_attention_block", lambda: fb.fused_attention_block(*ops, **kw),
-                      ("row_quant_kernel", "attn_qkv_core_kernel", "gemm_s8_wgmma_kernel"))
-    ops = _t2i_mlp_operands(gen, (T2I_ROWS, T2I_L["full"]))
-    kw = _t2i_variants("mlp")[0][1]
-    _kernels_per_call("fused_int8_mlp_postln",
-                      lambda: fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw),
-                      ("row_quant_kernel", "gemm_s8_wgmma_kernel", "fc2_postln_kernel"))
-    del ops
+    _kernels_per_call([("fused_int8_diffusion_block",
+                        lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw),
+                        ("diffusion_block_kernel",))])
+    ops1 = _kernel_operands(gen, BATCH, "attention")
+    kw1 = _variants("attention")[0][1]
+    x3, lns, lnb, wq, ws3, b3, _ = _proj_operands(gen, (2 * PP_BATCH, PP_T), PP_D, 3 * PP_D)
+    _kernels_per_call([
+        ("fused_attention_block", lambda: fb.fused_attention_block(*ops1, **kw1),
+         ("row_quant_kernel", "attn_qkv_core_kernel", "gemm_s8_wgmma_kernel<3,")),
+        ("fused_ln_int8_matmul", lambda: fb.fused_ln_int8_matmul(x3, lns, lnb, wq, ws3, b3),
+         ("row_quant_kernel", "gemm_s8_wgmma_kernel<0,"))])
+    del ops1, x3
+    ops5 = _t2i_mlp_operands(gen, (T2I_ROWS, T2I_L["full"]))
+    kw5 = _t2i_variants("mlp")[0][1]
+    x, w, ws, b = _linear_operands(gen, T2I_ROWS * T2I_L["full"], 3 * D)
+    _kernels_per_call([
+        ("fused_int8_mlp_postln", lambda: fb.fused_int8_mlp_postln(*ops5, ln_eps=1e-5, **kw5),
+         ("row_quant_warp_kernel", "gemm_s8_wgmma_kernel<4,", "fc2_postln_kernel")),
+        ("int8_linear", lambda: fb.int8_linear(x, w, ws, b, torch.bfloat16),
+         ("row_quant_warp_kernel", "gemm_s8_wgmma_kernel<8,"))])
+    del ops5, x
     torch.cuda.empty_cache()
 
 
@@ -2157,7 +2245,8 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
-    device kernels of 10 calls of rows 6 (gated at 10), 1 and 5 (at 30)."""
+    device kernels of 10 calls of rows 6 (gated at 10), 1 and 5 (at 30),
+    int8_linear and row 3 (at 20)."""
     _device_kernels_per_call()
     if pipe is not None:
         profile_call(lambda: _sample(pipe, seed=30))

@@ -100,6 +100,14 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, uint32
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row)
       : "memory");
 }
+// stores a box from (swizzled) shared memory into global memory at (col,
+// row) by the map's layout; what falls outside the map is not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int col,
+                                             int row) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row)
+               : "memory");
+}
 // shared-memory loads and stores by 32-bit shared address: through a
 // generic pointer the compiler emits generic ld / st, several times slower
 __device__ __forceinline__ float2 lds_f2(uint32_t addr) {

@@ -66,6 +66,28 @@ __device__ __forceinline__ float epi_out_inv(const EpiParams& ep) {
   return 1.0f / static_scale(ep.out_amax);
 }
 
+// EPI_STORE's and EPI_CAST_BIAS's two adjacent output columns in bf16,
+// given the row's activation scale sx and the columns' weight scales and
+// biases: the values epilogue_sx stores for a bf16 output, for a caller
+// that stores them itself (the wgmma GEMM's TMA-store epilogue).
+template <int EPI>
+__device__ __forceinline__ __nv_bfloat162 epi_bf16_pair(const EpiParams& ep, float sx,
+                                                        const float* ws, const float* bs,
+                                                        int c0, int c1) {
+  static_assert(EPI == EPI_STORE || EPI == EPI_CAST_BIAS, "a bf16 store epilogue");
+  if (EPI == EPI_CAST_BIAS) {
+    float v0 = round_bf16(static_cast<float>(c0) * sx * ws[0]);
+    float v1 = round_bf16(static_cast<float>(c1) * sx * ws[1]);
+    if (ep.bias != nullptr) {
+      v0 = v0 + round_bf16(bs[0]);
+      v1 = v1 + round_bf16(bs[1]);
+    }
+    return __floats2bfloat162_rn(v0, v1);
+  }
+  return __floats2bfloat162_rn(static_cast<float>(c0) * sx * ws[0] + bs[0],
+                               static_cast<float>(c1) * sx * ws[1] + bs[1]);
+}
+
 // Two adjacent output columns (col, col + 1) of one row, given the row's
 // activation scale sx, for EPI_*_Q8 out_inv = epi_out_inv(ep), and for
 // EPI_RESIDUAL the residual pair r (so a caller can load or compute them
@@ -77,33 +99,24 @@ __device__ __forceinline__ void epilogue_sx(const EpiParams& ep, int N, int row,
   constexpr bool kQ8 = EPI == EPI_RELU_Q8 || EPI == EPI_GELU_Q8 || EPI == EPI_SILU_Q8;
   constexpr bool kF32 = EPI == EPI_RELU_F32 || EPI == EPI_GELU_F32 || EPI == EPI_SILU_F32;
   const long o = static_cast<long>(row) * N + col;
-  if (EPI == EPI_CAST_BIAS) {
+  if (EPI == EPI_CAST_BIAS || EPI == EPI_STORE) {
+    if (ep.out_bf16) {
+      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
+          epi_bf16_pair<(EPI == EPI_STORE ? EPI_STORE : EPI_CAST_BIAS)>(ep, sx, ws, bs, c0, c1);
+      return;
+    }
     float v0 = static_cast<float>(c0) * sx * ws[0];
     float v1 = static_cast<float>(c1) * sx * ws[1];
-    if (ep.out_bf16) {
-      v0 = round_bf16(v0);
-      v1 = round_bf16(v1);
+    if (EPI == EPI_STORE || ep.bias != nullptr) {
+      v0 = v0 + bs[0];
+      v1 = v1 + bs[1];
     }
-    if (ep.bias != nullptr) {
-      v0 = v0 + (ep.out_bf16 ? round_bf16(bs[0]) : bs[0]);
-      v1 = v1 + (ep.out_bf16 ? round_bf16(bs[1]) : bs[1]);
-    }
-    if (ep.out_bf16)
-      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
-          __floats2bfloat162_rn(v0, v1);
-    else
-      *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) = make_float2(v0, v1);
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) = make_float2(v0, v1);
     return;
   }
   const float v0 = static_cast<float>(c0) * sx * ws[0] + bs[0];
   const float v1 = static_cast<float>(c1) * sx * ws[1] + bs[1];
-  if (EPI == EPI_STORE) {
-    if (ep.out_bf16)
-      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
-          __floats2bfloat162_rn(v0, v1);
-    else
-      *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) = make_float2(v0, v1);
-  } else if (kQ8) {
+  if (kQ8) {
     char2 q;
     q.x = q8_rint(epi_act<EPI>(v0) * out_inv);
     q.y = q8_rint(epi_act<EPI>(v1) * out_inv);

@@ -1,5 +1,6 @@
-// Tiled int8 x int8 -> int32 matrix product with fused dequant epilogues,
-// shared by the fused serving kernels.
+// Tiled int8 x int8 -> int32 matrix product with fused dequant epilogues:
+// the first design's GEMM, whose last caller is int8_matmul_residual (the
+// other kernels run their products on int8_wgmma.cuh).
 //
 // C[M, N] = A[M, K] @ W[K, N], with A int8 row-major (activations) and the
 // weights given K-major, as Wt[N, K] row-major (the port pre-quantizes them

@@ -149,6 +149,97 @@ __global__ void __launch_bounds__(kRowThreads)
   if (threadIdx.x == 0) sx[blockIdx.x] = s_row;
 }
 
+// The rows without LayerNorm, one warp a row (kQuantRows rows a block), for
+// K <= kQuantMaxK a multiple of 16 and x, q at 16-byte boundaries: chunk j
+// of 16 elements (64 bytes of f32, 32 of bf16) goes to lane j % 32, loaded
+// 16 bytes at a time, and its 16 codes go out as one 16-byte store; the
+// amax is a warp reduction (exact in any order), and the quant is the row
+// kernel's (divide by s_row, or multiply by 1 / s for a static site), so
+// the codes and scales are row_quant_kernel's bit for bit. Rows as
+// short-lived 128-thread blocks of scalar loads and byte stores took about
+// half the byte rate (PERF.md).
+constexpr int kQuantRows = 8;
+constexpr int kQuantMaxK = 1024;
+constexpr int kQuantChunks = kQuantMaxK / (16 * 32);  // a lane's chunks at most
+
+template <bool BF16>
+__global__ void __launch_bounds__(32 * kQuantRows)
+    row_quant_warp_kernel(const void* __restrict__ x, int M, int K,
+                          const float* __restrict__ amax_static, int8_t* __restrict__ q,
+                          float* __restrict__ sx) {
+  const int lane = threadIdx.x & 31;
+  const long row = static_cast<long>(blockIdx.x) * kQuantRows + (threadIdx.x >> 5);
+  if (row >= M) return;  // the whole warp
+  const int chunks = K / 16;
+  float v[kQuantChunks][16];
+#pragma unroll
+  for (int c = 0; c < kQuantChunks; ++c) {
+    const int j = lane + 32 * c;
+    if (j < chunks) {
+      const long at = row * K + 16 * j;
+      if (BF16) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            reinterpret_cast<const __nv_bfloat16*>(x) + at);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint4 u = __ldg(src + h);
+          const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[c][8 * h + 2 * e] = __uint_as_float(w[e] << 16);
+            v[c][8 * h + 2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+          }
+        }
+      } else {
+        const float4* src = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(x) + at);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float4 f = __ldg(src + h);
+          v[c][4 * h] = f.x;
+          v[c][4 * h + 1] = f.y;
+          v[c][4 * h + 2] = f.z;
+          v[c][4 * h + 3] = f.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) v[c][e] = 0.0f;
+    }
+  }
+  float s_row, mul = 1.0f;
+  const bool is_static = amax_static != nullptr;
+  if (is_static) {
+    s_row = static_scale(amax_static);
+    mul = 1.0f / s_row;
+  } else {
+    float m = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kQuantChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) m = fmaxf(m, fabsf(v[c][e]));  // padding is 0
+    s_row = fmaxf(warp_max(m) / 127.0f, 1e-8f);
+  }
+#pragma unroll
+  for (int c = 0; c < kQuantChunks; ++c) {
+    const int j = lane + 32 * c;
+    if (j >= chunks) continue;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t b = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float f = v[c][4 * e + i];
+        const int8_t code = q8_rint(is_static ? f * mul : f / s_row);
+        b |= static_cast<uint32_t>(static_cast<uint8_t>(code)) << (8 * i);
+      }
+      w[e] = b;
+    }
+    *reinterpret_cast<uint4*>(q + row * K + 16 * j) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  if (lane == 0) sx[row] = s_row;
+}
+
 // Rows of any width, the row staged in shared memory (K floats) instead of
 // registers: one block of 256 threads per row of x (M, K) (row_op_kernel),
 // or, called as a device function, one warp per row (the one-launch
@@ -285,12 +376,25 @@ inline cudaError_t launch_row_op(const RowParams& p, int M, cudaStream_t stream)
 }
 
 // LN (eps 1e-6, when ln_w is given) + int8 quant of each row. Rows of up to
-// 1024 values are held in registers (row_quant_kernel); wider rows are staged
-// in shared memory (row_op_kernel), so K has no practical limit.
+// 1024 values are held in registers: without LN one warp a row
+// (row_quant_warp_kernel, for K a multiple of 16 and 16-byte-aligned x and
+// q), else one block a row (row_quant_kernel); wider rows are staged in
+// shared memory (row_op_kernel), so K has no practical limit.
 inline cudaError_t launch_row_quant(const void* x, int x_bf16, int M, int K,
                                     const void* ln_w, const void* ln_b, int vec_bf16,
                                     const float* amax_static, int8_t* q, float* sx,
                                     cudaStream_t stream) {
+  if (ln_w == nullptr && K <= kQuantMaxK && K % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0) {
+    const int blocks = (M + kQuantRows - 1) / kQuantRows;
+    if (x_bf16)
+      row_quant_warp_kernel<true><<<blocks, 32 * kQuantRows, 0, stream>>>(x, M, K, amax_static,
+                                                                          q, sx);
+    else
+      row_quant_warp_kernel<false><<<blocks, 32 * kQuantRows, 0, stream>>>(x, M, K, amax_static,
+                                                                           q, sx);
+    return cudaGetLastError();
+  }
   if (K <= 8 * kRowThreads) {
     row_quant_kernel<8><<<M, kRowThreads, 0, stream>>>(x, x_bf16, K, ln_w, ln_b, vec_bf16,
                                                        amax_static, q, sx);

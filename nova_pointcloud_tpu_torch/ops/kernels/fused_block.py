@@ -245,28 +245,66 @@ def int8_linear_plain(x, wq, s, b=None, out_dtype=None) -> torch.Tensor:
 # -- launch plans --------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # a block's shared memory on the H100
-# csrc/int8_wgmma.cuh: output tiles of 128 x 256, k-steps of 128 bytes through
-# a ring of WG_STAGES stages (a 16 KB A tile and a 32 KB W tile each), a full
-# and an empty mbarrier a stage, a tile's 256 column scales and biases for each
-# of the two consumer warpgroups, 1 KB to align the swizzled tiles
+# csrc/int8_wgmma.cuh: output tiles of 128 x 256 (or 128 x 128), k-steps of
+# 128 bytes through a ring of WG_STAGES stages (a 16 KB A tile and a W tile of
+# the tile's width x 128 bytes each), a full and an empty mbarrier a stage, a
+# tile's column scales and biases for each of the two consumer warpgroups,
+# 1 KB to align the swizzled tiles; with a TMA-store epilogue (a bf16 output
+# of EPI_STORE or EPI_CAST_BIAS) each consumer's 64 x width bf16 output tile
+# at a 1 KB boundary, and 3 stages for 256-wide tiles (4 do not fit)
 WG_BLOCK_M, WG_BLOCK_N, WG_BLOCK_K, WG_STAGES = 128, 256, 128, 4
-WG_SMEM = (WG_STAGES * (WG_BLOCK_M + WG_BLOCK_N) * WG_BLOCK_K + 2 * WG_STAGES * 8
-           + 2 * 2 * WG_BLOCK_N * 4 + 1024)
+WG_BLOCK_NS = (256, 128)  # the tile widths the GEMM is built for
+
+
+def _wg_layout(block_n: int, tma_store: bool) -> tuple:
+    """(stages, shared memory bytes) of the wgmma GEMM's block."""
+    stages = 3 if tma_store and block_n == 256 else WG_STAGES
+    end = (stages * (WG_BLOCK_M + block_n) * WG_BLOCK_K + 2 * stages * 8
+           + 2 * 2 * block_n * 4)
+    if tma_store:
+        end = -(-end // 1024) * 1024 + 2 * 64 * block_n * 2
+    return stages, end + 1024
+
+
+WG_SMEM = _wg_layout(WG_BLOCK_N, False)[1]
 
 
 @functools.lru_cache(maxsize=256)
-def gemm_plan(m: int, n: int, k: int, sms: int) -> dict:
+def gemm_plan(m: int, n: int, k: int, sms: int, block_n: int = WG_BLOCK_N,
+              tma_store: bool = False) -> dict:
     """The launch plan of one product on the wgmma GEMM (``csrc/
     int8_wgmma.cuh``, which checks the grid and the bytes): a persistent grid
-    of at most one block an SM (``sms``) over the (m, n) tiles. Cached (a
-    wrapper asks for it at every call): the same dict for the same arguments,
-    to be read, not changed."""
-    m_tiles, n_tiles = -(-m // WG_BLOCK_M), -(-n // WG_BLOCK_N)
+    of at most one block an SM (``sms``) over the (m, n) tiles of 128 x
+    ``block_n``; ``tma_store``: the epilogue's bf16 output goes out through
+    shared memory by TMA (EPI_STORE, EPI_CAST_BIAS). ``waves``: tiles over
+    blocks. Cached (a wrapper asks for it at every call): the same dict for
+    the same arguments, to be read, not changed."""
+    if block_n not in WG_BLOCK_NS:
+        raise ValueError(f"the wgmma GEMM takes tiles {WG_BLOCK_NS} wide, got {block_n}")
+    m_tiles, n_tiles = -(-m // WG_BLOCK_M), -(-n // block_n)
     tiles = m_tiles * n_tiles
     grid = min(tiles, sms)
+    stages, smem = _wg_layout(block_n, tma_store)
     return dict(m_tiles=m_tiles, n_tiles=n_tiles, tiles=tiles, k_tiles=k // WG_BLOCK_K,
-                grid=(grid,), stages=WG_STAGES, smem_bytes=WG_SMEM,
-                tiles_per_block=-(-tiles // grid))
+                block_n=block_n, tma_store=tma_store, grid=(grid,), stages=stages,
+                smem_bytes=smem, tiles_per_block=-(-tiles // grid), waves=tiles / grid)
+
+
+@functools.lru_cache(maxsize=256)
+def store_plan(m: int, n: int, k: int, sms: int, tma_store: bool) -> dict:
+    """The product of :func:`int8_linear` and :func:`fused_ln_int8_matmul`
+    (a store epilogue, by TMA for a bf16 output) on the wgmma GEMM:
+    :func:`gemm_plan` with 128 x 128 tiles where their columns of rounds
+    (rounds: tiles a block; columns: rounds x the tile width), a tenth
+    dearer each, still come under the 128 x 256 tiles' (a narrow tile reads
+    its A tile for half the columns), else 128 x 256: the narrow tiles fill
+    the last wave of a few waves better (PERF.md: both widths' times at
+    these shapes on the H100). Cached, as :func:`gemm_plan`."""
+    wide = gemm_plan(m, n, k, sms, 256, tma_store)
+    narrow = gemm_plan(m, n, k, sms, 128, tma_store)
+    if 11 * narrow["tiles_per_block"] * 128 < 10 * wide["tiles_per_block"] * 256:
+        return narrow
+    return wide
 
 
 @functools.lru_cache(maxsize=256)
@@ -422,7 +460,7 @@ _ARGTYPES = {
                               _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fused_ln_int8_matmul": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
-                             _P, _P, _P],
+                             _P, _P, _I, _I, _I, _P],
     "int8_matmul_residual": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                              _P, _P, _P],
     "fused_int8_mlp_postln": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _P,
@@ -431,7 +469,7 @@ _ARGTYPES = {
     "fused_int8_diffusion_block": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                                    _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                                    _P, _I, _I, _P],
-    "int8_linear": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
+    "int8_linear": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -455,6 +493,14 @@ def _int8_weight(w, shape, dev, what):
         raise ValueError(f"{what} must be int8 {shape} on {dev}, got "
                          f"{w.dtype} {tuple(w.shape)} on {w.device}")
     return w.t().contiguous()
+
+
+def _lengths(n, **vs):
+    """Each given vector (per-channel scales, biases, LN params) holds ``n``
+    values: the kernels read ``n`` of each."""
+    for what, v in vs.items():
+        if v is not None and v.numel() != n:
+            raise ValueError(f"{what} must hold {n} values, got shape {tuple(v.shape)}")
 
 
 def _f32(v, dev):
@@ -609,25 +655,30 @@ def fused_ln_int8_matmul(x: torch.Tensor, ln_scale, ln_bias, wq, s, b) -> torch.
     (..., O) in x's dtype.
 
     wq (D, O) int8 with per-channel scales s (O,), bias b (O,). The QKV
-    projection of the split serving path: O = 3D, head-split by the caller."""
+    projection of the split serving path: O = 3D, head-split by the caller.
+    On a CUDA tensor the product runs on the wgmma GEMM as
+    :func:`store_plan` lays it out."""
     if _plain_route(x):
         return fused_ln_int8_matmul_plain(x, ln_scale, ln_bias, wq, s, b)
     dev, d = x.device, x.shape[-1]
     n = wq.shape[-1]
     _gemm_dims(d, n, "fused_ln_int8_matmul")
-    xf = x.reshape(-1, d).contiguous()
+    xf = _aligned(x.reshape(-1, d).contiguous())
     m = xf.shape[0]
     x_bf16 = _dtype_flag(xf, "x")
-    wq = _int8_weight(wq, (d, n), dev, "wq")
+    wq = _aligned(_int8_weight(wq, (d, n), dev, "wq"))
+    _lengths(n, s=s, b=b)
+    _lengths(d, ln_scale=ln_scale, ln_bias=ln_bias)
     s = _f32(s, dev)
     (ln_w, ln_b, b), vec_bf16 = _vectors(ln_scale, ln_bias, b)
+    plan = store_plan(m, n, d, _sms(dev), bool(x_bf16))
     q = torch.empty((m, d), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     so, fn = _lib("fused_ln_int8_matmul")
     _run(so, fn, [_ptr(xf), x_bf16, m, d, n, _ptr(ln_w), _ptr(ln_b), _ptr(b),
                   vec_bf16, _ptr(wq), _ptr(s), _ptr(q), _ptr(sx), _ptr(y),
-                  torch.cuda.current_stream(dev).cuda_stream])
+                  plan["grid"][0], plan["block_n"], plan["smem_bytes"], _stream(dev)])
     LAUNCHES["fused_ln_int8_matmul"] += 1
     return y.reshape(x.shape[:-1] + (n,))
 
@@ -767,26 +818,32 @@ def int8_linear(x: torch.Tensor, wq, s, b=None, out_dtype=None) -> torch.Tensor:
     """Per-row int8 quant of x (..., K), one int8 product with wq (K, N) and
     per-channel scales s (N,), cast to ``out_dtype`` (default x's dtype), then
     the bias b (N,) or None added in that dtype: the JAX ViT attention's
-    ``_int8_proj`` rounding order (the product is rounded before the bias)."""
+    ``_int8_proj`` rounding order (the product is rounded before the bias).
+    On a CUDA tensor the product runs on the wgmma GEMM as
+    :func:`store_plan` lays it out."""
     if _plain_route(x):
         return int8_linear_plain(x, wq, s, b, out_dtype)
     out_dtype = out_dtype or x.dtype
     dev, k = x.device, x.shape[-1]
     n = wq.shape[-1]
     _gemm_dims(k, n, "int8_linear")
-    xf = x.reshape(-1, k).contiguous()
+    xf = _aligned(x.reshape(-1, k).contiguous())
     m = xf.shape[0]
-    wq = _int8_weight(wq, (k, n), dev, "wq")
+    x_bf16 = _dtype_flag(xf, "x")
+    wq = _aligned(_int8_weight(wq, (k, n), dev, "wq"))
+    _lengths(n, s=s, b=b)
     s = _f32(s, dev)
     if b is not None:
         b = b.contiguous()
+    b_bf16 = 0 if b is None else _dtype_flag(b, "b")
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    y_bf16 = _dtype_flag(y, "out_dtype")
+    plan = store_plan(m, n, k, _sms(dev), bool(y_bf16))
     q = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
-    y = torch.empty((m, n), dtype=out_dtype, device=dev)
     so, fn = _lib("int8_linear")
-    _run(so, fn, [_ptr(xf), _dtype_flag(xf, "x"), m, k, n, _ptr(b),
-                  0 if b is None else _dtype_flag(b, "b"), _ptr(wq), _ptr(s), _ptr(q),
-                  _ptr(sx), _ptr(y), _dtype_flag(y, "out_dtype"),
-                  torch.cuda.current_stream(dev).cuda_stream])
+    _run(so, fn, [_ptr(xf), x_bf16, m, k, n, _ptr(b), b_bf16, _ptr(wq), _ptr(s), _ptr(q),
+                  _ptr(sx), _ptr(y), y_bf16, plan["grid"][0], plan["block_n"],
+                  plan["smem_bytes"], _stream(dev)])
     LAUNCHES["int8_linear"] += 1
     return y.reshape(x.shape[:-1] + (n,))
