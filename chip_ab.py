@@ -25,7 +25,11 @@ the wrapper allocates them), and under ``build/ab/LABEL_linear.pt`` the
 outputs of int8_linear at every (M, N) of the t2i int8 call (and with an
 f32 output, and without a bias), of fused_ln_int8_matmul at path B's 2x and
 1x batch and a ragged row count, and of int8_matmul_residual at path B's 2x
-batch (its row pass is the one without LayerNorm). ``--compare`` (run where
+and 1x batch in the four x / residual dtype pairs (its row pass is the one
+without LayerNorm), and under ``build/ab/LABEL_f32.pt`` the f32 flash
+backward's dq, dk and dv at the training shape (8, 16, 1280, 64) with no
+bias, a key bias and a full bias (the f32 route and forward are timed too,
+and one t2i training step, p50 of 5). ``--compare`` (run where
 both were saved, after
 copying one next to the other) prints the largest |A - B| of each, whether
 they are bitwise equal, and whether each output is within phase 3's
@@ -105,6 +109,8 @@ def main(label: str) -> None:
         x, _, _, wq, ws, bias, r = cs._proj_operands(gen, (b, t), d, d)
         res[f"int8_matmul_residual_{b * t}_ms"] = cs.sync_ms(
             lambda: cs.fb.int8_matmul_residual(x, r, wq, ws, bias), 20)
+        res[f"int8_matmul_residual_{b * t}_graph_ms"] = cs.graph_ms(
+            lambda: cs.fb.int8_matmul_residual(x, r, wq, ws, bias))
         q, k, v = cs._flash_operands(gen, b, cs.PP_HEADS, t, t, cs.PP_HD)
         res[f"flash_attention_{b}_ms"] = cs.sync_ms(
             lambda: cs.fa.flash_attention_with_lse(q, k, v), 20)
@@ -118,6 +124,7 @@ def main(label: str) -> None:
             res[f"int8_linear_{m}x{n}_graph_ms"] = cs.graph_ms(call)
             del x
     _save_linear_outputs(label)
+    _flash_f32(res, label)
     L = cs.T2I_L["full"]
     kw = cs._t2i_variants("mlp")[0][1]
     for rows in (L, 768):  # the decoder half's 8 x 1280 rows, the largest bucket's 8 x 768
@@ -164,7 +171,55 @@ def main(label: str) -> None:
         res[f"{label}_p50_s"] = _p50(pipe, cs.PP_PROMPTS)
         res[f"{label}_samples_per_s"] = cs.PP_BATCH / res[f"{label}_p50_s"]
         del pipe
+    torch.cuda.empty_cache()
+    pipe = cs._train_pipe(cs._train_model())
+    data = iter([cs._train_batch(4)] * 8)
+    pipe.train(data, pipe.trainer.step + 2)  # warm-ups
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.train(data, pipe.trainer.step + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res["t2i_train_p50_s"] = float(np.percentile(times, 50))
+    res["t2i_train_samples_per_s"] = cs.TRAIN_BATCH / res["t2i_train_p50_s"]
+    del pipe
     print("AB " + json.dumps(res), flush=True)
+
+
+def _flash_f32(res, label: str) -> None:
+    """The f32 route of the flash backward at the training shape (8, 16,
+    1280, 64), no bias: the whole backward through autograd (the route's
+    kernels, whatever they are in the tree) from a graph built once, and
+    the f32 forward kernel (events and a CUDA graph); its dq, dk and dv on
+    inputs drawn from a fixed seed with no bias, a key bias with -inf keys
+    and a full bias saved for --compare."""
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    L = cs.T2I_L["full"]
+    outs = {}
+    for kind in ("none", "visibility", "full"):
+        q, k, v, bias = cs._static_attention_operands(
+            gen, L, "visibility" if kind == "visibility" else "none")
+        q, k, v = q.float(), k.float(), v.float()
+        if kind == "full":
+            bias = cs._flash_bias(gen, "full", cs.T2I_ROWS, L, L)
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = cs.fa.flash_attention(*ins, bias)
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        grads = torch.autograd.grad(o, ins, do, retain_graph=True)
+        for name, g in zip(("dq", "dk", "dv"), grads):
+            outs[f"f32 bwd {kind} {name}"] = g.cpu()
+        if kind == "none":
+            res["flash_f32_bwd_ms"] = cs.sync_ms(
+                lambda: torch.autograd.grad(o, ins, do, retain_graph=True), 5)
+            res["flash_f32_fwd_ms"] = cs.sync_ms(lambda: cs.fa.flash_attention_with_lse(q, k, v), 5)
+            res["flash_f32_fwd_graph_ms"] = cs.graph_ms(
+                lambda: cs.fa.flash_attention_with_lse(q, k, v), n=5, reps=3)
+        del q, k, v, bias, ins, o, do, grads
+        torch.cuda.empty_cache()
+    os.makedirs(AB_DIR, exist_ok=True)
+    torch.save(outs, os.path.join(AB_DIR, f"{label}_f32.pt"))
 
 
 def _save_mlp_outputs(label: str) -> None:
@@ -226,7 +281,8 @@ def _save_linear_outputs(label: str) -> None:
     """int8_linear's outputs on inputs drawn from a fixed seed at every (M,
     N) of the t2i int8 call (bf16 out), with an f32 output and without a
     bias at 8 x 1280 rows; fused_ln_int8_matmul's at path B's 2x and 1x
-    batch and 16461 rows; int8_matmul_residual's at path B's 2x batch; for
+    batch and 16461 rows; int8_matmul_residual's at path B's 2x and 1x
+    batch with x and the residual in each pair of f32 and bf16; for
     --compare."""
     gen = torch.Generator(device="cuda").manual_seed(79)
     outs = {}
@@ -244,24 +300,31 @@ def _save_linear_outputs(label: str) -> None:
     for lead in ((2 * cs.PP_BATCH, t), (cs.PP_BATCH, t), (16461,)):
         x, lns, lnb, wq, ws, b, _ = cs._proj_operands(gen, lead, d, 3 * d)
         outs[f"row3 {lead}"] = cs.fb.fused_ln_int8_matmul(x, lns, lnb, wq, ws, b).cpu()
-    x, _, _, wq, ws, b, r = cs._proj_operands(gen, (2 * cs.PP_BATCH, t), d, d)
-    outs["row4 (16, 2048)"] = cs.fb.int8_matmul_residual(x, r, wq, ws, b).cpu()
+    f32, bf16 = torch.float32, torch.bfloat16
+    for lead in ((2 * cs.PP_BATCH, t), (cs.PP_BATCH, t)):
+        for xdt, rdt in ((bf16, bf16), (f32, f32), (bf16, f32), (f32, bf16)):
+            x, _, _, wq, ws, b, r = cs._proj_operands(gen, lead, d, d, xdt, rdt)
+            key = "row4 (16, 2048)" if lead[0] == 2 * cs.PP_BATCH and xdt == rdt == bf16 else (
+                f"row4 {lead} x={str(xdt)[6:]} res={str(rdt)[6:]}")
+            outs[key] = cs.fb.int8_matmul_residual(x, r, wq, ws, b).cpu()
+            del x, r
     os.makedirs(AB_DIR, exist_ok=True)
     torch.save(outs, os.path.join(AB_DIR, f"{label}_linear.pt"))
 
 
 def compare(a: str, b: str) -> None:
     """The largest |A - B| of each saved output, whether they are bitwise
-    equal, and (rows 1 and 5's y) whether B is within phase 3's tolerance
-    of A."""
+    equal, and whether B is within phase 3's tolerance of A (the f32
+    gradients: phase 3e's, 1e-4 / 1e-5 relative)."""
     res = {}
-    for suffix in ("", "_int8", "_linear"):
+    for suffix in ("", "_int8", "_linear", "_f32"):
         oa, ob = (torch.load(os.path.join(AB_DIR, f"{x}{suffix}.pt")) for x in (a, b))
+        rel = (1e-4, 1e-5) if suffix == "_f32" else (2.0 ** -6, 2.0 ** -10)
         for key in oa:
             ya, yb = oa[key].float(), ob[key].float()
             err = (ya - yb).abs()
-            within = bool(err.max() <= 2.0 ** -6 * ya.abs().max()
-                          and err.mean() <= 2.0 ** -10 * ya.abs().mean())
+            within = bool(err.max() <= rel[0] * ya.abs().max()
+                          and err.mean() <= rel[1] * ya.abs().mean())
             res[key] = dict(max=err.max().item(), bitwise=torch.equal(oa[key], ob[key]),
                             within_tolerance=within)
             print(f"  {key}: max |{a} - {b}| = {res[key]['max']} (bitwise equal: "

@@ -66,6 +66,25 @@ Each variant is timed in turns against as built (as built, the variant,
 the variant, as built; CUDA events and a graph of 20 launches). The copies
 build in parallel.
 
+``python3 chip_int8_probe.py row4`` probes ``int8_matmul_residual`` (row 4:
+the row pass without LayerNorm, the wgmma GEMM with the residual epilogue)
+at path B's 32768 and 16384 rows (768 -> 768), x and the residual both
+bf16 and both f32:
+
+- as built: the row pass's and the GEMM's device time (torch.profiler);
+- bf16, ``direct residual``: a copy that takes the f32 residual's path
+  for a bf16 one too (the residual prefetched into L2 and loaded by the
+  threads after the products, y stored from the registers), not the
+  residual tile loaded and the sum stored by TMA; outputs bitwise as
+  built's;
+- f32, ``no residual loads``: a copy whose epilogue adds zeros in place of
+  the residual (wrong outputs, timed only): what reading it costs;
+- f32, ``products only``: the copy of row 2's probe whose epilogue stores
+  nothing (wrong outputs, timed only): the row pass, the products and the
+  loads ahead of the epilogue;
+- the tile widths: 128 x 256 and 128 x 128 tiles in turns, the narrow
+  tiles' outputs bitwise the wide tiles'.
+
 The last line is ``PROBE {json}``.
 """
 
@@ -115,6 +134,14 @@ BLOCK_PER_ROW = [("quant.cuh", "  if (ln_w == nullptr && K <= kQuantMaxK && K % 
 # not staged for TMA, in the TMA-store instances' shared memory layout
 DIRECT_STORES = [("int8_wgmma.cuh", "    if constexpr (TMA_OUT) {\n      // the bf16 pairs",
                   "    if constexpr (false) {\n      // the bf16 pairs", 1)]
+# the residual epilogue adding zeros in place of the residual rows (wrong
+# outputs, timed only)
+NO_RESIDUAL_LOADS = [("int8_wgmma.cuh", "          if (EPI == EPI_RESIDUAL && row < M && col < N) {",
+                      "          if (EPI == EPI_RESIDUAL && row < M && col < 0) {", 1)]
+# row 4's bf16 residual on the f32 residual's path (loads and stores by the
+# threads) in place of TMA; its plan is patched to match (_direct_plan)
+DIRECT_RESIDUAL = [("int8_matmul_residual.cu", "  const int tma_out = res_bf16;",
+                    "  const int tma_out = 0;", 1)]
 # the staged output tile never stored (wrong outputs, timed only)
 NO_OUTPUT_STORES = [
     ("int8_wgmma.cuh",
@@ -416,6 +443,73 @@ def linear(res):
                   + ", ".join(f"{k} {v:.1f} us" for k, v in b.items()))
 
 
+def _direct_plan(fb, keep):
+    """store_plan with the threads' stores for every output."""
+    return lambda m, n, k, sms, tma: keep(m, n, k, sms, False)
+
+
+def row4(res):
+    """Row 4 as built (its row pass / GEMM split); bf16 against the copy on
+    the direct residual path, f32 against the copies without its residual
+    loads and without its epilogue's stores; both tile widths; each in
+    turns against as built."""
+    fb, name = cs.fb, "int8_matmul_residual"
+    copies = {"direct residual": _copy("direct_res", DIRECT_RESIDUAL),
+              "no residual loads": _copy("nores", NO_RESIDUAL_LOADS),
+              "products only": _copy("products", PRODUCTS_ONLY)}
+    _prebuild([(name, c) for c in copies.values()])
+    libs = {"as built": cs._build.load(name), **{tag: _load(name, c) for tag, c in copies.items()}}
+    keep = fb.store_plan
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    d, calls = cs.PP_D, []
+    for lead in ((2 * cs.PP_BATCH, cs.PP_T), (cs.PP_BATCH, cs.PP_T)):
+        for dt in (torch.bfloat16, torch.float32):
+            x, _, _, wq, ws, b, r = cs._proj_operands(gen, lead, d, d, dt, dt)
+            call = lambda x=x, r=r, wq=wq, ws=ws, b=b: fb.int8_matmul_residual(  # noqa: E731
+                x, r, wq, ws, b)
+            m = lead[0] * lead[1]
+            bf16 = dt == torch.bfloat16
+            label = f"row4 {m}x{d}->{d} {str(dt)[6:]}"
+            y = call()
+            ref = fb.int8_matmul_residual_plain(x, r, wq, ws, b)
+            err = (y.float() - ref.float()).abs()
+            ok = bool(err.max() <= 2.0 ** -6 * ref.float().abs().max()
+                      and err.mean() <= 2.0 ** -10 * ref.float().abs().mean())
+            bitwise = {}
+            if bf16:
+                t = {"as built": [0.0, 0.0], "direct residual": [0.0, 0.0]}
+                try:
+                    for tag in ("as built", "direct residual", "direct residual", "as built"):
+                        cs._build._loaded[name] = libs[tag]
+                        fb.store_plan = keep if tag == "as built" else _direct_plan(fb, keep)
+                        if tag != "as built":
+                            bitwise[tag] = _bitwise(y, call())
+                        t[tag][0] += cs.sync_ms(call, 20) / 2
+                        t[tag][1] += cs.graph_ms(call) / 2
+                finally:
+                    fb.store_plan = keep
+                    cs._build._loaded[name] = libs["as built"]
+                turns = {"direct residual": t}
+            else:
+                turns = _variant_turns(name, {tag: libs[tag] for tag in (
+                    "as built", "no residual loads", "products only")}, call)
+            tt, ys = _tile_turns(fb, call)
+            bitwise["128 x 128 tiles"] = _bitwise(ys[256], ys[128])
+            plan = fb.store_plan(m, d, d, 132, bf16)
+            res[label] = dict(turns=turns, tile_256=tt[256], tile_128=tt[128],
+                              within_tolerance=ok, max_err=err.max().item(),
+                              block_n=plan["block_n"], bitwise=bitwise,
+                              waves_256=fb.gemm_plan(m, d, d, 132, 256, bf16)["waves"],
+                              waves_128=fb.gemm_plan(m, d, d, 132, 128, bf16)["waves"])
+            _print_variants(label, res[label])
+            calls.append((label, call))
+            del y, ref, ys
+    for label, call in calls:  # the profiler last: its hooks slow later launches
+        b = _breakdown(call)
+        res[f"{label} kernels us"] = b
+        print(f"  {label}: " + ", ".join(f"{k} {v:.1f} us" for k, v in b.items()))
+
+
 def _print_variants(label, r):
     parts = [f"{tag} {v[tag][0]:.4f} (graph {v[tag][1]:.4f}) against as built "
              f"{v['as built'][0]:.4f} (graph {v['as built'][1]:.4f})"
@@ -434,6 +528,11 @@ def main():
     if sys.argv[1:] == ["linear"]:
         cs._build.build_all()
         linear(res)
+        _card(res)
+        return
+    if sys.argv[1:] == ["row4"]:
+        cs._build.build_all(["int8_matmul_residual"])
+        row4(res)
         _card(res)
         return
     if sys.argv[1:] == ["rows15"]:

@@ -70,12 +70,13 @@ The NOVA t2i training slice adds:
 
 3e. the flash backward kernels against their plain version at the training
     shape (8, 16, 1280, 64), bf16 (prep, the one-pass dkvq kernel on wgmma
-    and TMA, cast) and f32 (prep, the SIMT dK/dV and dQ kernels): no bias; a
+    and TMA, cast) and f32 (prep, the one-pass register-tiled SIMT kernel
+    flash_attention_bwd_f32): no bias; a
     key bias with -inf keys and a fully masked sample (its gradients exactly
     0); a full bias; a ragged Lq != Lk; the prep and cast kernels exactly
-    equal to their plain versions; two bf16 backward runs on the same
-    tensors: dk and dv bitwise equal (a gate), max |dq1 - dq2| printed (the
-    atomic f32 dQ sums run in no fixed order);
+    equal to their plain versions; two backward runs on the same tensors,
+    bf16 and f32: dk and dv bitwise equal (a gate), max |dq1 - dq2| printed
+    (the f32 reduce-adds of the dQ parts run in no fixed order);
 4f. t2i training as bench.py --mode train --train-arch t2i:
     NOVATransformer(vit_d16w1024, vit_d32w1024, mlp_d6w1024) at full width
     and depth, seeded init_weights (zero AdaLN, as the JAX initialisers),
@@ -86,7 +87,7 @@ The NOVA t2i training slice adds:
     flash_attention_bwd_dq_cast, 32 flash_attention: the decoder half's 16
     layers at 1280 keys, their forward run again by remat; 0 of every other
     kernel) and in the f32 step's loss and gradients (16 prep, 16
-    flash_attention_dkv, 16 flash_attention_dq, 32 flash_attention), finite
+    flash_attention_bwd_f32, 32 flash_attention), finite
     loss and gradients, the
     backward kernels on the tensors of every one of the step's 16 backward
     calls against the plain backward (flash bf16 tolerance), the f32 step
@@ -98,7 +99,7 @@ The NOVA t2i training slice adds:
     over 1 in relative L2 from the plain f32 step on random weights, so a
     tolerance built on that floor cannot fail);
 5d. times of the bf16 backward's kernels (prep, dkvq, cast) and of the f32
-    route's dK/dV and dQ, their plain version, the SDPA backward (from a
+    route's one-pass kernel, their plain version, the SDPA backward (from a
     graph built once) beside the port's whole backward through autograd and
     the kernels' sum, the bounds, and the whole backward's joint bound (10
     BH Lq Lk d FLOPs) with the dkvq kernel's ptxas registers and spills;
@@ -185,6 +186,33 @@ phases and widens them:
     int8_linear and of fused_ln_int8_matmul, which must be 20 each (the
     row pass and the wgmma GEMM).
 
+The move of int8_matmul_residual (row 4) off the mma.sync GEMM onto the
+wgmma GEMM (the residual epilogue rows 1 and 2 run, a bf16 residual loaded
+into shared memory and the sum stored by TMA, tiles 128 x 256 or 128 x 128
+as fused_block.store_plan chooses; the first design's mma.sync GEMM is
+gone) and the f32 flash backward as one register-tiled SIMT pass
+(flash_attention_bwd_f32 in place of the dK/dV and dQ kernels) keep the
+phases and widen them:
+
+3e. the f32 route's dk and dv of two runs bitwise equal too (a gate), max
+    |dq1 - dq2| printed;
+4f. the f32 step's exact launches: 16 prep, 16 flash_attention_bwd_f32, 32
+    flash_attention;
+5.  the ptxas and SASS gate also over int8_matmul_residual's library (both
+    tile widths, a bf16 residual loaded and the sum stored by TMA or an f32
+    one by the threads: IGMMA, UTMALDG, UTMASTG in the TMA instances, no
+    IMMA, no mma.sync GEMM, no spills, no C7514);
+5b. int8_matmul_residual with the plan's tile width and waves and
+    torch._int_mm on codes of its product (a yardstick of its GEMM alone);
+5d. the f32 kernel timed by events, the f32 route's launches from a CUDA
+    graph, beside the whole f32 backward through autograd, SDPA's f32
+    backward and its bound (10 BH Lq Lk d FLOPs at 67 TFLOP/s), with both
+    instances' ptxas registers and spills; the f32 forward at (8, 16, 1280, 64) by events and from a
+    graph, beside SDPA's f32 forward and its bound (4 BH Lq Lk d);
+6.  (first in the profiles phase) the device kernels of 10 calls of
+    int8_matmul_residual, which must be 20 (the row pass and the wgmma
+    GEMM).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -258,16 +286,15 @@ TRAIN_LAUNCHES = {"flash_attention_bwd_prep": TRAIN_FLASH_LAYERS,
                   "flash_attention": 2 * TRAIN_FLASH_LAYERS}  # remat runs each forward twice
 # the f32 step of the same model (phase 4f's exactness check): the f32 route
 TRAIN_F32_LAUNCHES = {"flash_attention_bwd_prep": TRAIN_FLASH_LAYERS,
-                      "flash_attention_dkv": TRAIN_FLASH_LAYERS,
-                      "flash_attention_dq": TRAIN_FLASH_LAYERS,
+                      "flash_attention_bwd_f32": TRAIN_FLASH_LAYERS,
                       "flash_attention": 2 * TRAIN_FLASH_LAYERS}
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
-           "flash_attention_dkv", "flash_attention_dq", "flash_attention_bwd_prep",
+           "flash_attention_bwd_f32", "flash_attention_bwd_prep",
            "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast")
 SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
-BWD_SOURCE_KERNELS = ("flash_attention_dkv", "flash_attention_dq", "flash_attention_bwd_prep",
+BWD_SOURCE_KERNELS = ("flash_attention_bwd_f32", "flash_attention_bwd_prep",
                       "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast")
 SOURCES.update(dict.fromkeys(BWD_SOURCE_KERNELS,
                              "nova_pointcloud_tpu_torch/csrc/flash_attention_bwd.cu"))
@@ -281,9 +308,9 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
             "flash_attention_static": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:424",
             # no TPU kernel: the JAX model's int8 projections are plain XLA
             "int8_linear": "nova_pointcloud_tpu/models/vit.py:83",
-            # the f32 route of the two backward kernels
-            "flash_attention_dkv": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
-            "flash_attention_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346",
+            # the f32 route: the dK/dV kernel and the dQ kernel's products
+            # (line 346) in one pass
+            "flash_attention_bwd_f32": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
             # _flash_bwd's delta (XLA, line 261) and lse rows
             "flash_attention_bwd_prep": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:254",
             # the bf16 dK/dV kernel, and the dQ kernel's products (one pass)
@@ -646,7 +673,7 @@ def check_flash():
     grads = torch.autograd.grad(o, ins, do)
     ref = fa.flash_attention_bwd_plain(q, k, v, None, None, o.detach(), lse, do)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-        if not _tol_check(_bwd_kernel(name, torch.bfloat16),
+        if not _tol_check(_bwd_kernel(torch.bfloat16),
                           f"{name} strided (B, L, H, D) view", g, r, 2.0 ** -6,
                           2.0 ** -8, like=r):
             bad.append(f"strided backward {name}")
@@ -1259,12 +1286,10 @@ def t2i_float(pipe_int8):
     return pipe
 
 
-def _bwd_kernel(grad, dt):
-    """The kernel a gradient of the backward is held against: the bf16
-    route's one-pass kernel, or the f32 route's dK/dV or dQ kernel."""
-    if dt == torch.bfloat16:
-        return "flash_attention_bwd_dkvq"
-    return "flash_attention_dq" if grad == "dq" else "flash_attention_dkv"
+def _bwd_kernel(dt):
+    """The kernel a gradient of the backward is held against: the bf16 or
+    the f32 route's one-pass kernel."""
+    return "flash_attention_bwd_dkvq" if dt == torch.bfloat16 else "flash_attention_bwd_f32"
 
 
 def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
@@ -1281,7 +1306,7 @@ def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
     rel = (2.0 ** -6, 2.0 ** -8) if dt == torch.bfloat16 else (1e-4, 1e-5)
     ok = True
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-        ok = _tol_check(_bwd_kernel(name, dt), f"{name} {label}", g, r, *rel, like=r) and ok
+        ok = _tol_check(_bwd_kernel(dt), f"{name} {label}", g, r, *rel, like=r) and ok
         if dead is not None:
             zero = bool((g[dead] == 0).all())
             print(f"    {name} of the fully masked sample exactly 0: {zero}")
@@ -1317,9 +1342,10 @@ def _prep_cast_check(q, k, v, dt, gen):
 
 
 def _bwd_repeatability(q, k, v, gen):
-    """Two backward runs on the same tensors: dk and dv bitwise equal (a
-    gate: each block writes them once); dq's largest difference printed (a
-    reading: the f32 atomic sums of dQ run in no fixed order)."""
+    """Two backward runs on the same tensors (bf16 or f32): dk and dv bitwise
+    equal (a gate: each block sums them in a fixed order and writes them
+    once); dq's largest difference printed (a reading: the f32 reduce-adds
+    of the dQ parts run in no fixed order)."""
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     o = fa.flash_attention(*ins)
     do = torch.randn(o.shape, generator=gen, device=DEV).to(q.dtype)
@@ -1328,10 +1354,12 @@ def _bwd_repeatability(q, k, v, gen):
     torch.cuda.synchronize()
     dq_diff = (g1[0].float() - g2[0].float()).abs().max().item()
     same = all(torch.equal(a, b) for a, b in zip(g1[1:], g2[1:]))
-    print(f"  repeatability, two backward runs on the same tensors {tuple(q.shape)}: max |dq1 - "
-          f"dq2| {dq_diff:.3e} (dq max {g1[0].float().abs().max().item():.3e}; reading); dk and "
-          f"dv bitwise equal: {same}")
-    report["bwd_repeatability"] = dict(dq_max_abs_diff=dq_diff, dk_dv_equal=same)
+    tag = str(q.dtype)[6:]
+    print(f"  repeatability, two {tag} backward runs on the same tensors {tuple(q.shape)}: max "
+          f"|dq1 - dq2| {dq_diff:.3e} (dq max {g1[0].float().abs().max().item():.3e}; reading); "
+          f"dk and dv bitwise equal: {same}")
+    report.setdefault("bwd_repeatability", {})[tag] = dict(dq_max_abs_diff=dq_diff,
+                                                           dk_dv_equal=same)
     return same
 
 
@@ -1362,8 +1390,8 @@ def check_flash_backward():
             if kind == "none":
                 if not _prep_cast_check(q, k, v, dt, gen):
                     bad.append(f"prep / cast {str(dt)[6:]}")
-                if dt == torch.bfloat16 and not _bwd_repeatability(q, k, v, gen):
-                    bad.append("dk, dv repeatability")
+                if not _bwd_repeatability(q, k, v, gen):
+                    bad.append(f"dk, dv repeatability {str(dt)[6:]}")
             del q, k, v, bias
         q, k, v = _flash_operands(gen, 2, HEADS, 1000, 1531, 64, dt)
         bias = _flash_bias(gen, "key", 2, 1000, 1531)
@@ -1481,7 +1509,7 @@ def t2i_train():
         ref = fa.flash_attention_bwd_plain(*args)
         ok, worst = True, []
         for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-            ok = _tol_check(_bwd_kernel(name, g.dtype), f"{name} of the step's backward call {len(calls) + 1} (do "
+            ok = _tol_check(_bwd_kernel(g.dtype), f"{name} of the step's backward call {len(calls) + 1} (do "
                             f"strides {tuple(args[-1].stride())})", g, r, 2.0 ** -6, 2.0 ** -8,
                             like=r, quiet=True) and ok
             c = report["checks"][-1]
@@ -1514,8 +1542,8 @@ def t2i_train():
     counts32_ok = launches32 == {n: TRAIN_F32_LAUNCHES.get(n, 0) for n in KERNELS}
     print(f"launches in the f32 step's loss and gradients: {launches32} (expected "
           f"{TRAIN_F32_LAUNCHES}, else 0): {'ok' if counts32_ok else 'FAIL'}")
-    for name in ("flash_attention_dkv", "flash_attention_dq"):
-        _record_launches(name, "t2i_train_f32", launches32[name])
+    _record_launches("flash_attention_bwd_f32", "t2i_train_f32",
+                     launches32["flash_attention_bwd_f32"])
     moved = dict(draws, latent_eps=draws["latent_eps"] + 1e-6 * torch.randn(
         draws["latent_eps"].shape, generator=torch.Generator(device=DEV).manual_seed(4),
         device=DEV))
@@ -1652,6 +1680,11 @@ INT8_INSTANCES = {
         "store, 128 x 128, TMA store": "gemm_s8_wgmma_kernelILi0ELi128ELb1E",
         "store, 128 x 256, f32 out": "gemm_s8_wgmma_kernelILi0ELi256ELb0E",
         "store, 128 x 128, f32 out": "gemm_s8_wgmma_kernelILi0ELi128ELb0E"},
+    "int8_matmul_residual": {
+        "residual, 128 x 256, TMA in and store": "gemm_s8_wgmma_kernelILi3ELi256ELb1E",
+        "residual, 128 x 128, TMA in and store": "gemm_s8_wgmma_kernelILi3ELi128ELb1E",
+        "residual, 128 x 256, f32": "gemm_s8_wgmma_kernelILi3ELi256ELb0E",
+        "residual, 128 x 128, f32": "gemm_s8_wgmma_kernelILi3ELi128ELb0E"},
     "fused_ln_int8_mlp": {"fc1 relu -> int8 (static)": "gemm_s8_wgmma_kernelILi1E",
                           "fc1 relu -> f32 (per row)": "gemm_s8_wgmma_kernelILi2E",
                           "fc2 + residual": "gemm_s8_wgmma_kernelILi3E"},
@@ -1664,8 +1697,10 @@ INT8_INSTANCES = {
                               "fc2 + post-LN, bf16 x": "fc2_postln_kernelILb1E"}}
 HGMMA_INSTANCES = ("attn_qkv_core_kernel",)  # the bf16 products of the attention core
 # the instances that store a bf16 output by TMA (UTMASTG)
-TMA_STORE_INSTANCES = tuple(m for lib in ("int8_linear", "fused_ln_int8_matmul")
-                            for label, m in INT8_INSTANCES[lib].items() if "TMA store" in label)
+TMA_STORE_INSTANCES = tuple(m for lib in ("int8_linear", "fused_ln_int8_matmul",
+                                         "int8_matmul_residual")
+                            for label, m in INT8_INSTANCES[lib].items()
+                            if "TMA store" in label or "TMA in and store" in label)
 
 
 def _ptxas_numbers(kernel, library):
@@ -1688,7 +1723,7 @@ def _ptxas_numbers(kernel, library):
 
 def _int8_ptxas():
     """Print and record the ptxas report and the SASS of each wgmma instance
-    of the int8 libraries (int8_linear, rows 3, 2, 1 and 5): every instance
+    of the int8 libraries (int8_linear, rows 3, 4, 2, 1 and 5): every instance
     issues s8
     wgmma (IGMMA) and TMA loads (UTMALDG), row 1's core bf16 wgmma (HGMMA)
     too, with no spills and no C7514 note; no function of the libraries
@@ -1804,24 +1839,52 @@ def timing_train(pipe):
         bwd_kernels_ms=total, bwd_autograd_ms=port_bwd, sdpa_bwd_ms=library,
         bwd_joint_bound_ms=joint[0], dkvq_ptxas=ptxas)
     del launches, ins, ws, dq
-    # the f32 route's kernels at the same shape in f32
+    # the f32 route at the same shape in f32: its one-pass kernel (events;
+    # a prepared launch holds the stream it was prepared on, so no graph),
+    # the route's launches (prep, the zeroed dq, the kernel) from a CUDA
+    # graph, the whole f32 backward through autograd and SDPA's f32
+    # backward, each from an autograd graph built once; the f32 forward
+    # kernel and SDPA's f32 forward (events and a CUDA graph)
     q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     launches, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     o_lib = Fn.scaled_dot_product_attention(*ins)
-    library32 = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 3)
-    del o_lib, ins
+    library32 = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 5)
+    o_port = fa.flash_attention(*ins)
+    port32 = sync_ms(lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), 5)
+    del o_lib, o_port
+
+    def sdpa_fwd32():
+        with torch.no_grad():
+            Fn.scaled_dot_product_attention(ins[0], ins[1], ins[2])
+
+    io32 = 2 * io
+    _time_kernel("flash_attention", (T2I_ROWS, HEADS, L, 64, "f32"),
+                 lambda: fa.flash_attention_with_lse(q, k, v),
+                 lambda: fa.flash_attention_plain(q, k, v),
+                 _bound(4 * bh * L * L * 64 / PEAK_F32_FLOPS, 4 * io32 + bh * L * 4),
+                 library=sdpa_fwd32, iters=5, graph=True)
     plain32 = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
-    for name, mult, nbytes in (("flash_attention_dkv", 8, 2 * (4 * io + 2 * io) + 2 * rows),
-                               ("flash_attention_dq", 6, 2 * (4 * io + io) + 2 * rows)):
-        ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), 3)
-        bound = _bound(mult * bh * L * L * 64 / PEAK_F32_FLOPS, nbytes)
-        report["kernels"][name].update(dict(ms=ms, plain_ms=plain32, bound_ms=bound[0],
-                                            bound_by=bound[1], library_ms=library32))
-        print(f"  {name} f32 {(T2I_ROWS, HEADS, L, 64)}: {ms:.3f} ms/launch, plain backward "
-              f"{plain32:.3f} ms, SDPA f32 backward {library32:.3f} ms, bound {bound[0]:.3f} ms "
-              f"({bound[1]}, f32 at 67 TFLOP/s), {bound[0] / ms:.1%} of bound")
-    del q, k, v, o, lse, do, launches
+
+    def run32():
+        fa.run_bwd(launches, ("flash_attention_bwd_f32",))
+
+    ms = sync_ms(run32, 5)
+    graph32 = graph_ms(lambda: fa._launch_bwd(q, k, v, None, None, o, lse, do), n=5, reps=3)
+    bound = _bound(10 * bh * L * L * 64 / PEAK_F32_FLOPS, 7 * io32 + 2 * rows)
+    row = dict(ms=ms, graph_ms=graph32, plain_ms=plain32, bound_ms=bound[0], bound_by=bound[1],
+               library_ms=library32, autograd_ms=port32)
+    report["kernels"]["flash_attention_bwd_f32"].update(row)
+    ptxas32 = {label: _ptxas_report(f"flash_bwd_f32_kernelILb{i}E")
+               for i, label in enumerate(("no / key bias", "full bias"))}
+    print(f"  flash_attention_bwd_f32 {(T2I_ROWS, HEADS, L, 64)} f32: {ms:.3f} ms/launch; prep + "
+          f"zeroed dq + kernel from a graph {graph32:.3f} ms, the whole f32 backward through "
+          f"autograd {port32:.3f} ms, plain "
+          f"backward {plain32:.3f} ms, SDPA f32 backward {library32:.3f} ms; bound "
+          f"{bound[0]:.3f} ms ({bound[1]}: 10 BH Lq Lk d FLOPs at 67 TFLOP/s f32), "
+          f"{bound[0] / ms:.1%} of bound; ptxas: {ptxas32}")
+    report.setdefault("t2i_train", {}).update(bwd_f32_ptxas=ptxas32)
+    del q, k, v, o, lse, do, launches, ins
     torch.cuda.empty_cache()
     fb.reset_launch_counts()
     if pipe is None:
@@ -1951,7 +2014,7 @@ def timing(pipe):
     report["pipeline"].update(batch=BATCH, p50_s=p50, samples_per_s=BATCH / p50, times_s=times)
 
 
-PORT_KERNEL_NAMES = ("gemm_s8_kernel", "gemm_s8_wgmma_kernel", "diffusion_block_kernel",
+PORT_KERNEL_NAMES = ("gemm_s8_wgmma_kernel", "diffusion_block_kernel",
                      "row_quant_kernel", "row_quant_warp_kernel", "row_op_kernel", "attn_core_", "attn_qkv_core_kernel",
                      "fc2_postln_kernel",
                      "attn_fwd_kernel", "flash_fwd_", "static_qk_quant_kernel", "flash_bwd_")
@@ -2032,6 +2095,11 @@ def timing_per_point(pipe_a, pipe_b):
             lambda: fb.int8_matmul_residual_plain(x, res, wq, ws, bias),
             _bound(2 * m * d * d / PEAK_INT8_OPS, 3 * 2 * m * d + d * d + d * 2 + d * 4),
             graph=True)
+        plan = fb.store_plan(m, d, d, fb._sms(torch.device(DEV)), True)  # bf16 residual
+        row.update(block_n=plan["block_n"], waves=plan["waves"],
+                   int_mm_ms=_int_mm_ms(gen, (m, d, d)))
+        print(f"    the plan's choice: 128 x {plan['block_n']} tiles, {plan['waves']:.2f} waves; "
+              f"torch._int_mm, its product alone: {row['int_mm_ms']} ms")
         if mult == 2:
             report["kernels"]["int8_matmul_residual"].update(row)
         del x, res
@@ -2211,7 +2279,9 @@ def _device_kernels_per_call():
     call of rows 1 (the flagship's 1x batch: LN pass, QKV + core,
     out-projection) and 5 (8 x 1280 rows: x quant pass, fc1, fc2 + post-LN);
     the two of row 3 (path B's 2x batch: the LN pass, the wgmma GEMM with
-    its TMA-store epilogue) in row 1's trace and of int8_linear (8 x 1280
+    its TMA-store epilogue) and of row 4 (the same batch: the row pass
+    without LayerNorm, the wgmma GEMM with the residual epilogue) in row
+    1's trace and of int8_linear (8 x 1280
     rows, qkv: the row pass, the wgmma GEMM) in row 5's."""
     gen = torch.Generator(device=DEV).manual_seed(8)
     ops = _diffusion_operands(gen, T2I_ROWS * T2I_PAD_P)
@@ -2222,12 +2292,15 @@ def _device_kernels_per_call():
     ops1 = _kernel_operands(gen, BATCH, "attention")
     kw1 = _variants("attention")[0][1]
     x3, lns, lnb, wq, ws3, b3, _ = _proj_operands(gen, (2 * PP_BATCH, PP_T), PP_D, 3 * PP_D)
+    x4, _, _, wq4, ws4, b4, r4 = _proj_operands(gen, (2 * PP_BATCH, PP_T), PP_D, PP_D)
     _kernels_per_call([
         ("fused_attention_block", lambda: fb.fused_attention_block(*ops1, **kw1),
          ("row_quant_kernel", "attn_qkv_core_kernel", "gemm_s8_wgmma_kernel<3,")),
         ("fused_ln_int8_matmul", lambda: fb.fused_ln_int8_matmul(x3, lns, lnb, wq, ws3, b3),
-         ("row_quant_kernel", "gemm_s8_wgmma_kernel<0,"))])
-    del ops1, x3
+         ("row_quant_kernel", "gemm_s8_wgmma_kernel<0,")),
+        ("int8_matmul_residual", lambda: fb.int8_matmul_residual(x4, r4, wq4, ws4, b4),
+         ("row_quant_warp_kernel", "gemm_s8_wgmma_kernel<3,"))])
+    del ops1, x3, x4, r4
     ops5 = _t2i_mlp_operands(gen, (T2I_ROWS, T2I_L["full"]))
     kw5 = _t2i_variants("mlp")[0][1]
     x, w, ws, b = _linear_operands(gen, T2I_ROWS * T2I_L["full"], 3 * D)
@@ -2246,7 +2319,7 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train):
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
     device kernels of 10 calls of rows 6 (gated at 10), 1 and 5 (at 30),
-    int8_linear and row 3 (at 20)."""
+    int8_linear, rows 3 and 4 (at 20)."""
     _device_kernels_per_call()
     if pipe is not None:
         profile_call(lambda: _sample(pipe, seed=30))

@@ -44,8 +44,24 @@
 // The atomic dQ sums run in no fixed order: dq may differ in its last bits
 // from run to run; dk and dv do not.
 //
-// f32 inputs take the prep kernel and two SIMT kernels (one thread per query
-// row for dQ, per key row for dK/dV), written for exactness, not speed.
+// f32 runs in one pass too, in f32 FFMA (no TF32: this route is the
+// exactness check of the training step), in two kernels:
+//   prep:  as above, lse in natural units;
+//   f32:   one block of 128 threads per (key tile of 64, batch*head): K and
+//          V of its keys and each streamed query tile (q, do by TMA, lse and
+//          delta by bulk copy) in shared memory as 128B-swizzled f32 boxes.
+//          Per query tile five register-tiled 64 x 64 x 64 products, each
+//          value loaded from shared memory feeding four to eight FFMAs:
+//          S^T = K Q^T and dP^T = V dO^T (two groups of 64 threads, each
+//          32 keys, a thread 4 x 8 of each), P^T and dS^T (the scale folded
+//          in) of a thread's elements in registers, then through shared
+//          memory dV += P^T dO and dK += dS^T Q side by side (a thread
+//          8 x 8), then dQ = dS K by all 128 threads (a thread 4 x 8),
+//          added into the zeroed f32 dq by TMA reduce-add
+//          (cp.reduce.async.bulk.tensor) while the next tile is computed. s
+//          and dp are computed once (the first design's two SIMT kernels,
+//          one thread a row, computed both twice and read an operand of
+//          every FFMA from shared memory).
 //
 // q, k, v, do, dq, dk, dv are (B, H, L, d) views given by their batch / head /
 // row strides with d contiguous (16-byte multiples), so the model's
@@ -71,7 +87,11 @@
 // 0.42 ms at that shape, 12 units at about 380 TFLOP/s. Each warpgroup's
 // steps wait on each other (products, then exp and dS, then products; a
 // clock64 breakdown per tile, in PERF.md), so the tensor cores idle while
-// both warpgroups do element work.
+// both warpgroups do element work. In f32 the same 10 B*H*Lq*Lk*d FLOPs
+// take at least 2.00 ms at 67 TFLOP/s (f32 FFMA); two blocks of the f32
+// kernel share an SM (99856 bytes of shared memory each, 254 registers a
+// thread): 3.42 ms, 58.5% of that bound, SDPA's f32 backward 4.18 ms
+// (PERF.md; the dQ product is its weakest step).
 
 #include "hopper.cuh"
 
@@ -456,191 +476,271 @@ __global__ void __launch_bounds__(DKVQ_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32 inputs: SIMT, exact f32 sums in the JAX kernels' formulas
+// f32: one register-tiled SIMT pass
 // ---------------------------------------------------------------------------
-constexpr int FQ = 128;  // dQ: query rows per block, one per thread
-constexpr int FK = 32;   // dQ: keys per shared-memory tile
-constexpr int FKV = 64;  // dK/dV: key rows per block, one per thread
-constexpr int FQT = 32;  // dK/dV: queries per shared-memory tile
+constexpr int FKB = 64;         // keys per block
+constexpr int FQB = 64;         // queries per streamed tile
+constexpr int F_THREADS = 128;  // two groups of 64: S, P, dV and dP, dS, dK
+constexpr int F_TILE = 64 * BHD * 4;  // a 64 x 64 f32 tile: two 64-row x 128-byte boxes
+constexpr int F_OFF_K = 0;
+constexpr int F_OFF_V = F_TILE;
+constexpr int F_OFF_Q = 2 * F_TILE;
+constexpr int F_OFF_DO = 3 * F_TILE;
+constexpr int F_OFF_P = 4 * F_TILE;   // P, then the tile's dq part for the reduce-add
+constexpr int F_OFF_DS = 5 * F_TILE;
+constexpr int F_OFF_ROWS = 6 * F_TILE;                // the tile's lse, then delta rows
+constexpr int F_OFF_BAR = F_OFF_ROWS + 2 * FQB * 4;   // tile full, K and V
+constexpr int F32_SMEM = F_OFF_BAR + 2 * 8 + 1024;    // + alignment: 2 blocks an SM
 
-__global__ void __launch_bounds__(FQ) flash_bwd_dq_f32_kernel(FlashBwdParams p) {
-  __shared__ __align__(16) float Ks[FK][BHD];
-  __shared__ __align__(16) float Vs[FK][BHD];
-  const int nq = (p.Lq + FQ - 1) / FQ;
-  const int qt = blockIdx.x % nq, bh = blockIdx.x / nq;
-  const int b = bh / p.H, h = bh % p.H;
-  const int tid = threadIdx.x;
-  const int row = qt * FQ + tid;
-  const bool live = row < p.Lq;
-  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* DO = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-
-  float q[BHD], od[BHD], dq[BHD];
-  {
-    const float4* qr = reinterpret_cast<const float4*>(Q + static_cast<long>(live ? row : 0) * p.q_sl);
-    const float4* orr =
-        reinterpret_cast<const float4*>(DO + static_cast<long>(live ? row : 0) * p.o_sl);
-#pragma unroll
-    for (int d = 0; d < BHD / 4; ++d) {
-      const float4 a = live ? qr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 c = live ? orr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
-      q[4 * d] = a.x * p.scale;  // q * sm_scale, as the TPU kernel
-      q[4 * d + 1] = a.y * p.scale;
-      q[4 * d + 2] = a.z * p.scale;
-      q[4 * d + 3] = a.w * p.scale;
-      od[4 * d] = c.x;
-      od[4 * d + 1] = c.y;
-      od[4 * d + 2] = c.z;
-      od[4 * d + 3] = c.w;
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < BHD; ++d) dq[d] = 0.0f;
-  const float lse = p.lse[static_cast<long>(bh) * p.Lqp + row];
-  const float dl = p.delta[static_cast<long>(bh) * p.Lqp + row];
-  const float* kb = p.kbias != nullptr ? p.kbias + static_cast<long>(b) * p.Lk : nullptr;
-  const float* fb =
-      p.fbias != nullptr ? p.fbias + static_cast<long>(live ? row : 0) * p.Lk : nullptr;
-
-  const int ntiles = (p.Lk + FK - 1) / FK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    __syncthreads();
-    for (int c = tid; c < FK * BHD / 4; c += FQ) {
-      const int r = c / (BHD / 4), col = (c % (BHD / 4)) * 4;
-      const int key = kt * FK + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (key < p.Lk) {
-        kv = *reinterpret_cast<const float4*>(K + static_cast<long>(key) * p.k_sl + col);
-        vv = *reinterpret_cast<const float4*>(V + static_cast<long>(key) * p.v_sl + col);
-      }
-      *reinterpret_cast<float4*>(&Ks[r][col]) = kv;
-      *reinterpret_cast<float4*>(&Vs[r][col]) = vv;
-    }
-    __syncthreads();
-    for (int j = 0; j < FK; ++j) {
-      const int key = kt * FK + j;
-      if (key >= p.Lk) break;
-      float s = 0.0f, dp = 0.0f;
-#pragma unroll
-      for (int d = 0; d < BHD; ++d) {
-        s += q[d] * Ks[j][d];
-        dp += od[d] * Vs[j][d];
-      }
-      if (kb != nullptr) s += kb[key];
-      if (fb != nullptr) s += fb[key];
-      const float pr = expf(s - lse);
-      const float ds = pr * (dp - dl) * p.scale;
-#pragma unroll
-      for (int d = 0; d < BHD; ++d) dq[d] += ds * Ks[j][d];
-    }
-  }
-  if (!live) return;
-  float* DQ = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + static_cast<long>(row) * p.dq_sl;
-#pragma unroll
-  for (int d = 0; d < BHD / 4; ++d)
-    reinterpret_cast<float4*>(DQ)[d] =
-        make_float4(dq[4 * d], dq[4 * d + 1], dq[4 * d + 2], dq[4 * d + 3]);
+// 16-byte chunk c (0..15: columns 4c .. 4c + 3) of row r (0..63) of a 64 x
+// 64 f32 tile held as two 64-row x 128-byte boxes (columns 0..31, 32..63) in
+// the 128B swizzle, the layout TMA loads and reduce-adds: chunk c & 7 of a
+// row at (c & 7) ^ (r & 7). Eight rows r with distinct r & 7 at one chunk,
+// or eight chunks of one row, hit 32 distinct banks.
+__device__ __forceinline__ uint32_t f32_chunk(uint32_t tile, int r, int c) {
+  return tile + ((c >> 3) << 13) + (r << 7) + ((((c & 7) ^ r) & 7) << 4);
+}
+__device__ __forceinline__ uint32_t f32_at(uint32_t tile, int r, int col) {
+  return f32_chunk(tile, r, col >> 2) + ((col & 3) << 2);
 }
 
-// one thread per key row: k, dk, dv in registers, the block's v rows in
-// shared memory (padded rows, conflict-free), query tiles read by broadcast
-__global__ void __launch_bounds__(FKV) flash_bwd_dkv_f32_kernel(FlashBwdParams p) {
-  __shared__ float Vown[FKV][BHD + 1];
-  __shared__ __align__(16) float Qs[FQT][BHD];
-  __shared__ __align__(16) float Ds[FQT][BHD];
-  __shared__ float ls[FQT], dls[FQT];
-  const int nk = (p.Lk + FKV - 1) / FKV;
-  const int kt = blockIdx.x % nk, bh = blockIdx.x / nk;
-  const int b = bh / p.H, h = bh % p.H;
-  const int tid = threadIdx.x;
-  const int key = kt * FKV + tid;
-  const bool live = key < p.Lk;
-  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* DO = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const float* LSE = p.lse + static_cast<long>(bh) * p.Lqp;
-  const float* DEL = p.delta + static_cast<long>(bh) * p.Lqp;
-
-  float k[BHD], dk[BHD], dv[BHD];
-  {
-    const float4* kr = reinterpret_cast<const float4*>(K + static_cast<long>(live ? key : 0) * p.k_sl);
-    const float4* vr = reinterpret_cast<const float4*>(V + static_cast<long>(live ? key : 0) * p.v_sl);
+// s[m][n] = sum_d K[kr + 8 m][d] Q[tj + 8 n][d] and dp[m][n] = sum_d
+// V[kr + 8 m][d] dO[tj + 8 n][d] over the tiles' 64 columns (m < 4, n < 8):
+// four rows of K and V and eight of Q and dO by 16-byte chunks, each K or
+// V value loaded feeding eight FFMAs, each Q or dO value four
+__device__ __forceinline__ void f32_score_products(float (&s)[4][8], float (&dp)[4][8],
+                                                   uint32_t k, uint32_t v, uint32_t q,
+                                                   uint32_t d_o, int kr, int tj) {
 #pragma unroll
-    for (int d = 0; d < BHD / 4; ++d) {
-      const float4 a = live ? kr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 c = live ? vr[d] : make_float4(0.f, 0.f, 0.f, 0.f);
-      k[4 * d] = a.x;
-      k[4 * d + 1] = a.y;
-      k[4 * d + 2] = a.z;
-      k[4 * d + 3] = a.w;
-      Vown[tid][4 * d] = c.x;
-      Vown[tid][4 * d + 1] = c.y;
-      Vown[tid][4 * d + 2] = c.z;
-      Vown[tid][4 * d + 3] = c.w;
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[m][n] = 0.0f;
+      dp[m][n] = 0.0f;
     }
-  }
+#pragma unroll 2
+  for (int c = 0; c < 16; ++c) {
+    const uint32_t ko = ((c >> 3) << 13) + (kr << 7) + (((c ^ kr) & 7) << 4);
+    const uint32_t qo = ((c >> 3) << 13) + (tj << 7) + (((c ^ tj) & 7) << 4);
+    float4 ka[4], va[4];
 #pragma unroll
-  for (int d = 0; d < BHD; ++d) {
-    dk[d] = 0.0f;
-    dv[d] = 0.0f;
-  }
-  const float kbv = (p.kbias != nullptr && live) ? p.kbias[static_cast<long>(b) * p.Lk + key] : 0.0f;
-
-  const int ntiles = (p.Lq + FQT - 1) / FQT;
-  for (int qt = 0; qt < ntiles; ++qt) {
-    __syncthreads();
-    for (int c = tid; c < FQT * BHD / 4; c += FKV) {
-      const int r = c / (BHD / 4), col = (c % (BHD / 4)) * 4;
-      const int row = qt * FQT + r;
-      float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), ov = qv;
-      if (row < p.Lq) {
-        qv = *reinterpret_cast<const float4*>(Q + static_cast<long>(row) * p.q_sl + col);
-        ov = *reinterpret_cast<const float4*>(DO + static_cast<long>(row) * p.o_sl + col);
-      }
-      *reinterpret_cast<float4*>(&Qs[r][col]) = qv;
-      *reinterpret_cast<float4*>(&Ds[r][col]) = ov;
+    for (int m = 0; m < 4; ++m) {
+      ka[m] = lds_f4(k + ko + (m << 10));
+      va[m] = lds_f4(v + ko + (m << 10));
     }
-    if (tid < FQT) {
-      ls[tid] = LSE[qt * FQT + tid];  // padded rows: 1e30
-      dls[tid] = DEL[qt * FQT + tid];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int i = 0; i < FQT; ++i) {
-      const int row = qt * FQT + i;
-      if (row >= p.Lq) break;
-      float s = 0.0f, dp = 0.0f;
 #pragma unroll
-      for (int d = 0; d < BHD; ++d) {
-        s += Qs[i][d] * p.scale * k[d];
-        dp += Ds[i][d] * Vown[tid][d];
-      }
-      s += kbv;
-      if (p.fbias != nullptr) s += p.fbias[static_cast<long>(row) * p.Lk + key];
-      const float pr = expf(s - ls[i]);
-      const float ds = pr * (dp - dls[i]) * p.scale;
+    for (int n = 0; n < 8; ++n) {
+      const float4 qb = lds_f4(q + qo + (n << 10)), ob = lds_f4(d_o + qo + (n << 10));
 #pragma unroll
-      for (int d = 0; d < BHD; ++d) {
-        dv[d] += pr * Ds[i][d];
-        dk[d] += ds * Qs[i][d];
+      for (int m = 0; m < 4; ++m) {
+        s[m][n] = fmaf(ka[m].x, qb.x, s[m][n]);
+        s[m][n] = fmaf(ka[m].y, qb.y, s[m][n]);
+        s[m][n] = fmaf(ka[m].z, qb.z, s[m][n]);
+        s[m][n] = fmaf(ka[m].w, qb.w, s[m][n]);
+        dp[m][n] = fmaf(va[m].x, ob.x, dp[m][n]);
+        dp[m][n] = fmaf(va[m].y, ob.y, dp[m][n]);
+        dp[m][n] = fmaf(va[m].z, ob.z, dp[m][n]);
+        dp[m][n] = fmaf(va[m].w, ob.w, dp[m][n]);
       }
     }
-  }
-  if (!live) return;
-  float* DK = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + static_cast<long>(key) * p.dk_sl;
-  float* DV = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + static_cast<long>(key) * p.dv_sl;
-#pragma unroll
-  for (int d = 0; d < BHD / 4; ++d) {
-    reinterpret_cast<float4*>(DK)[d] =
-        make_float4(dk[4 * d], dk[4 * d + 1], dk[4 * d + 2], dk[4 * d + 3]);
-    reinterpret_cast<float4*>(DV)[d] =
-        make_float4(dv[4 * d], dv[4 * d + 1], dv[4 * d + 2], dv[4 * d + 3]);
   }
 }
 
+// acc[i][j] += sum_r A[r][4 ti + 32 (i >> 2) + (i & 3)] B[r][4 tj + 32 (j >>
+// 2) + (j & 3)] over the tiles' 64 rows r (queries): two chunks of a row of
+// each, each value loaded feeding eight FFMAs (dV += P^T dO, dK += dS^T Q)
+__device__ __forceinline__ void f32_cols_product(float (&acc)[8][8], uint32_t a, uint32_t b,
+                                                 int ti, int tj) {
+#pragma unroll 8
+  for (int r = 0; r < FQB; ++r) {
+    const float4 a0 = lds_f4(f32_chunk(a, r, ti)), a1 = lds_f4(f32_chunk(a, r, ti + 8));
+    const float4 b0 = lds_f4(f32_chunk(b, r, tj)), b1 = lds_f4(f32_chunk(b, r, tj + 8));
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// dq[i][j] = sum_key dS[tq + 16 i][key] K[key][4 td + 32 (j >> 2) + (j & 3)]
+// over the block's 64 keys, by all 128 threads
+__device__ __forceinline__ void f32_dq_product(float (&dq)[4][8], uint32_t ds, uint32_t k,
+                                               int tq, int td) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dq[i][j] = 0.0f;
+#pragma unroll 2
+  for (int c = 0; c < 16; ++c) {  // keys 4c .. 4c + 3
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = lds_f4(f32_chunk(ds, tq + 16 * i, c));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float4 b0 = lds_f4(f32_chunk(k, 4 * c + e, td)),
+                   b1 = lds_f4(f32_chunk(k, 4 * c + e, td + 8));
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = e == 0 ? av[i].x : e == 1 ? av[i].y : e == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dq[i][j] = fmaf(a, bv[j], dq[i][j]);
+      }
+    }
+  }
+}
+
+// One block per (64-key tile, batch*head), 128 threads; K and V of its keys
+// by TMA once, the query tiles of q and do (and their lse and delta rows)
+// streamed through one buffer. Per query tile, with ti = lane / 8 + 4 (warp
+// % 2), tj = lane % 8 in each group g of 64 threads:
+//   both:    S^T = K Q^T and dP^T = V dO^T for keys 32 g + ti + 8m, queries
+//            tj + 8n, then P^T = exp(S^T scale + bias - lse) and dS^T =
+//            P^T (dP^T - delta) scale of the same elements in registers,
+//            P and dS to shared memory (each group its 32 keys: no group
+//            waits for the other's elements);
+//   group 0: dV += P^T dO; group 1: dK += dS^T Q (keys 4 ti + 32 h + e, d
+//            4 tj + 32 h' + e'), 8 x 8 accumulators held over all tiles;
+//   all:     dq part = dS K (queries tq + 16 i, d 4 td + 32 h' + e'),
+//            staged in P's buffer and added into dq by TMA reduce-add while
+//            the next tile's products run.
+// Keys past Lk are masked (-inf); query rows past Lq load as zeros with lse
+// 1e30 (p = 0), and their dq rows fall outside the reduce-add's map.
+template <bool FULL_BIAS>
+__global__ void __launch_bounds__(F_THREADS, 2)
+    flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_dq, const FlashBwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int kt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Lq + FQB - 1) / FQB;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform
+  const int grp = warp >> 1;
+  const int ti = (lane >> 3) + 4 * (warp & 1), tj = lane & 7;
+  const int tq = tid >> 3, td = tid & 7;
+  const uint32_t k_s = base + F_OFF_K, v_s = base + F_OFF_V, q_s = base + F_OFF_Q,
+                 do_s = base + F_OFF_DO, p_s = base + F_OFF_P, ds_s = base + F_OFF_DS,
+                 rows_s = base + F_OFF_ROWS;
+  const uint32_t bar_full = base + F_OFF_BAR, bar_kv = bar_full + 8;
+  const float* lse_row = p.lse + static_cast<long>(bh) * p.Lqp;
+  const float* del_row = p.delta + static_cast<long>(bh) * p.Lqp;
+  // query tile qt's q, do, lse and delta (issued by thread 0)
+  auto load_tile = [&](int qt) {
+    mbar_expect_tx(bar_full, 2 * F_TILE + 2 * FQB * 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      tma_load_4d(q_s + half * (F_TILE / 2), &tm_q, bar_full, 32 * half, qt * FQB, h, b);
+      tma_load_4d(do_s + half * (F_TILE / 2), &tm_do, bar_full, 32 * half, qt * FQB, h, b);
+    }
+    bulk_load(rows_s, lse_row + qt * FQB, FQB * 4, bar_full);
+    bulk_load(rows_s + FQB * 4, del_row + qt * FQB, FQB * 4, bar_full);
+  };
+  if (tid == 0) {
+    mbar_init(bar_full, 1);
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * F_TILE);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      tma_load_4d(k_s + half * (F_TILE / 2), &tm_k, bar_kv, 32 * half, kt * FKB, h, b);
+      tma_load_4d(v_s + half * (F_TILE / 2), &tm_v, bar_kv, 32 * half, kt * FKB, h, b);
+    }
+    load_tile(0);
+  }
+
+  // the additive term of this thread's S^T keys kt * 64 + kr + 8m; a key
+  // past Lk is masked
+  const int kr = 32 * grp + ti;
+  float kb[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int key = kt * FKB + kr + 8 * m;
+    kb[m] = key < p.Lk ? (p.kbias != nullptr ? p.kbias[static_cast<long>(b) * p.Lk + key] : 0.0f)
+                       : -INFINITY;
+  }
+  float acc[8][8];  // dV (group 0) or dK (group 1)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  // group 0: dV += P^T dO; group 1: dK += dS^T Q
+  const uint32_t ca = grp ? ds_s : p_s, cb = grp ? q_s : do_s;
+  mbar_wait(bar_kv, 0);
+
+  for (int qt = 0; qt < nq; ++qt) {
+    mbar_wait(bar_full, qt & 1);
+    float s[4][8], dp[4][8];
+    f32_score_products(s, dp, k_s, v_s, q_s, do_s, kr, tj);
+    float lse[8], dl[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      lse[n] = __uint_as_float(lds_u32(rows_s + 4 * (tj + 8 * n)));
+      dl[n] = __uint_as_float(lds_u32(rows_s + FQB * 4 + 4 * (tj + 8 * n)));
+    }
+    // P's buffer held the last tile's dq part: the reduce-add has read it
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float x = fmaf(s[m][n], p.scale, kb[m]);
+        if (FULL_BIAS) {
+          const int qrow = qt * FQB + tj + 8 * n, key = kt * FKB + kr + 8 * m;
+          if (qrow < p.Lq && key < p.Lk) x += p.fbias[static_cast<long>(qrow) * p.Lk + key];
+        }
+        const float pv = expf(x - lse[n]);
+        sts_f32(f32_at(p_s, tj + 8 * n, kr + 8 * m), pv);
+        sts_f32(f32_at(ds_s, tj + 8 * n, kr + 8 * m), pv * (dp[m][n] - dl[n]) * p.scale);
+      }
+    __syncthreads();  // P and dS are written
+    f32_cols_product(acc, ca, cb, ti, tj);
+    __syncthreads();  // q, do, lse, delta and P are read
+    if (tid == 0 && qt + 1 < nq) load_tile(qt + 1);
+
+    float dq[4][8];
+    f32_dq_product(dq, ds_s, k_s, tq, td);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        sts_f4(f32_chunk(p_s, tq + 16 * i, td + 8 * hh),
+               make_float4(dq[i][4 * hh], dq[i][4 * hh + 1], dq[i][4 * hh + 2], dq[i][4 * hh + 3]));
+    fence_proxy_async();  // the dq part, seen by TMA
+    __syncthreads();      // the dq part is staged; dS is read
+    if (tid == 0) {
+      tma_reduce_add_4d(&tm_dq, p_s, 0, qt * FQB, h, b);
+      tma_reduce_add_4d(&tm_dq, p_s + F_TILE / 2, 32, qt * FQB, h, b);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+
+  // dV (group 0) or dK (group 1): keys kt * 64 + 4 ti + 32 (i >> 2) + (i & 3)
+  float* out = grp ? static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh
+                   : static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  const long sl = grp ? p.dk_sl : p.dv_sl;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = kt * FKB + 4 * ti + 32 * (i >> 2) + (i & 3);
+    if (key < p.Lk)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float4*>(out + key * sl + 4 * tj + 32 * hh) =
+            make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2],
+                        acc[i][4 * hh + 3]);
+  }
+}
 
 inline bool fill_params(FlashBwdParams& p, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta, int B, int H,
@@ -785,38 +885,37 @@ extern "C" int nova_flash_attention_bwd_dq_cast(const float* ws, int B, int H, i
   return cudaGetLastError();
 }
 
-// f32: strides, 21 element strides, (batch, head, row) of q, k, v, do, dq,
-// dk, dv in turn; lse (natural log) and delta (B*H, Lqp) from the prep kernel.
-extern "C" int nova_flash_attention_dkv(
+// dK, dV and dQ, f32, in one pass. strides: 21 element strides, (batch,
+// head, row) of q, k, v, do, dq, dk, dv in turn; lse (natural log) and delta
+// (B*H, Lqp) from the prep kernel; dq zeroed (the kernel adds into it).
+// key_tiles, q_tiles and smem_bytes are the caller's launch plan, checked
+// against this kernel's.
+extern "C" int nova_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
-    const float* delta, int is_bf16, int B, int H, int Lq, int Lk, int Lqp, int D,
-    const long* strides, const float* kbias, const float* fbias, float scale, void* dq,
-    void* dk, void* dv, void* stream_ptr) {
+    const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
+    const float* kbias, const float* fbias, float scale, void* dq, void* dk, void* dv,
+    int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
   using namespace nova;
   FlashBwdParams p;
-  if (is_bf16 || !fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
-                              fbias, scale, dq, dk, dv))
+  if (!fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias, fbias,
+                   scale, dq, dk, dv))
     return cudaErrorInvalidValue;
-  const long blocks = static_cast<long>(B) * H * ((Lk + FKV - 1) / FKV);
-  if (blocks > 2147483647L) return cudaErrorInvalidValue;
-  flash_bwd_dkv_f32_kernel<<<static_cast<unsigned>(blocks), FKV, 0,
-                             static_cast<cudaStream_t>(stream_ptr)>>>(p);
-  return cudaGetLastError();
-}
-
-extern "C" int nova_flash_attention_dq(
-    const void* q, const void* k, const void* v, const void* dout, const float* lse,
-    const float* delta, int is_bf16, int B, int H, int Lq, int Lk, int Lqp, int D,
-    const long* strides, const float* kbias, const float* fbias, float scale, void* dq,
-    void* dk, void* dv, void* stream_ptr) {
-  using namespace nova;
-  FlashBwdParams p;
-  if (is_bf16 || !fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
-                              fbias, scale, dq, dk, dv))
-    return cudaErrorInvalidValue;
-  const long blocks = static_cast<long>(B) * H * ((Lq + FQ - 1) / FQ);
-  if (blocks > 2147483647L) return cudaErrorInvalidValue;
-  flash_bwd_dq_f32_kernel<<<static_cast<unsigned>(blocks), FQ, 0,
-                            static_cast<cudaStream_t>(stream_ptr)>>>(p);
+  if (key_tiles != (Lk + FKB - 1) / FKB || q_tiles != (Lq + FQB - 1) / FQB ||
+      smem_bytes != F32_SMEM || static_cast<long>(B) * H > 65535)
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap maps[5];
+  const void* ptrs[5] = {q, k, v, dout, dq};
+  const int lens[5] = {Lq, Lk, Lk, Lq, Lq};
+  const int at[5] = {0, 3, 6, 9, 12};  // their strides' place in `strides`
+  for (int i = 0; i < 5; ++i)
+    if (!bhld_map(&maps[i], ptrs[i], B, H, lens[i], strides + at[i], FQB, 4))
+      return cudaErrorInvalidValue;
+  // the full bias (read per score) gets its own instance
+  auto kernel = fbias != nullptr ? flash_bwd_f32_kernel<true> : flash_bwd_f32_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(key_tiles, B * H), F_THREADS, F32_SMEM, static_cast<cudaStream_t>(stream_ptr)>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], p);
   return cudaGetLastError();
 }

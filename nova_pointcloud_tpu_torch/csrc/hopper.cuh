@@ -100,6 +100,16 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, uint32
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row)
       : "memory");
 }
+// adds a box from (swizzled) shared memory into an f32 4-D map at (c0, c1,
+// c2, c3); what falls outside the map is not written
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 // stores a box from (swizzled) shared memory into global memory at (col,
 // row) by the map's layout; what falls outside the map is not written
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int col,
@@ -115,6 +125,13 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr));
   return v;
 }
+__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
 __device__ __forceinline__ unsigned lds_u32(uint32_t addr) {
   unsigned v;
   asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
@@ -125,6 +142,11 @@ __device__ __forceinline__ void sts_u32(uint32_t addr, unsigned v) {
 }
 __device__ __forceinline__ void sts_f2(uint32_t addr, float a, float b) {
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+__device__ __forceinline__ void sts_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
 }
 // atomic add on a shared-memory word; returns the old value
 __device__ __forceinline__ uint32_t atom_add_shared(uint32_t addr, uint32_t v) {
@@ -448,8 +470,9 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // a 4-D map (d, L, H, B) over a (B, H, L, 64) view with element strides s
 // (batch, head, row): 64 elements of `elem_bytes` bytes a row (128 bytes for
-// bf16, 128B swizzle; 64 bytes for int8, 64B swizzle), boxes of `box_rows`
-// rows, rows past L read as zeros (within each (b, h))
+// bf16, 128B swizzle; 64 bytes for int8, 64B swizzle; 256 bytes for f32, in
+// boxes of 32 (128 bytes), 128B swizzle), boxes of `box_rows` rows, rows
+// past L read as zeros (within each (b, h)) and not written
 inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const long* s,
                      int box_rows = 64, int elem_bytes = 2) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
@@ -461,12 +484,14 @@ inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const
                         static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * eb, static_cast<cuuint64_t>(s[1]) * eb,
                            static_cast<cuuint64_t>(s[0]) * eb};
-  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  cuuint32_t box[4] = {elem_bytes == 4 ? 32u : 64u, static_cast<cuuint32_t>(box_rows), 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(m, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                4, const_cast<void*>(ptr), dims, strides, box, elem,
+  const CUtensorMapDataType type = elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return encode(m, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                elem_bytes == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                elem_bytes == 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

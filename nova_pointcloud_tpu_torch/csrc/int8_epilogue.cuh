@@ -1,8 +1,9 @@
-// Dequant epilogues of the int8 products, shared by the mma.sync GEMM
-// (int8_gemm.cuh), the wgmma GEMM (int8_wgmma.cuh) and the one-launch
-// diffusion block: each thread of either tensor-core layout holds adjacent
+// Dequant epilogues of the int8 products, shared by the wgmma GEMM
+// (int8_wgmma.cuh), its callers' own kernels and the one-launch diffusion
+// block (mma.sync): each thread of either tensor-core layout holds adjacent
 // column pairs (col, col + 1) of a row, so every GEMM calls the same code and
-// its outputs agree bit for bit.
+// its outputs agree bit for bit (and with the first design's mma.sync GEMM,
+// whose code this was).
 #pragma once
 
 #include "quant.cuh"
@@ -66,15 +67,23 @@ __device__ __forceinline__ float epi_out_inv(const EpiParams& ep) {
   return 1.0f / static_scale(ep.out_amax);
 }
 
-// EPI_STORE's and EPI_CAST_BIAS's two adjacent output columns in bf16,
-// given the row's activation scale sx and the columns' weight scales and
-// biases: the values epilogue_sx stores for a bf16 output, for a caller
-// that stores them itself (the wgmma GEMM's TMA-store epilogue).
+// EPI_STORE's, EPI_CAST_BIAS's and EPI_RESIDUAL's two adjacent output
+// columns in bf16, given the row's activation scale sx, the columns' weight
+// scales and biases and (EPI_RESIDUAL) the residual pair r: the values
+// epilogue_sx stores for a bf16 output, for a caller that stores them
+// itself (the wgmma GEMM's TMA-store epilogue).
 template <int EPI>
 __device__ __forceinline__ __nv_bfloat162 epi_bf16_pair(const EpiParams& ep, float sx,
                                                         const float* ws, const float* bs,
-                                                        int c0, int c1) {
-  static_assert(EPI == EPI_STORE || EPI == EPI_CAST_BIAS, "a bf16 store epilogue");
+                                                        int c0, int c1,
+                                                        float2 r = make_float2(0.0f, 0.0f)) {
+  static_assert(EPI == EPI_STORE || EPI == EPI_CAST_BIAS || EPI == EPI_RESIDUAL,
+                "a bf16 store epilogue");
+  if (EPI == EPI_RESIDUAL) {
+    const float v0 = static_cast<float>(c0) * sx * ws[0] + bs[0];
+    const float v1 = static_cast<float>(c1) * sx * ws[1] + bs[1];
+    return __floats2bfloat162_rn(r.x + v0, r.y + v1);
+  }
   if (EPI == EPI_CAST_BIAS) {
     float v0 = round_bf16(static_cast<float>(c0) * sx * ws[0]);
     float v1 = round_bf16(static_cast<float>(c1) * sx * ws[1]);
@@ -124,30 +133,13 @@ __device__ __forceinline__ void epilogue_sx(const EpiParams& ep, int N, int row,
   } else if (kF32) {
     *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) =
         make_float2(epi_act<EPI>(v0), epi_act<EPI>(v1));
+  } else if (ep.out_bf16) {
+    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
+        epi_bf16_pair<EPI_RESIDUAL>(ep, sx, ws, bs, c0, c1, r);
   } else {
-    const float r0 = r.x + v0;
-    const float r1 = r.y + v1;
-    if (ep.out_bf16)
-      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(ep.out) + o) =
-          __floats2bfloat162_rn(r0, r1);
-    else
-      *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) = make_float2(r0, r1);
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(ep.out) + o) =
+        make_float2(r.x + v0, r.y + v1);
   }
-}
-
-// Two adjacent output columns (col, col + 1) of one row; ws / bs are their
-// weight scales and biases.
-template <int EPI>
-__device__ __forceinline__ void epilogue(const EpiParams& ep, int N, int row, int col,
-                                         const float* ws, const float* bs, int c0, int c1) {
-  float2 r = make_float2(0.0f, 0.0f);
-  if (EPI == EPI_RESIDUAL) {
-    const long o = static_cast<long>(row) * N + col;
-    r = make_float2(ld_any(ep.resid, o, ep.resid_bf16), ld_any(ep.resid, o + 1, ep.resid_bf16));
-  }
-  constexpr bool kQ8 = EPI == EPI_RELU_Q8 || EPI == EPI_GELU_Q8 || EPI == EPI_SILU_Q8;
-  epilogue_sx<EPI>(ep, N, row, col, epi_row_scale(ep, row), kQ8 ? epi_out_inv(ep) : 0.0f, ws,
-                   bs, c0, c1, r);
 }
 
 }  // namespace nova

@@ -4,8 +4,8 @@
 // C[M, N] = A[M, K] @ W[K, N], A int8 row-major (activations), the weights
 // K-major as Wt[N, K] row-major: both operands K-major, the only layout of
 // 8-bit wgmma, and the one the port stores (ops/quantization.py). The int32
-// sums are exact, and the epilogue is the code the mma.sync GEMM runs
-// (int8_gemm.cuh), so both GEMMs give the same outputs bit for bit.
+// sums are exact, and the epilogue is the code the first design's mma.sync
+// GEMM ran, so both give the same outputs bit for bit.
 //
 // What bounds it on this card: at the serving shapes the products (2 M N K
 // operations against the 1979 TOP/s int8 peak); the bytes from device
@@ -45,7 +45,11 @@
 //     the registers instead (8 rows x 16 bytes a warp instruction, after
 //     the products and overlapping nothing), it took 30-40% of int8_linear
 //     and row 3 (PERF.md). The output tiles take the room of a stage at TN
-//     = 256 (3 stages);
+//     = 256 (3 stages). EPI_RESIDUAL with a bf16 residual and output
+//     (TMA_OUT) loads the tile's residual rows by TMA into that tile as
+//     its products start, adds the product in place and stores the sum by
+//     TMA: loaded by the threads after the products, JB column groups at a
+//     time, the residual's L2 round trips took a sixth of row 4 (PERF.md);
 //   - the main loop waits for at most one wgmma group (the stage before the
 //     one just issued) before releasing that stage; its first and last
 //     steps are peeled, so no wait or accumulate flag is chosen at run time
@@ -71,9 +75,10 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 // The shared memory of output tiles BM x TN: the ring's NS stages (an A
 // tile and a TN x BK W tile each), a full and an empty mbarrier a stage,
 // each consumer's TN column scales and biases; with TMA_OUT (a bf16 output
-// stored by TMA) each consumer's 64 x TN bf16 output tile, as TN / 64 boxes
-// of 64 rows x 128 bytes in the 128B swizzle, at a 1024-byte boundary (so
-// 3 stages at TN = 256, to fit); 1024 bytes to align the tiles.
+// stored by TMA) an mbarrier a consumer for its residual tile's load and
+// each consumer's 64 x TN bf16 output tile, as TN / 64 boxes of 64 rows x
+// 128 bytes in the 128B swizzle, at a 1024-byte boundary (so 3 stages at
+// TN = 256, to fit); 1024 bytes to align the tiles.
 template <int TN, bool TMA_OUT = false>
 struct Layout {
   static_assert(TN == 256 || TN == 128, "wgmma s8 tiles of 256 or 128 columns");
@@ -81,7 +86,8 @@ struct Layout {
   static constexpr int W_BYTES = TN * BK;
   static constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
   static constexpr int OFF_BAR = NS * STAGE_BYTES;      // full[s], then empty[s]
-  static constexpr int OFF_EPI = OFF_BAR + 2 * NS * 8;  // column scales, biases
+  static constexpr int OFF_RES_BAR = OFF_BAR + 2 * NS * 8;  // TMA_OUT: a consumer's residual
+  static constexpr int OFF_EPI = OFF_RES_BAR + (TMA_OUT ? CONSUMERS * 8 : 0);  // scales, biases
   static constexpr int EPI_BYTES = 2 * TN * 4;
   static constexpr int OFF_OUT = (OFF_EPI + CONSUMERS * EPI_BYTES + 1023) / 1024 * 1024;
   static constexpr int OUT_BYTES = 64 * TN * 2;  // a consumer's bf16 output tile
@@ -167,22 +173,31 @@ struct RingT {
 };
 using Ring = RingT<BN>;
 
-// TMA_OUT: EPI_STORE or EPI_CAST_BIAS with a bf16 output, stored through
-// shared memory by TMA (tm_out) while the next tile's products run.
+// TMA_OUT: EPI_STORE, EPI_CAST_BIAS or EPI_RESIDUAL with a bf16 output,
+// stored through shared memory by TMA (tm_out) while the next tile's
+// products run; EPI_RESIDUAL's bf16 residual loaded into that shared memory
+// by TMA (tm_res) while the tile's products run.
 template <int EPI, int TN, bool TMA_OUT>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                          const __grid_constant__ CUtensorMap tm_w,
-                         const __grid_constant__ CUtensorMap tm_out, int M, int N, int n_tiles,
+                         const __grid_constant__ CUtensorMap tm_out,
+                         const __grid_constant__ CUtensorMap tm_res, int M, int N, int n_tiles,
                          int tiles, int ktiles, const EpiParams ep) {
-  static_assert(!TMA_OUT || EPI == EPI_STORE || EPI == EPI_CAST_BIAS, "a bf16 store epilogue");
+  static_assert(!TMA_OUT || EPI == EPI_STORE || EPI == EPI_CAST_BIAS || EPI == EPI_RESIDUAL,
+                "a bf16 store epilogue");
+  constexpr bool kTmaRes = TMA_OUT && EPI == EPI_RESIDUAL;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x;
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);  // warp-uniform
   using L = Layout<TN, TMA_OUT>;
   RingT<TN, TMA_OUT> ring(base);
-  if (tid == 0) ring.init();
+  if (tid == 0) {
+    if (kTmaRes)
+      for (int c = 0; c < CONSUMERS; ++c) mbar_init(base + L::OFF_RES_BAR + 8 * c, 1);
+    ring.init();  // (its fence covers these barriers too)
+  }
   __syncthreads();
 
   if (wg == 0) {  // the producer
@@ -207,9 +222,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int H = TN / 128;  // columns a thread stages
   const float out_inv = kQ8 ? epi_out_inv(ep) : 0.0f;
   int acc[TN / 2];
+  const uint32_t out_s = base + L::OFF_OUT + c * L::OUT_BYTES;  // TMA_OUT
+  const uint32_t res_bar = base + L::OFF_RES_BAR + 8 * c;       // kTmaRes
+  uint32_t res_phase = 0;
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int mt = tile / n_tiles, nt = tile - mt * n_tiles;
+    if (kTmaRes && lt == 0) {
+      // the residual's 64 x TN tile into the output tile, once TMA has read
+      // the last tile's output from it (rows past M, columns past N: zeros)
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      mbar_expect_tx(res_bar, L::OUT_BYTES);
+#pragma unroll
+      for (int b = 0; b < TN / 64; ++b)
+        tma_load_2d(out_s + b * 8192, &tm_res, res_bar, nt * TN + 64 * b, mt * BM + 64 * c);
+    }
     // accumulator element i: row 16 warp + g + 8 ((i >> 1) & 1), column
     // 8 (i >> 2) + 2 t + (i & 1) of this warpgroup's 64 x TN
     const int row0 = mt * BM + 64 * c + 16 * warp + g, n0 = nt * TN;
@@ -225,7 +252,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     const float sx0 = row0 < M ? epi_row_scale(ep, row0) : 0.0f;
     const float sx1 = row0 + 8 < M ? epi_row_scale(ep, row0 + 8) : 0.0f;
-    if (EPI == EPI_RESIDUAL) {  // row lt / 2 of the 64, its half lt % 2, in 128-byte lines
+    if (EPI == EPI_RESIDUAL && !kTmaRes) {  // row lt / 2 of the 64, its half lt % 2, in 128-byte lines
       const int r = mt * BM + 64 * c + (lt >> 1), half_bytes = TN * (ep.resid_bf16 ? 2 : 4) / 2;
       if (r < M) {
         const char* p = static_cast<const char*>(ep.resid) +
@@ -252,20 +279,44 @@ __global__ void __launch_bounds__(THREADS, 1)
       // the bf16 pairs into the warpgroup's output tile: 8-column group j
       // of row r is 16-byte chunk j % 8 of box j / 8's row r, at chunk
       // (j % 8) ^ (r % 8) (the 128B swizzle: a warp's stores hit 32 banks),
-      // then TMA stores the boxes (rows past M, columns past N dropped)
-      const uint32_t out_s = base + L::OFF_OUT + c * L::OUT_BYTES;
+      // each pair added to the residual's there (EPI_RESIDUAL), then TMA
+      // stores the boxes (rows past M, columns past N dropped)
       const int r = 16 * warp + g;
+      if (kTmaRes) {
+        mbar_wait(res_bar, res_phase);
+        res_phase ^= 1;
+      }
 #pragma unroll
-      for (int j = 0; j < TN / 8; ++j) {
-        const float2 w2 = lds_f2(s_ws + 4 * (8 * j + 2 * t));
-        const float2 b2 = lds_f2(s_bs + 4 * (8 * j + 2 * t));
-        const float ws[2] = {w2.x, w2.y}, bs[2] = {b2.x, b2.y};
-        const uint32_t off = (j >> 3) * 8192 + r * 128 + (((j & 7) ^ g) << 4) + 4 * t;
-        const __nv_bfloat162 v0 = epi_bf16_pair<EPI>(ep, sx0, ws, bs, acc[4 * j], acc[4 * j + 1]);
-        const __nv_bfloat162 v1 =
-            epi_bf16_pair<EPI>(ep, sx1, ws, bs, acc[4 * j + 2], acc[4 * j + 3]);
-        sts_u32(out_s + off, *reinterpret_cast<const unsigned*>(&v0));
-        sts_u32(out_s + off + 8 * 128, *reinterpret_cast<const unsigned*>(&v1));
+      for (int j0 = 0; j0 < TN / 8; j0 += 8) {
+        // the residual pairs of 8 column groups first (volatile loads keep
+        // their order: loaded one by one, each would wait behind the stores)
+        unsigned ru[8][2];
+#pragma unroll
+        for (int jj = 0; jj < 8 && kTmaRes; ++jj) {
+          const int j = j0 + jj;
+          const uint32_t off = (j >> 3) * 8192 + r * 128 + (((j & 7) ^ g) << 4) + 4 * t;
+          ru[jj][0] = lds_u32(out_s + off);
+          ru[jj][1] = lds_u32(out_s + off + 8 * 128);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = j0 + jj;
+          const float2 w2 = lds_f2(s_ws + 4 * (8 * j + 2 * t));
+          const float2 b2 = lds_f2(s_bs + 4 * (8 * j + 2 * t));
+          const float ws[2] = {w2.x, w2.y}, bs[2] = {b2.x, b2.y};
+          const uint32_t off = (j >> 3) * 8192 + r * 128 + (((j & 7) ^ g) << 4) + 4 * t;
+          float2 r0 = make_float2(0.0f, 0.0f), r1 = r0;
+          if (kTmaRes) {
+            r0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ru[jj][0]));
+            r1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ru[jj][1]));
+          }
+          const __nv_bfloat162 v0 =
+              epi_bf16_pair<EPI>(ep, sx0, ws, bs, acc[4 * j], acc[4 * j + 1], r0);
+          const __nv_bfloat162 v1 =
+              epi_bf16_pair<EPI>(ep, sx1, ws, bs, acc[4 * j + 2], acc[4 * j + 3], r1);
+          sts_u32(out_s + off, *reinterpret_cast<const unsigned*>(&v0));
+          sts_u32(out_s + off + 8 * 128, *reinterpret_cast<const unsigned*>(&v1));
+        }
       }
       fence_proxy_async();  // the stores above, seen by TMA
       named_sync(1 + c, 128);
@@ -331,8 +382,9 @@ inline bool plan(int M, int N, int K, int grid, int smem_bytes, int& n_tiles, in
   return grid >= 1 && grid <= tiles && smem_bytes == Layout<TN, TMA_OUT>::SMEM;
 }
 
-// A 2-D map over the bf16 output (M, N) row-major: boxes of 64 columns (128
-// bytes) by 64 rows, 128B swizzle (the layout the TMA_OUT epilogue stages).
+// A 2-D map over a bf16 output or residual (M, N) row-major: boxes of 64
+// columns (128 bytes) by 64 rows, 128B swizzle (the layout the TMA_OUT
+// epilogue stages).
 inline bool out_map(CUtensorMap* m, const void* ptr, int M, int N) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || N % 8 != 0) return false;
@@ -352,18 +404,20 @@ inline cudaError_t launch(const int8_t* A, const int8_t* Wt, int M, int N, int K
   int n_tiles, tiles;
   if (!plan<TN, TMA_OUT>(M, N, K, grid, smem_bytes, n_tiles, tiles))
     return cudaErrorInvalidConfiguration;
-  CUtensorMap maps[3] = {};
+  CUtensorMap maps[4] = {};
   if (!kmajor_map(&maps[0], A, M, K, BM) || !kmajor_map(&maps[1], Wt, N, K, TN))
     return cudaErrorInvalidValue;
   if (TMA_OUT && (!ep.out_bf16 || !out_map(&maps[2], ep.out, M, N)))
+    return cudaErrorInvalidValue;
+  if (TMA_OUT && EPI == EPI_RESIDUAL && (!ep.resid_bf16 || !out_map(&maps[3], ep.resid, M, N)))
     return cudaErrorInvalidValue;
   constexpr int smem = Layout<TN, TMA_OUT>::SMEM;
   auto kernel = gemm_s8_wgmma_kernel<EPI, TN, TMA_OUT>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], M, N, n_tiles, tiles,
-                                          K / BK, ep);
+  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], M, N, n_tiles,
+                                          tiles, K / BK, ep);
   return cudaGetLastError();
 }
 

@@ -15,7 +15,9 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   ``csrc/flash_attention_bwd.cu``: in bf16 the prep kernel (delta and lse
   rows), the one-pass dkvq kernel (wgmma and TMA: dK, dV, and dQ summed into
   an f32 workspace) and the cast of that workspace to dq; in f32 the prep
-  kernel and the SIMT dK/dV and dQ kernels. For CPU tensors the forward runs
+  kernel and the one-pass register-tiled SIMT kernel (f32 FFMA; dQ added
+  into the zeroed dq), launched as :func:`bwd_f32_plan` lays it out. For CPU
+  tensors the forward runs
   :func:`flash_attention_plain` and the backward
   :func:`flash_attention_bwd_plain`. It never falls back from a kernel to its
   plain version: what a kernel does not take raises.
@@ -24,11 +26,11 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   the plain backward, written as the JAX kernels' math;
   :func:`bwd_prep_plain` and :func:`bwd_dq_cast_plain` are the plain
   versions of the prep and cast kernels, :func:`bwd_plan` the bf16 launch
-  plan.
+  plan, :func:`bwd_f32_plan` the f32 one.
 - ``LAUNCHES[name]`` counts each kernel's launches: ``flash_attention``;
   ``flash_attention_bwd_prep``, ``flash_attention_bwd_dkvq``,
-  ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_dkv``,
-  ``flash_attention_dq`` (f32).
+  ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_bwd_f32``
+  (f32, after the prep kernel).
 
 The CUDA kernels take float32 or bfloat16 q, k, v of one dtype with head dim
 64 (other head dims raise), any Lq and Lk, and the three bias forms of the TPU
@@ -217,11 +219,9 @@ def _launch(q, k, v, key_bias, full_bias):
     return o, lse
 
 
-_BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P,
-                 _P, _P]  # the f32 kernels
 _PREP_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P]
 _DKVQ_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P,
-                  _I, _I, _I, _P]
+                  _I, _I, _I, _P]  # the f32 kernel's too
 _CAST_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _F, _P, _P]
 _LQ_PAD = 128  # lse / delta / dq workspace rows are padded to a multiple of this
 LOG2E = 1.4426950408889634
@@ -229,10 +229,15 @@ LOG2E = 1.4426950408889634
 # two warpgroups of 64 keys each; each streams query tiles of 64 through its
 # own ring of BWD_STAGES stages
 BWD_BLOCK_K, BWD_BLOCK_Q, BWD_STAGES = 128, 64, 2
+# the f32 kernel's: blocks of 64 keys and 128 threads, query tiles of 64
+# through one buffer; shared memory: K, V, the tile's q and do, P (then the
+# tile's dq part) and dS as 64 x 64 f32 tiles, the tile's lse and delta rows,
+# two mbarriers, 1 KB to align the swizzled tiles: two blocks an SM
+BWD_F32_BLOCK_K, BWD_F32_BLOCK_Q, BWD_F32_THREADS = 64, 64, 128
 
 BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkvq",
                "flash_attention_bwd_dq_cast")  # bf16, in launch order
-BWD_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_dkv", "flash_attention_dq")
+BWD_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_f32")
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -315,11 +320,27 @@ def bwd_plan(b: int, h: int, lq: int, lk: int) -> dict:
                 grid=(key_tiles, b * h), smem_bytes=smem, workspace=(b * h, lqp, CUDA_HEAD_DIM))
 
 
+def bwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
+    """The f32 backward's launch plan, as ``csrc/flash_attention_bwd.cu``
+    lays out the f32 kernel's shared memory (which checks it): K and V of
+    its 64 keys, the query tile's q and do, P (then the tile's dq part) and
+    dS, six 64 x 64 f32 tiles; the tile's lse and delta rows; two mbarriers;
+    1024 bytes to align the swizzled tiles. ``workspace``: the dq the
+    kernel adds into, zeroed, in the (B, L, H, D) layout (no other
+    scratch)."""
+    tile = BWD_F32_BLOCK_Q * CUDA_HEAD_DIM * 4
+    smem = 6 * tile + 2 * BWD_F32_BLOCK_Q * 4 + 2 * 8 + 1024
+    key_tiles = -(-lk // BWD_F32_BLOCK_K)
+    return dict(lqp=-(-lq // _LQ_PAD) * _LQ_PAD, key_tiles=key_tiles,
+                q_tiles=-(-lq // BWD_F32_BLOCK_Q), grid=(key_tiles, b * h),
+                threads=BWD_F32_THREADS, smem_bytes=smem, workspace=(b, lq, h, CUDA_HEAD_DIM))
+
+
 def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     """Every check of the backward kernels, then their launches in order
     (name, argtypes, ctypes arguments, the tensors behind the pointers) and
     the outputs (dq, dk, dv) they write. bf16: prep, dkvq, cast; f32: prep,
-    dK/dV, dQ."""
+    the one-pass f32 kernel."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dev = q.device
@@ -338,8 +359,8 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
                          f"must be (B, H, L, D) (lse (B, H, Lq)) on one device")
     if lse.dtype != torch.float32:
         raise TypeError(f"lse must be float32, got {lse.dtype}")
-    plan = bwd_plan(b, h, lq, lk)
-    if is_bf16 and (b * h > 65535 or b * h * plan["lqp"] >= 2 ** 31):
+    plan = bwd_plan(b, h, lq, lk) if is_bf16 else bwd_f32_plan(b, h, lq, lk)
+    if b * h > 65535 or (is_bf16 and b * h * plan["lqp"] >= 2 ** 31):
         raise ValueError(f"B*H = {b * h} over the grid's 65535 rows, or B*H*Lq over the "
                          f"dq workspace map's 2^31 rows")
     q, k, v, o, do = (_strided(t) for t in (q, k, v, o, do))
@@ -347,8 +368,11 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     lqp = plan["lqp"]
     f32 = dict(dtype=torch.float32, device=dev)
     lse_rows, delta = torch.empty((b * h, lqp), **f32), torch.empty((b * h, lqp), **f32)
-    dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
-                  for n in (lq, lk, lk))
+    dk, dv = (torch.empty((b, lk, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+              for _ in range(2))
+    # the f32 kernel adds its dq parts into dq itself
+    dq = (torch.empty if is_bf16 else torch.zeros)((b, lq, h, d), dtype=q.dtype,
+                                                   device=dev).transpose(1, 2)
     if key_bias is not None:
         key_bias = key_bias.to(device=dev, dtype=torch.float32).contiguous()
     if full_bias is not None:
@@ -378,11 +402,12 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
              (ws, cast_s))]
     else:
         all_s = strides(q, k, v, do, dq, dk, dv)
-        args = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), is_bf16, b, h, lq,
-                lk, lqp, d, ctypes.addressof(all_s), ptr(key_bias), ptr(full_bias), scale,
-                ptr(dq), ptr(dk), ptr(dv), stream]
-        keep = (q, k, v, do, lse_rows, delta, key_bias, full_bias, all_s)
-        launches += [(name, _BWD_ARGTYPES, args, keep) for name in BWD_F32_KERNELS[1:]]
+        launches.append(
+            ("flash_attention_bwd_f32", _DKVQ_ARGTYPES,
+             [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp, d,
+              ctypes.addressof(all_s), ptr(key_bias), ptr(full_bias), scale, ptr(dq), ptr(dk),
+              ptr(dv), plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"], stream],
+             (q, k, v, do, lse_rows, delta, key_bias, full_bias, dq, all_s)))
     return launches, (dq, dk, dv)
 
 

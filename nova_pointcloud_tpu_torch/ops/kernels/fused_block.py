@@ -250,8 +250,9 @@ SMEM_LIMIT = 232448  # a block's shared memory on the H100
 # the tile's width x 128 bytes each), a full and an empty mbarrier a stage, a
 # tile's column scales and biases for each of the two consumer warpgroups,
 # 1 KB to align the swizzled tiles; with a TMA-store epilogue (a bf16 output
-# of EPI_STORE or EPI_CAST_BIAS) each consumer's 64 x width bf16 output tile
-# at a 1 KB boundary, and 3 stages for 256-wide tiles (4 do not fit)
+# of EPI_STORE, EPI_CAST_BIAS or EPI_RESIDUAL) an mbarrier a consumer for
+# the residual's load and each consumer's 64 x width bf16 output tile at a
+# 1 KB boundary, and 3 stages for 256-wide tiles (4 do not fit)
 WG_BLOCK_M, WG_BLOCK_N, WG_BLOCK_K, WG_STAGES = 128, 256, 128, 4
 WG_BLOCK_NS = (256, 128)  # the tile widths the GEMM is built for
 
@@ -262,7 +263,7 @@ def _wg_layout(block_n: int, tma_store: bool) -> tuple:
     end = (stages * (WG_BLOCK_M + block_n) * WG_BLOCK_K + 2 * stages * 8
            + 2 * 2 * block_n * 4)
     if tma_store:
-        end = -(-end // 1024) * 1024 + 2 * 64 * block_n * 2
+        end = -(-(end + 2 * 8) // 1024) * 1024 + 2 * 64 * block_n * 2
     return stages, end + 1024
 
 
@@ -293,7 +294,9 @@ def gemm_plan(m: int, n: int, k: int, sms: int, block_n: int = WG_BLOCK_N,
 @functools.lru_cache(maxsize=256)
 def store_plan(m: int, n: int, k: int, sms: int, tma_store: bool) -> dict:
     """The product of :func:`int8_linear` and :func:`fused_ln_int8_matmul`
-    (a store epilogue, by TMA for a bf16 output) on the wgmma GEMM:
+    (a store epilogue, by TMA for a bf16 output) and of
+    :func:`int8_matmul_residual` (the residual epilogue, its bf16 residual
+    in and output out by TMA) on the wgmma GEMM:
     :func:`gemm_plan` with 128 x 128 tiles where their columns of rounds
     (rounds: tiles a block; columns: rounds x the tile width), a tenth
     dearer each, still come under the 128 x 256 tiles' (a narrow tile reads
@@ -462,7 +465,7 @@ _ARGTYPES = {
     "fused_ln_int8_matmul": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
                              _P, _P, _I, _I, _I, _P],
     "int8_matmul_residual": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
-                             _P, _P, _P],
+                             _P, _P, _I, _I, _I, _P],
     "fused_int8_mlp_postln": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _P],
@@ -688,28 +691,35 @@ def int8_matmul_residual(x: torch.Tensor, residual: torch.Tensor, wq, s,
     """residual + (q8(x) @ wq)·sx·s + b in float32, cast to residual's dtype.
 
     x (..., D_in); residual (..., D_out); wq (D_in, D_out) int8, scales s and
-    bias b (D_out,). The attention out-projection of the split serving path."""
+    bias b (D_out,). The attention out-projection of the split serving path.
+    On a CUDA tensor the product runs on the wgmma GEMM as :func:`store_plan`
+    lays it out, the residual added in its epilogue (a bf16 residual loaded,
+    and y stored, through shared memory by TMA)."""
     if _plain_route(x):
         return int8_matmul_residual_plain(x, residual, wq, s, b)
     dev, k = x.device, x.shape[-1]
     n = wq.shape[-1]
     _gemm_dims(k, n, "int8_matmul_residual")
-    xf = x.reshape(-1, k).contiguous()
-    rf = residual.reshape(-1, n).contiguous()
+    xf = _aligned(x.reshape(-1, k).contiguous())
     m = xf.shape[0]
-    if rf.shape[0] != m or rf.device != dev:
-        raise ValueError(f"x {tuple(x.shape)} and residual {tuple(residual.shape)} "
-                         f"must share their leading dims and device")
-    wq = _int8_weight(wq, (k, n), dev, "wq")
+    if (residual.shape[-1] != n or residual.numel() != m * n
+            or residual.device != dev):
+        raise ValueError(f"x {tuple(x.shape)} and residual {tuple(residual.shape)} must "
+                         f"share their leading dims and device, the residual {n} wide")
+    rf = _aligned(residual.reshape(-1, n).contiguous())
+    x_bf16, r_bf16 = _dtype_flag(xf, "x"), _dtype_flag(rf, "residual")
+    wq = _aligned(_int8_weight(wq, (k, n), dev, "wq"))
+    _lengths(n, s=s, b=b)
     s, b = _f32(s, dev), b.contiguous()
+    b_bf16 = _dtype_flag(b, "b")
+    plan = store_plan(m, n, k, _sms(dev), bool(r_bf16))
     q = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
     y = torch.empty_like(rf)
     so, fn = _lib("int8_matmul_residual")
-    _run(so, fn, [_ptr(xf), _dtype_flag(xf, "x"), m, k, n, _ptr(rf),
-                  _dtype_flag(rf, "residual"), _ptr(b), _dtype_flag(b, "b"),
-                  _ptr(wq), _ptr(s), _ptr(q), _ptr(sx), _ptr(y),
-                  torch.cuda.current_stream(dev).cuda_stream])
+    _run(so, fn, [_ptr(xf), x_bf16, m, k, n, _ptr(rf), r_bf16, _ptr(b), b_bf16,
+                  _ptr(wq), _ptr(s), _ptr(q), _ptr(sx), _ptr(y), plan["grid"][0],
+                  plan["block_n"], plan["smem_bytes"], _stream(dev)])
     LAUNCHES["int8_matmul_residual"] += 1
     return y.reshape(residual.shape)
 

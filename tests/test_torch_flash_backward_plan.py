@@ -1,7 +1,9 @@
-"""The bf16 flash backward's pieces around its CUDA kernels, on the CPU: the
+"""The flash backward's pieces around its CUDA kernels, on the CPU: the
 prep kernel's plain version (delta and lse rows) against the JAX function's
-delta, the cast kernel's plain version, and the wrapper's launch plan and
-launch sequence with the launch itself replaced by a recorder.
+delta, the cast kernel's plain version, and the wrapper's launch plans (the
+bf16 one-pass kernel's and the f32 one-pass kernel's: tiles, grid, shared
+memory, the dq it adds into) and launch sequences with the launch itself
+replaced by a recorder.
 
 Tolerances: none. delta is held to JAX's ``jnp.sum(dout.f32 * out.f32, -1)``
 bit for bit (the plain version sums in XLA's order on the CPU, each half of
@@ -139,6 +141,79 @@ def test_launch_sequence_follows_the_plan(monkeypatch, dtype):
             assert not torch.any(ws)  # zeroed: the kernel adds into it
         for g, ref in ((dq, q), (dk, k), (dv, v)):
             assert g.shape == ref.shape and g.dtype == dtype
+            assert g.transpose(1, 2).is_contiguous()
+    finally:
+        reset_launch_counts()
+
+
+@pytest.mark.parametrize("b,h,lq,lk,want", [
+    (8, 16, 1280, 1280, dict(lqp=1280, key_tiles=20, q_tiles=20, grid=(20, 128),
+                             workspace=(8, 1280, 16, 64))),
+    (2, 16, 1000, 1531, dict(lqp=1024, key_tiles=24, q_tiles=16, grid=(24, 32),
+                             workspace=(2, 1000, 16, 64))),
+    (1, 1, 1, 1, dict(lqp=128, key_tiles=1, q_tiles=1, grid=(1, 1), workspace=(1, 1, 1, 64))),
+])
+def test_bwd_f32_plan(b, h, lq, lk, want):
+    plan = tfa.bwd_f32_plan(b, h, lq, lk)
+    for key, val in want.items():
+        assert plan[key] == val, key
+    # K, V, the tile's q and do, P (then its dq part) and dS: six 64 x 64 f32
+    # tiles (96 KB); lse / delta rows (512 bytes); 2 mbarriers; 1 KB to
+    # align: the kernel checks the same number, and two blocks (each with
+    # the 1 KB the card keeps a block) fit in an SM's 228 KB
+    assert plan["smem_bytes"] == 99856 <= 232448
+    assert 2 * (plan["smem_bytes"] + 1024) <= 233472
+    assert plan["threads"] == 128
+    assert plan["key_tiles"] * tfa.BWD_F32_BLOCK_K >= lk > (plan["key_tiles"] - 1) * 64
+    assert plan["q_tiles"] * tfa.BWD_F32_BLOCK_Q <= plan["lqp"]
+
+
+class _F32Recorder(_Recorder):
+    """Also reads the f32 kernel's 21 strides while the array lives."""
+
+    def run(self, so, fn, args):
+        super().run(so, fn, args)
+        if so == "flash_attention_bwd_f32":
+            arr = ctypes.cast(args[12], ctypes.POINTER(ctypes.c_long))
+            self.strides = [arr[i] for i in range(21)]
+
+
+@pytest.mark.parametrize("bias", ["none", "key", "full"])
+def test_f32_launch_follows_the_plan(monkeypatch, bias):
+    rec = _F32Recorder()
+    monkeypatch.setattr(tfa, "lib", rec.lib)
+    monkeypatch.setattr(tfa, "run", rec.run)
+    monkeypatch.setattr(tfa, "_stream", lambda dev: 0)
+    rng = np.random.default_rng(5)
+    b, h, lq, lk = 2, 16, 1000, 1531
+    q, o, do = (_blhd(rng, b, h, lq, 64, torch.float32) for _ in range(3))
+    k, v = (_blhd(rng, b, h, lk, 64, torch.float32) for _ in range(2))
+    lse = torch.zeros((b, h, lq))
+    kb = torch.zeros((b, lk)) if bias == "key" else None
+    fbias = torch.zeros((lq, lk)) if bias == "full" else None
+    try:
+        launches, (dq, dk, dv) = tfa._bwd_operands(q, k, v, kb, fbias, o, lse, do)
+        tfa.run_bwd(launches)
+        plan = tfa.bwd_f32_plan(b, h, lq, lk)
+        assert [n for n, _ in rec.calls] == list(tfa.BWD_F32_KERNELS)
+        assert LAUNCHES["flash_attention_bwd_f32"] == 1
+        assert LAUNCHES["flash_attention_bwd_dkvq"] == LAUNCHES["flash_attention_bwd_dq_cast"] == 0
+        main = rec.calls[1][1]
+        assert main[6:12] == [b, h, lq, lk, plan["lqp"], 64]
+        assert main[19:22] == [plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"]]
+        assert main[15] == 0.125  # the scale, folded into ds
+        # q, k, v, do, dq, dk, dv: (batch, head, row) strides of (B, L, H, D) views
+        assert rec.strides == [
+            s for n in (lq, lk, lk, lq, lq, lk, lk) for s in (n * h * 64, 64, h * 64)]
+        assert main[13] == (None if kb is None else launches[1][3][6].data_ptr())
+        assert main[14] == (None if fbias is None else launches[1][3][7].data_ptr())
+        # the kernel adds into dq itself: zeroed, the plan's workspace, in
+        # the (B, L, H, D) layout; no other scratch
+        assert main[16] == dq.data_ptr() and not torch.any(dq)
+        assert dq.transpose(1, 2).shape == plan["workspace"]
+        assert main[17:19] == [dk.data_ptr(), dv.data_ptr()]
+        for g, ref in ((dq, q), (dk, k), (dv, v)):
+            assert g.shape == ref.shape and g.dtype == torch.float32
             assert g.transpose(1, 2).is_contiguous()
     finally:
         reset_launch_counts()
