@@ -25,6 +25,17 @@ reverse order; the mean of the two readings):
 The copies compute wrong outputs on purpose (except ``two warpgroups``,
 ``no turns`` and ``probe``): they are timed, not checked. The last line is
 ``PROBE {json}``.
+
+``python3 chip_fwd_probe.py f32`` does the same for the f32 route's kernel
+(``flash_fwd_f32_kernel`` in ``flash_attention.cu``) at (8, 16, 1280, 64) f32,
+no bias, each copy timed from a CUDA graph in turns against the source as
+built, its ptxas registers and spills printed: without the exponentials;
+with ``exp2f`` of log2e-scaled logits in place of ``expf``; without the
+softmax (the products and P's stores kept); without Q Kᵀ; without P V;
+the Q Kᵀ loop unrolled by 2 and by 4; the P V loop unrolled by 2; and a
+probed copy whose warps add the ``clock`` cycles of each step of a key tile
+into shared memory, printed per tile per warp (the probes' own cost is in
+the probed copy's time).
 """
 
 import ctypes
@@ -118,9 +129,164 @@ def _build_variants(root: Path) -> dict:
     return libs
 
 
+F32_SRC = "flash_attention.cu"
+F32_INSTANCE = "flash_fwd_f32_kernelILb0ELb0E"
+F32_SOFTMAX = "    // online softmax of the tile's scores, once a tile\n#pragma unroll\n"
+F32_STEPS = [("wait for K", "+    mbar_wait(bar_k, kt & 1);\n"),
+             ("Q K^T", "    // the additive term of the thread's keys"),
+             ("key bias, barrier, next K issued", F32_SOFTMAX),
+             ("softmax", "    // P[r_i][tj + 8 j] = f32_at("),
+             ("P stored, __syncwarp", "+    __syncwarp();  // the warp's P rows are written\n"),
+             ("wait for V", "+    mbar_wait(bar_v, kt & 1);\n"),
+             ("P V", "    __syncthreads();  // V is read\n"),
+             ("barrier, next V issued", "  // l over the row's 8 lanes")]
+F32_VARIANTS = {
+    "no exponentials": [("        s[i][j] = expf(s[i][j] - mn);",
+                         "        s[i][j] = s[i][j] - mn;", 1),
+                        ("      const float alpha = expf(m[i] - mn);",
+                         "      const float alpha = m[i] - mn;", 1)],
+    "exp2f": [("        s[i][j] = expf(s[i][j] - mn);",
+               "        s[i][j] = exp2f((s[i][j] - mn) * 1.44269504088896341f);", 1),
+              ("      const float alpha = expf(m[i] - mn);",
+               "      const float alpha = exp2f((m[i] - mn) * 1.44269504088896341f);", 1)],
+    "no softmax": [(F32_SOFTMAX + "    for (int i = 0; i < 8; ++i) {",
+                    "    for (int i = 0; i < 0; ++i) {", 1)],
+    "no Q K^T": [("    for (int c = 0; c < 16; ++c) {", "    for (int c = 0; c < 0; ++c) {", 1)],
+    "no P V": [("    for (int cc = 0; cc < 8; ++cc) {", "    for (int cc = 0; cc < 0; ++cc) {", 1)],
+    "Q K^T unrolled by 2": [("#pragma unroll 1\n    for (int c = 0; c < 16; ++c) {",
+                             "#pragma unroll 2\n    for (int c = 0; c < 16; ++c) {", 1)],
+    "Q K^T unrolled by 4": [("#pragma unroll 1\n    for (int c = 0; c < 16; ++c) {",
+                             "#pragma unroll 4\n    for (int c = 0; c < 16; ++c) {", 1)],
+    "P V unrolled by 2": [("#pragma unroll 1\n    for (int cc = 0; cc < 8; ++cc) {",
+                           "#pragma unroll 2\n    for (int cc = 0; cc < 8; ++cc) {", 1)],
+}
+
+
+def _f32_probe_edits(text: str) -> str:
+    """flash_attention.cu with clock probes at the f32 kernel's steps: each
+    warp's lane 0 adds a step's cycles into shared memory, and at the end
+    into a device counter (the last slot counts warps x tiles)."""
+    text = text.replace("namespace nova {\n", (
+        "__device__ unsigned long long nova_fwd32_probe[9];\n"
+        "#define PROBE(k) { const unsigned c_ = static_cast<unsigned>(clock64()); "
+        "if (lane == 0) atomicAdd(&probe_sm[warp][k], c_ - probe_t); probe_t = c_; }\n"
+        "namespace nova {\n"), 1)
+    kernel = text.index("    flash_fwd_f32_kernel(")
+    head, body = text[:kernel], text[kernel:]
+    edits = [("  extern __shared__ unsigned char smem_raw[];\n",
+              "  extern __shared__ unsigned char smem_raw[];\n"
+              "  __shared__ unsigned probe_sm[4][8];\n"
+              "  if (threadIdx.x < 32) probe_sm[threadIdx.x >> 3][threadIdx.x & 7] = 0;\n"),
+             ("  for (int kt = 0; kt < nk; ++kt) {\n",
+              "  unsigned probe_t = static_cast<unsigned>(clock64());\n"
+              "  for (int kt = 0; kt < nk; ++kt) {\n"),
+             ("  // l over the row's 8 lanes",
+              "  if (lane == 0) {\n    for (int k = 0; k < 8; ++k) "
+              "atomicAdd(&nova_fwd32_probe[k], (unsigned long long)probe_sm[warp][k]);\n"
+              "    atomicAdd(&nova_fwd32_probe[8], (unsigned long long)nk);\n  }\n"
+              "  // l over the row's 8 lanes")]
+    for n, (_, anchor) in enumerate(F32_STEPS):
+        after = anchor.startswith("+")
+        anchor = anchor.lstrip("+")
+        probe = f"    PROBE({n})\n" if n < 7 else "    PROBE(7)\n  }\n\n"
+        if n == 7:  # the loop's last line
+            anchor = "    if (tid == 0 && kt + 1 < nk) load_v(kt + 1);\n  }\n\n"
+            edits.append((anchor, anchor[:-5] + probe))
+        else:
+            edits.append((anchor, anchor + probe if after else probe + anchor))
+    for old, new in edits:
+        if body.count(old) != 1:
+            raise RuntimeError(f"probe: {old!r} found {body.count(old)} times, not 1")
+        body = body.replace(old, new)
+    return head + body + (
+        '\nextern "C" int nova_fwd32_probe_read(unsigned long long* out, int reset) {\n'
+        "  unsigned long long zero[9] = {};\n"
+        "  if (reset) return cudaMemcpyToSymbol(nova_fwd32_probe, zero, sizeof(zero));\n"
+        "  return cudaMemcpyFromSymbol(out, nova_fwd32_probe, sizeof(zero));\n}\n")
+
+
+def _ptxas(log: str, kernel: str) -> str:
+    """The registers and spill line of ``kernel`` in an nvcc -Xptxas -v log."""
+    lines, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        elif on and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    return "; ".join(lines)
+
+
+def f32_main() -> None:
+    """The f32 mode (module docstring)."""
+    fa, build = cs.fa, cs._build
+    lib = "flash_attention"
+    build.build_all([lib])
+    base = build.load(lib)
+    root = Path(build.BUILD_DIR).parent / "fwd_probe_f32"
+    procs, libs, ptxas = [], {}, {"as built": _ptxas(build.build_log(lib), F32_INSTANCE)}
+    for name, edits in [*F32_VARIANTS.items(), ("probe", None)]:
+        d = root / name.replace(" ", "_").replace("^", "")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(build.CSRC, d)
+        text = (d / F32_SRC).read_text()
+        if edits is None:
+            text = _f32_probe_edits(text)
+        for old, new, count in edits or []:
+            if text.count(old) != count:
+                raise RuntimeError(f"{name}: {old!r} found {text.count(old)} times, not {count}")
+            text = text.replace(old, new)
+        (d / F32_SRC).write_text(text)
+        out = d / f"lib{lib}.so"
+        cmd = [build.nvcc_path(), *build._flags(lib), "-o", str(out), str(d / F32_SRC)]
+        procs.append((name, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)))
+    for name, out, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
+        libs[name] = ctypes.CDLL(str(out))
+        ptxas[name] = _ptxas(log, F32_INSTANCE)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((8, 16, 1280, 64), generator=gen, device="cuda") for _ in range(3))
+
+    def call():
+        fa.flash_attention_with_lse(q, k, v)
+
+    times = {}
+    for name in ["as built", *libs, *reversed(list(libs)), "as built"]:
+        build._loaded[lib] = base if name == "as built" else libs[name]
+        times.setdefault(name, []).append(cs.graph_ms(call))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    res = {"card": smi, "shape": [8, 16, 1280, 64, "f32"],
+           "graph_ms": {n: sum(t) / len(t) for n, t in times.items()}, "ptxas": ptxas}
+    for name, ms in res["graph_ms"].items():
+        print(f"  {name:<22} {ms:.4f} ms from a graph; ptxas: {ptxas[name]}")
+    read = libs["probe"].nova_fwd32_probe_read
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    build._loaded[lib] = libs["probe"]
+    counts = (ctypes.c_ulonglong * 9)()
+    torch.cuda.synchronize()
+    read(None, 1)
+    call()
+    torch.cuda.synchronize()
+    read(ctypes.addressof(counts), 0)
+    build._loaded[lib] = base
+    res["cycles_per_tile_per_warp"] = {step: counts[n] / max(counts[8], 1)
+                                       for n, (step, _) in enumerate(F32_STEPS)}
+    print("  cycles per key tile per warp (probed copy):")
+    for step, cyc in res["cycles_per_tile_per_warp"].items():
+        print(f"    {step:<36} {cyc:8.1f}")
+    print(f"    {'sum':<36} {sum(res['cycles_per_tile_per_warp'].values()):8.1f}")
+    print(f"card: {smi}")
+    print("PROBE " + json.dumps(res))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         cs._fail("CUDA is not available: this script runs on the GPU only", 2)
+    if sys.argv[1:] == ["f32"]:
+        return f32_main()
     fa, build = cs.fa, cs._build
     build.build_all(list(LIBS))
     base = {lib: build.load(lib) for lib in LIBS}

@@ -635,8 +635,9 @@ def check_flash():
              ("full", B, H, L, L, 64, bf16), ("dead", B, H, L, L, 64, bf16),
              ("none", PP_BATCH, H, L, L, 64, bf16),
              ("key", 2, H, 1000, 1531, 64, bf16), ("full", 2, H, 333, 1531, 64, bf16),
-             ("none", 2, H, 1000, 1531, 64, f32),
-             ("dead", 2, H, 515, 1000, 64, f32), ("full", 2, H, 515, 1000, 64, f32)]
+             ("none", 2, H, 1000, 1531, 64, f32), ("key", 2, H, 1000, 1531, 64, f32),
+             ("dead", 2, H, 515, 1000, 64, f32), ("full", 2, H, 515, 1000, 64, f32),
+             ("none", 2, H, 37, 45, 64, f32)]  # Lq and Lk under one tile
     bad = []
     for kind, b, h, lq, lk, d, dt in cases:
         q, k, v = _flash_operands(gen, b, h, lq, lk, d, dt)
@@ -677,6 +678,24 @@ def check_flash():
                           f"{name} strided (B, L, H, D) view", g, r, 2.0 ** -6,
                           2.0 ** -8, like=r):
             bad.append(f"strided backward {name}")
+    # the f32 route in that layout, and its backward through autograd on the
+    # f32 kernel's lse
+    q, k, v = (t.transpose(1, 2) for t in _flash_operands(gen, 2, L, H, H, 64, f32))
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o, lse = fa.flash_attention_with_lse(*ins)
+    ref_o, ref_lse = fa.flash_attention_plain(q, k, v)
+    e_lse = (lse - ref_lse).abs().max().item()
+    print(f"    f32 strided lse max_abs_err {e_lse:.3e} (tol 1e-4)")
+    if not (_tol_check("flash_attention", "f32 strided (B, L, H, D) view", o, ref_o, 1e-4,
+                       1e-5, like=ref_o) and o.stride() == q.stride() and e_lse <= 1e-4):
+        bad.append("f32 strided view")
+    do = torch.randn((2, L, H, 64), generator=gen, device=DEV).transpose(1, 2)
+    grads = torch.autograd.grad(o, ins, do)
+    ref = fa.flash_attention_bwd_plain(q, k, v, None, None, o.detach(), lse, do)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        if not _tol_check(_bwd_kernel(f32), f"{name} f32 strided (B, L, H, D) view", g, r,
+                          1e-4, 1e-5, like=r):
+            bad.append(f"f32 strided backward {name}")
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain version: {bad}")
     fb.reset_launch_counts()
@@ -1750,6 +1769,36 @@ def _int8_ptxas():
         raise AssertionError(f"the int8 kernels are not all on wgmma and TMA: {bad}")
 
 
+# the instances of flash_attention.cu's f32 forward kernel,
+# flash_fwd_f32_kernel<KBIAS, FBIAS>, by their mangled template arguments
+F32_FWD_INSTANCES = {"no bias": "flash_fwd_f32_kernelILb0ELb0E",
+                     "key bias": "flash_fwd_f32_kernelILb1ELb0E",
+                     "full bias": "flash_fwd_f32_kernelILb0ELb1E"}
+TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
+
+
+def _f32_fwd_ptxas():
+    """Print and record the ptxas report and the SASS of each instance of
+    the f32 forward kernel: no spills, and no tensor-core instruction (no
+    wgmma or mma.sync: HGMMA, IGMMA, HMMA, IMMA), so no TF32 on a route
+    that exists for exactness; raises otherwise."""
+    out, bad, sass = {}, [], _sass_ops("flash_attention")
+    for label, mangled in F32_FWD_INSTANCES.items():
+        ops = next((c for fn, c in sass.items() if mangled in fn), None)
+        _, spills, _ = _ptxas_numbers(mangled, "flash_attention")
+        if ops is None or spills is None:
+            bad.append(f"{label}: {mangled} not in the library or its build log")
+            continue
+        out[label] = f"{_ptxas_report(mangled, library='flash_attention')}; SASS " + ", ".join(
+            f"{op} {n}" for op, n in ops.items())
+        print(f"  flash_attention f32 ptxas ({label}): {out[label]}")
+        if spills != 0 or any(ops[op] for op in TENSOR_CORE_OPS):
+            bad.append(f"{label}: {spills} spill bytes, {ops}")
+    report["kernels"].setdefault("flash_attention", {})["f32_ptxas"] = out
+    if bad:
+        raise AssertionError(f"the f32 forward spills or reaches the tensor cores: {bad}")
+
+
 def _int_mm_ms(gen, *products):
     """torch._int_mm's time for the int8 products (m, k, n) of a kernel
     (the MLP's two: (m, d, f) and (m, f, d)), on random int8 codes, the
@@ -1776,7 +1825,9 @@ def timing_train(pipe):
     graph built once; a strided copy for the cast), their bounds (the
     operations over the peak rate of their type, or the bytes: each input
     read once, each output written once), the whole backward through
-    autograd against its joint bound; then the training step."""
+    autograd against its joint bound; the f32 forward kernel beside SDPA's
+    f32 forward, its instances' ptxas reports (no spill) and SASS (no
+    tensor-core instruction) as gates; then the training step."""
     import torch.nn.functional as Fn
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1864,6 +1915,7 @@ def timing_train(pipe):
                  lambda: fa.flash_attention_plain(q, k, v),
                  _bound(4 * bh * L * L * 64 / PEAK_F32_FLOPS, 4 * io32 + bh * L * 4),
                  library=sdpa_fwd32, iters=5, graph=True)
+    _f32_fwd_ptxas()
     plain32 = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
 
     def run32():

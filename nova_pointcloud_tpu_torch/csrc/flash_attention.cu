@@ -29,8 +29,18 @@
 // scale folded into one fused multiply-add, the two warpgroups taking turns
 // on the tensor cores so that one's exponentials overlap the other's
 // products. A full bias gets its own instance, read from device memory per
-// score. f32 inputs take a SIMT path (one thread per query row), written for
-// exactness, not speed. Built with fused multiply-add: there is no rounding
+// score.
+//
+// f32 inputs (the route exists for exactness: f32 FFMA only, no TF32, no
+// tensor core; expf, not __expf) run flash_fwd_f32_kernel, bound by the
+// same 4*B*H*Lq*Lk*d FLOPs at the 67 TFLOP/s f32 peak (0.80 ms at (8, 16,
+// 1280, 64)). Its design keeps the FFMA pipe fed: Q once and K / V tiles
+// of 64 keys by TMA in the 128B swizzle (f32_chunk, the f32 backward's
+// layout), both products register-tiled (8 x 8 outputs a thread, each
+// 16-byte shared-memory load feeding 16-32 FFMAs, every load one
+// wavefront), the online softmax once a 64-key tile, K of the next tile
+// loading behind this tile's P V and V behind the next tile's Q K^T, two
+// blocks an SM. Built with fused multiply-add: there is no rounding
 // identity to keep with a reference, unlike the int8 kernels.
 
 #include "flash_fwd.cuh"
@@ -40,130 +50,264 @@ namespace nova {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 
-// the f32 SIMT kernel's arguments
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+// ---------------------------------------------------------------------------
+// f32: one register-tiled SIMT pass in f32 FFMA
+// ---------------------------------------------------------------------------
+namespace f32fwd {
+constexpr int BQ = 128;       // query rows a block
+constexpr int BK = 64;        // keys a tile
+constexpr int THREADS = 128;  // each 8 rows x 8 keys of S and 8 rows x 8 columns of O
+constexpr int TILE = 64 * 64 * 4;  // a 64 x 64 f32 tile: two 64-row x 128-byte boxes
+constexpr int OFF_Q = 0;           // two tiles: rows 0-63, 64-127
+constexpr int OFF_K = 2 * TILE;
+constexpr int OFF_V = 3 * TILE;
+constexpr int OFF_P = 4 * TILE;    // two tiles, rows as Q's
+constexpr int OFF_KB = 6 * TILE;   // the key tile's bias values
+constexpr int OFF_BAR = OFF_KB + BK * 4;  // K (with Q at the first tile, the key bias), V
+constexpr int SMEM = OFF_BAR + 2 * 8 + 1024;  // + alignment: two blocks an SM
+
+// the launch plan (the caller's, checked): one block a (128-row query tile,
+// batch*head), the shared memory of the layout above
+inline bool plan(int B, int H, int Lq, int grid, int smem_bytes) {
+  const long blocks = static_cast<long>(B) * H * ((Lq + BQ - 1) / BQ);
+  return blocks == grid && smem_bytes == SMEM;
+}
+}  // namespace f32fwd
+
+struct F32FwdParams {
+  float* o;
   float* lse;          // (B*H, Lq)
   const float* kbias;  // key bias rows (B, >= Lk) at row stride kb_sb, or nullptr
   const float* fbias;  // (Lq, Lk) or nullptr
   long kb_sb;
-  long q_sb, q_sh, q_sl;  // strides in elements: batch, head, row
-  long k_sb, k_sh, k_sl;
-  long v_sb, v_sh, v_sl;
-  long o_sb, o_sh, o_sl;
+  long o_sb, o_sh, o_sl;  // strides in elements: batch, head, row
   int H, Lq, Lk;
   float scale;
 };
 
-// f32 inputs: one thread per query row, q (scaled, as the TPU kernel) and
-// the output row in registers, K / V tiles of 32 keys in shared memory read
-// by broadcast, the online softmax advancing 8 keys at a time.
-constexpr int SBQ = 128, SBK = 32, SHD = 64, SCH = 8;
+// One block of 128 threads a (128-row query tile, batch*head). Q is loaded
+// once by TMA (two 64 x 64 f32 tiles in the 128B swizzle of f32_chunk), K
+// and V tiles of 64 keys stream through one buffer each: K[kt + 1] loads
+// while the block runs the softmax and P V of tile kt, V[kt + 1] while it
+// runs S of tile kt + 1. Thread (warp w, lane = 8 ti + tj) owns query rows
+// r_i = 64 (w >> 1) + 4 (w & 1) + ti + 8 i and, per tile, keys tj + 8 j of
+// S = Q K^T (i, j < 8): each of its 16-byte loads of Q or K feeds 32
+// FFMAs, and every load of a warp reads 8 distinct 16-byte chunks at
+// distinct banks (rows r & 7 distinct at one chunk, broadcast to the lanes
+// that share them). The softmax scale is put on the f32 scores
+// (fmaf(s, scale, bias): at d = 64 it is 2^-3, the same as scaling q
+// first). The online softmax runs once a tile: the row max by shuffles
+// among the 8 lanes of a row, alpha = exp(m - m') on the O accumulators,
+// p = exp(x - m') to shared memory, l kept as each lane's partial sum. P
+// rows are written and read by the same warp (__syncwarp); O += P V takes
+// the thread's rows by 4-key chunks of P and its columns 4 tj + 32 h + e of
+// V, each load feeding 16 or 32 FFMAs. Keys past Lk are masked (-inf);
+// query rows past Lq load as zeros and are not stored. A row whose keys are
+// all masked gives o = 0 and lse = +1e30.
+template <bool KBIAS, bool FBIAS>
+__global__ void __launch_bounds__(f32fwd::THREADS, 2)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const F32FwdParams p) {
+  using namespace f32fwd;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int nq = (p.Lq + BQ - 1) / BQ, nk = (p.Lk + BK - 1) / BK;
+  const int bh = blockIdx.x / nq, qt = blockIdx.x - bh * nq;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform
+  const int ti = lane >> 3, tj = lane & 7;
+  const uint32_t q_s = base + OFF_Q, k_s = base + OFF_K, v_s = base + OFF_V,
+                 p_s = base + OFF_P, kb_s = base + OFF_KB;
+  const uint32_t bar_k = base + OFF_BAR, bar_v = bar_k + 8;
+  // the thread's rows within their 64-row tile: ra + 8 i, all with r & 7 = ra
+  const int ra = 4 * (warp & 1) + ti;
+  // f32_chunk(tile, ra + 8 i, c) = (t ^ ((c & 7) << 4)) + ((c >> 3) << 13) + (i << 10)
+  // with t = tile + (ra << 7) + (ra << 4); for K rows tj + 8 j likewise
+  const uint32_t t_q = q_s + ((warp >> 1) << 14) + (ra << 7) + (ra << 4);
+  const uint32_t t_p = t_q - q_s + p_s;
+  const uint32_t t_k = k_s + (tj << 7) + (tj << 4);
+  // chunk tj of V row key: (t_v ^ ((key & 7) << 4)) + (key << 7)
+  const uint32_t t_v = v_s + (tj << 4);
+  const int row0 = qt * BQ + 64 * (warp >> 1) + ra;  // query row of r_0; r_i = row0 + 8 i
 
-__global__ void __launch_bounds__(SBQ) flash_fwd_f32_kernel(FlashParams p) {
-  __shared__ __align__(16) float Ks[SBK][SHD];
-  __shared__ __align__(16) float Vs[SBK][SHD];
-  const int nq = (p.Lq + SBQ - 1) / SBQ;
-  const int qt = blockIdx.x % nq, bh = blockIdx.x / nq;
-  const int b = bh / p.H, h = bh % p.H;
-  const int tid = threadIdx.x;
-  const int row = qt * SBQ + tid;
-  const bool live = row < p.Lq;
-  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  float q[SHD], o[SHD];
-  {
-    const float4* qr = reinterpret_cast<const float4*>(Q + static_cast<long>(live ? row : 0) * p.q_sl);
-#pragma unroll
-    for (int d = 0; d < SHD / 4; ++d) {
-      const float4 t = qr[d];
-      q[4 * d] = t.x * p.scale;
-      q[4 * d + 1] = t.y * p.scale;
-      q[4 * d + 2] = t.z * p.scale;
-      q[4 * d + 3] = t.w * p.scale;
-    }
+  auto load_k = [&](int kt, int extra) {  // K tile kt and its key bias (thread 0)
+    const int kb_bytes = KBIAS ? ((min(BK, p.Lk - kt * BK) + 3) & ~3) * 4 : 0;
+    mbar_expect_tx(bar_k, TILE + kb_bytes + extra);
+    tma_load_4d(k_s, &tm_k, bar_k, 0, kt * BK, h, b);
+    tma_load_4d(k_s + TILE / 2, &tm_k, bar_k, 32, kt * BK, h, b);
+    if (KBIAS) bulk_load(kb_s, p.kbias + b * p.kb_sb + kt * BK, kb_bytes, bar_k);
+  };
+  auto load_v = [&](int kt) {
+    mbar_expect_tx(bar_v, TILE);
+    tma_load_4d(v_s, &tm_v, bar_v, 0, kt * BK, h, b);
+    tma_load_4d(v_s + TILE / 2, &tm_v, bar_v, 32, kt * BK, h, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar_k, 1);
+    mbar_init(bar_v, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+  if (tid == 0) {
+    load_k(0, 2 * TILE);
 #pragma unroll
-  for (int d = 0; d < SHD; ++d) o[d] = 0.0f;
-  float m = kNegInf, l = 0.0f;
-  const float* kb = p.kbias != nullptr ? p.kbias + b * p.kb_sb : nullptr;
-  const float* fb =
-      p.fbias != nullptr ? p.fbias + static_cast<long>(live ? row : 0) * p.Lk : nullptr;
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        tma_load_4d(q_s + t * TILE + half * (TILE / 2), &tm_q, bar_k, 32 * half,
+                    qt * BQ + 64 * t, h, b);
+    load_v(0);
+  }
 
-  const int ntiles = (p.Lk + SBK - 1) / SBK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    __syncthreads();  // everyone is done with the previous tile
-    for (int c = tid; c < SBK * SHD / 4; c += SBQ) {
-      const int r = c / (SHD / 4), col = (c % (SHD / 4)) * 4;
-      const int key = kt * SBK + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (key < p.Lk) {
-        kv = *reinterpret_cast<const float4*>(K + static_cast<long>(key) * p.k_sl + col);
-        vv = *reinterpret_cast<const float4*>(V + static_cast<long>(key) * p.v_sl + col);
-      }
-      *reinterpret_cast<float4*>(&Ks[r][col]) = kv;
-      *reinterpret_cast<float4*>(&Vs[r][col]) = vv;
-    }
-    __syncthreads();
-    for (int c0 = 0; c0 < SBK; c0 += SCH) {
-      float s[SCH];
-      float cm = -INFINITY;
+  float o[8][8], m[8], l[8];
 #pragma unroll
-      for (int j = 0; j < SCH; ++j) {
-        const int key = kt * SBK + c0 + j;
-        float acc = 0.0f;
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
 #pragma unroll
-        for (int d = 0; d < SHD; ++d) acc += q[d] * Ks[c0 + j][d];
-        if (key < p.Lk) {
-          if (kb != nullptr) acc += kb[key];
-          if (fb != nullptr) acc += fb[key];
-        } else {
-          acc = -INFINITY;
+    for (int j = 0; j < 8; ++j) o[i][j] = 0.0f;
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(bar_k, kt & 1);
+    // s[i][j] = sum_d Q[r_i][d] K[kt * 64 + tj + 8 j][d], by 4-column chunks
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < 16; ++c) {
+      const uint32_t xc = (c & 7) << 4, hc = (c >> 3) << 13;
+      const uint32_t qa = (t_q ^ xc) + hc, ka = (t_k ^ xc) + hc;
+      float4 qv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qv[i] = lds_f4(qa + (i << 10));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv = lds_f4(ka + (j << 10));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
         }
-        s[j] = acc;
-        cm = fmaxf(cm, acc);
       }
-      const float mn = fmaxf(m, cm);
-      const float al = expf(m - mn);
-      m = mn;
+    }
+    // the additive term of the thread's keys; a key past Lk is masked
+    float kb[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = kt * BK + tj + 8 * j;
+      kb[j] = key < p.Lk ? (KBIAS ? __uint_as_float(lds_u32(kb_s + 4 * (tj + 8 * j))) : 0.0f)
+                         : -INFINITY;
+    }
+    __syncthreads();  // K and the key bias are read
+    if (tid == 0 && kt + 1 < nk) load_k(kt + 1, 0);
+
+    // online softmax of the tile's scores, once a tile
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = fmaf(s[i][j], p.scale, kb[j]);
+        if (FBIAS) {
+          const int row = row0 + 8 * i, key = kt * BK + tj + 8 * j;
+          if (row < p.Lq && key < p.Lk) x += p.fbias[static_cast<long>(row) * p.Lk + key];
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - mn);
+      m[i] = mn;
       float ps = 0.0f;
 #pragma unroll
-      for (int j = 0; j < SCH; ++j) {
-        s[j] = expf(s[j] - mn);
-        ps += s[j];
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = expf(s[i][j] - mn);
+        ps += s[i][j];
       }
-      l = l * al + ps;
+      l[i] = fmaf(l[i], alpha, ps);
 #pragma unroll
-      for (int d = 0; d < SHD; ++d) {
-        float acc = o[d] * al;
+      for (int j = 0; j < 8; ++j) o[i][j] *= alpha;
+    }
+    // P[r_i][tj + 8 j] = f32_at(p tile, ra + 8 i, tj + 8 j): chunk 2 j + (tj >> 2)
+    {
+      const uint32_t pb = (t_p ^ ((tj >> 2) << 4)) + ((tj & 3) << 2);
 #pragma unroll
-        for (int j = 0; j < SCH; ++j) acc += s[j] * Vs[c0 + j][d];
-        o[d] = acc;
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t pj = (pb ^ ((2 * (j & 3)) << 4)) + ((j >> 2) << 13);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sts_f32(pj + (i << 10), s[i][j]);
       }
     }
-  }
-  if (!live) return;
-  const bool dead = l == 0.0f;
-  const float den = dead ? 1.0f : l;
-  float* O = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + static_cast<long>(row) * p.o_sl;
+    __syncwarp();  // the warp's P rows are written
+    mbar_wait(bar_v, kt & 1);
+    // o[i][4 h + e] += sum_key P[r_i][key] V[key][4 tj + 32 h + e], keys 4c .. 4c + 3
+#pragma unroll 1
+    for (int cc = 0; cc < 8; ++cc) {
 #pragma unroll
-  for (int d = 0; d < SHD / 4; ++d)
-    reinterpret_cast<float4*>(O)[d] = make_float4(o[4 * d] / den, o[4 * d + 1] / den,
-                                                  o[4 * d + 2] / den, o[4 * d + 3] / den);
-  p.lse[static_cast<long>(bh) * p.Lq + row] = dead ? -kNegInf : m + logf(l);
+      for (int u = 0; u < 2; ++u) {
+        const int c = 2 * cc + u;
+        const uint32_t pa = (t_p ^ ((c & 7) << 4)) + ((c >> 3) << 13);
+        float4 pv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pv[i] = lds_f4(pa + (i << 10));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k8 = 4 * u + e;  // key & 7
+          const uint32_t va = (t_v ^ (k8 << 4)) + (cc << 10) + (k8 << 7);
+          const float4 v0 = lds_f4(va), v1 = lds_f4(va + TILE / 2);
+          const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float a = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) o[i][j] = fmaf(a, vv[j], o[i][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // V is read
+    if (tid == 0 && kt + 1 < nk) load_v(kt + 1);
+  }
+
+  // l over the row's 8 lanes; o / l to the strided o, lse per live row
+  float* O = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const int row = row0 + 8 * i;
+    if (row >= p.Lq) continue;
+    const bool dead = li == 0.0f;
+    const float den = dead ? 1.0f : li;
+    float* orow = O + static_cast<long>(row) * p.o_sl + 4 * tj;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float4*>(orow + 32 * hh) =
+          make_float4(o[i][4 * hh] / den, o[i][4 * hh + 1] / den, o[i][4 * hh + 2] / den,
+                      o[i][4 * hh + 3] / den);
+    if (tj == 0) p.lse[static_cast<long>(bh) * p.Lq + row] = dead ? -kNegInf : m[i] + logf(li);
+  }
 }
 
 }  // namespace nova
 
 // strides: 12 element strides, (batch, head, row) of q, k, v, o in turn.
 // kbias: key bias rows at row stride kb_sb (16-byte aligned, see
-// fwd::key_bias_ok) or nullptr; fbias (Lq, Lk) or nullptr. bf16: grid and
-// smem_bytes are the caller's launch plan, checked against this kernel's.
+// fwd::key_bias_ok) or nullptr; fbias (Lq, Lk) or nullptr. grid and
+// smem_bytes are the caller's launch plan (bf16: fwd::plan's; f32:
+// f32fwd::plan's), checked against the kernel's.
 extern "C" int nova_flash_attention(
     const void* q, const void* k, const void* v, int is_bf16,
     int B, int H, int Lq, int Lk, int D, const long* strides,
@@ -195,25 +339,30 @@ extern "C" int nova_flash_attention(
     if (kbias != nullptr) return fwd::launch<false, false, true, false>(maps, p, grid, stream);
     return fwd::launch<false, false, false, false>(maps, p, grid, stream);
   }
-  FlashParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
+  if (!f32fwd::plan(B, H, Lq, grid, smem_bytes)) return cudaErrorInvalidConfiguration;
+  CUtensorMap maps[3];
+  if (!bhld_map(&maps[0], q, B, H, Lq, strides, 64, 4) ||
+      !bhld_map(&maps[1], k, B, H, Lk, strides + 3, 64, 4) ||
+      !bhld_map(&maps[2], v, B, H, Lk, strides + 6, 64, 4))
+    return cudaErrorInvalidValue;
+  F32FwdParams p;
+  p.o = static_cast<float*>(o);
   p.lse = lse;
   p.kbias = kbias;
   p.fbias = fbias;
   p.kb_sb = kb_sb;
-  p.q_sb = strides[0], p.q_sh = strides[1], p.q_sl = strides[2];
-  p.k_sb = strides[3], p.k_sh = strides[4], p.k_sl = strides[5];
-  p.v_sb = strides[6], p.v_sh = strides[7], p.v_sl = strides[8];
   p.o_sb = strides[9], p.o_sh = strides[10], p.o_sl = strides[11];
   p.H = H;
   p.Lq = Lq;
   p.Lk = Lk;
   p.scale = scale;
-  const long blocks = static_cast<long>(B) * H * ((Lq + SBQ - 1) / SBQ);
-  if (blocks > 2147483647L) return cudaErrorInvalidValue;
-  flash_fwd_f32_kernel<<<static_cast<unsigned>(blocks), SBQ, 0, stream>>>(p);
+  // the key bias and the full bias (read per score) get their own instances
+  auto kernel = fbias != nullptr   ? flash_fwd_f32_kernel<false, true>
+                : kbias != nullptr ? flash_fwd_f32_kernel<true, false>
+                                   : flash_fwd_f32_kernel<false, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f32fwd::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, f32fwd::THREADS, f32fwd::SMEM, stream>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }

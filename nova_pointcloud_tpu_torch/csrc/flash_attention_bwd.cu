@@ -492,18 +492,6 @@ constexpr int F_OFF_ROWS = 6 * F_TILE;                // the tile's lse, then de
 constexpr int F_OFF_BAR = F_OFF_ROWS + 2 * FQB * 4;   // tile full, K and V
 constexpr int F32_SMEM = F_OFF_BAR + 2 * 8 + 1024;    // + alignment: 2 blocks an SM
 
-// 16-byte chunk c (0..15: columns 4c .. 4c + 3) of row r (0..63) of a 64 x
-// 64 f32 tile held as two 64-row x 128-byte boxes (columns 0..31, 32..63) in
-// the 128B swizzle, the layout TMA loads and reduce-adds: chunk c & 7 of a
-// row at (c & 7) ^ (r & 7). Eight rows r with distinct r & 7 at one chunk,
-// or eight chunks of one row, hit 32 distinct banks.
-__device__ __forceinline__ uint32_t f32_chunk(uint32_t tile, int r, int c) {
-  return tile + ((c >> 3) << 13) + (r << 7) + ((((c & 7) ^ r) & 7) << 4);
-}
-__device__ __forceinline__ uint32_t f32_at(uint32_t tile, int r, int col) {
-  return f32_chunk(tile, r, col >> 2) + ((col & 3) << 2);
-}
-
 // s[m][n] = sum_d K[kr + 8 m][d] Q[tj + 8 n][d] and dp[m][n] = sum_d
 // V[kr + 8 m][d] dO[tj + 8 n][d] over the tiles' 64 columns (m < 4, n < 8):
 // four rows of K and V and eight of Q and dO by 16-byte chunks, each K or

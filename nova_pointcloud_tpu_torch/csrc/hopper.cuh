@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_attention.cu, flash_attention_static.cu, flash_attention_bwd.cu):
 // mbarriers, TMA tensor and bulk copies, shared-memory access by 32-bit
-// address, ldmatrix, named barriers, wgmma shared-memory descriptors
-// (128B and 64B swizzle, none), wgmma wrappers (bf16 m64n64k16, m64n128k16
+// address, ldmatrix, named barriers, the f32 kernels' swizzled 64 x 64
+// tile layout, wgmma shared-memory descriptors (128B and 64B swizzle,
+// none), wgmma wrappers (bf16 m64n64k16, m64n128k16
 // and m64n8k16, s8 m64n128k32, m64n192k32 and m64n256k32), setmaxnreg,
 // thread-block clusters (ranks, distributed shared memory, remote mbarrier
 // arrivals) and, on the host, the TMA map encoder reached through
@@ -362,6 +363,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const unsigned (&a
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : NOVA_WG_D64("+f")
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// 16-byte chunk c (0..15: columns 4c .. 4c + 3) of row r (0..63) of a 64 x
+// 64 f32 tile held as two 64-row x 128-byte boxes (columns 0..31, 32..63) in
+// the 128B swizzle, the layout TMA loads and reduce-adds (bhld_map with
+// 4-byte elements): chunk c & 7 of a row at (c & 7) ^ (r & 7). Eight rows r
+// with distinct r & 7 at one chunk, or eight chunks of one row, hit 32
+// distinct banks. The f32 flash kernels' one layout (forward and backward).
+__device__ __forceinline__ uint32_t f32_chunk(uint32_t tile, int r, int c) {
+  return tile + ((c >> 3) << 13) + (r << 7) + ((((c & 7) ^ r) & 7) << 4);
+}
+__device__ __forceinline__ uint32_t f32_at(uint32_t tile, int r, int col) {
+  return f32_chunk(tile, r, col >> 2) + ((col & 3) << 2);
 }
 
 // shared memory written by threads (the generic proxy), made visible to

@@ -11,7 +11,8 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   tails themselves). It is differentiable: for CUDA tensors the forward
   launches ``csrc/flash_attention.cu`` (bf16: the wgmma and TMA main loop of
   ``csrc/flash_fwd.cuh``, launched as :func:`fwd_plan` lays it out; f32: a
-  SIMT kernel) and the backward the kernels of
+  register-tiled SIMT kernel in f32 FFMA, launched as :func:`fwd_f32_plan`
+  lays it out) and the backward the kernels of
   ``csrc/flash_attention_bwd.cu``: in bf16 the prep kernel (delta and lse
   rows), the one-pass dkvq kernel (wgmma and TMA: dK, dV, and dQ summed into
   an f32 workspace) and the cast of that workspace to dq; in f32 the prep
@@ -26,7 +27,8 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   the plain backward, written as the JAX kernels' math;
   :func:`bwd_prep_plain` and :func:`bwd_dq_cast_plain` are the plain
   versions of the prep and cast kernels, :func:`bwd_plan` the bf16 launch
-  plan, :func:`bwd_f32_plan` the f32 one.
+  plan, :func:`bwd_f32_plan` the f32 one; :func:`fwd_plan` and
+  :func:`fwd_f32_plan` the forward's.
 - ``LAUNCHES[name]`` counts each kernel's launches: ``flash_attention``;
   ``flash_attention_bwd_prep``, ``flash_attention_bwd_dkvq``,
   ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_bwd_f32``
@@ -75,6 +77,9 @@ _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P, _F, _P, _P, _I,
 # rows (three warpgroups of 64), key tiles of 128 through a ring of FWD_STAGES
 FWD_WARPGROUPS, FWD_BLOCK_K, FWD_STAGES = 3, 128, 4
 FWD_BLOCK_Q = 64 * FWD_WARPGROUPS
+# the f32 forward kernel's (csrc/flash_attention.cu, flash_fwd_f32_kernel):
+# one block of 128 threads a (128-row query tile, batch*head), key tiles of 64
+FWD_F32_BLOCK_Q, FWD_F32_BLOCK_K, FWD_F32_THREADS = 128, 64, 128
 
 
 def _normalize_bias(bias: Optional[torch.Tensor], b: int, lq: int, lk: int
@@ -158,6 +163,21 @@ def fwd_plan(b: int, h: int, lq: int, lk: int, sms: int) -> dict:
                 tiles_per_block=-(-items // grid) * key_tiles)
 
 
+def fwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
+    """The launch plan of ``flash_attention``'s f32 route, as
+    ``csrc/flash_attention.cu`` lays out ``flash_fwd_f32_kernel``'s shared
+    memory (the kernel checks the grid and the bytes): q as two 64 x 64 f32
+    tiles, one K and one V tile of 64 keys, P as two tiles, the key tile's
+    64 bias values, two mbarriers, and 1024 bytes to align the swizzled
+    tiles: two blocks an SM. One block a (128-row query tile, batch*head)."""
+    tile = 64 * CUDA_HEAD_DIM * 4
+    q_tiles, key_tiles = -(-lq // FWD_F32_BLOCK_Q), -(-lk // FWD_F32_BLOCK_K)
+    return dict(q_tiles=q_tiles, key_tiles=key_tiles, grid=(b * h * q_tiles,),
+                threads=FWD_F32_THREADS,
+                smem_bytes=6 * tile + FWD_F32_BLOCK_K * 4 + 2 * 8 + 1024,
+                last_keys=lk - (key_tiles - 1) * FWD_F32_BLOCK_K)
+
+
 def _key_bias_rows(kb: Optional[torch.Tensor], lk: int, dev) -> Tuple[Optional[torch.Tensor], int]:
     """A (B, Lk) key bias as the forward kernels bulk-copy it: float32 rows,
     16-byte aligned, at a row stride that is a multiple of 4 floats (0 for
@@ -174,9 +194,15 @@ def _key_bias_rows(kb: Optional[torch.Tensor], lk: int, dev) -> Tuple[Optional[t
     return rows, rows.stride(0)
 
 
-def _checked_plan(b: int, h: int, lq: int, lk: int, dev) -> dict:
-    """:func:`fwd_plan` on ``dev``'s card; raises where the kernel's int
-    counts of items and key tiles would overflow."""
+def _checked_plan(b: int, h: int, lq: int, lk: int, dev, f32: bool = False) -> dict:
+    """:func:`fwd_plan` on ``dev``'s card (:func:`fwd_f32_plan` for the f32
+    route); raises where the kernel's int counts of items and key tiles, or
+    of blocks, would overflow."""
+    if f32:
+        plan = fwd_f32_plan(b, h, lq, lk)
+        if plan["grid"][0] >= 2 ** 31:
+            raise ValueError(f"{plan['grid'][0]} blocks: over the kernel's int range")
+        return plan
     plan = fwd_plan(b, h, lq, lk, _sms(dev))
     if plan["items"] * plan["key_tiles"] >= 2 ** 31:
         raise ValueError(f"{plan['items']} work items of {plan['key_tiles']} key tiles: over the "
@@ -200,7 +226,7 @@ def _launch(q, k, v, key_bias, full_bias):
                          f"must be (B, H, L, D) on one device")
     if key_bias is not None and full_bias is not None:
         raise ValueError("a key bias and a full bias cannot be combined")
-    plan = _checked_plan(b, h, lq, lk, dev)
+    plan = _checked_plan(b, h, lq, lk, dev, f32=not is_bf16)
     q, k, v = _strided(q), _strided(k), _strided(v)
     o = torch.empty_like(q)  # q's strides: a (B, L, H, D) view stays one
     if o.stride(3) != 1:

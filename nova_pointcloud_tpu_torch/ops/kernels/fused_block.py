@@ -480,11 +480,15 @@ def _lib(name: str):
     return _load_lib(name, _ARGTYPES[name])
 
 
-def _vectors(*vs):
-    """LN params and biases, contiguous, all float32 or all bfloat16."""
+def _vectors(dev, *vs):
+    """LN params and biases on ``dev`` (the kernels read them through a
+    pointer on x's card), contiguous, all float32 or all bfloat16."""
     if len({v.dtype for v in vs}) != 1:
         raise TypeError(f"LN params and biases must share one dtype, got "
                         f"{[v.dtype for v in vs]}")
+    if any(v.device != dev for v in vs):
+        raise ValueError(f"LN params and biases must be on {dev}, got "
+                         f"{[str(v.device) for v in vs]}")
     return [v.contiguous() for v in vs], _dtype_flag(vs[0], "LN params and biases")
 
 
@@ -562,13 +566,15 @@ def fused_ln_int8_mlp(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q,
     if d % 128 or f % 128:
         raise NotImplementedError(
             f"the CUDA MLP kernel needs D and F multiples of 128, got D={d}, F={f}")
-    xf = x.reshape(-1, d).contiguous()
+    xf = _aligned(x.reshape(-1, d).contiguous())
     m = xf.shape[0]
     x_bf16 = _dtype_flag(xf, "x")
     w1q = _aligned(_int8_weight(w1q, (d, f), dev, "w1q"))
     w2q = _aligned(_int8_weight(w2q, (f, d), dev, "w2q"))
+    _lengths(f, s1=s1, b1=b1)
+    _lengths(d, s2=s2, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias)
     s1, s2 = _f32(s1, dev), _f32(s2, dev)
-    (ln_w, ln_b, b1, b2), vec_bf16 = _vectors(ln_scale, ln_bias, b1, b2)
+    (ln_w, ln_b, b1, b2), vec_bf16 = _vectors(dev, ln_scale, ln_bias, b1, b2)
     a_in, a_mid = _amax(a_in, dev), _amax(a_mid, dev)
     plan = mlp_plan(m, d, f, _sms(dev))
     q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
@@ -611,12 +617,14 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
     dev = x.device
     b, t, d = x.shape
     _attn_dims(t, d, num_heads)
-    x = x.contiguous()
+    x = _aligned(x.contiguous())
     x_bf16 = _dtype_flag(x, "x")
     wqkv_q = _aligned(_int8_weight(wqkv_q, (d, 3 * d), dev, "wqkv_q"))
     wo_q = _aligned(_int8_weight(wo_q, (d, d), dev, "wo_q"))
+    _lengths(3 * d, wqkv_s=wqkv_s, bqkv=bqkv)
+    _lengths(d, wo_s=wo_s, bo=bo, ln_scale=ln_scale, ln_bias=ln_bias)
     wqkv_s, wo_s = _f32(wqkv_s, dev), _f32(wo_s, dev)
-    (ln_w, ln_b, bqkv, bo), vec_bf16 = _vectors(ln_scale, ln_bias, bqkv, bo)
+    (ln_w, ln_b, bqkv, bo), vec_bf16 = _vectors(dev, ln_scale, ln_bias, bqkv, bo)
     a_in, a_av, a_smax = _amax(a_in, dev), _amax(a_av, dev), _amax(a_smax, dev)
     plan = attn_block_plan(b, t, d, num_heads, _sms(dev))
     m = b * t
@@ -673,7 +681,7 @@ def fused_ln_int8_matmul(x: torch.Tensor, ln_scale, ln_bias, wq, s, b) -> torch.
     _lengths(n, s=s, b=b)
     _lengths(d, ln_scale=ln_scale, ln_bias=ln_bias)
     s = _f32(s, dev)
-    (ln_w, ln_b, b), vec_bf16 = _vectors(ln_scale, ln_bias, b)
+    (ln_w, ln_b, b), vec_bf16 = _vectors(dev, ln_scale, ln_bias, b)
     plan = store_plan(m, n, d, _sms(dev), bool(x_bf16))
     q = torch.empty((m, d), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -710,8 +718,8 @@ def int8_matmul_residual(x: torch.Tensor, residual: torch.Tensor, wq, s,
     x_bf16, r_bf16 = _dtype_flag(xf, "x"), _dtype_flag(rf, "residual")
     wq = _aligned(_int8_weight(wq, (k, n), dev, "wq"))
     _lengths(n, s=s, b=b)
-    s, b = _f32(s, dev), b.contiguous()
-    b_bf16 = _dtype_flag(b, "b")
+    s = _f32(s, dev)
+    (b,), b_bf16 = _vectors(dev, b)
     plan = store_plan(m, n, k, _sms(dev), bool(r_bf16))
     q = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -749,8 +757,10 @@ def fused_int8_mlp_postln(x: torch.Tensor, w1q, s1, b1, w2q, s2, b2, ln_scale, l
     x_bf16 = _dtype_flag(xf, "x")
     w1q = _aligned(_int8_weight(w1q, (d, f), dev, "w1q"))
     w2q = _aligned(_int8_weight(w2q, (f, d), dev, "w2q"))
+    _lengths(f, s1=s1, b1=b1)
+    _lengths(d, s2=s2, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias)
     s1, s2 = _f32(s1, dev), _f32(s2, dev)
-    (b1, b2, ln_w, ln_b), vec_bf16 = _vectors(b1, b2, ln_scale, ln_bias)
+    (b1, b2, ln_w, ln_b), vec_bf16 = _vectors(dev, b1, b2, ln_scale, ln_bias)
     a_x, a_gelu = _amax(a_x, dev), _amax(a_gelu, dev)
     plan = mlp_postln_plan(m, d, f, _sms(dev), _clusters(dev, size))
     q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
@@ -790,8 +800,8 @@ def fused_int8_diffusion_block(x: torch.Tensor, zc: torch.Tensor, wstats_q, stat
     dev, shape = x.device, x.shape
     d = shape[-1]
     _gemm_dims(d, 3 * d, "fused_int8_diffusion_block")
-    xf = x.reshape(-1, d).contiguous()
-    zf = zc.reshape(-1, d).contiguous()
+    xf = _aligned(x.reshape(-1, d).contiguous())
+    zf = _aligned(zc.reshape(-1, d).contiguous())
     m = xf.shape[0]
     if zf.shape[0] != m or zf.device != dev:
         raise ValueError(f"x {tuple(x.shape)} and zc {tuple(zc.shape)} must share their "
@@ -805,8 +815,10 @@ def fused_int8_diffusion_block(x: torch.Tensor, zc: torch.Tensor, wstats_q, stat
     wstats_q = _aligned(_int8_weight(wstats_q, (d, 3 * d), dev, "wstats_q"))
     w1q = _aligned(_int8_weight(w1q, (d, d), dev, "w1q"))
     w2q = _aligned(_int8_weight(w2q, (d, d), dev, "w2q"))
+    _lengths(3 * d, stats_s=stats_s, stats_b=stats_b)
+    _lengths(d, s1=s1, b1=b1, s2=s2, b2=b2, n2_scale=n2_scale, n2_bias=n2_bias)
     stats_s, s1, s2 = _f32(stats_s, dev), _f32(s1, dev), _f32(s2, dev)
-    (bs, b1, b2, n2_w, n2_b), vec_bf16 = _vectors(stats_b, b1, b2, n2_scale, n2_bias)
+    (bs, b1, b2, n2_w, n2_b), vec_bf16 = _vectors(dev, stats_b, b1, b2, n2_scale, n2_bias)
     a_z, a_h, a_silu = _amax(a_z, dev), _amax(a_h, dev), _amax(a_silu, dev)
     # one allocation: y, then the kernel's workspace
     y_bytes = m * d * xf.element_size()
@@ -843,9 +855,9 @@ def int8_linear(x: torch.Tensor, wq, s, b=None, out_dtype=None) -> torch.Tensor:
     wq = _aligned(_int8_weight(wq, (k, n), dev, "wq"))
     _lengths(n, s=s, b=b)
     s = _f32(s, dev)
+    b_bf16 = 0
     if b is not None:
-        b = b.contiguous()
-    b_bf16 = 0 if b is None else _dtype_flag(b, "b")
+        (b,), b_bf16 = _vectors(dev, b)
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     y_bf16 = _dtype_flag(y, "out_dtype")
     plan = store_plan(m, n, k, _sms(dev), bool(y_bf16))

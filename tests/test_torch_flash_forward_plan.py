@@ -1,7 +1,8 @@
 """The forward flash kernels' pieces around their CUDA code, on the CPU: the
 launch plan of ``flash_attention``'s bf16 route and of
-``flash_attention_static`` (both score cores) at the ported paths' shapes
-and at ragged ones, the launch arguments the wrappers hand over (with the
+``flash_attention_static`` (both score cores), and of the f32 route's kernel,
+at the ported paths' shapes and at ragged ones, the launch arguments the
+wrappers hand over (with the
 launch itself replaced by a recorder), the checks that raise before any
 launch, and the identity the bf16 score core rests on: with d = 64 the
 softmax scale is 2^-3, so ``bf16(q * 2^-3) kᵀ`` equals ``(q kᵀ) * 2^-3``
@@ -60,6 +61,33 @@ def test_fwd_plan(shape, want):
     assert 0 < plan["last_keys"] <= tfa.FWD_BLOCK_K
 
 
+# csrc/flash_attention.cu, flash_fwd_f32_kernel: q as two 16 KB tiles, one
+# 16 KB K and one 16 KB V tile, P as two 16 KB tiles, 256 bytes of key bias,
+# two mbarriers, 1 KB to align the swizzled tiles
+F32_SMEM = 99600
+F32_PLANS = [  # (b, h, lq, lk): q tiles, key tiles, grid, last tile's keys
+    ((8, 16, 1280, 1280), (10, 20, 1280, 64)),  # the f32 training step
+    ((2, 12, 1000, 1531), (8, 24, 192, 59)),    # ragged checks
+    ((2, 12, 515, 1000), (5, 16, 120, 40)),
+    ((2, 12, 37, 45), (1, 1, 24, 45)),          # under one tile
+]
+
+
+@pytest.mark.parametrize("shape,want", F32_PLANS, ids=[str(s) for s, _ in F32_PLANS])
+def test_fwd_f32_plan(shape, want):
+    plan = tfa.fwd_f32_plan(*shape)
+    assert (plan["q_tiles"], plan["key_tiles"], plan["grid"], plan["last_keys"]) == (
+        want[0], want[1], (want[2],), want[3])
+    assert plan["threads"] == tfa.FWD_F32_THREADS == 128
+    assert plan["smem_bytes"] == F32_SMEM <= SMEM_LIMIT
+    # two blocks an SM: 228 KB of shared memory, 1 KB of it reserved a block
+    assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+    b, h, lq, lk = shape
+    assert plan["grid"][0] == b * h * plan["q_tiles"]
+    assert plan["q_tiles"] * tfa.FWD_F32_BLOCK_Q >= lq > (plan["q_tiles"] - 1) * tfa.FWD_F32_BLOCK_Q
+    assert 0 < plan["last_keys"] <= tfa.FWD_F32_BLOCK_K
+
+
 class _Recorder:
     """Stands in for the ctypes launch: records each call's name and
     arguments, and the strides array while it lives."""
@@ -113,6 +141,41 @@ def test_forward_launch_follows_the_plan(rec, shape, bias):
         assert (args[11] == lk) == (lk % 4 == 0)  # copied only when Lk % 4 != 0
     else:
         assert args[10] is None and args[11] == 0
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in F32_PLANS], ids=[str(s) for s, _ in F32_PLANS])
+@pytest.mark.parametrize("bias", ["none", "key", "full"])
+def test_f32_forward_launch_follows_the_plan(rec, shape, bias):
+    """The f32 route launches with fwd_f32_plan's grid and bytes (not the
+    bf16 plan's), reading q, k, v and writing o as the model's (B, L, H, D)
+    views in place."""
+    b, h, lq, lk = shape
+    rng = np.random.default_rng(lq * 3 + lk)
+    q, k, v = (_blhd(rng, b, h, n, dtype=torch.float32) for n in (lq, lk, lk))
+    kb = torch.zeros((b, lk)) if bias == "key" else None
+    fbias = torch.zeros((lq, lk)) if bias == "full" else None
+    o, lse = tfa._launch(q, k, v, kb, fbias)
+    plan = tfa.fwd_f32_plan(b, h, lq, lk)
+    (name, args, strides), = rec.calls
+    assert name == "flash_attention" and LAUNCHES["flash_attention"] == 1
+    assert args[3:9] == [0, b, h, lq, lk, 64]
+    assert args[16:18] == [plan["grid"][0], plan["smem_bytes"]]
+    assert args[16:18] != [tfa.fwd_plan(b, h, lq, lk, SMS)["grid"][0],
+                           tfa.fwd_plan(b, h, lq, lk, SMS)["smem_bytes"]]
+    assert strides == [s for n in (lq, lk, lk, lq) for s in (n * h * 64, 64, h * 64)]
+    assert args[:3] == [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    assert args[14] == o.data_ptr() and args[15] == lse.data_ptr()
+    assert o.shape == q.shape and o.stride() == q.stride() and o.dtype == torch.float32
+    assert lse.shape == (b, h, lq) and lse.dtype == torch.float32
+    assert args[13] == 0.125
+    if bias == "key":  # rows of Lk rounded up to 4 floats, 16-byte aligned
+        assert args[11] % 4 == 0 and args[11] >= lk and args[10] % 16 == 0
+    else:
+        assert args[10] is None and args[11] == 0
+    if bias == "full":  # (Lq, Lk) f32, contiguous
+        assert args[12] == fbias.data_ptr()
+    else:
+        assert args[12] is None
 
 
 @pytest.mark.parametrize("core", ["bf16", "int8"])
@@ -185,6 +248,17 @@ def test_argument_checks_raise_before_any_launch(rec):
                               lambda: tfa.flash_attention_static(q, k, v, smax, **kw))
         _raises_before_launch(rec, ValueError, lambda: tfa._launch_static(
             q, k, v, smax, None, kw.get("a_q"), kw.get("a_k")))
+    # the f32 route: head dim, shapes, a bias pair, and a grid over the
+    # kernel's int range (expanded views: no memory behind them)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    _raises_before_launch(rec, NotImplementedError, lambda: tfa._launch(
+        q96.float(), k96.float(), v96.float(), None, None))
+    _raises_before_launch(rec, ValueError, lambda: tfa._launch(qf, kf, vf[:, :, :-1], None, None))
+    _raises_before_launch(rec, ValueError, lambda: tfa._launch(
+        qf, kf, vf, torch.zeros((b, lk)), torch.zeros((lq, lk))))
+    big = torch.zeros((1, 1, 1, 64)).expand(2 ** 14, 2 ** 10, 2 ** 14, 64)  # 2^31 blocks
+    assert tfa.fwd_f32_plan(*big.shape[:3], big.shape[2])["grid"][0] == 2 ** 31
+    _raises_before_launch(rec, ValueError, lambda: tfa._launch(big, big, big, None, None))
 
 
 def test_unaligned_views_are_copied_before_the_launch(rec):

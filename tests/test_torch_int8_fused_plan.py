@@ -324,6 +324,78 @@ def test_mlp_postln_argument_checks_raise_before_any_launch(rec, monkeypatch):
     _raises_before_launch(rec, TypeError, lambda: fb.fused_int8_mlp_postln(*bad))
 
 
+# the per-channel vectors of the wrappers' operands, by their index in
+# _attn_operands / _postln_operands: the kernels read D, F or 3D of each
+ATTN_VECTORS = {"ln_scale": 1, "ln_bias": 2, "wqkv_s": 4, "bqkv": 5, "wo_s": 7, "bo": 8}
+ATTN_DEVICE_VECTORS = ("ln_scale", "ln_bias", "bqkv", "bo")  # the LN params and biases
+POSTLN_VECTORS = {"s1": 2, "b1": 3, "s2": 5, "b2": 6, "ln_scale": 7, "ln_bias": 8}
+POSTLN_DEVICE_VECTORS = ("b1", "b2", "ln_scale", "ln_bias")
+
+
+@pytest.mark.parametrize("which", list(ATTN_VECTORS))
+def test_attention_short_vector_raises_before_any_launch(rec, which):
+    """A vector one value short: the kernel would read past its end."""
+    ops = _attn_operands(np.random.default_rng(12), 2, 256)
+    ops[ATTN_VECTORS[which]] = ops[ATTN_VECTORS[which]][:-1]
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_attention_block(*ops, num_heads=4),
+                          which)
+
+
+@pytest.mark.parametrize("which", ATTN_DEVICE_VECTORS)
+def test_attention_vector_off_the_device_raises_before_any_launch(rec, which):
+    """An LN param or bias on another device than x: the kernel would get
+    that device's pointer."""
+    ops = _attn_operands(np.random.default_rng(13), 2, 256)
+    ops[ATTN_VECTORS[which]] = ops[ATTN_VECTORS[which]].to("meta")
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_attention_block(*ops, num_heads=4),
+                          "device|meta")
+
+
+@pytest.mark.parametrize("which", list(POSTLN_VECTORS))
+def test_mlp_postln_short_vector_raises_before_any_launch(rec, which):
+    ops = _postln_operands(np.random.default_rng(14), 64, 256, 512)
+    ops[POSTLN_VECTORS[which]] = ops[POSTLN_VECTORS[which]][:-1]
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_int8_mlp_postln(*ops), which)
+
+
+@pytest.mark.parametrize("which", POSTLN_DEVICE_VECTORS)
+def test_mlp_postln_vector_off_the_device_raises_before_any_launch(rec, which):
+    ops = _postln_operands(np.random.default_rng(15), 64, 256, 512)
+    ops[POSTLN_VECTORS[which]] = ops[POSTLN_VECTORS[which]].to("meta")
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_int8_mlp_postln(*ops), "device|meta")
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` one element off a 16-byte boundary."""
+    store = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    store[1:] = t.reshape(-1)
+    out = store[1:].view(t.shape)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_unaligned_x_is_copied_before_the_launch(rec, x_dtype):
+    """The direct residual epilogue reads x in bf16 or f32 pairs: a
+    contiguous view off a 16-byte boundary reaches the kernel as an aligned
+    copy."""
+    ops = _attn_operands(np.random.default_rng(16), 2, 256, x_dtype)
+    ops[0] = _unaligned(ops[0])
+    y = fb.fused_attention_block(*ops, num_heads=4, core="bf16")
+    (_, args), = rec.calls
+    assert args[0] % 16 == 0 and args[0] != ops[0].data_ptr()
+    assert y.shape == ops[0].shape and y.dtype == x_dtype
+
+
+def test_mlp_postln_unaligned_x_is_copied_before_the_launch(rec):
+    ops = _postln_operands(np.random.default_rng(17), 64, 256, 512)
+    ops[0] = _unaligned(ops[0])
+    y = fb.fused_int8_mlp_postln(*ops)
+    (_, args), = rec.calls
+    assert args[0] % 16 == 0 and args[0] != ops[0].data_ptr()
+    assert y.shape == ops[0].shape and y.dtype == ops[0].dtype
+
+
 def _off_by_one_byte(w):
     """The same (in, out) int8 weight as a view whose K-major rows start one
     byte past a 16-byte boundary."""

@@ -310,6 +310,26 @@ def test_ln_matmul_argument_checks_raise_before_any_launch(rec):
     _raises_before_launch(rec, TypeError, lambda: fb.fused_ln_int8_matmul(*bad))
 
 
+def test_int8_linear_bias_off_the_device_raises_before_any_launch(rec):
+    """A bias on another device than x: the kernel would get that device's
+    pointer."""
+    rng = np.random.default_rng(11)
+    x = _x(rng, (40, 256), torch.float32)
+    wq, s = _w(rng, 256, 384)
+    _raises_before_launch(rec, ValueError,
+                          lambda: fb.int8_linear(x, wq, s, _vec(rng, 384).to("meta")))
+
+
+@pytest.mark.parametrize("which", [1, 2, 5], ids=["ln_scale", "ln_bias", "b"])
+def test_ln_matmul_vector_off_the_device_raises_before_any_launch(rec, which):
+    rng = np.random.default_rng(12)
+    wq, s = _w(rng, 256, 768)
+    ops = [_x(rng, (40, 256), torch.bfloat16), _vec(rng, 256), _vec(rng, 256), wq, s,
+           _vec(rng, 768)]
+    ops[which] = ops[which].to("meta")
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_ln_int8_matmul(*ops))
+
+
 def _unaligned(t):
     """A contiguous copy of ``t`` one element off a 16-byte boundary."""
     store = torch.zeros(t.numel() + 1, dtype=t.dtype)

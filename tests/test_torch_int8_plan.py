@@ -319,6 +319,95 @@ def test_diffusion_argument_checks_raise_before_any_launch(rec):
     _raises_before_launch(rec, TypeError, lambda: fb.fused_int8_diffusion_block(*bad))
 
 
+# the per-channel vectors of the wrappers' operands, by their index in
+# _mlp_operands / _diffusion_operands: the kernels read D, F or 3D of each
+MLP_VECTORS = {"ln_scale": 1, "ln_bias": 2, "s1": 4, "b1": 5, "s2": 7, "b2": 8}
+MLP_DEVICE_VECTORS = ("ln_scale", "ln_bias", "b1", "b2")  # the LN params and biases
+DIFFUSION_VECTORS = {"stats_s": 3, "stats_b": 4, "s1": 6, "b1": 7, "s2": 9, "b2": 10,
+                     "n2_scale": 11, "n2_bias": 12}
+DIFFUSION_DEVICE_VECTORS = ("stats_b", "b1", "b2", "n2_scale", "n2_bias")
+
+
+def _diffusion_operands(rng, m, d, dtype=torch.bfloat16):
+    def vec(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dtype)
+    x, zc = (torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(dtype)
+             for _ in range(2))
+    ws, ss = _w(rng, 3 * d, d)
+    w1, s1 = _w(rng, d, d)
+    w2, s2 = _w(rng, d, d)
+    return [x, zc, ws, ss, vec(3 * d), w1, s1, vec(d), w2, s2, vec(d), vec(d), vec(d)]
+
+
+@pytest.mark.parametrize("which", list(MLP_VECTORS))
+def test_mlp_short_vector_raises_before_any_launch(rec, which):
+    """A vector one value short: the kernel would read past its end."""
+    ops = _mlp_operands(np.random.default_rng(12), 64, 256, 512)
+    ops[MLP_VECTORS[which]] = ops[MLP_VECTORS[which]][:-1]
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_ln_int8_mlp(*ops))
+
+
+@pytest.mark.parametrize("which", MLP_DEVICE_VECTORS)
+def test_mlp_vector_off_the_device_raises_before_any_launch(rec, which):
+    """An LN param or bias on another device than x: the kernel would get
+    that device's pointer."""
+    ops = _mlp_operands(np.random.default_rng(13), 64, 256, 512)
+    ops[MLP_VECTORS[which]] = ops[MLP_VECTORS[which]].to("meta")
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_ln_int8_mlp(*ops))
+
+
+@pytest.mark.parametrize("which", list(DIFFUSION_VECTORS))
+def test_diffusion_short_vector_raises_before_any_launch(rec, which):
+    ops = _diffusion_operands(np.random.default_rng(14), 40, 256)
+    ops[DIFFUSION_VECTORS[which]] = ops[DIFFUSION_VECTORS[which]][:-1]
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_int8_diffusion_block(*ops))
+
+
+@pytest.mark.parametrize("which", DIFFUSION_DEVICE_VECTORS)
+def test_diffusion_vector_off_the_device_raises_before_any_launch(rec, which):
+    ops = _diffusion_operands(np.random.default_rng(15), 40, 256)
+    ops[DIFFUSION_VECTORS[which]] = ops[DIFFUSION_VECTORS[which]].to("meta")
+    _raises_before_launch(rec, ValueError, lambda: fb.fused_int8_diffusion_block(*ops))
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` one element off a 16-byte boundary."""
+    store = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    store[1:] = t.reshape(-1)
+    out = store[1:].view(t.shape)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+def test_mlp_unaligned_x_is_copied_before_the_launch(rec):
+    """The direct residual epilogue reads x in bf16 or f32 pairs: a
+    contiguous view off a 16-byte boundary reaches the kernel as an aligned
+    copy."""
+    ops = _mlp_operands(np.random.default_rng(16), 64, 256, 512)
+    ops[0] = _unaligned(ops[0])
+    y = fb.fused_ln_int8_mlp(*ops)
+    (_, args), = rec.calls
+    assert args[0] % 16 == 0 and args[0] != ops[0].data_ptr()
+    assert y.shape == ops[0].shape and y.dtype == ops[0].dtype
+
+
+@pytest.mark.parametrize("which", ["x", "zc", "both"])
+def test_diffusion_unaligned_x_and_zc_are_copied_before_the_launch(rec, which):
+    """Row 6 reads x and zc in pairs (ld2_any): contiguous views off a
+    16-byte boundary reach the kernel as aligned copies."""
+    ops = _diffusion_operands(np.random.default_rng(17), 40, 256)
+    if which in ("x", "both"):
+        ops[0] = _unaligned(ops[0])
+    if which in ("zc", "both"):
+        ops[1] = _unaligned(ops[1])
+    y = fb.fused_int8_diffusion_block(*ops)
+    (_, args), = rec.calls
+    assert args[0] % 16 == 0 and args[2] % 16 == 0
+    assert (args[0] != ops[0].data_ptr()) == (which in ("x", "both"))
+    assert (args[2] != ops[1].data_ptr()) == (which in ("zc", "both"))
+    assert y.shape == ops[0].shape and y.dtype == ops[0].dtype
+
+
 def test_unaligned_weights_are_copied_before_the_launch(rec):
     """TMA and bulk copies read from 16-byte-aligned addresses: a weight
     view off that boundary reaches the kernel as an aligned copy."""

@@ -200,6 +200,16 @@ def test_residual_argument_checks_raise_before_any_launch(rec):
     _raises_before_launch(rec, TypeError, lambda: call(x, res, wq, s, b.half()))
 
 
+def test_residual_bias_off_the_device_raises_before_any_launch(rec):
+    """A bias on another device than x: the kernel would get that device's
+    pointer."""
+    rng = np.random.default_rng(8)
+    x, res = _x(rng, (40, 256), BF16), _x(rng, (40, 384), BF16)
+    wq, s = _w(rng, 256, 384)
+    _raises_before_launch(rec, ValueError, lambda: fb.int8_matmul_residual(
+        x, res, wq, s, _vec(rng, 384).to("meta")))
+
+
 def _unaligned(t):
     """A contiguous copy of ``t`` one element off a 16-byte boundary."""
     store = torch.zeros(t.numel() + 1, dtype=t.dtype)
