@@ -213,6 +213,45 @@ phases and widen them:
     int8_matmul_residual, which must be 20 (the row pass and the wgmma
     GEMM).
 
+The t2pc training slice (composite loss, the pc model's training mode,
+gradient tools, checkpoints, data, evaluator) writes no kernel; its
+default step runs the plain attention core (attention dropout 0.1, as the
+JAX model sends live dropout to flax's core), its dropout-0 step the f32
+flash forward and backward. It adds, run after phase 5d so that its models
+stay out of the earlier phases' peak-memory readings:
+
+4g. t2pc training at nova_pointcloud_tpu_torch.scripts.train_pointcloud's
+    defaults: pc_d8w768, 1024 points at patch 1, f32 (TF32 off), remat,
+    dropout 0.1, batch 16 of make_synthetic_clouds normalized by a fitted
+    GlobalNormalizer and clipped to [-1, 1], DummyTextEncoder(256, 16)
+    prompts with cond-dropout 0.1, the composite loss (Sinkhorn 30
+    iterations at eps 0.05, 16 subsets), per_layer_clip(50, output_proj
+    x0.5, time_ x0.3) -> adaptive_lr_on_spike(50) -> AdamW (cosine 1e-4,
+    warmup 200, floor 1e-5, wd 0.01 on every parameter), EMA 0.99 every 10
+    steps. First the script's main itself (2 steps, validation, a
+    sampled-CD eval of 4 shapes at 5 steps; exact launches: 80
+    flash_attention of the bf16 eval, none in training). Gates: (a) 20
+    steps of one fixed batch with fixed draws: every metric finite,
+    nonfinite_loss 0, no kernel launched, the loss falling; (b) at
+    dropout 0 one step's gradient through attn_impl="auto" (exact
+    launches: 16 flash_attention f32, 8 flash_attention_bwd_prep, 8
+    flash_attention_bwd_f32 at (16, 12, 1024, 64)) against "xla", relative
+    L2 within 2 x floor + 1e-6 (floor: the "xla" step with the noise moved
+    by 1e-6); (c) a checkpoint saved after step 19, a fresh trainer resumed
+    from it: step 20 (an EMA update) bitwise the uninterrupted trainer's
+    (parameters, Adam moments, the adaptive multiplier, EMA); (d)
+    PointCloudEvaluator over the bf16 generation pipeline, 4 prompts at
+    1024 points, 25 steps, guidance (1.0, 3.0): finite CD, density-weighted
+    CD and EMD (400 flash_attention);
+5e. the default step's p50 of 5 after 2 warm-ups, samples/s and its peak
+    memory above what was allocated before it; the loss terms' time
+    (chamfer, Sinkhorn, AR, forward and backward, CUDA events) and their
+    share of the step; the same step at dropout 0 and its flash kernels'
+    share (the f32 forward and backward timed at (16, 12, 1024, 64) beside
+    their bounds);
+6.  (in the profiles phase) one profiled step of each, with the device's
+    idle share.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -247,6 +286,13 @@ try:
     from nova_pointcloud_tpu_torch.pipelines.train_nova import NOVATrainT2IPipeline
     from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
     from nova_pointcloud_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
+    from nova_pointcloud_tpu_torch.data.shapenet import GlobalNormalizer, make_synthetic_clouds
+    from nova_pointcloud_tpu_torch.evaluation.pointcloud_eval import PointCloudEvaluator
+    from nova_pointcloud_tpu_torch.ops import losses as pc_losses
+    from nova_pointcloud_tpu_torch.ops.pointops import dynamic_partition
+    from nova_pointcloud_tpu_torch.pipelines.pointcloud_train import (
+        NOVATrainPointCloudPipeline, PointCloudLossConfig, make_pc_loss_fn)
+    from nova_pointcloud_tpu_torch.scripts import train_pointcloud
     _PORT_IMPORT_ERROR = None
 except ImportError as e:  # reported by main(): the script needs the checkout
     _PORT_IMPORT_ERROR = e
@@ -288,6 +334,20 @@ TRAIN_LAUNCHES = {"flash_attention_bwd_prep": TRAIN_FLASH_LAYERS,
 TRAIN_F32_LAUNCHES = {"flash_attention_bwd_prep": TRAIN_FLASH_LAYERS,
                       "flash_attention_bwd_f32": TRAIN_FLASH_LAYERS,
                       "flash_attention": 2 * TRAIN_FLASH_LAYERS}
+# t2pc training (scripts/train_pointcloud's defaults): pc_d8w768, 1024 points
+# at patch 1 (1024 tokens), batch 16, f32, remat, dropout 0.1
+PC_TRAIN_ARCH, PC_TRAIN_POINTS, PC_TRAIN_BATCH, PC_TRAIN_LR = "pc_d8w768", 1024, 16, 1e-4
+PC_TRAIN_FALL_STEPS, PC_TRAIN_SAVE_AT = 20, 19  # gate (c): step 20 updates the EMA
+PC_EVAL_PROMPTS, PC_EVAL_GUIDANCE = 4, (1.0, 3.0)
+# the dropout-0 step through the dispatcher: the f32 route at 1024 keys,
+# each forward twice (remat)
+PC_TRAIN_F32_LAUNCHES = {"flash_attention": 2 * PP_DEPTH, "flash_attention_bwd_prep": PP_DEPTH,
+                         "flash_attention_bwd_f32": PP_DEPTH}
+# the script's run: its sampled-CD eval (2 guidance scales x 5 steps x 8
+# layers, bf16); its training and validation run the plain core
+PC_SCRIPT_ARGS = ["--max-steps", "2", "--val-every", "2", "--eval-shapes", "4", "--eval-steps", "5"]
+PC_SCRIPT_LAUNCHES = {"flash_attention": 2 * 5 * PP_DEPTH}
+PC_EVAL_LAUNCHES = {"flash_attention": len(PC_EVAL_GUIDANCE) * STEPS * PP_DEPTH}
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
@@ -319,6 +379,7 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
             "flash_attention_bwd_dq_cast":
                 "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
 OUT_DIR = "build"
+PC_TRAIN_DIR = os.path.join(OUT_DIR, "pc_train")  # checkpoints of phase 4g, removed after it
 DEV = "cuda"
 
 failures = []
@@ -1603,6 +1664,301 @@ def t2i_train():
     return pipe
 
 
+def _pc_model(dropout=0.1, attn_impl="auto", state_dict=None, seed=0):
+    """The training script's model on the card: f32, remat; seeded
+    init_weights (zero output head) unless a state dict is given."""
+    model = NOVAPointCloudTransformer(arch=PC_TRAIN_ARCH, point_cloud_size=PC_TRAIN_POINTS,
+                                      patch_size=1, text_token_dim=256, dropout=dropout,
+                                      remat=True, attn_impl=attn_impl, device=DEV)
+    if state_dict is None:
+        model.init_weights(torch.Generator(device=DEV).manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return model
+
+
+def _pc_normalizer():
+    """Fitted on 64 synthetic clouds, as the script fits it without a
+    dataset."""
+    return GlobalNormalizer().fit(
+        [s["points"] for s in make_synthetic_clouds(64, PC_TRAIN_POINTS, 0)])
+
+
+def _pc_batch(norm, seed):
+    """The script's first fresh batch from ``seed``: 16 synthetic clouds
+    normalized and clipped to [-1, 1], prompts dropped with probability 0.1."""
+    return next(train_pointcloud.fresh_batches(norm, PC_TRAIN_BATCH, PC_TRAIN_POINTS, seed, 0.1,
+                                               np.random.RandomState(seed + 1234)))
+
+
+def _pc_pipe(model, norm, output_dir=None):
+    """The script's pipeline: its optimizer chain, loss, EMA and schedule."""
+    opt, schedule = train_pointcloud.build_optimizer(model, PC_TRAIN_LR)
+    return NOVATrainPointCloudPipeline(
+        model, DDPMScheduler(beta_schedule="squaredcos_cap_v2"),
+        text_encoder=DummyTextEncoder(256, 16), normalizer=norm, output_dir=output_dir,
+        optimizer=opt, loss_config=PointCloudLossConfig(num_subsets=16), max_steps=10000,
+        log_every=20, save_every=0, ema_decay=0.99, ema_every=10, lr_schedule=schedule, seed=0)
+
+
+def _pc_draws(model, seed):
+    """Every draw of one step, fixed: timesteps, noise, dropout (the
+    ClusterBlock's mask and one seed a block), the partition."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (PC_TRAIN_BATCH, PC_TRAIN_POINTS, 3)
+    draws = {"t": DDPMScheduler().sample_timesteps(gen, (PC_TRAIN_BATCH,)),
+             "noise": torch.randn(shape, generator=gen, device=DEV),
+             "dropout_masks": model.draw_dropout(gen, PC_TRAIN_BATCH)}
+    draws["subset_ids"] = dynamic_partition(gen, PC_TRAIN_POINTS, 16)[1]
+    return draws
+
+
+def _pc_step_grads(model, batch, draws):
+    """Loss and gradients (name -> tensor) of one step; no update."""
+    loss_fn = make_pc_loss_fn(model, DDPMScheduler(beta_schedule="squaredcos_cap_v2"),
+                              PointCloudLossConfig(num_subsets=16))
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = loss_fn(batch, None, **draws)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _pc_state_equal(a, b):
+    """Names of the trainer state that differ bitwise: parameters, Adam
+    moments, the adaptive multiplier, EMA, step count."""
+    bad = [n for (n, p), (_, q) in zip(a.model.named_parameters(), b.model.named_parameters())
+           if not torch.equal(p, q)]
+    sa, sb = a.trainer.optimizer.state_dict(), b.trainer.optimizer.state_dict()
+    bad += [f"adam {i} {k}" for i, st in sa["adam"]["state"].items()
+            for k in ("exp_avg", "exp_avg_sq") if not torch.equal(st[k], sb["adam"]["state"][i][k])]
+    if not torch.equal(sa["transforms"][1]["multiplier"], sb["transforms"][1]["multiplier"]):
+        bad.append("multiplier")
+    bad += [f"ema {n}" for n, e in a.trainer.ema.params.items()
+            if not torch.equal(e, b.trainer.ema.params[n])]
+    if (sa["count"], a.trainer.step) != (sb["count"], b.trainer.step):
+        bad.append("step")
+    return bad
+
+
+@phase("4g t2pc training")
+def pc_train():
+    import shutil
+
+    shutil.rmtree(PC_TRAIN_DIR, ignore_errors=True)
+    norm = _pc_normalizer()
+    # the script's main at its defaults, cut to 2 steps and a small eval
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_pointcloud.main(["--output-dir", os.path.join(PC_TRAIN_DIR, "script")]
+                                + PC_SCRIPT_ARGS, device=DEV)
+    torch.cuda.synchronize()
+    script_launches = dict(fb.LAUNCHES)
+    script_ok = (out["step"] == 2 and np.isfinite(out["best_metric"])
+                 and script_launches == {n: PC_SCRIPT_LAUNCHES.get(n, 0) for n in KERNELS})
+    print(f"train_pointcloud.main (2 steps, validation, sampled CD of 4 shapes at 5 steps): "
+          f"{out} in {time.perf_counter() - t0:.1f} s; launches {script_launches} (expected "
+          f"{PC_SCRIPT_LAUNCHES}, else 0): {'ok' if script_ok else 'FAIL'}")
+    _record_launches("flash_attention", "t2pc_train_script", script_launches["flash_attention"])
+
+    # (a) one fixed batch with fixed draws, the default step (plain core)
+    model = _pc_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    ckpt_dir = os.path.join(PC_TRAIN_DIR, "ckpt")
+    pipe = _pc_pipe(model, norm, ckpt_dir)
+    batch = pipe.encode_batch(_pc_batch(norm, 1))
+    draws = _pc_draws(model, 2)
+    print(f"t2pc training {PC_TRAIN_ARCH}: {n_params / 1e6:.1f}M parameters (f32, remat, dropout "
+          f"0.1), batch {PC_TRAIN_BATCH}, {PC_TRAIN_POINTS} points")
+    fb.reset_launch_counts()
+    metrics = [pipe.trainer.train_step(batch, **draws) for _ in range(PC_TRAIN_SAVE_AT)]
+    torch.cuda.synchronize()
+    launches = dict(fb.LAUNCHES)
+    # (c) save after step 19; a fresh trainer (another init) resumes from it
+    t0 = time.perf_counter()
+    pipe.trainer.save()
+    twin = _pc_pipe(_pc_model(seed=1), norm, ckpt_dir)
+    ckpt_s = time.perf_counter() - t0
+    metrics.append(pipe.trainer.train_step(batch, **draws))
+    twin_out = twin.trainer.train_step(batch, **draws)
+    torch.cuda.synchronize()
+    differ = _pc_state_equal(pipe, twin)
+    resume_ok = twin.trainer.step == pipe.trainer.step == PC_TRAIN_FALL_STEPS and not differ \
+        and float(twin_out["loss"]) == float(metrics[-1]["loss"])
+    print(f"(c) checkpoint after step {PC_TRAIN_SAVE_AT}, saved and resumed in {ckpt_s:.1f} s: "
+          f"step {PC_TRAIN_FALL_STEPS} of the resumed trainer bitwise the uninterrupted one's "
+          f"(parameters, Adam moments, multiplier, EMA): differing {differ[:5]}: "
+          f"{'ok' if resume_ok else 'FAIL'}")
+    del twin
+    losses = [float(m["loss"]) for m in metrics]
+    finite = all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
+    nonfinite = sum(float(m["nonfinite_loss"]) for m in metrics)
+    fall_ok = finite and nonfinite == 0 and losses[-1] < losses[0] \
+        and launches == dict.fromkeys(KERNELS, 0)
+    print(f"(a) fixed batch and draws, {PC_TRAIN_FALL_STEPS} steps: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}, every metric finite: {finite}, nonfinite_loss {nonfinite}, "
+          f"launches {launches} (plain core: none): {'ok' if fall_ok else 'FAIL'}")
+    print("  last step's metrics: " + ", ".join(f"{k} {float(v):.5f}"
+                                                for k, v in metrics[-1].items()))
+
+    # (b) dropout 0: the dispatcher's flash route against the plain core
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    m_auto = _pc_model(dropout=0.0, state_dict=model.state_dict())
+    _nonzero_head(m_auto, gen)  # so every block's gradient is non-zero
+    m_xla = _pc_model(dropout=0.0, attn_impl="xla", state_dict=m_auto.state_dict())
+    d0 = _pc_draws(m_auto, 3)
+    fb.reset_launch_counts()
+    loss_k, g_k = _pc_step_grads(m_auto, batch, d0)
+    torch.cuda.synchronize()
+    launches0 = dict(fb.LAUNCHES)
+    counts_ok = launches0 == {n: PC_TRAIN_F32_LAUNCHES.get(n, 0) for n in KERNELS}
+    print(f"(b) launches in the dropout-0 step's loss and gradients: {launches0} (expected "
+          f"{PC_TRAIN_F32_LAUNCHES}, else 0): {'ok' if counts_ok else 'FAIL'}")
+    for name, n in PC_TRAIN_F32_LAUNCHES.items():
+        _record_launches(name, "t2pc_train_dropout0", launches0[name])
+    loss_p, g_p = _pc_step_grads(m_xla, batch, d0)
+    moved = dict(d0, noise=d0["noise"] + 1e-6 * torch.randn(
+        d0["noise"].shape, generator=gen, device=DEV))
+    _, g_m = _pc_step_grads(m_xla, batch, moved)
+    vs, floor = _rel_l2(g_k, g_p, "flash vs plain core"), _rel_l2(g_m, g_p)
+    tol = 2 * floor + 1e-6
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    grad_ok = counts_ok and grads_finite and vs <= tol
+    print(f"(b) one dropout-0 step's gradient (relative L2 of the whole vector): "
+          f"attn_impl='auto' (f32 flash) vs 'xla' {vs:.3e} (tol 2 x floor + 1e-6 = {tol:.3e}; "
+          f"floor, 'xla' vs itself with the noise moved by 1e-6: {floor:.3e}); losses "
+          f"{loss_k:.6f} / {loss_p:.6f}; finite: {grads_finite}: {'ok' if grad_ok else 'FAIL'}")
+    del m_xla, g_k, g_p, g_m
+
+    # (d) the evaluator over the bf16 generation pipeline, EMA weights
+    eval_model = NOVAPointCloudTransformer(
+        arch=PC_TRAIN_ARCH, point_cloud_size=PC_TRAIN_POINTS, patch_size=1, text_token_dim=256,
+        dropout=0.0, dtype=torch.bfloat16, device=DEV).to(torch.bfloat16)
+    eval_model.load_state_dict(pipe.trainer.ema.params)
+    eval_pipe = NOVAPointCloudGenerationPipeline(
+        eval_model, DDPMScheduler(beta_schedule="squaredcos_cap_v2"),
+        text_encoder=DummyTextEncoder(256, 16))
+    shapes = make_synthetic_clouds(PC_EVAL_PROMPTS, PC_TRAIN_POINTS, 7)
+    refs = np.clip(norm.normalize(np.stack([s["points"] for s in shapes])), -1.0, 1.0)
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = PointCloudEvaluator(eval_pipe).run(
+        [s["prompt"] for s in shapes], refs, guidance_scales=PC_EVAL_GUIDANCE,
+        num_points=PC_TRAIN_POINTS, num_diffusion_steps=STEPS,
+        generator=torch.Generator(device=DEV).manual_seed(7))
+    eval_s = time.perf_counter() - t0
+    eval_launches = dict(fb.LAUNCHES)
+    sweep = res["sweep"]
+    eval_ok = (len(sweep) == len(PC_EVAL_GUIDANCE)
+               and all(np.isfinite([r["chamfer"], r["chamfer_weighted"], r["emd"]]).all()
+                       for r in sweep)
+               and eval_launches == {n: PC_EVAL_LAUNCHES.get(n, 0) for n in KERNELS})
+    print(f"(d) PointCloudEvaluator, {PC_EVAL_PROMPTS} prompts x {PC_TRAIN_POINTS} points, "
+          f"{STEPS} steps, guidance {PC_EVAL_GUIDANCE}, in {eval_s:.1f} s: " + "; ".join(
+              f"gs {r['guidance_scale']}: CD {r['chamfer']:.4f}, weighted "
+              f"{r['chamfer_weighted']:.4f}, EMD {r['emd']:.4f}" for r in sweep)
+          + f"; launches {eval_launches}: {'ok' if eval_ok else 'FAIL'}")
+    _record_launches("flash_attention", "t2pc_eval", eval_launches["flash_attention"])
+    del eval_pipe, eval_model
+    shutil.rmtree(PC_TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["pc_train"] = dict(params_m=n_params / 1e6, script=out, script_launches=script_launches,
+                              losses=losses, launches_default=launches, launches_dropout0=launches0,
+                              grad_rel_l2_auto_vs_xla=vs, grad_floor=floor, resume_differ=differ,
+                              checkpoint_s=ckpt_s, eval=res, eval_launches=eval_launches)
+    if not (script_ok and fall_ok and resume_ok and grad_ok and eval_ok):
+        raise AssertionError("t2pc training check failed")
+    return {"pipe": pipe, "norm": norm, "m_auto": m_auto}
+
+
+@phase("5e timing of the t2pc training step")
+def timing_pc_train(st):
+    """The default step (p50 of 5 after 2 warm-ups, fresh batches), its
+    samples/s and peak memory; the loss terms alone (chamfer, Sinkhorn, AR,
+    forward and backward on the step's shapes) and their share of it; the
+    dropout-0 step, and its flash kernels (the f32 forward and backward at
+    (16, 12, 1024, 64)) beside their bounds and their share."""
+    if st is None:
+        raise AssertionError("no t2pc training pipeline: phase 4g failed")
+    pipe, norm = st["pipe"], st["norm"]
+    data = itertools.cycle([pipe.encode_batch(_pc_batch(norm, 10 + i)) for i in range(4)])
+
+    def p50_of(trainer):
+        """p50 and times of 5 steps after 2 warm-ups, and the steps' peak
+        memory above what was allocated before them (the pipelines of the
+        earlier phases, the other training state), which is also returned."""
+        trainer.train(data, trainer.step + 2)  # warm-ups
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            trainer.train(data, trainer.step + 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return (float(np.percentile(times, 50)), times,
+                torch.cuda.max_memory_allocated() - held, held)
+
+    p50, times, peak, held = p50_of(pipe.trainer)
+    print(f"t2pc training step (dropout 0.1, plain core): batch {PC_TRAIN_BATCH}, p50 {p50:.3f} s, "
+          f"{PC_TRAIN_BATCH / p50:.2f} samples/s (times {[round(t, 3) for t in times]}); peak "
+          f"memory of the step {peak / 2 ** 30:.2f} GiB above the {held / 2 ** 30:.2f} GiB "
+          f"allocated before it")
+    # the geometric loss terms on the step's shapes, forward and backward
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    pts = next(data)["points"]
+    x0 = torch.clamp(pts + 0.1 * torch.randn(pts.shape, generator=gen, device=DEV), -1, 1)
+    x0.requires_grad_()
+    ids = dynamic_partition(gen, PC_TRAIN_POINTS, 16)[1]
+    terms = {"chamfer": lambda: torch.mean(pc_losses.chamfer_distance(x0, pts)),
+             "sinkhorn": lambda: torch.mean(pc_losses.sinkhorn_emd(x0, pts, 0.05, 30)),
+             "ar": lambda: pc_losses.ar_consistency_loss(x0, ids)}
+    term_ms = {k: sync_ms(lambda f=f: f().backward(), 5) for k, f in terms.items()}
+    share = sum(term_ms.values()) / (p50 * 1e3)
+    print("  loss terms, forward + backward (CUDA events): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in term_ms.items())
+        + f"; together {sum(term_ms.values()):.2f} ms, {share:.1%} of the step")
+    # the dropout-0 step through the dispatcher (the f32 flash route)
+    pipe0 = _pc_pipe(st["m_auto"], norm)
+    p50_0, times0, peak0, _ = p50_of(pipe0.trainer)
+    bh, L = PC_TRAIN_BATCH * PP_HEADS, PC_TRAIN_POINTS
+    q, k, v = (torch.randn((PC_TRAIN_BATCH, PP_HEADS, L, 64), generator=gen, device=DEV)
+               for _ in range(3))
+    fwd = _time_kernel("flash_attention", (PC_TRAIN_BATCH, PP_HEADS, L, 64, "f32"),
+                       lambda: fa.flash_attention_with_lse(q, k, v),
+                       lambda: fa.flash_attention_plain(q, k, v),
+                       _bound(4 * bh * L * L * 64 / PEAK_F32_FLOPS, 4 * bh * L * 64 * 4 + bh * L * 4),
+                       iters=5)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device=DEV)
+    launches, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    bwd_ms = sync_ms(lambda: fa.run_bwd(launches), 5)  # prep and the one-pass kernel
+    bwd_bound = _bound(10 * bh * L * L * 64 / PEAK_F32_FLOPS, 7 * bh * L * 64 * 4 + 2 * bh * L * 4)
+    bwd_plain = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
+    del q, k, v, o, lse, do, launches
+    flash_s = (PC_TRAIN_F32_LAUNCHES["flash_attention"] * fwd["ms"]
+               + PC_TRAIN_F32_LAUNCHES["flash_attention_bwd_f32"] * bwd_ms) / 1e3
+    print(f"  flash_attention_bwd_f32 + prep {(PC_TRAIN_BATCH, PP_HEADS, L, 64)} f32: "
+          f"{bwd_ms:.3f} ms, plain backward {bwd_plain:.3f} ms, bound {bwd_bound[0]:.3f} ms "
+          f"({bwd_bound[1]}), {bwd_bound[0] / bwd_ms:.1%} of bound")
+    print(f"t2pc training step at dropout 0 (the f32 flash route): p50 {p50_0:.3f} s, "
+          f"{PC_TRAIN_BATCH / p50_0:.2f} samples/s (times {[round(t, 3) for t in times0]}); peak "
+          f"memory of the step {peak0 / 2 ** 30:.2f} GiB; its flash kernels ({PC_TRAIN_F32_LAUNCHES}) "
+          f"{flash_s * 1e3:.1f} ms by their event times, {flash_s / p50_0:.1%} of the step")
+    report["pc_train"].update(
+        batch=PC_TRAIN_BATCH, p50_s=p50, samples_per_s=PC_TRAIN_BATCH / p50, times_s=times,
+        step_peak_bytes=peak, held_bytes=held, loss_terms_ms=term_ms, loss_terms_share=share, dropout0_p50_s=p50_0,
+        dropout0_samples_per_s=PC_TRAIN_BATCH / p50_0, dropout0_times_s=times0,
+        dropout0_step_peak_bytes=peak0, flash_fwd_f32_ms=fwd["ms"], flash_fwd_f32_bound_ms=fwd["bound_ms"],
+        flash_bwd_f32_ms=bwd_ms, flash_bwd_f32_bound_ms=bwd_bound[0],
+        flash_bwd_f32_plain_ms=bwd_plain, flash_share_dropout0=flash_s / p50_0)
+    return pipe, pipe0
+
+
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
     forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
@@ -2366,7 +2722,7 @@ def _device_kernels_per_call():
 
 
 @phase("6 profiles")
-def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train):
+def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
@@ -2388,6 +2744,15 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train):
             torch.cuda.synchronize()
 
         profile_call(step, "t2i_train")
+    for label, p in zip(("t2pc_train", "t2pc_train_dropout0"), pc_pipes or ()):
+        norm = p.normalizer
+        pc_data = itertools.repeat(p.encode_batch(_pc_batch(norm, 20)))
+
+        def pc_step(p=p, pc_data=pc_data):
+            p.trainer.train(pc_data, p.trainer.step + 1)
+            torch.cuda.synchronize()
+
+        profile_call(pc_step, label)
 
 
 def main():
@@ -2414,7 +2779,11 @@ def main():
         timing_per_point(pipe_a, pipe_b)
         timing_t2i(pipe_t2i, pipe_t2i_f)
         timing_train(pipe_train)
-        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train)
+        # after the other paths' timings, so its models stay out of their
+        # peak-memory readings
+        pc_state = pc_train()
+        pc_pipes = timing_pc_train(pc_state)
+        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes)
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})

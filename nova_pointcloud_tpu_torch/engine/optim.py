@@ -12,6 +12,11 @@ has one. Frozen parameters (``trainable`` False) get no update, no decay and
 no moments, and do not count in the global norm (optax ``multi_transform``
 with ``set_to_zero``).
 
+Gradient transforms (``engine/grad_tools``: the per-layer clip, the
+adaptive lr multiplier) run after the global-norm clip and before Adam, in
+the order given, as an optax chain placed in front of ``adamw``; they group
+the gradients by JAX path (``paths``).
+
 The masks follow each parameter's JAX path and JAX rank
 (``models/convert.jax_param_paths``), not the port's module names: the JAX
 package decays every leaf of rank >= 2 whose path has no "norm", which takes
@@ -19,7 +24,7 @@ in the biases of its scanned block stacks (a leading depth axis) and skips
 every LayerNorm.
 """
 
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -58,14 +63,18 @@ class AdamW:
     (decay, lr scale) with its lr set from the schedule before each step.
     Its decay ``p * (1 - lr * wd)`` before the Adam update equals optax's
     ``- lr * (adam + wd * p)``, and a group's lr ``lr * scale`` scales both
-    terms as optax's lr scale does."""
+    terms as optax's lr scale does. ``transforms`` scale the gradients
+    after the clip (each ``update(grads, paths)``, in place); ``paths``
+    maps a port name to its JAX path for them."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  learning_rate: Union[float, Callable], weight_decay: float = 0.0,
                  betas=(0.9, 0.99), eps: float = 1e-8, grad_clip: Optional[float] = None,
                  decay: Optional[Dict[str, bool]] = None,
-                 lr_scale: Optional[Dict[str, float]] = None):
+                 lr_scale: Optional[Dict[str, float]] = None,
+                 transforms: Sequence = (), paths: Optional[Dict[str, str]] = None):
         self.named = list(named_params)
+        self.transforms, self.paths = list(transforms), paths
         self.learning_rate = learning_rate
         self.weight_decay, self.betas, self.eps, self.grad_clip = (
             weight_decay, tuple(betas), eps, grad_clip)
@@ -78,7 +87,8 @@ class AdamW:
         """Freeze the parameters mapped to False; before the first step."""
         if self.count:
             raise RuntimeError("set_trainable after the first step")
-        self.live = [p for n, p in self.named if trainable.get(n, True)]
+        self.live_named = [(n, p) for n, p in self.named if trainable.get(n, True)]
+        self.live = [p for _, p in self.live_named]
         groups: Dict[Tuple[float, float], list] = {}
         for n, p in self.named:
             if trainable.get(n, True):
@@ -106,23 +116,41 @@ class AdamW:
             norm = torch.nn.utils.get_total_norm(grads, foreach=True)
             torch._foreach_mul_(grads, torch.where(norm < self.grad_clip,
                                                    torch.ones_like(norm), self.grad_clip / norm))
+        if self.transforms:
+            grads = {n: p.grad for n, p in self.live_named}
+            for t in self.transforms:
+                t.update(grads, self.paths)
         lr = self.lr(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr * group["lr_scale"]
         self.opt.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """Adam's moments and step, the schedule's count and the transforms'
+        states (a checkpoint's optimizer entry)."""
+        return {"count": self.count, "adam": self.opt.state_dict(),
+                "transforms": [t.state_dict() for t in self.transforms]}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.opt.load_state_dict(state["adam"])
+        for t, ts in zip(self.transforms, state["transforms"]):
+            t.load_state_dict(ts)
+
 
 def build_optimizer(model: nn.Module, learning_rate: Union[float, Callable],
                     weight_decay: float = 0.0, betas=(0.9, 0.99), eps: float = 1e-8,
                     grad_clip: Optional[float] = None,
                     lr_scales: Optional[Dict[str, float]] = None, accum_steps: int = 1,
-                    decay: Optional[Dict[str, bool]] = None) -> AdamW:
+                    decay: Optional[Dict[str, bool]] = None, transforms: Sequence = ()) -> AdamW:
     """AdamW with norm-exempt decay (``decay_mask`` unless ``decay`` is
-    given), lr scaling and clipping, over ``model``'s parameters."""
+    given), lr scaling, clipping and gradient ``transforms`` (grouped by
+    ``model``'s JAX paths), over ``model``'s parameters."""
     if accum_steps > 1:
         raise NotImplementedError("gradient accumulation (optax.MultiSteps) is not ported "
                                   "yet: ROADMAP.md, module queue, NOVA training")
+    paths = {n: p for n, (p, _) in jax_param_paths(model).items()}
     return AdamW(model.named_parameters(), learning_rate, weight_decay, betas, eps, grad_clip,
                  decay if decay is not None else decay_mask(model),
-                 lr_scale_mask(model, lr_scales) if lr_scales else None)
+                 lr_scale_mask(model, lr_scales) if lr_scales else None, transforms, paths)

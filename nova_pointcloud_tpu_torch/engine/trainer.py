@@ -1,10 +1,14 @@
 """Training engine (port of ``nova_pointcloud_tpu/engine/trainer.py``), on
 one device: the step (forward, backward, optimizer, metrics), the loop with
-the EMA cadence, and the smoothed-metric / progress logging.
+the EMA cadence, the smoothed-metric / progress logging, and checkpoint
+save / resume-latest (``engine/checkpoint.py``).
 
-The JAX trainer's mesh (DP / TP / ZeRO shardings), optimizer-state offload,
-ZeRO-3 and checkpoint save / resume are not ported yet and raise
-(``engine/checkpoint.py`` and ``parallel/`` are queued in ROADMAP.md).
+A checkpoint holds the parameters, the optimizer's state (Adam's moments
+and step, the schedule's count, the gradient transforms' state such as the
+adaptive lr multiplier), the EMA, the step and the generator's state, so a
+resumed trainer's next step is bitwise the uninterrupted one's. The JAX
+trainer's mesh (DP / TP / ZeRO shardings), optimizer-state offload and
+ZeRO-3 are not ported yet and raise (``parallel/`` is queued in ROADMAP.md).
 """
 
 from typing import Any, Callable, Dict, Iterator, Optional
@@ -12,13 +16,14 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 from torch import nn
 
+from nova_pointcloud_tpu_torch.engine.checkpoint import CheckpointManager
 from nova_pointcloud_tpu_torch.engine.ema import ema_init, ema_update
 from nova_pointcloud_tpu_torch.utils.logging import SmoothedValue, Timer, get_logger, get_progress
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md, module queue, "
-                               f"NOVA training")
+                               f"parallelism")
 
 
 class Trainer:
@@ -27,10 +32,14 @@ class Trainer:
     ``loss_fn(batch, generator, **kw) -> (loss, metrics)`` computes on
     ``model``'s parameters; ``optimizer`` is ``engine/optim.AdamW`` over
     them. ``seed`` seeds the trainer's ``torch.Generator`` on the model's
-    device, which every random draw of a step comes from."""
+    device, which every random draw of a step comes from. With
+    ``output_dir`` it saves a checkpoint every ``save_every`` steps and
+    starts from the latest one there. ``lr_schedule`` is what
+    the log shows (the optimizer's own schedule when None)."""
 
     def __init__(self, loss_fn: Callable, model: nn.Module, optimizer, mesh=None,
-                 output_dir: Optional[str] = None, max_steps: int = 10000, log_every: int = 20,
+                 output_dir: Optional[str] = None, lr_schedule: Optional[Callable] = None,
+                 max_steps: int = 10000, log_every: int = 20, save_every: int = 1000,
                  ema_decay: Optional[float] = 0.99, ema_every: int = 100, seed: int = 0,
                  offload_opt_state: bool = False, zero3: bool = False):
         if mesh is not None:
@@ -39,16 +48,63 @@ class Trainer:
             raise _unported("optimizer-state offload (offload_opt_state=True)")
         if zero3:
             raise _unported("ZeRO-3 parameter sharding (zero3=True)")
-        if output_dir is not None:
-            raise _unported("checkpoint save / resume (output_dir=, engine/checkpoint.py)")
         self.loss_fn, self.model, self.optimizer = loss_fn, model, optimizer
-        self.max_steps, self.log_every = max_steps, log_every
+        self.max_steps, self.log_every, self.save_every = max_steps, log_every, save_every
+        self.lr_schedule = lr_schedule
         self.logger = get_logger("trainer")
         dev = next(model.parameters()).device
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.step = 0
         self.ema = (ema_init(dict(model.named_parameters()), ema_decay, ema_every)
                     if ema_decay else None)
+        self.ckpt = CheckpointManager(output_dir) if output_dir else None
+        if self.ckpt is not None and self._try_resume():
+            self.logger.info("Resumed from checkpoint-%d", self.step)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint holds (tensors on the model's device)."""
+        state = {"params": {n: p.detach() for n, p in self.model.named_parameters()},
+                 "optimizer": self.optimizer.state_dict(), "step": self.step,
+                 "generator": self.generator.get_state()}
+        if self.ema is not None:
+            state["ema"] = self.ema.params
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        params = dict(self.model.named_parameters())
+        for n, v in state["params"].items():
+            params[n].copy_(v)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"].cpu())
+        if self.ema is not None and "ema" in state:
+            for n, e in self.ema.params.items():
+                e.copy_(state["ema"][n])
+
+    def _try_resume(self) -> bool:
+        out = self.ckpt.restore(map_location=self.generator.device)
+        if out is None:
+            return False
+        self.load_state_dict(out["state"])
+        return True
+
+    def save(self) -> None:
+        if self.ckpt is None:
+            return
+        self.ckpt.save(self.step, self.state_dict())
+        self.logger.info("Saved checkpoint-%d", self.step)
+
+    def save_best(self, metric: Optional[float] = None) -> None:
+        """The quality-selected slot (parameters and EMA only, not for
+        resume), exempt from pruning; the metric is the caller's."""
+        if self.ckpt is None:
+            return
+        state = {"params": {n: p.detach() for n, p in self.model.named_parameters()}}
+        if self.ema is not None:
+            state["ema"] = self.ema.params
+        self.ckpt.save_best(self.step, state, metric)
+        self.logger.info("Saved checkpoint-best @ step %d (metric=%s)", self.step, metric)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -87,8 +143,12 @@ class Trainer:
                     meters.setdefault(k, SmoothedValue()).update(v)
                 msg = ", ".join(f"{k}: {m.median:.4f} ({m.global_average:.4f})"
                                 for k, m in meters.items())
+                lr = (float(self.lr_schedule(self.step)) if self.lr_schedule
+                      else self.optimizer.lr(self.step))
                 self.logger.info("Iteration %d, time: %.3fs, lr: %.2e, %s", self.step,
-                                 timer.average_time, self.optimizer.lr(self.step), msg)
+                                 timer.average_time, lr, msg)
             if self.step % (10 * self.log_every) == 0:
                 self.logger.info(get_progress(timer, self.step, max_steps))
+            if self.save_every and self.step % self.save_every == 0:
+                self.save()
         return last

@@ -2,7 +2,20 @@
 ``nova_pointcloud_tpu/models/pointcloud.py``: DepthAwarePosEncoding,
 ClusterBlock, PreLNBlock, BlockStack, NOVAPointCloudTransformer).
 
-Serving only: no dropout, no gradients needed. Module and parameter names
+Serving (``deterministic=True``, the default) runs without autograd;
+training (``deterministic=False``) is differentiable and applies
+the flax model's dropout: after the ClusterBlock's first LayerNorm + relu
+(rate 0.1, fixed), on each block's attention weights (one keep mask of
+shape (1, 1, Lq, Lk) shared by every batch element and head, flax's
+``broadcast_dropout``), on both residual branches and on the MLP's hidden
+activation (rate ``dropout``). Masks are Bernoulli draws from a
+``torch.Generator`` (or given, as the tests give JAX's); with live dropout
+the attention runs the plain core, as the JAX adapter sends it to
+``nn.dot_product_attention``. ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``); each block's masks come from a seed
+drawn before the block runs, so the recompute draws the same masks.
+
+Module and parameter names
 follow the flax tree (``models/convert.py`` maps one onto the other):
 ``nn.Linear`` holds flax's ``Dense`` kernel transposed, ``nn.LayerNorm``
 (eps 1e-6, flax's default) its ``scale``/``bias``, and each
@@ -24,11 +37,12 @@ on the card. A ``PreLNBlock`` has three forwards:
   the activation ranges of its quant sites.
 """
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nova_pointcloud_tpu_torch.models.embeddings import timestep_freq_embed
 from nova_pointcloud_tpu_torch.models.layers import _compute_dtype, dense
@@ -57,6 +71,37 @@ PC_ARCHES = {
 }
 LN_EPS = 1e-6
 FUSED_ATTENTION_MAX_BYTES = 14 * 2**20  # the JAX model's fused / split rule
+CLUSTER_DROPOUT = 0.1  # the JAX ClusterBlock's rate, whatever the model's dropout
+BLOCK_DROPOUT_SITES = ("attn", "resid1", "mlp", "resid2")
+
+
+def dropout_keep(generator: Optional[torch.Generator], shape, rate: float,
+                 device) -> Optional[torch.Tensor]:
+    """A keep mask (bool, ``shape``) with P(keep) = 1 - rate, drawn by
+    ``torch.bernoulli`` from ``generator``; None at rate 0 (no dropout)."""
+    if rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("live dropout needs a generator or given masks")
+    p = torch.full(tuple(shape), 1.0 - rate, device=device)
+    return torch.bernoulli(p, generator=generator).bool()
+
+
+def apply_dropout(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """flax ``Dropout``: ``where(keep, x / (1 - rate), 0)``."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def attention_dropout_multiplier(keep: Optional[torch.Tensor], rate: float,
+                                 dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """flax's attention-dropout multiplier ``keep / keep_prob`` in ``dtype``
+    from a (1, 1, Lq, Lk) keep mask; it scales the attention weights of
+    every batch element and head alike."""
+    if keep is None:
+        return None
+    return keep.to(dtype) / torch.tensor(1.0 - rate, dtype=dtype, device=keep.device)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype=None) -> torch.Tensor:
@@ -68,7 +113,7 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype=None) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` (self-attention, no dropout).
+    """flax ``MultiHeadDotProductAttention`` (self-attention).
 
     ``attn_impl``: the dispatcher policy of ``ops/attention.py`` ("auto",
     "pallas", "sdpa" / "xla"); ``None`` is flax's default core with no
@@ -85,13 +130,16 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(dim, dim, device=device)
         self.out = nn.Linear(dim, dim, device=device)
 
-    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None,
+                dropout_mult: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``dropout_mult``: the attention-dropout multiplier (training)."""
         b, t, d = x.shape
         heads = (b, t, self.num_heads, d // self.num_heads)
         q = dense(x, self.query, dtype).reshape(heads)
         k = dense(x, self.key, dtype).reshape(heads)
         v = dense(x, self.value, dtype).reshape(heads)
-        return dense(self.attention_fn(q, k, v).reshape(b, t, d), self.out, dtype)
+        out = self.attention_fn(q, k, v, dropout_mult=dropout_mult)
+        return dense(out.reshape(b, t, d), self.out, dtype)
 
 
 class DepthAwarePosEncoding(nn.Module):
@@ -129,7 +177,10 @@ class ClusterBlock(nn.Module):
         self.cluster_attn = MultiHeadAttention(embed_dim, num_heads, device)
         self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
 
-    def forward(self, coords: torch.Tensor, dtype=None) -> torch.Tensor:
+    def forward(self, coords: torch.Tensor, dtype=None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: the (B, K, 64) dropout keep mask after ``feat_ln1``
+        (training), at rate ``CLUSTER_DROPOUT``."""
         dt = torch.promote_types(coords.dtype, self.cluster_centers.dtype)
         coords = coords.to(dt)
         centers = self.cluster_centers.to(dt)
@@ -138,6 +189,7 @@ class ClusterBlock(nn.Module):
         wsum = torch.sum(w, dim=1) + 1e-8  # (B, K)
         wcenters = torch.einsum("bnk,bnd->bkd", w, coords) / wsum[..., None]
         h = torch.relu(layer_norm(dense(wcenters, self.feat_fc1), self.feat_ln1))
+        h = apply_dropout(h, keep, CLUSTER_DROPOUT)
         h = layer_norm(dense(h, self.feat_fc2), self.feat_ln2)
         h = self.cluster_attn(h, dtype)
         h = dense(h, self.out_proj, dtype)
@@ -149,13 +201,15 @@ def _amax(v: torch.Tensor) -> torch.Tensor:
 
 
 class PreLNBlock(nn.Module):
-    """norm_first TransformerEncoderLayer equivalent (relu MLP)."""
+    """norm_first TransformerEncoderLayer equivalent (relu MLP); ``dropout``
+    is the rate of its four dropout sites in training."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attn_core: str = "bf16", device=None, attn_impl: str = "auto"):
+                 attn_core: str = "bf16", device=None, attn_impl: str = "auto",
+                 dropout: float = 0.1):
         super().__init__()
         hidden = int(dim * mlp_ratio)
-        self.num_heads = num_heads
+        self.num_heads, self.dropout = num_heads, dropout
         self.attn_core = attn_core
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.attn = MultiHeadAttention(dim, num_heads, device, attn_impl)
@@ -163,15 +217,34 @@ class PreLNBlock(nn.Module):
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
 
+    def draw_dropout(self, generator: Optional[torch.Generator], x_shape,
+                     device) -> Dict[str, Optional[torch.Tensor]]:
+        """This block's keep masks for input shape (B, T, D), drawn in the
+        order attention weights (1, 1, T, T), attention residual (B, T, D),
+        MLP hidden (B, T, hidden), MLP residual (B, T, D)."""
+        b, t, d = x_shape
+        shapes = {"attn": (1, 1, t, t), "resid1": (b, t, d),
+                  "mlp": (b, t, self.fc1.out_features), "resid2": (b, t, d)}
+        return {site: dropout_keep(generator, shapes[site], self.dropout, device)
+                for site in BLOCK_DROPOUT_SITES}
+
     def forward(self, x: torch.Tensor, qparams: Optional[Dict] = None,
-                dtype=None) -> torch.Tensor:
+                dtype=None, drop: Optional[Dict[str, Optional[torch.Tensor]]] = None
+                ) -> torch.Tensor:
+        """``drop``: keep masks by site (training; a missing site has no
+        dropout)."""
         if qparams is not None:
             return self.int8_forward(x, qparams)
-        h = self.attn(layer_norm(x, self.norm1), dtype)
-        x = x + h
+        drop = drop or {}
+        h = layer_norm(x, self.norm1)
+        mult = attention_dropout_multiplier(drop.get("attn"), self.dropout,
+                                            _compute_dtype(h, self.attn.query.weight, dtype))
+        h = self.attn(h, dtype, dropout_mult=mult)
+        x = x + apply_dropout(h, drop.get("resid1"), self.dropout)
         h = layer_norm(x, self.norm2)
-        h = dense(torch.relu(dense(h, self.fc1, dtype)), self.fc2, dtype)
-        return x + h
+        h = apply_dropout(torch.relu(dense(h, self.fc1, dtype)), drop.get("mlp"), self.dropout)
+        h = dense(h, self.fc2, dtype)
+        return x + apply_dropout(h, drop.get("resid2"), self.dropout)
 
     def _qkv_bias(self) -> torch.Tensor:
         a = self.attn
@@ -246,24 +319,49 @@ class PreLNBlock(nn.Module):
         return (xf + o).to(x.dtype), stats
 
 
+BlockDraws = Union[int, Dict[str, Optional[torch.Tensor]]]
+
+
+def _run_block(block: PreLNBlock, h: torch.Tensor, dtype, draws: BlockDraws) -> torch.Tensor:
+    """One training block: its masks given, or drawn from a generator seeded
+    with ``draws`` here, inside the (checkpointed) call, so that a recompute
+    draws them again bitwise."""
+    if isinstance(draws, int):
+        g = torch.Generator(device=h.device).manual_seed(draws)
+        draws = block.draw_dropout(g, h.shape, h.device)
+    return block(h, None, dtype, draws)
+
+
 class BlockStack(nn.Module):
     """Depth-stacked PreLN blocks: a Python loop over ``layers``.
 
     qparams / stats trees carry a leading depth axis under ``"block"``, as
-    the JAX ``nn.scan`` stack's do."""
+    the JAX ``nn.scan`` stack's do. ``remat``: in training, each block is
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant),
+    as the JAX stack's ``nn.remat``."""
 
     def __init__(self, depth: int, dim: int, num_heads: int,
-                 attn_core: str = "bf16", device=None, attn_impl: str = "auto"):
+                 attn_core: str = "bf16", device=None, attn_impl: str = "auto",
+                 dropout: float = 0.1, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             PreLNBlock(dim, num_heads, attn_core=attn_core, device=device,
-                       attn_impl=attn_impl)
+                       attn_impl=attn_impl, dropout=dropout)
             for _ in range(depth))
 
     def forward(self, h: torch.Tensor, qparams: Optional[Dict] = None,
-                dtype=None) -> torch.Tensor:
+                dtype=None, drop: Optional[List[BlockDraws]] = None) -> torch.Tensor:
+        """``drop``: training, one entry a block: its keep masks by site, or
+        an int seed its masks are drawn from."""
         stacked = None if qparams is None else qparams["block"]
         for i, block in enumerate(self.layers):
+            if drop is not None:
+                if self.remat and torch.is_grad_enabled():
+                    h = checkpoint(_run_block, block, h, dtype, drop[i], use_reentrant=False)
+                else:
+                    h = _run_block(block, h, dtype, drop[i])
+                continue
             q = None if stacked is None else {k: v[i] for k, v in stacked.items()}
             h = block(h, q, dtype)
         return h
@@ -282,14 +380,15 @@ class NOVAPointCloudTransformer(nn.Module):
     ``quantize`` selects the int8 serving path (the fused kernels) for the
     block stack; its qparams come from the caller (the pipeline quantizes
     once per call) or are built in the forward. ``attn_impl`` is the float
-    path's attention policy (ops/attention.py). ``device``: ``cuda`` unless
-    ``"cpu"`` is asked for (utils/device.py)."""
+    path's attention policy (ops/attention.py). ``dropout`` (the blocks'
+    rate) and ``remat`` act in training only (``deterministic=False``).
+    ``device``: ``cuda`` unless ``"cpu"`` is asked for (utils/device.py)."""
 
     def __init__(self, arch: str = "pc_d8w768", point_cloud_size: int = 2048,
                  patch_size: int = 1, text_token_dim: Optional[int] = None,
                  text_pool: str = "masked", num_clusters: int = 8,
-                 use_depth_pe: bool = False, quantize: bool = False,
-                 attn_impl: str = "auto", attn_core: str = "bf16",
+                 use_depth_pe: bool = False, dropout: float = 0.1, remat: bool = False,
+                 quantize: bool = False, attn_impl: str = "auto", attn_core: str = "bf16",
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         if arch not in PC_ARCHES:
@@ -302,7 +401,7 @@ class NOVAPointCloudTransformer(nn.Module):
         self.point_cloud_size = point_cloud_size
         self.text_token_dim, self.text_pool = text_token_dim, text_pool
         self.quantize, self.attn_core, self.dtype = quantize, attn_core, dtype
-        self.attn_impl = attn_impl
+        self.attn_impl, self.dropout, self.remat = attn_impl, dropout, remat
         self.point_embed = nn.Linear(patch_size * 3, dim, device=dev)
         self.pos_embed = nn.Parameter(torch.zeros(1, self.num_tokens, dim, device=dev))
         self.depth_pe = DepthAwarePosEncoding(dim, dev) if use_depth_pe else None
@@ -311,7 +410,7 @@ class NOVAPointCloudTransformer(nn.Module):
         self.time_fc2 = nn.Linear(dim, dim, device=dev)
         self.text_embed = (nn.Linear(text_token_dim, dim, device=dev)
                            if text_token_dim else None)
-        self.blocks = BlockStack(depth, dim, heads, attn_core, dev, attn_impl)
+        self.blocks = BlockStack(depth, dim, heads, attn_core, dev, attn_impl, dropout, remat)
         self.final_norm = nn.LayerNorm(dim, eps=LN_EPS, device=dev)
         self.output_proj = nn.Linear(dim, patch_size * 3, device=dev)
 
@@ -348,7 +447,8 @@ class NOVAPointCloudTransformer(nn.Module):
         return self
 
     def _embed(self, x: torch.Tensor, timestep: torch.Tensor,
-               text_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+               text_embeds: Optional[torch.Tensor],
+               cluster_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.dtype
         b, n, _ = x.shape
         p = self.patch_size
@@ -358,7 +458,7 @@ class NOVAPointCloudTransformer(nn.Module):
         h = h + self.pos_embed[:, : h.shape[1]].to(h.dtype)
         if self.depth_pe is not None:
             h = h + self.depth_pe(coords).to(h.dtype)
-        h = h + self.cluster(coords, dt).to(h.dtype)
+        h = h + self.cluster(coords, dt, cluster_keep).to(h.dtype)
         t_freq = timestep_freq_embed(timestep.float(), 256)
         t_emb = dense(t_freq.to(h.dtype), self.time_fc1, dt)
         t_emb = dense(F.silu(t_emb), self.time_fc2, dt)
@@ -379,12 +479,52 @@ class NOVAPointCloudTransformer(nn.Module):
         h = layer_norm(h, self.final_norm, self.dtype)
         return dense(h, self.output_proj, self.dtype).reshape(shape).float()
 
-    @torch.no_grad()
+    def draw_dropout(self, generator: Optional[torch.Generator], batch: int
+                     ) -> Dict[str, object]:
+        """One training forward's dropout draws from ``generator``: the
+        ClusterBlock's (B, K, 64) keep mask, then one seed a block (none at
+        ``dropout`` 0)."""
+        cluster = dropout_keep(generator, (batch, self.cluster.cluster_centers.shape[0],
+                                           self.cluster.feat_fc1.out_features),
+                               CLUSTER_DROPOUT, self.device)
+        depth = len(self.blocks.layers)
+        if self.dropout == 0.0:
+            return {"cluster": cluster, "blocks": [{} for _ in range(depth)]}
+        if generator is None:
+            raise ValueError("live dropout needs a generator or given masks")
+        seeds = torch.randint(0, 2 ** 62, (depth,), generator=generator,
+                              device=generator.device).tolist()
+        return {"cluster": cluster, "blocks": seeds}
+
     def forward(self, x: torch.Tensor, timestep: torch.Tensor,
                 text_embeds: Optional[torch.Tensor] = None,
-                qparams: Optional[Dict] = None) -> torch.Tensor:
+                qparams: Optional[Dict] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Dict] = None) -> torch.Tensor:
         """``qparams``: the tree of ``quantize_serving_params`` (optionally
-        merged with calibrated act scales); used when ``quantize`` is set."""
+        merged with calibrated act scales); used when ``quantize`` is set.
+
+        ``deterministic=False`` is the training forward (the JAX model's
+        ``deterministic=False``): differentiable, with dropout drawn from
+        ``generator`` (:meth:`draw_dropout`) unless ``dropout_masks`` gives
+        them: ``{"cluster": (B, K, 64) keep mask or None, "blocks": one
+        entry a block, its keep masks by site (``BLOCK_DROPOUT_SITES``) or
+        an int seed}``."""
+        if not deterministic:
+            return self._train_forward(x, timestep, text_embeds, generator, dropout_masks)
+        with torch.no_grad():
+            return self._serve(x, timestep, text_embeds, qparams)
+
+    def _train_forward(self, x, timestep, text_embeds, generator, dropout_masks):
+        if self.quantize:
+            raise ValueError("the training forward runs the float model (quantize=False)")
+        if dropout_masks is None:
+            dropout_masks = self.draw_dropout(generator, x.shape[0])
+        h = self._embed(x, timestep, text_embeds, dropout_masks.get("cluster"))
+        h = self.blocks(h, None, self.dtype, drop=dropout_masks["blocks"])
+        return self._head(h, x.shape)
+
+    def _serve(self, x, timestep, text_embeds, qparams):
         h = self._embed(x, timestep, text_embeds)
         if self.quantize:
             if qparams is None:

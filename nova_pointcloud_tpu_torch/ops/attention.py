@@ -48,10 +48,13 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
-                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None,
+                          dropout_mult: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, L, H, D) attention as flax's ``dot_product_attention``: q scaled
     by 1/sqrt(D), float32 logits and softmax, ``bias`` added and ``mask``
-    (True = keep) applied as the most negative float."""
+    (True = keep) applied as the most negative float; ``dropout_mult``
+    (keep / keep_prob, broadcast to (B, H, Lq, Lk)) scales the weights, as
+    flax's attention dropout does."""
     q = q / (q.shape[-1] ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if bias is not None:
@@ -59,6 +62,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    if dropout_mult is not None:
+        probs = probs * dropout_mult
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -113,21 +118,25 @@ def make_attention_fn(impl: str = "auto"):
 
     A caller's ``bias`` may be a learned parameter, and the kernel gives
     biases no gradient, so an explicit bias stays on the plain core; a
-    ``mask`` (a constant) rides the kernel as a 0 / -inf bias."""
+    ``mask`` (a constant) rides the kernel as a 0 / -inf bias. Live
+    attention dropout (``dropout_mult``) runs the plain core too, as the
+    JAX adapter's ``has_dropout`` test sends it to flax's core."""
     if impl.startswith("ring"):
         raise NotImplementedError(
             "attn_impl='ring' (sequence-parallel ring attention) is not ported "
             "yet: ROADMAP.md, module queue, parallelism")
 
-    def attention_fn(query, key, value, bias=None, mask=None):
+    def attention_fn(query, key, value, bias=None, mask=None, dropout_mult=None):
         q = query.transpose(-2, -3)  # (B, L, H, D) -> (B, H, L, D)
         k = key.transpose(-2, -3)
         b = bias
         if mask is not None:
             mb = torch.where(mask, 0.0, float("-inf")).to(torch.float32)
             b = mb if b is None else b + mb
-        if bias is not None or not _use_flash(q, k, b, impl):
-            return dot_product_attention(query, key, value, bias=bias, mask=mask)
+        has_dropout = dropout_mult is not None
+        if has_dropout or bias is not None or not _use_flash(q, k, b, impl):
+            return dot_product_attention(query, key, value, bias=bias, mask=mask,
+                                         dropout_mult=dropout_mult)
         out = flash_attention(q, k, value.transpose(-2, -3), bias=b)
         return out.transpose(-2, -3)
 

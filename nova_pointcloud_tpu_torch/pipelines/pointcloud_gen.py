@@ -9,7 +9,8 @@
 - int8 serving: weights quantized once per call, outside the step loop,
   with the calibrated static activation scales merged in when present
 - standard postprocess (tanh, +0.1 noise, clamp [-1, 1]) or the eval one
-  (clamp [-2, 2]), and position-based colors
+  (clamp [-2, 2]), and position-based colors; ``denormalize`` maps the
+  points back through the dataset's ``GlobalNormalizer`` (``normalizer``)
 
 Randomness comes from a ``torch.Generator`` (``generator=``) in place of the
 JAX ``key``; ``deterministic=True`` with given ``latents`` draws nothing.
@@ -42,7 +43,7 @@ class NOVAPointCloudGenerationPipeline:
 
     def __init__(self, model: NOVAPointCloudTransformer,
                  scheduler: Optional[DDPMScheduler] = None, text_encoder=None,
-                 mesh=None):
+                 normalizer=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh (multi-device) serving is not ported yet: ROADMAP.md, "
@@ -50,6 +51,7 @@ class NOVAPointCloudGenerationPipeline:
         self.model = model
         self.scheduler = scheduler or DDPMScheduler(beta_schedule="squaredcos_cap_v2")
         self.text_encoder = text_encoder
+        self.normalizer = normalizer  # data.shapenet.GlobalNormalizer or None
         # calibrated static activation scales (calibrate()); merged into the
         # qparams of every later call
         self.act_scales: Optional[Dict] = None
@@ -142,6 +144,7 @@ class NOVAPointCloudGenerationPipeline:
         generator: Optional[torch.Generator] = None,
         prompt_embeds: Optional[np.ndarray] = None,
         output_type: str = "numpy",
+        denormalize: bool = False,
         postprocess: str = "standard",  # "standard" | "eval"
         deterministic: bool = False,  # zero-variance DDPM, no added noise
         latents=None,  # (B, N, 3) pre-drawn x_T
@@ -200,6 +203,9 @@ class NOVAPointCloudGenerationPipeline:
         if not deterministic:
             colors = torch.clamp(
                 colors + 0.1 * torch.randn(x.shape, generator=g, device=dev), 0, 1)
+        if denormalize and self.normalizer is not None:
+            x = (x * torch.as_tensor(self.normalizer.std, device=dev)
+                 + torch.as_tensor(self.normalizer.mean, device=dev))
         if output_type == "numpy":
             return NOVAPointCloudPipelineOutput(x.cpu().numpy(), colors.cpu().numpy())
         return NOVAPointCloudPipelineOutput(x, colors)

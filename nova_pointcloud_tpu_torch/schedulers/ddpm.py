@@ -3,7 +3,8 @@
 Port of ``nova_pointcloud_tpu/schedulers/ddpm.py``: five beta schedules,
 zero-terminal-SNR rescale, all six variance types (the learned pair splits a
 2C-channel model output on the last axis), epsilon/sample/v prediction,
-leading/linspace/trailing spacing, ``add_noise`` and ``get_velocity``.
+leading/linspace/trailing spacing, and the training side: ``sample_timesteps``,
+``add_noise``, ``get_velocity`` and ``predict_x0``.
 
 The tables are built in host numpy exactly as the JAX scheduler builds them;
 every tensor op below runs in float32 as the JAX one does. ``set_timesteps``
@@ -106,6 +107,16 @@ class DDPMScheduler:
         table = torch.as_tensor(self.alphas_cumprod, device=device)
         v = table[_as_index(t, device)]
         return v.reshape(v.shape + (1,) * (ndim - v.ndim))
+
+    # -- training ---------------------------------------------------------
+    def sample_timesteps(self, generator: Optional[torch.Generator], shape,
+                         device=None) -> torch.Tensor:
+        """Uniform integer timesteps in [0, num_train_timesteps) (int64),
+        drawn from ``generator`` on its device unless ``device`` is given."""
+        dev = device if device is not None else (
+            generator.device if generator is not None else None)
+        return torch.randint(0, self.num_train_timesteps, tuple(shape),
+                             generator=generator, device=dev)
 
     def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
         """q(x_t | x_0): sqrt(a_bar)·x0 + sqrt(1-a_bar)·noise."""

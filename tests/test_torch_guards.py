@@ -84,7 +84,14 @@ def test_every_module_imports_without_cuda_or_jax():
             "nova_pointcloud_tpu_torch.engine.ema",
             "nova_pointcloud_tpu_torch.engine.trainer",
             "nova_pointcloud_tpu_torch.utils.logging",
-            "nova_pointcloud_tpu_torch.pipelines.train_nova"} <= set(mods)
+            "nova_pointcloud_tpu_torch.pipelines.train_nova",
+            "nova_pointcloud_tpu_torch.pipelines.pointcloud_train",
+            "nova_pointcloud_tpu_torch.engine.grad_tools",
+            "nova_pointcloud_tpu_torch.engine.checkpoint",
+            "nova_pointcloud_tpu_torch.data.shapenet",
+            "nova_pointcloud_tpu_torch.evaluation.pointcloud_eval",
+            "nova_pointcloud_tpu_torch.scripts.train_pointcloud",
+            "nova_pointcloud_tpu_torch.scripts.eval_pc_quality"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -319,3 +326,33 @@ def test_unported_training_paths_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_optimizer(model, 1e-4, accum_steps=4)
+
+
+@pytest.mark.parametrize("dropout,attn_impl", [(0.1, "auto"), (0.0, "pallas")])
+def test_cpu_pc_training_step_runs_no_kernel(dropout, attn_impl, monkeypatch):
+    """The t2pc training step on CPU tensors: live dropout (the plain core)
+    and, at dropout 0, the flash route's plain forward and backward through
+    its autograd node count nothing; without CUDA the model and the
+    evaluator's device default raise."""
+    from nova_pointcloud_tpu_torch.evaluation.pointcloud_eval import evaluate_batch
+    from nova_pointcloud_tpu_torch.pipelines.pointcloud_train import (
+        NOVATrainPointCloudPipeline, PointCloudLossConfig)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=32, remat=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_batch(np.zeros((1, 8, 3), np.float32), np.zeros((1, 8, 3), np.float32))
+    fused_block.reset_launch_counts()
+    model = NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=32, text_token_dim=16,
+                                      dropout=dropout, remat=True, attn_impl=attn_impl,
+                                      device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    pipe = NOVATrainPointCloudPipeline(model, text_encoder=DummyTextEncoder(16, 4), log_every=1,
+                                       loss_config=PointCloudLossConfig(num_subsets=4))
+    assert pipe.trainer.generator.device == torch.device("cpu")
+    batch = {"points": np.random.default_rng(0).uniform(-1, 1, (2, 32, 3)).astype(np.float32),
+             "prompts": ["a chair", "a box"]}
+    out = pipe.train(iter([batch] * 2), 2)
+    assert np.isfinite(out["loss"]) and out["nonfinite_loss"] == 0.0 and pipe.trainer.step == 2
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)

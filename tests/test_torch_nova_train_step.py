@@ -263,6 +263,19 @@ def test_pipeline_trains_three_steps():
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(offload_opt_state=True),
                                 dict(zero3=True), dict(output_dir="ckpt")])
-def test_unported_trainer_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(**kw)
+def test_unported_trainer_options_raise(kw, tmp_path):
+    """The mesh, offload and ZeRO-3 options raise; ``output_dir`` is ported
+    (engine/checkpoint.py): a checkpoint saved at step 1 resumes a fresh
+    trainer at step 1 with the same parameters and optimizer count."""
+    if "output_dir" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _port(**kw)
+        return
+    out = str(tmp_path / kw["output_dir"])
+    tm, pipe = _port(output_dir=out, log_every=1, save_every=1, ema_decay=None)
+    pipe.train(iter([_batch_t()]), 1)
+    assert (tmp_path / "ckpt" / "checkpoints" / "checkpoint-1" / "state.pt").exists()
+    tm2, pipe2 = _port(output_dir=out, ema_decay=None)
+    assert pipe2.trainer.step == 1 and pipe2.trainer.optimizer.count == 1
+    for (n, a), (_, b) in zip(tm.named_parameters(), tm2.named_parameters()):
+        assert torch.equal(a, b), n
