@@ -252,6 +252,53 @@ stay out of the earlier phases' peak-memory readings:
 6.  (in the profiles phase) one profiled step of each, with the device's
     idle share.
 
+The point-cloud AR modes (the masked-AR model and its sampler, the
+dynamic-partition refinement mode, the masked-AR training script) write
+no kernel; their int8 path runs rows 5 and 6 and int8_linear at D = 768,
+where no earlier path ran them. They add:
+
+3f. those three kernels against their plain versions at the masked-AR
+    shapes (after 3e): fused_int8_mlp_postln at 2 x 32 x (32 + 128) =
+    10240 rows of 768 -> 3072 -> 768 (fc2 over clusters of 3 blocks) and
+    a ragged 7 x 149, fused_int8_diffusion_block at the head's 2 x 32 x 13
+    = 832 rows (a 96-block grid), 77 and 20 rows, int8_linear at K = 768
+    (768 -> 2304 with an f32 x, 768 -> 768 with a bf16 x) at 10240 and
+    1043 rows; static and per-row (the path's route), f32 and bf16
+    residual streams; phase 3d's tolerances;
+
+and, after phase 5e, so that their models stay out of the earlier
+phases' peak-memory readings:
+
+4h. masked-AR t2pc serving at the model class's defaults:
+    NOVAPointCloudARTransformer(pc_d32w768, 2048 points at patch 16, text
+    32 x 256), DummyTextEncoder(256, 32), bf16, DDPM squaredcos_cap_v2 at
+    16 AR x 25 steps, CFG 5.0, batch 32. int8 (quantize=True, per-row: the
+    pipeline never calibrates): exact launches (512
+    fused_int8_mlp_postln, 1024 int8_linear, 2400
+    fused_int8_diffusion_block, 0 of every other kernel), a finite cloud
+    in [-1, 1] with a spread; a call at 4 AR steps against the same call
+    with the plain versions (2 x floor + 1e-3; floor: the AR noise moved
+    by 1e-6); one encoder pass + one head eval against plain. The float
+    twin: no launch;
+4i. the refinement mode: phase 4's flagship pipeline with
+    use_autoregressive=True, num_subsets=16 and ARRefiner() at its
+    defaults (non-zero head): 1200 + 1200 launches of rows 1 and 2, none
+    from the refiner, a finite cloud, the call's peak memory, the first
+    subset step finite, 4 clouds' refinement on the card against the same
+    refiner on the CPU (mean |diff| <= 1e-4 mean |refined|);
+4j. masked-AR training: scripts/train_eval_pc_ar.py's main at its
+    defaults cut to 2 steps (--stats: a GlobalNormalizer fitted on
+    make_synthetic_clouds; --stats and --out under build/pc_ar), no
+    launch, finite CD / EMD over the guidance sweep; then 20 steps of one
+    fixed batch with fixed draws on the script's model and optimizer:
+    every metric finite, the loss falling, no launch;
+5f. rows 5, 6 and int8_linear per launch at the AR shapes (per row),
+    their plain versions and bounds; SDPA's f32 forward and backward at
+    the t2pc step's (16, 12, 1024, 64) beside the f32 route's; p50 samples/s of the masked-AR int8
+    and float calls, the refinement call and the flagship without it; the
+    masked-AR training step's p50 and peak memory;
+6.  (in the profiles phase) one profiled masked-AR int8 call.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -293,6 +340,12 @@ try:
     from nova_pointcloud_tpu_torch.pipelines.pointcloud_train import (
         NOVATrainPointCloudPipeline, PointCloudLossConfig, make_pc_loss_fn)
     from nova_pointcloud_tpu_torch.scripts import train_pointcloud
+    from nova_pointcloud_tpu_torch.engine.trainer import Trainer
+    from nova_pointcloud_tpu_torch.models.guidance import GuidanceConfig
+    from nova_pointcloud_tpu_torch.models.pointcloud import ARRefiner
+    from nova_pointcloud_tpu_torch.models.pointcloud_ar import NOVAPointCloudARTransformer
+    from nova_pointcloud_tpu_torch.pipelines.pointcloud_ar import NOVAPointCloudARPipeline
+    from nova_pointcloud_tpu_torch.scripts import train_eval_pc_ar
     _PORT_IMPORT_ERROR = None
 except ImportError as e:  # reported by main(): the script needs the checkout
     _PORT_IMPORT_ERROR = e
@@ -348,6 +401,27 @@ PC_TRAIN_F32_LAUNCHES = {"flash_attention": 2 * PP_DEPTH, "flash_attention_bwd_p
 PC_SCRIPT_ARGS = ["--max-steps", "2", "--val-every", "2", "--eval-shapes", "4", "--eval-steps", "5"]
 PC_SCRIPT_LAUNCHES = {"flash_attention": 2 * 5 * PP_DEPTH}
 PC_EVAL_LAUNCHES = {"flash_attention": len(PC_EVAL_GUIDANCE) * STEPS * PP_DEPTH}
+# masked-AR t2pc serving (models/pointcloud_ar.py's defaults): pc_d32w768,
+# 2048 points at patch 16 (128 tokens), text 32 x 256, DDPM 16 AR x 25
+# steps, CFG 5 (the pipeline's defaults), batch 32, bf16
+AR_ARCH, AR_POINTS, AR_PATCH, AR_TEXT, AR_BATCH = "pc_d32w768", 2048, 16, 32, 32
+AR_STEPS, AR_DIFF, AR_GUIDANCE, AR_CMP_STEPS = 16, 25, 5.0, 4
+AR_DEPTH, AR_D, AR_F, AR_HEAD_BLOCKS = 32, 768, 3072, 6
+AR_T = AR_POINTS // AR_PATCH
+AR_ROWS = 2 * AR_BATCH  # CFG
+AR_PAD_P = 13  # the largest count of cosine_pred_counts(16, 128), checked in 4h
+AR_VIT_M, AR_HEAD_M = AR_ROWS * (AR_TEXT + AR_T), AR_ROWS * AR_PAD_P  # 10240, 832 rows
+AR_INT8_LAUNCHES = {"fused_int8_mlp_postln": AR_STEPS * AR_DEPTH,
+                    "int8_linear": 2 * AR_STEPS * AR_DEPTH,
+                    "fused_int8_diffusion_block": AR_STEPS * AR_DIFF * AR_HEAD_BLOCKS}
+AR_PROMPTS = [f"a chair {i}" for i in range(AR_BATCH)]
+# the refinement mode on the flagship: ARRefiner() at its defaults
+REFINE_SUBSETS, REFINE_CPU_SAMPLES = 16, 4
+# masked-AR training (scripts/train_eval_pc_ar.py's defaults: pc_d8w768,
+# 1024 points at patch 16, batch 32, f32, remat); the script's main cut to
+# 2 steps, then a fixed batch for 20
+AR_SCRIPT_ARGS = ["--max-steps", "2"]
+AR_TRAIN_FALL_STEPS = 20
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
@@ -380,6 +454,7 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
                 "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
 OUT_DIR = "build"
 PC_TRAIN_DIR = os.path.join(OUT_DIR, "pc_train")  # checkpoints of phase 4g, removed after it
+AR_TRAIN_DIR = os.path.join(OUT_DIR, "pc_ar")  # phase 4j's stats and results, removed after it
 DEV = "cuda"
 
 failures = []
@@ -1000,48 +1075,50 @@ T2I_LINEAR_M = {T2I_ROWS * T2I_L["video"]: 16, T2I_ROWS * 384: 320, T2I_ROWS * 5
                 T2I_ROWS * 768: 208, T2I_ROWS * T2I_L["full"]: 1344}
 
 
-def _linear_operands(gen, m, n):
-    """int8_linear at the ViT's width: x (m, 1024), f32 for the qkv
-    projection (n = 3D, the residual stream) and bf16 for the
-    out-projection (n = D, the attention's output); the K-major int8
-    weight (1024, n) and its scales, a bf16 bias."""
-    x = torch.randn((m, D), generator=gen, device=DEV)
-    if n == D:
+def _linear_operands(gen, m, n, k=D):
+    """int8_linear at the ViT's width k (1024 in t2i, 768 in the masked-AR
+    model): x (m, k), f32 for the qkv projection (n = 3k, the residual
+    stream) and bf16 for the out-projection (n = k, the attention's output);
+    the K-major int8 weight (k, n) and its scales, a bf16 bias."""
+    x = torch.randn((m, k), generator=gen, device=DEV)
+    if n == k:
         x = x.to(torch.bfloat16)
-    w, ws = quantize_weight_kmajor(torch.randn((n, D), generator=gen, device=DEV) * D ** -0.5)
+    w, ws = quantize_weight_kmajor(torch.randn((n, k), generator=gen, device=DEV) * k ** -0.5)
     b = (torch.randn((n,), generator=gen, device=DEV) * 0.1).to(torch.bfloat16)
     return x, w, ws, b
 
 
-def _t2i_mlp_operands(gen, lead, x_dtype=torch.float32):
-    """fused_int8_mlp_postln at the ViT's width: x (*lead, 1024) (the image
+def _t2i_mlp_operands(gen, lead, x_dtype=torch.float32, d=D, f=F):
+    """fused_int8_mlp_postln at the ViT's width: x (*lead, d) (the image
     encoder's residual stream is f32: flax promotes the bf16 weights' output
-    against the f32 canvas), W1 (1024, 4096), W2 (4096, 1024), bf16 vectors."""
+    against the f32 canvas), W1 (d, f), W2 (f, d), bf16 vectors; d = 1024,
+    f = 4096 in t2i, 768 / 3072 in the masked-AR model."""
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device=DEV) * std
 
     bf16 = torch.bfloat16
-    x = randn(*lead, D).to(x_dtype)
-    w1, s1 = quantize_weight_kmajor(randn(F, D, std=D ** -0.5))
-    w2, s2 = quantize_weight_kmajor(randn(D, F, std=F ** -0.5))
-    return [x, w1, s1, randn(F, std=0.02).to(bf16), w2, s2, randn(D, std=0.02).to(bf16),
-            (1.0 + randn(D, std=0.1)).to(bf16), randn(D, std=0.1).to(bf16)]
+    x = randn(*lead, d).to(x_dtype)
+    w1, s1 = quantize_weight_kmajor(randn(f, d, std=d ** -0.5))
+    w2, s2 = quantize_weight_kmajor(randn(d, f, std=f ** -0.5))
+    return [x, w1, s1, randn(f, std=0.02).to(bf16), w2, s2, randn(d, std=0.02).to(bf16),
+            (1.0 + randn(d, std=0.1)).to(bf16), randn(d, std=0.1).to(bf16)]
 
 
-def _diffusion_operands(gen, m):
-    """fused_int8_diffusion_block at the head's width: x, zc (m, 1024) bf16,
-    Ws (1024, 3072), W1, W2 (1024, 1024), bf16 vectors; the stats bias is
-    wide enough that scale / shift / gate are far from 0 / 0 / 0."""
+def _diffusion_operands(gen, m, d=D):
+    """fused_int8_diffusion_block at the head's width d (1024 in t2i, 768
+    in the masked-AR model): x, zc (m, d) bf16, Ws (d, 3d), W1, W2 (d, d),
+    bf16 vectors; the stats bias is wide enough that scale / shift / gate
+    are far from 0 / 0 / 0."""
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device=DEV) * std
 
     bf16 = torch.bfloat16
-    ws, ss = quantize_weight_kmajor(randn(3 * D, D, std=D ** -0.5))
-    w1, s1 = quantize_weight_kmajor(randn(D, D, std=D ** -0.5))
-    w2, s2 = quantize_weight_kmajor(randn(D, D, std=D ** -0.5))
-    return [randn(m, D).to(bf16), randn(m, D).to(bf16), ws, ss, randn(3 * D, std=0.3).to(bf16),
-            w1, s1, randn(D, std=0.02).to(bf16), w2, s2, randn(D, std=0.02).to(bf16),
-            (1.0 + randn(D, std=0.1)).to(bf16), randn(D, std=0.1).to(bf16)]
+    ws, ss = quantize_weight_kmajor(randn(3 * d, d, std=d ** -0.5))
+    w1, s1 = quantize_weight_kmajor(randn(d, d, std=d ** -0.5))
+    w2, s2 = quantize_weight_kmajor(randn(d, d, std=d ** -0.5))
+    return [randn(m, d).to(bf16), randn(m, d).to(bf16), ws, ss, randn(3 * d, std=0.3).to(bf16),
+            w1, s1, randn(d, std=0.02).to(bf16), w2, s2, randn(d, std=0.02).to(bf16),
+            (1.0 + randn(d, std=0.1)).to(bf16), randn(d, std=0.1).to(bf16)]
 
 
 def _static_attention_operands(gen, L, bias_kind, rows=T2I_ROWS):
@@ -1959,6 +2036,530 @@ def timing_pc_train(st):
     return pipe, pipe0
 
 
+@phase("3f AR-shape kernels vs plain")
+def check_ar_kernels():
+    """The three kernels of the masked-AR int8 path against their plain
+    versions at its width (D = 768, F = 3072) and rows, every variant (the
+    path's per-row route and the static one), f32 and bf16 residual
+    streams, at phase 3d's tolerances (max <= 2^-6 max|y|, mean <= 2^-10
+    mean|y|): fused_int8_mlp_postln at the ViT's 2 x 32 x (32 + 128) =
+    10240 rows, its fc2 over clusters of 768 / 256 = 3 blocks, and a
+    ragged 7 x 149; fused_int8_diffusion_block at the head's 2 x 32 x 13
+    = 832 rows (96 column groups: a 96-block grid) and 77 and 20 rows;
+    int8_linear at K = 768 (qkv 768 -> 2304 with an f32 x, the
+    out-projection 768 -> 768 with a bf16 x) at 10240 and 1043 rows."""
+    gen = torch.Generator(device=DEV).manual_seed(4343)
+    dev = torch.device(DEV)
+    bad = []
+    size = AR_D // 256
+    plan = fb.mlp_postln_plan(AR_VIT_M, AR_D, AR_F, fb._sms(dev), fb._clusters(dev, size))
+    fc2 = plan["fc2"]
+    print(f"  fused_int8_mlp_postln at {AR_VIT_M} x {AR_D}: fc2 clusters of {fc2['cluster']} "
+          f"blocks, {fb._clusters(dev, size)} active clusters (cudaOccupancyMaxActiveClusters), "
+          f"{fc2['m_tiles']} m-tiles, {fc2['waves']:.2f} waves")
+    dplan = fb.diffusion_plan(AR_HEAD_M, AR_D, fb._sms(dev), static=False)
+    print(f"  fused_int8_diffusion_block at {AR_HEAD_M} x {AR_D}: grid {dplan['grid'][0]}, "
+          f"{dplan['groups']} column groups, {dplan['groups_per_block']} a block, "
+          f"{dplan['row_parts']} row parts, {dplan['smem_bytes']} bytes of shared memory")
+    for lead in ((AR_ROWS, AR_TEXT + AR_T), (7, 149)):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            ops = _t2i_mlp_operands(gen, lead, x_dtype, AR_D, AR_F)
+            for label, kw in _t2i_variants("mlp"):
+                y = fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw)
+                torch.cuda.synchronize()
+                ref = fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw)
+                if not _tol_check("fused_int8_mlp_postln",
+                                  f"AR {label} rows={lead[0] * lead[1]} D={AR_D} x={x_dtype}",
+                                  y, ref, like=ops[0]):
+                    bad.append(f"mlp_postln {label} {lead} {x_dtype}")
+                del y, ref
+            del ops
+    for m in (AR_HEAD_M, 77, 20):
+        for x_dtype in (torch.bfloat16, torch.float32):
+            ops = _diffusion_operands(gen, m, AR_D)
+            ops[0], ops[1] = ops[0].to(x_dtype), ops[1].to(x_dtype)
+            for label, kw in _t2i_variants("diffusion"):
+                y = fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+                torch.cuda.synchronize()
+                ref = fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw)
+                if not _tol_check("fused_int8_diffusion_block",
+                                  f"AR {label} rows={m} D={AR_D} x={x_dtype}", y, ref,
+                                  like=ops[0]):
+                    bad.append(f"diffusion {label} {m} {x_dtype}")
+    for m in (AR_VIT_M, 1043):
+        for n in (3 * AR_D, AR_D):
+            x, w, ws, b = _linear_operands(gen, m, n, AR_D)
+            y = fb.int8_linear(x, w, ws, b, torch.bfloat16)
+            torch.cuda.synchronize()
+            if not _tol_check("int8_linear", f"AR {m}x{AR_D}->{n} x={x.dtype}", y,
+                              fb.int8_linear_plain(x, w, ws, b, torch.bfloat16)):
+                bad.append(f"int8_linear {m} {n}")
+    torch.cuda.empty_cache()
+    report["ar_kernels"] = dict(fc2_cluster=fc2["cluster"], fc2_clusters=fc2["clusters"],
+                                fc2_waves=fc2["waves"], diffusion_grid=dplan["grid"][0],
+                                diffusion_row_parts=dplan["row_parts"])
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    fb.reset_launch_counts()
+
+
+def _make_ar_pipeline(quantize, state_dict=None):
+    """The masked-AR model at the class's defaults (pc_d32w768, 2048 points
+    at patch 16, text 32 x 256), seeded random weights with the head's
+    zero-initialised AdaLN projections (and the biases) filled, so every
+    diffusion block's gate and modulation depend on its inputs; bf16
+    weights and compute dtype; DDPM squaredcos_cap_v2."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = NOVAPointCloudARTransformer(
+        arch=AR_ARCH, point_cloud_size=AR_POINTS, patch_size=AR_PATCH, text_token_dim=256,
+        text_token_len=AR_TEXT, quantize=quantize, dtype=torch.bfloat16, device=DEV)
+    if state_dict is None:
+        model.init_weights(gen).fill_zero_init(gen)
+    else:
+        model.load_state_dict(state_dict)
+    model.to(torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"masked-AR {'int8' if quantize else 'float'} {AR_ARCH}: {n_params / 1e6:.1f}M "
+          f"parameters, {AR_T} tokens, batch {AR_BATCH}")
+    return NOVAPointCloudARPipeline(model, DDPMScheduler(beta_schedule="squaredcos_cap_v2"),
+                                    text_encoder=DummyTextEncoder(256, AR_TEXT))
+
+
+def _ar_draws(pipe, seed, ar_steps):
+    """The prediction order and every AR step's initial noise, drawn up
+    front, so a comparison can replay a call with one input moved."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    _, _, pad_p = pipe.schedule(ar_steps)
+    order = torch.argsort(torch.rand((AR_BATCH, AR_T), generator=gen, device=DEV), dim=1)
+    noise = torch.randn((ar_steps, AR_BATCH, pad_p, pipe.model.patch_dim), generator=gen,
+                        device=DEV)
+    return order, noise
+
+
+def _ar_sample(pipe, ar_steps=AR_STEPS, seed=1, order=None, noise=None):
+    out = pipe(AR_PROMPTS, num_inference_steps=ar_steps, num_diffusion_steps=AR_DIFF,
+               guidance_scale=AR_GUIDANCE, generator=torch.Generator(device=DEV).manual_seed(seed),
+               order=order, noise=noise, output_type="pt")
+    torch.cuda.synchronize()
+    return out
+
+
+def _ar_output_ok(out, label):
+    pts, cols = out.point_clouds.float(), out.colors.float()
+    ok = (tuple(pts.shape) == (AR_BATCH, AR_POINTS, 3) and bool(torch.isfinite(pts).all())
+          and pts.abs().max().item() <= 1.0 and 0.0 <= cols.min().item()
+          and cols.max().item() <= 1.0 and pts.std().item() > 0.05)
+    print(f"{label} output {tuple(pts.shape)} finite, in [-1, 1], std {pts.std().item():.4f}: "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok, pts.std().item()
+
+
+def _ar_step_check(pipe):
+    """One encoder pass (half the tokens visible, 32 + 128 keys) and one
+    head eval at the padded slice's 13 tokens, kernels against plain,
+    relative mean error gated at 2 x floor + 1e-3 (floor: kernels against
+    kernels with the canvas and x_t moved by 1e-6); the pass's launches:
+    32 fused_int8_mlp_postln, 64 int8_linear, 6 fused_int8_diffusion_block."""
+    model, qp = pipe.model, pipe.model.serving_qparams()
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    pd = model.patch_dim
+    expected = {"fused_int8_mlp_postln": AR_DEPTH, "int8_linear": 2 * AR_DEPTH,
+                "fused_int8_diffusion_block": AR_HEAD_BLOCKS}
+    with torch.no_grad():
+        c = pipe.encode_prompt(AR_PROMPTS, guidance=GuidanceConfig(guidance_scale=AR_GUIDANCE))
+        canvas = torch.rand((AR_BATCH, AR_T, pd), generator=gen, device=DEV) * 2 - 1
+        mask = (torch.rand((AR_BATCH, AR_T, 1), generator=gen, device=DEV) < 0.5).float()
+        x_t = torch.randn((AR_ROWS, AR_PAD_P, pd), generator=gen, device=DEV)
+        t = torch.full((AR_ROWS,), 500.0, device=DEV)
+
+        def step(cv, xt):
+            z = model.encode_step(model.tokens_from_patches(cv).repeat(2, 1, 1),
+                                  mask.repeat(2, 1, 1), c,
+                                  model.patch_centers(cv * (1 - mask)).repeat(2, 1, 1),
+                                  qparams=qp)
+            return z.float(), model.denoise_step(xt, t, z[:, :AR_PAD_P], qparams=qp).float()
+
+        fb.reset_launch_counts()
+        z, pred = step(canvas, x_t)
+        launches = {n: v for n, v in fb.LAUNCHES.items() if v}
+        with fb.use_plain_kernels():
+            z_p, pred_p = step(canvas, x_t)
+        z_m, pred_m = step(canvas + 1e-6 * torch.randn(canvas.shape, generator=gen, device=DEV),
+                           x_t + 1e-6 * torch.randn(x_t.shape, generator=gen, device=DEV))
+    torch.cuda.synchronize()
+    res, ok = {}, launches == expected
+    for name, a, p, m in (("encode_step", z, z_p, z_m), ("denoise_step", pred, pred_p, pred_m)):
+        scale = p.abs().mean()
+        rel = ((a - p).abs().mean() / scale).item()
+        floor = ((a - m).abs().mean() / scale).item()
+        good = bool(torch.isfinite(a).all()) and rel <= 2 * floor + 1e-3
+        ok = ok and good
+        print(f"masked-AR int8 one {name}, kernels vs plain: mean |diff| / mean |plain| "
+              f"{rel:.3e} (tol 2 x floor + 1e-3 = {2 * floor + 1e-3:.3e}; floor, inputs moved "
+              f"by 1e-6: {floor:.3e}): {'ok' if good else 'FAIL'}")
+        res[name] = dict(rel_err=rel, rel_floor=floor)
+    print(f"masked-AR int8 one step: launches {launches} (expected {expected}): "
+          f"{'ok' if launches == expected else 'FAIL'}")
+    return ok, res
+
+
+@phase("4h masked-AR t2pc serving")
+def ar_serving():
+    """NOVAPointCloudARPipeline at its defaults (16 AR x 25 DDPM steps, CFG
+    5.0), batch 32. int8 (quantize=True, per-row activations: the AR
+    pipeline never calibrates, so the ViT's attention core stays plain):
+    exact launches (512 fused_int8_mlp_postln, 1024 int8_linear, 2400
+    fused_int8_diffusion_block, 0 of every other kernel), the output; a
+    call at 4 AR steps against the same call with the plain versions (gate
+    2 x floor + 1e-3; floor: the kernel path with the AR noise moved by
+    1e-6; the DDPM steps' noise comes from the same seed); one encoder pass
+    and one head eval against plain. The float twin (quantize=False, the
+    same weights): no launch, the output."""
+    counts = masking.cosine_pred_counts(AR_STEPS, AR_T)
+    if int(counts.max()) != AR_PAD_P or int(counts.sum()) != AR_T:
+        raise AssertionError(f"cosine_pred_counts({AR_STEPS}, {AR_T}) = {counts}")
+    pipe = _make_ar_pipeline(quantize=True)
+    _ar_sample(pipe, ar_steps=2, seed=9)  # warm-up: kernel loads, allocator
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _ar_sample(pipe)
+    call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {n: AR_INT8_LAUNCHES.get(n, 0) for n in KERNELS}
+    print(f"launches in one masked-AR int8 call ({AR_STEPS} AR x {AR_DIFF} steps, "
+          f"{call_s:.2f} s): {launches} (expected {AR_INT8_LAUNCHES}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    for name in AR_INT8_LAUNCHES:
+        _record_launches(name, "masked_ar_int8", launches[name])
+    out_ok, std = _ar_output_ok(out, "masked-AR int8")
+
+    order, noise = _ar_draws(pipe, 3, AR_CMP_STEPS)
+    pts = _ar_sample(pipe, AR_CMP_STEPS, order=order, noise=noise).point_clouds.float()
+    fb.reset_launch_counts()
+    with fb.use_plain_kernels():
+        plain = _ar_sample(pipe, AR_CMP_STEPS, order=order, noise=noise).point_clouds.float()
+    plain_launches = dict(fb.LAUNCHES)
+    moved = noise + 1e-6 * torch.randn(noise.shape, device=DEV,
+                                       generator=torch.Generator(device=DEV).manual_seed(4))
+    floor = (pts - _ar_sample(pipe, AR_CMP_STEPS, order=order, noise=moved).point_clouds.float()
+             ).abs().mean().item()
+    vs_plain = (pts - plain).abs().mean().item()
+    tol = 2 * floor + 1e-3
+    agree = vs_plain <= tol and not any(plain_launches.values())
+    print(f"masked-AR int8 ({AR_CMP_STEPS} AR steps): kernels vs plain run mean |diff| "
+          f"{vs_plain:.3e} (tol 2 x floor + 1e-3 = {tol:.3e}; floor, kernels vs kernels with the "
+          f"AR noise moved by 1e-6: {floor:.3e}; mean |p| {pts.abs().mean().item():.3e}); plain "
+          f"run launched {plain_launches}: {'ok' if agree else 'FAIL'}")
+    step_ok, step = _ar_step_check(pipe)
+
+    pipe_f = _make_ar_pipeline(quantize=False, state_dict=pipe.model.state_dict())
+    _ar_sample(pipe_f, ar_steps=2, seed=9)
+    fb.reset_launch_counts()
+    out_f = _ar_sample(pipe_f)
+    launches_f = dict(fb.LAUNCHES)
+    float_ok, std_f = _ar_output_ok(out_f, "masked-AR float")
+    float_ok = float_ok and not any(launches_f.values())
+    int8_vs_float = (out.point_clouds.float() - out_f.point_clouds.float()).abs().mean().item()
+    print(f"masked-AR float launches {launches_f} (expected none); for scale, int8 vs float "
+          f"mean |diff| {int8_vs_float:.3e}: {'ok' if float_ok else 'FAIL'}")
+    report["masked_ar_int8"] = dict(launches=launches, output_ok=out_ok, output_std=std,
+                                    call_s=call_s, mean_abs_vs_plain=vs_plain,
+                                    floor_mean_abs=floor, tol=tol, compare_ar_steps=AR_CMP_STEPS,
+                                    plain_launches=plain_launches, one_step=step)
+    report["masked_ar_float"] = dict(launches=launches_f, output_ok=float_ok, output_std=std_f,
+                                     mean_abs_int8_vs_float=int8_vs_float)
+    if not (counts_ok and out_ok and agree and step_ok and float_ok):
+        raise AssertionError("masked-AR serving check failed")
+    return pipe, pipe_f
+
+
+@phase("4i refinement mode")
+def refinement(pipe):
+    """The flagship pipeline of phase 4 with use_autoregressive=True,
+    num_subsets=16 and ARRefiner() at its defaults (256 wide, 8 heads,
+    depth 2, f32) on seeded random weights with a non-zero head: exact
+    launches (1200 + 1200 of rows 1 and 2, as the flagship, none from the
+    refiner: its attention is flax's plain core, its blocks' 128 keys under
+    the dispatcher's 1024), finite output, its peak memory; the first
+    subset step (every generated slot invalid) finite; the refinement of
+    4 of the call's clouds on the card against the same refiner on the CPU
+    (the path the CPU tests hold to JAX), same inputs and partition: mean
+    |diff| <= 1e-4 mean |refined| (f32 with TF32 off on both sides, sums in
+    another order; a kNN choice that rounding flips moves single points,
+    so the max is printed, not gated)."""
+    import copy
+
+    if pipe is None:
+        raise AssertionError("no flagship pipeline: phase 4 failed")
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    refiner = ARRefiner(device=DEV).init_weights(gen)
+    with torch.no_grad():
+        refiner.head.weight.copy_(torch.randn(refiner.head.weight.shape, generator=gen,
+                                              device=DEV) * 0.02)
+    pipe.ar_refiner = refiner
+    n_params = sum(p.numel() for p in refiner.parameters())
+    part = dynamic_partition(gen, POINTS, REFINE_SUBSETS)
+    kw = dict(use_autoregressive=True, num_subsets=REFINE_SUBSETS, partition=part)
+    _sample(pipe, seed=9, **kw)  # warm-up
+    latents = torch.randn((BATCH, POINTS, 3), generator=gen, device=DEV)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _sample(pipe, latents=latents, **kw)
+    call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = dict(fb.LAUNCHES)
+    expected = DEPTH * STEPS
+    counts_ok = launches == {n: expected if n in _kernels() else 0 for n in KERNELS}
+    print(f"ARRefiner() {n_params / 1e6:.2f}M parameters; launches in one refinement call "
+          f"({call_s:.2f} s): {launches} (expected {expected} of each flagship kernel, 0 of the "
+          f"others): {'ok' if counts_ok else 'FAIL'}")
+    for name in _kernels():
+        _record_launches(name, "refinement", launches[name])
+    pts = out.point_clouds.float()
+    out_ok = (tuple(pts.shape) == (BATCH, POINTS, 3) and bool(torch.isfinite(pts).all())
+              and pts.std().item() > 0.05)
+    print(f"output {tuple(pts.shape)} finite, std {pts.std().item():.4f}; peak memory of the "
+          f"call {peak / 2 ** 30:.2f} GiB above the {held / 2 ** 30:.2f} GiB allocated before "
+          f"it: {'ok' if out_ok else 'FAIL'}")
+    # the cloud the refiner takes: the same call's DDPM output, eval postprocess
+    x = _sample(pipe, latents=latents, postprocess="eval").point_clouds.float()
+    order, ids = (a.long() for a in part)
+    with torch.no_grad():
+        first = refiner(x[:, ids[order[0]]], torch.zeros_like(x), torch.zeros(x.shape[:2],
+                        device=DEV), torch.zeros((BATCH,), device=DEV))
+        first_ok = bool(torch.isfinite(first).all())
+        refined = pipe._ar_refine(x, REFINE_SUBSETS, None, part)
+        pipe.ar_refiner = copy.deepcopy(refiner).cpu()
+        cpu_part = tuple(a.cpu() for a in part)
+        t0 = time.perf_counter()
+        cpu = pipe._ar_refine(x[:REFINE_CPU_SAMPLES].cpu(), REFINE_SUBSETS, None, cpu_part)
+        cpu_s = time.perf_counter() - t0
+        pipe.ar_refiner = refiner
+    diff = (refined[:REFINE_CPU_SAMPLES].cpu() - cpu).abs()
+    scale = cpu.abs().mean().item()
+    rel = diff.mean().item() / scale
+    cpu_ok = bool(torch.isfinite(refined).all()) and rel <= 1e-4
+    print(f"first subset step (no generated point) finite: {first_ok}; refinement of "
+          f"{REFINE_CPU_SAMPLES} clouds, card vs CPU ({cpu_s:.1f} s): mean |diff| / mean |refined| "
+          f"{rel:.3e} (tol 1e-4), max |diff| {diff.max().item():.3e}: "
+          f"{'ok' if cpu_ok and first_ok else 'FAIL'}")
+    report["refinement"] = dict(launches=launches, output_ok=out_ok, call_s=call_s,
+                                peak_bytes=peak, held_bytes=held, first_step_finite=first_ok,
+                                card_vs_cpu_rel=rel, card_vs_cpu_max=diff.max().item(),
+                                refiner_params_m=n_params / 1e6)
+    del x, refined, first, out
+    torch.cuda.empty_cache()
+    if not (counts_ok and out_ok and first_ok and cpu_ok):
+        raise AssertionError("refinement mode check failed")
+    return pipe
+
+
+def _ar_train_draws(model, b, seed):
+    """Every draw of one masked-AR training step at batch b, fixed: the
+    training mask, the prompt drop, per-token timesteps and the noise of
+    the 4 repeats."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    nt = model.num_tokens
+    rep = model.loss_repeat
+    return {"mask": masking.sample_train_mask(gen, b, nt, device=DEV)[0],
+            "drop": torch.rand((b,), generator=gen, device=DEV) < 0.1,
+            "timesteps": torch.randint(0, 1000, (rep * b, nt), generator=gen, device=DEV),
+            "noise": torch.randn((rep * b, nt, model.patch_dim), generator=gen, device=DEV)}
+
+
+@phase("4j masked-AR training")
+def ar_train():
+    """scripts/train_eval_pc_ar.py's main at its defaults (pc_d8w768, 1024
+    points at patch 16, batch 32, f32, remat, clip 5.0 -> AdamW, cosine lr
+    2e-4 with 200 warm-up steps, Morton-sorted batches, the guidance sweep
+    1 / 2 / 3 / 5 at 16 AR x 25 steps over 24 shapes) cut to 2 steps, its
+    --stats (a GlobalNormalizer fitted on make_synthetic_clouds and saved)
+    and --out in a scratch directory: no launch (f32, 80 keys: the plain
+    core), finite CD / EMD at every scale. Then 20 steps of one fixed batch
+    with fixed draws on the script's model and optimizer: every metric
+    finite, the loss falling, no launch."""
+    import shutil
+
+    shutil.rmtree(AR_TRAIN_DIR, ignore_errors=True)
+    os.makedirs(AR_TRAIN_DIR)
+    norm = _pc_normalizer()  # 64 clouds at 1024 points, the script's size
+    stats, out_path = os.path.join(AR_TRAIN_DIR, "stats.json"), os.path.join(AR_TRAIN_DIR,
+                                                                             "quality.json")
+    norm.save(stats)
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_eval_pc_ar.main(AR_SCRIPT_ARGS + ["--stats", stats, "--out", out_path],
+                                device=DEV)
+    torch.cuda.synchronize()
+    script_s = time.perf_counter() - t0
+    script_launches = dict(fb.LAUNCHES)
+    sweep = res["sweep"]
+    script_ok = (res["steps"] == 2 and os.path.exists(out_path) and len(sweep) == 4
+                 and all(np.isfinite([r["chamfer"], r["chamfer_weighted"], r["emd"]]).all()
+                         for r in sweep) and not any(script_launches.values()))
+    print(f"train_eval_pc_ar.main (2 steps, the sweep at {train_eval_pc_ar.EVAL_AR_STEPS} AR x "
+          f"{train_eval_pc_ar.EVAL_DIFF_STEPS} steps over {train_eval_pc_ar.EVAL_SHAPES} shapes) "
+          f"in {script_s:.1f} s: " + "; ".join(
+              f"gs {r['guidance_scale']}: CD {r['chamfer']:.4f}, EMD {r['emd']:.4f}"
+              for r in sweep) + f"; launches {script_launches}: {'ok' if script_ok else 'FAIL'}")
+
+    args = train_eval_pc_ar.parse_args(AR_SCRIPT_ARGS)
+    model = train_eval_pc_ar.build_model(args, DDPMScheduler(beta_schedule="squaredcos_cap_v2"),
+                                         DEV)
+    opt, schedule = train_eval_pc_ar.build_optimizer_and_schedule(model, args.lr, args.max_steps)
+
+    def loss_fn(batch, generator, draws=None):
+        losses = model(batch["points"], batch["text_embeds"], generator=generator, draws=draws)
+        return losses["loss"], losses
+
+    trainer = Trainer(loss_fn, model, opt, lr_schedule=schedule, max_steps=args.max_steps,
+                      log_every=100, save_every=0, ema_decay=None, seed=args.seed)
+    shapes = make_synthetic_clouds(64, args.max_points, args.seed)
+    batch = next(train_eval_pc_ar.train_batches(shapes, norm, DummyTextEncoder(256, 16),
+                                                args.batch_size, args.max_points, args.seed, DEV))
+    draws = _ar_train_draws(model, args.batch_size, 2)
+    n_params = sum(p.numel() for p in model.parameters())
+    fb.reset_launch_counts()
+    metrics = [trainer.train_step(batch, draws=draws) for _ in range(AR_TRAIN_FALL_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(fb.LAUNCHES)
+    losses = [float(m["loss"]) for m in metrics]
+    finite = all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
+    fall_ok = finite and losses[-1] < losses[0] and not any(launches.values())
+    print(f"masked-AR training {args.arch}: {n_params / 1e6:.1f}M parameters (f32, remat), batch "
+          f"{args.batch_size}, {args.max_points} points at patch {args.patch_size}; fixed batch "
+          f"and draws, {AR_TRAIN_FALL_STEPS} steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+          f"every metric finite: {finite}, launches {launches}: {'ok' if fall_ok else 'FAIL'}")
+    shutil.rmtree(AR_TRAIN_DIR, ignore_errors=True)
+    report["masked_ar_train"] = dict(params_m=n_params / 1e6, script=res, script_s=script_s,
+                                     script_launches=script_launches, losses=losses,
+                                     launches=launches)
+    if not (script_ok and fall_ok):
+        raise AssertionError("masked-AR training check failed")
+    return {"trainer": trainer, "batch": batch, "draws": draws, "batch_size": args.batch_size}
+
+
+def _p50_call(fn, n=3):
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        times.append(time.perf_counter() - t0)
+    return float(np.percentile(times, 50)), times
+
+
+@phase("5f timing of the AR paths")
+def timing_ar(pipe_ar, pipe_ar_f, pipe_flagship, ar_train_state):
+    """Rows 5, 6 and int8_linear per launch at the masked-AR shapes on their
+    per-row route (the path's), their plain versions and bounds (int8
+    operations at 1979 TOP/s or bytes at 3.35 TB/s); SDPA's f32 forward and
+    backward at the t2pc step's (16, 12, 1024, 64) beside the f32 route's;
+    p50 samples/s of 3
+    calls of the masked-AR int8 and float calls (batch 32), the refinement
+    call and the flagship without it (batch 128); the masked-AR training
+    step's p50 of 5 after 2 warm-ups and its peak memory above what was
+    allocated before it."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    dev = torch.device(DEV)
+    m = AR_VIT_M
+    ops = _t2i_mlp_operands(gen, (AR_ROWS, AR_TEXT + AR_T), torch.float32, AR_D, AR_F)
+    row = _time_kernel(
+        "fused_int8_mlp_postln", (m, AR_D, AR_F, "per-row"),
+        lambda: fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5),
+        lambda: fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5),
+        _bound(4 * m * AR_D * AR_F / PEAK_INT8_OPS,
+               2 * m * AR_D * 4 + 2 * AR_D * AR_F + (AR_F + 3 * AR_D) * 2 + (AR_F + AR_D) * 4),
+        graph=True)
+    fc2 = fb.mlp_postln_plan(m, AR_D, AR_F, fb._sms(dev), fb._clusters(dev, AR_D // 256))["fc2"]
+    row["fc2_waves"] = fc2["waves"]
+    print(f"    fc2: {fc2['m_tiles']} m-tiles over {fc2['clusters']} clusters of {fc2['cluster']}, "
+          f"{fc2['waves']:.2f} waves")
+    del ops
+    ops = _diffusion_operands(gen, AR_HEAD_M, AR_D)
+    _time_kernel(
+        "fused_int8_diffusion_block", (AR_HEAD_M, AR_D, "per-row"),
+        lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5),
+        lambda: fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5),
+        _bound(2 * AR_HEAD_M * AR_D * 5 * AR_D / PEAK_INT8_OPS,
+               3 * AR_HEAD_M * AR_D * 2 + 5 * AR_D * AR_D + 7 * AR_D * 2 + 5 * AR_D * 4),
+        iters=200, graph=True)
+    for n in (3 * AR_D, AR_D):
+        x, w, ws, b = _linear_operands(gen, m, n, AR_D)
+        _time_kernel("int8_linear", (m, AR_D, n),
+                     lambda: fb.int8_linear(x, w, ws, b, torch.bfloat16),
+                     lambda: fb.int8_linear_plain(x, w, ws, b, torch.bfloat16),
+                     _bound(2 * m * AR_D * n / PEAK_INT8_OPS,
+                            m * AR_D * x.element_size() + m * n * 2 + n * AR_D + n * 2 + n * 4),
+                     graph=True)
+        del x
+    # SDPA's f32 forward and backward at the t2pc training step's (16, 12,
+    # 1024, 64), beside the f32 route's forward and its backward through
+    # autograd (prep and flash_attention_bwd_f32) on the same tensors
+    import torch.nn.functional as Fn
+
+    shape = (PC_TRAIN_BATCH, PP_HEADS, PC_TRAIN_POINTS, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV) for _ in range(4))
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd32():
+        with torch.no_grad():
+            Fn.scaled_dot_product_attention(q, k, v)
+
+    att = {"sdpa_fwd_ms": sync_ms(sdpa_fwd32, 5),
+           "port_fwd_ms": sync_ms(lambda: fa.flash_attention_with_lse(q, k, v), 5)}
+    o_lib = Fn.scaled_dot_product_attention(*ins)
+    att["sdpa_bwd_ms"] = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 5)
+    o_port = fa.flash_attention(*ins)
+    att["port_bwd_autograd_ms"] = sync_ms(
+        lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), 5)
+    print(f"  f32 attention at {shape}: SDPA forward {att['sdpa_fwd_ms']:.3f} ms, the f32 "
+          f"route's forward {att['port_fwd_ms']:.3f} ms; SDPA backward {att['sdpa_bwd_ms']:.3f} "
+          f"ms, the f32 route's backward through autograd {att['port_bwd_autograd_ms']:.3f} ms")
+    report["t2pc_f32_attention"] = att
+    del q, k, v, do, ins, o_lib, o_port
+    torch.cuda.empty_cache()
+    if pipe_ar is None or pipe_flagship is None:
+        raise AssertionError("no pipeline: phase 4 or 4h failed")
+    fb.reset_launch_counts()
+    calls = report["ar_timing"] = {}
+    for label, fn, batch in (
+            ("masked_ar_int8", lambda i: _ar_sample(pipe_ar, seed=20 + i), AR_BATCH),
+            ("masked_ar_float", lambda i: _ar_sample(pipe_ar_f, seed=20 + i), AR_BATCH),
+            ("refinement", lambda i: _sample(pipe_flagship, seed=20 + i, use_autoregressive=True,
+                                             num_subsets=REFINE_SUBSETS), BATCH),
+            ("flagship", lambda i: _sample(pipe_flagship, seed=20 + i), BATCH)):
+        p50, times = _p50_call(fn)
+        print(f"{label}: batch {batch}, p50 {p50:.3f} s per call, {batch / p50:.2f} samples/s "
+              f"(times {[round(t, 3) for t in times]})")
+        calls[label] = dict(batch=batch, p50_s=p50, samples_per_s=batch / p50, times_s=times)
+    if ar_train_state is None:
+        raise AssertionError("no masked-AR trainer: phase 4j failed")
+    trainer, batch, draws, b = (ar_train_state[k] for k in ("trainer", "batch", "draws",
+                                                             "batch_size"))
+    for _ in range(2):
+        trainer.train_step(batch, draws=draws)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        trainer.train_step(batch, draws=draws)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(times, 50))
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"masked-AR training step: batch {b}, p50 {p50:.4f} s, "
+          f"{b / p50:.1f} samples/s (times {[round(t, 4) for t in times]}); peak "
+          f"memory of the step {peak / 2 ** 30:.2f} GiB above the {held / 2 ** 30:.2f} GiB "
+          f"allocated before it")
+    report["masked_ar_train"].update(batch=b, p50_s=p50, samples_per_s=b / p50,
+                                     times_s=times, step_peak_bytes=peak, held_bytes=held)
+
+
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
     forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
@@ -2722,7 +3323,7 @@ def _device_kernels_per_call():
 
 
 @phase("6 profiles")
-def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None):
+def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=None):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
@@ -2753,6 +3354,8 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None):
             torch.cuda.synchronize()
 
         profile_call(pc_step, label)
+    if pipe_ar is not None:
+        profile_call(lambda: _ar_sample(pipe_ar, seed=30), "masked_ar_int8")
 
 
 def main():
@@ -2769,6 +3372,7 @@ def main():
         check_flash()
         check_nova_kernels()
         check_flash_backward()
+        check_ar_kernels()
         pipe = main_path()
         pipe_a = path_a()
         pipe_b = path_b()
@@ -2783,7 +3387,12 @@ def main():
         # peak-memory readings
         pc_state = pc_train()
         pc_pipes = timing_pc_train(pc_state)
-        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes)
+        # the point-cloud AR modes, after the earlier paths' timings
+        ar_pipes = ar_serving() or (None, None)
+        pipe_refine = refinement(pipe)
+        ar_state = ar_train()
+        timing_ar(*ar_pipes, pipe_refine, ar_state)
+        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0])
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})

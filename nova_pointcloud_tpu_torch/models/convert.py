@@ -1,21 +1,25 @@
 """Convert the JAX model's parameters into the port's ``state_dict``.
 
 Input: the flax param pytree of ``nova_pointcloud_tpu``'s
-``NOVAPointCloudTransformer`` or ``NOVATransformer`` with numpy leaves
+``NOVAPointCloudTransformer``, ``ARRefiner``, ``NOVAPointCloudARTransformer``
+or ``NOVATransformer`` with numpy leaves
 (``jax.tree.map(np.asarray, params)``); this module never imports JAX.
 Mapping:
 
 - ``Dense`` kernel (in, out) -> ``nn.Linear.weight`` (out, in); bias as is.
 - ``LayerNorm`` scale / bias -> weight / bias.
-- ``MultiHeadDotProductAttention`` (under ``attn`` / ``cluster_attn``):
+- ``MultiHeadDotProductAttention`` (under ``attn`` / ``cluster_attn`` /
+  ``biattn``):
   query/key/value kernels (D, H, hd) -> (D, D) transposed, biases (H, hd)
   -> (D,); the out kernel (H, hd, D) -> (D, D) transposed.
 - A scanned stack (``<parent>/layers/block/...`` in the pc model,
   ``<vit>/enc_layers/block/...`` and ``<vit>/dec_layers/block/...`` in the
-  NOVA ViTs) carries a leading depth axis: leaf ``[i]`` goes to
-  ``<parent>.layers.{i}....`` (``<vit>.enc_layers.{i}....``).
-- Everything else (the NOVA diffusion head's ``blocks_{i}``, raw parameters
-  such as ``null_prompt`` or ``bos_token``) keeps its path, dot-joined.
+  NOVA ViTs and the masked-AR pc model's ``encoder``) carries a leading
+  depth axis: leaf ``[i]`` goes to ``<parent>.layers.{i}....``
+  (``<vit>.enc_layers.{i}....``).
+- Everything else (the diffusion heads' and the refiner's ``blocks_{i}``,
+  raw parameters such as ``null_prompt``, ``bos_token`` or ``pos_embed``)
+  keeps its path, dot-joined.
 
 ``convert_tree`` carries the ``qparams`` and act-scale trees across: they
 have the same keys and shapes on both sides. ``jax_param_paths`` goes the
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_MHA_PARENTS = ("attn", "cluster_attn")
+_MHA_PARENTS = ("attn", "cluster_attn", "biattn")
 _MHA_PROJ = ("query", "key", "value", "out")
 _SCANS = ("layers", "enc_layers", "dec_layers")  # nn.scan stacks: <scan>/block/...
 

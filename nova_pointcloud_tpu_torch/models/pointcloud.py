@@ -1,6 +1,8 @@
 """Point-cloud diffusion transformer (port of
 ``nova_pointcloud_tpu/models/pointcloud.py``: DepthAwarePosEncoding,
-ClusterBlock, PreLNBlock, BlockStack, NOVAPointCloudTransformer).
+ClusterBlock, PreLNBlock, BlockStack, NOVAPointCloudTransformer, and the
+refinement modules of the dynamic-partition AR mode: EdgeAligner,
+ARSubsetDiffusion, ARRefiner).
 
 Serving (``deterministic=True``, the default) runs without autograd;
 training (``deterministic=False``) is differentiable and applies
@@ -45,14 +47,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from nova_pointcloud_tpu_torch.models.embeddings import timestep_freq_embed
-from nova_pointcloud_tpu_torch.models.layers import _compute_dtype, dense
+from nova_pointcloud_tpu_torch.models.layers import _compute_dtype, dense, silu
 from nova_pointcloud_tpu_torch.ops.attention import (dot_product_attention,
                                                      make_attention_fn)
 from nova_pointcloud_tpu_torch.ops.kernels import fused_block
 from nova_pointcloud_tpu_torch.ops.kernels.fused_block import (
     fused_attention_block, fused_ln_int8_matmul, fused_ln_int8_mlp,
     int8_matmul_residual)
-from nova_pointcloud_tpu_torch.ops.pointops import cdist
+from nova_pointcloud_tpu_torch.ops.pointops import cdist, knn
 from nova_pointcloud_tpu_torch.ops.quantization import (
     int8_matmul, quantize_serving_params, quantize_weight)
 from nova_pointcloud_tpu_torch.utils.device import resolve_device
@@ -113,11 +115,16 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype=None) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` (self-attention).
+    """flax ``MultiHeadDotProductAttention``: self-attention, or with
+    ``kv`` attention of the queries ``x`` over the keys / values ``kv``.
 
     ``attn_impl``: the dispatcher policy of ``ops/attention.py`` ("auto",
     "pallas", "sdpa" / "xla"); ``None`` is flax's default core with no
-    dispatcher (the ClusterBlock's 8-token attention)."""
+    dispatcher (the ClusterBlock's 8-token attention, the AR refiner's
+    masked attentions). A ``mask`` (True = attend, broadcast to (B, H, Lq,
+    Lk)) sets the masked logits to the most negative float, as flax does,
+    not to -inf: a query with every key masked gets a uniform softmax, not
+    NaN."""
 
     def __init__(self, dim: int, num_heads: int, device=None,
                  attn_impl: Optional[str] = None):
@@ -131,14 +138,17 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(dim, dim, device=device)
 
     def forward(self, x: torch.Tensor, dtype=None,
-                dropout_mult: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dropout_mult: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``dropout_mult``: the attention-dropout multiplier (training)."""
+        kv = x if kv is None else kv
         b, t, d = x.shape
-        heads = (b, t, self.num_heads, d // self.num_heads)
-        q = dense(x, self.query, dtype).reshape(heads)
-        k = dense(x, self.key, dtype).reshape(heads)
-        v = dense(x, self.value, dtype).reshape(heads)
-        out = self.attention_fn(q, k, v, dropout_mult=dropout_mult)
+        hd = d // self.num_heads
+        q = dense(x, self.query, dtype).reshape(b, t, self.num_heads, hd)
+        k = dense(kv, self.key, dtype).reshape(b, kv.shape[1], self.num_heads, hd)
+        v = dense(kv, self.value, dtype).reshape(b, kv.shape[1], self.num_heads, hd)
+        out = self.attention_fn(q, k, v, mask=mask, dropout_mult=dropout_mult)
         return dense(out.reshape(b, t, d), self.out, dtype)
 
 
@@ -543,3 +553,111 @@ class NOVAPointCloudTransformer(nn.Module):
         h = self._embed(x, timestep, text_embeds)
         h, stats = self.blocks.calibration_forward(h)
         return self._head(h, x.shape), {"blocks": {"layers": stats}}
+
+
+class EdgeAligner(nn.Module):
+    """Cross-subset boundary blending: each point's edge feature is its
+    feature minus the mean of its k nearest neighbours' (``k = min(8, N)``,
+    the kNN over all the points given, including not-yet-generated ones);
+    the current subset attends over the neighbour subsets' edge features,
+    masked by ``neigh_valid``, plus a linear lift of its xyz."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 8, k: int = 8, device=None):
+        super().__init__()
+        self.k = k
+        self.biattn = MultiHeadAttention(embed_dim, num_heads, device)
+        self.spatial_embed = nn.Linear(3, embed_dim, device=device)
+
+    def edge_features(self, points: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        k = min(self.k, points.shape[1])
+        _, idx = knn(points, points, k)  # (B, N, k)
+        rows = torch.arange(feats.shape[0], device=feats.device)[:, None, None]
+        neigh = feats[rows, idx]  # (B, N, k, D)
+        return feats - torch.mean(neigh, dim=2)
+
+    def forward(self, cur_points: torch.Tensor, cur_feats: torch.Tensor,
+                neigh_points: torch.Tensor, neigh_feats: torch.Tensor,
+                neigh_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cur_edge = self.edge_features(cur_points, cur_feats)
+        neigh_edge = self.edge_features(neigh_points, neigh_feats)
+        mask = None if neigh_valid is None else neigh_valid[:, None, None, :] > 0
+        aligned = self.biattn(cur_edge, kv=neigh_edge, mask=mask)
+        return aligned + dense(cur_points, self.spatial_embed)
+
+
+class ARSubsetDiffusion(nn.Module):
+    """Subset-level AR conditioning: a context token (the masked mean of the
+    generated subsets' self-attention), the edge alignment against them
+    (both gated off while nothing is generated) and a progress embedding,
+    added to the current subset's features."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 12, device=None):
+        super().__init__()
+        self.biattn = MultiHeadAttention(embed_dim, num_heads, device)
+        self.time_fc1 = nn.Linear(1, embed_dim, device=device)
+        self.time_fc2 = nn.Linear(embed_dim, embed_dim, device=device)
+        self.edge_aligner = EdgeAligner(embed_dim, 8, device=device)
+
+    def forward(self, cur_feats: torch.Tensor, gen_feats: torch.Tensor, progress: torch.Tensor,
+                cur_points: torch.Tensor, gen_points: torch.Tensor,
+                gen_valid: torch.Tensor) -> torch.Tensor:
+        """cur_feats (B, S, D); gen_feats (B, M, D), gen_valid (B, M);
+        progress (B,). Returns (B, S, D)."""
+        valid = gen_valid > 0
+        mask = valid[:, None, None, :] & valid[:, None, :, None]
+        agg = self.biattn(gen_feats, mask=mask)
+        denom = torch.sum(gen_valid, dim=1, keepdim=True)[..., None] + 1e-8
+        context = torch.sum(agg * gen_valid[..., None], dim=1, keepdim=True) / denom
+        t_emb = dense(progress[..., None].to(cur_feats.dtype), self.time_fc1)
+        t_emb = dense(silu(t_emb), self.time_fc2)
+        aligned = self.edge_aligner(cur_points, cur_feats, gen_points, gen_feats, gen_valid)
+        has_any = (torch.sum(gen_valid, dim=1) > 0).to(cur_feats.dtype)[:, None, None]
+        out = cur_feats + aligned * has_any + context * has_any
+        return out + t_emb[:, None, :]
+
+
+class ARRefiner(nn.Module):
+    """The subset AR refinement head of the dynamic-partition mode: lift the
+    subset's points (one ``lift`` shared with the generated points),
+    condition on the generated subsets (:class:`ARSubsetDiffusion`), run
+    ``depth`` pre-LN blocks (dropout 0) and add a zero-initialised linear
+    head's xyz to the input points. ``device``: ``cuda`` unless ``"cpu"``
+    is asked for."""
+
+    def __init__(self, embed_dim: int = 256, num_heads: int = 8, depth: int = 2, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.depth = depth
+        self.lift = nn.Linear(3, embed_dim, device=dev)
+        self.ar = ARSubsetDiffusion(embed_dim, num_heads, dev)
+        for i in range(depth):
+            self.add_module(f"blocks_{i}", PreLNBlock(embed_dim, num_heads, device=dev,
+                                                      dropout=0.0))
+        self.head = nn.Linear(embed_dim, 3, device=dev)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "ARRefiner":
+        """Seeded random init after the flax initializers (lecun-normal
+        kernels, zero biases, unit LayerNorms) with the zero head."""
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator,
+                                             device=mod.weight.device) * mod.in_features ** -0.5)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        self.head.weight.zero_()
+        return self
+
+    def forward(self, cur_points: torch.Tensor, gen_points: torch.Tensor,
+                gen_valid: torch.Tensor, progress: torch.Tensor) -> torch.Tensor:
+        """cur_points (B, S, 3), gen_points (B, M, 3), gen_valid (B, M),
+        progress (B,) -> refined cur_points (B, S, 3)."""
+        cur_feats = dense(cur_points, self.lift)
+        gen_feats = dense(gen_points, self.lift)
+        h = self.ar(cur_feats, gen_feats, progress, cur_points, gen_points, gen_valid)
+        for i in range(self.depth):
+            h = getattr(self, f"blocks_{i}")(h)
+        delta = dense(h, self.head)
+        return cur_points + delta.to(cur_points.dtype)

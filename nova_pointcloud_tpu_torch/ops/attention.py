@@ -59,9 +59,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if bias is not None:
         logits = logits + bias.float()
-    if mask is not None:
-        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    if mask is not None:  # in place: the logits are this call's own (one fewer B H Lq Lk)
+        logits.masked_fill_(~mask, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    del logits
     if dropout_mult is not None:
         probs = probs * dropout_mult
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -1,8 +1,10 @@
-"""Point-cloud geometry ops (port of ``pairwise_sqdist``, ``cdist``,
-``exact_min_sqdist``, ``knn``, ``local_density`` and ``dynamic_partition``
-from ``nova_pointcloud_tpu/ops/pointops.py``; farthest point sampling, the
-feature-aware interpolation and the Morton order come with the point-cloud
-AR modes, see ROADMAP.md)."""
+"""Point-cloud geometry ops (port of ``nova_pointcloud_tpu/ops/pointops.py``):
+distances, kNN, local density, the dynamic partition, farthest point
+sampling, the feature-aware interpolation and adaptive resampling, and the
+Morton (z-order) codes and sort.
+
+The random draws (a start index, a permutation) come from a
+``torch.Generator`` or are given, as the tests give JAX's."""
 
 from typing import Optional, Tuple
 
@@ -71,3 +73,93 @@ def dynamic_partition(generator: Optional[torch.Generator], num_points: int, k: 
     perm = torch.as_tensor(perm, device=dev).to(torch.int32)
     order = torch.as_tensor(order, device=dev).to(torch.int32)
     return order, perm.reshape(k, num_points // k)
+
+
+def _draw_device(generator: Optional[torch.Generator], points: torch.Tensor):
+    return generator.device if generator is not None else points.device
+
+
+def farthest_point_sampling(points: torch.Tensor, num_samples: int,
+                            generator: Optional[torch.Generator] = None,
+                            start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Iterative farthest point sampling: (B, N, D) -> (B, S, D). One running
+    min-distance vector; each step takes the first point of largest
+    distance. ``start`` (B,) gives the first index of each cloud, else it is
+    drawn uniformly from ``generator``."""
+    batch, n, _ = points.shape
+    if start is None:
+        start = torch.randint(0, n, (batch,), generator=generator,
+                              device=_draw_device(generator, points))
+    rows = torch.arange(batch, device=points.device)
+    start = torch.as_tensor(start, device=points.device).long()
+
+    def dist_to(idx):
+        d = points - points[rows, idx][:, None, :]
+        return torch.sqrt(torch.sum(d * d, dim=-1))
+
+    sel = [start]
+    min_d = dist_to(start)
+    for _ in range(1, num_samples):
+        far = torch.argmax(min_d, dim=1)  # the first maximum, as jnp.argmax
+        sel.append(far)
+        min_d = torch.minimum(min_d, dist_to(far))
+    idx = torch.stack(sel, dim=1)
+    return torch.gather(points, 1, idx[..., None].expand(-1, -1, points.shape[-1]))
+
+
+def _tile_to(points: torch.Tensor, target_size: int) -> torch.Tensor:
+    reps = target_size // points.shape[1] + 1
+    return points.repeat(1, reps, 1)[:, :target_size]
+
+
+def feature_aware_interpolation(points: torch.Tensor, target_size: int,
+                                generator: Optional[torch.Generator] = None,
+                                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Downsample (B, N, D) to ``target_size`` points: the first
+    ``target_size`` of a random permutation of the N points (``perm``, else
+    drawn from ``generator``) are anchors, each replaced by the
+    softmax(-distance) blend of all N points. A cloud of at most
+    ``target_size`` points is tiled instead."""
+    n = points.shape[1]
+    if n <= target_size:
+        return _tile_to(points, target_size)
+    if perm is None:
+        perm = torch.randperm(n, generator=generator, device=_draw_device(generator, points))
+    idx = torch.as_tensor(perm, device=points.device).long()[:target_size]
+    anchors = points[:, idx]
+    w = torch.softmax(-cdist(anchors, points), dim=-1)  # (B, T, N)
+    return torch.einsum("btn,bnd->btd", w, points)
+
+
+def adaptive_sampling(subset: torch.Tensor, target_size: int,
+                      generator: Optional[torch.Generator] = None,
+                      perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Resize a subset (B, N, D) to ``target_size`` points: a sparse one is
+    tiled, a dense one goes through :func:`feature_aware_interpolation`."""
+    if subset.shape[1] < target_size:
+        return _tile_to(subset, target_size)
+    return feature_aware_interpolation(subset, target_size, generator, perm)
+
+
+def morton_codes(points: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """Z-order codes (int64) of (..., N, 3) points in [-1, 1]: each axis
+    quantized to ``bits`` bits (truncated, as the JAX op's uint32 cast), the
+    bits interleaved x, y, z from the lowest."""
+    q = torch.clamp((points + 1.0) * 0.5, 0.0, 1.0)
+    q = (q * float((1 << bits) - 1)).to(torch.int64)
+
+    def spread(v: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros_like(v)
+        for i in range(bits):
+            out = out | (((v >> i) & 1) << (3 * i))
+        return out
+
+    return spread(q[..., 0]) | (spread(q[..., 1]) << 1) | (spread(q[..., 2]) << 2)
+
+
+def morton_sort(points: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """(..., N, 3) points reordered along N by Morton code, ties kept in
+    their order (a stable sort, as ``jnp.argsort``): each run of consecutive
+    points is then a spatially compact group."""
+    order = torch.argsort(morton_codes(points, bits), dim=-1, stable=True)
+    return torch.gather(points, -2, order[..., None].expand(order.shape + (points.shape[-1],)))

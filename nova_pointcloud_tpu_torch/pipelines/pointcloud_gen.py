@@ -12,9 +12,15 @@
   (clamp [-2, 2]), and position-based colors; ``denormalize`` maps the
   points back through the dataset's ``GlobalNormalizer`` (``normalizer``)
 
+- the dynamic-partition AR refinement mode (``use_autoregressive=True``):
+  the sampled cloud split into ``num_subsets`` equal subsets in a random
+  order, each refined by the ``ar_refiner`` conditioned on the subsets
+  refined before it; it replaces the postprocess
+
 Randomness comes from a ``torch.Generator`` (``generator=``) in place of the
-JAX ``key``; ``deterministic=True`` with given ``latents`` draws nothing.
-The AR refinement mode and mesh serving are not ported yet (ROADMAP.md).
+JAX ``key``; ``deterministic=True`` with given ``latents`` (and, in the AR
+mode, a given ``partition``) draws nothing. Mesh serving is not ported yet
+(ROADMAP.md).
 """
 
 import dataclasses
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer
+from nova_pointcloud_tpu_torch.ops.pointops import dynamic_partition
 from nova_pointcloud_tpu_torch.ops.quantization import (
     max_merge_stats, merge_act_scales, quantize_serving_params)
 from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
@@ -39,11 +46,13 @@ class NOVAPointCloudGenerationPipeline:
     """Orchestrates a NOVAPointCloudTransformer + DDPM scheduler + text encoder.
 
     Runs where the model's parameters live (``cuda`` unless the model was
-    built with ``device="cpu"``)."""
+    built with ``device="cpu"``). ``ar_refiner``: the refinement mode's
+    ``models/pointcloud.ARRefiner``, its weights loaded, on the model's
+    device."""
 
     def __init__(self, model: NOVAPointCloudTransformer,
                  scheduler: Optional[DDPMScheduler] = None, text_encoder=None,
-                 normalizer=None, mesh=None):
+                 normalizer=None, mesh=None, ar_refiner=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh (multi-device) serving is not ported yet: ROADMAP.md, "
@@ -52,6 +61,7 @@ class NOVAPointCloudGenerationPipeline:
         self.scheduler = scheduler or DDPMScheduler(beta_schedule="squaredcos_cap_v2")
         self.text_encoder = text_encoder
         self.normalizer = normalizer  # data.shapenet.GlobalNormalizer or None
+        self.ar_refiner = ar_refiner
         # calibrated static activation scales (calibrate()); merged into the
         # qparams of every later call
         self.act_scales: Optional[Dict] = None
@@ -141,6 +151,7 @@ class NOVAPointCloudGenerationPipeline:
         guidance_trunc: float = 0.0,  # disable CFG below this timestep
         num_point_clouds_per_prompt: int = 1,
         use_autoregressive: bool = False,
+        num_subsets: int = 16,
         generator: Optional[torch.Generator] = None,
         prompt_embeds: Optional[np.ndarray] = None,
         output_type: str = "numpy",
@@ -148,11 +159,8 @@ class NOVAPointCloudGenerationPipeline:
         postprocess: str = "standard",  # "standard" | "eval"
         deterministic: bool = False,  # zero-variance DDPM, no added noise
         latents=None,  # (B, N, 3) pre-drawn x_T
+        partition=None,  # the AR mode's (order (k,), subset_ids (k, N // k))
     ) -> NOVAPointCloudPipelineOutput:
-        if use_autoregressive:
-            raise NotImplementedError(
-                "use_autoregressive=True (ARRefiner / EdgeAligner) is not "
-                "ported yet: ROADMAP.md, module queue, point-cloud AR modes")
         if isinstance(prompt, str):
             prompt = [prompt]
         use_cfg = guidance_scale > 1.0
@@ -160,6 +168,8 @@ class NOVAPointCloudGenerationPipeline:
             prompt_embeds = self.encode_prompt(prompt, negative_prompt, use_cfg,
                                                num_point_clouds_per_prompt)
         batch = prompt_embeds.shape[0] // (2 if use_cfg else 1)
+        if use_autoregressive and self.ar_refiner is None:
+            raise ValueError("AR mode requires an ar_refiner")
         dev, model, scheduler = self.device, self.model, self.scheduler
         gen = self._generator(generator)
         g = None if deterministic else gen  # the step and postprocess noise
@@ -190,7 +200,9 @@ class NOVAPointCloudGenerationPipeline:
             x = scheduler.step(pred, t, x, generator=g, schedule=sched)
         x = x / scheduler.init_noise_sigma
 
-        if postprocess == "standard":
+        if use_autoregressive:
+            x = self._ar_refine(x, num_subsets, gen, partition)
+        elif postprocess == "standard":
             x = torch.tanh(x)
             if not deterministic:
                 x = x + 0.1 * torch.randn(x.shape, generator=g, device=dev)
@@ -209,6 +221,30 @@ class NOVAPointCloudGenerationPipeline:
         if output_type == "numpy":
             return NOVAPointCloudPipelineOutput(x.cpu().numpy(), colors.cpu().numpy())
         return NOVAPointCloudPipelineOutput(x, colors)
+
+
+    def _ar_refine(self, x: torch.Tensor, num_subsets: int, generator: torch.Generator,
+                   partition=None) -> torch.Tensor:
+        """Dynamic-partition AR refinement of x (B, N, 3): the subsets in the
+        partition's order, each refined by the refiner from the points and
+        validity of those refined before it (not-yet-refined points sit at
+        the origin, invalid), and written into the output."""
+        batch, n, _ = x.shape
+        dev = x.device
+        if partition is None:
+            partition = dynamic_partition(generator, n, num_subsets, device=dev)
+        order, subset_ids = (torch.as_tensor(a, device=dev).long() for a in partition)
+        gen_points = torch.zeros((batch, n, 3), dtype=x.dtype, device=dev)
+        gen_valid = torch.zeros((batch, n), dtype=x.dtype, device=dev)
+        out = torch.zeros_like(x)
+        for i in range(num_subsets):
+            ids = subset_ids[order[i]]
+            progress = torch.full((batch,), i / num_subsets, dtype=torch.float32, device=dev)
+            refined = self.ar_refiner(x[:, ids], gen_points, gen_valid, progress)
+            gen_points[:, ids] = refined
+            gen_valid[:, ids] = 1.0
+            out[:, ids] = refined
+        return out
 
 
 def _tree_map(fn, tree):

@@ -91,7 +91,10 @@ def test_every_module_imports_without_cuda_or_jax():
             "nova_pointcloud_tpu_torch.data.shapenet",
             "nova_pointcloud_tpu_torch.evaluation.pointcloud_eval",
             "nova_pointcloud_tpu_torch.scripts.train_pointcloud",
-            "nova_pointcloud_tpu_torch.scripts.eval_pc_quality"} <= set(mods)
+            "nova_pointcloud_tpu_torch.scripts.eval_pc_quality",
+            "nova_pointcloud_tpu_torch.models.pointcloud_ar",
+            "nova_pointcloud_tpu_torch.pipelines.pointcloud_ar",
+            "nova_pointcloud_tpu_torch.scripts.train_eval_pc_ar"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -170,7 +173,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NOVAPointCloudGenerationPipeline(model, mesh=object())
     pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ar_refiner"):  # as the JAX pipeline without one
         pipe(["a chair"], num_points=32, use_autoregressive=True)
     # sequence-parallel attention, the NOVA pipelines, the flow-matching
     # scheduler and mesh construction wait for their slices
@@ -356,3 +359,54 @@ def test_cpu_pc_training_step_runs_no_kernel(dropout, attn_impl, monkeypatch):
     out = pipe.train(iter([batch] * 2), 2)
     assert np.isfinite(out["loss"]) and out["nonfinite_loss"] == 0.0 and pipe.trainer.step == 2
     assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
+
+
+@pytest.mark.parametrize("path", ["masked_ar_int8", "masked_ar_float", "masked_ar_train",
+                                  "refinement"])
+def test_cpu_ar_paths_run_no_kernel(path, monkeypatch):
+    """The point-cloud AR modes on CPU tensors: masked-AR serving (int8:
+    the ViT's int8_linear and post-LN MLP and the head's diffusion blocks
+    on their plain versions), its training step, and the refinement mode
+    over int8 flagship-style serving count nothing; without CUDA the AR
+    model and the refiner raise."""
+    from nova_pointcloud_tpu_torch.models.pointcloud import ARRefiner
+    from nova_pointcloud_tpu_torch.models.pointcloud_ar import NOVAPointCloudARTransformer
+    from nova_pointcloud_tpu_torch.pipelines.pointcloud_ar import NOVAPointCloudARPipeline
+    from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
+
+    fused_block.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    if path == "refinement":
+        model = NOVAPointCloudTransformer(arch="pc_d2w64", point_cloud_size=64, patch_size=4,
+                                          text_token_dim=16, quantize=True, device="cpu")
+        model.init_weights(g)
+        refiner = ARRefiner(64, 4, depth=1, device="cpu").init_weights(g)
+        torch.nn.init.normal_(refiner.head.weight, std=0.05)
+        pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4),
+                                                ar_refiner=refiner)
+        out = pipe(["a chair"], num_points=64, num_diffusion_steps=2, use_autoregressive=True,
+                   num_subsets=4, generator=torch.Generator().manual_seed(1))
+        pts = out.point_clouds
+    else:
+        model = NOVAPointCloudARTransformer(
+            arch="pc_d2w64", point_cloud_size=128, patch_size=8, text_token_dim=16,
+            text_token_len=4, quantize=path == "masked_ar_int8",
+            noise_scheduler=DDPMScheduler(), remat=True, device="cpu")
+        model.init_weights(g).fill_zero_init(g)
+        if path == "masked_ar_train":
+            loss = model(torch.rand((2, 128, 3)) * 2 - 1, torch.randn((2, 4, 16)), generator=g)
+            loss["loss"].backward()
+            pts = loss["loss"].detach().numpy()[None]
+        else:
+            pipe = NOVAPointCloudARPipeline(model, DDPMScheduler(beta_schedule="squaredcos_cap_v2"),
+                                            text_encoder=DummyTextEncoder(16, 4))
+            pts = pipe(["a chair", "a box"], num_inference_steps=4, num_diffusion_steps=2,
+                       generator=torch.Generator().manual_seed(1)).point_clouds
+            assert pts.shape == (2, 128, 3)
+    assert np.isfinite(pts).all()
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NOVAPointCloudARTransformer(arch="pc_d2w64", point_cloud_size=128, patch_size=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ARRefiner(64, 4, depth=1)
