@@ -299,6 +299,39 @@ phases' peak-memory readings:
     masked-AR training step's p50 and peak memory;
 6.  (in the profiles phase) one profiled masked-AR int8 call.
 
+NOVA text-to-video serving (RoPE, the motion tokens, the KV-cached frame
+decode, the AdaLN mixer, the latents= prefill) writes no kernel; its int8
+path runs rows 5, 6, 8 and int8_linear at shapes no earlier path gives
+them (batch 1 x CFG 2: 540 to 1800 keys or rows a sample, most not a
+multiple of 64), its float twin flash_attention with a key bias. It adds:
+
+3g. those kernels against their plain versions at the t2v shapes (after
+    3f; check_t2v_kernels), phase 3d's tolerances;
+
+and, after phase 5f:
+
+4k. t2v int8 serving as bench.py --mode t2v: NOVATransformer(vit_d16w1024,
+    vit_d32w1024, mlp_d6w1024) with RoPE and mixer rank 24, 30 x 48 image
+    and 15 x 24 video patches, DummyTextEncoder(2560, 256), bf16, flow
+    shift 5, calibrated (16 AR steps, max_latent_length=2, margin 1.05),
+    one call of 9 frames x 64 AR x 25 steps, CFG 5.0, batch 1: exact
+    launches (derived from the model: 18144 flash_attention_static, 18288
+    fused_int8_mlp_postln, 85050 fused_int8_diffusion_block, 36576
+    int8_linear, 0 of every other kernel), finite latents (1, 9, 60, 96, 4)
+    with a spread; 2 frames x 8 AR steps against plain (2 x floor + 1e-3);
+    the step check (frames 0 and 1 through the caches, the mixer, one
+    image-encoder pass, one head eval against plain); an i2v call whose
+    frame 0 is bitwise the given latents;
+4l. the float twin at 2 frames x 64 AR steps: 1552 flash_attention
+    launches a frame (the dispatcher's rule), the step check;
+5g. the kernels at each t2v shape, their plain versions, bounds and SDPA's
+    time; one more full int8 call (videos/s, ms per frame, peak memory) and
+    the float twin's s per frame;
+6.  (in the profiles phase) one profiled int8 call of 2 frames x 16 AR
+    steps.
+
+The script prints its total time before the result lines.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
@@ -422,6 +455,27 @@ REFINE_SUBSETS, REFINE_CPU_SAMPLES = 16, 4
 # 2 steps, then a fixed batch for 20
 AR_SCRIPT_ARGS = ["--max-steps", "2"]
 AR_TRAIN_FALL_STEPS = 20
+# NOVA t2v serving (bench.py --mode t2v, nova_d48w1024_osp480.yaml's shapes):
+# NOVATransformer(vit_d16w1024, vit_d32w1024, mlp_d6w1024), RoPE, mixer rank
+# 24, 30 x 48 image / 15 x 24 video patches, text 256 x 2560 plus 2 motion
+# tokens, batch 1 x CFG 2, 9 latent frames, 64 AR (63 non-empty) x 25 steps,
+# flow shift 5
+T2V_BASE, T2V_VIDEO_BASE, T2V_TEXT, T2V_TEXT_DIM, T2V_RANK = (30, 48), (9, 15, 24), 256, 2560, 24
+T2V_BATCH, T2V_FRAMES, T2V_AR, T2V_DIFF, T2V_CAL_AR, T2V_SHIFT = 1, 9, 64, 25, 16, 5.0
+T2V_ROWS = 2 * T2V_BATCH  # CFG
+T2V_NI, T2V_NV = T2V_BASE[0] * T2V_BASE[1], T2V_VIDEO_BASE[1] * T2V_VIDEO_BASE[2]  # 1440, 360
+T2V_PREFIX = T2V_TEXT + 2  # the motion tokens (flow, fps) follow the prompt
+T2V_S, T2V_PAD_P = 63, 36  # non-empty AR steps and their largest count, checked in 4k
+T2V_FLASH_PER_FRAME = 1552  # the float twin's flash_attention launches a frame, checked in 4l
+# the image encoder's keys: its encoder half at 360 + the bucket (180, 360,
+# 720) in the gather phases, 360 + 1440 in the masking phase and the decoder
+T2V_L = (540, 720, 1080, 1800)
+T2V_VIDEO_L = (T2V_PREFIX + T2V_NV, T2V_NV)  # the video encoder's rows: frame 0, later frames
+T2V_CMP_FRAMES, T2V_CMP_AR, T2V_FLOAT_FRAMES = 2, 8, 2
+# the profiled int8 call: 2 frames of 16 AR steps (a 64-step call's events
+# took the profiler 300 s to process)
+T2V_PROFILE_FRAMES, T2V_PROFILE_AR = 2, 16
+T2V_PROMPTS = [f"a drone shot {i}" for i in range(T2V_BATCH)]
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
@@ -2560,6 +2614,434 @@ def timing_ar(pipe_ar, pipe_ar_f, pipe_flagship, ar_train_state):
                                      times_s=times, step_peak_bytes=peak, held_bytes=held)
 
 
+@phase("3g t2v kernels vs plain")
+def check_t2v_kernels():
+    """The t2v int8 path's kernels against their plain versions at its
+    shapes (batch 1 x CFG 2), phase 3d's tolerances: fused_int8_mlp_postln
+    at 2 x (540, 720, 1080, 1800) rows (the image encoder's encoder half in
+    its bucket phases and masking phase, its decoder) and 2 x (618, 360)
+    (the video encoder's frame 0 with the 258-token prefix, later frames),
+    static and per row, an f32 residual stream (a bf16 one at 2 x 1800 too);
+    fused_int8_diffusion_block at the head's 2 x 36 = 72 rows, bf16 and f32
+    x; int8_linear at the same rows (qkv 1024 -> 3072 with an f32 x, the
+    out-projection 1024 -> 1024 with a bf16 x); flash_attention_static
+    (bf16 core) at (2, 16, L, 64) for each image-encoder L with no bias and
+    with a visibility bias (-inf keys, a fully masked sample); the float
+    twin's flash_attention at (2, 16, 1080 and 1800, 64) with that key bias.
+    None of these row counts but 1800 and 360 is a multiple of 64."""
+    gen = torch.Generator(device=DEV).manual_seed(4444)
+    bad = []
+    for L in T2V_L + T2V_VIDEO_L:
+        for x_dtype in (torch.float32, torch.bfloat16) if L == T2V_L[-1] else (torch.float32,):
+            ops = _t2i_mlp_operands(gen, (T2V_ROWS, L), x_dtype)
+            for label, kw in _t2i_variants("mlp"):
+                y = fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw)
+                torch.cuda.synchronize()
+                ref = fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw)
+                if not _tol_check("fused_int8_mlp_postln", f"t2v {label} rows={T2V_ROWS}x{L} "
+                                  f"x={x_dtype}", y, ref, like=ops[0]):
+                    bad.append(f"mlp_postln {label} {L} {x_dtype}")
+        for n in (3 * D, D):
+            x, w, ws, b = _linear_operands(gen, T2V_ROWS * L, n)
+            y = fb.int8_linear(x, w, ws, b, torch.bfloat16)
+            torch.cuda.synchronize()
+            if not _tol_check("int8_linear", f"t2v {T2V_ROWS * L}x{D}->{n} x={x.dtype}", y,
+                              fb.int8_linear_plain(x, w, ws, b, torch.bfloat16)):
+                bad.append(f"int8_linear {L} {n}")
+    for x_dtype in (torch.bfloat16, torch.float32):
+        ops = _diffusion_operands(gen, T2V_ROWS * T2V_PAD_P)
+        ops[0], ops[1] = ops[0].to(x_dtype), ops[1].to(x_dtype)
+        for label, kw in _t2i_variants("diffusion"):
+            y = fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+            torch.cuda.synchronize()
+            ref = fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw)
+            if not _tol_check("fused_int8_diffusion_block", f"t2v {label} rows="
+                              f"{T2V_ROWS * T2V_PAD_P} x={x_dtype}", y, ref, like=ops[0]):
+                bad.append(f"diffusion {label} {x_dtype}")
+    smax = torch.tensor(9.0, device=DEV)
+    for L in T2V_L:
+        kernels = [("flash_attention_static", lambda q, k, v, b: fa.flash_attention_static(
+            q, k, v, smax, b), lambda q, k, v, b: fa.flash_attention_static_plain(q, k, v, smax,
+                                                                                 b))]
+        if L >= 1024:  # the float twin's flash route
+            kernels.append(("flash_attention", fa.flash_attention,
+                            lambda q, k, v, b: fa.flash_attention_plain(q, k, v, b)[0]))
+        for name, kernel, plain in kernels:
+            for bias_kind in ("none", "visibility") if name != "flash_attention" else \
+                    ("visibility",):
+                q, k, v, bias = _static_attention_operands(gen, L, bias_kind, rows=T2V_ROWS)
+                o = kernel(q, k, v, bias)
+                torch.cuda.synchronize()
+                ref = plain(q, k, v, bias)
+                label = f"t2v bias={bias_kind} ({T2V_ROWS}, {HEADS}, {L}, 64)"
+                ok = _tol_check(name, label, o, ref, 2.0 ** -6, 2.0 ** -8, like=ref)
+                if bias is not None:
+                    dead_ok = bool((o[1] == 0).all())
+                    print(f"    fully masked sample gives 0: {dead_ok}")
+                    ok = ok and dead_ok
+                if not ok:
+                    bad.append(f"{name} {label}")
+                del q, k, v, o, ref
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    fb.reset_launch_counts()
+
+
+def _t2v_schedule():
+    counts = masking.cosine_pred_counts(T2V_AR, T2V_NI)
+    counts = counts[counts > 0]
+    starts, pad_p = masking.pred_boundaries(counts)
+    return counts, starts, pad_p
+
+
+def _t2v_int8_launches(frames):
+    """Launches of an int8 call of ``frames`` frames at 64 AR steps, from the
+    model's structure: every AR step one image-encoder pass (32 layers: the
+    static attention, row 5 and two int8_linear each) and 25 head evals of 6
+    blocks (row 6); every frame one video-encoder pass (16 layers: row 5 and
+    two int8_linear; its cached attention is the plain core)."""
+    S = len(_t2v_schedule()[0])
+    img, vid = frames * S * T2I_VIT_LAYERS, frames * T2I_V_LAYERS
+    return {"flash_attention_static": img, "fused_int8_mlp_postln": img + vid,
+            "fused_int8_diffusion_block": frames * S * T2V_DIFF * T2I_DIFF_BLOCKS,
+            "int8_linear": 2 * (img + vid)}
+
+
+def _t2v_flash_launches(frames):
+    """flash_attention launches of a float call by the dispatcher's rule
+    (ops/attention.flash_route), per frame: the image encoder's decoder half
+    at 360 + 1440 keys every AR step, its encoder half at 360 + the bucket
+    (a key bias) in each phase; the video encoder's cached layers take the
+    plain core."""
+    from nova_pointcloud_tpu_torch.ops.attention import flash_route
+    from nova_pointcloud_tpu_torch.pipelines.nova import bucket_plan
+
+    _, starts, _ = _t2v_schedule()
+    half, lf = T2I_VIT_LAYERS // 2, T2V_NV + T2V_NI
+    n = 0
+    for s_b, s_e, bucket in bucket_plan(starts, T2V_NI):
+        lk = T2V_NV + (T2V_NI if bucket is None else bucket)
+        enc = flash_route(lk, lk, 64, (T2V_ROWS, 1, 1, lk), "auto", True)
+        dec = flash_route(lf, lf, 64, None, "auto", True)
+        n += (s_e - s_b) * half * (int(enc) + int(dec))
+    return frames * n
+
+
+def _make_t2v_pipeline(quantize, state_dict=None):
+    """bench.py --mode t2v's model at full width and depth: seeded random
+    weights with the zero-initialised AdaLN projections (the video mixer's
+    too) and every bias filled, so the diffusion blocks, the mixer and the
+    motion tokens all depend on their inputs; bf16 weights and compute."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = NOVATransformer(arch=T2I_ARCH, image_dim=4, image_base_size=T2V_BASE,
+                            video_base_size=T2V_VIDEO_BASE, patch_size=2,
+                            text_token_dim=T2V_TEXT_DIM, text_token_len=T2V_TEXT,
+                            rotary_pos_embed=True, video_mixer_rank=T2V_RANK, quantize=quantize,
+                            attn_core="bf16", dtype=torch.bfloat16, device=DEV)
+    if state_dict is None:
+        model.init_weights(gen).fill_zero_init(gen)
+    else:
+        model.load_state_dict(state_dict)
+    model.to(torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"NOVA t2v {'int8' if quantize else 'float'} {T2I_ARCH}: {n_params / 1e6:.1f}M "
+          f"parameters, {T2V_NI} image / {T2V_NV} video tokens a frame, batch {T2V_BATCH}")
+    return NOVAPipeline(model, FlowMatchEulerScheduler(),
+                        text_encoder=DummyTextEncoder(T2V_TEXT_DIM, T2V_TEXT))
+
+
+def _t2v_draws(pipe, seed, frames, ar_steps):
+    """Every frame's prediction order and every AR step's initial noise, drawn
+    up front, so a comparison can replay a call with one input moved."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    _, counts, _, pad_p = pipe._schedule(ar_steps, T2V_DIFF)
+    pd = pipe.model.patch_dim
+    order = torch.argsort(torch.rand((frames, T2V_BATCH, T2V_NI), generator=gen, device=DEV),
+                          dim=-1)
+    noise = torch.randn((frames, len(counts), T2V_BATCH, pad_p, pd), generator=gen, device=DEV)
+    return order, noise
+
+
+def _t2v_sample(pipe, frames=T2V_FRAMES, ar_steps=T2V_AR, seed=1, **kw):
+    out = pipe(T2V_PROMPTS, num_inference_steps=ar_steps, num_diffusion_steps=T2V_DIFF,
+               max_latent_length=frames, guidance_scale=T2I_GUIDANCE, guidance_trunc=0.0,
+               flow_shift=T2V_SHIFT, generator=torch.Generator(device=DEV).manual_seed(seed),
+               output_type="latent", **kw)
+    torch.cuda.synchronize()
+    return out.latents.float()
+
+
+def _t2v_output_ok(lat, frames, label):
+    shape = (T2V_BATCH, frames, 2 * T2V_BASE[0], 2 * T2V_BASE[1], 4)
+    ok = (tuple(lat.shape) == shape and bool(torch.isfinite(lat).all())
+          and lat.std().item() > 0.05)
+    print(f"{label} latents {tuple(lat.shape)} (expected {shape}) finite, std "
+          f"{lat.std().item():.4f}: {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _t2v_call_counted(pipe, label, frames, expected):
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    lat = _t2v_sample(pipe, frames)
+    call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {n: expected.get(n, 0) for n in KERNELS}
+    print(f"launches in one {label} call ({frames} frames x {T2V_AR} AR x {T2V_DIFF} steps, "
+          f"{call_s:.2f} s): {launches} (expected {expected}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, label, launches[name])
+    ok = _t2v_output_ok(lat, frames, label)
+    return counts_ok and ok, dict(launches=launches, output_ok=ok, output_std=lat.std().item(),
+                                  call_s=call_s, frames=frames)
+
+
+def _t2v_step_check(pipe, label, kernel):
+    """Frame 0 (the BOS frame with the 258-token prefix) and frame 1 (a
+    latent frame's patch tokens) through the video encoder's KV caches, the
+    mixer, one image-encoder pass of the masking phase on the mixed states
+    (half the tokens visible, 360 + 1440 keys: every layer on the path's
+    attention kernel, 32 launches of ``kernel``) and one head eval at 72
+    rows; kernels against plain, relative mean error gated at 2 x floor +
+    1e-3 (floor: kernels against kernels with the frame, the canvas and x_t
+    moved by 1e-6)."""
+    model, qp = pipe.model, pipe.serving_qparams()
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    pd = model.patch_dim
+    with torch.no_grad():
+        c = pipe.encode_prompt(T2V_PROMPTS, guidance=GuidanceConfig(guidance_scale=T2I_GUIDANCE))
+        flow = torch.full((T2V_ROWS,), 5.0, device=DEV)
+        c = torch.cat([c, model.embed_motion(T2V_ROWS, flow).to(c.dtype)], 1)
+        frame = torch.randn((T2V_BATCH, 2 * T2V_BASE[0], 2 * T2V_BASE[1], 4), generator=gen,
+                            device=DEV)
+        canvas = torch.randn((T2V_BATCH, T2V_NI, pd), generator=gen, device=DEV)
+        mask = (torch.rand((T2V_BATCH, T2V_NI, 1), generator=gen, device=DEV) < 0.5).float()
+        x_t = torch.randn((T2V_ROWS, T2V_PAD_P, pd), generator=gen, device=DEV)
+        t = torch.full((T2V_ROWS,), 500.0, device=DEV)
+
+        def step(fr, cv, xt):
+            caches = model.init_video_caches(T2V_ROWS, c.shape[1], 2)
+            s0, caches = model.encode_frame(model.bos_frame(T2V_ROWS)[:, 0], c, caches, 0, 0,
+                                            qparams=qp)
+            s1, _ = model.encode_frame(model.embed_video_frame(fr).repeat(2, 1, 1), None, caches,
+                                       c.shape[1] + T2V_NV, 1, qparams=qp)
+            cond = model.mix_states(s0, s1)
+            z = model.encode_image_step(model.tokens_from_patches(cv).repeat(2, 1, 1),
+                                        mask.repeat(2, 1, 1), cond, qparams=qp)
+            return (s1.float(), z.float(),
+                    model.denoise_step(xt, t, z[:, :T2V_PAD_P], qparams=qp).float())
+
+        def moved(a):
+            return a + 1e-6 * torch.randn(a.shape, generator=gen, device=DEV)
+
+        fb.reset_launch_counts()
+        got = step(frame, canvas, x_t)
+        launches = fb.LAUNCHES[kernel]
+        with fb.use_plain_kernels():
+            plain = step(frame, canvas, x_t)
+        floor_run = step(moved(frame), moved(canvas), moved(x_t))
+    torch.cuda.synchronize()
+    res, ok = {}, launches == T2I_VIT_LAYERS
+    for name, a, p, m in zip(("encode_frame (frame 1, cached)", "encode_image_step",
+                              "denoise_step"), got, plain, floor_run):
+        scale = p.abs().mean()
+        rel = ((a - p).abs().mean() / scale).item()
+        floor = ((a - m).abs().mean() / scale).item()
+        good = bool(torch.isfinite(a).all()) and rel <= 2 * floor + 1e-3
+        ok = ok and good
+        print(f"{label} one {name}, kernels vs plain: mean |diff| / mean |plain| {rel:.3e} "
+              f"(tol 2 x floor + 1e-3 = {2 * floor + 1e-3:.3e}; floor, inputs moved by 1e-6: "
+              f"{floor:.3e}): {'ok' if good else 'FAIL'}")
+        res[name] = dict(rel_err=rel, rel_floor=floor)
+    print(f"{label} one step: {launches} {kernel} launches (expected {T2I_VIT_LAYERS}): "
+          f"{'ok' if launches == T2I_VIT_LAYERS else 'FAIL'}")
+    return ok, res
+
+
+@phase("4k t2v int8 path")
+def t2v_int8():
+    """NOVAPipeline at bench.py --mode t2v's int8 setting: calibrate (16 AR
+    steps, max_latent_length=2, margin 1.05), then one full call (9 frames
+    x 64 AR x 25 steps) with exact launches (derived by _t2v_int8_launches:
+    18144 flash_attention_static, 18288 fused_int8_mlp_postln, 85050
+    fused_int8_diffusion_block, 36576 int8_linear, 0 of every other kernel)
+    and finite latents (1, 9, 60, 96, 4) with a spread; a call of 2 frames x
+    8 AR steps against the same call with the plain versions (gate 2 x
+    floor + 1e-3; floor: the AR noise moved by 1e-6); the step check
+    (_t2v_step_check); an i2v call (latents= given, 2 frames x 8 AR steps):
+    frame 0 bitwise the given latents."""
+    counts, _, pad_p = _t2v_schedule()
+    if len(counts) != T2V_S or pad_p != T2V_PAD_P:
+        raise AssertionError(f"cosine_pred_counts({T2V_AR}, {T2V_NI}): {len(counts)} steps, "
+                             f"pad {pad_p}")
+    expected = _t2v_int8_launches(T2V_FRAMES)
+    print(f"derived launches of one call: {expected}")
+    pipe = _make_t2v_pipeline(quantize=True)
+    t0 = time.perf_counter()
+    fb.reset_launch_counts()
+    pipe.calibrate(T2V_PROMPTS, num_inference_steps=T2V_CAL_AR, num_diffusion_steps=T2V_DIFF,
+                   guidance_scale=T2I_GUIDANCE, max_latent_length=2,
+                   generator=torch.Generator(device=DEV).manual_seed(2), margin=1.05)
+    torch.cuda.synchronize()
+    cal_launches = {k: v for k, v in fb.LAUNCHES.items() if v}
+    video_sites = sorted(pipe.act_scales["video_encoder"]["enc_layers"]["block"])
+    print(f"calibrate ({T2V_CAL_AR} AR steps, then frames 0 and 1 through the caches): "
+          f"{time.perf_counter() - t0:.1f} s, launches {cal_launches}; the video encoder's "
+          f"sites {video_sites}")
+    _t2v_sample(pipe, frames=2, ar_steps=2, seed=9)  # warm-up: kernel loads, allocator
+    ok, rec = _t2v_call_counted(pipe, "t2v_int8", T2V_FRAMES, expected)
+
+    order, noise = _t2v_draws(pipe, 3, T2V_CMP_FRAMES, T2V_CMP_AR)
+    cmp_kw = dict(frames=T2V_CMP_FRAMES, ar_steps=T2V_CMP_AR, order=order)
+    lat = _t2v_sample(pipe, noise=noise, **cmp_kw)
+    fb.reset_launch_counts()
+    with fb.use_plain_kernels():
+        plain = _t2v_sample(pipe, noise=noise, **cmp_kw)
+    plain_launches = dict(fb.LAUNCHES)
+    moved = noise + 1e-6 * torch.randn(noise.shape, device=DEV,
+                                       generator=torch.Generator(device=DEV).manual_seed(4))
+    floor = (lat - _t2v_sample(pipe, noise=moved, **cmp_kw)).abs().mean().item()
+    vs_plain = (lat - plain).abs().mean().item()
+    tol = 2 * floor + 1e-3
+    agree = vs_plain <= tol and not any(plain_launches.values())
+    print(f"t2v_int8 ({T2V_CMP_FRAMES} frames x {T2V_CMP_AR} AR steps): kernels vs plain run "
+          f"mean |diff| {vs_plain:.3e} (tol 2 x floor + 1e-3 = {tol:.3e}; floor, kernels vs "
+          f"kernels with the AR noise moved by 1e-6: {floor:.3e}; mean |latent| "
+          f"{lat.abs().mean().item():.3e}); plain run launched {plain_launches}: "
+          f"{'ok' if agree else 'FAIL'}")
+    step_ok, step = _t2v_step_check(pipe, "t2v_int8", "flash_attention_static")
+
+    given = torch.randn((T2V_BATCH, 2 * T2V_BASE[0], 2 * T2V_BASE[1], 4), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(5))
+    i2v = _t2v_sample(pipe, T2V_CMP_FRAMES, T2V_CMP_AR, seed=6, latents=given)
+    i2v_ok = bool(torch.equal(i2v[:, 0], given)) and _t2v_output_ok(i2v, T2V_CMP_FRAMES, "i2v")
+    print(f"i2v ({T2V_CMP_FRAMES} frames x {T2V_CMP_AR} AR steps, latents= given): frame 0 "
+          f"bitwise the given latents: {'ok' if i2v_ok else 'FAIL'}")
+    report["t2v_int8"] = dict(rec, calibration_launches=cal_launches, video_sites=video_sites,
+                              mean_abs_vs_plain=vs_plain, floor_mean_abs=floor, tol=tol,
+                              compare_frames=T2V_CMP_FRAMES, compare_ar_steps=T2V_CMP_AR,
+                              plain_launches=plain_launches, one_step=step, i2v_ok=i2v_ok)
+    if not (ok and agree and step_ok and i2v_ok):
+        raise AssertionError("t2v int8 check failed")
+    return pipe
+
+
+@phase("4l t2v float path")
+def t2v_float(pipe_int8):
+    """quantize=False on the same weights, 2 frames x 64 AR steps: the
+    dispatcher's flash_attention launches by its 1024-key rule (derived by
+    _t2v_flash_launches: 1552 a frame), 0 of every other kernel, finite
+    latents; the step check against plain (the whole float call decorrelates
+    under a 1e-6 move of its noise, ROADMAP queue 3)."""
+    if pipe_int8 is None:
+        raise AssertionError("no t2v weights: the int8 path failed")
+    pipe = _make_t2v_pipeline(quantize=False, state_dict=pipe_int8.model.state_dict())
+    expected = _t2v_flash_launches(T2V_FLOAT_FRAMES)
+    print(f"flash_attention launches by the dispatcher's >= 1024-key rule: {expected}")
+    _t2v_sample(pipe, frames=2, ar_steps=2, seed=9)  # warm-up
+    ok, rec = _t2v_call_counted(pipe, "t2v_float", T2V_FLOAT_FRAMES,
+                                {"flash_attention": expected})
+    step_ok, step = _t2v_step_check(pipe, "t2v_float", "flash_attention")
+    report["t2v_float"] = dict(rec, expected_flash=expected, one_step=step)
+    if not (ok and step_ok and expected == T2V_FLASH_PER_FRAME * T2V_FLOAT_FRAMES):
+        raise AssertionError("t2v float check failed")
+    return pipe
+
+
+@phase("5g timing of the t2v path")
+def timing_t2v(pipe_int8, pipe_float):
+    """Each kernel per launch at each t2v shape (the path's static route):
+    row 5 and int8_linear at 2 x (540, 720, 1080, 1800, 618, 360) rows, the
+    static attention at (2, 16, L, 64) for each image-encoder L beside
+    SDPA's bf16 forward, flash_attention at (2, 16, 1080 and 1800, 64) with
+    the key bias beside SDPA with that mask, row 6 at 72 rows; their plain
+    versions and bounds. Then one more full int8 call (its p50 with phase
+    4k's), videos/s and ms per frame, and the call's peak memory above what
+    was allocated before it; one float call of 2 frames (s per frame)."""
+    import torch.nn.functional as Fn
+
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    kw5 = _t2i_variants("mlp")[0][1]
+    for L in T2V_L + T2V_VIDEO_L:
+        m = T2V_ROWS * L
+        ops = _t2i_mlp_operands(gen, (T2V_ROWS, L))
+        _time_kernel(
+            "fused_int8_mlp_postln", ("t2v", m, D, F),
+            lambda: fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw5),
+            lambda: fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw5),
+            _bound(4 * m * D * F / PEAK_INT8_OPS,
+                   2 * m * D * 4 + 2 * D * F + (F + 3 * D) * 2 + (F + D) * 4), graph=True)
+        del ops
+        for n in (3 * D, D):
+            x, w, ws, b = _linear_operands(gen, m, n)
+            _time_kernel("int8_linear", ("t2v", m, D, n),
+                         lambda: fb.int8_linear(x, w, ws, b, torch.bfloat16),
+                         lambda: fb.int8_linear_plain(x, w, ws, b, torch.bfloat16),
+                         _bound(2 * m * D * n / PEAK_INT8_OPS,
+                                m * D * x.element_size() + m * n * 2 + n * D + n * 2 + n * 4),
+                         graph=True)
+            del x
+    smax = torch.tensor(9.0, device=DEV)
+    bh = T2V_ROWS * HEADS
+    for L in T2V_L:
+        q, k, v, _ = _static_attention_operands(gen, L, "none", rows=T2V_ROWS)
+        _time_kernel("flash_attention_static", ("t2v", T2V_ROWS, HEADS, L, 64),
+                     lambda: fa.flash_attention_static(q, k, v, smax),
+                     lambda: fa.flash_attention_static_plain(q, k, v, smax),
+                     _bound(4 * bh * L * L * 64 / PEAK_BF16_FLOPS, 4 * bh * L * 64 * 2),
+                     library=lambda: Fn.scaled_dot_product_attention(q, k, v), graph=True)
+        if L >= 1024:
+            q, k, v, bias = _static_attention_operands(gen, L, "visibility", rows=T2V_ROWS)
+            mask = bias.to(q.dtype)
+            live = int(torch.isfinite(bias).sum().item())  # keys this run's bias leaves
+            _time_kernel("flash_attention", ("t2v key bias", T2V_ROWS, HEADS, L, 64),
+                         lambda: fa.flash_attention(q, k, v, bias),
+                         lambda: fa.flash_attention_plain(q, k, v, bias),
+                         _bound(4 * HEADS * L * live * 64 / PEAK_BF16_FLOPS,
+                                4 * bh * L * 64 * 2 + bias.numel() * 4),
+                         library=lambda: Fn.scaled_dot_product_attention(q, k, v,
+                                                                         attn_mask=mask),
+                         graph=True)
+        del q, k, v
+    m = T2V_ROWS * T2V_PAD_P
+    ops = _diffusion_operands(gen, m)
+    kw6 = _t2i_variants("diffusion")[0][1]
+    _time_kernel("fused_int8_diffusion_block", ("t2v", m, D),
+                 lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw6),
+                 lambda: fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw6),
+                 _bound(2 * m * D * 5 * D / PEAK_INT8_OPS,
+                        3 * m * D * 2 + 5 * D * D + (3 * D + 4 * D) * 2 + 5 * D * 4),
+                 iters=200, graph=True)
+    torch.cuda.empty_cache()
+    if pipe_int8 is None or pipe_float is None:
+        raise AssertionError("no t2v pipeline: phase 4k or 4l failed")
+    fb.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _t2v_sample(pipe_int8, seed=21)
+    times = [report["t2v_int8"]["call_s"], time.perf_counter() - t0]
+    peak = torch.cuda.max_memory_allocated() - held
+    p50 = float(np.percentile(times, 50))
+    t0 = time.perf_counter()
+    _t2v_sample(pipe_float, frames=T2V_FLOAT_FRAMES, seed=21)
+    float_s = time.perf_counter() - t0
+    print(f"t2v_int8: batch {T2V_BATCH}, {T2V_FRAMES} frames x {T2V_AR} AR x {T2V_DIFF} steps, "
+          f"p50 {p50:.3f} s per call (times {[round(t, 3) for t in times]}), "
+          f"{T2V_BATCH / p50:.4f} videos/s, {p50 / T2V_BATCH / T2V_FRAMES * 1e3:.1f} ms per "
+          f"frame; peak memory of the call {peak / 2 ** 30:.2f} GiB above the "
+          f"{held / 2 ** 30:.2f} GiB allocated before it")
+    print(f"t2v_float: {T2V_FLOAT_FRAMES} frames in {float_s:.3f} s, "
+          f"{float_s / T2V_FLOAT_FRAMES:.3f} s per frame")
+    report["t2v_int8"].update(p50_s=p50, times_s=times, videos_per_s=T2V_BATCH / p50,
+                              ms_per_frame=p50 / T2V_BATCH / T2V_FRAMES * 1e3,
+                              peak_bytes=peak, held_bytes=held)
+    report["t2v_float"].update(call_s_timed=float_s, s_per_frame=float_s / T2V_FLOAT_FRAMES)
+
+
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
     forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
@@ -3323,7 +3805,8 @@ def _device_kernels_per_call():
 
 
 @phase("6 profiles")
-def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=None):
+def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=None,
+             pipe_t2v=None):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
@@ -3356,9 +3839,13 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=
         profile_call(pc_step, label)
     if pipe_ar is not None:
         profile_call(lambda: _ar_sample(pipe_ar, seed=30), "masked_ar_int8")
+    if pipe_t2v is not None:
+        profile_call(lambda: _t2v_sample(pipe_t2v, T2V_PROFILE_FRAMES, T2V_PROFILE_AR, seed=30),
+                     "t2v_int8")
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("CUDA is not available: this script runs on the GPU only", 2)
     if _PORT_IMPORT_ERROR is not None:
@@ -3373,6 +3860,7 @@ def main():
         check_nova_kernels()
         check_flash_backward()
         check_ar_kernels()
+        check_t2v_kernels()
         pipe = main_path()
         pipe_a = path_a()
         pipe_b = path_b()
@@ -3392,7 +3880,11 @@ def main():
         pipe_refine = refinement(pipe)
         ar_state = ar_train()
         timing_ar(*ar_pipes, pipe_refine, ar_state)
-        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0])
+        # NOVA t2v serving, after the earlier paths' timings
+        pipe_t2v = t2v_int8()
+        pipe_t2v_f = t2v_float(pipe_t2v)
+        timing_t2v(pipe_t2v, pipe_t2v_f)
+        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0], pipe_t2v)
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})
@@ -3406,6 +3898,9 @@ def main():
                    if val is None and key != "library_ms"]
         if missing or not kernels[-1]["launches"]:
             failures.append(f"kernels line: {name} lacks {missing or 'launches'}")
+    total_s = time.perf_counter() - t_start
+    print(f"chip_smoke: all phases took {total_s:.1f} s")
+    report["total_s"] = total_s
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

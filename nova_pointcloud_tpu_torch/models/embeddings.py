@@ -1,18 +1,21 @@
 """Positional and conditioning embeddings (port of
 ``nova_pointcloud_tpu/models/embeddings.py``): the timestep features of the
-pc model, and what NOVA t2i serving needs:
+pc model, and what NOVA t2i and t2v serving need:
 
+- 3-axis RoPE: ``rope_axis_dims``, ``rope_positions``, ``rope_weights``
+  (cos / sin tables, zero-angle rows for a conditioning prefix),
+  ``apply_rope`` (interleaved pairs) and ``gather_rope`` (the rows of a
+  token subset);
 - ``sincos_2d`` / ``sincos_time`` tables (host numpy, copied);
 - ``PosEmbed`` (additive 2D sincos), ``VideoPosEmbed`` (2D sincos + learned
-  time MLP; the motion embed waits for t2v);
+  time MLP), ``MotionEmbed`` (flow / fps tokens of the video models);
 - ``PatchEmbed`` (+ ``patchify`` / ``unpatchify`` in NOVA's (p_h, p_w, C)
   layout), including ``pre_patchified=True``;
 - ``TextEmbed`` (learned null-prompt bank, proj + LayerNorm, train-time
   prompt dropout to the bank);
 - ``MaskTokens`` (BOS / mask tokens).
 
-Parameter names are the flax modules' (``models/convert.py``). RoPE is not
-ported: a ``rotary_pos_embed`` model raises (models/nova.py).
+Parameter names are the flax modules' (``models/convert.py``).
 """
 
 import math
@@ -35,6 +38,65 @@ def timestep_freq_embed(timestep: torch.Tensor, freq_dim: int = 256) -> torch.Te
                                   device=timestep.device) * (-log_theta / half))
     emb = timestep[..., None].float() * freq
     return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+
+
+def rope_axis_dims(head_dim: int) -> Tuple[int, int, int]:
+    """Split head_dim across (t, h, w): d/8 + 2x((d - d/8)/2)."""
+    dt = head_dim // 8
+    ds = (head_dim - dt) // 2
+    return dt, ds, ds
+
+
+def rope_positions(t: int, hw: Tuple[int, int], device=None) -> torch.Tensor:
+    """Dense (1, t*h*w, 3) float32 grid of (t, y, x) positions."""
+    h, w = hw
+    grids = torch.meshgrid(torch.arange(t, device=device), torch.arange(h, device=device),
+                           torch.arange(w, device=device), indexing="ij")
+    return torch.stack(grids, dim=-1).reshape(1, -1, 3).float()
+
+
+def rope_weights(pos: torch.Tensor, head_dim: int, theta: float = 10000.0,
+                 pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos / sin tables of 3-axis RoPE: pos (B, L, 3) -> each (B, 1, pad + L,
+    head_dim // 2); ``pad`` prepends zero positions for a conditioning prefix."""
+    if pad:
+        zeros = torch.zeros(pos.shape[:1] + (pad, 3), dtype=pos.dtype, device=pos.device)
+        pos = torch.cat([zeros, pos], dim=1)
+    parts_cos, parts_sin = [], []
+    for i, d_axis in enumerate(rope_axis_dims(head_dim)):
+        scale = torch.arange(0, d_axis, 2, dtype=torch.float32, device=pos.device) / d_axis
+        inv_freq = 1.0 / (theta ** scale)
+        angle = pos[..., i:i + 1] * inv_freq  # (B, L, d_axis / 2)
+        parts_cos.append(torch.cos(angle))
+        parts_sin.append(torch.sin(angle))
+    return torch.cat(parts_cos, dim=-1)[:, None], torch.cat(parts_sin, dim=-1)[:, None]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs: (x0, x1) -> (c*x0 - s*x1, s*x0 + c*x1), with
+    cos / sin cast to x's dtype first. x (B, H, L, D); cos / sin (B, 1, L, D/2)."""
+    shape = x.shape
+    xp = x.reshape(shape[:-1] + (shape[-1] // 2, 2))
+    x0, x1 = xp[..., 0], xp[..., 1]
+    cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    return torch.stack([cos * x0 - sin * x1, sin * x0 + cos * x1], dim=-1).reshape(shape)
+
+
+def gather_rope(cos: torch.Tensor, sin: torch.Tensor, ids: torch.Tensor,
+                pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RoPE rows of a token subset: cos / sin (B, 1, L, D/2) without the
+    prefix, ids (B, P) into L -> tables of length pad + P whose prefix rows
+    have zero angle (cos 1, sin 0)."""
+    def sel(w, prefix_value):
+        idx = ids[..., None].expand(-1, -1, w.shape[-1])
+        g = torch.gather(w[:, 0], 1, idx)[:, None]
+        if pad:
+            prefix = torch.full(g.shape[:2] + (pad, g.shape[-1]), prefix_value, dtype=g.dtype,
+                                device=g.device)
+            g = torch.cat([prefix, g], dim=2)
+        return g
+
+    return sel(cos, 1.0), sel(sin, 0.0)
 
 
 def sincos_2d(dim: int, h: int, w: int, base_hw: Tuple[int, int]) -> np.ndarray:
@@ -97,6 +159,36 @@ class VideoPosEmbed(nn.Module):
         h, w = hw or self.base_size[1:]
         table = torch.from_numpy(sincos_2d(self.dim, h, w, self.base_size[1:])).to(x.device)
         return x + table.to(x.dtype)
+
+
+class MotionEmbed(nn.Module):
+    """Flow / fps conditioning tokens: each value's sincos features through
+    its own two-layer MLP (``{flow,fps}_fc{1,2}``) -> (B, 2, dim)."""
+
+    def __init__(self, dim: int, base_flow: float = 5.0, base_fps: float = 12.0,
+                 freq_dim: int = 128, device=None):
+        super().__init__()
+        self.base_flow, self.base_fps, self.freq_dim = base_flow, base_fps, freq_dim
+        for name in ("flow", "fps"):
+            setattr(self, f"{name}_fc1", nn.Linear(2 * freq_dim, dim, device=device))
+            setattr(self, f"{name}_fc2", nn.Linear(dim, dim, device=device))
+
+    def _one(self, values: torch.Tensor, name: str) -> torch.Tensor:
+        values = values.reshape(values.shape[0])  # (B,) or (B, 1)
+        freq = 1.0 / (10000 ** (torch.arange(self.freq_dim, dtype=torch.float32,
+                                             device=values.device) / self.freq_dim))
+        f = values[:, None, None].float() * freq[None, None]
+        sincos = torch.cat([torch.sin(f), torch.cos(f)], dim=-1)
+        h = dense(sincos, getattr(self, f"{name}_fc1"))
+        return dense(silu(h), getattr(self, f"{name}_fc2"))
+
+    def forward(self, batch: int, flow: Optional[torch.Tensor] = None,
+                fps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dev = self.flow_fc1.weight.device
+        flow = torch.full((batch,), self.base_flow, device=dev) if flow is None else flow
+        fps = torch.full((batch,), self.base_fps, device=dev) if fps is None else fps
+        return torch.cat([self._one(flow.to(dev), "flow"), self._one(fps.to(dev), "fps")],
+                         dim=1)
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:

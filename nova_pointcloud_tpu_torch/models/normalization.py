@@ -4,8 +4,9 @@
 The flax modules' names are kept (``proj``, ``ada``), so ``models/convert.py``
 maps one tree onto the other. Compute follows the input dtype as flax's does
 when ``dtype`` is unset: the projection in the promoted dtype of its input and
-weight, the LayerNorm's statistics in float32. The LoRA rank is not ported
-(no t2i model uses it) and raises.
+weight, the LayerNorm's statistics in float32. ``rank`` puts a low-rank
+projection (``lora``, no bias) before ``proj``; ``eps=None`` modulates x
+without normalizing it (the video models' AdaLN state mixer).
 """
 
 from typing import Optional, Tuple
@@ -23,16 +24,16 @@ class AdaLayerNormZero(nn.Module):
     def __init__(self, dim: int, rank: Optional[int] = None, num_stats: int = 2,
                  eps: Optional[float] = 1e-6, device=None):
         super().__init__()
-        if rank:
-            raise NotImplementedError(
-                "AdaLayerNormZero with a LoRA rank (the video mixer) is not ported "
-                "yet: ROADMAP.md, module queue, NOVA t2v")
         self.num_stats, self.eps = num_stats, eps
-        self.proj = nn.Linear(dim, num_stats * dim, device=device)
+        self.lora = nn.Linear(dim, rank, bias=False, device=device) if rank else None
+        self.proj = nn.Linear(rank or dim, num_stats * dim, device=device)
 
     def forward(self, x: torch.Tensor, z: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        stats = dense(silu(z), self.proj)
+        h = silu(z)
+        if self.lora is not None:
+            h = dense(h, self.lora)
+        stats = dense(h, self.proj)
         stats = torch.chunk(stats, self.num_stats, dim=-1)
         y = x if self.eps is None else layer_norm(x, None, self.eps)
         y = y * (1.0 + stats[0]) + stats[1]

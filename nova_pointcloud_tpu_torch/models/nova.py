@@ -1,22 +1,25 @@
 """NOVA core: masked-AR transformer with a per-token diffusion head (port of
 ``nova_pointcloud_tpu/models/nova.py``: ``NOVATransformer``'s text-to-image
-serving methods and its training loss).
+and text-to-video serving methods and its t2i training loss).
 
 The module owns the parameters and exposes step methods that the pipelines
-orchestrate: ``embed_text`` / ``null_text``, ``bos_frame``, ``encode_video``
-(T=1: the BOS frame with the text prefix), ``tokens_from_patches``,
-``encode_image_step`` (masked or bucket-gathered encoder half),
-``denoise_step`` (the diffusion head), and ``train_losses`` (= ``forward``),
-the TAM + MAM + token-wise diffusion loss of one training batch. Shapes are
+orchestrate: ``embed_text`` / ``null_text`` / ``embed_motion``, ``bos_frame``,
+``encode_video`` (the BOS frame with the text prefix, or T frames with the
+block-causal bias and the AdaLN mixer), ``frame_tokens`` /
+``embed_video_frame`` / ``encode_frame`` / ``mix_states`` (the KV-cached frame
+decode), ``tokens_from_patches``, ``encode_image_step`` (masked or
+bucket-gathered encoder half), ``denoise_step`` (the diffusion head), and
+``train_losses`` (= ``forward``), the TAM + MAM + token-wise diffusion loss of
+one t2i training batch. Positions are absolute sincos tables or, with
+``rotary_pos_embed``, 3-axis RoPE inside attention. Shapes are
 channels-last, as in the JAX package. The step methods are differentiable;
 the serving pipelines run them under ``torch.no_grad()``.
 
 Each step method takes the model's serving tree ``qparams`` (the int8 path,
 ``ops/quantization.quantize_serving_params`` plus calibrated scales) and,
 where the JAX package sows calibration stats, ``calibrate=True``, which makes
-it return ``(out, stats)``. Not ported yet, and raising: RoPE, label (c2i)
-conditioning, video models (T > 1, motion embed, the AdaLN mixer, KV-cached
-frame decode, t2v training), MoE.
+it return ``(out, stats)``. Not ported yet, and raising: label (c2i)
+conditioning, t2v training, MoE.
 """
 
 from typing import Dict, Optional, Tuple
@@ -25,10 +28,13 @@ import torch
 from torch import nn
 
 from nova_pointcloud_tpu_torch.models.diffusion_mlp import DiffusionMLP
-from nova_pointcloud_tpu_torch.models.embeddings import (MaskTokens, PatchEmbed, PosEmbed,
-                                                         TextEmbed, VideoPosEmbed, patchify)
+from nova_pointcloud_tpu_torch.models.embeddings import (MaskTokens, MotionEmbed, PatchEmbed,
+                                                         PosEmbed, TextEmbed, VideoPosEmbed,
+                                                         patchify, rope_positions, rope_weights)
+from nova_pointcloud_tpu_torch.models.normalization import AdaLayerNorm
 from nova_pointcloud_tpu_torch.models.vit import VisionTransformer
 from nova_pointcloud_tpu_torch.ops import masking
+from nova_pointcloud_tpu_torch.ops.attention import KVCache
 from nova_pointcloud_tpu_torch.ops.losses import masked_diffusion_mse
 from nova_pointcloud_tpu_torch.utils.device import resolve_device
 
@@ -83,15 +89,9 @@ class NOVATransformer(nn.Module):
                  quantize: bool = False, dtype: Optional[torch.dtype] = None,
                  attn_core: str = "bf16", num_experts: int = 0, device=None):
         super().__init__()
-        unported = {"rotary_pos_embed=True (RoPE)": rotary_pos_embed,
-                    "label conditioning (c2i)": bool(num_classes and not text_token_dim),
-                    "video models (video_base_size[0] > 1: motion embed)":
-                        video_base_size[0] > 1,
-                    "the AdaLN video mixer": video_mixer_rank is not None}
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"NOVATransformer with {what} is not ported yet: "
-                                          f"ROADMAP.md, module queue, NOVA")
+        if num_classes and not text_token_dim:
+            raise NotImplementedError("NOVATransformer with label conditioning (c2i) is not "
+                                      "ported yet: ROADMAP.md, module queue, NOVA")
         dev = resolve_device(device)
         self.arch = tuple(arch)
         self.image_dim, self.patch_size = image_dim, patch_size
@@ -99,6 +99,7 @@ class NOVATransformer(nn.Module):
         self.video_base_size = tuple(video_base_size)
         self.text_token_dim, self.text_token_len = text_token_dim, text_token_len
         self.quantize, self.dtype, self.attn_core = quantize, dtype, attn_core
+        self.rotary_pos_embed, self.video_mixer_rank = rotary_pos_embed, video_mixer_rank
         self.loss_repeat, self.noise_scheduler = loss_repeat, noise_scheduler
         dv, wv, hv = VIT_ARCHES[arch[0]]
         di, wi, hi = VIT_ARCHES[arch[1]]
@@ -116,8 +117,16 @@ class NOVATransformer(nn.Module):
         self.mask_tokens = MaskTokens(wi, dev)
         self.text_embed = (TextEmbed(text_token_dim, wi, text_token_len, device=dev)
                            if text_token_dim else None)
-        self.video_pos_embed = VideoPosEmbed(wv, self.video_base_size, dev)
-        self.image_pos_embed = PosEmbed(wi, self.image_base_size)
+        self.video_pos_embed = self.image_pos_embed = None
+        if not rotary_pos_embed:
+            self.video_pos_embed = VideoPosEmbed(wv, self.video_base_size, dev)
+            self.image_pos_embed = PosEmbed(wi, self.image_base_size)
+        self.motion_embed = MotionEmbed(wv, device=dev) if video_base_size[0] > 1 else None
+        self.mixer = None
+        if video_mixer_rank is not None:
+            self.mixer = AdaLayerNorm(wv, max(video_mixer_rank, 0) or None, eps=None,
+                                      device=dev)
+        self._head_dims = (wv // hv, wi // hi)
 
     # -- derived sizes ------------------------------------------------------
     @property
@@ -149,15 +158,24 @@ class NOVATransformer(nn.Module):
     def embed_dim(self) -> int:
         return VIT_ARCHES[self.arch[1]][1]
 
+    @property
+    def head_dim_v(self) -> int:
+        return self._head_dims[0]
+
+    @property
+    def head_dim_i(self) -> int:
+        return self._head_dims[1]
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "NOVATransformer":
         """Seeded random init after the flax initializers: Dense kernels
         normal with std 1/sqrt(fan_in), zero biases, unit LayerNorms, the
         null prompt and the BOS / mask tokens N(0, 0.02), and the AdaLN
-        projections zero (as ``AdaLayerNormZero``'s kernel_init). A serving
-        smoke test with zero AdaLN projections runs every diffusion block as
-        the identity: fill them (``fill_zero_init``) to exercise the blocks.
-        ``generator`` lives on the model's device."""
+        projections zero (as ``AdaLayerNormZero``'s kernel_init; the video
+        mixer's too, which makes it the identity). A serving smoke test with
+        zero AdaLN projections runs every diffusion block as the identity:
+        fill them (``fill_zero_init``) to exercise the blocks. ``generator``
+        lives on the model's device."""
         def normal(p, std):
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
                                 dtype=torch.float32) * std)
@@ -165,7 +183,8 @@ class NOVATransformer(nn.Module):
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 normal(mod.weight, mod.in_features ** -0.5)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -173,24 +192,29 @@ class NOVATransformer(nn.Module):
             normal(p, 0.02)
         if self.text_embed is not None:
             normal(self.text_embed.null_prompt, 0.02)
-        for blk in self.image_decoder.blocks():
-            blk.norm1.proj.weight.zero_()
-        self.image_decoder.norm.proj.weight.zero_()
+        for lin in self._adaln_projections():
+            lin.weight.zero_()
         return self
+
+    def _adaln_projections(self):
+        out = [blk.norm1.proj for blk in self.image_decoder.blocks()]
+        out.append(self.image_decoder.norm.proj)
+        if self.mixer is not None:
+            out.append(self.mixer.ada.proj)
+        return out
 
     @torch.no_grad()
     def fill_zero_init(self, generator: torch.Generator, std: float = 0.02
                        ) -> "NOVATransformer":
         """Seeded non-zero values for the zero-initialised AdaLN projections
-        (and every bias), so each diffusion block's gate, scale and shift
-        depend on its inputs."""
-        adaln = [blk.norm1.proj for blk in self.image_decoder.blocks()]
-        adaln.append(self.image_decoder.norm.proj)
-        for lin in adaln:
+        (the video mixer's too) and every bias, so each diffusion block's
+        gate, scale and shift, and the mixer's modulation, depend on their
+        inputs."""
+        for lin in self._adaln_projections():
             lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator,
                                          device=lin.weight.device) * std)
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, nn.Linear) and mod.bias is not None:
                 mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator,
                                            device=mod.bias.device) * std)
         return self
@@ -204,24 +228,98 @@ class NOVATransformer(nn.Module):
         """Model-dim null-prompt tokens (CFG negatives)."""
         return self.text_embed(self.text_embed.null_embeds(batch, length))
 
+    def embed_motion(self, batch: int, flow: Optional[torch.Tensor] = None,
+                     fps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, 2, D) flow / fps tokens of a video model."""
+        return self.motion_embed(batch, flow, fps)
+
+    # -- positional tables (no parameters) ----------------------------------
+    def video_rope(self, num_frames: int, pad: int = 0):
+        if not self.rotary_pos_embed:
+            return None
+        pos = rope_positions(num_frames, self.video_base_size[1:], self.device)
+        return rope_weights(pos, self.head_dim_v, pad=pad)
+
+    def image_rope(self, pad: int = 0):
+        if not self.rotary_pos_embed:
+            return None
+        pos = rope_positions(1, self.image_base_size, self.device)
+        return rope_weights(pos, self.head_dim_i, pad=pad)
+
+    # -- TAM: temporal AR over frames ----------------------------------------
     def bos_frame(self, batch: int) -> torch.Tensor:
         """(B, 1, Nv, D) raw BOS tokens, no position."""
         return self.mask_tokens.bos((batch, 1, self.num_video_tokens))
+
+    def frame_tokens(self, tokens: torch.Tensor, frame_index: int,
+                     total_frames: int) -> torch.Tensor:
+        """Add frame ``frame_index``'s time row (of a table over
+        ``total_frames``, as in training) and the space table to raw (B, Nv,
+        D) tokens; RoPE models take positions inside attention instead."""
+        if self.rotary_pos_embed:
+            return tokens
+        row = self.video_pos_embed.time_embed(total_frames)[frame_index]
+        return self.video_pos_embed(tokens + row.to(tokens.dtype), add_time=False)
+
+    def embed_video_frame(self, x_frame: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) -> raw (B, Nv, D) video patch tokens."""
+        return self.video_patch_embed(x_frame)
 
     def encode_video(self, c_vid: torch.Tensor, c_text: Optional[torch.Tensor],
                      num_frames: int, qparams: Optional[Dict] = None,
                      calibrate: bool = False):
         """c_vid (B, T, Nv, D) raw [BOS, frames..] tokens -> states (B, T*Nv, D).
-        T=1 only (no block-causal bias, no mixer)."""
+        T > 1: teacher-forced, under the block-causal bias, then the AdaLN
+        mixer re-modulates the first frame's states by each later frame's."""
         b, t, nv, d = c_vid.shape
-        if t > 1 or num_frames > 1:
-            raise NotImplementedError("encode_video with T > 1 (t2v) is not ported yet: "
-                                      "ROADMAP.md, module queue, NOVA t2v")
-        c_vid = self.video_pos_embed(c_vid)
-        states, stats = self.video_encoder(c_vid.reshape(b, t * nv, d), c=c_text,
+        if not self.rotary_pos_embed:
+            c_vid = self.video_pos_embed(c_vid)
+        c_len = 0 if c_text is None else c_text.shape[1]
+        bias = masking.block_causal_bias((nv,) * t, c_len, device=c_vid.device) if t > 1 \
+            else None
+        states, stats = self.video_encoder(c_vid.reshape(b, t * nv, d), c=c_text, bias=bias,
+                                           rope=self.video_rope(t, pad=c_len),
                                            qparams=_sub(qparams, "video_encoder"),
                                            calibrate=calibrate)
+        if self.mixer is not None and t > 1:
+            s = states.reshape(b, t, nv, d)
+            mixed = self.mixer(s[:, :1], s[:, 1:])  # x (frame 0) broadcasts over T - 1
+            dt = torch.promote_types(s.dtype, mixed.dtype)
+            states = torch.cat([s[:, :1].to(dt), mixed.to(dt)], 1).reshape(b, t * nv, d)
         return (states, {"video_encoder": stats}) if calibrate else states
+
+    def encode_frame(self, tokens: torch.Tensor, c_text: Optional[torch.Tensor],
+                     caches: Tuple[KVCache, KVCache], cache_index: int, frame_index: int,
+                     qparams: Optional[Dict] = None, calibrate: bool = False):
+        """Video-encoder pass of one frame through the KV caches: tokens (B,
+        Nv, D), the text prefix on frame 0 only; RoPE positions are the
+        frame's own. Returns (states, caches); the caches are written in
+        place."""
+        rope = None
+        if self.rotary_pos_embed:
+            pad = 0 if c_text is None else c_text.shape[1]
+            off = torch.tensor([1.0, 0.0, 0.0], device=tokens.device) * frame_index
+            pos = rope_positions(1, self.video_base_size[1:], tokens.device) + off
+            rope = rope_weights(pos, self.head_dim_v, pad=pad)
+        states, stats = self.video_encoder(tokens, c=c_text, rope=rope, caches=caches,
+                                           cache_index=cache_index,
+                                           qparams=_sub(qparams, "video_encoder"),
+                                           calibrate=calibrate)
+        if calibrate:
+            return (states, caches), {"video_encoder": stats}
+        return states, caches
+
+    def mix_states(self, first: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+        """The AdaLN state mixer at decode: frame 0's states modulated by the
+        current frame's."""
+        return self.mixer(first, cur)
+
+    def init_video_caches(self, batch: int, text_len: int, num_frames: int,
+                          dtype=torch.float32) -> Tuple[KVCache, KVCache]:
+        """Stacked (enc, dec) KV caches of the video encoder, room for the
+        prefix and ``num_frames`` frames."""
+        return self.video_encoder.init_caches(
+            batch, text_len + num_frames * self.num_video_tokens, dtype)
 
     def encode_image_step(self, tokens: torch.Tensor, mask: torch.Tensor,
                           cond: Optional[torch.Tensor], visible_bucket: Optional[int] = None,
@@ -231,9 +329,11 @@ class NOVATransformer(nn.Module):
         (B, Lc, D). ``visible_bucket``: the static bound on the visible
         count; the encoder half then gathers the visible tokens."""
         z = self.mask_tokens.apply_mask(tokens, mask)
-        z = self.image_pos_embed(z)
+        if not self.rotary_pos_embed:
+            z = self.image_pos_embed(z)
         visible = 1.0 - mask[..., 0]
-        z, stats = self.image_encoder(z, c=cond, visible=visible,
+        rope = self.image_rope(pad=0 if cond is None else cond.shape[1])
+        z, stats = self.image_encoder(z, c=cond, visible=visible, rope=rope,
                                       visible_bucket=visible_bucket,
                                       qparams=_sub(qparams, "image_encoder"),
                                       calibrate=calibrate)

@@ -27,11 +27,19 @@ A calibration forward (``calibrate=True``) records the ranges its quant sites
 see (``a_smax``, ``a_q``, ``a_k`` under ``attn``; ``a_x``, ``a_gelu``) through
 the block's plain MLP mirror and the dispatcher attention.
 
+3-axis RoPE rotates q and k when cos / sin tables are given (prefix rows at
+zero angle; the gather path takes the gathered tokens' rows). KV caches
+(``caches=(enc, dec)``, stacked per half, ``ops/attention.KVCache``) serve
+the frame-by-frame video decode: each layer writes its keys and values at
+``cache_index`` in place and attends over the cache (``cached_attention``,
+the plain core, as in the JAX model: a cached layer never takes the static
+kernel and sows no attention stats).
+
 The float path is differentiable (training). ``remat`` recomputes each block
 in the backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
 stacks' ``nn.remat``: a flash attention layer then runs its forward twice per
-step. KV caches, RoPE, MoE blocks and the pipeline-parallel runner are not
-ported yet and raise.
+step. MoE blocks and the pipeline-parallel runner are not ported yet and
+raise.
 """
 
 from typing import Dict, Optional, Tuple
@@ -40,10 +48,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from nova_pointcloud_tpu_torch.models.embeddings import TORCH_LN_EPS
+from nova_pointcloud_tpu_torch.models.embeddings import TORCH_LN_EPS, apply_rope, gather_rope
 from nova_pointcloud_tpu_torch.models.layers import dense, gelu, layer_norm
 from nova_pointcloud_tpu_torch.ops import masking
-from nova_pointcloud_tpu_torch.ops.attention import attention
+from nova_pointcloud_tpu_torch.ops.attention import KVCache, attention, cached_attention
 from nova_pointcloud_tpu_torch.ops.kernels.flash_attention import flash_attention_static
 from nova_pointcloud_tpu_torch.ops.kernels.fused_block import (fused_int8_mlp_postln,
                                                                int8_linear)
@@ -105,7 +113,8 @@ class Attention(nn.Module):
         return int8_linear(x, wq, ws, lin.bias, self.dtype or x.dtype)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                q: Optional[Dict] = None, calibrate: bool = False
+                q: Optional[Dict] = None, calibrate: bool = False, rope=None,
+                cache: Optional[KVCache] = None, cache_index: int = 0
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         b, l, _ = x.shape
         hd = self.dim // self.num_heads
@@ -113,8 +122,10 @@ class Attention(nn.Module):
                else dense(x, self.qkv, self.dtype))
         qkv = qkv.reshape(b, l, 3, self.num_heads, hd)
         qh, kh, vh = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+        if rope is not None:
+            qh, kh = apply_rope(qh, *rope), apply_rope(kh, *rope)
         stats = None
-        if self.quantize and calibrate:
+        if self.quantize and calibrate and cache is None:
             # the max attention logit (the static softmax offset) and the q/k
             # amax (the int8 score core's static scales)
             s = torch.matmul(qh.float() * hd ** -0.5, kh.float().transpose(-1, -2))
@@ -125,12 +136,14 @@ class Attention(nn.Module):
         smax = None if q is None else q.get("a_smax")
         key_bias = bias is None or (bias.ndim == 4 and bias.shape[1] == 1
                                     and bias.shape[2] == 1)
-        if (self.quantize and smax is not None and key_bias
+        if (self.quantize and smax is not None and cache is None and key_bias
                 and self.attn_impl in ("auto", "pallas")):
             aq = ak = None
             if self.attn_core == "int8":
                 aq, ak = q.get("a_q"), q.get("a_k")
             o = flash_attention_static(qh, kh, vh, smax, bias, a_q=aq, a_k=ak)
+        elif cache is not None:
+            o, _ = cached_attention(qh, kh, vh, cache, cache_index, bias)
         else:
             o = attention(qh, kh, vh, bias, impl=self.attn_impl)
         o = o.transpose(1, 2).reshape(b, l, self.dim)
@@ -154,17 +167,21 @@ class Block(nn.Module):
         self.mlp = MLP(dim, mlp_ratio, dtype, device)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                q: Optional[Dict] = None, calibrate: bool = False
+                q: Optional[Dict] = None, calibrate: bool = False, rope=None,
+                cache: Optional[KVCache] = None, cache_index: int = 0
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """``q``: this block's qparams (int8 path). With ``calibrate`` (and
-        ``quantize``) returns the block's stats as the second value."""
+        ``quantize``) returns the block's stats as the second value (a cached
+        layer's hold the MLP's sites only, as the JAX sow)."""
         if self.quantize and q is None and not calibrate:
             q = quantize_serving_params(self)
-        h, attn_stats = self.attn(x, bias, None if q is None else q.get("attn"), calibrate)
+        h, attn_stats = self.attn(x, bias, None if q is None else q.get("attn"), calibrate,
+                                  rope, cache, cache_index)
         x = x + layer_norm(h, self.norm1, TORCH_LN_EPS)
         if self.quantize and calibrate:
             x, stats = self._calibration_mlp(x)
-            stats["attn"] = attn_stats
+            if attn_stats is not None:
+                stats["attn"] = attn_stats
             return x, stats
         if self.quantize:
             mlp = self.mlp
@@ -219,16 +236,20 @@ class VisionTransformer(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=TORCH_LN_EPS, device=device)
 
     def _stack(self, name: str, h: torch.Tensor, bias, qparams: Optional[Dict],
-               calibrate: bool, stats: Dict) -> torch.Tensor:
+               calibrate: bool, stats: Dict, rope=None, cache: Optional[KVCache] = None,
+               cache_index: int = 0) -> torch.Tensor:
         layers = getattr(self, name)
         stacked = None if qparams is None else qparams[name]["block"]
         per = []
-        remat = self.remat and torch.is_grad_enabled() and stacked is None and not calibrate
+        remat = (self.remat and torch.is_grad_enabled() and stacked is None and not calibrate
+                 and cache is None)
         for i, blk in enumerate(layers):
             if remat:
-                h = checkpoint(lambda x, b, blk=blk: blk(x, b)[0], h, bias, use_reentrant=False)
+                h = checkpoint(lambda x, b, blk=blk: blk(x, b, rope=rope)[0], h, bias,
+                               use_reentrant=False)
                 continue
-            h, s = blk(h, bias, None if stacked is None else layer_slice(stacked, i), calibrate)
+            h, s = blk(h, bias, None if stacked is None else layer_slice(stacked, i), calibrate,
+                       rope, None if cache is None else cache.layer(i), cache_index)
             per.append(s)
         if calibrate and per and per[0] is not None:
             stats[name] = {"block": stack_layers(per)}
@@ -237,21 +258,22 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
                 visible: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                 visible_bucket: Optional[int] = None, qparams: Optional[Dict] = None,
-                calibrate: bool = False, rope=None, caches=None):
+                calibrate: bool = False, rope=None,
+                caches: Optional[Tuple[KVCache, KVCache]] = None, cache_index: int = 0):
         """x (B, N, D) tokens; c (B, Lc, D) prefix; visible (B, N), 1 =
         visible (None = all); ``visible_bucket``: the static gather size (the
-        per-sample visible count never exceeds it). Returns ``(out, stats)``:
-        stats is the calibration tree when ``calibrate``, else None."""
-        if rope is not None or caches is not None:
-            raise NotImplementedError(
-                "RoPE and KV caches in the ViT are not ported yet: ROADMAP.md, module "
-                "queue, NOVA t2v")
+        per-sample visible count never exceeds it); ``rope``: (cos, sin)
+        tables over prefix + tokens; ``caches``: the (enc, dec) stacked KV
+        caches, written in place at ``cache_index``. Returns ``(out,
+        stats)``: stats is the calibration tree when ``calibrate``, else
+        None."""
         stats: Dict = {}
         c_len = 0 if c is None else c.shape[1]
         x_tokens = x
         use_split = visible is not None and self.enc_depth > 0
         use_gather = (use_split and visible_bucket is not None
-                      and visible_bucket < x.shape[1] and bias is None)
+                      and visible_bucket < x.shape[1] and bias is None and caches is None)
+        enc_cache, dec_cache = caches if caches is not None else (None, None)
         if use_gather:
             k = visible_bucket
             b, n = visible.shape
@@ -262,7 +284,14 @@ class VisionTransformer(nn.Module):
             xg = torch.gather(x_tokens, 1, ids[..., None].expand(-1, -1, x.shape[-1]))
             hg = xg if c is None else _cat(c, xg)
             g_bias = masking.visibility_bias(valid, prefix_len=c_len)
-            h_enc = self._stack("enc_layers", hg, g_bias, qparams, calibrate, stats)
+            rope_g = None
+            if rope is not None:
+                cos, sin = rope
+                if cos.shape[0] == 1 and b > 1:
+                    cos = cos.expand((b,) + tuple(cos.shape[1:]))
+                    sin = sin.expand((b,) + tuple(sin.shape[1:]))
+                rope_g = gather_rope(cos[:, :, c_len:], sin[:, :, c_len:], ids, pad=c_len)
+            h_enc = self._stack("enc_layers", hg, g_bias, qparams, calibrate, stats, rope_g)
             upd = h_enc[:, c_len:] * valid[..., None].to(h_enc.dtype)
             # scatter back: each visible token's row once (ids are distinct), an
             # index scatter equal to the JAX one-hot product
@@ -278,11 +307,22 @@ class VisionTransformer(nn.Module):
             if use_split:
                 vis_bias = masking.visibility_bias(visible, prefix_len=c_len)
                 enc_bias = vis_bias if bias is None else bias + vis_bias
-            h = self._stack("enc_layers", h, enc_bias, qparams, calibrate, stats)
+            h = self._stack("enc_layers", h, enc_bias, qparams, calibrate, stats, rope,
+                            enc_cache, cache_index)
             if use_split:
                 vis = visible[..., None].to(h.dtype)
                 tail = h[:, c_len:] * vis + x_tokens.to(h.dtype) * (1.0 - vis)
                 h = tail if c is None else torch.cat([h[:, :c_len], tail], dim=1)
-        h = self._stack("dec_layers", h, bias, qparams, calibrate, stats)
+        h = self._stack("dec_layers", h, bias, qparams, calibrate, stats, rope, dec_cache,
+                        cache_index)
         out = h if c is None else h[:, c_len:]
         return layer_norm(out, self.norm, TORCH_LN_EPS), (stats if calibrate else None)
+
+    def init_caches(self, batch: int, max_len: int, dtype=torch.float32
+                    ) -> Tuple[KVCache, KVCache]:
+        """Stacked (layers, B, H, S, D) caches of the (encoder, decoder)
+        halves, zero, on the model's device."""
+        dev = self.norm.weight.device
+        hd = self.embed_dim // self.num_heads
+        return tuple(KVCache.create(batch, self.num_heads, max_len, hd, dtype, n, dev)
+                     for n in (self.enc_depth, self.depth - self.enc_depth))

@@ -17,11 +17,14 @@ predicate, and the attention function of the models' multi-head attention).
   routes). Off the card ``"auto"`` runs the plain core, as the JAX package
   does off its accelerator.
 
-``impl="ring"`` (sequence-parallel attention) and the KV cache are not ported
-yet (ROADMAP.md).
+- :class:`KVCache` / :func:`cached_attention`: frame-by-frame decode over a
+  preallocated cache with a validity length mask, plain attention as in the
+  JAX package (its cached core is plain XLA, no kernel).
+
+``impl="ring"`` (sequence-parallel attention) is not ported yet (ROADMAP.md).
 """
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -142,3 +145,53 @@ def make_attention_fn(impl: str = "auto"):
         return out.transpose(-2, -3)
 
     return attention_fn
+
+
+class KVCache(NamedTuple):
+    """Preallocated KV cache: k / v (B, H, S_max, D), or with a leading layer
+    axis for a stack of layers (``cache.layer(i)`` is layer i's)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def create(cls, batch: int, num_heads: int, max_len: int, head_dim: int,
+               dtype=torch.float32, layers: Optional[int] = None, device=None) -> "KVCache":
+        shape = (batch, num_heads, max_len, head_dim)
+        if layers is not None:
+            shape = (layers,) + shape
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i`` of a stacked cache: views, so an update writes the stack."""
+        return KVCache(self.k[i], self.v[i])
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor, index: int) -> "KVCache":
+        """Write new keys / values at [index : index + L), in place (the JAX
+        cache's ``dynamic_update_slice``, without the copy)."""
+        end = index + k_new.shape[2]
+        self.k[:, :, index:end] = k_new.to(self.k.dtype)
+        self.v[:, :, index:end] = v_new.to(self.v.dtype)
+        return self
+
+
+def cached_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                     cache: KVCache, index: int, bias: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, KVCache]:
+    """Decode attention over a static cache: the new keys / values written at
+    ``index``, then queries attend to every cached position < index + Lq
+    (``bias``, if given, padded with zeros to the cache length). The core is
+    :func:`sdpa` on the cache cast to q's dtype. Returns (output, cache)."""
+    lq = q.shape[2]
+    cache = cache.update(k_new, v_new, index)
+    max_len = cache.k.shape[2]
+    pos = torch.arange(max_len, device=q.device)
+    length_bias = torch.where(pos < index + lq, 0.0, float("-inf"))[None, None, None, :]
+    if bias is not None:
+        pad = max_len - bias.shape[-1]
+        if pad:
+            bias = torch.nn.functional.pad(bias, (0, pad))
+        length_bias = length_bias + bias
+    out = sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), length_bias)
+    return out, cache

@@ -9,8 +9,7 @@
 - the training mask: one truncated-normal mask ratio per call in [0.7, 1],
   the visible set the first ``round((1 - ratio) N)`` of a per-sample random
   permutation
-
-``block_causal_bias`` waits for t2v (ROADMAP.md).
+- the block-causal bias of teacher-forced video encoding
 """
 
 import math
@@ -93,6 +92,18 @@ def scatter_mask(ids: torch.Tensor, valid: torch.Tensor, num_tokens: int) -> tor
     """One-hot union of ids -> (B, N, 1) mask (duplicates are harmless)."""
     onehot = torch.nn.functional.one_hot(ids, num_tokens).to(valid.dtype)  # (B, P, N)
     return torch.amax(onehot * valid[..., None], dim=1)[..., None]
+
+
+def block_causal_bias(frame_lens: Tuple[int, ...], text_len: int = 0,
+                      dtype=torch.float32, device=None) -> torch.Tensor:
+    """Additive (L, L) bias for block-causal temporal AR: token i may attend
+    to token j iff block(i) >= block(j); the text prefix lives in block 0.
+    0 allowed, -inf not; L = text_len + sum(frame_lens)."""
+    blocks = [np.zeros(text_len, np.int32)] if text_len else []
+    blocks += [np.full(n, i, np.int32) for i, n in enumerate(frame_lens)]
+    d = np.concatenate(blocks)
+    allowed = torch.from_numpy(d[:, None] >= d[None, :]).to(device)
+    return torch.where(allowed, 0.0, float("-inf")).to(dtype)
 
 
 def visibility_bias(visible: torch.Tensor, prefix_len: int = 0,

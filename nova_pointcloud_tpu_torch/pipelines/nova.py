@@ -1,5 +1,5 @@
-"""NOVA text-to-image inference pipeline (port of
-``nova_pointcloud_tpu/pipelines/nova.py``: ``encode_prompt``, the T=1 sampler,
+"""NOVA text-to-image / text-to-video inference pipeline (port of
+``nova_pointcloud_tpu/pipelines/nova.py``: ``encode_prompt``, the sampler,
 ``calibrate`` and ``__call__`` with latent output).
 
 The sampler is the JAX package's masked-AR algorithm, run as Python loops:
@@ -11,19 +11,28 @@ The sampler is the JAX package's masked-AR algorithm, run as Python loops:
   (``BUCKET_FRACS``: 1/8, 1/4, 1/2 of the tokens), then the full masking path;
 - per AR step ``num_diffusion_steps`` evals of the diffusion head on the
   predicted slice, CFG as a batch expansion ``[cond | uncond]``, the
-  flow-matching Euler step; below ``guidance_trunc`` the tail runs cond-only
-  at 1x batch (a static split);
+  flow-matching Euler step or the DDPM step; below ``guidance_trunc`` the
+  tail runs cond-only at 1x batch (a static split);
 - the slice scatters into the canvas, which stays in patch space.
+
+Video (``max_latent_length`` T > 1) runs the frame loop of the JAX sampler:
+frame 0 is the BOS frame with the text prefix (and a video model's motion
+tokens) through the video encoder's KV caches (``encode_frame``), and each
+later frame is the previous one's latents, patch-embedded, through the same
+caches; each frame's image sampler is conditioned on its states (after the
+AdaLN mixer with frame 0's states, where the model has one). ``latents=``
+(i2v without the VAE) gives frame 0 instead of sampling it.
 
 int8 serving (``model.quantize``): weights are quantized once per call,
 outside the loops, with the calibrated static scales and softmax offsets
-merged in when ``calibrate()`` has run. Randomness (the prediction order and
-each AR step's noise) comes from a ``torch.Generator``; ``order`` / ``noise``
-may be given instead, which the tests use to replay the JAX algorithm.
+merged in when ``calibrate()`` has run. Randomness (each frame's prediction
+order, each AR step's noise and, with DDPM, each step's noise) comes from a
+``torch.Generator``; ``order`` / ``noise`` / ``step_noise`` may be given
+instead, which the tests use to replay the JAX algorithm.
 
 Not ported yet, and raising: the VAE decode (``output_type`` other than
-"latent"), video (``max_latent_length`` > 1), image prefill (``latents``),
-mesh serving, host offload, and schedulers other than flow matching.
+"latent") and the image encode of an i2v prompt image, mesh serving and host
+offload.
 """
 
 import dataclasses
@@ -32,7 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from nova_pointcloud_tpu_torch.models.embeddings import unpatchify
+from nova_pointcloud_tpu_torch.models.embeddings import patchify, unpatchify
 from nova_pointcloud_tpu_torch.models.guidance import GuidanceConfig
 from nova_pointcloud_tpu_torch.models.nova import NOVATransformer
 from nova_pointcloud_tpu_torch.ops import masking
@@ -77,20 +86,19 @@ def bucket_plan(starts: np.ndarray, ni: int) -> Optional[List[Tuple[int, int, Op
 
 
 class NOVAPipeline:
-    """Orchestrates a NOVATransformer + flow-matching scheduler + text encoder.
-    Runs where the model's parameters live (``cuda`` unless the model was
-    built with ``device="cpu"``)."""
+    """Orchestrates a NOVATransformer + scheduler (flow matching, or DDPM) +
+    text encoder. Runs where the model's parameters live (``cuda`` unless the
+    model was built with ``device="cpu"``)."""
 
     def __init__(self, model: NOVATransformer, scheduler=None, vae=None,
                  text_encoder=None, mesh=None):
         if vae is not None:
-            raise _unported("the VAE decode (t2i e2e)")
+            raise _unported("the VAE decode (t2i / t2v e2e)")
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device) serving is not ported yet: "
                                       "ROADMAP.md, module queue, parallelism")
         scheduler = scheduler or FlowMatchEulerScheduler()
-        if not isinstance(scheduler, FlowMatchEulerScheduler):
-            raise _unported(f"NOVAPipeline with {type(scheduler).__name__}")
+        self.is_flow = isinstance(scheduler, FlowMatchEulerScheduler)
         self.model, self.scheduler, self.text_encoder = model, scheduler, text_encoder
         # calibrated static activation scales and softmax offsets (calibrate())
         self.act_scales: Optional[Dict] = None
@@ -139,7 +147,8 @@ class NOVAPipeline:
                   flow_shift: Optional[float] = None):
         ni = self.model.num_image_tokens
         sched = self.scheduler.set_timesteps(
-            num_diffusion_steps, **({"shift": flow_shift} if flow_shift else {}))
+            num_diffusion_steps, **({"shift": flow_shift} if self.is_flow and flow_shift
+                                    else {}))
         counts = masking.cosine_pred_counts(num_inference_steps, ni)
         # the reference drops zero-prediction steps and decays guidance over
         # the surviving count
@@ -147,19 +156,30 @@ class NOVAPipeline:
         starts, pad_p = masking.pred_boundaries(counts)
         return sched, counts, starts, pad_p
 
-    # -- the T=1 sampler ----------------------------------------------------------
+    def _step(self, pred, j: int, t: float, x_t, sched, generator, step_noise=None):
+        """The scheduler's step: flow matching by index, DDPM by timestep with
+        its noise (``step_noise`` if given, else drawn from ``generator``)."""
+        if self.is_flow:
+            return self.scheduler.step(pred, j, x_t, sched)
+        noise = None if step_noise is None else torch.as_tensor(
+            step_noise, dtype=torch.float32, device=x_t.device)
+        return self.scheduler.step(pred, int(t), x_t, generator=generator, schedule=sched,
+                                   noise=noise)
+
+    # -- the sampler of one frame -------------------------------------------------
     def _generate_frame(self, cond: torch.Tensor, batch: int, num_inference_steps: int,
                         num_diffusion_steps: int, guidance: GuidanceConfig,
                         flow_shift: Optional[float], qparams: Optional[Dict],
-                        generator: torch.Generator, order=None, noise=None) -> torch.Tensor:
+                        generator: torch.Generator, order=None, noise=None,
+                        step_noise=None) -> torch.Tensor:
         """One frame: the AR loop over steps, each with its diffusion loop.
         Returns the canvas (B, Ni, patch_dim) float32."""
-        model, scheduler, dev = self.model, self.scheduler, self.device
+        model, dev = self.model, self.device
         ni, pd = model.num_image_tokens, model.patch_dim
         sched, counts, starts, pad_p = self._schedule(num_inference_steps,
                                                       num_diffusion_steps, flow_shift)
         S, D = len(counts), num_diffusion_steps
-        ts = sched.timesteps.tolist()
+        ts = [float(t) for t in sched.timesteps]
         n_passes = guidance.num_passes
         n_cfg_d = D
         if guidance.enabled and guidance.guidance_trunc > 0:
@@ -197,9 +217,53 @@ class NOVAPipeline:
                     else:  # truncated tail: cond-only at 1x batch
                         pred = model.denoise_step(x_t, torch.full((batch,), t, device=dev),
                                                   z_sel[:batch], qparams=qparams).float()
-                    x_t = scheduler.step(pred, j, x_t, sched)
+                    x_t = self._step(pred, j, t, x_t, sched, generator,
+                                     None if step_noise is None else step_noise[i][j])
                 canvas, mask = self._scatter(canvas, mask, ids, valid, x_t)
         return canvas
+
+    # -- the frame loop (T > 1) ------------------------------------------------------
+    def _generate_video(self, c: torch.Tensor, batch: int, num_frames: int,
+                        guidance: GuidanceConfig, qparams: Optional[Dict],
+                        generator: torch.Generator, frame_kw: Dict, latents0=None,
+                        order=None, noise=None, step_noise=None) -> torch.Tensor:
+        """Temporal AR through the video encoder's KV caches. Frame 0: the BOS
+        frame (the image-guidance pass the raw BOS token) with the prefix
+        ``c``, its states the condition of its sampler (or ``latents0`` in
+        its place); frame t: frame t-1's latents, patch-embedded, at cache
+        index ``len(prefix) + t * Nv``. Returns (B, T, Ni, patch_dim)."""
+        model = self.model
+        nb, text_len, nv = c.shape[0], c.shape[1], model.num_video_tokens
+
+        def frame(cond, f):
+            return self._generate_frame(
+                cond, batch, generator=generator, qparams=qparams, guidance=guidance,
+                order=None if order is None else order[f],
+                noise=None if noise is None else noise[f],
+                step_noise=None if step_noise is None else step_noise[f], **frame_kw)
+
+        caches = model.init_video_caches(nb, text_len, num_frames)
+        tokens = model.bos_frame(nb)[:, 0]
+        bos_value = tokens[:1, :1]
+        tokens = model.frame_tokens(tokens, 0, num_frames)
+        if guidance.image_guidance_scale and guidance.enabled:
+            # the image-free pass is the raw BOS token, without positions
+            raw = bos_value.expand((batch,) + tuple(tokens.shape[1:])).to(tokens.dtype)
+            tokens = torch.cat([tokens[:batch], raw, tokens[2 * batch:]], dim=0)
+        states0, caches = model.encode_frame(tokens, c, caches, 0, 0, qparams=qparams)
+        latents = [latents0 if latents0 is not None else frame(states0, 0)]
+        cache_index = text_len + nv
+        for t_idx in range(1, num_frames):
+            prev = unpatchify(latents[-1], model.patch_size, model.image_base_size)
+            tokens = model.frame_tokens(model.embed_video_frame(prev), t_idx, num_frames)
+            tokens = guidance.expand(tokens, padding=bos_value)
+            states, caches = model.encode_frame(tokens, None, caches, cache_index, t_idx,
+                                                qparams=qparams)
+            cond = states if model.mixer is None else model.mix_states(states0, states)
+            latents.append(frame(cond, t_idx))
+            cache_index += nv
+        dt = torch.promote_types(latents[0].dtype, latents[-1].dtype)
+        return torch.stack([lat.to(dt) for lat in latents], dim=1)
 
     @staticmethod
     def _scatter(canvas, mask, ids, valid, x_t):
@@ -219,17 +283,18 @@ class NOVAPipeline:
                   num_inference_steps: int = 16, num_diffusion_steps: int = 25,
                   guidance_scale: float = 5.0, generator: Optional[torch.Generator] = None,
                   margin: float = 1.05, max_latent_length: int = 1,
-                  order=None, noise=None) -> Dict:
+                  order=None, noise=None, step_noise=None) -> Dict:
         """Record activation ranges and max attention logits over one real
         (shortened) AR trajectory, through the blocks' calibration mirrors and
         the dispatcher attention (the masking path, no buckets), and fold
         them into every later call as static int8 scales (times ``margin``;
         q/k amax times ``margin`` and the extra q/k margin) and static
-        softmax offsets. Returns the raw stats tree (the JAX collection's
-        layout)."""
-        if max_latent_length > 1:
-            raise _unported("calibrate with max_latent_length > 1 (t2v)")
-        model, scheduler, dev = self.model, self.scheduler, self.device
+        softmax offsets. ``max_latent_length`` > 1 also runs frame 0 and then
+        the trajectory's frame as frame 1 through the video encoder's KV
+        caches (their layers sow the MLP's sites only: the cached attention
+        keeps its plain core). Returns the raw stats tree (the JAX
+        collection's layout)."""
+        model, dev = self.model, self.device
         if isinstance(prompt, str):
             prompt = [prompt]
         g = generator if generator is not None else \
@@ -242,7 +307,7 @@ class NOVAPipeline:
         ni, pd = model.num_image_tokens, model.patch_dim
         D = num_diffusion_steps
         sched, counts, starts, pad_p = self._schedule(num_inference_steps, D)
-        S, ts = len(counts), sched.timesteps.tolist()
+        S, ts = len(counts), [float(t) for t in sched.timesteps]
         cond, stats = model.encode_video(model.bos_frame(nb), c, 1, calibrate=True)
         if order is None:
             order = masking.random_pred_order(g, batch, ni, dev)
@@ -268,8 +333,18 @@ class NOVAPipeline:
                                                calibrate=True)
                 stats = max_merge_stats(stats, s_d)
                 pred = guidance.combine(pred.float(), scale, t)
-                x_t = scheduler.step(pred, j, x_t, sched)
+                x_t = self._step(pred, j, t, x_t, sched, g,
+                                 None if step_noise is None else step_noise[i][j])
             canvas, mask = self._scatter(canvas, mask, ids, valid, x_t)
+        if max_latent_length > 1:
+            nv, text_len = model.num_video_tokens, c.shape[1]
+            caches = model.init_video_caches(nb, text_len, 2)
+            tok0 = model.frame_tokens(model.bos_frame(nb)[:, 0], 0, 2)
+            (_, caches), s0 = model.encode_frame(tok0, c, caches, 0, 0, calibrate=True)
+            frame = unpatchify(canvas, model.patch_size, model.image_base_size)
+            tok1 = model.frame_tokens(model.embed_video_frame(frame), 1, 2).repeat(n_passes, 1, 1)
+            _, s1 = model.encode_frame(tok1, None, caches, text_len + nv, 1, calibrate=True)
+            stats = max_merge_stats(stats, max_merge_stats(s0, s1))
         self.act_scales = stats
         # amax sites get clipping headroom; merge_act_scales exempts the
         # a_smax logit offsets from the multiplicative margin
@@ -297,16 +372,20 @@ class NOVAPipeline:
         latents=None,
         prompt_embeds: Optional[np.ndarray] = None,
         output_type: str = "latent",
+        motion_flow: Optional[float] = 5.0,
+        fps: Optional[float] = None,
         order=None,
         noise=None,
+        step_noise=None,
     ) -> NOVAPipelineOutput:
-        """Text to (B, H, W, C) latents. ``order`` (B, Ni) and ``noise``
-        (S, B, P, patch_dim): the prediction order and the AR steps' initial
-        noise, drawn from ``generator`` when not given."""
-        if max_latent_length > 1:
-            raise _unported("NOVAPipeline with max_latent_length > 1 (t2v)")
-        if latents is not None:
-            raise _unported("image prefill (latents=, i2v)")
+        """Text to (B, H, W, C) latents, or (B, T, H, W, C) latent frames for
+        ``max_latent_length`` T > 1. ``latents`` (B, H, W, C): frame 0 given
+        (i2v), not sampled. A video model's flow / fps tokens follow the
+        prompt (``motion_flow=None``: none). ``order`` (B, Ni), ``noise`` (S,
+        B, P, patch_dim) and, with DDPM, ``step_noise`` (S, D, B, P,
+        patch_dim): the prediction order, the AR steps' initial noise and the
+        diffusion steps' noise, with a leading frame axis when T > 1; drawn
+        from ``generator`` when not given."""
         if output_type != "latent":
             raise _unported(f"output_type={output_type!r} (the VAE decode)")
         if isinstance(prompt, str):
@@ -319,12 +398,34 @@ class NOVAPipeline:
         model, dev = self.model, self.device
         c = self.encode_prompt(prompt, negative_prompt, guidance, num_images_per_prompt,
                                prompt_embeds)
+        if motion_flow is not None and model.motion_embed is not None:
+            nb = c.shape[0]
+            m = model.embed_motion(
+                nb, torch.full((nb,), float(motion_flow), device=dev),
+                None if fps is None else torch.full((nb,), float(fps), device=dev))
+            c = torch.cat([c, m.to(c.dtype)], dim=1)
         batch = c.shape[0] // guidance.num_passes
         g = generator if generator is not None else \
             torch.Generator(device=dev).manual_seed(0)
+        latents0 = None
+        if latents is not None:
+            latents0 = patchify(torch.as_tensor(latents, device=dev), model.patch_size)
         qparams = self.serving_qparams()  # once per call, outside the loops
-        cond = model.encode_video(model.bos_frame(c.shape[0]), c, 1, qparams=qparams)
-        canvas = self._generate_frame(cond, batch, num_inference_steps, num_diffusion_steps,
-                                      guidance, flow_shift, qparams, g, order, noise)
-        return NOVAPipelineOutput(
-            latents=unpatchify(canvas, model.patch_size, model.image_base_size))
+        frame_kw = dict(num_inference_steps=num_inference_steps,
+                        num_diffusion_steps=num_diffusion_steps, flow_shift=flow_shift)
+        T = max_latent_length
+        if T == 1 and latents0 is not None:  # frame 0 given: nothing to generate
+            out = latents0[:, None]
+        elif T == 1:
+            cond = model.encode_video(model.bos_frame(c.shape[0]), c, 1, qparams=qparams)
+            out = self._generate_frame(cond, batch, guidance=guidance, qparams=qparams,
+                                       generator=g, order=order, noise=noise,
+                                       step_noise=step_noise, **frame_kw)[:, None]
+        else:
+            out = self._generate_video(c, batch, T, guidance, qparams, g, frame_kw, latents0,
+                                       order, noise, step_noise)
+        b, t = out.shape[:2]
+        frames = unpatchify(out.reshape((b * t,) + tuple(out.shape[2:])), model.patch_size,
+                            model.image_base_size)
+        frames = frames.reshape((b, t) + tuple(frames.shape[1:]))
+        return NOVAPipelineOutput(latents=frames[:, 0] if T == 1 else frames)

@@ -3,17 +3,20 @@
 
 A scheduler config may carry ``_noise_class_name`` / ``_sample_class_name``
 selecting different scheduler classes for training noise and inference
-sampling. Only ``DDPMScheduler`` is ported; the flow-matching scheduler (the
-default when a config names none) raises until its slice (ROADMAP.md).
+sampling; a config that names none gets the flow-matching scheduler.
 """
 
 import inspect
 from typing import Dict
 
 from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
+from nova_pointcloud_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
 
-_CLASSES = {"DDPMScheduler": DDPMScheduler}
-_UNPORTED = ("FlowMatchEulerScheduler", "FlowMatchEulerDiscreteScheduler")
+_CLASSES = {
+    "DDPMScheduler": DDPMScheduler,
+    "FlowMatchEulerScheduler": FlowMatchEulerScheduler,
+    "FlowMatchEulerDiscreteScheduler": FlowMatchEulerScheduler,  # the reference's alias
+}
 
 
 def build_scheduler(config: Dict, phase: str = "sample"):
@@ -22,13 +25,8 @@ def build_scheduler(config: Dict, phase: str = "sample"):
     name = config.pop(f"_{phase}_class_name", None) or config.pop("class_name", None) \
         or config.pop("_class_name", "FlowMatchEulerScheduler")
     config = {k: v for k, v in config.items() if not k.startswith("_")}
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"scheduler {name!r} is not ported yet: ROADMAP.md, module queue, "
-            f"NOVA t2i serving (schedulers/flow_match.py)")
     cls = _CLASSES.get(name)
     if cls is None:
-        raise KeyError(f"Unknown scheduler class {name!r}. Known: "
-                       f"{sorted(_CLASSES) + sorted(_UNPORTED)}")
+        raise KeyError(f"Unknown scheduler class {name!r}. Known: {sorted(_CLASSES)}")
     accepted = set(inspect.signature(cls).parameters)
     return cls(**{k: v for k, v in config.items() if k in accepted})

@@ -175,21 +175,23 @@ def test_unported_paths_raise():
     pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4))
     with pytest.raises(ValueError, match="ar_refiner"):  # as the JAX pipeline without one
         pipe(["a chair"], num_points=32, use_autoregressive=True)
-    # sequence-parallel attention, the NOVA pipelines, the flow-matching
-    # scheduler and mesh construction wait for their slices
+    # sequence-parallel attention, the c2i pipeline and mesh construction wait
+    # for their slices
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PreLNBlock(64, 2, device="cpu", attn_impl="ring")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention(*(torch.zeros((1, 2, 8, 32)),) * 3, impl="ring:sequence")
-    cfg = {"pipeline": {"name": "NOVAPipeline"}, "model": {},
+    cfg = {"pipeline": {"name": "NOVAC2IPipeline"}, "model": {},
            "scheduler": {"class_name": "DDPMScheduler"}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_pipeline(cfg, device="cpu")
     cfg["pipeline"]["name"] = "NOVAPointCloudGenerationPipeline"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_pipeline(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_scheduler({})  # the default class is the flow-matching scheduler
+    # the default class is the flow-matching scheduler, as in the JAX builder
+    assert isinstance(build_scheduler({}), FlowMatchEulerScheduler)
+    assert isinstance(build_scheduler({"class_name": "FlowMatchEulerDiscreteScheduler"}),
+                      FlowMatchEulerScheduler)
     with pytest.raises(KeyError, match="Unknown scheduler"):
         build_scheduler({"class_name": "NoSuchScheduler"})
 
@@ -243,21 +245,48 @@ def test_cpu_nova_serving_runs_no_kernel(quantize):
 def test_nova_unported_paths_raise():
     model = NOVATransformer(**NOVA_TINY, device="cpu")
     pipe = NOVAPipeline(model, text_encoder=DummyTextEncoder(16, 4))
-    for kw in (dict(output_type="pil"), dict(max_latent_length=3),
-               dict(latents=torch.zeros(1, 16, 16, 4))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipe(["a scene"], num_inference_steps=2, num_diffusion_steps=1, **kw)
-    for kw in (dict(vae=object()), dict(mesh=object()),
-               dict(scheduler=build_scheduler({"class_name": "DDPMScheduler"}))):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipe(["a scene"], num_inference_steps=2, num_diffusion_steps=1, output_type="pil")
+    for kw in (dict(vae=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NOVAPipeline(model, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe.enable_host_offload()
-    for kw in (dict(rotary_pos_embed=True), dict(video_base_size=(3, 2, 2)),
-               dict(video_mixer_rank=4), dict(text_token_dim=None, num_classes=10),
-               dict(num_experts=4), dict(attn_impl="ring")):
+    for kw in (dict(text_token_dim=None, num_classes=10), dict(num_experts=4),
+               dict(attn_impl="ring")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NOVATransformer(**{**NOVA_TINY, **kw}, device="cpu")
+    cfg = {"model": {**NOVA_TINY, "image_stride": 8}}
+    for name in ("NOVAC2IPipeline", "NOVATrainT2VPipeline"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_pipeline({**cfg, "pipeline": {"name": name}}, device="cpu")
+    assert isinstance(build_scheduler({}), FlowMatchEulerScheduler)  # as the JAX builder
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_cpu_nova_video_serving_runs_no_kernel(quantize):
+    """NOVA t2v on CPU tensors (a RoPE model with the mixer, 3 frames
+    through the KV caches, int8 calibrated over 2 frames, and float; an
+    i2v call with latents=): the wrappers run their plain versions and count
+    nothing; the prefilled frame 0 is the given latents."""
+    fused_block.reset_launch_counts()
+    model = NOVATransformer(**{**NOVA_TINY, "video_base_size": (3, 4, 4),
+                               "rotary_pos_embed": True, "video_mixer_rank": 4},
+                            quantize=quantize, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    model.init_weights(g).fill_zero_init(g)
+    pipe = NOVAPipeline(model, text_encoder=DummyTextEncoder(16, 4))
+    if quantize:
+        pipe.calibrate(["a scene"], num_inference_steps=3, num_diffusion_steps=2,
+                       max_latent_length=2)
+    out = pipe(["a scene"], num_inference_steps=4, num_diffusion_steps=2, max_latent_length=3,
+               generator=torch.Generator().manual_seed(1))
+    assert out.latents.shape == (1, 3, 16, 16, 4) and torch.isfinite(out.latents).all()
+    lat = torch.randn((1, 16, 16, 4), generator=g)
+    out = pipe(["a scene"], num_inference_steps=4, num_diffusion_steps=2, max_latent_length=2,
+               latents=lat)
+    assert torch.equal(out.latents[:, 0], lat)
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
 
 
 def test_nova_kernel_wrappers_refuse_shapes_on_the_card(monkeypatch):
