@@ -330,6 +330,35 @@ and, after phase 5f:
 6.  (in the profiles phase) one profiled int8 call of 2 frames x 16 AR
     steps.
 
+The VAEs and the decode (AutoencoderKL, AutoencoderKLOpenSora,
+AutoencoderKLCogVideoX, AutoencoderKLLTXVideo, the image processor, the i2v
+image encode) write no kernel and launch none: convolutions, GroupNorm and
+resizes are PyTorch's, the attention plain. They add, after phase 4l:
+
+4m. each VAE class at a small size in f32 (VAE_SMALL: the 3D VAEs' widths
+    cut, inputs cropped, each tiling two windows each way): encode and
+    decode on the card against the CPU with the same seeded weights, max
+    |diff| <= 1e-3 x max |CPU|; AutoencoderKL's and OpenSora's decode at
+    their default widths in bf16 against their own f32 decode on the card
+    (mean / max relative 3e-2 / 6e-2); 0 launches of the repo's kernels;
+4n. bench.py --e2e's calls: the calibrated int8 t2i pipeline of 4d with
+    AutoencoderKL(latent_channels=4) (default widths, bf16), one call of
+    64 AR x 25 steps at batch 4 with output_type="np" -> (4, 512, 512, 3)
+    uint8; the int8 t2v pipeline of 4k with AutoencoderKLOpenSora, one
+    9-frame call -> (1, 33, 480, 768, 3) uint8 from exactly 2 decode
+    windows; each call's launches equal its latent call's, the pixels are
+    not constant; encode_image of a seeded 480 x 768 uint8 image -> (1,
+    60, 96, 4) latents, returned bitwise as frame 0 by a prefilled call;
+5g. (changed) no extra full int8 call: the latent call's time is 4k's,
+    the e2e call's (and its peak memory) 4n's;
+5h. the decodes by CUDA events (p50 of 3): t2i a batch of 4, t2v a video
+    and one window; each one's peak memory above what is held, FLOPs
+    (FlopCounterMode) and TFLOP/s against 989 bf16 dense, its share of the
+    e2e call; encode_image's ms;
+6.  (last in the profiles phase) one profiled t2v decode, with the share
+    of its device time in channels-last convolution kernels and in layout
+    conversions.
+
 The script prints its total time before the result lines.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -379,6 +408,13 @@ try:
     from nova_pointcloud_tpu_torch.models.pointcloud_ar import NOVAPointCloudARTransformer
     from nova_pointcloud_tpu_torch.pipelines.pointcloud_ar import NOVAPointCloudARPipeline
     from nova_pointcloud_tpu_torch.scripts import train_eval_pc_ar
+    from nova_pointcloud_tpu_torch.models.autoencoders import (AutoencoderKL,
+                                                               AutoencoderKLOpenSora)
+    from nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_cogvideox import (
+        AutoencoderKLCogVideoX)
+    from nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_ltx import (
+        AutoencoderKLLTXVideo)
+    from nova_pointcloud_tpu_torch.utils.image_processor import VaeImageProcessor
     _PORT_IMPORT_ERROR = None
 except ImportError as e:  # reported by main(): the script needs the checkout
     _PORT_IMPORT_ERROR = e
@@ -476,6 +512,42 @@ T2V_CMP_FRAMES, T2V_CMP_AR, T2V_FLOAT_FRAMES = 2, 8, 2
 # took the profiler 300 s to process)
 T2V_PROFILE_FRAMES, T2V_PROFILE_AR = 2, 16
 T2V_PROMPTS = [f"a drone shot {i}" for i in range(T2V_BATCH)]
+# the VAEs of bench.py --mode t2i --e2e and --mode t2v --e2e: AutoencoderKL
+# and AutoencoderKLOpenSora at their default widths, 4 latent channels,
+# seeded random bf16 weights (the bench initialises them from seed 7)
+VAE_SEED, T2V_DECODE_WINDOWS = 7, 2
+T2I_IMAGE_SHAPE = (T2I_BATCH, 16 * T2I_BASE[0], 16 * T2I_BASE[1], 3)  # (4, 512, 512, 3)
+T2V_LATENT_SHAPE = (T2V_BATCH, T2V_FRAMES, 2 * T2V_BASE[0], 2 * T2V_BASE[1], 4)
+T2V_VIDEO_SHAPE = (T2V_BATCH, 4 * T2V_FRAMES - 3, 16 * T2V_BASE[0], 16 * T2V_BASE[1], 3)
+# phase 4m: each VAE class at a small size, f32, on the card against the CPU
+# (widths of the 3D VAEs cut, inputs cropped, windows shortened so each
+# tiling runs two windows each way): name -> (class, config, input, latents)
+VAE_SMALL = {
+    "AutoencoderKL": ("AutoencoderKL", dict(latent_channels=4), (1, 128, 128, 3),
+                      (2, 16, 16, 4)),
+    "AutoencoderKLOpenSora": ("AutoencoderKLOpenSora",
+                              dict(latent_channels=4, block_out_channels=(64, 64, 128, 128),
+                                   sample_min_t=9, latent_min_t=3),
+                              (1, 17, 64, 64, 3), (1, 5, 16, 16, 4)),
+    "AutoencoderKLCogVideoX": ("AutoencoderKLCogVideoX",
+                               dict(latent_channels=4, block_out_channels=(64, 64, 64, 128),
+                                    layers_per_block=1, sample_min_t=9, latent_min_t=3),
+                               (1, 17, 64, 64, 3), (1, 6, 16, 16, 4)),
+    "AutoencoderKLLTXVideo": ("AutoencoderKLLTXVideo",
+                              dict(block_out_channels=(32, 64, 64, 128, 128),
+                                   layers_per_block=(1,) * 5,
+                                   decoder_block_out_channels=(32, 64, 128, 256),
+                                   decoder_layers_per_block=(1,) * 4, latent_channels=16,
+                                   sample_min_t=17, latent_min_t=2),
+                              (1, 33, 128, 128, 3), (1, 4, 4, 4, 16)),
+}
+# max |card - CPU| / max |CPU|, f32 (TF32 off): ~12x the worst reading,
+# 8.3e-6, of the four VAEs' encode and decode on an H100 (PERF.md)
+VAE_CPU_TOL = 1e-4
+# bf16 against f32 on the card, the bench's two VAEs at their widths: mean
+# and max |diff| relative to the f32 output's mean and max, 2x and ~3x what
+# the same models give on the CPU (1.46-1.48% mean, 1.6-2.2% max)
+VAE_BF16_TOL = (3e-2, 6e-2)
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
@@ -2782,20 +2854,25 @@ def _t2v_output_ok(lat, frames, label):
 
 
 def _t2v_call_counted(pipe, label, frames, expected):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     fb.reset_launch_counts()
     t0 = time.perf_counter()
     lat = _t2v_sample(pipe, frames)
     call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
     launches = dict(fb.LAUNCHES)
     counts_ok = launches == {n: expected.get(n, 0) for n in KERNELS}
     print(f"launches in one {label} call ({frames} frames x {T2V_AR} AR x {T2V_DIFF} steps, "
-          f"{call_s:.2f} s): {launches} (expected {expected}, else 0): "
-          f"{'ok' if counts_ok else 'FAIL'}")
+          f"{call_s:.2f} s, peak {peak / 2 ** 30:.2f} GiB above {held / 2 ** 30:.2f}): "
+          f"{launches} (expected {expected}, else 0): {'ok' if counts_ok else 'FAIL'}")
     for name in expected:
         _record_launches(name, label, launches[name])
     ok = _t2v_output_ok(lat, frames, label)
     return counts_ok and ok, dict(launches=launches, output_ok=ok, output_std=lat.std().item(),
-                                  call_s=call_s, frames=frames)
+                                  call_s=call_s, frames=frames, peak_bytes=peak,
+                                  held_bytes=held)
 
 
 def _t2v_step_check(pipe, label, kernel):
@@ -2957,9 +3034,10 @@ def timing_t2v(pipe_int8, pipe_float):
     static attention at (2, 16, L, 64) for each image-encoder L beside
     SDPA's bf16 forward, flash_attention at (2, 16, 1080 and 1800, 64) with
     the key bias beside SDPA with that mask, row 6 at 72 rows; their plain
-    versions and bounds. Then one more full int8 call (its p50 with phase
-    4k's), videos/s and ms per frame, and the call's peak memory above what
-    was allocated before it; one float call of 2 frames (s per frame)."""
+    versions and bounds. Then the latent call's (4k) videos/s and ms per
+    frame beside the e2e call's (4n: this phase's extra full call, to uint8
+    frames), one call each, and each one's peak memory above what was
+    allocated before it; one float call of 2 frames (s per frame)."""
     import torch.nn.functional as Fn
 
     gen = torch.Generator(device=DEV).manual_seed(14)
@@ -3017,29 +3095,291 @@ def timing_t2v(pipe_int8, pipe_float):
     torch.cuda.empty_cache()
     if pipe_int8 is None or pipe_float is None:
         raise AssertionError("no t2v pipeline: phase 4k or 4l failed")
-    fb.reset_launch_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    _t2v_sample(pipe_int8, seed=21)
-    times = [report["t2v_int8"]["call_s"], time.perf_counter() - t0]
-    peak = torch.cuda.max_memory_allocated() - held
-    p50 = float(np.percentile(times, 50))
+    e2e = report.get("t2v_e2e")
+    if e2e is None:
+        raise AssertionError("no t2v e2e call: phase 4n failed")
+    latent_s, e2e_s = report["t2v_int8"]["call_s"], e2e["call_s"]
     t0 = time.perf_counter()
     _t2v_sample(pipe_float, frames=T2V_FLOAT_FRAMES, seed=21)
     float_s = time.perf_counter() - t0
-    print(f"t2v_int8: batch {T2V_BATCH}, {T2V_FRAMES} frames x {T2V_AR} AR x {T2V_DIFF} steps, "
-          f"p50 {p50:.3f} s per call (times {[round(t, 3) for t in times]}), "
-          f"{T2V_BATCH / p50:.4f} videos/s, {p50 / T2V_BATCH / T2V_FRAMES * 1e3:.1f} ms per "
-          f"frame; peak memory of the call {peak / 2 ** 30:.2f} GiB above the "
-          f"{held / 2 ** 30:.2f} GiB allocated before it")
+    print(f"t2v_int8: batch {T2V_BATCH}, {T2V_FRAMES} frames x {T2V_AR} AR x {T2V_DIFF} steps: "
+          f"the latent call (4k) {latent_s:.3f} s, {T2V_BATCH / latent_s:.4f} videos/s, "
+          f"{latent_s / T2V_BATCH / T2V_FRAMES * 1e3:.1f} ms per frame; the e2e call to uint8 "
+          f"frames (4n, the extra full call) {e2e_s:.3f} s, {T2V_BATCH / e2e_s:.4f} videos/s; "
+          f"peak memory above what was allocated before the call: latent "
+          f"{report['t2v_int8']['peak_bytes'] / 2 ** 30:.2f} GiB, e2e "
+          f"{e2e['peak_bytes'] / 2 ** 30:.2f} GiB")
     print(f"t2v_float: {T2V_FLOAT_FRAMES} frames in {float_s:.3f} s, "
           f"{float_s / T2V_FLOAT_FRAMES:.3f} s per frame")
-    report["t2v_int8"].update(p50_s=p50, times_s=times, videos_per_s=T2V_BATCH / p50,
-                              ms_per_frame=p50 / T2V_BATCH / T2V_FRAMES * 1e3,
-                              peak_bytes=peak, held_bytes=held)
+    report["t2v_int8"].update(videos_per_s=T2V_BATCH / latent_s,
+                              ms_per_frame=latent_s / T2V_BATCH / T2V_FRAMES * 1e3,
+                              e2e_call_s=e2e_s, e2e_videos_per_s=T2V_BATCH / e2e_s)
     report["t2v_float"].update(call_s_timed=float_s, s_per_frame=float_s / T2V_FLOAT_FRAMES)
+
+
+def _vae_pipeline(pipe, vae):
+    """``pipe``'s model, scheduler, text encoder and calibration, with ``vae``."""
+    e2e = NOVAPipeline(pipe.model, pipe.scheduler, vae=vae, text_encoder=pipe.text_encoder)
+    e2e.act_scales, e2e._act_margin = pipe.act_scales, pipe._act_margin
+    return e2e
+
+
+def _bench_vae(cls):
+    """A bench VAE at its default widths, 4 latent channels, seeded random
+    weights in bf16, computing in bf16."""
+    vae = cls(latent_channels=4, dtype=torch.bfloat16, device=DEV)
+    vae.init_weights(torch.Generator(device=DEV).manual_seed(VAE_SEED))
+    return vae.to(torch.bfloat16)
+
+
+def _rel(a, b):
+    """(mean |a - b| / mean |b|, max |a - b| / max |b|) in float32."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    return (d.mean() / b.abs().mean()).item(), (d.max() / b.abs().max()).item()
+
+
+@phase("4m the VAEs on the card against the CPU")
+def vae_card_vs_cpu():
+    """Each VAE class at a small size (VAE_SMALL) in f32, seeded weights
+    made on the CPU and loaded on the card: encode (the posterior's mean and
+    logvar) and decode on both, each tiling two windows; gate max |card -
+    CPU| <= VAE_CPU_TOL x max |CPU|. Then the bench's two VAEs at their
+    default widths (small latents, two decode windows for OpenSora): the
+    bf16 decode against the f32 decode of the same bf16-rounded weights on
+    the card, gate VAE_BF16_TOL. No VAE call launches a kernel of the
+    repo."""
+    fb.reset_launch_counts()
+    res, ok = {}, True
+    for name, (cls_name, cfg, xs, zs) in VAE_SMALL.items():
+        cls = globals()[cls_name]
+        gen = torch.Generator().manual_seed(30)
+        cpu = cls(**cfg, device="cpu").init_weights(gen)
+        card = cls(**cfg, device=DEV)
+        card.load_state_dict(cpu.state_dict())
+        x, z = torch.randn(xs, generator=gen), torch.randn(zs, generator=gen)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = (cpu.encode(x), cpu.decode(z))
+            cpu_s = time.perf_counter() - t0
+            got = (card.encode(x.to(DEV)), card.decode(z.to(DEV)))
+        torch.cuda.synchronize()
+        errs = {what: _rel(a.cpu(), b)[1] for what, a, b in (
+            ("mean", got[0].mean, want[0].mean), ("logvar", got[0].logvar, want[0].logvar),
+            ("decode", got[1], want[1]))}
+        good = all(e <= VAE_CPU_TOL for e in errs.values()) and all(
+            bool(torch.isfinite(t).all()) for t in (got[0].mean, got[1]))
+        ok = ok and good
+        n = sum(p.numel() for p in cpu.parameters())
+        print(f"{name} ({n / 1e6:.1f}M parameters) f32, encode {xs} -> "
+              f"{tuple(got[0].mean.shape)}, decode {zs} -> {tuple(got[1].shape)}: card vs CPU "
+              f"max |diff| / max |CPU| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {VAE_CPU_TOL:g}; CPU {cpu_s:.1f} s): {'ok' if good else 'FAIL'}")
+        res[name] = dict(errs, cpu_s=cpu_s, params=n)
+        del cpu, card, got, want
+    for name, cls, zs, cfg in (("AutoencoderKL", AutoencoderKL, (2, 16, 16, 4), {}),
+                               ("AutoencoderKLOpenSora", AutoencoderKLOpenSora,
+                                (1, 5, 16, 16, 4), dict(latent_min_t=3))):
+        bf = cls(latent_channels=4, dtype=torch.bfloat16, device=DEV, **cfg)
+        bf.init_weights(torch.Generator(device=DEV).manual_seed(31))
+        bf.to(torch.bfloat16)
+        f32 = cls(latent_channels=4, device=DEV, **cfg)
+        f32.load_state_dict(bf.state_dict())
+        z = torch.randn(zs, device=DEV, generator=torch.Generator(device=DEV).manual_seed(32))
+        with torch.no_grad():
+            ref, got = f32.decode(z), bf.decode(z)
+        mean_rel, max_rel = _rel(got, ref)
+        good = (got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+                and mean_rel <= VAE_BF16_TOL[0] and max_rel <= VAE_BF16_TOL[1])
+        ok = ok and good
+        print(f"{name} at its default widths, decode {zs} -> {tuple(got.shape)}: bf16 vs f32 on "
+              f"the card mean |diff| / mean |f32| {mean_rel:.3e}, max / max {max_rel:.3e} (tol "
+              f"{VAE_BF16_TOL[0]:g}, {VAE_BF16_TOL[1]:g}): {'ok' if good else 'FAIL'}")
+        res[f"{name} bf16"] = dict(mean_rel=mean_rel, max_rel=max_rel)
+        del bf, f32, ref, got
+    launches = {k: v for k, v in fb.LAUNCHES.items() if v}
+    print(f"kernel launches in the VAE calls: {launches or 0} (expected 0): "
+          f"{'ok' if not launches else 'FAIL'}")
+    report["vae_card_vs_cpu"] = dict(res, launches=launches)
+    torch.cuda.empty_cache()
+    if not ok or launches:
+        raise AssertionError("VAE check failed")
+
+
+def _u8_ok(arr, shape, label):
+    good = (isinstance(arr, np.ndarray) and arr.dtype == np.uint8 and arr.shape == shape
+            and float(arr.std()) > 1.0)
+    print(f"{label}: {getattr(arr, 'shape', None)} {getattr(arr, 'dtype', None)} (expected "
+          f"{shape} uint8), std {float(np.std(arr)):.2f} codes: {'ok' if good else 'FAIL'}")
+    return good
+
+
+@phase("4n t2i / t2v / i2v end to end")
+def e2e(pipe_t2i, pipe_t2v):
+    """bench.py --e2e's calls on the calibrated int8 pipelines of 4d and 4k
+    with the bench VAEs (bf16, default widths): t2i, one call of 64 AR x 25
+    steps at batch 4 with output_type="np" -> (4, 512, 512, 3) uint8; t2v,
+    one 9-frame call -> (1, 33, 480, 768, 3) uint8 from exactly 2 decode
+    windows (its time and peak memory are 5g's e2e numbers); the launches of
+    each equal the latent call's, the pixels are not constant. i2v:
+    encode_image of a seeded 480 x 768 uint8 image -> (1, 60, 96, 4)
+    latents, which a prefilled call (2 frames x 8 AR steps) returns
+    bitwise as frame 0. Returns the two VAEs."""
+    if pipe_t2i is None or pipe_t2v is None:
+        raise AssertionError("no int8 pipeline: phase 4d or 4k failed")
+    vae_i, vae_v = _bench_vae(AutoencoderKL), _bench_vae(AutoencoderKLOpenSora)
+    pipe = _vae_pipeline(pipe_t2i, vae_i)
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(T2I_PROMPTS, num_inference_steps=T2I_AR, num_diffusion_steps=T2I_DIFF,
+               guidance_scale=T2I_GUIDANCE, guidance_trunc=0.0,
+               generator=torch.Generator(device=DEV).manual_seed(1), output_type="np")
+    call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {n: T2I_INT8_LAUNCHES.get(n, 0) for n in KERNELS}
+    print(f"t2i e2e call ({call_s:.2f} s): launches {launches} (the latent call's "
+          f"{T2I_INT8_LAUNCHES}, else 0): {'ok' if counts_ok else 'FAIL'}")
+    for name in T2I_INT8_LAUNCHES:
+        _record_launches(name, "t2i_e2e", launches[name])
+    ok = _u8_ok(out.images, T2I_IMAGE_SHAPE, "t2i images") and counts_ok
+    report["t2i_e2e"] = dict(call_s=call_s, launches=launches)
+
+    pipe = _vae_pipeline(pipe_t2v, vae_v)
+    windows, decode_window = [], vae_v.decode_window
+
+    def counted_window(z):
+        windows.append(tuple(z.shape))
+        return decode_window(z)
+
+    vae_v.decode_window = counted_window
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = pipe(T2V_PROMPTS, num_inference_steps=T2V_AR, num_diffusion_steps=T2V_DIFF,
+                   max_latent_length=T2V_FRAMES, guidance_scale=T2I_GUIDANCE, guidance_trunc=0.0,
+                   flow_shift=T2V_SHIFT, generator=torch.Generator(device=DEV).manual_seed(21),
+                   output_type="np")
+    finally:
+        del vae_v.decode_window
+    call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = dict(fb.LAUNCHES)
+    expected = _t2v_int8_launches(T2V_FRAMES)
+    counts_ok = launches == {n: expected.get(n, 0) for n in KERNELS}
+    print(f"t2v e2e call ({call_s:.2f} s, peak {peak / 2 ** 30:.2f} GiB above "
+          f"{held / 2 ** 30:.2f}): launches {launches} (the latent call's {expected}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}; decode windows {windows} (expected "
+          f"{T2V_DECODE_WINDOWS}): {'ok' if len(windows) == T2V_DECODE_WINDOWS else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, "t2v_e2e", launches[name])
+    ok = (_u8_ok(out.frames, T2V_VIDEO_SHAPE, "t2v frames") and ok and counts_ok
+          and len(windows) == T2V_DECODE_WINDOWS)
+    report["t2v_e2e"] = dict(call_s=call_s, launches=launches, windows=len(windows),
+                             peak_bytes=peak, held_bytes=held)
+
+    image = torch.randint(0, 256, (16 * T2V_BASE[0], 16 * T2V_BASE[1], 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(5)).numpy()
+    lat = pipe.encode_image(image)
+    shape = (1, 2 * T2V_BASE[0], 2 * T2V_BASE[1], 4)
+    lat_ok = (tuple(lat.shape) == shape and lat.dtype == torch.float32
+              and bool(torch.isfinite(lat).all()))
+    i2v = _t2v_sample(pipe, T2V_CMP_FRAMES, T2V_CMP_AR, seed=6, latents=lat)
+    i2v_ok = _t2v_output_ok(i2v, T2V_CMP_FRAMES, "i2v from encode_image") and lat_ok and bool(
+        torch.equal(i2v[:, 0], lat))
+    print(f"encode_image {image.shape} uint8 -> {tuple(lat.shape)} (expected {shape}) float32, "
+          f"std {lat.std().item():.4f}; the prefilled call's ({T2V_CMP_FRAMES} frames x "
+          f"{T2V_CMP_AR} AR steps) frame 0 bitwise the encoded latents: "
+          f"{'ok' if i2v_ok else 'FAIL'}")
+    report["i2v_e2e"] = dict(latents_shape=list(lat.shape), ok=i2v_ok)
+    if not (ok and i2v_ok):
+        raise AssertionError("e2e check failed")
+    return vae_i, vae_v
+
+
+def _event_ms(fn, n=3):
+    """ms of each of ``n`` calls after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _decode_latents(gen):
+    """Seeded bench-shaped latents: the t2i batch (4, 64, 64, 4) and the
+    t2v video (1, 9, 60, 96, 4)."""
+    return (torch.randn((T2I_BATCH, 2 * T2I_BASE[0], 2 * T2I_BASE[1], 4), device=DEV,
+                        generator=gen),
+            torch.randn(T2V_LATENT_SHAPE, device=DEV, generator=gen))
+
+
+@phase("5h timing of the decode")
+def timing_decode(vaes, pipe_t2v):
+    """The bench VAEs' decodes through VaeImageProcessor.decode_latents
+    (p50 of 3 by CUDA events): t2i a batch of 4 (64 x 64 latents, two
+    micro-batches of 2), t2v a video (9 x 60 x 96 latents, 2 windows) and
+    one window (5 latents); each one's peak memory above what is held, its
+    FLOPs (FlopCounterMode: the convolutions from their shapes, and the
+    attention and projection products) and TFLOP/s against 989 bf16 dense;
+    the decode's share of phase 4n's e2e call; encode_image's ms."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    if vaes is None:
+        raise AssertionError("no bench VAEs: phase 4n failed")
+    vae_i, vae_v = vaes
+    z_i, z_v = _decode_latents(torch.Generator(device=DEV).manual_seed(33))
+    proc_i, proc_v = VaeImageProcessor(vae_i), VaeImageProcessor(vae_v)
+    cases = (("t2i batch of 4", lambda: proc_i.decode_latents(z_i), "t2i_e2e"),
+             ("t2v video", lambda: proc_v.decode_latents(z_v), "t2v_e2e"),
+             ("t2v window", lambda: vae_v.decode_window(z_v[:, :vae_v.latent_min_t]), None))
+    res = {}
+    with torch.no_grad():
+        for label, fn, e2e_key in cases:
+            times = _event_ms(fn)
+            ms = float(np.percentile(times, 50))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            with FlopCounterMode(display=False) as counter:
+                fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            flops = counter.get_total_flops()
+            conv = sum(v for k, v in counter.get_flop_counts()["Global"].items()
+                       if "convolution" in str(k))
+            tflops = flops / (ms * 1e-3) / 1e12
+            line = (f"{label} decode: p50 {ms:.1f} ms (times {[round(t, 1) for t in times]}), "
+                    f"peak {peak / 2 ** 30:.2f} GiB above {held / 2 ** 30:.2f}, "
+                    f"{flops / 1e12:.2f} TFLOP ({conv / 1e12:.2f} in convolutions), "
+                    f"{tflops:.1f} TFLOP/s = {tflops / (PEAK_BF16_FLOPS / 1e12):.1%} of 989 bf16 "
+                    f"dense")
+            res[label] = dict(ms=ms, times_ms=times, peak_bytes=peak, held_bytes=held,
+                              flops=flops, conv_flops=conv, tflops=tflops)
+            if e2e_key in report:
+                share = ms * 1e-3 / report[e2e_key]["call_s"]
+                line += f"; {share:.2%} of the e2e call ({report[e2e_key]['call_s']:.2f} s)"
+                res[label]["share_of_e2e"] = share
+            print(line)
+        if pipe_t2v is not None:
+            pipe = NOVAPipeline(pipe_t2v.model, vae=vae_v)
+            image = torch.randint(0, 256, (16 * T2V_BASE[0], 16 * T2V_BASE[1], 3),
+                                  dtype=torch.uint8,
+                                  generator=torch.Generator().manual_seed(5)).numpy()
+            times = _event_ms(lambda: pipe.encode_image(image))
+            res["encode_image"] = dict(ms=float(np.percentile(times, 50)), times_ms=times)
+            print(f"encode_image (480 x 768 -> 60 x 96 x 4): p50 "
+                  f"{res['encode_image']['ms']:.1f} ms (times {[round(t, 1) for t in times]})")
+    report["decode"] = res
+    torch.cuda.empty_cache()
 
 
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
@@ -3511,15 +3851,18 @@ PORT_KERNEL_NAMES = ("gemm_s8_wgmma_kernel", "diffusion_block_kernel",
                      "attn_fwd_kernel", "flash_fwd_", "static_qk_quant_kernel", "flash_bwd_")
 
 
-def profile_call(sample, label="flagship"):
+def profile_call(sample, label="flagship", keep=20):
     """Device time by kernel over one pipeline call ``sample()``
-    (torch.profiler), and the device's idle share of that call's wall time.
-    Reported only: the profiler is untried on some machines, and its absence
-    fails nothing."""
+    (torch.profiler, device activity only: host operator events would slow
+    the host-bound calls and take minutes to aggregate), and the device's
+    idle share of that call's wall time; the ``keep`` kernels by time go to
+    the report. Reported only: the profiler is untried on some machines,
+    and its absence fails nothing."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             sample()
             wall_us = (time.perf_counter() - t0) * 1e6
@@ -3542,13 +3885,14 @@ def profile_call(sample, label="flagship"):
     busy = sum(by_name.values())
     ours = {k: v for k, v in by_name.items() if any(n in k for n in PORT_KERNEL_NAMES)}
     print(f"profiled {label} call: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-          f"(idle share {1 - busy / wall_us:.1%}), port kernels {sum(ours.values()) / 1e3:.1f} ms")
+          f"(idle share {1 - busy / wall_us:.1%}), port kernels {sum(ours.values()) / 1e3:.1f} ms; "
+          f"with the profiler's own work {time.perf_counter() - t_prof:.1f} s")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {v / 1e3:9.1f} ms  {k[:100]}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:keep]
     report["profile" if label == "flagship" else f"profile_{label}"] = dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-        port_kernels_ms=sum(ours.values()) / 1e3, top={k[:100]: v / 1e3 for k, v in top})
+        port_kernels_ms=sum(ours.values()) / 1e3, top={k[:160]: v / 1e3 for k, v in top})
 
 
 @phase("5b timing of the per-point kernels and paths")
@@ -3806,12 +4150,14 @@ def _device_kernels_per_call():
 
 @phase("6 profiles")
 def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=None,
-             pipe_t2v=None):
+             pipe_t2v=None, vaes=None):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
     device kernels of 10 calls of rows 6 (gated at 10), 1 and 5 (at 30),
-    int8_linear, rows 3 and 4 (at 20)."""
+    int8_linear, rows 3 and 4 (at 20). Last, one t2v decode (the bench VAE,
+    2 windows) and the share of its device time in channels-last (NHWC /
+    NDHWC) convolution kernels and in layout conversions."""
     _device_kernels_per_call()
     if pipe is not None:
         profile_call(lambda: _sample(pipe, seed=30))
@@ -3842,6 +4188,29 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=
     if pipe_t2v is not None:
         profile_call(lambda: _t2v_sample(pipe_t2v, T2V_PROFILE_FRAMES, T2V_PROFILE_AR, seed=30),
                      "t2v_int8")
+    if vaes is not None:
+        proc = VaeImageProcessor(vaes[1])
+        z = _decode_latents(torch.Generator(device=DEV).manual_seed(34))[1]
+
+        def decode():
+            with torch.no_grad():
+                proc.decode_latents(z)
+            torch.cuda.synchronize()
+
+        profile_call(decode, "t2v_decode", keep=30)
+        by_name = report.get("profile_t2v_decode", {}).get("top", {})
+        busy = sum(by_name.values()) or 1.0
+        # each kernel in the first group whose name holds one of its words
+        groups = {"layout conversions (nchwToNhwc / nhwcToNchw)": ("tonhwc", "tonchw"),
+                  "channels-last kernels (nhwc / ndhwc in the name)": ("nhwc", "ndhwc"),
+                  "channels-first kernels (nchw / ncdhw in the name)": ("nchw", "ncdhw")}
+        left, layouts = dict(by_name), {}
+        for what, keys in groups.items():
+            hits = [k for k in left if any(x in k.lower() for x in keys)]
+            layouts[what] = sum(left.pop(k) for k in hits)
+            print(f"  t2v decode, {what}: {layouts[what]:.1f} ms of {busy:.1f} ms in the top 30 "
+                  f"({layouts[what] / busy:.1%})")
+        report.setdefault("profile_t2v_decode", {})["layouts_ms"] = layouts
 
 
 def main():
@@ -3883,8 +4252,13 @@ def main():
         # NOVA t2v serving, after the earlier paths' timings
         pipe_t2v = t2v_int8()
         pipe_t2v_f = t2v_float(pipe_t2v)
+        # the VAEs and the e2e calls, after the t2v paths
+        vae_card_vs_cpu()
+        vaes = e2e(pipe_t2i, pipe_t2v)
         timing_t2v(pipe_t2v, pipe_t2v_f)
-        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0], pipe_t2v)
+        timing_decode(vaes, pipe_t2v)
+        profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0], pipe_t2v,
+                 vaes)
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})

@@ -1,1 +1,9 @@
-"""VAE latent distributions of the port; the VAEs themselves wait for t2v."""
+from nova_pointcloud_tpu_torch.models.autoencoders.modeling_utils import (  # noqa: F401
+    DiagonalGaussian,
+    IdentityDistribution,
+    tiled_temporal_apply,
+)
+from nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl import AutoencoderKL  # noqa: F401
+from nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_opensora import (  # noqa: F401
+    AutoencoderKLOpenSora,
+)

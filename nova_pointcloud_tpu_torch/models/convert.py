@@ -26,6 +26,11 @@ have the same keys and shapes on both sides. ``jax_param_paths`` goes the
 other way for a model: each port parameter's JAX path and JAX rank, which
 the optimizer's masks are defined on (engine/optim.py). A JAX gradient tree
 has the param tree's structure, so ``convert_params`` names its leaves too.
+
+The VAEs (``models/autoencoders``) have an entry of their own,
+``convert_vae_params``: their trees hold convolutions, whose kernels no
+rule of ``convert_params`` may take by rank (a scanned stack's attention
+kernels are rank 4 too).
 """
 
 from typing import Any, Dict, Iterator, Tuple
@@ -90,6 +95,25 @@ def convert_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             out[".".join(path[:-1] + (suffix,))] = torch.from_numpy(
                 np.ascontiguousarray(arr))
+    return out
+
+
+def convert_vae_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A VAE's flax param tree (numpy leaves) -> the port VAE's
+    ``state_dict``: ``Conv`` kernels (kh, kw, in, out) -> (out, in, kh, kw)
+    and (kt, kh, kw, in, out) -> (out, in, kt, kh, kw), ``Dense`` kernels
+    transposed, ``GroupNorm`` scales -> weight; every other leaf (biases,
+    ``scale_shift_table``, ``timestep_scale``, the latent statistics) as is,
+    at its dot-joined path."""
+    axes = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+    out = {}
+    for path, v in _leaves(params):
+        name = path[-1]
+        if name == "kernel":
+            name, v = "weight", np.transpose(v, axes[v.ndim])
+        elif name == "scale":
+            name = "weight"
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(v))
     return out
 
 

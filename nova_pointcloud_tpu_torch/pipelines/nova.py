@@ -30,9 +30,11 @@ order, each AR step's noise and, with DDPM, each step's noise) comes from a
 ``torch.Generator``; ``order`` / ``noise`` / ``step_noise`` may be given
 instead, which the tests use to replay the JAX algorithm.
 
-Not ported yet, and raising: the VAE decode (``output_type`` other than
-"latent") and the image encode of an i2v prompt image, mesh serving and host
-offload.
+With a VAE (``vae=``, a module of ``models/autoencoders``), ``output_type``
+"np" / "pil" decodes the latents through ``utils/image_processor`` to uint8
+pixels (images for T = 1, frames for T > 1), and ``encode_image`` turns an
+i2v prompt image into the scaled latents of the ``latents=`` prefill. Not
+ported yet, and raising: mesh serving and host offload.
 """
 
 import dataclasses
@@ -48,6 +50,7 @@ from nova_pointcloud_tpu_torch.ops import masking
 from nova_pointcloud_tpu_torch.ops.quantization import (max_merge_stats, merge_act_scales,
                                                         quantize_serving_params)
 from nova_pointcloud_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
+from nova_pointcloud_tpu_torch.utils.image_processor import VaeImageProcessor
 
 
 @dataclasses.dataclass
@@ -55,10 +58,6 @@ class NOVAPipelineOutput:
     images: Optional[Any] = None
     frames: Optional[Any] = None
     latents: Optional[Any] = None
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md, module queue, NOVA")
 
 
 BUCKET_FRACS = (8, 4, 2)  # the JAX pipeline's default bucket phases
@@ -87,19 +86,20 @@ def bucket_plan(starts: np.ndarray, ni: int) -> Optional[List[Tuple[int, int, Op
 
 class NOVAPipeline:
     """Orchestrates a NOVATransformer + scheduler (flow matching, or DDPM) +
-    text encoder. Runs where the model's parameters live (``cuda`` unless the
-    model was built with ``device="cpu"``)."""
+    text encoder + (optional) VAE. Runs where the model's parameters live
+    (``cuda`` unless the model was built with ``device="cpu"``); the VAE
+    where its own live."""
 
     def __init__(self, model: NOVATransformer, scheduler=None, vae=None,
                  text_encoder=None, mesh=None):
-        if vae is not None:
-            raise _unported("the VAE decode (t2i / t2v e2e)")
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device) serving is not ported yet: "
                                       "ROADMAP.md, module queue, parallelism")
         scheduler = scheduler or FlowMatchEulerScheduler()
         self.is_flow = isinstance(scheduler, FlowMatchEulerScheduler)
         self.model, self.scheduler, self.text_encoder = model, scheduler, text_encoder
+        self.vae = vae
+        self.image_processor = VaeImageProcessor(vae)
         # calibrated static activation scales and softmax offsets (calibrate())
         self.act_scales: Optional[Dict] = None
         self._act_margin = 1.0
@@ -132,6 +132,22 @@ class NOVAPipeline:
         if num_images_per_prompt > 1:
             c = torch.repeat_interleave(c, num_images_per_prompt, dim=0)
         return c
+
+    @torch.no_grad()
+    def encode_image(self, image: np.ndarray, num_images_per_prompt: int = 1,
+                     generator: Optional[torch.Generator] = None,
+                     eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """An i2v prompt image, uint8 (H, W, 3), -> its scaled latents
+        (N, h, w, C) for the ``latents=`` prefill: ``x / 127.5 - 1`` through
+        ``vae.encode``, the posterior sampled as the JAX pipeline samples it,
+        eps N(0, 1) from ``generator`` (seed 0 when none is given, so the
+        call is deterministic) unless ``eps`` is given."""
+        vae = self.vae
+        x = torch.as_tensor(np.asarray(image), device=vae.device).float() / 127.5 - 1.0
+        if generator is None and eps is None:
+            generator = torch.Generator(device=vae.device).manual_seed(0)
+        z = vae.scale(vae.encode(x[None]).sample(generator, eps=eps))
+        return torch.repeat_interleave(z, num_images_per_prompt, dim=0)
 
     def serving_qparams(self) -> Optional[Dict]:
         """int8 weights (and calibrated scales) for one call, or None on the
@@ -379,15 +395,15 @@ class NOVAPipeline:
         step_noise=None,
     ) -> NOVAPipelineOutput:
         """Text to (B, H, W, C) latents, or (B, T, H, W, C) latent frames for
-        ``max_latent_length`` T > 1. ``latents`` (B, H, W, C): frame 0 given
-        (i2v), not sampled. A video model's flow / fps tokens follow the
+        ``max_latent_length`` T > 1; with ``output_type`` "np" (or "pil")
+        the VAE's uint8 pixels: ``images`` (B, H', W', 3) for T = 1,
+        ``frames`` (B, T', H', W', 3) otherwise. ``latents`` (B, H, W, C):
+        frame 0 given (i2v, e.g. from ``encode_image``), not sampled. A video model's flow / fps tokens follow the
         prompt (``motion_flow=None``: none). ``order`` (B, Ni), ``noise`` (S,
         B, P, patch_dim) and, with DDPM, ``step_noise`` (S, D, B, P,
         patch_dim): the prediction order, the AR steps' initial noise and the
         diffusion steps' noise, with a leading frame axis when T > 1; drawn
         from ``generator`` when not given."""
-        if output_type != "latent":
-            raise _unported(f"output_type={output_type!r} (the VAE decode)")
         if isinstance(prompt, str):
             prompt = [prompt]
         guidance = GuidanceConfig(
@@ -428,4 +444,10 @@ class NOVAPipeline:
         frames = unpatchify(out.reshape((b * t,) + tuple(out.shape[2:])), model.patch_size,
                             model.image_base_size)
         frames = frames.reshape((b, t) + tuple(frames.shape[1:]))
-        return NOVAPipelineOutput(latents=frames[:, 0] if T == 1 else frames)
+        if output_type == "latent":
+            return NOVAPipelineOutput(latents=frames[:, 0] if T == 1 else frames)
+        proc = self.image_processor
+        if T == 1:
+            return NOVAPipelineOutput(
+                images=proc.postprocess(proc.decode_latents(frames[:, 0]), output_type))
+        return NOVAPipelineOutput(frames=proc.postprocess(proc.decode_latents(frames), "np"))

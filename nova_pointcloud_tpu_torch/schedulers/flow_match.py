@@ -8,8 +8,8 @@ JAX package, and the step runs on the sample's device. Training:
 logit-normal timesteps ``int(sigmoid(N(0, 1)) * T)`` drawn from an explicit
 ``torch.Generator`` (the JAX package draws them from a key; the two streams
 never match), the per-timestep sigma table, ``add_noise`` returning
-``(x_t, model_t)`` and the regression ``target``. ``scale_noise`` (i2v)
-waits for its slice (ROADMAP.md).
+``(x_t, model_t)`` and the regression ``target``; ``scale_noise``, the
+inference-side forward noising of a sample.
 """
 
 import dataclasses
@@ -104,3 +104,11 @@ class FlowMatchEulerScheduler:
         s = schedule.sigmas
         dt = torch.tensor(s[step_index + 1] - s[step_index], device=sample.device)
         return sample + model_output * dt.to(sample.dtype)
+
+    def scale_noise(self, sample: torch.Tensor, step_index: int, noise: torch.Tensor,
+                    schedule: FlowMatchSchedule) -> torch.Tensor:
+        """Inference-side forward noising: ``sigma * noise + (1 - sigma) *
+        sample`` with the schedule's ``sigma`` at ``step_index`` in the
+        sample's dtype."""
+        sigma = torch.tensor(schedule.sigmas[step_index], device=sample.device).to(sample.dtype)
+        return sigma * noise + (1.0 - sigma) * sample

@@ -14,6 +14,7 @@ import torch
 
 import nova_pointcloud_tpu_torch
 from nova_pointcloud_tpu_torch.models import pointcloud
+from nova_pointcloud_tpu_torch.models.autoencoders import AutoencoderKL, AutoencoderKLOpenSora
 from nova_pointcloud_tpu_torch.models.nova import NOVATransformer
 from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer, PreLNBlock
 from nova_pointcloud_tpu_torch.models.text_encoders.dummy import DummyTextEncoder
@@ -94,7 +95,13 @@ def test_every_module_imports_without_cuda_or_jax():
             "nova_pointcloud_tpu_torch.scripts.eval_pc_quality",
             "nova_pointcloud_tpu_torch.models.pointcloud_ar",
             "nova_pointcloud_tpu_torch.pipelines.pointcloud_ar",
-            "nova_pointcloud_tpu_torch.scripts.train_eval_pc_ar"} <= set(mods)
+            "nova_pointcloud_tpu_torch.scripts.train_eval_pc_ar",
+            "nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl",
+            "nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_opensora",
+            "nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_cogvideox",
+            "nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_ltx",
+            "nova_pointcloud_tpu_torch.models.autoencoders.torch_loading",
+            "nova_pointcloud_tpu_torch.utils.image_processor"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -242,16 +249,24 @@ def test_cpu_nova_serving_runs_no_kernel(quantize):
     assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
 
 
-def test_nova_unported_paths_raise():
+def test_nova_unported_paths_raise(monkeypatch):
+    """Mesh serving and host offload (of the pipeline and of the VAE's
+    weights) raise; the VAE decode is ported: NOVAPipeline(vae=) builds, and
+    "pil" output without PIL installed raises a clear ImportError."""
     model = NOVATransformer(**NOVA_TINY, device="cpu")
     pipe = NOVAPipeline(model, text_encoder=DummyTextEncoder(16, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe(["a scene"], num_inference_steps=2, num_diffusion_steps=1, output_type="pil")
-    for kw in (dict(vae=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NOVAPipeline(model, **kw)
+        NOVAPipeline(model, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe.enable_host_offload()
+    vae_pipe = NOVAPipeline(model, vae=AutoencoderKL(block_out_channels=(32, 64),
+                                                     latent_channels=4, layers_per_block=1,
+                                                     device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        vae_pipe.image_processor.device_params()
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="output_type='np'"):
+        vae_pipe.image_processor.postprocess(np.zeros((1, 4, 4, 3), np.float32), "pil")
     for kw in (dict(text_token_dim=None, num_classes=10), dict(num_experts=4),
                dict(attn_impl="ring")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -286,6 +301,57 @@ def test_cpu_nova_video_serving_runs_no_kernel(quantize):
     out = pipe(["a scene"], num_inference_steps=4, num_diffusion_steps=2, max_latent_length=2,
                latents=lat)
     assert torch.equal(out.latents[:, 0], lat)
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_cpu_vae_decode_and_e2e_serving_run_no_kernel(quantize):
+    """The VAE layer runs no kernel of the repo: a CPU decode and encode of
+    each VAE class, and e2e NOVA calls on CPU tensors (t2i to uint8 images
+    through AutoencoderKL, t2v to uint8 frames through OpenSora's
+    window-by-window decode, int8 calibrated and float), count nothing."""
+    from nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_cogvideox import (
+        AutoencoderKLCogVideoX)
+    from nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_ltx import (
+        AutoencoderKLLTXVideo)
+
+    fused_block.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    kl = AutoencoderKL(block_out_channels=(32, 64), latent_channels=4, layers_per_block=1,
+                       device="cpu").init_weights(g)
+    os_vae = AutoencoderKLOpenSora(
+        down_block_types=("DownEncoderBlock2D", "DownEncoderBlock3D"),
+        up_block_types=("UpDecoderBlock2D", "UpDecoderBlock3D"), block_out_channels=(32, 32),
+        latent_channels=4, layers_per_block=1, sample_min_t=3, latent_min_t=2,
+        device="cpu").init_weights(g)
+    with torch.no_grad():
+        for vae, x in ((kl, torch.randn(1, 8, 8, 3)), (os_vae, torch.randn(1, 5, 8, 8, 3)),
+                       (AutoencoderKLCogVideoX(block_out_channels=(32, 32, 32, 32),
+                                               layers_per_block=1, latent_channels=4,
+                                               device="cpu").init_weights(g),
+                        torch.randn(1, 5, 16, 16, 3)),
+                       (AutoencoderKLLTXVideo(block_out_channels=(8, 16, 16, 32, 32),
+                                              layers_per_block=(1,) * 5,
+                                              decoder_block_out_channels=(4, 8, 16, 32),
+                                              decoder_layers_per_block=(1,) * 4,
+                                              latent_channels=8, device="cpu").init_weights(g),
+                        torch.randn(1, 9, 32, 32, 3))):
+            z = vae.encode(x).mode()
+            assert torch.isfinite(vae.decode(z)).all()
+    model = NOVATransformer(**{**NOVA_TINY, "image_base_size": (4, 4),
+                               "video_base_size": (3, 2, 2), "rotary_pos_embed": True,
+                               "video_mixer_rank": 4}, quantize=quantize, device="cpu")
+    model.init_weights(g).fill_zero_init(g)
+    pipe = NOVAPipeline(model, text_encoder=DummyTextEncoder(16, 4), vae=kl)
+    if quantize:
+        pipe.calibrate(["a scene"], num_inference_steps=2, num_diffusion_steps=1)
+    out = pipe(["a scene", "a cat"], num_inference_steps=2, num_diffusion_steps=1,
+               output_type="np", generator=torch.Generator().manual_seed(1))
+    assert out.images.shape == (2, 16, 16, 3) and out.images.dtype == np.uint8
+    pipe = NOVAPipeline(model, text_encoder=DummyTextEncoder(16, 4), vae=os_vae)
+    out = pipe(["a scene"], num_inference_steps=2, num_diffusion_steps=1, max_latent_length=3,
+               output_type="np", generator=torch.Generator().manual_seed(1))
+    assert out.frames.shape == (1, 3, 16, 16, 3) and out.frames.dtype == np.uint8  # 2 + 1 frames
     assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
 
 
