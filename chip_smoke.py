@@ -359,15 +359,56 @@ resizes are PyTorch's, the attention plain. They add, after phase 4l:
     of its device time in channels-last convolution kernels and in layout
     conversions.
 
+The Phi text encoder, c2i serving and reference-checkpoint loading write no
+kernel. They add, after phase 5h, each freeing what it built (their time
+together is printed beside its budget of 120 s):
+
+4o. the Phi-2 prompt encoder at full size (PhiConfig(): 32 layers, 2560
+    wide, 32 heads, 51200 tokens), f32 with TF32 off, seeded: one encode of
+    4 x 256 token ids (a full, a half-padded, an all-padding and a short
+    prompt): finite output; the all-padding row against its recomputation
+    without an attention core (PHI_PAD_TOL); ms per encode, TFLOP/s and
+    peak memory; its first 2 layers at full width on the card against the
+    CPU (PHI_CPU_TOL);
+4p. the released NOVA-0.6B 1024px config (nova_d48w1024_sdxl1024.yaml)
+    through from_pretrained over a reference checkpoint directory written
+    and removed by the phase (bf16 transformer in 2 shards, FlowMatch, the
+    SDXL AutoencoderKL, Phi at 2 layers, no tokenizer/ so no text
+    encoder): load time and rate; flash_attention at the call's (2, 16,
+    5120, 64) against its plain version, timed beside SDPA and its bound;
+    one prompt with 4o's embeddings, 64 AR x 25 steps, CFG 5.0 ->
+    (1, 1024, 1024, 3) uint8, the flash launches exactly the dispatcher's
+    count for the model, the transformer's and the VAE's weights bitwise
+    those written, the pixels bitwise those of build_pipeline's pipeline on
+    the written weights with the same VAE and generator;
+4q. NOVAC2IPipeline over bench.py --mode t2i's model with 1000 classes and
+    no text, calibrated as 4d, one call of 4 labels at 64 x 25 steps, CFG
+    5.0 against the null class, decoded by 4n's AutoencoderKL: rows 5, 6,
+    8 and int8_linear exactly the t2i int8 call's counts, samples/s, and
+    4d's one-step check against plain.
+
 The script prints its total time before the result lines.
+
+    python3 chip_smoke.py --profile released_1024px
+
+runs, after phases 1 and 2, only where the released 1024px call's time
+goes (released_profile): the model of 4p with seeded random bf16 weights
+behind NOVAPipeline, one prompt of random embeddings at 64 AR x 25 steps,
+CFG 5.0, latent output; two calls' walls, one masking-phase image-encoder
+pass and one head eval by CUDA events, 25 head evals by the host clock,
+and one call under torch.profiler (the device's busy time and idle share,
+the kernels by device time). It prints the profile as its last line.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
 
+import dataclasses
 import itertools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -415,6 +456,15 @@ try:
     from nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_ltx import (
         AutoencoderKLLTXVideo)
     from nova_pointcloud_tpu_torch.utils.image_processor import VaeImageProcessor
+    from nova_pointcloud_tpu_torch.models.autoencoders.torch_loading import (
+        load_torch_vae_weights)
+    from nova_pointcloud_tpu_torch.models.layers import dense, layer_norm
+    from nova_pointcloud_tpu_torch.models.text_encoders.phi import PhiConfig, PhiEncoderModel
+    from nova_pointcloud_tpu_torch.models.torch_loading import reference_state_dict
+    from nova_pointcloud_tpu_torch.pipelines.builder import build_transformer
+    from nova_pointcloud_tpu_torch.pipelines.nova_c2i import NOVAC2IPipeline
+    from nova_pointcloud_tpu_torch.pipelines.pretrained import from_pretrained
+    from nova_pointcloud_tpu_torch.utils import safetensors_io
     _PORT_IMPORT_ERROR = None
 except ImportError as e:  # reported by main(): the script needs the checkout
     _PORT_IMPORT_ERROR = e
@@ -548,6 +598,29 @@ VAE_CPU_TOL = 1e-4
 # and max |diff| relative to the f32 output's mean and max, 2x and ~3x what
 # the same models give on the CPU (1.46-1.48% mean, 1.6-2.2% max)
 VAE_BF16_TOL = (3e-2, 6e-2)
+# the Phi-2 prompt encoder at full size (PhiConfig()), f32, TF32 off (4o): a
+# batch of PHI_BATCH prompts of the released t2i config's PHI_TOKENS tokens;
+# the card against the CPU on its first PHI_CMP_LAYERS layers
+PHI_BATCH, PHI_TOKENS, PHI_CMP_LAYERS = 4, 256, 2
+# ~9x / ~12x the readings of 3.25e-6 and 1.63e-6 on an H100 (PERF.md)
+PHI_PAD_TOL = 3e-5  # the all-padding row vs its plain recomputation, x max
+PHI_CPU_TOL = 2e-5  # max |card - CPU| / max |CPU| at PHI_CMP_LAYERS layers
+# the released NOVA-0.6B 1024px t2i config (4p): the model: block of
+# nova_pointcloud_tpu/configs/nova_d48w1024_sdxl1024.yaml, one prompt, 64 AR
+# x 25 steps, CFG 5, the SDXL VAE (4 latents, scaling 0.13025)
+RELEASED_MODEL = {"image_dim": 4, "image_size": [1024, 1024], "image_stride": 8,
+                  "text_token_dim": 2560, "text_token_len": 256, "rotary_pos_embed": False,
+                  "video_base_size": [1, 32, 32], "image_base_size": [64, 64],
+                  "arch": ["vit_d16w1024", "vit_d32w1024", "mlp_d6w1024"],
+                  "gradient_checkpointing": 0, "loss_repeat": 4}
+RELEASED_TEXT, RELEASED_NV, RELEASED_NI = 256, 32 * 32, 64 * 64
+RELEASED_AR, RELEASED_DIFF, RELEASED_GUIDANCE = 64, 25, 5.0
+RELEASED_IMAGE_SHAPE = (1, 1024, 1024, 3)
+SDXL_VAE = {"block_out_channels": [128, 256, 512, 512], "latent_channels": 4,
+            "scaling_factor": 0.13025}
+# c2i serving (4q): bench.py --mode t2i's model with an ImageNet-sized label
+# table and no text, a batch of 4 class ids
+C2I_CLASSES, C2I_LABELS = 1000, [1, 207, 388, 980]
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
@@ -581,6 +654,7 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
 OUT_DIR = "build"
 PC_TRAIN_DIR = os.path.join(OUT_DIR, "pc_train")  # checkpoints of phase 4g, removed after it
 AR_TRAIN_DIR = os.path.join(OUT_DIR, "pc_ar")  # phase 4j's stats and results, removed after it
+RELEASED_DIR = os.path.join(OUT_DIR, "released_1024px")  # 4p's checkpoint, removed after it
 DEV = "cuda"
 
 failures = []
@@ -1421,19 +1495,20 @@ def _t2i_compare(pipe, label, ar_steps):
                     plain_launches=plain_launches)
 
 
-def _t2i_step_check(pipe, label, kernel, expected):
+def _t2i_step_check(pipe, label, kernel, expected, prompts=T2I_PROMPTS):
     """One image-encoder pass of the masking phase (half the tokens visible,
     256 + 1024 keys: every layer on the path's attention kernel) and one
     diffusion-head eval, kernels against plain, relative mean error gated at
     2 x floor + 1e-3 (floor: kernels against kernels with the canvas and
-    x_t moved by 1e-6); ``expected`` launches of ``kernel`` in the pass."""
+    x_t moved by 1e-6); ``expected`` launches of ``kernel`` in the pass.
+    ``prompts``: the pipeline's prompts (class ids for c2i)."""
     from nova_pointcloud_tpu_torch.models.guidance import GuidanceConfig
 
     model, qp = pipe.model, pipe.serving_qparams()
     gen = torch.Generator(device=DEV).manual_seed(11)
     ni, pd = model.num_image_tokens, model.patch_dim
     with torch.no_grad():
-        c = pipe.encode_prompt(T2I_PROMPTS, guidance=GuidanceConfig(guidance_scale=T2I_GUIDANCE))
+        c = pipe.encode_prompt(prompts, guidance=GuidanceConfig(guidance_scale=T2I_GUIDANCE))
         cond = model.encode_video(model.bos_frame(T2I_ROWS), c, 1, qparams=qp)
         canvas = torch.randn((T2I_BATCH, ni, pd), generator=gen, device=DEV)
         mask = (torch.rand((T2I_BATCH, ni, 1), generator=gen, device=DEV) < 0.5).float()
@@ -1499,25 +1574,31 @@ T2I_INT8_LAUNCHES = {
     "int8_linear": 2 * (T2I_V_LAYERS + T2I_VIT_LAYERS * S_T2I)}
 
 
-def _flash_route_launches(pipe):
-    """flash_attention launches of one float call by the dispatcher's rule
-    (ops/attention.flash_route): per image-encoder pass, the decoder half
-    sees all 256 + 1024 keys; the encoder half sees 256 + its visible bucket
-    (128, 256, 512) in the gather phases and 1280 in the masking phase; the
-    video encoder sees 288. Each layer with >= 1024 keys launches once."""
+def _flash_route_launches(pipe, ar_steps=T2I_AR, text_len=32):
+    """flash_attention launches of one float image call (T = 1) by the
+    dispatcher's rule (ops/attention.flash_route), from the model's sizes:
+    the video encoder's layers see the text prefix + the video tokens once;
+    per AR step the image encoder's decoder half sees the video states + all
+    image tokens, its encoder half the video states + its visible bucket in
+    the gather phases and + all image tokens in the masking phase. Each
+    layer with >= 1024 keys (and its K / V under the byte cap) launches once.
+    bench.py --mode t2i: 288 video keys, 256 + 128 / 256 / 512 / 1024 image
+    keys."""
     from nova_pointcloud_tpu_torch.ops.attention import flash_route
     from nova_pointcloud_tpu_torch.pipelines.nova import bucket_plan
 
-    _, counts, starts, _ = pipe._schedule(T2I_AR, T2I_DIFF)
-    ni = pipe.model.num_image_tokens
-    half = T2I_VIT_LAYERS // 2
-    n = T2I_V_LAYERS * flash_route(T2I_L["video"], T2I_L["video"], 64, None, "auto", True)
-    for s_b, s_e, bucket in bucket_plan(starts, ni):
-        lk = 256 + (ni if bucket is None else bucket)
-        bias = (T2I_ROWS, 1, 1, lk)
-        enc = flash_route(lk, lk, 64, bias, "auto", True)
-        dec = flash_route(T2I_L["full"], T2I_L["full"], 64, None, "auto", True)
-        n += (s_e - s_b) * half * (int(enc) + int(dec))
+    model = pipe.model
+    _, counts, starts, _ = pipe._schedule(ar_steps, T2I_DIFF)
+    ni, nv = model.num_image_tokens, model.num_video_tokens
+    vit_v, vit_i = model.video_encoder, model.image_encoder
+    lv, full = text_len + nv, nv + ni
+    n = (len(vit_v.enc_layers) + len(vit_v.dec_layers)) * flash_route(
+        lv, lv, model.head_dim_v, None, "auto", True)
+    for s_b, s_e, bucket in bucket_plan(starts, ni) or [(0, len(counts), None)]:
+        lk = nv + (ni if bucket is None else bucket)
+        enc = flash_route(lk, lk, model.head_dim_i, (2, 1, 1, lk), "auto", True)
+        dec = flash_route(full, full, model.head_dim_i, None, "auto", True)
+        n += (s_e - s_b) * (len(vit_i.enc_layers) * enc + len(vit_i.dec_layers) * dec)
     return n
 
 
@@ -3382,6 +3463,380 @@ def timing_decode(vaes, pipe_t2v):
     torch.cuda.empty_cache()
 
 
+def _phi_inputs():
+    """PHI_BATCH rows of PHI_TOKENS token ids (the released config's
+    text_token_len): a full prompt, one half padded, an empty prompt (all
+    padding: every attention row fully masked) and a short one."""
+    gen = torch.Generator().manual_seed(41)
+    ids = torch.randint(0, PhiConfig().vocab_size, (PHI_BATCH, PHI_TOKENS), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1, PHI_TOKENS // 2:] = 0
+    mask[2] = 0
+    mask[3, 17:] = 0
+    return ids, mask
+
+
+def _phi_empty_row(model, ids):
+    """The encoder on one all-padding row without an attention core: each
+    block's attention output is its out-projection's bias (the guarded
+    plain core gives zeros for a fully masked row)."""
+    x = model.embed_tokens.weight[ids]
+    for blk in model.layers:
+        h = layer_norm(x, blk.input_layernorm, model.config.layer_norm_eps)
+        m = dense(torch.nn.functional.gelu(dense(h, blk.fc1), approximate="tanh"), blk.fc2)
+        x = x + blk.self_attn.dense.bias + m
+    return layer_norm(x, model.final_layernorm, model.config.layer_norm_eps)
+
+
+def _phi_flops(cfg, batch, tokens):
+    """Dense and attention-product FLOPs of one encode (every key computed,
+    the masked ones too)."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    per_token = 2 * (4 * d * d + 2 * d * f) + 4 * tokens * d
+    return batch * tokens * cfg.num_hidden_layers * per_token
+
+
+@phase("4o the Phi text encoder")
+def phi_encoder():
+    """PhiConfig() at full size (32 layers, 2560 wide, 32 heads, 51200
+    tokens), f32 with TF32 off, seeded init on the card: one encode of
+    PHI_BATCH x PHI_TOKENS ids (_phi_inputs): finite (B, L, 2560) float32;
+    the all-padding row against its plain recomputation (_phi_empty_row),
+    gate PHI_PAD_TOL x max; ms per encode (p50 of 3 by CUDA events),
+    TFLOP/s against the f32 peak (67), peak memory above what is held. Then
+    the first PHI_CMP_LAYERS layers at full width on the card against the
+    same weights on the CPU, gate PHI_CPU_TOL x max |CPU|. Launches no
+    kernel of the repo. Returns the full prompt's embeddings (1, 256, 2560)
+    on the CPU for 4p."""
+    cfg = PhiConfig()
+    ids, mask = _phi_inputs()
+    ids_d, mask_d = ids.to(DEV), mask.to(DEV)
+    fb.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = PhiEncoderModel(cfg, device=DEV).init_weights(
+        torch.Generator(device=DEV).manual_seed(40))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        out = model(ids_d, mask_d)
+        times = _event_ms(lambda: model(ids_d, mask_d))
+        empty = _phi_empty_row(model, ids_d[2])
+    peak = torch.cuda.max_memory_allocated() - held
+    ms = float(np.median(times))
+    flops = _phi_flops(cfg, PHI_BATCH, PHI_TOKENS)
+    pad_err = ((out[2] - empty).abs().max() / empty.abs().max()).item()
+    ok = (tuple(out.shape) == (PHI_BATCH, PHI_TOKENS, cfg.hidden_size)
+          and out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+          and pad_err <= PHI_PAD_TOL)
+    print(f"Phi-2 encoder {n_params / 1e9:.3f}B parameters f32 (built in {build_s:.1f} s): "
+          f"encode {tuple(ids.shape)} -> {tuple(out.shape)} {str(out.dtype)[6:]}, finite; "
+          f"all-padding row vs its plain recomputation max |diff| / max {pad_err:.2e} (tol "
+          f"{PHI_PAD_TOL:g}): {'ok' if ok else 'FAIL'}")
+    print(f"  {ms:.2f} ms per encode (events {[round(t, 2) for t in times]}), "
+          f"{flops / 1e12:.2f} TFLOP, {flops / ms / 1e9:.1f} TFLOP/s "
+          f"({flops / ms / 1e9 / (PEAK_F32_FLOPS / 1e12):.1%} of the f32 peak), peak "
+          f"{peak / 2 ** 30:.2f} GiB above {held / 2 ** 30:.2f}")
+    emb = out[:1].cpu()
+    cmp_sd = {k: v for k, v in model.state_dict().items()
+              if not k.startswith("layers.") or int(k.split(".")[1]) < PHI_CMP_LAYERS}
+    del model, out, empty
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=PHI_CMP_LAYERS)
+    card = PhiEncoderModel(cfg2, device=DEV)
+    card.load_state_dict(cmp_sd)
+    cpu = PhiEncoderModel(cfg2, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in cmp_sd.items()})
+    del cmp_sd
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = card(ids_d, mask_d).cpu()
+        want = cpu(ids, mask)
+    cpu_err = ((got - want).abs().max() / want.abs().max()).item()
+    good = cpu_err <= PHI_CPU_TOL and bool(torch.isfinite(got).all())
+    launches = {k: v for k, v in fb.LAUNCHES.items() if v}
+    print(f"  {PHI_CMP_LAYERS} of {cfg.num_hidden_layers} layers at full width, card vs CPU: "
+          f"max |diff| / max |CPU| {cpu_err:.2e} (tol {PHI_CPU_TOL:g}; "
+          f"{time.perf_counter() - t0:.1f} s): {'ok' if good else 'FAIL'}; kernel launches "
+          f"{launches or 0} (expected 0)")
+    report["phi"] = dict(params=n_params, encode_ms=ms, encode_events_ms=times, flops=flops,
+                         tflops_s=flops / ms / 1e9, peak_bytes=peak, pad_rel_err=pad_err,
+                         cpu_rel_err=cpu_err, cpu_layers=PHI_CMP_LAYERS)
+    del card, cpu, got, want
+    torch.cuda.empty_cache()
+    if not (ok and good and not launches):
+        raise AssertionError("Phi check failed")
+    return emb
+
+
+def _vae_reference_state_dict(vae):
+    """An AutoencoderKL's weights under diffusers' names: the loader
+    (load_torch_vae_weights) reads a one-element marker for each name it
+    asks for, and each marker lands on the port key it fills."""
+    class Markers(dict):
+        def __missing__(self, name):
+            self[name] = np.full((1, 1, 1, 1), float(len(self)), np.float32)
+            return self[name]
+
+    names = Markers()
+    port_of = {int(v.reshape(-1)[0]): k
+               for k, v in load_torch_vae_weights(vae, names).items()}
+    sd = vae.state_dict()
+    return {name: sd[port_of[int(m.reshape(-1)[0])]] for name, m in names.items()}
+
+
+def _phi_reference_state_dict(model):
+    """The encoder's weights under HF PhiForCausalLM names."""
+    return {"model." + re.sub(r"^layers\.(\d+)\.(fc[12])\.", r"layers.\1.mlp.\2.", k): v
+            for k, v in model.state_dict().items()}
+
+
+def _save_component(path, sd, config=None, shards=1):
+    """bf16 safetensors shards (the names dealt round-robin) and the
+    component's config.json."""
+    os.makedirs(path, exist_ok=True)
+    names = sorted(sd)
+    for i in range(shards):
+        safetensors_io.save_file(
+            {k: sd[k].to(torch.bfloat16) for k in names[i::shards]},
+            os.path.join(path, f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors"))
+    if config is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config, f)
+
+
+def _write_released_dir(root):
+    """A reference checkpoint directory of the released NOVA-0.6B 1024px
+    config: model_index.json (NOVAPipeline); transformer/ (RELEASED_MODEL,
+    seeded random weights with the AdaLN projections and biases filled,
+    under the reference names, bf16 in 2 shards); scheduler/ (FlowMatch,
+    shift 1.0); vae/ (the SDXL AutoencoderKL, seeded); text_encoder/ (Phi-2
+    at full width and 2 layers, seeded, HF names). No tokenizer/: the card
+    has no transformers, so from_pretrained skips the text encoder. Returns
+    the directory's bytes and what the transformer and the VAE must load:
+    their weights as written (bf16), under the port's keys, on the host."""
+    shutil.rmtree(root, ignore_errors=True)
+    gen = torch.Generator(device=DEV).manual_seed(50)
+    model = build_transformer(RELEASED_MODEL, device=DEV)
+    model.init_weights(gen).fill_zero_init(gen)
+    _save_component(os.path.join(root, "transformer"), reference_state_dict(model),
+                    {"_class_name": "NOVATransformer3DModel", **RELEASED_MODEL}, shards=2)
+    written = {"transformer": _bf16_host_copy(model)}
+    del model
+    os.makedirs(os.path.join(root, "scheduler"))
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump({"_class_name": "FlowMatchEulerDiscreteScheduler",
+                   "num_train_timesteps": 1000, "shift": 1.0}, f)
+    vae = AutoencoderKL(**SDXL_VAE, device=DEV).init_weights(gen)
+    _save_component(os.path.join(root, "vae"), _vae_reference_state_dict(vae),
+                    {"_class_name": "AutoencoderKL", **SDXL_VAE})
+    written["vae"] = _bf16_host_copy(vae)
+    del vae
+    phi_cfg = dataclasses.replace(PhiConfig(), num_hidden_layers=2)
+    phi = PhiEncoderModel(phi_cfg, device=DEV).init_weights(gen)
+    _save_component(os.path.join(root, "text_encoder"), _phi_reference_state_dict(phi),
+                    {"architectures": ["PhiForCausalLM"], "model_type": "phi",
+                     **dataclasses.asdict(phi_cfg)})
+    del phi
+    with open(os.path.join(root, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "NOVAPipeline",
+                   "transformer": ["diffnext", "NOVATransformer3DModel"],
+                   "scheduler": ["diffnext", "FlowMatchEulerDiscreteScheduler"],
+                   "vae": ["diffnext", "AutoencoderKL"],
+                   "text_encoder": ["transformers", "PhiForCausalLM"]}, f)
+    torch.cuda.empty_cache()
+    return sum(p.stat().st_size for p in Path(root).rglob("*") if p.is_file()), written
+
+
+def _bf16_host_copy(module):
+    """A module's state dict with its floating tensors in bf16, on the host."""
+    return {k: (v.to(torch.bfloat16) if v.is_floating_point() else v).cpu()
+            for k, v in module.state_dict().items()}
+
+
+def _same_weights(module, written):
+    """Whether ``module`` holds exactly the keys of ``written`` and, bitwise,
+    their tensors (a loader that swaps two same-shaped tensors fails)."""
+    sd = module.state_dict()
+    return sd.keys() == written.keys() and all(
+        sd[k].dtype == w.dtype and torch.equal(sd[k].cpu(), w) for k, w in written.items())
+
+
+def _released_flash_check(gen):
+    """flash_attention at the released config's image-encoder shape (2, 16,
+    5120, 64) bf16: the video states (1024) + the image tokens (4096) as
+    keys, no bias (the decoder half) and a key bias (the encoder half in the
+    masking phase), against its plain version at 3c's bf16 tolerance; timed
+    with its plain version, SDPA and the bound (4 B H L^2 d FLOPs at the
+    bf16 peak, or q, k, v, o once)."""
+    import torch.nn.functional as Fn
+
+    b, h, L = 2, HEADS, RELEASED_NV + RELEASED_NI
+    ok = True
+    for kind in ("none", "key"):
+        q, k, v = _flash_operands(gen, b, h, L, L, 64)
+        bias = _flash_bias(gen, kind, b, L, L)
+        o, _ = fa.flash_attention_with_lse(q, k, v, bias)
+        ref, _ = fa.flash_attention_plain(q, k, v, bias)
+        ok = _tol_check("flash_attention", f"bias={kind} bf16 Lk={L} (released 1024px)", o, ref,
+                        2.0 ** -6, 2.0 ** -8, like=ref) and ok
+        del o, ref, bias
+    row = _time_kernel("flash_attention", (b, h, L, 64),
+                       lambda: fa.flash_attention(q, k, v),
+                       lambda: fa.flash_attention_plain(q, k, v),
+                       _bound(4 * b * h * L * L * 64 / PEAK_BF16_FLOPS, 4 * b * h * L * 64 * 2),
+                       library=lambda: Fn.scaled_dot_product_attention(q, k, v), graph=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return ok, row
+
+
+@phase("4p from_pretrained at the released 1024px config")
+def released_1024(emb):
+    """The released NOVA-0.6B 1024px config (RELEASED_MODEL, from
+    nova_pointcloud_tpu/configs/nova_d48w1024_sdxl1024.yaml: 64 x 64 image
+    and 32 x 32 video patches, text 256 x 2560) through a reference
+    checkpoint directory (_write_released_dir, about 2 GB, removed at the
+    end): from_pretrained(dir, dtype=bfloat16), its load time and rate (a
+    warm read: the files were just written); one prompt with 4o's
+    embeddings as prompt_embeds, 64 AR x 25 steps, CFG 5.0, output_type
+    "np" -> (1, 1024, 1024, 3) uint8, its flash_attention launches exactly
+    _flash_route_launches of the model (every attention of the call: 1280
+    video keys, 1536 / 2048 / 3072 / 5120 image keys) and 0 of every other
+    kernel, its time and peak memory; the transformer's and the VAE's
+    weights bitwise those written; the same call on a pipeline built by
+    build_pipeline from the written weights and the config, with the same
+    VAE and generator: bitwise the same pixels. First, flash_attention at the
+    call's largest shape against its plain version and timed
+    (_released_flash_check)."""
+    if emb is None:
+        raise AssertionError("no prompt embeddings: phase 4o failed")
+    gen = torch.Generator(device=DEV).manual_seed(51)
+    flash_ok, flash_row = _released_flash_check(gen)
+    t0 = time.perf_counter()
+    nbytes, written = _write_released_dir(RELEASED_DIR)
+    write_s = time.perf_counter() - t0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = from_pretrained(RELEASED_DIR, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loaded = (pipe.text_encoder is None and pipe.vae is not None
+                  and {p.dtype for p in pipe.model.parameters()} == {torch.bfloat16}
+                  and pipe.vae.scaling_factor == SDXL_VAE["scaling_factor"])
+        n_params = sum(p.numel() for p in pipe.model.parameters())
+        same = {name: _same_weights(mod, written[name])
+                for name, mod in (("transformer", pipe.model), ("vae", pipe.vae))}
+        loaded = loaded and all(same.values())
+        print(f"wrote the reference directory ({nbytes / 1e9:.2f} GB) in {write_s:.1f} s; "
+              f"from_pretrained(dtype=bfloat16): {load_s:.2f} s, {nbytes / load_s / 1e9:.2f} "
+              f"GB/s (warm read), {n_params / 1e6:.1f}M transformer parameters bf16, the SDXL "
+              f"VAE, no text encoder (no tokenizer/); the weights loaded bitwise those "
+              f"written: {same}: {'ok' if loaded else 'FAIL'}")
+        expected = _flash_route_launches(pipe, RELEASED_AR, text_len=RELEASED_TEXT)
+        kw = dict(prompt_embeds=emb.numpy(), num_inference_steps=RELEASED_AR,
+                  num_diffusion_steps=RELEASED_DIFF, guidance_scale=RELEASED_GUIDANCE,
+                  output_type="np")
+        pipe(**{**kw, "num_inference_steps": 4}, generator=torch.Generator(device=DEV))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fb.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = pipe(**kw, generator=torch.Generator(device=DEV).manual_seed(52))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = dict(fb.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        want = {n: expected if n == "flash_attention" else 0 for n in KERNELS}
+        counts_ok = launches == want
+        print(f"one call at 1024 x 1024 ({call_s:.2f} s, peak {peak / 2 ** 30:.2f} GiB above "
+              f"{held / 2 ** 30:.2f}): flash_attention launches {launches['flash_attention']} "
+              f"(expected {expected}), others "
+              f"{ {k: v for k, v in launches.items() if v and k != 'flash_attention'} or 0}: "
+              f"{'ok' if counts_ok else 'FAIL'}")
+        _record_launches("flash_attention", "released_1024px", launches["flash_attention"])
+        ok = _u8_ok(out.images, RELEASED_IMAGE_SHAPE, "released 1024px images")
+        cfg = {"pipeline": {"name": "NOVAPipeline"}, "model": RELEASED_MODEL,
+               "scheduler": {"_sample_class_name": "FlowMatchEulerScheduler", "shift": 1.0}}
+        twin, _ = build_pipeline(cfg, state_dict=written.pop("transformer"), dtype=torch.bfloat16)
+        twin = NOVAPipeline(twin.model.to(torch.bfloat16), twin.scheduler, vae=pipe.vae)
+        again = twin(**kw, generator=torch.Generator(device=DEV).manual_seed(52))
+        bitwise = bool(np.array_equal(out.images, again.images))
+        print(f"the same call on build_pipeline's pipeline (the weights written, the VAE and "
+              f"generator): {'bitwise equal' if bitwise else 'DIFFERS'} (max |diff| "
+              f"{np.abs(out.images.astype(int) - again.images.astype(int)).max()} codes)")
+        report["released_1024px"] = dict(
+            dir_bytes=nbytes, write_s=write_s, load_s=load_s, load_gb_s=nbytes / load_s / 1e9,
+            call_s=call_s, peak_bytes=peak, held_bytes=held, launches=launches,
+            expected_flash=expected, weights_as_written=same, bitwise_twin=bitwise,
+            flash=flash_row)
+        del pipe, twin, out, again, written
+    finally:
+        shutil.rmtree(RELEASED_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if not (flash_ok and loaded and counts_ok and ok and bitwise):
+        raise AssertionError("released 1024px check failed")
+
+
+@phase("4q c2i int8 serving")
+def c2i_int8(vae):
+    """NOVAC2IPipeline over bench.py --mode t2i's model (T2I_ARCH, 32 x 32
+    latent patches) with num_classes=C2I_CLASSES and no text, seeded random
+    weights with the AdaLN projections, the biases and the label norm's bias
+    filled, bf16: calibrated as 4d (16 AR steps, margin 1.05), one call of
+    C2I_LABELS at 64 AR x 25 steps, CFG 5.0 against the null class, decoded
+    by 4n's AutoencoderKL to (4, 512, 512, 3) uint8: the launches of rows
+    5, 6, 8 and int8_linear exactly the t2i int8 call's (T2I_INT8_LAUNCHES:
+    the 1-token class prefix changes no count) and 0 of every other kernel,
+    samples/s; one step against the plain route at 4d's gates
+    (_t2i_step_check)."""
+    if vae is None:
+        raise AssertionError("no VAE: phase 4n failed")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = NOVATransformer(arch=T2I_ARCH, image_dim=4, image_base_size=T2I_BASE,
+                            video_base_size=T2I_VIDEO_BASE, patch_size=2,
+                            num_classes=C2I_CLASSES, quantize=True, attn_core="bf16",
+                            dtype=torch.bfloat16, device=DEV)
+    model.init_weights(gen).fill_zero_init(gen)
+    pipe = NOVAC2IPipeline(model.to(torch.bfloat16), FlowMatchEulerScheduler(), vae=vae)
+    t0 = time.perf_counter()
+    pipe.calibrate(C2I_LABELS, num_inference_steps=T2I_CAL_AR, num_diffusion_steps=T2I_DIFF,
+                   guidance_scale=T2I_GUIDANCE,
+                   generator=torch.Generator(device=DEV).manual_seed(2), margin=1.05)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    kw = dict(num_diffusion_steps=T2I_DIFF, guidance_scale=T2I_GUIDANCE)
+    pipe(C2I_LABELS, num_inference_steps=4, generator=torch.Generator(device=DEV), **kw)
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(C2I_LABELS, num_inference_steps=T2I_AR, output_type="np",
+               generator=torch.Generator(device=DEV).manual_seed(1), **kw)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {n: T2I_INT8_LAUNCHES.get(n, 0) for n in KERNELS}
+    print(f"c2i int8 ({len(C2I_LABELS)} labels, calibrated in {cal_s:.1f} s): one call "
+          f"{call_s:.2f} s with the decode, {len(C2I_LABELS) / call_s:.3f} samples/s; launches "
+          f"{launches} (the t2i int8 call's {T2I_INT8_LAUNCHES}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    for name in T2I_INT8_LAUNCHES:
+        _record_launches(name, "c2i_int8", launches[name])
+    ok = _u8_ok(out.images, T2I_IMAGE_SHAPE, "c2i images")
+    step_ok, step = _t2i_step_check(pipe, "c2i_int8", "flash_attention_static", T2I_VIT_LAYERS,
+                                    prompts=C2I_LABELS)
+    report["c2i_int8"] = dict(call_s=call_s, samples_s=len(C2I_LABELS) / call_s,
+                              calibrate_s=cal_s, launches=launches, one_step=step)
+    del pipe, model
+    torch.cuda.empty_cache()
+    if not (counts_ok and ok and step_ok):
+        raise AssertionError("c2i int8 check failed")
+
+
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
     forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
@@ -4213,7 +4668,66 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=
         report.setdefault("profile_t2v_decode", {})["layouts_ms"] = layouts
 
 
+@phase("7 where the released 1024px call's time goes")
+def released_profile():
+    """The model of 4p (RELEASED_MODEL) with seeded random bf16 weights
+    behind NOVAPipeline; one prompt of random embeddings at 64 AR x 25
+    steps, CFG 5.0, latent output: two calls' walls (host clock around a
+    call ending in a synchronize); one masking-phase image-encoder pass (2
+    rows x 4096 tokens, half visible, on the video states) and one head
+    eval on 2 x 100 tokens by CUDA events (_event_ms), 25 head evals by the
+    host clock; one call under torch.profiler (profile_call)."""
+    gen = torch.Generator(device=DEV).manual_seed(50)
+    model = build_transformer(RELEASED_MODEL, dtype=torch.bfloat16, device=DEV)
+    model.init_weights(gen).fill_zero_init(gen)
+    pipe = NOVAPipeline(model.to(torch.bfloat16), FlowMatchEulerScheduler())
+    emb = torch.randn((1, RELEASED_TEXT, PhiConfig().hidden_size),
+                      generator=torch.Generator().manual_seed(1)).numpy()
+    kw = dict(prompt_embeds=emb, num_diffusion_steps=RELEASED_DIFF,
+              guidance_scale=RELEASED_GUIDANCE)
+    pipe(num_inference_steps=4, **kw)  # warm-up
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(num_inference_steps=RELEASED_AR, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"latent calls at {RELEASED_AR} AR: {walls} s")
+    with torch.no_grad():
+        c = pipe.encode_prompt(None, prompt_embeds=emb,
+                               guidance=GuidanceConfig(guidance_scale=RELEASED_GUIDANCE))
+        cond = model.encode_video(model.bos_frame(2), c, 1)
+        tokens = torch.randn((2, RELEASED_NI, 1024), device=DEV, dtype=torch.bfloat16,
+                             generator=gen)
+        mask = (torch.rand((2, RELEASED_NI, 1), device=DEV, generator=gen) < 0.5).float()
+        x = torch.randn((2, 100, 16), device=DEV, generator=gen)
+        t = torch.full((2,), 500.0, device=DEV)
+        encoder_ms = _event_ms(lambda: model.encode_image_step(tokens, mask, cond))
+        z = model.encode_image_step(tokens, mask, cond)[:, :100]
+        head_ms = _event_ms(lambda: model.denoise_step(x, t, z))
+        t0 = time.perf_counter()
+        for _ in range(RELEASED_DIFF):
+            model.denoise_step(x, t, z)
+        torch.cuda.synchronize()
+        heads_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"one masking-phase image-encoder pass {encoder_ms} ms, one head eval on 2 x 100 "
+          f"tokens {head_ms} ms (events); {RELEASED_DIFF} head evals {heads_ms:.1f} ms (host)")
+    report["released_profile"] = dict(call_walls_s=walls, encoder_pass_ms=encoder_ms,
+                                      head_eval_ms=head_ms, head_evals_25_host_ms=heads_ms)
+    profile_call(lambda: (pipe(num_inference_steps=RELEASED_AR, **kw), torch.cuda.synchronize()),
+                 "released_1024px", keep=30)
+    report["released_profile"]["profile"] = report.get("profile_released_1024px")
+    del pipe, model
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--profile", choices=["released_1024px"], default=None,
+                    help="run only this profile target after the build")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("CUDA is not available: this script runs on the GPU only", 2)
@@ -4222,6 +4736,15 @@ def main():
               f"run from the root of the repository", 3)
     device_info()
     build()
+    if args.profile is not None:
+        if "2 build" not in failures:
+            released_profile()
+        if failures:
+            print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
+            sys.exit(1)
+        print(f"card (nvidia-smi name, power limit): {report['device']['smi']}")
+        print(json.dumps(report["released_profile"], default=str))
+        return
     if "2 build" not in failures:
         check_kernels()
         check_split_kernels()
@@ -4257,6 +4780,13 @@ def main():
         vaes = e2e(pipe_t2i, pipe_t2v)
         timing_t2v(pipe_t2v, pipe_t2v_f)
         timing_decode(vaes, pipe_t2v)
+        # the Phi encoder, the released 1024px config and c2i, after the decode
+        t_7c = time.perf_counter()
+        emb = phi_encoder()
+        released_1024(emb)
+        c2i_int8(vaes[0] if vaes else None)
+        report["slice_7c_s"] = time.perf_counter() - t_7c
+        print(f"phases 4o-4q took {report['slice_7c_s']:.1f} s (budget 120 s)")
         profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0], pipe_t2v,
                  vaes)
     kernels = []

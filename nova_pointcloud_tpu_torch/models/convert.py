@@ -8,18 +8,20 @@ Mapping:
 
 - ``Dense`` kernel (in, out) -> ``nn.Linear.weight`` (out, in); bias as is.
 - ``LayerNorm`` scale / bias -> weight / bias.
+- ``Embed`` embedding (vocab, D) -> ``nn.Embedding.weight`` as is.
 - ``MultiHeadDotProductAttention`` (under ``attn`` / ``cluster_attn`` /
   ``biattn``):
   query/key/value kernels (D, H, hd) -> (D, D) transposed, biases (H, hd)
   -> (D,); the out kernel (H, hd, D) -> (D, D) transposed.
 - A scanned stack (``<parent>/layers/block/...`` in the pc model,
   ``<vit>/enc_layers/block/...`` and ``<vit>/dec_layers/block/...`` in the
-  NOVA ViTs and the masked-AR pc model's ``encoder``) carries a leading
+  NOVA ViTs and the masked-AR pc model's ``encoder``, ``layers/block/...``
+  in the Phi text encoder) carries a leading
   depth axis: leaf ``[i]`` goes to ``<parent>.layers.{i}....``
   (``<vit>.enc_layers.{i}....``).
 - Everything else (the diffusion heads' and the refiner's ``blocks_{i}``,
-  raw parameters such as ``null_prompt``, ``bos_token`` or ``pos_embed``)
-  keeps its path, dot-joined.
+  raw parameters such as ``null_prompt``, ``bos_token``, ``pos_embed`` or
+  the label table's ``weight``) keeps its path, dot-joined.
 
 ``convert_tree`` carries the ``qparams`` and act-scale trees across: they
 have the same keys and shapes on both sides. ``jax_param_paths`` goes the
@@ -68,7 +70,7 @@ def _convert_leaf(path: Tuple[str, ...], v: np.ndarray, lead: int):
         if in_mha and parent != "out":  # (H, hd) -> (D,)
             v = v.reshape(stack + (-1,))
         return "bias", v
-    if name == "scale":
+    if name in ("scale", "embedding"):
         return "weight", v
     return name, v
 
@@ -137,6 +139,8 @@ def jax_param_paths(model: nn.Module) -> Dict[str, Tuple[str, int]]:
                 leaf = {"weight": "kernel"}.get(pname, pname)
             elif isinstance(mod, nn.LayerNorm):
                 leaf = {"weight": "scale"}.get(pname, pname)
+            elif isinstance(mod, nn.Embedding):
+                leaf = {"weight": "embedding"}.get(pname, pname)
             parts = mod_name.split(".") if mod_name else []
             path, ndim, i = [], p.ndim, 0
             while i < len(parts):

@@ -11,8 +11,9 @@ pc model, and what NOVA t2i and t2v serving need:
   time MLP), ``MotionEmbed`` (flow / fps tokens of the video models);
 - ``PatchEmbed`` (+ ``patchify`` / ``unpatchify`` in NOVA's (p_h, p_w, C)
   layout), including ``pre_patchified=True``;
-- ``TextEmbed`` (learned null-prompt bank, proj + LayerNorm, train-time
-  prompt dropout to the bank);
+- ``TextEmbed`` (learned null-prompt bank, proj + LayerNorm, padding past
+  each prompt's length and train-time prompt dropout to the bank);
+- ``LabelEmbed`` (the c2i class table with its null class, + LayerNorm);
 - ``MaskTokens`` (BOS / mask tokens).
 
 Parameter names are the flax modules' (``models/convert.py``).
@@ -246,6 +247,17 @@ class TextEmbed(nn.Module):
     def null_bank(self) -> torch.Tensor:
         return self.null_prompt
 
+    def pad_embeds(self, embeds: torch.Tensor,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Replace positions >= each prompt's length with the null bank's
+        rows (``lengths`` (B,); None: the embeds unchanged)."""
+        if lengths is None:
+            return embeds
+        bank = self.null_bank()[: embeds.shape[1]].to(embeds.dtype)
+        idx = torch.arange(embeds.shape[1], device=embeds.device)[None, :, None]
+        keep = idx < torch.as_tensor(lengths, device=embeds.device)[:, None, None]
+        return torch.where(keep, embeds, bank[None])
+
     def null_embeds(self, batch: int, length: Optional[int] = None) -> torch.Tensor:
         bank = self.null_bank()[: (length or self.num_tokens)]
         return bank[None].expand((batch,) + tuple(bank.shape))
@@ -263,6 +275,25 @@ class TextEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(dense(x, self.proj), self.norm, TORCH_LN_EPS)
+
+
+class LabelEmbed(nn.Module):
+    """Class-label embedding: a (num_classes + 1, D) table whose last row is
+    the null class (the CFG negative), then a LayerNorm (torch's eps, 1e-5).
+    Train-time label dropout belongs to c2i training, which is not ported
+    yet."""
+
+    def __init__(self, embed_dim: int, num_classes: int = 1000, device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.weight = nn.Parameter(torch.zeros(num_classes + 1, embed_dim, device=device))
+        self.norm = nn.LayerNorm(embed_dim, eps=TORCH_LN_EPS, device=device)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """(B,) or (B, L) ids -> (B, 1, D) or (B, L, D)."""
+        if input_ids.ndim == 1:
+            input_ids = input_ids[:, None]
+        return layer_norm(self.weight[input_ids.long()], self.norm, TORCH_LN_EPS)
 
 
 class MaskTokens(nn.Module):

@@ -3,7 +3,9 @@
 and text-to-video serving methods and its t2i training loss).
 
 The module owns the parameters and exposes step methods that the pipelines
-orchestrate: ``embed_text`` / ``null_text`` / ``embed_motion``, ``bos_frame``,
+orchestrate: ``embed_text`` / ``null_text`` / ``embed_label`` (c2i: class ids
+through the label table, the null class ``num_classes`` the CFG negative) /
+``embed_motion``, ``bos_frame``,
 ``encode_video`` (the BOS frame with the text prefix, or T frames with the
 block-causal bias and the AdaLN mixer), ``frame_tokens`` /
 ``embed_video_frame`` / ``encode_frame`` / ``mix_states`` (the KV-cached frame
@@ -18,8 +20,8 @@ the serving pipelines run them under ``torch.no_grad()``.
 Each step method takes the model's serving tree ``qparams`` (the int8 path,
 ``ops/quantization.quantize_serving_params`` plus calibrated scales) and,
 where the JAX package sows calibration stats, ``calibrate=True``, which makes
-it return ``(out, stats)``. Not ported yet, and raising: label (c2i)
-conditioning, t2v training, MoE.
+it return ``(out, stats)``. Not ported yet, and raising: t2v and c2i
+training, MoE.
 """
 
 from typing import Dict, Optional, Tuple
@@ -28,9 +30,10 @@ import torch
 from torch import nn
 
 from nova_pointcloud_tpu_torch.models.diffusion_mlp import DiffusionMLP
-from nova_pointcloud_tpu_torch.models.embeddings import (MaskTokens, MotionEmbed, PatchEmbed,
-                                                         PosEmbed, TextEmbed, VideoPosEmbed,
-                                                         patchify, rope_positions, rope_weights)
+from nova_pointcloud_tpu_torch.models.embeddings import (LabelEmbed, MaskTokens, MotionEmbed,
+                                                         PatchEmbed, PosEmbed, TextEmbed,
+                                                         VideoPosEmbed, patchify, rope_positions,
+                                                         rope_weights)
 from nova_pointcloud_tpu_torch.models.normalization import AdaLayerNorm
 from nova_pointcloud_tpu_torch.models.vit import VisionTransformer
 from nova_pointcloud_tpu_torch.ops import masking
@@ -89,15 +92,13 @@ class NOVATransformer(nn.Module):
                  quantize: bool = False, dtype: Optional[torch.dtype] = None,
                  attn_core: str = "bf16", num_experts: int = 0, device=None):
         super().__init__()
-        if num_classes and not text_token_dim:
-            raise NotImplementedError("NOVATransformer with label conditioning (c2i) is not "
-                                      "ported yet: ROADMAP.md, module queue, NOVA")
         dev = resolve_device(device)
         self.arch = tuple(arch)
         self.image_dim, self.patch_size = image_dim, patch_size
         self.image_base_size = tuple(image_base_size)
         self.video_base_size = tuple(video_base_size)
         self.text_token_dim, self.text_token_len = text_token_dim, text_token_len
+        self.num_classes = num_classes
         self.quantize, self.dtype, self.attn_core = quantize, dtype, attn_core
         self.rotary_pos_embed, self.video_mixer_rank = rotary_pos_embed, video_mixer_rank
         self.loss_repeat, self.noise_scheduler = loss_repeat, noise_scheduler
@@ -117,6 +118,9 @@ class NOVATransformer(nn.Module):
         self.mask_tokens = MaskTokens(wi, dev)
         self.text_embed = (TextEmbed(text_token_dim, wi, text_token_len, device=dev)
                            if text_token_dim else None)
+        # label conditioning (c2i) where the model takes no text
+        self.label_embed = (LabelEmbed(wi, num_classes, device=dev)
+                            if num_classes and not text_token_dim else None)
         self.video_pos_embed = self.image_pos_embed = None
         if not rotary_pos_embed:
             self.video_pos_embed = VideoPosEmbed(wv, self.video_base_size, dev)
@@ -172,7 +176,8 @@ class NOVATransformer(nn.Module):
         normal with std 1/sqrt(fan_in), zero biases, unit LayerNorms, the
         null prompt and the BOS / mask tokens N(0, 0.02), and the AdaLN
         projections zero (as ``AdaLayerNormZero``'s kernel_init; the video
-        mixer's too, which makes it the identity). A serving smoke test with
+        mixer's too, which makes it the identity), the label table
+        N(0, 0.02). A serving smoke test with
         zero AdaLN projections runs every diffusion block as the identity:
         fill them (``fill_zero_init``) to exercise the blocks. ``generator``
         lives on the model's device."""
@@ -192,6 +197,8 @@ class NOVATransformer(nn.Module):
             normal(p, 0.02)
         if self.text_embed is not None:
             normal(self.text_embed.null_prompt, 0.02)
+        if self.label_embed is not None:
+            normal(self.label_embed.weight, 0.02)
         for lin in self._adaln_projections():
             lin.weight.zero_()
         return self
@@ -207,16 +214,19 @@ class NOVATransformer(nn.Module):
     def fill_zero_init(self, generator: torch.Generator, std: float = 0.02
                        ) -> "NOVATransformer":
         """Seeded non-zero values for the zero-initialised AdaLN projections
-        (the video mixer's too) and every bias, so each diffusion block's
-        gate, scale and shift, and the mixer's modulation, depend on their
-        inputs."""
+        (the video mixer's too), every bias and the label table's LayerNorm
+        bias, so each diffusion block's gate, scale and shift, the mixer's
+        modulation and the class tokens depend on their inputs."""
+        def fill(p):
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * std)
+
         for lin in self._adaln_projections():
-            lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator,
-                                         device=lin.weight.device) * std)
+            fill(lin.weight)
         for mod in self.modules():
             if isinstance(mod, nn.Linear) and mod.bias is not None:
-                mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator,
-                                           device=mod.bias.device) * std)
+                fill(mod.bias)
+        if self.label_embed is not None:
+            fill(self.label_embed.norm.bias)
         return self
 
     # -- conditioning -------------------------------------------------------
@@ -227,6 +237,11 @@ class NOVATransformer(nn.Module):
     def null_text(self, batch: int, length: Optional[int] = None) -> torch.Tensor:
         """Model-dim null-prompt tokens (CFG negatives)."""
         return self.text_embed(self.text_embed.null_embeds(batch, length))
+
+    def embed_label(self, labels: torch.Tensor) -> torch.Tensor:
+        """Class ids (B,) -> model-dim class tokens (B, 1, D); id
+        ``num_classes`` is the null class."""
+        return self.label_embed(labels)
 
     def embed_motion(self, batch: int, flow: Optional[torch.Tensor] = None,
                      fps: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -7,11 +7,11 @@ top-level config dict, with the JAX function's defaults. The point-cloud
 branch: ``pc_d8w768``, 2048 points, ``patch_size=1`` (every point a token),
 text token dim 256. The NOVA branch: a ``NOVATransformer`` from a
 reference-style ``model:`` section (``nova_pointcloud_tpu/configs/*.yaml``)
-behind ``NOVAPipeline``, or behind the training pipeline the config names.
-As the JAX function, it returns the pipeline without a text encoder: the
-caller sets ``pipeline.text_encoder`` or passes ``prompt_embeds``. The c2i
-pipeline, t2v / c2i training and mesh (pipeline-parallel) construction are
-not ported yet and raise.
+behind ``NOVAPipeline``, ``NOVAC2IPipeline`` (a ``num_classes`` model
+without text) or the training pipeline the config names. As the JAX
+function, it returns the pipeline without a text encoder: the caller sets
+``pipeline.text_encoder`` or passes ``prompt_embeds``. t2v / c2i training
+and mesh (pipeline-parallel) construction are not ported yet and raise.
 """
 
 from typing import Dict, Optional
@@ -29,9 +29,10 @@ from nova_pointcloud_tpu_torch.utils.config import Config
 def build_transformer(cfg: Dict, noise_scheduler=None, dtype: Optional[torch.dtype] = None,
                       device=None) -> NOVATransformer:
     """A NOVATransformer from a reference-style transformer config: image_dim,
-    image_size, image_stride, text_token_dim / len, rotary_pos_embed,
-    image_base_size, video_base_size, video_mixer_rank, arch (the JAX
-    function's fields and defaults)."""
+    image_size, image_stride, text_token_dim / len, num_classes,
+    rotary_pos_embed, image_base_size, video_base_size, video_mixer_rank,
+    arch (the JAX function's fields and defaults; the patch size is
+    ``15 // image_stride + 1``)."""
     cfg = dict(cfg)
     image_stride = cfg.pop("image_stride", 8)
     cfg.pop("image_size", None)  # derivable: base_size * patch * stride
@@ -58,7 +59,7 @@ def build_pipeline(config: Dict, state_dict: Optional[Dict] = None, seed: int = 
     """Build (pipeline, state_dict) from a top-level config.
 
     config["pipeline"]["name"]: "NOVAPointCloudGenerationPipeline",
-    "NOVAPipeline" (the default) or a NOVA training pipeline
+    "NOVAPipeline" (the default), "NOVAC2IPipeline" or a NOVA training pipeline
     ("NOVATrainT2IPipeline"). ``state_dict``: the model's weights (e.g.
     ``models.convert.convert_params`` of a JAX tree); without one the model is
     initialised from ``seed``. ``dtype`` is the compute dtype of the model;
@@ -81,11 +82,12 @@ def build_pipeline(config: Dict, state_dict: Optional[Dict] = None, seed: int = 
             dtype=dtype, device=device)
         _load(model, state_dict, seed)
         return NOVAPointCloudGenerationPipeline(model, noise_sched), model.state_dict()
-    if pipe_name == "NOVAC2IPipeline":
-        raise NotImplementedError("pipeline 'NOVAC2IPipeline' is not ported yet: ROADMAP.md, "
-                                  "module queue, NOVA")
     model = build_transformer(dict(config["model"]), noise_sched, dtype, device)
     _load(model, state_dict, seed)
+    if pipe_name == "NOVAC2IPipeline":
+        from nova_pointcloud_tpu_torch.pipelines.nova_c2i import NOVAC2IPipeline
+
+        return NOVAC2IPipeline(model, build_scheduler(sched_cfg, "sample")), model.state_dict()
     if pipe_name.startswith("NOVATrain"):
         from nova_pointcloud_tpu_torch.pipelines import train_nova
 

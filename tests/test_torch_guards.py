@@ -18,10 +18,14 @@ from nova_pointcloud_tpu_torch.models.autoencoders import AutoencoderKL, Autoenc
 from nova_pointcloud_tpu_torch.models.nova import NOVATransformer
 from nova_pointcloud_tpu_torch.models.pointcloud import NOVAPointCloudTransformer, PreLNBlock
 from nova_pointcloud_tpu_torch.models.text_encoders.dummy import DummyTextEncoder
+from nova_pointcloud_tpu_torch.models.text_encoders.phi import (PhiConfig, PhiEncoderModel,
+                                                                PhiTextEncoder)
 from nova_pointcloud_tpu_torch.ops.attention import attention
 from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES, flash_attention, fused_block
 from nova_pointcloud_tpu_torch.pipelines.builder import build_pipeline
 from nova_pointcloud_tpu_torch.pipelines.nova import NOVAPipeline
+from nova_pointcloud_tpu_torch.pipelines.nova_c2i import NOVAC2IPipeline
+from nova_pointcloud_tpu_torch.pipelines.pretrained import from_pretrained
 from nova_pointcloud_tpu_torch.pipelines.pointcloud_gen import NOVAPointCloudGenerationPipeline
 from nova_pointcloud_tpu_torch.pipelines.train_nova import (NOVATrainC2IPipeline,
                                                             NOVATrainT2IPipeline,
@@ -33,6 +37,8 @@ from nova_pointcloud_tpu_torch.utils.device import resolve_device
 REPO = Path(__file__).resolve().parents[1]
 NOVA_TINY = dict(arch=("vit_d2w64", "vit_d2w64", "mlp_d2w64"), image_base_size=(8, 8),
                  video_base_size=(1, 2, 2), text_token_dim=16, text_token_len=4)
+C2I_TINY = {**NOVA_TINY, "image_base_size": (4, 4), "text_token_dim": None, "num_classes": 10}
+C2I_CFG = {**C2I_TINY, "image_stride": 8}
 PKG = REPO / "nova_pointcloud_tpu_torch"
 BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "nova_pointcloud_tpu"}
 KERNEL_NAMES = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
@@ -101,7 +107,16 @@ def test_every_module_imports_without_cuda_or_jax():
             "nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_cogvideox",
             "nova_pointcloud_tpu_torch.models.autoencoders.autoencoder_kl_ltx",
             "nova_pointcloud_tpu_torch.models.autoencoders.torch_loading",
-            "nova_pointcloud_tpu_torch.utils.image_processor"} <= set(mods)
+            "nova_pointcloud_tpu_torch.utils.image_processor",
+            "nova_pointcloud_tpu_torch.models.text_encoders.phi",
+            "nova_pointcloud_tpu_torch.models.torch_loading",
+            "nova_pointcloud_tpu_torch.pipelines.nova_c2i",
+            "nova_pointcloud_tpu_torch.pipelines.pretrained",
+            "nova_pointcloud_tpu_torch.evaluation.samplers",
+            "nova_pointcloud_tpu_torch.utils.export",
+            "nova_pointcloud_tpu_torch.utils.safetensors_io",
+            "nova_pointcloud_tpu_torch.scripts.precompute_prompts",
+            "nova_pointcloud_tpu_torch.scripts.generate"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -114,6 +129,29 @@ def test_every_module_imports_without_cuda_or_jax():
     assert r.returncode == 0, r.stderr[-2000:]
     for m in mods:
         importlib.import_module(m)
+
+
+def test_every_module_imports_without_the_host_side_packages():
+    """The card's installation has no transformers, safetensors, PIL or
+    imageio: with each blocked in a fresh interpreter, every module of the
+    port and chip_smoke.py import, and a safetensors file still reads."""
+    mods = [m.name for m in pkgutil.walk_packages(nova_pointcloud_tpu_torch.__path__,
+                                                  "nova_pointcloud_tpu_torch.")]
+    code = ("import importlib, os, sys, tempfile, torch\n"
+            "for m in ('transformers', 'safetensors', 'PIL', 'imageio', 'tokenizers'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "from nova_pointcloud_tpu_torch.pipelines.pretrained import _read_state_dict\n"
+            "from nova_pointcloud_tpu_torch.utils.safetensors_io import save_file\n"
+            "d = tempfile.mkdtemp()\n"
+            "w = torch.ones(2, dtype=torch.bfloat16)\n"
+            "save_file({'w': w}, os.path.join(d, 'a.safetensors'))\n"
+            "sd = _read_state_dict(d)\n"
+            "assert sd['w'].dtype == torch.float32 and sd['w'].tolist() == [1.0, 1.0]\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -182,13 +220,13 @@ def test_unported_paths_raise():
     pipe = NOVAPointCloudGenerationPipeline(model, text_encoder=DummyTextEncoder(16, 4))
     with pytest.raises(ValueError, match="ar_refiner"):  # as the JAX pipeline without one
         pipe(["a chair"], num_points=32, use_autoregressive=True)
-    # sequence-parallel attention, the c2i pipeline and mesh construction wait
+    # sequence-parallel attention, c2i training and mesh construction wait
     # for their slices
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PreLNBlock(64, 2, device="cpu", attn_impl="ring")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention(*(torch.zeros((1, 2, 8, 32)),) * 3, impl="ring:sequence")
-    cfg = {"pipeline": {"name": "NOVAC2IPipeline"}, "model": {},
+    cfg = {"pipeline": {"name": "NOVATrainC2IPipeline"}, "model": C2I_CFG,
            "scheduler": {"class_name": "DDPMScheduler"}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_pipeline(cfg, device="cpu")
@@ -267,12 +305,13 @@ def test_nova_unported_paths_raise(monkeypatch):
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ImportError, match="output_type='np'"):
         vae_pipe.image_processor.postprocess(np.zeros((1, 4, 4, 3), np.float32), "pil")
-    for kw in (dict(text_token_dim=None, num_classes=10), dict(num_experts=4),
-               dict(attn_impl="ring")):
+    for kw in (dict(num_experts=4), dict(attn_impl="ring")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NOVATransformer(**{**NOVA_TINY, **kw}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PhiTextEncoder(None, None).host_offload = True
     cfg = {"model": {**NOVA_TINY, "image_stride": 8}}
-    for name in ("NOVAC2IPipeline", "NOVATrainT2VPipeline"):
+    for name in ("NOVATrainC2IPipeline", "NOVATrainT2VPipeline"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_pipeline({**cfg, "pipeline": {"name": name}}, device="cpu")
     assert isinstance(build_scheduler({}), FlowMatchEulerScheduler)  # as the JAX builder
@@ -505,3 +544,43 @@ def test_cpu_ar_paths_run_no_kernel(path, monkeypatch):
         NOVAPointCloudARTransformer(arch="pc_d2w64", point_cloud_size=128, patch_size=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ARRefiner(64, 4, depth=1)
+
+
+def test_c2i_and_text_encoder_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """The c2i model and pipeline, the Phi encoder, from_pretrained and the
+    two new scripts default to the card and raise without it; on CPU
+    tensors the c2i pipeline (int8 calibrated, and float) and the Phi
+    encoder run no kernel."""
+    from nova_pointcloud_tpu_torch.scripts import generate, precompute_prompts
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    phi = PhiConfig(vocab_size=32, hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+                    num_attention_heads=4, partial_rotary_factor=0.5)
+    (tmp_path / "p.txt").write_text("a chair\n")
+    for fn in (lambda: NOVATransformer(**C2I_TINY), lambda: PhiEncoderModel(phi),
+               lambda: from_pretrained(str(tmp_path / "missing")),
+               lambda: build_pipeline({"pipeline": {"name": "NOVAC2IPipeline"},
+                                       "model": C2I_CFG}),
+               lambda: precompute_prompts.main(["--prompts", str(tmp_path / "p.txt"),
+                                                "--out", str(tmp_path / "e.npz")]),
+               lambda: generate.main(["--config", str(tmp_path / "missing.json"),
+                                      "--prompt", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()
+    fused_block.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    for quantize in (True, False):
+        model = NOVATransformer(**C2I_TINY, quantize=quantize, device="cpu")
+        model.init_weights(g).fill_zero_init(g)
+        pipe = NOVAC2IPipeline(model)
+        assert pipe.device == torch.device("cpu") and pipe.text_encoder is None
+        if quantize:
+            pipe.calibrate([3], num_inference_steps=2, num_diffusion_steps=1)
+        out = pipe([3, 10], num_inference_steps=3, num_diffusion_steps=1,
+                   generator=torch.Generator().manual_seed(1))
+        assert out.latents.shape == (2, 8, 8, 4) and torch.isfinite(out.latents).all()
+    enc = PhiEncoderModel(phi, device="cpu").init_weights(g)
+    with torch.no_grad():
+        y = enc(torch.zeros((2, 5), dtype=torch.long), torch.tensor([[1] * 5, [0] * 5]))
+    assert torch.isfinite(y).all()
+    assert LAUNCHES == dict.fromkeys(KERNEL_NAMES, 0)
