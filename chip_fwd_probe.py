@@ -85,8 +85,9 @@ PROBE = [
      "atomicAdd(&nova_fwd_probe[w][k], (unsigned long long)probe_acc[k]);\n"
      "    atomicAdd(&nova_fwd_probe[w][7], (unsigned long long)(G - 1));\n  }\n"
      "  // the last tile's p v\n", 1)]
-VARIANTS = {"two warpgroups": ([("constexpr int NWG = 3;", "constexpr int NWG = 2;", 1)],
-                               dict(FWD_WARPGROUPS=2, FWD_BLOCK_Q=128)),
+VARIANTS = {"two warpgroups": ([("static constexpr int NWG = HD == 64 ? 3 : 2;",
+                                 "static constexpr int NWG = 2;", 1)],
+                               dict(FWD_TILING={64: (2, 4), 96: (2, 3)})),
             "no turns": (NOTURN, {}),
             "no exponentials": (NOEXP, {}),
             "products only": (PRODUCTS, {}),
@@ -302,7 +303,7 @@ def main() -> None:
     smax = torch.tensor(9.0, device="cuda")
     cases["static (8, 16, 1280, 64)"] = ("flash_attention_static",
                                          lambda: fa.flash_attention_static(q, k, v, smax))
-    defaults = {key: getattr(fa, key) for key in ("FWD_WARPGROUPS", "FWD_BLOCK_Q")}
+    defaults = {"FWD_TILING": fa.FWD_TILING}
     order = ["as built", *VARIANTS, *reversed(VARIANTS), "as built"]
     times = {}
     for name in order:

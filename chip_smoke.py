@@ -387,6 +387,47 @@ together is printed beside its budget of 120 s):
     8 and int8_linear exactly the t2i int8 call's counts, samples/s, and
     4d's one-step check against plain.
 
+Head dim 96 (the *w1536 models: flash_attention's bf16 forward and
+backward and flash_attention_static's bf16 core at head dim 96, the
+backward as two new kernels, flash_attention_bwd_dkv and
+flash_attention_bwd_dq) adds to 3c-3e and, after 4q, three phases (the
+additions' time together is printed beside its budget of 180 s):
+
+3c. the forward at (2, 16, 5120, 96) and (2, 16, 1280, 96) with no bias, a
+    key bias and a full bias, at Lq 1000 / Lk 1531 with a key bias and a
+    fully masked sample, against its plain version; both shapes timed
+    (events and a graph) beside SDPA and the bound; 5b prints and gates the
+    ptxas / SASS of its three hd-96 instances (and 5c the static's two);
+3d. the NOVA-1.4B int8 call's shapes: the static attention's bf16 core at
+    head dim 96 over 1280, 1536, 3072 and 5120 keys with and without a
+    visibility bias, rows 5 and 6 at D = 1536 (fc2 over clusters of 6, the
+    diffusion block at 2 column groups a block) and int8_linear at K =
+    1536, against their plain versions; the static kernel timed at (2, 16,
+    5120, 96);
+3e. the hd-96 backward (prep, dkv, dq) at the 1.4B training step's
+    attentions (5120 keys; 1024 + 1229 with a visibility bias and a fully
+    masked sample; 32 + 1024), a full bias and a ragged Lq != Lk, against
+    the plain backward; prep exactly its plain version; dq, dk and dv of
+    two runs bitwise equal; each kernel timed at (2, 16, 5120, 96) beside
+    the plain backward, SDPA's backward and the bounds; the two kernels'
+    ptxas / SASS (wgmma, TMA, no spill) as gates;
+4r. the released NOVA-1.4B 1024px config (nova_d48w1536_sdxl1024.yaml)
+    through from_pretrained over a reference directory written as 4p's:
+    the weights loaded bitwise those written, load time and rate; one
+    prompt with 4o's embeddings at 64 AR x 25 steps, CFG 5.0 -> (1, 1024,
+    1024, 3) uint8, exactly the dispatcher's 2064 flash_attention launches
+    at head dim 96, time and peak memory;
+4s. the same weights with quantize=True, attn_core="bf16", calibrated as
+    4d, one prompt's call: rows 8 / 5 / 6 / int8_linear exactly the
+    model's counts (2064 / 2064 / 9600 / 4128), samples/s, peak memory,
+    4d's one-step check against plain;
+4t. bench.py --mode train --train-arch t2i-1.4b's step (batch 2, f32
+    master, bf16 compute, remat, AdamW 1e-4 / 0.02 / 0.9, 0.95): exactly
+    the derived launches (48 layers: 96 forward, 48 each of prep, dkv and
+    dq), every backward call of a step against the plain backward on its
+    own tensors (the gate), the step's gradients against the plain core
+    as a reading, p50 of 3 timed steps, samples/s, peak memory.
+
 The script prints its total time before the result lines.
 
     python3 chip_smoke.py --profile released_1024px
@@ -621,14 +662,26 @@ SDXL_VAE = {"block_out_channels": [128, 256, 512, 512], "latent_channels": 4,
 # c2i serving (4q): bench.py --mode t2i's model with an ImageNet-sized label
 # table and no text, a batch of 4 class ids
 C2I_CLASSES, C2I_LABELS = 1000, [1, 207, 388, 980]
+# the released NOVA-1.4B 1024px t2i config (4r, 4s): the model: block of
+# nova_pointcloud_tpu/configs/nova_d48w1536_sdxl1024.yaml, width 1536 over
+# 16 heads: head dim 96; the image encoder sees 1024 video states + 4096
+# image tokens as keys
+XL_MODEL = dict(RELEASED_MODEL, arch=["vit_d16w1536", "vit_d32w1536", "mlp_d6w1536"])
+XL_D, XL_F, XL_HD, XL_KEYS = 1536, 4 * 1536, 96, RELEASED_NV + RELEASED_NI
+XL_ROWS = 2  # one prompt x CFG 2
+# bench.py --mode train --train-arch t2i-1.4b's step (4t): batch 2, text 32 x
+# 256, 64 x 64 patches, f32 master weights, bf16 compute, remat
+XL_TRAIN_BATCH, XL_TRAIN_TEXT, XL_TRAIN_STEPS = 2, 32, 3
 KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "int8_matmul_residual", "flash_attention", "fused_int8_mlp_postln",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
            "flash_attention_bwd_f32", "flash_attention_bwd_prep",
-           "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast")
+           "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
 BWD_SOURCE_KERNELS = ("flash_attention_bwd_f32", "flash_attention_bwd_prep",
-                      "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast")
+                      "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast",
+                      "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 SOURCES.update(dict.fromkeys(BWD_SOURCE_KERNELS,
                              "nova_pointcloud_tpu_torch/csrc/flash_attention_bwd.cu"))
 REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:412",
@@ -650,11 +703,15 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
             "flash_attention_bwd_dkvq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
             # the dQ kernel's output
             "flash_attention_bwd_dq_cast":
-                "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
+                "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346",
+            # head dim 96: the dK/dV kernel and the dQ kernel, split as on the TPU
+            "flash_attention_bwd_dkv": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
+            "flash_attention_bwd_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
 OUT_DIR = "build"
 PC_TRAIN_DIR = os.path.join(OUT_DIR, "pc_train")  # checkpoints of phase 4g, removed after it
 AR_TRAIN_DIR = os.path.join(OUT_DIR, "pc_ar")  # phase 4j's stats and results, removed after it
 RELEASED_DIR = os.path.join(OUT_DIR, "released_1024px")  # 4p's checkpoint, removed after it
+XL_DIR = os.path.join(OUT_DIR, "released_1p4b")  # 4r's checkpoint, removed after it
 DEV = "cuda"
 
 failures = []
@@ -1032,6 +1089,7 @@ def check_flash():
         if not _tol_check(_bwd_kernel(f32), f"{name} f32 strided (B, L, H, D) view", g, r,
                           1e-4, 1e-5, like=r):
             bad.append(f"f32 strided backward {name}")
+    bad += _hd96_forward_checks(gen)
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain version: {bad}")
     fb.reset_launch_counts()
@@ -1321,11 +1379,11 @@ def _diffusion_operands(gen, m, d=D):
             (1.0 + randn(d, std=0.1)).to(bf16), randn(d, std=0.1).to(bf16)]
 
 
-def _static_attention_operands(gen, L, bias_kind, rows=T2I_ROWS):
-    """q, k, v as the ViT hands them over: (B, H, L, 64) views of one (B, L,
-    3, H, 64) bf16 projection; a visibility bias masks ~40% of the keys
+def _static_attention_operands(gen, L, bias_kind, rows=T2I_ROWS, d=64):
+    """q, k, v as the ViT hands them over: (B, H, L, d) views of one (B, L,
+    3, H, d) bf16 projection; a visibility bias masks ~40% of the keys
     after a 256-key prefix, and every key of sample 1 (a fully masked row)."""
-    qkv = torch.randn((rows, L, 3, HEADS, 64), generator=gen, device=DEV).to(torch.bfloat16)
+    qkv = torch.randn((rows, L, 3, HEADS, d), generator=gen, device=DEV).to(torch.bfloat16)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     bias = None
     if bias_kind == "visibility":
@@ -1419,6 +1477,7 @@ def check_nova_kernels():
                               fb.int8_linear_plain(x, w, ws, b, torch.bfloat16)):
                 bad.append(f"int8_linear {m} {n}")
     torch.cuda.empty_cache()
+    bad += _hd96_int8_checks(gen)
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     fb.reset_launch_counts()
@@ -1495,30 +1554,33 @@ def _t2i_compare(pipe, label, ar_steps):
                     plain_launches=plain_launches)
 
 
-def _t2i_step_check(pipe, label, kernel, expected, prompts=T2I_PROMPTS):
+def _t2i_step_check(pipe, label, kernel, expected, prompts=T2I_PROMPTS, prompt_embeds=None,
+                    batch=T2I_BATCH, pad_p=T2I_PAD_P):
     """One image-encoder pass of the masking phase (half the tokens visible,
     256 + 1024 keys: every layer on the path's attention kernel) and one
     diffusion-head eval, kernels against plain, relative mean error gated at
     2 x floor + 1e-3 (floor: kernels against kernels with the canvas and
     x_t moved by 1e-6); ``expected`` launches of ``kernel`` in the pass.
-    ``prompts``: the pipeline's prompts (class ids for c2i)."""
+    ``prompts``: the pipeline's prompts (class ids for c2i), or
+    ``prompt_embeds``; ``batch`` prompts, ``pad_p`` tokens a head eval."""
     from nova_pointcloud_tpu_torch.models.guidance import GuidanceConfig
 
     model, qp = pipe.model, pipe.serving_qparams()
     gen = torch.Generator(device=DEV).manual_seed(11)
-    ni, pd = model.num_image_tokens, model.patch_dim
+    ni, pd, rows = model.num_image_tokens, model.patch_dim, 2 * batch
     with torch.no_grad():
-        c = pipe.encode_prompt(prompts, guidance=GuidanceConfig(guidance_scale=T2I_GUIDANCE))
-        cond = model.encode_video(model.bos_frame(T2I_ROWS), c, 1, qparams=qp)
-        canvas = torch.randn((T2I_BATCH, ni, pd), generator=gen, device=DEV)
-        mask = (torch.rand((T2I_BATCH, ni, 1), generator=gen, device=DEV) < 0.5).float()
-        x_t = torch.randn((T2I_ROWS, T2I_PAD_P, pd), generator=gen, device=DEV)
-        t = torch.full((T2I_ROWS,), 500.0, device=DEV)
+        c = pipe.encode_prompt(prompts, guidance=GuidanceConfig(guidance_scale=T2I_GUIDANCE),
+                               prompt_embeds=prompt_embeds)
+        cond = model.encode_video(model.bos_frame(rows), c, 1, qparams=qp)
+        canvas = torch.randn((batch, ni, pd), generator=gen, device=DEV)
+        mask = (torch.rand((batch, ni, 1), generator=gen, device=DEV) < 0.5).float()
+        x_t = torch.randn((rows, pad_p, pd), generator=gen, device=DEV)
+        t = torch.full((rows,), 500.0, device=DEV)
 
         def step(cv, xt):
             z = model.encode_image_step(model.tokens_from_patches(cv).repeat(2, 1, 1),
                                         mask.repeat(2, 1, 1), cond, qparams=qp)
-            zs = z[:, :T2I_PAD_P]
+            zs = z[:, :pad_p]
             return z.float(), model.denoise_step(xt, t, zs, qparams=qp).float()
 
         fb.reset_launch_counts()
@@ -1650,9 +1712,12 @@ def t2i_float(pipe_int8):
     return pipe
 
 
-def _bwd_kernel(dt):
+def _bwd_kernel(dt, d=64, grad="dk"):
     """The kernel a gradient of the backward is held against: the bf16 or
-    the f32 route's one-pass kernel."""
+    the f32 route's one-pass kernel; at head dim 96 the dq kernel for dq,
+    else the dkv kernel."""
+    if d == XL_HD:
+        return "flash_attention_bwd_dq" if grad == "dq" else "flash_attention_bwd_dkv"
     return "flash_attention_bwd_dkvq" if dt == torch.bfloat16 else "flash_attention_bwd_f32"
 
 
@@ -1670,7 +1735,8 @@ def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
     rel = (2.0 ** -6, 2.0 ** -8) if dt == torch.bfloat16 else (1e-4, 1e-5)
     ok = True
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-        ok = _tol_check(_bwd_kernel(dt), f"{name} {label}", g, r, *rel, like=r) and ok
+        ok = _tol_check(_bwd_kernel(dt, q.shape[-1], name), f"{name} {label}", g, r, *rel,
+                        like=r) and ok
         if dead is not None:
             zero = bool((g[dead] == 0).all())
             print(f"    {name} of the fully masked sample exactly 0: {zero}")
@@ -1763,6 +1829,7 @@ def check_flash_backward():
         if not _bwd_check(label, q, k, v, bias, dt, gen):
             bad.append(label)
         torch.cuda.empty_cache()
+    bad += _hd96_backward_checks(gen)
     if bad:
         raise AssertionError(f"the flash backward disagrees with its plain version: {bad}")
     fb.reset_launch_counts()
@@ -1835,6 +1902,46 @@ def _rel_l2(a, b, label=None):
     return (num / max(den, 1e-30)) ** 0.5
 
 
+def _checked_step_grads(pipe, batch, draws, expected_calls):
+    """``_step_grads`` with every backward call of the step also run by the
+    plain backward on the call's own tensors and held to it at the flash
+    bf16 tolerance (quietly recorded); prints the worst error / tolerance
+    of dq, dk and dv over the calls. Returns (loss, grads, ok: exactly
+    ``expected_calls`` calls, each within tolerance; the worst error /
+    tolerance of dq, dk and dv)."""
+    calls = []  # per backward call: (ok, worst err / tol of dq, dk, dv, q's shape)
+    launch_bwd = fa._launch_bwd
+
+    def check(*args):
+        grads = launch_bwd(*args)
+        ref = fa.flash_attention_bwd_plain(*args)
+        ok, worst = True, []
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            ok = _tol_check(_bwd_kernel(g.dtype, g.shape[-1], name),
+                            f"{name} of the step's backward call {len(calls) + 1} (do strides "
+                            f"{tuple(args[-1].stride())})", g, r, 2.0 ** -6, 2.0 ** -8, like=r,
+                            quiet=True) and ok
+            c = report["checks"][-1]
+            worst.append(max(c["max_abs_err"] / max(c["tol_max"], 1e-30),
+                             c["mean_abs_err"] / max(c["tol_mean"], 1e-30)))
+        calls.append((ok, worst, tuple(args[0].shape)))
+        return grads
+
+    fa._launch_bwd = check
+    try:
+        loss, grads = _step_grads(pipe, batch, draws)
+    finally:
+        fa._launch_bwd = launch_bwd
+    ok = len(calls) == expected_calls and all(c[0] for c in calls)
+    worst = [max((c[1][i] for c in calls), default=float("nan")) for i in range(3)]
+    print(f"  every backward call of the step ({len(calls)}, expected {expected_calls}; shapes "
+          f"{sorted(set(c[2] for c in calls))}) vs the plain backward on its own tensors, flash "
+          f"bf16 tolerance: worst error / tolerance dq {worst[0]:.3f}, dk {worst[1]:.3f}, dv "
+          f"{worst[2]:.3f}; failing calls {[i + 1 for i, c in enumerate(calls) if not c[0]]}: "
+          f"{'ok' if ok else 'FAIL'}")
+    return loss, grads, ok, worst
+
+
 @phase("4f t2i training")
 def t2i_train():
     model = _train_model()
@@ -1865,37 +1972,8 @@ def t2i_train():
     # step, which exceeds 1 on these random weights (the 32-layer post-LN
     # ViT's bf16 gradient is chaotic), so no tolerance built on it can fail.
     draws = _train_draws(model, 3)
-    calls = []  # per backward call: (ok, worst err / tol of dq, dk, dv)
-    launch_bwd = fa._launch_bwd
-
-    def check(*args):
-        grads = launch_bwd(*args)
-        ref = fa.flash_attention_bwd_plain(*args)
-        ok, worst = True, []
-        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-            ok = _tol_check(_bwd_kernel(g.dtype), f"{name} of the step's backward call {len(calls) + 1} (do "
-                            f"strides {tuple(args[-1].stride())})", g, r, 2.0 ** -6, 2.0 ** -8,
-                            like=r, quiet=True) and ok
-            c = report["checks"][-1]
-            worst.append(max(c["max_abs_err"] / max(c["tol_max"], 1e-30),
-                             c["mean_abs_err"] / max(c["tol_mean"], 1e-30)))
-        calls.append((ok, worst))
-        return grads
-
-    fa._launch_bwd = check
-    try:
-        loss_k, g_k = _step_grads(pipe, batch, draws)
-    finally:
-        fa._launch_bwd = launch_bwd
+    loss_k, g_k, in_path, worst = _checked_step_grads(pipe, batch, draws, TRAIN_FLASH_LAYERS)
     grads_finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
-    in_path = len(calls) == TRAIN_FLASH_LAYERS and all(ok for ok, _ in calls)
-    worst = [max((w[i] for _, w in calls), default=float("nan")) for i in range(3)]
-    print(f"  every backward call of the step ({len(calls)}, expected {TRAIN_FLASH_LAYERS}) vs "
-          f"the plain backward on its own tensors, flash bf16 tolerance: worst error / "
-          f"tolerance dq {worst[0]:.3f}, dk {worst[1]:.3f}, dv {worst[2]:.3f}; failing calls "
-          f"{[i + 1 for i, (ok, _) in enumerate(calls) if not ok]}: "
-          f"{'ok' if in_path else 'FAIL'}")
-    del calls
     with fb.use_plain_kernels():
         loss_p, g_p = _step_grads(pipe, batch, draws)
     twin = _train_pipe(_train_model(None, model.state_dict()))
@@ -3608,9 +3686,10 @@ def _save_component(path, sd, config=None, shards=1):
             json.dump(config, f)
 
 
-def _write_released_dir(root):
+def _write_released_dir(root, model_cfg=RELEASED_MODEL):
     """A reference checkpoint directory of the released NOVA-0.6B 1024px
-    config: model_index.json (NOVAPipeline); transformer/ (RELEASED_MODEL,
+    config (or, with ``model_cfg`` XL_MODEL, NOVA-1.4B's): model_index.json
+    (NOVAPipeline); transformer/ (``model_cfg``,
     seeded random weights with the AdaLN projections and biases filled,
     under the reference names, bf16 in 2 shards); scheduler/ (FlowMatch,
     shift 1.0); vae/ (the SDXL AutoencoderKL, seeded); text_encoder/ (Phi-2
@@ -3620,10 +3699,10 @@ def _write_released_dir(root):
     their weights as written (bf16), under the port's keys, on the host."""
     shutil.rmtree(root, ignore_errors=True)
     gen = torch.Generator(device=DEV).manual_seed(50)
-    model = build_transformer(RELEASED_MODEL, device=DEV)
+    model = build_transformer(model_cfg, device=DEV)
     model.init_weights(gen).fill_zero_init(gen)
     _save_component(os.path.join(root, "transformer"), reference_state_dict(model),
-                    {"_class_name": "NOVATransformer3DModel", **RELEASED_MODEL}, shards=2)
+                    {"_class_name": "NOVATransformer3DModel", **model_cfg}, shards=2)
     written = {"transformer": _bf16_host_copy(model)}
     del model
     os.makedirs(os.path.join(root, "scheduler"))
@@ -3716,51 +3795,9 @@ def released_1024(emb):
         raise AssertionError("no prompt embeddings: phase 4o failed")
     gen = torch.Generator(device=DEV).manual_seed(51)
     flash_ok, flash_row = _released_flash_check(gen)
-    t0 = time.perf_counter()
-    nbytes, written = _write_released_dir(RELEASED_DIR)
-    write_s = time.perf_counter() - t0
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe = from_pretrained(RELEASED_DIR, dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        loaded = (pipe.text_encoder is None and pipe.vae is not None
-                  and {p.dtype for p in pipe.model.parameters()} == {torch.bfloat16}
-                  and pipe.vae.scaling_factor == SDXL_VAE["scaling_factor"])
-        n_params = sum(p.numel() for p in pipe.model.parameters())
-        same = {name: _same_weights(mod, written[name])
-                for name, mod in (("transformer", pipe.model), ("vae", pipe.vae))}
-        loaded = loaded and all(same.values())
-        print(f"wrote the reference directory ({nbytes / 1e9:.2f} GB) in {write_s:.1f} s; "
-              f"from_pretrained(dtype=bfloat16): {load_s:.2f} s, {nbytes / load_s / 1e9:.2f} "
-              f"GB/s (warm read), {n_params / 1e6:.1f}M transformer parameters bf16, the SDXL "
-              f"VAE, no text encoder (no tokenizer/); the weights loaded bitwise those "
-              f"written: {same}: {'ok' if loaded else 'FAIL'}")
-        expected = _flash_route_launches(pipe, RELEASED_AR, text_len=RELEASED_TEXT)
-        kw = dict(prompt_embeds=emb.numpy(), num_inference_steps=RELEASED_AR,
-                  num_diffusion_steps=RELEASED_DIFF, guidance_scale=RELEASED_GUIDANCE,
-                  output_type="np")
-        pipe(**{**kw, "num_inference_steps": 4}, generator=torch.Generator(device=DEV))  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        fb.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = pipe(**kw, generator=torch.Generator(device=DEV).manual_seed(52))
-        torch.cuda.synchronize()
-        call_s = time.perf_counter() - t0
-        launches = dict(fb.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() - held
-        want = {n: expected if n == "flash_attention" else 0 for n in KERNELS}
-        counts_ok = launches == want
-        print(f"one call at 1024 x 1024 ({call_s:.2f} s, peak {peak / 2 ** 30:.2f} GiB above "
-              f"{held / 2 ** 30:.2f}): flash_attention launches {launches['flash_attention']} "
-              f"(expected {expected}), others "
-              f"{ {k: v for k, v in launches.items() if v and k != 'flash_attention'} or 0}: "
-              f"{'ok' if counts_ok else 'FAIL'}")
-        _record_launches("flash_attention", "released_1024px", launches["flash_attention"])
-        ok = _u8_ok(out.images, RELEASED_IMAGE_SHAPE, "released 1024px images")
+        pipe, written, kw, out, rec, ok = _released_call(RELEASED_DIR, RELEASED_MODEL, emb,
+                                                         "released_1024px")
         cfg = {"pipeline": {"name": "NOVAPipeline"}, "model": RELEASED_MODEL,
                "scheduler": {"_sample_class_name": "FlowMatchEulerScheduler", "shift": 1.0}}
         twin, _ = build_pipeline(cfg, state_dict=written.pop("transformer"), dtype=torch.bfloat16)
@@ -3770,17 +3807,75 @@ def released_1024(emb):
         print(f"the same call on build_pipeline's pipeline (the weights written, the VAE and "
               f"generator): {'bitwise equal' if bitwise else 'DIFFERS'} (max |diff| "
               f"{np.abs(out.images.astype(int) - again.images.astype(int)).max()} codes)")
-        report["released_1024px"] = dict(
-            dir_bytes=nbytes, write_s=write_s, load_s=load_s, load_gb_s=nbytes / load_s / 1e9,
-            call_s=call_s, peak_bytes=peak, held_bytes=held, launches=launches,
-            expected_flash=expected, weights_as_written=same, bitwise_twin=bitwise,
-            flash=flash_row)
+        report["released_1024px"] = dict(rec, bitwise_twin=bitwise, flash=flash_row)
         del pipe, twin, out, again, written
     finally:
         shutil.rmtree(RELEASED_DIR, ignore_errors=True)
         torch.cuda.empty_cache()
-    if not (flash_ok and loaded and counts_ok and ok and bitwise):
+    if not (flash_ok and ok and bitwise):
         raise AssertionError("released 1024px check failed")
+
+
+def _released_call(root, model_cfg, emb, label):
+    """A reference directory of ``model_cfg`` written under ``root``
+    (_write_released_dir), loaded by from_pretrained(dtype=bfloat16) (its
+    time and rate: a warm read, the files were just written), the
+    transformer's and the VAE's weights checked bitwise those written; one
+    prompt with 4o's embeddings, 64 AR x 25 steps, CFG 5.0, output_type
+    "np" -> (1, 1024, 1024, 3) uint8, its flash_attention launches exactly
+    _flash_route_launches of the model and 0 of every other kernel, its
+    time and peak memory. Returns (pipeline, the weights written, the call's
+    arguments, its output, the record, whether every check passed); the
+    caller removes ``root``."""
+    t0 = time.perf_counter()
+    nbytes, written = _write_released_dir(root, model_cfg)
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = from_pretrained(root, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = pipe.model
+    loaded = (pipe.text_encoder is None and pipe.vae is not None
+              and {p.dtype for p in model.parameters()} == {torch.bfloat16}
+              and pipe.vae.scaling_factor == SDXL_VAE["scaling_factor"])
+    n_params = sum(p.numel() for p in model.parameters())
+    same = {name: _same_weights(mod, written[name])
+            for name, mod in (("transformer", model), ("vae", pipe.vae))}
+    loaded = loaded and all(same.values())
+    print(f"wrote the reference directory ({nbytes / 1e9:.2f} GB) in {write_s:.1f} s; "
+          f"from_pretrained(dtype=bfloat16): {load_s:.2f} s, {nbytes / load_s / 1e9:.2f} "
+          f"GB/s (warm read), {n_params / 1e6:.1f}M transformer parameters bf16 (head dim "
+          f"{model.head_dim_i}), the SDXL VAE, no text encoder (no tokenizer/); the weights "
+          f"loaded bitwise those written: {same}: {'ok' if loaded else 'FAIL'}")
+    expected = _flash_route_launches(pipe, RELEASED_AR, text_len=RELEASED_TEXT)
+    kw = dict(prompt_embeds=emb.numpy(), num_inference_steps=RELEASED_AR,
+              num_diffusion_steps=RELEASED_DIFF, guidance_scale=RELEASED_GUIDANCE,
+              output_type="np")
+    pipe(**{**kw, "num_inference_steps": 4}, generator=torch.Generator(device=DEV))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(**kw, generator=torch.Generator(device=DEV).manual_seed(52))
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held
+    counts_ok = launches == {n: expected if n == "flash_attention" else 0 for n in KERNELS}
+    print(f"one call at 1024 x 1024 ({call_s:.2f} s, peak {peak / 2 ** 30:.2f} GiB above "
+          f"{held / 2 ** 30:.2f}): flash_attention launches {launches['flash_attention']} "
+          f"(expected {expected}), others "
+          f"{ {k: v for k, v in launches.items() if v and k != 'flash_attention'} or 0}: "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    _record_launches("flash_attention", label, launches["flash_attention"])
+    ok = _u8_ok(out.images, RELEASED_IMAGE_SHAPE, f"{label} images")
+    rec = dict(dir_bytes=nbytes, write_s=write_s, load_s=load_s,
+               load_gb_s=nbytes / load_s / 1e9, call_s=call_s, peak_bytes=peak, held_bytes=held,
+               launches=launches, expected_flash=expected, weights_as_written=same,
+               params_m=n_params / 1e6)
+    return pipe, written, kw, out, rec, loaded and counts_ok and ok
 
 
 @phase("4q c2i int8 serving")
@@ -3837,6 +3932,532 @@ def c2i_int8(vae):
         raise AssertionError("c2i int8 check failed")
 
 
+# ---------------------------------------------------------------------------
+# head dim 96: the NOVA-1.4B 1024px config (3c-3e additions, 4r-4t)
+# ---------------------------------------------------------------------------
+
+def _xl_pad_p(ar_steps=RELEASED_AR):
+    """Tokens a head eval of the 1024px call (the cosine schedule's largest
+    count over 64 x 64 image tokens)."""
+    counts = masking.cosine_pred_counts(ar_steps, RELEASED_NI)
+    return int(masking.pred_boundaries(counts[counts > 0])[1])
+
+
+# the 1.4B training step's attentions (bench.py --train-arch t2i-1.4b,
+# batch 2): the image encoder's decoder half sees the 1024 video states and
+# all 4096 image tokens, its encoder half the video states and the training
+# mask's visible bucket (round(0.3 x 4096) = 1229, a key bias), the video
+# encoder the 32-token text prefix and the 1024 video tokens
+XL_TRAIN_KEYS = {"decoder": XL_KEYS, "encoder": RELEASED_NV + round(0.3 * RELEASED_NI),
+                 "video": XL_TRAIN_TEXT + RELEASED_NV}
+
+
+def _hd96_timed(fn):
+    """Adds each call's seconds to report["hd96_3ce_s"]: the head-dim-96
+    additions to phases 3c-3e, printed with 4r-4t's."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            report["hd96_3ce_s"] = report.get("hd96_3ce_s", 0.0) + time.perf_counter() - t0
+    return run
+
+
+@_hd96_timed
+def _hd96_forward_checks(gen):
+    """(3c) The bf16 flash forward at head dim 96 against its plain version
+    at 3c's bf16 tolerance: the 1024px call's image-encoder shape (2, 16,
+    5120, 96) and its video encoder's 1280 keys, each with no bias, a key
+    bias and a full bias; Lq != Lk off the tiles with a key bias and with a
+    fully masked sample (o = 0, lse = 1e30). Then both shapes timed by
+    events and from a CUDA graph beside SDPA and the bound (4 B H L^2 d
+    FLOPs at the bf16 peak, or q, k, v, o and lse once). Returns the
+    failing labels."""
+    import torch.nn.functional as Fn
+
+    bad = []
+    cases = ([(L, L, kind) for L in (XL_KEYS, 1280) for kind in ("none", "key", "full")]
+             + [(1000, 1531, "key"), (1000, 1531, "dead")])
+    for lq, lk, kind in cases:
+        q, k, v = _flash_operands(gen, XL_ROWS, HEADS, lq, lk, XL_HD)
+        bias = _flash_bias(gen, kind, XL_ROWS, lq, lk)
+        o, lse = fa.flash_attention_with_lse(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_attention_plain(q, k, v, bias)
+        label = f"hd 96 bias={kind} bf16 Lq={lq} Lk={lk}"
+        ok = _tol_check("flash_attention", label, o, ref_o, 2.0 ** -6, 2.0 ** -8, like=ref_o)
+        e_lse = (lse - ref_lse).abs().max().item()
+        ok = ok and bool(torch.isfinite(lse).all()) and e_lse <= 1e-4
+        if kind == "dead":
+            ok = ok and bool((lse[0] == 1e30).all()) and bool((o[0] == 0).all())
+        print(f"    lse max_abs_err {e_lse:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(label)
+        del q, k, v, o, lse, ref_o, ref_lse, bias
+    bh = XL_ROWS * HEADS
+    for L in (XL_KEYS, 1280):
+        q, k, v = _flash_operands(gen, XL_ROWS, HEADS, L, L, XL_HD)
+        _time_kernel("flash_attention", (XL_ROWS, HEADS, L, XL_HD),
+                     lambda: fa.flash_attention(q, k, v),
+                     lambda: fa.flash_attention_plain(q, k, v),
+                     _bound(4 * bh * L * L * XL_HD / PEAK_BF16_FLOPS,
+                            4 * bh * L * XL_HD * 2 + bh * L * 4),
+                     library=lambda: Fn.scaled_dot_product_attention(q, k, v), iters=10,
+                     graph=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return bad
+
+
+@_hd96_timed
+def _hd96_int8_checks(gen):
+    """(3d) The NOVA-1.4B int8 call's kernels against their plain versions
+    at its shapes (one prompt x CFG 2), at 3d's tolerances:
+    flash_attention_static's bf16 core at head dim 96 (the video encoder's
+    256 + 1024 keys, the gather phases' 1536 and 3072, the masking phase's
+    5120; no bias and a visibility bias with a fully masked sample), rows 5
+    and 6 at D = 1536 (fc2 over clusters of 6 blocks, the diffusion block
+    at 2 column groups a block: their first drive; static and per-row
+    sites, f32 and bf16 x) and int8_linear at K = 1536. The static kernel
+    timed at (2, 16, 5120, 96) (events and a graph) beside SDPA and the
+    bound. Returns the failing labels."""
+    import torch.nn.functional as Fn
+
+    bad, smax = [], torch.tensor(9.0, device=DEV)
+    for L in (RELEASED_TEXT + RELEASED_NV, RELEASED_NV + 512, RELEASED_NV + 2048, XL_KEYS):
+        for bias_kind in ("none", "visibility"):
+            q, k, v, bias = _static_attention_operands(gen, L, bias_kind, XL_ROWS, XL_HD)
+            o = fa.flash_attention_static(q, k, v, smax, bias)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_static_plain(q, k, v, smax, bias)
+            label = f"hd 96 core=bf16 bias={bias_kind} L={L}"
+            ok = _tol_check("flash_attention_static", label, o, ref, 2.0 ** -6, 2.0 ** -8,
+                            like=ref)
+            if bias is not None:
+                ok = ok and bool((o[1] == 0).all())
+            if not ok:
+                bad.append(f"static attention {label}")
+            del q, k, v, o, ref
+    for L in (RELEASED_TEXT + RELEASED_NV, XL_KEYS):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            ops = _t2i_mlp_operands(gen, (XL_ROWS, L), x_dtype, d=XL_D, f=XL_F)
+            for label, kw in _t2i_variants("mlp"):
+                y = fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw)
+                torch.cuda.synchronize()
+                ref = fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw)
+                if not _tol_check("fused_int8_mlp_postln", f"{label} D={XL_D} L={L} "
+                                  f"x={x_dtype}", y, ref, like=ops[0]):
+                    bad.append(f"mlp_postln D={XL_D} {label} {L} {x_dtype}")
+                del y, ref
+            del ops
+    for m in (XL_ROWS * _xl_pad_p(), 77):
+        ops = _diffusion_operands(gen, m, d=XL_D)
+        for label, kw in _t2i_variants("diffusion"):
+            y = fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw)
+            torch.cuda.synchronize()
+            ref = fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw)
+            if not _tol_check("fused_int8_diffusion_block", f"{label} D={XL_D} rows={m}", y,
+                              ref, like=ops[0]):
+                bad.append(f"diffusion D={XL_D} {label} {m}")
+    for n in (3 * XL_D, XL_D):
+        x, w, ws, b = _linear_operands(gen, XL_ROWS * XL_KEYS, n, k=XL_D)
+        y = fb.int8_linear(x, w, ws, b, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not _tol_check("int8_linear", f"{XL_ROWS * XL_KEYS}x{XL_D}->{n} x={x.dtype}", y,
+                          fb.int8_linear_plain(x, w, ws, b, torch.bfloat16)):
+            bad.append(f"int8_linear K={XL_D} {n}")
+        del x, w, y
+    # rows 5 and 6 at D = 1536, static sites: the masking phase's rows and a head eval's
+    ops = _t2i_mlp_operands(gen, (XL_ROWS, XL_KEYS), torch.float32, d=XL_D, f=XL_F)
+    kw = dict(_t2i_variants("mlp")[0][1])
+    m = XL_ROWS * XL_KEYS
+    _time_kernel("fused_int8_mlp_postln", (m, XL_D, XL_F, "static"),
+                 lambda: fb.fused_int8_mlp_postln(*ops, ln_eps=1e-5, **kw),
+                 lambda: fb.fused_int8_mlp_postln_plain(*ops, ln_eps=1e-5, **kw),
+                 _bound(4 * m * XL_D * XL_F / PEAK_INT8_OPS,
+                        2 * m * XL_D * 4 + 2 * XL_D * XL_F + (XL_F + 3 * XL_D) * 2
+                        + (XL_F + XL_D) * 4), iters=10, graph=True)
+    ops = _diffusion_operands(gen, XL_ROWS * _xl_pad_p(), d=XL_D)
+    kw, m = dict(_t2i_variants("diffusion")[0][1]), XL_ROWS * _xl_pad_p()
+    _time_kernel("fused_int8_diffusion_block", (m, XL_D, "static"),
+                 lambda: fb.fused_int8_diffusion_block(*ops, n2_eps=1e-5, **kw),
+                 lambda: fb.fused_int8_diffusion_block_plain(*ops, n2_eps=1e-5, **kw),
+                 _bound(2 * m * XL_D * 5 * XL_D / PEAK_INT8_OPS,
+                        3 * m * XL_D * 2 + 5 * XL_D * XL_D + (3 * XL_D + 4 * XL_D) * 2
+                        + 5 * XL_D * 4), iters=10, graph=True)
+    del ops
+    q, k, v, _ = _static_attention_operands(gen, XL_KEYS, "none", XL_ROWS, XL_HD)
+    bh = XL_ROWS * HEADS
+    _time_kernel("flash_attention_static", (XL_ROWS, HEADS, XL_KEYS, XL_HD),
+                 lambda: fa.flash_attention_static(q, k, v, smax),
+                 lambda: fa.flash_attention_static_plain(q, k, v, smax),
+                 _bound(4 * bh * XL_KEYS ** 2 * XL_HD / PEAK_BF16_FLOPS,
+                        4 * bh * XL_KEYS * XL_HD * 2),
+                 library=lambda: Fn.scaled_dot_product_attention(q, k, v), iters=10, graph=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return bad
+
+
+@_hd96_timed
+def _hd96_backward_checks(gen):
+    """(3e) The head-dim-96 bf16 backward (prep, dkv, dq) against the plain
+    backward on the kernels' own forward output and lse, at 3e's bf16
+    tolerance: the 1.4B training step's attentions (XL_TRAIN_KEYS: no bias,
+    the encoder half's visibility bias with a fully masked sample, whose
+    gradients must be exactly 0), a full bias at 1280 and Lq != Lk off the
+    tiles with a key bias; the prep kernel exactly its plain version; two
+    runs bitwise equal in dq, dk and dv (the route has no atomics). Then
+    each kernel timed at (2, 16, 5120, 96) (events and a graph) beside the
+    whole plain backward, SDPA's backward (from a graph built once) and the
+    bounds, and the two kernels' ptxas / SASS (wgmma and TMA, no spill) as
+    gates. Returns the failing labels."""
+    import torch.nn.functional as Fn
+
+    bad, bf16 = [], torch.bfloat16
+    for part, L in XL_TRAIN_KEYS.items():
+        kind = "visibility" if part == "encoder" else "none"
+        q, k, v, bias = _static_attention_operands(gen, L, kind, XL_ROWS, XL_HD)
+        label = f"hd 96 {part} bias={kind} {(XL_ROWS, HEADS, L, XL_HD)}"
+        if not _bwd_check(label, q, k, v, bias, bf16, gen,
+                          dead=1 if kind == "visibility" else None):
+            bad.append(label)
+        del q, k, v, bias
+    for lq, lk, kind in ((1280, 1280, "full"), (1000, 1531, "key")):
+        q, k, v = _flash_operands(gen, XL_ROWS, HEADS, lq, lk, XL_HD)
+        label = f"hd 96 bias={kind} Lq={lq} Lk={lk}"
+        if not _bwd_check(label, q, k, v, _flash_bias(gen, kind, XL_ROWS, lq, lk), bf16, gen):
+            bad.append(label)
+    L, bh = XL_KEYS, XL_ROWS * HEADS
+    q, k, v = _flash_operands(gen, XL_ROWS, HEADS, L, L, XL_HD)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device=DEV).to(bf16)
+    launches, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    plan = fa.bwd96_plan(XL_ROWS, HEADS, L, L)
+    fa.run_bwd(launches, ("flash_attention_bwd_prep",))
+    ref_lse, ref_delta = fa.bwd_prep_plain(o, do, lse, plan["lqp"], True)
+    tag = f"{(XL_ROWS, HEADS, L, XL_HD)}, exact"
+    if not (_tol_check("flash_attention_bwd_prep", f"hd 96 delta {tag}", launches[0][3][4],
+                       ref_delta, 0.0, 0.0)
+            and _tol_check("flash_attention_bwd_prep", f"hd 96 lse rows {tag}",
+                           launches[0][3][3], ref_lse, 0.0, 0.0)):
+        bad.append("hd 96 prep")
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_port = fa.flash_attention(*ins)
+    g1 = torch.autograd.grad(o_port, ins, do, retain_graph=True)
+    g2 = torch.autograd.grad(o_port, ins, do, retain_graph=True)
+    same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    print(f"  repeatability, two hd 96 bf16 backward runs on the same tensors "
+          f"{(XL_ROWS, HEADS, L, XL_HD)}: dq, dk and dv bitwise equal: {same}")
+    report.setdefault("bwd_repeatability", {})["bf16 hd 96"] = dict(dq_dk_dv_equal=same)
+    if not same:
+        bad.append("hd 96 repeatability")
+    del g1, g2
+    # times: each kernel by events and from a graph; the whole backward
+    # through autograd and SDPA's, each from an autograd graph built once
+    port_bwd = sync_ms(lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), 10)
+    o_lib = Fn.scaled_dot_product_attention(*ins)
+    library = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 10)
+    del o_lib, o_port
+    plain_ms = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 2)
+    io, rows = bh * L * XL_HD * 2, bh * plan["lqp"] * 4
+    bounds = {  # (operations in seconds, bytes)
+        "flash_attention_bwd_prep": (2 * bh * L * XL_HD / PEAK_F32_FLOPS,
+                                     2 * io + bh * L * 4 + 2 * rows),
+        # s, dp, dv and dk: 8 BH L^2 d; q, k, v, do, lse, delta read, dk, dv written
+        "flash_attention_bwd_dkv": (8 * bh * L * L * XL_HD / PEAK_BF16_FLOPS,
+                                    4 * io + 2 * rows + 2 * io),
+        # s, dp and dq: 6 BH L^2 d; q, k, v, do, lse, delta read, dq written
+        "flash_attention_bwd_dq": (6 * bh * L * L * XL_HD / PEAK_BF16_FLOPS,
+                                   4 * io + 2 * rows + io)}
+    total = 0.0
+    for name in fa.BWD96_KERNELS:  # events (a prepared launch holds its stream: no graph)
+        ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), 10)
+        total += ms
+        bound = _bound(*bounds[name])
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=library if name != "flash_attention_bwd_prep" else None)
+        lib_txt = "" if row["library_ms"] is None else f", SDPA backward {library:.3f} ms"
+        print(f"  {name} {(XL_ROWS, HEADS, L, XL_HD)}: {ms:.3f} ms/launch, plain backward "
+              f"{plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms ({bound[1]}), "
+              f"{bound[0] / ms:.1%} of bound")
+        entry = report["kernels"].setdefault(name, {})
+        entry.setdefault("by_shape", {})[str((XL_ROWS, HEADS, L, XL_HD))] = row
+        if name != "flash_attention_bwd_prep":  # prep's line entry stays the t2i step's
+            entry.update(row)
+    route_graph = graph_ms(lambda: fa._launch_bwd(q, k, v, None, None, o, lse, do), n=5, reps=3)
+    joint = _bound(10 * bh * L * L * XL_HD / PEAK_BF16_FLOPS, 8 * io + bh * L * 4)
+    print(f"  the whole hd 96 backward at {(XL_ROWS, HEADS, L, XL_HD)}: prep + dkv + dq "
+          f"{total:.3f} ms, the route's launches from a graph {route_graph:.3f} ms, through "
+          f"autograd {port_bwd:.3f} ms, SDPA's backward {library:.3f} ms; joint bound "
+          f"{joint[0]:.3f} ms (10 BH Lq Lk d FLOPs), {joint[0] / port_bwd:.1%} of it through "
+          f"autograd")
+    sass = _sass_ops("flash_attention_bwd")
+    ptxas = {}
+    for kernel in ("flash_bwd_dkv96_kernel", "flash_bwd_dq96_kernel"):
+        for fbias in (0, 1):
+            mangled = f"{kernel}ILb{fbias}E"
+            regs, spills, serial = _ptxas_numbers(mangled, "flash_attention_bwd")
+            ops = next((c for fn, c in sass.items() if mangled in fn), None)
+            ptxas[mangled] = (f"{_ptxas_report(mangled)}; SASS "
+                              + ", ".join(f"{op} {n}" for op, n in (ops or {}).items()))
+            print(f"  flash_attention_bwd ptxas ({mangled}): {ptxas[mangled]}")
+            if not (ops and ops["HGMMA"] and ops["UTMALDG"] and spills == 0
+                    and ops["HMMA"] == ops["IMMA"] == 0):
+                bad.append(f"hd 96 {mangled} not on wgmma and TMA without spills")
+    report["hd96_backward"] = dict(kernels_ms=total, route_graph_ms=route_graph,
+                                   autograd_ms=port_bwd, sdpa_bwd_ms=library,
+                                   joint_bound_ms=joint[0], ptxas=ptxas)
+    del q, k, v, o, lse, do, launches, ins
+    torch.cuda.empty_cache()
+    return bad
+
+
+@phase("4r from_pretrained at the released NOVA-1.4B 1024px config")
+def released_1p4b(emb):
+    """The released NOVA-1.4B 1024px config (XL_MODEL, from
+    nova_pointcloud_tpu/configs/nova_d48w1536_sdxl1024.yaml: head dim 96, 64
+    x 64 image and 32 x 32 video patches, text 256 x 2560) through a
+    reference checkpoint directory as 4p writes it (_write_released_dir:
+    the transformer seeded, bf16 in 2 shards, the SDXL VAE, a 2-layer Phi;
+    about 3.5 GB, removed at the end): from_pretrained(dir,
+    dtype=bfloat16), its load time and rate (a warm read); the transformer's
+    and the VAE's weights bitwise those written; one prompt with 4o's
+    embeddings, 64 AR x 25 steps, CFG 5.0, output_type "np" -> (1, 1024,
+    1024, 3) uint8, its flash_attention launches exactly
+    _flash_route_launches of the model at head dim 96 and 0 of every other
+    kernel, its time and peak memory. No build_pipeline twin (4p holds that
+    path). Returns the transformer's weights as written (bf16, on the host)
+    for 4s."""
+    if emb is None:
+        raise AssertionError("no prompt embeddings: phase 4o failed")
+    try:
+        pipe, written, _, out, rec, ok = _released_call(XL_DIR, XL_MODEL, emb, "released_1p4b")
+        hd_ok = pipe.model.head_dim_i == pipe.model.head_dim_v == XL_HD
+        print(f"every attention of the call at head dim 96: {'ok' if hd_ok else 'FAIL'}")
+        report["released_1p4b"] = rec
+        state = written.pop("transformer")
+        del pipe, out, written
+    finally:
+        shutil.rmtree(XL_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if not (ok and hd_ok):
+        raise AssertionError("released 1.4B 1024px check failed")
+    return state
+
+
+def _int8_call_launches(pipe, ar_steps):
+    """Launches of rows 8, 5, 6 and int8_linear in one calibrated int8 image
+    call (T = 1) from the model's sizes: the video encoder's layers once,
+    the image encoder's at every non-empty AR step, the head's blocks at
+    every diffusion step of those; two projections (qkv, out) a layer.
+    bench.py --mode t2i's model gives T2I_INT8_LAUNCHES."""
+    model = pipe.model
+    s = len(pipe._schedule(ar_steps, T2I_DIFF)[1])
+    vit_v, vit_i = model.video_encoder, model.image_encoder
+    layers = (len(vit_v.enc_layers) + len(vit_v.dec_layers)
+              + s * (len(vit_i.enc_layers) + len(vit_i.dec_layers)))
+    blocks = len(list(model.image_decoder.blocks()))
+    return {"flash_attention_static": layers, "fused_int8_mlp_postln": layers,
+            "fused_int8_diffusion_block": blocks * T2I_DIFF * s, "int8_linear": 2 * layers}
+
+
+@phase("4s NOVA-1.4B int8 serving")
+def xl_int8(emb, state):
+    """4r's weights with quantize=True and attn_core="bf16" (head dim 96 on
+    the static attention's bf16 core), calibrated as 4d (16 AR steps, margin
+    1.05), one prompt with 4o's embeddings at 64 AR x 25 steps, CFG 5.0,
+    latent output: the launches of rows 8, 5, 6 and int8_linear exactly
+    _int8_call_launches of the model (row 5's fc2 over clusters of 6, row
+    6 at 2 column groups a block) and 0 of every other kernel; finite
+    latents with a spread; samples/s and peak memory; one encoder pass and
+    one head eval against plain (_t2i_step_check, 4d's gate)."""
+    if emb is None or state is None:
+        raise AssertionError("no 1.4B weights or prompt embeddings: phase 4o or 4r failed")
+    m = XL_MODEL
+    model = NOVATransformer(arch=tuple(m["arch"]), image_dim=m["image_dim"],
+                            image_base_size=tuple(m["image_base_size"]),
+                            video_base_size=tuple(m["video_base_size"]), patch_size=2,
+                            text_token_dim=m["text_token_dim"],
+                            text_token_len=m["text_token_len"], quantize=True, attn_core="bf16",
+                            dtype=torch.bfloat16, device=DEV)
+    model.load_state_dict(state)
+    model.to(torch.bfloat16)
+    pipe = NOVAPipeline(model, FlowMatchEulerScheduler())
+    pe = emb.numpy()
+    t0 = time.perf_counter()
+    fb.reset_launch_counts()
+    pipe.calibrate(prompt_embeds=pe, num_inference_steps=T2I_CAL_AR, num_diffusion_steps=T2I_DIFF,
+                   guidance_scale=T2I_GUIDANCE,
+                   generator=torch.Generator(device=DEV).manual_seed(2), margin=1.05)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    cal_launches = {k: v for k, v in fb.LAUNCHES.items() if v}
+    kw = dict(prompt_embeds=pe, num_diffusion_steps=T2I_DIFF, guidance_scale=T2I_GUIDANCE,
+              output_type="latent")
+    pipe(**kw, num_inference_steps=4, generator=torch.Generator(device=DEV))  # warm-up
+    expected = _int8_call_launches(pipe, RELEASED_AR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(**kw, num_inference_steps=RELEASED_AR,
+               generator=torch.Generator(device=DEV).manual_seed(53))
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held
+    counts_ok = launches == {n: expected.get(n, 0) for n in KERNELS}
+    lat = out.latents.float()
+    shape = (1, 2 * m["image_base_size"][0], 2 * m["image_base_size"][1], 4)
+    out_ok = (tuple(lat.shape) == shape and bool(torch.isfinite(lat).all())
+              and lat.std().item() > 0.05)
+    print(f"NOVA-1.4B int8 (calibrated in {cal_s:.1f} s, launches {cal_launches}): one call "
+          f"{call_s:.2f} s, {1 / call_s:.4f} samples/s, peak {peak / 2 ** 30:.2f} GiB above "
+          f"{held / 2 ** 30:.2f}; launches {launches} (expected {expected}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}; latents {tuple(lat.shape)} finite, std "
+          f"{lat.std().item():.4f}: {'ok' if out_ok else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, "xl_int8", launches[name])
+    step_ok, step = _t2i_step_check(
+        pipe, "xl_int8", "flash_attention_static",
+        len(model.image_encoder.enc_layers) + len(model.image_encoder.dec_layers), prompts=None,
+        prompt_embeds=pe, batch=1, pad_p=_xl_pad_p())
+    report["xl_int8"] = dict(call_s=call_s, samples_s=1 / call_s, calibrate_s=cal_s,
+                             calibration_launches=cal_launches, launches=launches,
+                             expected=expected, peak_bytes=peak, held_bytes=held,
+                             output_std=lat.std().item(), one_step=step)
+    del pipe, model, out, lat
+    torch.cuda.empty_cache()
+    if not (counts_ok and out_ok and step_ok):
+        raise AssertionError("NOVA-1.4B int8 check failed")
+
+
+def _xl_train_batch(seed):
+    """bench.py --train-arch t2i-1.4b's batch 2 in the records layout: fp16
+    VAE moments of 128 x 128 x 4 latents, f32 caption embeddings 32 x 256."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    lat = (XL_TRAIN_BATCH, 2 * XL_MODEL["image_base_size"][0], 2 * XL_MODEL["image_base_size"][1],
+           4)
+    return {"moments": torch.cat([torch.randn(lat, generator=gen, device=DEV) * 0.8,
+                                  torch.full(lat, -6.0, device=DEV)], -1).half(),
+            "text_embeds": torch.randn((XL_TRAIN_BATCH, XL_TRAIN_TEXT, 256), generator=gen,
+                                       device=DEV)}
+
+
+def _xl_train_draws(model, seed):
+    """Every random draw of one 1.4B step, fixed (as _train_draws)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    ni, rows = model.num_image_tokens, model.loss_repeat * XL_TRAIN_BATCH
+    lat = (XL_TRAIN_BATCH,) + tuple(model.latent_hw) + (4,)
+    mask, _ = masking.sample_train_mask(gen, XL_TRAIN_BATCH, ni, device=DEV)
+    return {"latent_eps": torch.randn(lat, generator=gen, device=DEV),
+            "drop": torch.rand((XL_TRAIN_BATCH,), generator=gen, device=DEV) < 0.1, "mask": mask,
+            "timesteps": model.noise_scheduler.sample_timesteps(gen, (rows, ni), device=DEV),
+            "noise": torch.randn((rows, ni, model.patch_dim), generator=gen, device=DEV)}
+
+
+def _train_flash_layers(model, text_len):
+    """Attention layers of one training forward on the flash kernel by the
+    dispatcher's rule (ops/attention.flash_route): the video encoder over
+    the text prefix + the video tokens, the image encoder's encoder half
+    over the video states + the training mask's visible bucket (a key
+    bias), its decoder half over the video states + every image token.
+    bench.py --train-arch t2i's model gives TRAIN_FLASH_LAYERS (16)."""
+    from nova_pointcloud_tpu_torch.ops.attention import flash_route
+
+    ni, nv = model.num_image_tokens, model.num_video_tokens
+    vit_v, vit_i = model.video_encoder, model.image_encoder
+    lv, full = text_len + nv, nv + ni
+    lk = nv + int(round((1.0 - masking.TRAIN_MASK_RATIO_MIN) * ni))
+    return ((len(vit_v.enc_layers) + len(vit_v.dec_layers))
+            * flash_route(lv, lv, model.head_dim_v, None, "auto", True)
+            + len(vit_i.enc_layers) * flash_route(lk, lk, model.head_dim_i, (2, 1, 1, lk),
+                                                  "auto", True)
+            + len(vit_i.dec_layers) * flash_route(full, full, model.head_dim_i, None, "auto",
+                                                  True))
+
+
+@phase("4t NOVA-1.4B training step (t2i-1.4b)")
+def xl_train():
+    """bench.py --mode train --train-arch t2i-1.4b's step: NOVATransformer(
+    vit_d16w1536, vit_d32w1536, mlp_d6w1536), 64 x 64 image and 32 x 32
+    video patches, text 32 x 256, seeded init_weights, f32 master weights,
+    bf16 compute, remat, AdamW (lr 1e-4, wd 0.02, betas 0.9 / 0.95), batch
+    2. A warm-up step, then one step's launches exactly as derived (every
+    attention layer with >= 1024 keys, _train_flash_layers: its forward
+    twice (remat), prep, dkv and dq once each, at head dim 96; 0 of every
+    other kernel); each of the step's backward calls against the plain
+    backward on its own tensors at the flash bf16 tolerance (the gate, as
+    4f); the step's gradients against the plain attention core's as a
+    reading (bf16 on random weights, no floor to gate on; the f32 route,
+    4f's gate, takes head dim 64 only); XL_TRAIN_STEPS timed steps: p50,
+    samples/s and peak memory."""
+    model = NOVATransformer(arch=tuple(XL_MODEL["arch"]), image_dim=4,
+                            image_base_size=tuple(XL_MODEL["image_base_size"]),
+                            video_base_size=tuple(XL_MODEL["video_base_size"]), patch_size=2,
+                            text_token_dim=256, text_token_len=XL_TRAIN_TEXT,
+                            noise_scheduler=FlowMatchEulerScheduler(), remat=True,
+                            dtype=torch.bfloat16, device=DEV)
+    model.init_weights(torch.Generator(device=DEV).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = _train_pipe(model)
+    n = _train_flash_layers(model, XL_TRAIN_TEXT)
+    expected = {"flash_attention": 2 * n, "flash_attention_bwd_prep": n,
+                "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+    print(f"NOVA-1.4B training: {n_params / 1e6:.1f}M parameters (f32 master, bf16 compute, "
+          f"remat), batch {XL_TRAIN_BATCH}, head dim {model.head_dim_i}, {n} attention layers "
+          f"on the flash kernels (keys {XL_TRAIN_KEYS})")
+    pipe.train(iter([_xl_train_batch(1)]), 1)  # warm-up: kernel loads, allocator, Adam state
+    fb.reset_launch_counts()
+    out = pipe.train(iter([_xl_train_batch(2)]), pipe.trainer.step + 1)
+    torch.cuda.synchronize()
+    launches = dict(fb.LAUNCHES)
+    counts_ok = launches == {name: expected.get(name, 0) for name in KERNELS}
+    print(f"launches in one training step: {launches} (expected {expected}, else 0): "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, "xl_train", launches[name])
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    draws, batch = _xl_train_draws(model, 3), _xl_train_batch(1)
+    loss_k, g_k, in_path, worst = _checked_step_grads(pipe, batch, draws, n)
+    g_k = {name: g.cpu() for name, g in g_k.items()}
+    with fb.use_plain_kernels():
+        loss_p, g_p = _step_grads(pipe, batch, draws)
+    reading = _rel_l2(g_k, {name: g.cpu() for name, g in g_p.items()})
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    grads_ok = np.isfinite(loss_k) and in_path
+    print(f"  reading, no gate: the step's gradients, kernels vs the plain attention core "
+          f"(bf16) {reading:.3e} relative L2; losses {loss_k:.6f} / plain {loss_p:.6f}")
+    data = itertools.repeat(_xl_train_batch(4))
+    pipe.train(data, pipe.trainer.step + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(XL_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        pipe.train(data, pipe.trainer.step + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.percentile(times, 50))
+    print(f"NOVA-1.4B training: batch {XL_TRAIN_BATCH}, p50 {p50:.3f} s per step, "
+          f"{XL_TRAIN_BATCH / p50:.3f} samples/s (times {[round(t, 3) for t in times]}); peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; step loss {out['loss']:.4f}, parameters finite "
+          f"{finite}")
+    report["xl_train"] = dict(params_m=n_params / 1e6, launches=launches, expected=expected,
+                              in_path_worst_err_over_tol=worst, grad_reading_vs_plain=reading,
+                              p50_s=p50, samples_per_s=XL_TRAIN_BATCH / p50, times_s=times,
+                              peak_bytes=peak, step_loss=out["loss"])
+    del pipe, model
+    torch.cuda.empty_cache()
+    if not (counts_ok and finite and grads_ok):
+        raise AssertionError("NOVA-1.4B training check failed")
+
+
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
     forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
@@ -3864,13 +4485,18 @@ def _ptxas_report(kernel, library="flash_attention_bwd"):
 # the instances of csrc/flash_fwd.cuh's attn_fwd_kernel<STATIC, INT8, KBIAS,
 # FBIAS> in each library, by the mangled template arguments
 FWD_INSTANCES = {
-    "flash_attention": {"no bias": "attn_fwd_kernelILb0ELb0ELb0ELb0E",
-                        "key bias": "attn_fwd_kernelILb0ELb0ELb1ELb0E",
-                        "full bias": "attn_fwd_kernelILb0ELb0ELb0ELb1E"},
-    "flash_attention_static": {"bf16": "attn_fwd_kernelILb1ELb0ELb0ELb0E",
-                               "bf16 key bias": "attn_fwd_kernelILb1ELb0ELb1ELb0E",
-                               "int8": "attn_fwd_kernelILb1ELb1ELb0ELb0E",
-                               "int8 key bias": "attn_fwd_kernelILb1ELb1ELb1ELb0E"}}
+    "flash_attention": {"no bias": "attn_fwd_kernelILi64ELb0ELb0ELb0ELb0E",
+                        "key bias": "attn_fwd_kernelILi64ELb0ELb0ELb1ELb0E",
+                        "full bias": "attn_fwd_kernelILi64ELb0ELb0ELb0ELb1E",
+                        "hd 96 no bias": "attn_fwd_kernelILi96ELb0ELb0ELb0ELb0E",
+                        "hd 96 key bias": "attn_fwd_kernelILi96ELb0ELb0ELb1ELb0E",
+                        "hd 96 full bias": "attn_fwd_kernelILi96ELb0ELb0ELb0ELb1E"},
+    "flash_attention_static": {"bf16": "attn_fwd_kernelILi64ELb1ELb0ELb0ELb0E",
+                               "bf16 key bias": "attn_fwd_kernelILi64ELb1ELb0ELb1ELb0E",
+                               "int8": "attn_fwd_kernelILi64ELb1ELb1ELb0ELb0E",
+                               "int8 key bias": "attn_fwd_kernelILi64ELb1ELb1ELb1ELb0E",
+                               "hd 96 bf16": "attn_fwd_kernelILi96ELb1ELb0ELb0ELb0E",
+                               "hd 96 bf16 key bias": "attn_fwd_kernelILi96ELb1ELb0ELb1ELb0E"}}
 
 
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
@@ -4787,6 +5413,14 @@ def main():
         c2i_int8(vaes[0] if vaes else None)
         report["slice_7c_s"] = time.perf_counter() - t_7c
         print(f"phases 4o-4q took {report['slice_7c_s']:.1f} s (budget 120 s)")
+        # head dim 96: the NOVA-1.4B 1024px config served and trained
+        t_xl = time.perf_counter()
+        xl_int8(emb, released_1p4b(emb))
+        xl_train()
+        report["hd96_4rt_s"] = time.perf_counter() - t_xl
+        print(f"phases 4r-4t took {report['hd96_4rt_s']:.1f} s; with the head-dim-96 checks of "
+              f"3c-3e {report['hd96_4rt_s'] + report.get('hd96_3ce_s', 0.0):.1f} s (budget "
+              f"180 s)")
         profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0], pipe_t2v,
                  vaes)
     kernels = []

@@ -16,7 +16,12 @@
 //
 // q, k, v, o are (B, H, L, d) views given by their batch / head / row strides
 // with d contiguous, so the model's (B, L, H, d) projections are read and
-// written in place.
+// written in place. bf16 takes d = 64 or 96 (flash_fwd.cuh's Tiling), f32
+// d = 64.
+//
+// At d = 96 (the NOVA-1.4B ViTs) the bound is 4*B*H*Lq*Lk*96 FLOPs: 0.326 ms
+// at (2, 16, 5120, 96); the exponentials are two thirds of the products'
+// share there, against one at d = 64.
 //
 // What bounds it on this card: operations. 4*B*H*Lq*Lk*d bf16 FLOPs (0.21 ms
 // at B*H=192, L=2048, d=64 against the 989 TFLOP/s bf16 peak) against 0.2 GB
@@ -307,7 +312,7 @@ __global__ void __launch_bounds__(f32fwd::THREADS, 2)
 // kbias: key bias rows at row stride kb_sb (16-byte aligned, see
 // fwd::key_bias_ok) or nullptr; fbias (Lq, Lk) or nullptr. grid and
 // smem_bytes are the caller's launch plan (bf16: fwd::plan's; f32:
-// f32fwd::plan's), checked against the kernel's.
+// f32fwd::plan's), checked against the kernel's. D: 64, or 96 for bf16.
 extern "C" int nova_flash_attention(
     const void* q, const void* k, const void* v, int is_bf16,
     int B, int H, int Lq, int Lk, int D, const long* strides,
@@ -315,16 +320,19 @@ extern "C" int nova_flash_attention(
     void* o, float* lse, int grid, int smem_bytes, void* stream_ptr) {
   using namespace nova;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != 64) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (D != 64 && !(is_bf16 && D == 96)))
+    return cudaErrorInvalidValue;
   if (!fwd::key_bias_ok(kbias, kb_sb, Lk) || (kbias != nullptr && fbias != nullptr))
     return cudaErrorInvalidValue;
   if (is_bf16) {
     fwd::Params p;
-    if (!fwd::plan(B, H, Lq, Lk, grid, smem_bytes, p)) return cudaErrorInvalidConfiguration;
+    if (!(D == 64 ? fwd::plan<64>(B, H, Lq, Lk, grid, smem_bytes, p)
+                  : fwd::plan<96>(B, H, Lq, Lk, grid, smem_bytes, p)))
+      return cudaErrorInvalidConfiguration;
     CUtensorMap maps[3];
-    if (!bhld_map(&maps[0], q, B, H, Lq, strides, 64) ||
-        !bhld_map(&maps[1], k, B, H, Lk, strides + 3, fwd::BK) ||
-        !bhld_map(&maps[2], v, B, H, Lk, strides + 6, fwd::BK))
+    if (!bhld_map(&maps[0], q, B, H, Lq, strides, 64, 2, D) ||
+        !bhld_map(&maps[1], k, B, H, Lk, strides + 3, fwd::BK, 2, D) ||
+        !bhld_map(&maps[2], v, B, H, Lk, strides + 6, fwd::BK, 2, D))
       return cudaErrorInvalidValue;
     p.o = o;
     p.lse = lse;
@@ -335,9 +343,14 @@ extern "C" int nova_flash_attention(
     p.o_sb = strides[9], p.o_sh = strides[10], p.o_sl = strides[11];
     p.o_bf16 = 1;
     p.scale = scale;
-    if (fbias != nullptr) return fwd::launch<false, false, false, true>(maps, p, grid, stream);
-    if (kbias != nullptr) return fwd::launch<false, false, true, false>(maps, p, grid, stream);
-    return fwd::launch<false, false, false, false>(maps, p, grid, stream);
+    if (D == 96) {
+      if (fbias != nullptr) return fwd::launch<96, false, false, false, true>(maps, p, grid, stream);
+      if (kbias != nullptr) return fwd::launch<96, false, false, true, false>(maps, p, grid, stream);
+      return fwd::launch<96, false, false, false, false>(maps, p, grid, stream);
+    }
+    if (fbias != nullptr) return fwd::launch<64, false, false, false, true>(maps, p, grid, stream);
+    if (kbias != nullptr) return fwd::launch<64, false, false, true, false>(maps, p, grid, stream);
+    return fwd::launch<64, false, false, false, false>(maps, p, grid, stream);
   }
   if (!f32fwd::plan(B, H, Lq, grid, smem_bytes)) return cudaErrorInvalidConfiguration;
   CUtensorMap maps[3];

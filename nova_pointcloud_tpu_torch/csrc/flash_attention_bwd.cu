@@ -44,6 +44,27 @@
 // The atomic dQ sums run in no fixed order: dq may differ in its last bits
 // from run to run; dk and dv do not.
 //
+// bf16 at head dim 96 (the NOVA-1.4B ViTs) runs the TPU kernels' split, in
+// three kernels: prep as above (two halves of 48), then
+//   dkv:   one block (a warpgroup) per (key tile of 64, batch*head): K and V
+//          once and query tiles of q and do through a two-stage TMA ring,
+//          every tile three 32-column panels of 64-byte rows in the 64B
+//          swizzle. Per query tile on wgmma: S^T = K Q^T and dP^T = V dO^T
+//          (both operands from shared memory, m64n64k16 over six k-steps),
+//          P^T and dS^T (hi) in registers, dV += P^T dO and dK += dS^T Q
+//          (m64n96k16, A from registers, B MN-major over the panels). dK and
+//          dV (48 accumulators a thread each) are written once, bitwise
+//          repeatable; the dkvq kernel's dQ part (its 255 registers and
+//          199,728 bytes at 64) does not fit beside them.
+//   dq:    one block per (query tile of 64, batch*head): q and do once, K
+//          and V tiles of 64 keys through a two-stage ring; S = Q K^T and
+//          dP = dO V^T, P and dS in registers, dQ += dS K with dS as hi +
+//          lo bf16 (as the dkvq kernel) from registers, B = K MN-major; dq
+//          written once in bf16, times the scale: no workspace, no cast,
+//          no atomics, so dq is bitwise repeatable too.
+// S and dP are computed twice (14 B*H*Lq*Lk*d FLOPs with the lo product,
+// against 12 in one pass).
+//
 // f32 runs in one pass too, in f32 FFMA (no TF32: this route is the
 // exactness check of the training step), in two kernels:
 //   prep:  as above, lse in natural units;
@@ -125,7 +146,7 @@ struct FlashBwdParams {
   float scale;
 };
 
-constexpr int BHD = 64;        // head dim
+constexpr int BHD = 64;        // head dim of the one-pass bf16 kernel, the cast and the f32 kernels
 constexpr int LQ_PAD = 128;    // lse / delta rows are padded to a multiple of this
 
 // ---------------------------------------------------------------------------
@@ -152,7 +173,7 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* r, int i, float* x) 
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(PREP_THREADS)
     flash_bwd_prep_kernel(const T* o, const T* dout, const float* lse, int H, int Lq, int Lqp,
                           long o_sb, long o_sh, long o_sl, long d_sb, long d_sh, long d_sl,
@@ -169,17 +190,17 @@ __global__ void __launch_bounds__(PREP_THREADS)
   const int b = bh / H, h = bh % H;
   const T* orow = o + b * o_sb + h * o_sh + row * o_sl;
   const T* drow = dout + b * d_sb + h * d_sh + row * d_sl;
-  // XLA's order on the CPU: each half of 32 summed in sequence from 0, then
-  // the two halves; __fmul_rn / __fadd_rn keep nvcc from contracting to fma
+  // XLA's order on the CPU: each half of D / 2 summed in sequence from 0,
+  // then the two halves; __fmul_rn / __fadd_rn keep nvcc from contracting to fma
   float half[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int c = 0; c < BHD / PER; ++c) {
+  for (int c = 0; c < D / PER; ++c) {
     float x[PER], y[PER];
     load16(orow, c, x);
     load16(drow, c, y);
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
-      float& acc = half[(c * PER + e) / (BHD / 2)];
+      float& acc = half[(c * PER + e) / (D / 2)];
       acc = __fadd_rn(acc, __fmul_rn(y[e], x[e]));
     }
   }
@@ -730,6 +751,370 @@ __global__ void __launch_bounds__(F_THREADS, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// head dim 96, bf16: dK / dV, then dQ (two kernels, the TPU kernels' split)
+// ---------------------------------------------------------------------------
+namespace bwd96 {
+constexpr int HD = 96;
+constexpr int BK = 64;         // keys of a dkv block; keys of a dq kernel's tile
+constexpr int BQ = 64;         // queries of a dkv kernel's tile; queries of a dq block
+constexpr int THREADS = 128;   // one warpgroup: 255 registers a thread, two blocks an SM
+constexpr int STAGES = 2;      // depth of the streamed-tile ring
+constexpr int PANEL = 64 * 64; // 64 rows x 32 bf16 columns, 64-byte rows, 64B swizzle
+constexpr int TILE = 3 * PANEL;  // a 64 x 96 bf16 tile, 12 KB
+// dkv: K, V; per stage q, do (2 TILE) and the lse, delta rows (2 BQ floats)
+constexpr int DKV_OFF_RING = 2 * TILE;
+constexpr int DKV_OFF_ROWS = DKV_OFF_RING + STAGES * 2 * TILE;
+constexpr int DKV_OFF_BAR = DKV_OFF_ROWS + STAGES * 2 * BQ * 4;  // full[s], kv
+constexpr int DKV_SMEM = ((DKV_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
+// dq: q, do; per stage K, V
+constexpr int DQ_OFF_RING = 2 * TILE;
+constexpr int DQ_OFF_BAR = DQ_OFF_RING + STAGES * 2 * TILE;  // full[s], q
+constexpr int DQ_SMEM = ((DQ_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
+
+// a 64-row tile of a (B, H, L, 96) map at row `row` of (b, h): three boxes
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row,
+                                          int h, int b) {
+#pragma unroll
+  for (int c = 0; c < HD / 32; ++c) tma_load_4d(dst + c * PANEL, m, bar, 32 * c, row, h, b);
+}
+// k-step kk (16 columns) of a K-major tile: panel kk / 2, 32 bytes on for odd kk
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
+  return desc_sw64(tile + (kk >> 1) * PANEL) + 2 * (kk & 1);
+}
+}  // namespace bwd96
+
+struct Bwd96Params {
+  const float* lse2;   // (B*H, Lqp), units of log 2
+  const float* delta;  // (B*H, Lqp)
+  const float* kbias;  // (B, Lk) or nullptr
+  const float* fbias;  // (Lq, Lk) or nullptr
+  __nv_bfloat16* out;  // dkv: dk; dq: dq
+  __nv_bfloat16* out2; // dkv: dv
+  long sb, sh, sl, sb2, sh2, sl2;  // their strides: batch, head, row
+  int H, Lq, Lk, Lqp;
+  float scale;
+};
+
+// dK and dV of one (key tile of 64, batch*head), one warpgroup. Accumulator
+// element i of a thread: row 16 warp + g + 8 ((i >> 1) & 1), column 8 (i >>
+// 2) + 2 t + (i & 1); S^T's rows are keys, its columns queries. The values
+// are the dkvq kernel's: p = 2^(s scale2 + bias2 - lse2), dV takes bf16(p),
+// dK takes bf16(p (dp - delta)), the scale on dk at the end.
+template <bool FULL_BIAS>
+__global__ void __launch_bounds__(bwd96::THREADS, 2)
+    flash_bwd_dkv96_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do, const Bwd96Params p) {
+  // block-scope names: they hide the one-pass kernel's TILE and STAGES
+  using bwd96::BK, bwd96::BQ, bwd96::HD, bwd96::PANEL, bwd96::STAGES, bwd96::TILE;
+  using bwd96::DKV_OFF_BAR, bwd96::DKV_OFF_RING, bwd96::DKV_OFF_ROWS, bwd96::kdesc,
+      bwd96::load_tile;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int kt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Lq + BQ - 1) / BQ;
+  const int tid = threadIdx.x, wi = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t k_tile = base, v_tile = base + TILE;
+  const uint32_t bar_full = base + DKV_OFF_BAR, bar_kv = bar_full + STAGES * 8;
+  const float* lse_row = p.lse2 + static_cast<long>(bh) * p.Lqp;
+  const float* del_row = p.delta + static_cast<long>(bh) * p.Lqp;
+
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // query tile qt (q, do, lse and delta rows) into stage qt % STAGES
+  auto load_q_tile = [&](int qt) {
+    const int s = qt % STAGES;
+    const uint32_t full = bar_full + 8 * s, dst = base + DKV_OFF_RING + s * 2 * TILE;
+    const uint32_t rows = base + DKV_OFF_ROWS + s * 2 * BQ * 4;
+    mbar_expect_tx(full, 2 * TILE + 2 * BQ * 4);
+    load_tile(dst, &tm_q, full, qt * BQ, h, b);
+    load_tile(dst + TILE, &tm_do, full, qt * BQ, h, b);
+    bulk_load(rows, lse_row + qt * BQ, BQ * 4, full);
+    bulk_load(rows + BQ * 4, del_row + qt * BQ, BQ * 4, full);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * TILE);
+    load_tile(k_tile, &tm_k, bar_kv, kt * BK, h, b);
+    load_tile(v_tile, &tm_v, bar_kv, kt * BK, h, b);
+    for (int qt = 0; qt < STAGES && qt < nq; ++qt) load_q_tile(qt);
+  }
+
+  const int r0 = wi * 16 + g;  // this thread's rows (keys) of every accumulator: r0, r0 + 8
+  const int key0 = kt * BK + r0, key1 = key0 + 8;
+  const bool kl0 = key0 < p.Lk, kl1 = key1 < p.Lk;
+  // per-key additive terms in units of log 2; a key past Lk is masked
+  float kb0 = kl0 ? 0.0f : -INFINITY, kb1 = kl1 ? 0.0f : -INFINITY;
+  if (p.kbias != nullptr) {
+    const float* kb = p.kbias + static_cast<long>(b) * p.Lk;
+    if (kl0) kb0 = kb[key0] * kBwdLog2e;
+    if (kl1) kb1 = kb[key1] * kBwdLog2e;
+  }
+  const float scale2 = p.scale * kBwdLog2e;
+
+  float dk[48], dv[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) {
+    dk[i] = 0.0f;
+    dv[i] = 0.0f;
+  }
+  mbar_wait(bar_kv, 0);
+  for (int qt = 0; qt < nq; ++qt) {
+    const int s = qt % STAGES;
+    mbar_wait(bar_full + 8 * s, (qt / STAGES) & 1);
+    const uint32_t q_tile = base + DKV_OFF_RING + s * 2 * TILE, do_tile = q_tile + TILE;
+    const uint32_t lse_u = base + DKV_OFF_ROWS + s * 2 * BQ * 4, del_u = lse_u + BQ * 4;
+
+    // S^T = K Q^T and dP^T = V dO^T, both operands K-major (k = d)
+    float st[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(st, kdesc(k_tile, kk), kdesc(q_tile, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(dp, kdesc(v_tile, kk), kdesc(do_tile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // p^T = 2^(s scale2 + bias2 - lse2); rows keys, columns queries
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const float2 l2 = lds_f2(lse_u + (8 * jn + 2 * t) * 4);  // lse in units of log 2
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jn + e, c = 8 * jn + 2 * t + (e & 1);
+        const bool hi_row = e >> 1;
+        float x = fmaf(st[i], scale2, hi_row ? kb1 : kb0);
+        if (FULL_BIAS) {
+          const int qrow = qt * BQ + c, key = hi_row ? key1 : key0;
+          if (qrow < p.Lq && key < p.Lk)
+            x += p.fbias[static_cast<long>(qrow) * p.Lk + key] * kBwdLog2e;
+        }
+        st[i] = ex2(x - ((e & 1) ? l2.y : l2.x));
+      }
+    }
+    // dV += P^T dO: A = P^T from registers (k = queries), B = dO MN-major
+    // over its three panels; a k-step of 16 queries is 16 rows of 64 bytes
+    unsigned pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+    const uint64_t dot_desc = desc_sw64_mn(do_tile, PANEL), qt_desc = desc_sw64_mn(q_tile, PANEL);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dv, pa[kk], dot_desc + 64 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(dp);
+
+    // dS^T / scale = P^T (dP^T - delta), rounded to bf16 (dK's A fragments)
+    float2 dl[8];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) dl[jn] = lds_f2(del_u + (8 * jn + 2 * t) * 4);
+    unsigned hi[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e, jn = 2 * kk + (e >> 1);
+        hi[kk][e] = pack_bf16(st[i] * (dp[i] - dl[jn].x), st[i + 1] * (dp[i + 1] - dl[jn].y));
+      }
+    // dK += dS^T Q, B = Q MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dk, hi[kk], qt_desc + 64 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(hi);
+    __syncthreads();  // the stage is read: q, do by wgmma, lse and delta by every thread
+    if (tid == 0 && qt + STAGES < nq) load_q_tile(qt + STAGES);
+  }
+
+  __nv_bfloat16* DK = p.out + b * p.sb + h * p.sh;
+  __nv_bfloat16* DV = p.out2 + b * p.sb2 + h * p.sh2;
+#pragma unroll
+  for (int i = 0; i < 48; i += 2) {
+    const bool hi_row = (i >> 1) & 1;
+    const int key = hi_row ? key1 : key0, col = 8 * (i >> 2) + 2 * t;
+    if (key < p.Lk) {
+      *reinterpret_cast<__nv_bfloat162*>(DK + static_cast<long>(key) * p.sl + col) =
+          __floats2bfloat162_rn(dk[i] * p.scale, dk[i + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(DV + static_cast<long>(key) * p.sl2 + col) =
+          __floats2bfloat162_rn(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+// dQ of one (query tile of 64, batch*head), one warpgroup: S = Q K^T and dP
+// = dO V^T per key tile of 64 (rows queries, columns keys), P and dS in
+// registers, dQ += dS K with dS as hi + lo bf16; dq = bf16(dQ * scale).
+template <bool FULL_BIAS>
+__global__ void __launch_bounds__(bwd96::THREADS, 2)
+    flash_bwd_dq96_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do, const Bwd96Params p) {
+  using bwd96::BK, bwd96::BQ, bwd96::HD, bwd96::PANEL, bwd96::STAGES, bwd96::TILE;
+  using bwd96::DQ_OFF_BAR, bwd96::DQ_OFF_RING, bwd96::kdesc, bwd96::load_tile;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nk = (p.Lk + BK - 1) / BK;
+  const int tid = threadIdx.x, wi = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t q_tile = base, do_tile = base + TILE;
+  const uint32_t bar_full = base + DQ_OFF_BAR, bar_q = bar_full + STAGES * 8;
+
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // key tile j (K, V) into stage j % STAGES
+  auto load_kv_tile = [&](int j) {
+    const int s = j % STAGES;
+    const uint32_t full = bar_full + 8 * s, dst = base + DQ_OFF_RING + s * 2 * TILE;
+    mbar_expect_tx(full, 2 * TILE);
+    load_tile(dst, &tm_k, full, j * BK, h, b);
+    load_tile(dst + TILE, &tm_v, full, j * BK, h, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * TILE);
+    load_tile(q_tile, &tm_q, bar_q, qt * BQ, h, b);
+    load_tile(do_tile, &tm_do, bar_q, qt * BQ, h, b);
+    for (int j = 0; j < STAGES && j < nk; ++j) load_kv_tile(j);
+  }
+
+  // this thread's rows (queries) r0, r0 + 8: their lse (units of log 2) and
+  // delta; rows past Lq have lse 1e30 (p = 0) and are not stored
+  const int row0 = qt * BQ + wi * 16 + g, row1 = row0 + 8;
+  const long rb = static_cast<long>(bh) * p.Lqp;
+  const float l0 = p.lse2[rb + row0], l1 = p.lse2[rb + row1];
+  const float d0 = p.delta[rb + row0], d1 = p.delta[rb + row1];
+  const float* kbias = p.kbias == nullptr ? nullptr : p.kbias + static_cast<long>(b) * p.Lk;
+  const float scale2 = p.scale * kBwdLog2e;
+
+  float dq[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) dq[i] = 0.0f;
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
+    const uint32_t k_tile = base + DQ_OFF_RING + s * 2 * TILE, v_tile = k_tile + TILE;
+
+    // S = Q K^T and dP = dO V^T, both operands K-major (k = d)
+    float sf[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(sf, kdesc(q_tile, kk), kdesc(k_tile, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(dp, kdesc(do_tile, kk), kdesc(v_tile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sf);
+
+    // p = 2^(s scale2 + bias2 - lse2); this thread's keys 8 jn + 2 t, + 1
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jn + e, key = j * BK + 8 * jn + 2 * t + (e & 1);
+        const bool hi_row = e >> 1;
+        float x = -INFINITY;
+        if (key < p.Lk) {
+          x = fmaf(sf[i], scale2, kbias != nullptr ? __ldg(kbias + key) * kBwdLog2e : 0.0f);
+          if (FULL_BIAS) {
+            const int qrow = hi_row ? row1 : row0;
+            if (qrow < p.Lq) x += p.fbias[static_cast<long>(qrow) * p.Lk + key] * kBwdLog2e;
+          }
+        }
+        sf[i] = ex2(x - (hi_row ? l1 : l0));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS / scale = P (dP - delta) as hi + lo bf16, the A fragments of dS K
+    // (k = keys): element i = 8 kk + 2 e of a thread lies in row (e & 1)
+    unsigned hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;
+        const float dl = (e & 1) ? d1 : d0;
+        const float a = sf[i] * (dp[i] - dl), c = sf[i + 1] * (dp[i + 1] - dl);
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(a, c);
+        hi[kk][e] = *reinterpret_cast<const unsigned*>(&hv);
+        lo[kk][e] = pack_bf16(a - __low2float(hv), c - __high2float(hv));
+      }
+    // dQ += dS K, B = K MN-major over its three panels (k-step: 16 keys)
+    const uint64_t kt_desc = desc_sw64_mn(k_tile, PANEL);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dq, hi[kk], kt_desc + 64 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dq, lo[kk], kt_desc + 64 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(hi);
+    fence_regs(lo);
+    __syncthreads();  // the stage's K and V are read
+    if (tid == 0 && j + STAGES < nk) load_kv_tile(j + STAGES);
+  }
+
+  __nv_bfloat16* DQ = p.out + b * p.sb + h * p.sh;
+#pragma unroll
+  for (int i = 0; i < 48; i += 2) {
+    const int row = (i >> 1) & 1 ? row1 : row0, col = 8 * (i >> 2) + 2 * t;
+    if (row < p.Lq)
+      *reinterpret_cast<__nv_bfloat162*>(DQ + static_cast<long>(row) * p.sl + col) =
+          __floats2bfloat162_rn(dq[i] * p.scale, dq[i + 1] * p.scale);
+  }
+}
+
+// the checks and TMA maps shared by the two head-dim-96 entry points:
+// strides (batch, head, row) of q, k, v, do in turn
+inline bool bwd96_setup(CUtensorMap* maps, Bwd96Params& p, const void* q, const void* k,
+                        const void* v, const void* dout, const float* lse2, const float* delta,
+                        int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
+                        const float* kbias, const float* fbias, float scale) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != bwd96::HD || Lqp < Lq ||
+      Lqp % LQ_PAD != 0 || static_cast<long>(B) * H > 65535)
+    return false;
+  const void* ptrs[4] = {q, k, v, dout};
+  const int lens[4] = {Lq, Lk, Lk, Lq};
+  for (int i = 0; i < 4; ++i)
+    if (!bhld_map(&maps[i], ptrs[i], B, H, lens[i], strides + 3 * i, 64, 2, bwd96::HD))
+      return false;
+  p.lse2 = lse2;
+  p.delta = delta;
+  p.kbias = kbias;
+  p.fbias = fbias;
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.Lqp = Lqp;
+  p.scale = scale;
+  return true;
+}
+
 inline bool fill_params(FlashBwdParams& p, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta, int B, int H,
                         int Lq, int Lk, int Lqp, int D, const long* strides,
@@ -777,8 +1162,8 @@ inline bool ws_map(CUtensorMap* m, float* ws, long rows) {
 
 }  // namespace nova
 
-// delta and lse rows for the backward kernels. strides: 6 element strides,
-// (batch, head, row) of o and do. lse (B, H, Lq) f32 contiguous; lse_out and
+// delta and lse rows for the backward kernels (D = 64 or 96). strides: 6
+// element strides, (batch, head, row) of o and do. lse (B, H, Lq) f32 contiguous; lse_out and
 // delta_out (B*H, Lqp), Lqp a multiple of 128 >= Lq; log2_units: lse_out in units of
 // log 2 (the bf16 kernel) or natural (the f32 kernels).
 extern "C" int nova_flash_attention_bwd_prep(const void* o, const void* dout, const float* lse,
@@ -786,7 +1171,7 @@ extern "C" int nova_flash_attention_bwd_prep(const void* o, const void* dout, co
                                              const long* strides, int log2_units, float* lse_out,
                                              float* delta_out, void* stream_ptr) {
   using namespace nova;
-  if (B <= 0 || H <= 0 || Lq <= 0 || D != BHD || Lqp < Lq || Lqp % LQ_PAD != 0)
+  if (B <= 0 || H <= 0 || Lq <= 0 || (D != BHD && D != 96) || Lqp < Lq || Lqp % LQ_PAD != 0)
     return cudaErrorInvalidValue;
   const long rows = static_cast<long>(B) * H * Lqp;
   const long blocks = (rows + PREP_THREADS - 1) / PREP_THREADS;
@@ -794,12 +1179,21 @@ extern "C" int nova_flash_attention_bwd_prep(const void* o, const void* dout, co
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const float mul = log2_units ? kBwdLog2e : 1.0f;
   const long* s = strides;
-  if (is_bf16)
-    flash_bwd_prep_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), PREP_THREADS, 0, stream>>>(
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (is_bf16 && D == 96)
+    flash_bwd_prep_kernel<__nv_bfloat16, 96><<<grid, PREP_THREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, H, Lq,
         Lqp, s[0], s[1], s[2], s[3], s[4], s[5], mul, lse_out, delta_out, rows);
+  else if (is_bf16)
+    flash_bwd_prep_kernel<__nv_bfloat16, BHD><<<grid, PREP_THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, H, Lq,
+        Lqp, s[0], s[1], s[2], s[3], s[4], s[5], mul, lse_out, delta_out, rows);
+  else if (D == 96)
+    flash_bwd_prep_kernel<float, 96><<<grid, PREP_THREADS, 0, stream>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), lse, H, Lq, Lqp, s[0],
+        s[1], s[2], s[3], s[4], s[5], mul, lse_out, delta_out, rows);
   else
-    flash_bwd_prep_kernel<float><<<static_cast<unsigned>(blocks), PREP_THREADS, 0, stream>>>(
+    flash_bwd_prep_kernel<float, BHD><<<grid, PREP_THREADS, 0, stream>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), lse, H, Lq, Lqp, s[0],
         s[1], s[2], s[3], s[4], s[5], mul, lse_out, delta_out, rows);
   return cudaGetLastError();
@@ -905,5 +1299,64 @@ extern "C" int nova_flash_attention_bwd_f32(
   if (err != cudaSuccess) return err;
   kernel<<<dim3(key_tiles, B * H), F_THREADS, F32_SMEM, static_cast<cudaStream_t>(stream_ptr)>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], p);
+  return cudaGetLastError();
+}
+
+// dK and dV at head dim 96, bf16 (the dkv kernel). strides: 18 element
+// strides, (batch, head, row) of q, k, v, do, dk, dv. lse2 (units of log 2)
+// and delta (B*H, Lqp) from the prep kernel. key_tiles and smem_bytes are
+// the caller's launch plan, checked against this kernel's.
+extern "C" int nova_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout, const float* lse2,
+    const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
+    const float* kbias, const float* fbias, float scale, void* dk, void* dv, int key_tiles,
+    int smem_bytes, void* stream_ptr) {
+  using namespace nova;
+  CUtensorMap maps[4];
+  Bwd96Params p;
+  if (!bwd96_setup(maps, p, q, k, v, dout, lse2, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
+                   fbias, scale))
+    return cudaErrorInvalidValue;
+  if (key_tiles != (Lk + bwd96::BK - 1) / bwd96::BK || smem_bytes != bwd96::DKV_SMEM)
+    return cudaErrorInvalidConfiguration;
+  p.out = static_cast<__nv_bfloat16*>(dk);
+  p.out2 = static_cast<__nv_bfloat16*>(dv);
+  p.sb = strides[12], p.sh = strides[13], p.sl = strides[14];
+  p.sb2 = strides[15], p.sh2 = strides[16], p.sl2 = strides[17];
+  auto kernel = fbias != nullptr ? flash_bwd_dkv96_kernel<true> : flash_bwd_dkv96_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd96::DKV_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(key_tiles, B * H), bwd96::THREADS, bwd96::DKV_SMEM,
+           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+// dQ at head dim 96, bf16 (the dq kernel): strides: 15 element strides,
+// (batch, head, row) of q, k, v, do, dq; dq written in bf16. q_tiles and
+// smem_bytes are the caller's launch plan, checked against this kernel's.
+extern "C" int nova_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout, const float* lse2,
+    const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
+    const float* kbias, const float* fbias, float scale, void* dq, int q_tiles, int smem_bytes,
+    void* stream_ptr) {
+  using namespace nova;
+  CUtensorMap maps[4];
+  Bwd96Params p;
+  if (!bwd96_setup(maps, p, q, k, v, dout, lse2, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
+                   fbias, scale))
+    return cudaErrorInvalidValue;
+  if (q_tiles != (Lq + bwd96::BQ - 1) / bwd96::BQ || smem_bytes != bwd96::DQ_SMEM)
+    return cudaErrorInvalidConfiguration;
+  p.out = static_cast<__nv_bfloat16*>(dq);
+  p.out2 = nullptr;
+  p.sb = strides[12], p.sh = strides[13], p.sl = strides[14];
+  p.sb2 = p.sh2 = p.sl2 = 0;
+  auto kernel = fbias != nullptr ? flash_bwd_dq96_kernel<true> : flash_bwd_dq96_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd96::DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(q_tiles, B * H), bwd96::THREADS, bwd96::DQ_SMEM,
+           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }

@@ -18,10 +18,13 @@
 // 127 / a_q, 127 / a_k by a small pass before the kernel (as the JAX function
 // does in XLA) into contiguous (B, H, L, 64) codes; v stays bf16.
 //
-// q, k, v, o are (B, H, L, 64) views given by their batch / head / row strides
-// with the head dim contiguous, so the model's (B, L, H, 64) projections are
+// q, k, v, o are (B, H, L, d) views given by their batch / head / row strides
+// with the head dim contiguous, so the model's (B, L, H, d) projections are
 // read and written in place; ragged tails (L = 288, 384, 768, 1280 against
-// 128-row items and 128-key tiles) are masked in the main loop.
+// 128-row items and 128-key tiles) are masked in the main loop. d = 64, or
+// 96 for the bf16 core (the NOVA-1.4B ViTs: flash_fwd.cuh's Tiling<96>,
+// which puts bf16(q * 96^-0.5) in shared memory once an item, as the JAX
+// kernel scales q, since 96^-0.5 is no power of 2).
 //
 // What bounds it on this card: operations, 4*B*H*Lq*Lk*64 (0.054 ms at B*H =
 // 128, L = 1280 against the 989 TFLOP/s bf16 peak), and at head dim 64 the
@@ -45,7 +48,7 @@
 
 namespace nova {
 
-// int8 core: q or k (B, H, L, 64), f32 or bf16 at the given strides ->
+// int8 core (head dim 64): q or k (B, H, L, 64), f32 or bf16 at the given strides ->
 // contiguous int8 codes clip(rint(x * (127 / max(amax, 1e-30)))), 8 a thread
 __global__ void static_qk_quant_kernel(const void* __restrict__ x, int x_bf16, long sb, long sh,
                                        long sl, int H, int L, long chunks,
@@ -82,8 +85,8 @@ inline cudaError_t launch_qk_quant(const void* x, int x_bf16, const long* st, in
 }  // namespace nova
 
 // strides: 12 element strides, (batch, head, row) of q, k, v, o in turn.
-// q, k: bf16 for the bf16 core; for the int8 core f32 or bf16 (qk_bf16) and
-// quantized into q8 (B*H*Lq*64) and k8 (B*H*Lk*64) first. v bf16; o bf16 or
+// q, k: bf16 for the bf16 core; for the int8 core (D = 64 only) f32 or bf16
+// (qk_bf16) and quantized into q8 (B*H*Lq*64) and k8 (B*H*Lk*64) first. v bf16; o bf16 or
 // f32. kbias: key bias rows at row stride kb_sb (16-byte aligned, see
 // fwd::key_bias_ok) or nullptr. grid and smem_bytes are the caller's launch
 // plan, checked against this kernel's.
@@ -94,27 +97,28 @@ extern "C" int nova_flash_attention_static(
     int o_bf16, int grid, int smem_bytes, void* stream_ptr) {
   using namespace nova;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != fwd::HD) return cudaErrorInvalidValue;
   const bool int8_core = a_q != nullptr;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (D != 64 && !(D == 96 && !int8_core)))
+    return cudaErrorInvalidValue;
   if (int8_core != (a_k != nullptr) || int8_core != (q8 != nullptr) ||
       int8_core != (k8 != nullptr) || smax == nullptr)
     return cudaErrorInvalidValue;
   if ((!int8_core && !qk_bf16) || !fwd::key_bias_ok(kbias, kb_sb, Lk))
     return cudaErrorInvalidValue;
   fwd::Params p;
-  if (!fwd::plan(B, H, Lq, Lk, grid, smem_bytes, p)) return cudaErrorInvalidConfiguration;
+  if (!(D == 64 ? fwd::plan<64>(B, H, Lq, Lk, grid, smem_bytes, p)
+                : fwd::plan<96>(B, H, Lq, Lk, grid, smem_bytes, p)))
+    return cudaErrorInvalidConfiguration;
   CUtensorMap maps[3];
-  if (!bhld_map(&maps[2], v, B, H, Lk, strides + 6, fwd::BK)) return cudaErrorInvalidValue;
+  if (!bhld_map(&maps[2], v, B, H, Lk, strides + 6, fwd::BK, 2, D)) return cudaErrorInvalidValue;
   if (int8_core) {
-    const long q8s[3] = {static_cast<long>(H) * Lq * fwd::HD, static_cast<long>(Lq) * fwd::HD,
-                         fwd::HD};
-    const long k8s[3] = {static_cast<long>(H) * Lk * fwd::HD, static_cast<long>(Lk) * fwd::HD,
-                         fwd::HD};
+    const long q8s[3] = {static_cast<long>(H) * Lq * 64, static_cast<long>(Lq) * 64, 64};
+    const long k8s[3] = {static_cast<long>(H) * Lk * 64, static_cast<long>(Lk) * 64, 64};
     if (!bhld_map(&maps[0], q8, B, H, Lq, q8s, 64, 1) ||
         !bhld_map(&maps[1], k8, B, H, Lk, k8s, fwd::BK, 1))
       return cudaErrorInvalidValue;
-  } else if (!bhld_map(&maps[0], q, B, H, Lq, strides, 64) ||
-             !bhld_map(&maps[1], k, B, H, Lk, strides + 3, fwd::BK)) {
+  } else if (!bhld_map(&maps[0], q, B, H, Lq, strides, 64, 2, D) ||
+             !bhld_map(&maps[1], k, B, H, Lk, strides + 3, fwd::BK, 2, D)) {
     return cudaErrorInvalidValue;
   }
   p.o = o;
@@ -128,14 +132,18 @@ extern "C" int nova_flash_attention_static(
   p.o_sb = strides[9], p.o_sh = strides[10], p.o_sl = strides[11];
   p.o_bf16 = o_bf16;
   p.scale = scale;
+  if (!int8_core && D == 96) {
+    if (kbias != nullptr) return fwd::launch<96, true, false, true, false>(maps, p, grid, stream);
+    return fwd::launch<96, true, false, false, false>(maps, p, grid, stream);
+  }
   if (!int8_core) {
-    if (kbias != nullptr) return fwd::launch<true, false, true, false>(maps, p, grid, stream);
-    return fwd::launch<true, false, false, false>(maps, p, grid, stream);
+    if (kbias != nullptr) return fwd::launch<64, true, false, true, false>(maps, p, grid, stream);
+    return fwd::launch<64, true, false, false, false>(maps, p, grid, stream);
   }
   cudaError_t err = launch_qk_quant(q, qk_bf16, strides, B, H, Lq, a_q, q8, stream);
   if (err != cudaSuccess) return err;
   err = launch_qk_quant(k, qk_bf16, strides + 3, B, H, Lk, a_k, k8, stream);
   if (err != cudaSuccess) return err;
-  if (kbias != nullptr) return fwd::launch<true, true, true, false>(maps, p, grid, stream);
-  return fwd::launch<true, true, false, false>(maps, p, grid, stream);
+  if (kbias != nullptr) return fwd::launch<64, true, true, true, false>(maps, p, grid, stream);
+  return fwd::launch<64, true, true, false, false>(maps, p, grid, stream);
 }

@@ -3,14 +3,17 @@
 // (calibrated softmax offset, bf16 or int8 score core).
 //
 // Work item: 192 query rows of one (batch, head), three consumer
-// warpgroups of 64 rows each (wgmma's M). The grid is persistent: one block
+// warpgroups of 64 rows each (wgmma's M); at head dim 96, 128 rows in two
+// warpgroups (Tiling below). The grid is persistent: one block
 // of 384 threads per SM walks the items blockIdx.x, + gridDim.x, ...,
 // ordered so that the query tiles of one (batch, head) run at the same time
 // and share its K and V in L2. Across items a block's key tiles form one
 // sequence g = 0, 1, ..., streamed by TMA through a ring of STAGES stages (K,
 // V, and with a key bias the tile's 128 bias values by bulk copy), 4-D maps
-// (d, L, H, B) over the strided (B, H, L, 64) views, 128B swizzle (64B for
-// int8). No producer warp: the first stages and each warpgroup's q rows (two
+// (d, L, H, B) over the strided (B, H, L, d) views, 128B swizzle (64B for
+// int8; at head dim 96 a tile is three 32-column panels of 64-byte rows in
+// the 64B swizzle, one TMA box each, and the wgmma descriptors step over
+// them). No producer warp: the first stages and each warpgroup's q rows (two
 // slots per warpgroup, the next item's rows loaded while this item runs) are
 // issued by a thread of each warpgroup; a stage is refilled by the thread of
 // the warpgroup that releases it last (a shared counter), so no warpgroup
@@ -20,9 +23,10 @@
 //   S_g = Q K_g^T         wgmma m64n128k16 bf16 (or m64n128k32 s8, 64B
 //                         swizzle: 8-bit wgmma is K-major only), both
 //                         operands K-major in shared memory
-//   O  += P_{g-1} V_{g-1}  wgmma m64n64k16, P from registers (the previous
-//                         tile's probabilities: S's accumulator layout is
-//                         the A-fragment layout), V MN-major (transposed)
+//   O  += P_{g-1} V_{g-1}  wgmma m64n64k16 (m64n96k16 at head dim 96), P
+//                         from registers (the previous tile's
+//                         probabilities: S's accumulator layout is the
+//                         A-fragment layout), V MN-major (transposed)
 // issued back to back, then the softmax of S_g while P_{g-1} V_{g-1} runs;
 // while S_g runs, the warpgroup releases tile g - 2 and waits for tile
 // g + 1's copies, off the path from the scores to the softmax. The static
@@ -38,6 +42,16 @@
 // Ragged tails: TMA zero-fills rows past L within each (b, h); keys past Lk
 // score -inf by index in the last tile only; query rows past Lq are not
 // stored. Scores are kept in units of log 2 (one ex2 a probability).
+//
+// Head dim 96 (Tiling<96>): O is 64 x 96 f32 a warpgroup, 48 registers a
+// thread against 32, which three warpgroups of 384 threads (168 registers
+// at most) cannot hold beside S and P, and a K + V stage is 48 KB: two
+// warpgroups (255 registers at most) and three stages, 199,552 bytes. With
+// three stages the tile whose stage is refilled is released right after
+// its p v (the step after its scores), not at the next step, so the copy
+// of tile g + 1 still runs behind a whole step. The static kernel's bf16
+// core rounds q * hd^-0.5 to bf16 in shared memory once an item, as the
+// JAX kernel scales q (96^-0.5 is not a power of 2, unlike 64^-0.5).
 #pragma once
 
 #include "hopper.cuh"
@@ -47,28 +61,37 @@ namespace fwd {
 
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF: the running max starts here
-constexpr int HD = 64;             // head dim
-constexpr int NWG = 3;             // consumer warpgroups
-constexpr int BQ = 64 * NWG;       // query rows of a work item
 constexpr int BK = 128;            // keys per tile
-constexpr int THREADS = 128 * NWG;
-constexpr int STAGES = 4;                // depth of the K / V ring
-constexpr int Q_SLOT = 64 * HD * 2;      // a warpgroup's q rows, 8 KB (int8: 4 KB used)
-constexpr int KV_SLOT = BK * HD * 2;     // a K or V tile, 16 KB (int8 K: 8 KB used)
-constexpr int KB_SLOT = BK * 4;          // a tile's key-bias values, 512 bytes
-constexpr int OFF_Q = 0;                            // + (2 w + slot) Q_SLOT
-constexpr int OFF_K = 2 * NWG * Q_SLOT;             // + s KV_SLOT
-constexpr int OFF_V = OFF_K + STAGES * KV_SLOT;     // + s KV_SLOT
-constexpr int OFF_KB = OFF_V + STAGES * KV_SLOT;    // + s KB_SLOT
-constexpr int OFF_BAR = OFF_KB + STAGES * KB_SLOT;  // full[s]; then q[2 w + slot]
-constexpr int N_BARS = STAGES + 2 * NWG;
-constexpr int OFF_CNT = OFF_BAR + N_BARS * 8;       // release counts, one a stage
-constexpr int OFF_ONES = ((OFF_CNT + STAGES * 4 + 127) / 128) * 128;  // 256 bytes of bf16 ones
-constexpr int SMEM = OFF_ONES + 256 + 1024;        // + 1024 to align the swizzled tiles
+constexpr int KB_SLOT = BK * 4;    // a tile's key-bias values, 512 bytes
 constexpr int TURN = 2 * 128;  // threads of a turn barrier: the waiting and the arriving warpgroup
 
+// the tiling and the shared-memory layout at head dim HD (64 or 96)
+template <int HD_>
+struct Tiling {
+  static_assert(HD_ == 64 || HD_ == 96, "the forward kernels take head dim 64 or 96");
+  static constexpr int HD = HD_;
+  static constexpr int NWG = HD == 64 ? 3 : 2;       // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;                // query rows of a work item
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int STAGES = HD == 64 ? 4 : 3;    // depth of the K / V ring
+  static constexpr int Q_SLOT = 64 * HD * 2;   // a warpgroup's q rows, 8 / 12 KB (int8: 4 KB used)
+  static constexpr int KV_SLOT = BK * HD * 2;  // a K or V tile, 16 / 24 KB (int8 K: 8 KB used)
+  // HD 96: a 32-column panel of a warpgroup's q rows, of a K or V tile
+  static constexpr int Q_PANEL = 64 * 64, KV_PANEL = BK * 64;
+  static constexpr int OFF_Q = 0;                            // + (2 w + slot) Q_SLOT
+  static constexpr int OFF_K = 2 * NWG * Q_SLOT;             // + s KV_SLOT
+  static constexpr int OFF_V = OFF_K + STAGES * KV_SLOT;     // + s KV_SLOT
+  static constexpr int OFF_KB = OFF_V + STAGES * KV_SLOT;    // + s KB_SLOT
+  static constexpr int OFF_BAR = OFF_KB + STAGES * KB_SLOT;  // full[s]; then q[2 w + slot]
+  static constexpr int N_BARS = STAGES + 2 * NWG;
+  static constexpr int OFF_CNT = OFF_BAR + N_BARS * 8;       // release counts, one a stage
+  static constexpr int OFF_ONES = ((OFF_CNT + STAGES * 4 + 127) / 128) * 128;  // 256 bytes of ones
+  static constexpr int SMEM = OFF_ONES + 256 + 1024;        // + 1024 to align the swizzled tiles
+  static_assert(SMEM <= 232448, "over the 227 KB a block can use");
+};
+
 struct Params {
-  void* o;                // (B, H, Lq, 64) at o strides; bf16, or f32 when !o_bf16
+  void* o;                // (B, H, Lq, HD) at o strides; bf16, or f32 when !o_bf16
   float* lse;             // (B*H, Lq), natural log (online softmax only)
   const float* kbias;     // key bias rows (B, >= Lk) at row stride kb_sb, or nullptr
   const float* fbias;     // (Lq, Lk), or nullptr
@@ -96,14 +119,20 @@ __device__ __forceinline__ void ld4_in_order(float (&v)[4], const float* a, cons
 // STATIC: p = bf16(exp(min(s + kbias - smax, 20))), o = p v / max(sum p,
 // 1e-30); else the online softmax, o = softmax(s + bias) v and the lse.
 // INT8: the s8 score core (q, k int8 codes), s = int32 * a_q a_k / 127^2 *
-// scale. KBIAS: a key bias; FBIAS: a full (Lq, Lk) bias.
-template <bool STATIC, bool INT8, bool KBIAS, bool FBIAS>
-__global__ void __launch_bounds__(THREADS, 1)
+// scale. KBIAS: a key bias; FBIAS: a full (Lq, Lk) bias. HD: the head dim.
+template <int HD, bool STATIC, bool INT8, bool KBIAS, bool FBIAS>
+__global__ void __launch_bounds__(Tiling<HD>::THREADS, 1)
     attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const Params p) {
   static_assert(!(STATIC && FBIAS), "the static kernel takes a key bias only");
   static_assert(!INT8 || STATIC, "the int8 score core is the static kernel's");
+  static_assert(!INT8 || HD == 64, "the int8 score core takes head dim 64");
+  using C = Tiling<HD>;
+  constexpr int NWG = C::NWG, BQ = C::BQ, STAGES = C::STAGES, Q_SLOT = C::Q_SLOT,
+                KV_SLOT = C::KV_SLOT, OFF_Q = C::OFF_Q, OFF_K = C::OFF_K, OFF_V = C::OFF_V,
+                OFF_KB = C::OFF_KB, OFF_BAR = C::OFF_BAR, N_BARS = C::N_BARS,
+                OFF_CNT = C::OFF_CNT, OFF_ONES = C::OFF_ONES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x;
@@ -138,8 +167,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     int kb_bytes = 0;
     if (KBIAS) kb_bytes = ((min(BK, p.Lk - kt * BK) + 3) & ~3) * 4;
     mbar_expect_tx(full, (INT8 ? BK * HD : KV_SLOT) + KV_SLOT + kb_bytes);
-    tma_load_4d(base + OFF_K + s * KV_SLOT, &tm_k, full, 0, kt * BK, h, b);
-    tma_load_4d(base + OFF_V + s * KV_SLOT, &tm_v, full, 0, kt * BK, h, b);
+    if constexpr (HD == 64) {
+      tma_load_4d(base + OFF_K + s * KV_SLOT, &tm_k, full, 0, kt * BK, h, b);
+      tma_load_4d(base + OFF_V + s * KV_SLOT, &tm_v, full, 0, kt * BK, h, b);
+    } else {
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c) {
+        tma_load_4d(base + OFF_K + s * KV_SLOT + c * C::KV_PANEL, &tm_k, full, 32 * c, kt * BK, h,
+                    b);
+        tma_load_4d(base + OFF_V + s * KV_SLOT + c * C::KV_PANEL, &tm_v, full, 32 * c, kt * BK, h,
+                    b);
+      }
+    }
     if (KBIAS)
       bulk_load(base + OFF_KB + s * KB_SLOT, p.kbias + b * p.kb_sb + kt * BK, kb_bytes, full);
   };
@@ -149,7 +188,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     item_bh_qt(j, bh, qt);
     const int b = bh / p.H, h = bh - b * p.H, slot = 2 * w + (j & 1);
     mbar_expect_tx(bar_q + 8 * slot, INT8 ? 64 * HD : Q_SLOT);
-    tma_load_4d(base + OFF_Q + slot * Q_SLOT, &tm_q, bar_q + 8 * slot, 0, qt * BQ + 64 * w, h, b);
+    if constexpr (HD == 64) {
+      tma_load_4d(base + OFF_Q + slot * Q_SLOT, &tm_q, bar_q + 8 * slot, 0, qt * BQ + 64 * w, h, b);
+    } else {
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c)
+        tma_load_4d(base + OFF_Q + slot * Q_SLOT + c * C::Q_PANEL, &tm_q, bar_q + 8 * slot, 32 * c,
+                    qt * BQ + 64 * w, h, b);
+    }
   };
   // the key tile that refills a stage next: tile STAGES of the sequence,
   // kt_r of item j_r, (b_r, h_r); kept by every thread, advanced at every
@@ -175,7 +221,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   // raw score -> units of log 2; static: the offset -smax in those units
+  // (the static bf16 core at head dim 96 has the scale on q already)
   float c_scale = p.scale * kLog2e, c_off = 0.0f;
+  if constexpr (STATIC && HD != 64) c_scale = kLog2e;
   if (STATIC) {
     c_off = -__ldg(p.smax) * kLog2e;
     if (INT8)
@@ -184,7 +232,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   constexpr float kClip = 20.0f * kLog2e;
 
-  float o[32];
+  float o[HD / 2];
   // static: l of rows g (la[0]) and g + 8 (la[2]) as p (64 x 128) times a
   // 128 x 8 tile of ones, each column the row sum of the bf16 p that enters
   // p v, in f32 (the JAX kernel's p [v | 1])
@@ -223,7 +271,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     const long ob = b * p.o_sb + h * p.o_sh;
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
+    for (int i = 0; i < HD / 2; i += 2) {
       const bool hi = (i >> 1) & 1;
       const int row = hi ? r1 : r0, col = 8 * (i >> 2) + 2 * t;
       const float inv = hi ? inv1 : inv0;
@@ -250,6 +298,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto open_item = [&](int j) {
     mbar_wait(bar_q + 8 * (2 * w + (j & 1)), (j >> 1) & 1);
     if (lt == 0 && j >= 1 && j + 1 < n_items) issue_q(j + 1);
+    if constexpr (STATIC && HD != 64) {
+      // q = bf16(q * scale) in place, 16 bytes a thread at a time (the
+      // layout does not matter to an elementwise pass); then made visible
+      // to wgmma and waited for by the whole warpgroup
+      const uint32_t q_tile = base + OFF_Q + (2 * w + (j & 1)) * Q_SLOT;
+#pragma unroll
+      for (int i = 0; i < Q_SLOT / (16 * 128); ++i) {
+        const uint32_t a = q_tile + 16 * (lt + 128 * i);
+        uint4 v = lds_u4(a);
+        unsigned* u = reinterpret_cast<unsigned*>(&v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          u[e] = pack_bf16(__uint_as_float(u[e] << 16) * p.scale,
+                           __uint_as_float(u[e] & 0xFFFF0000u) * p.scale);
+        sts_u4(a, v);
+      }
+      fence_proxy_async();
+      named_sync(NWG + 1 + w, 128);
+    }
   };
   // S = Q K^T of a tile of item j in stage s (one commit group)
   auto issue_s = [&](float (&sf)[64], int (&si)[64], int j, int s) {
@@ -259,10 +326,15 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint64_t da = desc_sw64(q_tile), db = desc_sw64(k_tile);
       wgmma_s8_n128(si, da, db, 0);
       wgmma_s8_n128(si, da + 2, db + 2, 1);  // k-step: 32 bytes
-    } else {
+    } else if constexpr (HD == 64) {
       const uint64_t da = desc_sw128(q_tile, false), db = desc_sw128(k_tile, false);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(sf, da + 2 * kk, db + 2 * kk, kk > 0);
+    } else {  // k-steps of 16 columns: two a 64-byte panel row, 32 bytes apart
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n128(sf, desc_sw64(q_tile + (kk >> 1) * C::Q_PANEL) + 2 * (kk & 1),
+                      desc_sw64(k_tile + (kk >> 1) * C::KV_PANEL) + 2 * (kk & 1), kk > 0);
     }
     wgmma_commit();
   };
@@ -270,10 +342,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   // keys: 16 rows of 128 bytes (128 in the address field); a tile that
   // opens its item (first) overwrites O
   auto issue_pv = [&](int s, bool first) {
-    const uint64_t dv = desc_sw128(base + OFF_V + s * KV_SLOT, true);
     const int acc = !first;
+    if constexpr (HD == 64) {
+      const uint64_t dv = desc_sw128(base + OFF_V + s * KV_SLOT, true);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_rs<1>(o, pa[kk], dv + 128 * kk, kk > 0 || acc);
+      for (int kk = 0; kk < 8; ++kk) wgmma_rs<1>(o, pa[kk], dv + 128 * kk, kk > 0 || acc);
+    } else {  // three 32-column panels (LBO); k-step of 16 keys: 16 rows of 64 bytes (64)
+      const uint64_t dv = desc_sw64_mn(base + OFF_V + s * KV_SLOT, C::KV_PANEL);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_rs_n96<1>(o, pa[kk], dv + 64 * kk, kk > 0 || acc);
+    }
     if (STATIC) {  // every k-step reads the same ones
       const uint64_t d1 = desc_noswizzle(base + OFF_ONES, 128, 128);
 #pragma unroll
@@ -414,7 +492,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sf[8 * kk + 2 * e], sf[8 * kk + 2 * e + 1]);
     if (!STATIC && kt != 0 && rescale) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? al1 : al0;
+      for (int i = 0; i < HD / 2; ++i) o[i] *= ((i >> 1) & 1) ? al1 : al0;
     }
   };
 
@@ -455,14 +533,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     named_arrive(next_turn, TURN);
     // while S runs: tile gi - 2 is done (its p v was waited for in the last
     // step), and the next tile's K and V are waited for here, off the path
-    // from the scores to the softmax
-    if (gi >= 2) release(gi - 2, (gi - 2) % STAGES);
+    // from the scores to the softmax (three stages: tile gi - 1 is released
+    // once its p v is done, below)
+    if (STAGES == 4 && gi >= 2) release(gi - 2, (gi - 2) % STAGES);
     if (gi + 1 < G) mbar_wait(bar_full + 8 * ((gi + 1) % STAGES), ((gi + 1) / STAGES) & 1);
     if (opens) {  // item j - 1 is done once its last p v is
       wgmma_wait<0>();
       fence_regs(o);
       if (STATIC) fence_regs(la);
       fence_regs(pa);
+      if (STAGES == 3) release(gi - 1, (gi - 1) % STAGES);
       finish(j - 1);
     } else {
       wgmma_wait<1>();
@@ -477,6 +557,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs(o);
       if (STATIC) fence_regs(la);
       fence_regs(pa);
+      if (STAGES == 3) release(gi - 1, (gi - 1) % STAGES);
     }
     keep_p(sf, kt);
     prev_first = opens;
@@ -497,7 +578,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // the launch plan's checks, shared by both entry points: nq, nk, items
+template <int HD>
 inline bool plan(int B, int H, int Lq, int Lk, int grid, int smem_bytes, Params& p) {
+  constexpr int BQ = Tiling<HD>::BQ;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || grid <= 0) return false;
   p.nq = (Lq + BQ - 1) / BQ;
   p.nk = (Lk + BK - 1) / BK;
@@ -508,7 +591,7 @@ inline bool plan(int B, int H, int Lq, int Lk, int grid, int smem_bytes, Params&
   p.H = H;
   p.Lq = Lq;
   p.Lk = Lk;
-  return grid <= items && smem_bytes == SMEM;
+  return grid <= items && smem_bytes == Tiling<HD>::SMEM;
 }
 
 // a key bias the kernel can bulk-copy: 16-byte aligned rows of at least
@@ -519,14 +602,15 @@ inline bool key_bias_ok(const float* kb, long kb_sb, int Lk) {
   return kb_sb == 0 ? Lk % 4 == 0 : kb_sb >= ((Lk + 3) & ~3);
 }
 
-template <bool STATIC, bool INT8, bool KBIAS, bool FBIAS>
+template <int HD, bool STATIC, bool INT8, bool KBIAS, bool FBIAS>
 inline cudaError_t launch(const CUtensorMap* maps, const Params& p, int grid,
                           cudaStream_t stream) {
-  auto kernel = attn_fwd_kernel<STATIC, INT8, KBIAS, FBIAS>;
+  using C = Tiling<HD>;
+  auto kernel = attn_fwd_kernel<HD, STATIC, INT8, KBIAS, FBIAS>;
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2], p);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 // (flash_attention.cu, flash_attention_static.cu, flash_attention_bwd.cu):
 // mbarriers, TMA tensor and bulk copies, shared-memory access by 32-bit
 // address, ldmatrix, named barriers, the f32 kernels' swizzled 64 x 64
-// tile layout, wgmma shared-memory descriptors (128B and 64B swizzle,
-// none), wgmma wrappers (bf16 m64n64k16, m64n128k16
+// tile layout, wgmma shared-memory descriptors (128B and 64B swizzle, K-
+// and MN-major; none), wgmma wrappers (bf16 m64n64k16, m64n96k16, m64n128k16
 // and m64n8k16, s8 m64n128k32, m64n192k32 and m64n256k32), setmaxnreg,
 // thread-block clusters (ranks, distributed shared memory, remote mbarrier
 // arrivals) and, on the host, the TMA map encoder reached through
@@ -138,6 +138,18 @@ __device__ __forceinline__ unsigned lds_u32(uint32_t addr) {
   asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
   return v;
 }
+__device__ __forceinline__ uint4 lds_u4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts_u4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
 __device__ __forceinline__ void sts_u32(uint32_t addr, unsigned v) {
   asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
@@ -178,6 +190,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, bool mn_major) {
 __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
   uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>(1) << 16;
+  d |= static_cast<uint64_t>(32) << 32;
+  d |= static_cast<uint64_t>(2) << 62;
+  return d;
+}
+
+// the same for an MN-major 64B-swizzled tile (the product's k dimension
+// along the rows): 64-byte rows (32 bf16 of m / n) in 8-row groups 512
+// bytes apart (SBO), the next 32 columns of m / n `lbo` bytes on (LBO: the
+// panels of a 96-wide row)
+__device__ __forceinline__ uint64_t desc_sw64_mn(uint32_t addr, int lbo) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(lbo >> 4) << 16;
   d |= static_cast<uint64_t>(32) << 32;
   d |= static_cast<uint64_t>(2) << 62;
   return d;
@@ -269,6 +293,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4],
       : NOVA_WG_D32("+f")
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
+#define NOVA_WG_D48(c)                                                                       \
+  NOVA_WG_D32(c), c(d[32]), c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]),      \
+      c(d[39]), c(d[40]), c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47])
+#define NOVA_WG_REGS48                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+// d (64 x 96, f32) (+)= A B, A (64 x 16 bf16) from registers, B from shared
+// memory; TB: MN-major (head dim 96: p v, and the backward's products into
+// dk, dv and dq)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const unsigned (&a)[4], uint64_t db,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " NOVA_WG_REGS48
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : NOVA_WG_D48("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
 // d (64 x 128, f32) (+)= A B, A (64 x 16 bf16) and B (128 x 16 bf16) both
 // K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
@@ -482,30 +527,33 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// a 4-D map (d, L, H, B) over a (B, H, L, 64) view with element strides s
-// (batch, head, row): 64 elements of `elem_bytes` bytes a row (128 bytes for
-// bf16, 128B swizzle; 64 bytes for int8, 64B swizzle; 256 bytes for f32, in
-// boxes of 32 (128 bytes), 128B swizzle), boxes of `box_rows` rows, rows
-// past L read as zeros (within each (b, h)) and not written
+// a 4-D map (d, L, H, B) over a (B, H, L, d) view with element strides s
+// (batch, head, row), d = 64 or 96: boxes of 128 bytes of a row in the 128B
+// swizzle (64 bf16, or 32 f32 for the f32 kernels) or of 64 bytes in the
+// 64B swizzle (64 int8, or a 32-column panel of a 96-wide bf16 row), by
+// `box_rows` rows; rows past L read as zeros (within each (b, h)) and are
+// not written
 inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const long* s,
-                     int box_rows = 64, int elem_bytes = 2) {
+                     int box_rows = 64, int elem_bytes = 2, int d = 64) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
   for (int i = 0; i < 3; ++i)
     if (s[i] <= 0 || (s[i] * elem_bytes) % 16 != 0) return false;
   const cuuint64_t eb = static_cast<cuuint64_t>(elem_bytes);
-  cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(H),
-                        static_cast<cuuint64_t>(B)};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(L),
+                        static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * eb, static_cast<cuuint64_t>(s[1]) * eb,
                            static_cast<cuuint64_t>(s[0]) * eb};
-  cuuint32_t box[4] = {elem_bytes == 4 ? 32u : 64u, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box_cols = elem_bytes == 4 || d != 64 ? 32u : 64u;
+  cuuint32_t box[4] = {box_cols, static_cast<cuuint32_t>(box_rows), 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapDataType type = elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                    : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   return encode(m, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                elem_bytes == 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                box_cols * elem_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

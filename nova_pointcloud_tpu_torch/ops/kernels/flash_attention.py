@@ -15,7 +15,9 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   lays it out) and the backward the kernels of
   ``csrc/flash_attention_bwd.cu``: in bf16 the prep kernel (delta and lse
   rows), the one-pass dkvq kernel (wgmma and TMA: dK, dV, and dQ summed into
-  an f32 workspace) and the cast of that workspace to dq; in f32 the prep
+  an f32 workspace) and the cast of that workspace to dq, or at head dim 96
+  the prep kernel, the dkv kernel (dK, dV) and the dq kernel (dQ, written
+  in bf16), launched as :func:`bwd96_plan` lays them out; in f32 the prep
   kernel and the one-pass register-tiled SIMT kernel (f32 FFMA; dQ added
   into the zeroed dq), launched as :func:`bwd_f32_plan` lays it out. For CPU
   tensors the forward runs
@@ -31,13 +33,15 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   :func:`fwd_f32_plan` the forward's.
 - ``LAUNCHES[name]`` counts each kernel's launches: ``flash_attention``;
   ``flash_attention_bwd_prep``, ``flash_attention_bwd_dkvq``,
-  ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_bwd_f32``
-  (f32, after the prep kernel).
+  ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_bwd_dkv``,
+  ``flash_attention_bwd_dq`` (bf16 at head dim 96, after the prep kernel);
+  ``flash_attention_bwd_f32`` (f32, after the prep kernel).
 
 The CUDA kernels take float32 or bfloat16 q, k, v of one dtype with head dim
-64 (other head dims raise), any Lq and Lk, and the three bias forms of the TPU
-kernel. Biases are mask constants: their gradient is zero, as the JAX VJP
-declares it.
+64, or bfloat16 at head dim 96 (the NOVA-1.4B ViTs); any other head dim, and
+float32 at 96, raise before any launch (ROADMAP.md, queue 2). Any Lq and Lk,
+and the three bias forms of the TPU kernel. Biases are mask constants: their
+gradient is zero, as the JAX VJP declares it.
 
 Bias forms (4-D, as the JAX function): ``None``; a key bias ``(B or 1, 1, 1,
 Lk)``, read in the kernel with the batch index (no per-head copies); a full
@@ -51,8 +55,8 @@ calibration (the JAX ``flash_attention_static``): the calibrated max logit
 summed into both ``p v`` and the denominator, and the score product is bf16
 or, with the calibrated ``a_q`` / ``a_k``, int8. Its CUDA kernel
 (``csrc/flash_attention_static.cu``: the forward's main loop without the
-running max, bf16 or s8 wgmma for the scores) takes head dim 64 and a key
-bias or none;
+running max, bf16 or s8 wgmma for the scores) takes head dim 64, or 96 with
+the bf16 score core, and a key bias or none;
 :func:`flash_attention_static_plain` is its plain version, and
 ``LAUNCHES["flash_attention_static"]`` counts its launches. Forward only.
 """
@@ -68,14 +72,21 @@ from nova_pointcloud_tpu_torch.ops.kernels._launch import sms as _sms, stream as
 from nova_pointcloud_tpu_torch.ops.quantization import int_dot
 
 NEG_INF = -1e30
-CUDA_HEAD_DIM = 64
+CUDA_HEAD_DIM = 64  # the f32 routes' and the int8 score core's one head dim
+CUDA_BF16_HEAD_DIMS = (64, 96)  # the bf16 forward, backward and static bf16 core's
+_STILL_TO_PORT = "still to port: ROADMAP.md, queue 2"
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P, _F, _P, _P, _I, _I, _P]
-# the forward kernels' tiling (csrc/flash_fwd.cuh, shared by flash_attention
-# and flash_attention_static): a persistent grid of work items of 192 query
-# rows (three warpgroups of 64), key tiles of 128 through a ring of FWD_STAGES
-FWD_WARPGROUPS, FWD_BLOCK_K, FWD_STAGES = 3, 128, 4
+# the forward kernels' tiling (csrc/flash_fwd.cuh's Tiling, shared by
+# flash_attention and flash_attention_static): a persistent grid of work
+# items of 64 query rows a warpgroup, key tiles of 128 through a ring of
+# stages; head dim -> (warpgroups, stages): three and four at 64, two and
+# three at 96 (its 48 accumulators of O a thread need the registers of 256
+# threads, its 48 KB K + V stages the room of three)
+FWD_BLOCK_K = 128
+FWD_TILING = {64: (3, 4), 96: (2, 3)}
+FWD_WARPGROUPS, FWD_STAGES = FWD_TILING[64]
 FWD_BLOCK_Q = 64 * FWD_WARPGROUPS
 # the f32 forward kernel's (csrc/flash_attention.cu, flash_fwd_f32_kernel):
 # one block of 128 threads a (128-row query tile, batch*head), key tiles of 64
@@ -140,25 +151,28 @@ def _strided(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def fwd_plan(b: int, h: int, lq: int, lk: int, sms: int) -> dict:
+def fwd_plan(b: int, h: int, lq: int, lk: int, sms: int, d: int = 64) -> dict:
     """The launch plan of the forward kernels (``flash_attention``'s bf16
-    route and ``flash_attention_static``, both score cores), as
-    ``csrc/flash_fwd.cuh`` lays out its shared memory (the kernel checks the
-    grid and the bytes): two q slots of 64 rows per warpgroup, FWD_STAGES
-    stages of a K and a V tile of 128 keys and their 128 key-bias values
-    (int8 tiles use part of that room), the mbarriers (one a stage, two a
-    warpgroup) and release counts, a 256-byte tile of ones (the static
-    kernel's row sums on the tensor cores), and 1024 bytes to align the
-    swizzled tiles. One block per SM (``sms``) walks the (batch, head,
-    192-row) items."""
-    q_slot, kv_slot, kb_slot = 64 * CUDA_HEAD_DIM * 2, FWD_BLOCK_K * CUDA_HEAD_DIM * 2, FWD_BLOCK_K * 4
-    cnt_at = (2 * FWD_WARPGROUPS * q_slot + FWD_STAGES * (2 * kv_slot + kb_slot)
-              + (FWD_STAGES + 2 * FWD_WARPGROUPS) * 8)
-    q_tiles, key_tiles = -(-lq // FWD_BLOCK_Q), -(-lk // FWD_BLOCK_K)
+    route and ``flash_attention_static``, both score cores) at head dim
+    ``d`` (64 or 96), as ``csrc/flash_fwd.cuh`` lays out its shared memory
+    (the kernel checks the grid and the bytes): two q slots of 64 rows per
+    warpgroup, ``stages`` stages of a K and a V tile of 128 keys and their
+    128 key-bias values (int8 tiles use part of that room), the mbarriers
+    (one a stage, two a warpgroup) and release counts, a 256-byte tile of
+    ones (the static kernel's row sums on the tensor cores), and 1024 bytes
+    to align the swizzled tiles. One block per SM (``sms``) walks the
+    (batch, head, 64 x ``warpgroups``-row) items."""
+    warpgroups, stages = FWD_TILING[d]
+    block_q = 64 * warpgroups
+    q_slot, kv_slot, kb_slot = 64 * d * 2, FWD_BLOCK_K * d * 2, FWD_BLOCK_K * 4
+    cnt_at = (2 * warpgroups * q_slot + stages * (2 * kv_slot + kb_slot)
+              + (stages + 2 * warpgroups) * 8)
+    q_tiles, key_tiles = -(-lq // block_q), -(-lk // FWD_BLOCK_K)
     items = b * h * q_tiles
     grid = min(items, sms)
     return dict(q_tiles=q_tiles, key_tiles=key_tiles, items=items, grid=(grid,),
-                stages=FWD_STAGES, smem_bytes=-(-(cnt_at + 4 * FWD_STAGES) // 128) * 128 + 256 + 1024,
+                stages=stages, warpgroups=warpgroups, threads=128 * warpgroups,
+                smem_bytes=-(-(cnt_at + 4 * stages) // 128) * 128 + 256 + 1024,
                 last_keys=lk - (key_tiles - 1) * FWD_BLOCK_K,
                 tiles_per_block=-(-items // grid) * key_tiles)
 
@@ -194,20 +208,32 @@ def _key_bias_rows(kb: Optional[torch.Tensor], lk: int, dev) -> Tuple[Optional[t
     return rows, rows.stride(0)
 
 
-def _checked_plan(b: int, h: int, lq: int, lk: int, dev, f32: bool = False) -> dict:
-    """:func:`fwd_plan` on ``dev``'s card (:func:`fwd_f32_plan` for the f32
-    route); raises where the kernel's int counts of items and key tiles, or
-    of blocks, would overflow."""
+def _checked_plan(b: int, h: int, lq: int, lk: int, dev, f32: bool = False, d: int = 64
+                  ) -> dict:
+    """:func:`fwd_plan` on ``dev``'s card at head dim ``d``
+    (:func:`fwd_f32_plan` for the f32 route); raises where the kernel's int
+    counts of items and key tiles, or of blocks, would overflow."""
     if f32:
         plan = fwd_f32_plan(b, h, lq, lk)
         if plan["grid"][0] >= 2 ** 31:
             raise ValueError(f"{plan['grid'][0]} blocks: over the kernel's int range")
         return plan
-    plan = fwd_plan(b, h, lq, lk, _sms(dev))
+    plan = fwd_plan(b, h, lq, lk, _sms(dev), d)
     if plan["items"] * plan["key_tiles"] >= 2 ** 31:
         raise ValueError(f"{plan['items']} work items of {plan['key_tiles']} key tiles: over the "
                          f"kernel's int range")
     return plan
+
+
+def _check_head_dim(d: int, is_bf16: int, what: str) -> None:
+    """Raise, before any launch, for a head dim the flash kernels do not
+    take: 64, or 96 in bf16."""
+    if d == CUDA_HEAD_DIM or (is_bf16 and d in CUDA_BF16_HEAD_DIMS):
+        return
+    takes = " or ".join(map(str, CUDA_BF16_HEAD_DIMS)) if is_bf16 else str(CUDA_HEAD_DIM)
+    raise NotImplementedError(
+        f"the CUDA {what} takes head dim {takes} in {'bfloat16' if is_bf16 else 'float32'}, "
+        f"got {d}: {_STILL_TO_PORT}")
 
 
 def _launch(q, k, v, key_bias, full_bias):
@@ -218,15 +244,13 @@ def _launch(q, k, v, key_bias, full_bias):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     is_bf16 = dtype_flag(q, "q, k, v")
-    if d != CUDA_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA flash kernel takes head dim {CUDA_HEAD_DIM}, got {d}")
+    _check_head_dim(d, is_bf16, "flash kernel")
     if k.shape != (b, h, lk, d) or v.shape != k.shape or k.device != dev or v.device != dev:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"must be (B, H, L, D) on one device")
     if key_bias is not None and full_bias is not None:
         raise ValueError("a key bias and a full bias cannot be combined")
-    plan = _checked_plan(b, h, lq, lk, dev, f32=not is_bf16)
+    plan = _checked_plan(b, h, lq, lk, dev, f32=not is_bf16, d=d)
     q, k, v = _strided(q), _strided(k), _strided(v)
     o = torch.empty_like(q)  # q's strides: a (B, L, H, D) view stays one
     if o.stride(3) != 1:
@@ -249,6 +273,9 @@ _PREP_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P]
 _DKVQ_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P,
                   _I, _I, _I, _P]  # the f32 kernel's too
 _CAST_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _F, _P, _P]
+_DKV_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _I, _I,
+                 _P]
+_DQ_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _I, _I, _P]
 _LQ_PAD = 128  # lse / delta / dq workspace rows are padded to a multiple of this
 LOG2E = 1.4426950408889634
 # the bf16 kernel's tiling (csrc/flash_attention_bwd.cu): blocks of 128 keys,
@@ -261,8 +288,16 @@ BWD_BLOCK_K, BWD_BLOCK_Q, BWD_STAGES = 128, 64, 2
 # two mbarriers, 1 KB to align the swizzled tiles: two blocks an SM
 BWD_F32_BLOCK_K, BWD_F32_BLOCK_Q, BWD_F32_THREADS = 64, 64, 128
 
+# the head-dim-96 bf16 kernels' (the dkv and dq kernels): one warpgroup a
+# block, tiles of 64 rows (three 32-column panels) through two stages;
+# shared memory: dkv K, V and two stages of q, do and their lse / delta
+# rows, dq q, do and two stages of K, V; three mbarriers; 1 KB to align
+BWD96_BLOCK, BWD96_STAGES, BWD96_THREADS = 64, 2, 128
+
 BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkvq",
                "flash_attention_bwd_dq_cast")  # bf16, in launch order
+BWD96_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")  # bf16 at head dim 96
 BWD_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_f32")
 
 
@@ -301,7 +336,8 @@ def bwd_prep_plain(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, lqp: in
     0. ``delta = sum(do * o)`` in float32 in the JAX function's order on the
     CPU (XLA: each half of the head dim summed in sequence from 0, then the
     two halves), so it equals ``jnp.sum(dout.f32 * out.f32, -1)`` bit for
-    bit at head dim 64; lse in units of log 2 when ``log2``."""
+    bit at head dim 64 (the kernel's order at 96 too: halves of 48); lse in
+    units of log 2 when ``log2``."""
     b, h, lq, d = o.shape
     prod = (do.float() * o.float()).reshape(b * h, lq, d)
     halves = []
@@ -346,6 +382,21 @@ def bwd_plan(b: int, h: int, lq: int, lk: int) -> dict:
                 grid=(key_tiles, b * h), smem_bytes=smem, workspace=(b * h, lqp, CUDA_HEAD_DIM))
 
 
+def bwd96_plan(b: int, h: int, lq: int, lk: int) -> dict:
+    """The head-dim-96 bf16 backward's launch plan, as
+    ``csrc/flash_attention_bwd.cu`` lays out the dkv and dq kernels' shared
+    memory (which check it): one block of a warpgroup per (64 keys, B*H) for
+    dkv, per (64 queries, B*H) for dq; 12 KB tiles of 64 x 96 bf16."""
+    tile = BWD96_BLOCK * 96 * 2
+    rows = BWD96_STAGES * 2 * BWD96_BLOCK * 4
+    bars = (BWD96_STAGES + 1) * 8
+    key_tiles, q_tiles = -(-lk // BWD96_BLOCK), -(-lq // BWD96_BLOCK)
+    return dict(lqp=-(-lq // _LQ_PAD) * _LQ_PAD, key_tiles=key_tiles, q_tiles=q_tiles,
+                dkv_grid=(key_tiles, b * h), dq_grid=(q_tiles, b * h), threads=BWD96_THREADS,
+                dkv_smem=-(-(2 * tile + BWD96_STAGES * 2 * tile + rows + bars) // 16) * 16 + 1024,
+                dq_smem=-(-(2 * tile + BWD96_STAGES * 2 * tile + bars) // 16) * 16 + 1024)
+
+
 def bwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
     """The f32 backward's launch plan, as ``csrc/flash_attention_bwd.cu``
     lays out the f32 kernel's shared memory (which checks it): K and V of
@@ -365,8 +416,8 @@ def bwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
 def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     """Every check of the backward kernels, then their launches in order
     (name, argtypes, ctypes arguments, the tensors behind the pointers) and
-    the outputs (dq, dk, dv) they write. bf16: prep, dkvq, cast; f32: prep,
-    the one-pass f32 kernel."""
+    the outputs (dq, dk, dv) they write. bf16: prep, dkvq, cast (head dim
+    96: prep, dkv, dq); f32: prep, the one-pass f32 kernel."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dev = q.device
@@ -374,9 +425,8 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
         raise TypeError(f"q, k, v, o, do must share one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}, {o.dtype}, {do.dtype}")
     is_bf16 = dtype_flag(q, "q, k, v")
-    if d != CUDA_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA flash backward kernels take head dim {CUDA_HEAD_DIM}, got {d}")
+    _check_head_dim(d, is_bf16, "flash backward kernels")
+    hd96 = d == 96
     if (k.shape != (b, h, lk, d) or v.shape != k.shape or o.shape != q.shape
             or do.shape != q.shape or lse.shape != (b, h, lq)
             or any(t.device != dev for t in (k, v, o, do, lse))):
@@ -385,7 +435,8 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
                          f"must be (B, H, L, D) (lse (B, H, Lq)) on one device")
     if lse.dtype != torch.float32:
         raise TypeError(f"lse must be float32, got {lse.dtype}")
-    plan = bwd_plan(b, h, lq, lk) if is_bf16 else bwd_f32_plan(b, h, lq, lk)
+    plan = (bwd96_plan(b, h, lq, lk) if hd96 else bwd_plan(b, h, lq, lk) if is_bf16
+            else bwd_f32_plan(b, h, lq, lk))
     if b * h > 65535 or (is_bf16 and b * h * plan["lqp"] >= 2 ** 31):
         raise ValueError(f"B*H = {b * h} over the grid's 65535 rows, or B*H*Lq over the "
                          f"dq workspace map's 2^31 rows")
@@ -414,7 +465,21 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
                   ctypes.addressof(prep_s), is_bf16, ptr(lse_rows), ptr(delta), stream],
                  (o, do, lse, lse_rows, delta, prep_s))]
     scale = float(d ** -0.5)
-    if is_bf16:
+    if hd96:
+        main_s = strides(q, k, v, do, dk, dv)
+        dq_s = strides(q, k, v, do, dq)
+        common = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp,
+                  d]
+        launches += [
+            ("flash_attention_bwd_dkv", _DKV_ARGTYPES,
+             common + [ctypes.addressof(main_s), ptr(key_bias), ptr(full_bias), scale, ptr(dk),
+                       ptr(dv), plan["key_tiles"], plan["dkv_smem"], stream],
+             (q, k, v, do, lse_rows, delta, key_bias, full_bias, main_s)),
+            ("flash_attention_bwd_dq", _DQ_ARGTYPES,
+             common + [ctypes.addressof(dq_s), ptr(key_bias), ptr(full_bias), scale, ptr(dq),
+                       plan["q_tiles"], plan["dq_smem"], stream],
+             (q, k, v, do, lse_rows, delta, key_bias, full_bias, dq_s))]
+    elif is_bf16:
         ws = torch.zeros(plan["workspace"], **f32)
         main_s, cast_s = strides(q, k, v, do, dk, dv), strides(dq)
         launches += [
@@ -563,20 +628,22 @@ def _launch_static(q, k, v, smax, kb, a_q, a_k):
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dev = q.device
-    if d != CUDA_HEAD_DIM:
+    int8_core = _int8_core(a_q, a_k)
+    if d != CUDA_HEAD_DIM and (int8_core or d not in CUDA_BF16_HEAD_DIMS):
         raise NotImplementedError(
-            f"the CUDA static attention kernel takes head dim {CUDA_HEAD_DIM}, got {d}")
+            f"the CUDA static attention kernel takes head dim {CUDA_HEAD_DIM}, or "
+            f"{CUDA_BF16_HEAD_DIMS[1]} with the bf16 score core, got {d}"
+            f"{' with the int8 score core' if int8_core else ''}: {_STILL_TO_PORT}")
     if k.shape != (b, h, lk, d) or v.shape != k.shape or k.device != dev or v.device != dev:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"must be (B, H, L, D) on one device")
-    int8_core = _int8_core(a_q, a_k)
     out_bf16 = dtype_flag(q, "q")
     dtype_flag(k, "k")
     if not int8_core:  # the bf16 score core reads bf16 q and k (as the JAX function)
         q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
     elif q.dtype != k.dtype:
         raise TypeError(f"q and k must share one dtype, got {q.dtype}, {k.dtype}")
-    plan = _checked_plan(b, h, lq, lk, dev)
+    plan = _checked_plan(b, h, lq, lk, dev, d=d)
     q, k, v = _strided(q), _strided(k), _strided(v.to(torch.bfloat16))
     o = torch.empty((b, lq, h, d), dtype=torch.bfloat16 if out_bf16 else torch.float32,
                     device=dev).transpose(1, 2)

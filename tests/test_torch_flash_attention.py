@@ -150,9 +150,12 @@ def test_cuda_wrapper_checks_before_launch(monkeypatch):
     outside this test)."""
     monkeypatch.setattr(tfa, "plain_route", lambda x: False)
     x = torch.zeros((1, 2, 8, 64))
-    for d in (32, 128):
+    for d in (32, 96, 128):  # float32: head dim 64 only
         with pytest.raises(NotImplementedError, match="head dim 64"):
             tfa.flash_attention(*(torch.zeros((1, 2, 8, d)),) * 3)
+    for d in (32, 80, 128):  # bfloat16: 64 or 96
+        with pytest.raises(NotImplementedError, match="head dim 64 or 96"):
+            tfa.flash_attention(*(torch.zeros((1, 2, 8, d), dtype=torch.bfloat16),) * 3)
     with pytest.raises(TypeError, match="share one dtype"):
         tfa.flash_attention(x, x.to(torch.bfloat16), x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

@@ -226,12 +226,17 @@ def test_argument_checks_raise_before_any_launch(rec):
     _raises_before_launch(rec, TypeError, lambda: tfa._launch(q, k.float(), v, None, None))
     _raises_before_launch(rec, TypeError, lambda: tfa._launch_static(
         q.half(), k, v, smax, None, None, None))
-    # head dim
+    # head dim: 64, or 96 in bf16 (the bf16 route and the static bf16 core);
+    # any other head dim, and the int8 score core at 96, raise
+    for d in (80, 128):
+        qd, kd, vd = (_blhd(rng, b, h, n, d) for n in (lq, lk, lk))
+        _raises_before_launch(rec, NotImplementedError,
+                              lambda: tfa._launch(qd, kd, vd, None, None))
+        _raises_before_launch(rec, NotImplementedError,
+                              lambda: tfa._launch_static(qd, kd, vd, smax, None, None, None))
     q96, k96, v96 = (_blhd(rng, b, h, n, 96) for n in (lq, lk, lk))
-    _raises_before_launch(rec, NotImplementedError,
-                          lambda: tfa._launch(q96, k96, v96, None, None))
-    _raises_before_launch(rec, NotImplementedError,
-                          lambda: tfa._launch_static(q96, k96, v96, smax, None, None, None))
+    _raises_before_launch(rec, NotImplementedError, lambda: tfa._launch_static(
+        q96, k96, v96, smax, None, torch.tensor(4.5), torch.tensor(4.0)))
     # bias forms: per-head, mismatched, a full bias on the static kernel
     for bias in (torch.zeros((b, h, 1, lk)), torch.zeros((b, 1, 1, lk + 1))):
         _raises_before_launch(rec, ValueError,

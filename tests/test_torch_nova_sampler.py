@@ -116,10 +116,20 @@ def test_float_sampler_matches_jax_replay(bf16, trunc):
         assert np.abs(got - ref).mean() <= 5e-5
 
 
+def _jit_sow(jm, fn):
+    """``jm.apply`` of ``fn`` with mutable act_stats, jitted: a replay calls
+    the encoder pass and the head eval at one shape every AR step, and
+    interpret-mode Pallas runs each eager call op by op (the stats agree
+    with the eager calls' to ~3e-6 relative, far inside the floors)."""
+    return jax.jit(lambda v, *a: jm.apply(v, *a, method=fn, mutable=["act_stats"]))
+
+
 def _jax_calibrate(jm, params, c_text, order, noise, steps, diff_steps, scale=5.0):
     """The JAX calibrate() algorithm with given order and noise (the
     masking path, no buckets), through mutable act_stats applies."""
     v = {"params": params}
+    encode_image_step, denoise_step = _jit_sow(jm, jm.encode_image_step), _jit_sow(
+        jm, jm.denoise_step)
     guidance = jguid.GuidanceConfig(guidance_scale=scale)
     sched = jfm.FlowMatchEulerScheduler().set_timesteps(diff_steps)
     ni, pd = jm.num_image_tokens, jm.patch_size ** 2 * jm.image_dim
@@ -134,8 +144,8 @@ def _jax_calibrate(jm, params, c_text, order, noise, steps, diff_steps, scale=5.
     for i in range(S):
         sc = guidance.decayed_scale((i + 1.0) / S)
         tokens = jm.apply(v, canvas, method=jm.tokens_from_patches)
-        z, vs = jm.apply(v, jnp.tile(tokens, (2, 1, 1)), jnp.tile(mask, (2, 1, 1)), cond,
-                         method=jm.encode_image_step, mutable=["act_stats"])
+        z, vs = encode_image_step(v, jnp.tile(tokens, (2, 1, 1)), jnp.tile(mask, (2, 1, 1)),
+                                  cond)
         stats = jquant.max_merge_stats(stats, vs["act_stats"])
         ids, valid = jmask.pred_slice(jnp.asarray(order, jnp.int32), jnp.int32(starts[i]),
                                       jnp.int32(counts[i]), pad_p)
@@ -143,8 +153,7 @@ def _jax_calibrate(jm, params, c_text, order, noise, steps, diff_steps, scale=5.
         x_t = jnp.asarray(noise[i])
         for j in range(diff_steps):
             t = sched.timesteps[j]
-            pred, vs = jm.apply(v, guidance.expand(x_t), jnp.full((nb,), t), z_sel,
-                                method=jm.denoise_step, mutable=["act_stats"])
+            pred, vs = denoise_step(v, guidance.expand(x_t), jnp.full((nb,), t), z_sel)
             stats = jquant.max_merge_stats(stats, vs["act_stats"])
             pred = guidance.combine(pred.astype(jnp.float32), sc, t)
             x_t = jfm.FlowMatchEulerScheduler().step(pred, j, x_t, sched)

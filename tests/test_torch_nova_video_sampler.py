@@ -27,6 +27,7 @@ from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES
 from nova_pointcloud_tpu_torch.pipelines.nova import NOVAPipeline
 from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
 from tests.test_torch_nova import _bf16_gate, _f32_twin, _models, _np, _tpu_backend
+from tests.test_torch_nova_sampler import _jit_sow
 from tests.test_torch_nova_video import VIDEO, VIDEO_ABS
 
 STEPS, DIFF, FRAMES, BATCH, TEXT = 4, 2, 3, 2, 4
@@ -250,8 +251,13 @@ def _jax_calibrate_video(jm, params, text, order, noise):
                          jm.apply(v, BATCH, TEXT, method=jm.null_text)])
     nb = c.shape[0]
 
+    jitted = {fn.__name__: _jit_sow(jm, fn) for fn in (jm.encode_image_step, jm.denoise_step)}
+
     def sow(fn, *a):
-        out, vs = jm.apply(v, *a, method=fn, mutable=["act_stats"])
+        if fn.__name__ in jitted:  # every AR step's calls, at one shape
+            out, vs = jitted[fn.__name__](v, *a)
+        else:
+            out, vs = jm.apply(v, *a, method=fn, mutable=["act_stats"])
         return out, vs["act_stats"]
 
     cond, stats = sow(jm.encode_video, jm.apply(v, nb, method=jm.bos_frame), c, 1)
