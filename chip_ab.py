@@ -1,6 +1,7 @@
 """A/B timing of one tree of the PyTorch/CUDA port on one GPU.
 
     python3 chip_ab.py LABEL
+    python3 chip_ab.py --row1 LABEL
     python3 chip_ab.py --compare LABEL_A LABEL_B
 
 Run from the root of a tree (this checkout, or another commit unpacked with
@@ -35,7 +36,12 @@ copying one next to the other) prints the largest |A - B| of each, whether
 they are bitwise equal, and whether each output is within phase 3's
 tolerance of the other (max <= 2^-6 max|y|, mean <= 2^-10 mean|y|). To
 compare two trees, run both in one job on one card, alternating: A, B, B,
-A.
+A. ``--row1`` builds fused_attention_block alone and does only its part:
+the registers and spill bytes of its hd-64 QKV + core kernel (ptxas), its
+flagship variant's ms per launch at the flagship's 2x and 1x batch (events
+and a CUDA graph), and its outputs on fixed inputs (the bf16 core's four
+variants at both batches) under ``build/ab/LABEL_row1.pt``; ``--compare``
+reads whichever of the saved files both labels have.
 """
 
 import json
@@ -188,6 +194,44 @@ def main(label: str) -> None:
     print("AB " + json.dumps(res), flush=True)
 
 
+def row1(label: str) -> None:
+    """--row1 (see the module docstring)."""
+    if not torch.cuda.is_available():
+        cs._fail("CUDA is not available: this script runs on the GPU only", 2)
+    t0 = time.perf_counter()
+    cs._build.build_all(["fused_attention_block"])
+    res = {"label": label, "build_s": time.perf_counter() - t0}
+    # the hd-64 instance's mangled name: templated on the head dim, or not
+    for name in ("attn_qkv_core_kernelILi64E", "attn_qkv_core_kernelE"):
+        regs, spills, serial = cs._ptxas_numbers(name, "fused_attention_block")
+        if regs is not None:
+            res["qkv_core_hd64_ptxas"] = dict(registers=regs, spill_bytes=spills, c7514=serial)
+            break
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kw = dict(cs._variants("attention")[0][1])
+    for n in (cs.FLAGSHIP_SHAPE["attention"], cs.FLAGSHIP_SHAPE["attention"] // 2):
+        ops = cs._kernel_operands(gen, n, "attention")
+        res[f"row1_{n}_ms"] = cs.sync_ms(lambda: cs.fb.fused_attention_block(*ops, **kw), 20)
+        res[f"row1_{n}_graph_ms"] = cs.graph_ms(lambda: cs.fb.fused_attention_block(*ops, **kw))
+        del ops
+    outs = _row1_outputs(torch.Generator(device="cuda").manual_seed(78))
+    os.makedirs(AB_DIR, exist_ok=True)
+    torch.save(outs, os.path.join(AB_DIR, f"{label}_row1.pt"))
+    print("AB " + json.dumps(res), flush=True)
+
+
+def _row1_outputs(gen):
+    """Row 1's outputs at the flagship's 2x and 1x batch, the bf16 core's
+    four variants, on inputs drawn from ``gen``."""
+    outs = {}
+    for n in (cs.FLAGSHIP_SHAPE["attention"], cs.FLAGSHIP_SHAPE["attention"] // 2):
+        ops = cs._kernel_operands(gen, n, "attention")
+        for variant, kw in cs._variants("attention")[:4]:  # the bf16 core's four
+            outs[f"row1 {n} {variant}"] = cs.fb.fused_attention_block(*ops, **kw).cpu()
+        del ops
+    return outs
+
+
 def _flash_f32(res, label: str) -> None:
     """The f32 route of the flash backward at the training shape (8, 16,
     1280, 64), no bias: the whole backward through autograd (the route's
@@ -247,12 +291,7 @@ def _save_int8_outputs(label: str) -> None:
     and row 5's int8 mid rows (fc1's q2: the (M, F) int8 tensor its wrapper
     allocates), for --compare."""
     gen = torch.Generator(device="cuda").manual_seed(78)
-    outs = {}
-    for n in (cs.FLAGSHIP_SHAPE["attention"], cs.FLAGSHIP_SHAPE["attention"] // 2):
-        ops = cs._kernel_operands(gen, n, "attention")
-        for variant, kw in cs._variants("attention")[:4]:  # the bf16 core's four
-            outs[f"row1 {n} {variant}"] = cs.fb.fused_attention_block(*ops, **kw).cpu()
-        del ops
+    outs = _row1_outputs(gen)
     real_empty = torch.empty
     for rows in (cs.T2I_L["full"], 768):
         m = cs.T2I_ROWS * rows
@@ -317,8 +356,11 @@ def compare(a: str, b: str) -> None:
     equal, and whether B is within phase 3's tolerance of A (the f32
     gradients: phase 3e's, 1e-4 / 1e-5 relative)."""
     res = {}
-    for suffix in ("", "_int8", "_linear", "_f32"):
-        oa, ob = (torch.load(os.path.join(AB_DIR, f"{x}{suffix}.pt")) for x in (a, b))
+    for suffix in ("", "_int8", "_linear", "_f32", "_row1"):
+        paths = [os.path.join(AB_DIR, f"{x}{suffix}.pt") for x in (a, b)]
+        if not all(os.path.exists(path) for path in paths):
+            continue
+        oa, ob = (torch.load(path) for path in paths)
         rel = (1e-4, 1e-5) if suffix == "_f32" else (2.0 ** -6, 2.0 ** -10)
         for key in oa:
             ya, yb = oa[key].float(), ob[key].float()
@@ -345,5 +387,7 @@ def _p50(pipe, prompts) -> float:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--compare":
         compare(sys.argv[2], sys.argv[3])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--row1":
+        row1(sys.argv[2])
     else:
         main(sys.argv[1] if len(sys.argv) > 1 else "tree")

@@ -63,8 +63,9 @@ The NOVA text-to-image slice adds, in their places in that order:
 5c. times of the t2i kernels (the MLP and the static attention at L = 1280
     and 768, the diffusion block at 200 rows), their plain versions, bounds,
     F.scaled_dot_product_attention beside the static attention, and both
-    t2i paths' samples/s (p50 of 3 calls, batch 4);
-6.  (in the profiles phase) one profiled t2i int8 call.
+    t2i paths' samples/s (p50 of 2 calls since row 1's hd-96 slice, batch 4);
+6.  (in the profiles phase) one profiled t2i int8 call (16 AR steps since
+    row 1's hd-96 slice).
 
 The NOVA t2i training slice adds:
 
@@ -295,9 +296,11 @@ phases' peak-memory readings:
 5f. rows 5, 6 and int8_linear per launch at the AR shapes (per row),
     their plain versions and bounds; SDPA's f32 forward and backward at
     the t2pc step's (16, 12, 1024, 64) beside the f32 route's; p50 samples/s of the masked-AR int8
-    and float calls, the refinement call and the flagship without it; the
+    and float calls, the refinement call and the flagship without it (the
+    float and refinement calls over 2 calls since row 1's hd-96 slice); the
     masked-AR training step's p50 and peak memory;
-6.  (in the profiles phase) one profiled masked-AR int8 call.
+6.  (in the profiles phase) one profiled masked-AR int8 call (8 AR steps
+    since row 1's hd-96 slice).
 
 NOVA text-to-video serving (RoPE, the motion tokens, the KV-cached frame
 decode, the AdaLN mixer, the latents= prefill) writes no kernel; its int8
@@ -428,6 +431,35 @@ additions' time together is printed beside its budget of 180 s):
     own tensors (the gate), the step's gradients against the plain core
     as a reading, p50 of 3 timed steps, samples/s, peak memory.
 
+Row 1 (fused_attention_block) at head dim 96 and at every T the fused rule
+admits (the one kernel at T = 128 templated on the head dim; the split
+route at any other T: the QKV product to a bf16 qkv, attn_core_bf16_kernel,
+the out-projection; the f32 and int8 cores at any T and both head dims)
+adds, after 4t:
+
+3h. row 1 in every variant at (256 / 128, 128, 1536), 16 heads of 96, and
+    (256 / 128, 256, 1024), 16 heads of 64; its bf16 core's four variants
+    at batch 8 at T = 1, 64, 100, 161 (D = 1536), 1, 64, 100, 435 (D =
+    1024) and 607 (D = 768); row 2 at 32768 x 1536 -> 6144 and 65536 x
+    1024 -> 4096; against their plain versions at phase 3's tolerances;
+4u. bench.py --arch pc_d48w1536: phase 4's flagship call on pc_d48w1536
+    (48 x 1536, 16 heads of 96, T = 128), calibrated on 16 prompts:
+    exactly 1200 launches of rows 1 and 2 and 0 of the others, the output,
+    one forward of the stack against plain (phase 4's gate; no whole plain
+    call), p50 samples/s over 3 calls, peak memory;
+4v. bench.py --points 4096: the same on pc_d48w1024 at 4096 points (T =
+    256, the split route; row 2 at 65536 rows);
+5i. row 1 at 4u's and 4v's shapes at both batches timed (events, a graph,
+    plain, the bound), the split route's qkv round trip in bytes, the ptxas
+    report of every new instance (phase 5's ptxas / SASS gate covers the
+    wgmma ones: the hd-96 kernel and the split route's TMA-store QKV
+    GEMM; attn_core_bf16_kernel, on mma.sync, is the one function of the
+    int8 libraries that may issue HMMA);
+6.  one profiled 4u call (device activity, idle share) and 10 calls of the
+    split route by kernel (the bf16 qkv written by the GEMM, read by the
+    core).
+The sum of 3h, 4u, 4v and 5i is printed (budget 90 s).
+
 The script prints its total time before the result lines.
 
     python3 chip_smoke.py --profile released_1024px
@@ -532,6 +564,9 @@ PP_T = POINTS // PP_PATCH
 T2I_ARCH = ("vit_d16w1024", "vit_d32w1024", "mlp_d6w1024")
 T2I_BATCH, T2I_AR, T2I_DIFF, T2I_CAL_AR, T2I_GUIDANCE = 4, 64, 25, 16, 5.0
 T2I_CMP_AR = 16  # AR steps of the plain / floor comparisons (the plain run is slow)
+# the t2i paths' p50 over 2 calls (5c), the profiled int8 call of 16 AR
+# steps (6): time freed for the slice of row 1 at head dim 96 and T = 256
+T2I_TIMED_CALLS, T2I_PROFILE_AR = 2, 16
 T2I_BASE, T2I_VIDEO_BASE = (32, 32), (1, 16, 16)
 T2I_VIT_LAYERS, T2I_V_LAYERS, T2I_DIFF_BLOCKS = 32, 16, 6
 T2I_PROMPTS = [f"a scene {i}" for i in range(T2I_BATCH)]
@@ -566,6 +601,9 @@ PC_EVAL_LAUNCHES = {"flash_attention": len(PC_EVAL_GUIDANCE) * STEPS * PP_DEPTH}
 # steps, CFG 5 (the pipeline's defaults), batch 32, bf16
 AR_ARCH, AR_POINTS, AR_PATCH, AR_TEXT, AR_BATCH = "pc_d32w768", 2048, 16, 32, 32
 AR_STEPS, AR_DIFF, AR_GUIDANCE, AR_CMP_STEPS = 16, 25, 5.0, 4
+# 5f: the masked-AR float and refinement calls' p50 over 2 calls; 6: the
+# profiled masked-AR int8 call of 8 AR steps (time freed as T2I_TIMED_CALLS)
+AR_SLOW_TIMED_CALLS, AR_PROFILE_STEPS = 2, 8
 AR_DEPTH, AR_D, AR_F, AR_HEAD_BLOCKS = 32, 768, 3072, 6
 AR_T = AR_POINTS // AR_PATCH
 AR_ROWS = 2 * AR_BATCH  # CFG
@@ -807,38 +845,37 @@ def build():
     report["build_s"] = time.perf_counter() - t0
 
 
-def _kernel_operands(gen, rows_or_batch, kind):
-    """Random operands at flagship widths: bf16 activations, int8 weights
-    quantized per channel from N(0, 1/fan_in) in the K-major layout the
-    serving path pre-quantizes to, bf16 LN params and biases."""
-    dev = DEV
-
+def _kernel_operands(gen, rows_or_batch, kind, t=T, d=D, f=F):
+    """Random operands at flagship widths (or T = t, D = d, F = f): bf16
+    activations, int8 weights quantized per channel from N(0, 1/fan_in) in
+    the K-major layout the serving path pre-quantizes to, bf16 LN params and
+    biases."""
     def randn(*shape, std=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * std
+        return torch.randn(shape, generator=gen, device=DEV) * std
 
     if kind == "attention":
-        x = randn(rows_or_batch, T, D).to(torch.bfloat16)
-        w1, s1 = quantize_weight_kmajor(randn(3 * D, D, std=D ** -0.5))
-        w2, s2 = quantize_weight_kmajor(randn(D, D, std=D ** -0.5))
-        b1, b2 = randn(3 * D, std=0.02), randn(D, std=0.02)
+        x = randn(rows_or_batch, t, d).to(torch.bfloat16)
+        w1, s1 = quantize_weight_kmajor(randn(3 * d, d, std=d ** -0.5))
+        w2, s2 = quantize_weight_kmajor(randn(d, d, std=d ** -0.5))
+        b1, b2 = randn(3 * d, std=0.02), randn(d, std=0.02)
     else:
-        x = randn(rows_or_batch, D).to(torch.bfloat16)
-        w1, s1 = quantize_weight_kmajor(randn(F, D, std=D ** -0.5))
-        w2, s2 = quantize_weight_kmajor(randn(D, F, std=F ** -0.5))
-        b1, b2 = randn(F, std=0.02), randn(D, std=0.02)
-    lns = (1.0 + randn(D, std=0.1)).to(torch.bfloat16)
-    lnb = randn(D, std=0.1).to(torch.bfloat16)
+        x = randn(rows_or_batch, d).to(torch.bfloat16)
+        w1, s1 = quantize_weight_kmajor(randn(f, d, std=d ** -0.5))
+        w2, s2 = quantize_weight_kmajor(randn(d, f, std=f ** -0.5))
+        b1, b2 = randn(f, std=0.02), randn(d, std=0.02)
+    lns = (1.0 + randn(d, std=0.1)).to(torch.bfloat16)
+    lnb = randn(d, std=0.1).to(torch.bfloat16)
     return [x, lns, lnb, w1, s1, b1.to(torch.bfloat16), w2, s2, b2.to(torch.bfloat16)]
 
 
-def _variants(kind):
+def _variants(kind, heads=HEADS):
     s = lambda v: torch.tensor(v, device=DEV)  # noqa: E731
     if kind == "attention":
         out = []
         for core in ("bf16", "f32", "int8"):
             for static in (True, False):
                 for smax in (True, False):
-                    kw = dict(num_heads=HEADS, core=core)
+                    kw = dict(num_heads=heads, core=core)
                     if static:
                         kw.update(a_in=s(5.0), a_av=s(3.0))
                     if smax:
@@ -1104,10 +1141,10 @@ def _record_launches(name, path, n):
     k.setdefault("launches_by_path", {})[path] = n
 
 
-def _make_pipeline():
+def _make_pipeline(arch=ARCH, points=POINTS):
     gen = torch.Generator(device=DEV).manual_seed(0)
     model = NOVAPointCloudTransformer(
-        arch=ARCH, point_cloud_size=POINTS, patch_size=PATCH, text_token_dim=256,
+        arch=arch, point_cloud_size=points, patch_size=PATCH, text_token_dim=256,
         quantize=True, attn_core="bf16", dtype=torch.bfloat16, device=DEV)
     model.init_weights(gen)
     with torch.no_grad():  # a non-zero head, so the cloud depends on every block
@@ -1115,7 +1152,7 @@ def _make_pipeline():
             torch.randn(model.output_proj.weight.shape, generator=gen, device=DEV) * 0.02)
     model = model.to(torch.bfloat16)  # serving: bf16 weights, as the JAX bench
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"{ARCH}: {n_params / 1e6:.1f}M parameters, T={T} tokens, batch {BATCH}")
+    print(f"{arch}: {n_params / 1e6:.1f}M parameters, T={points // PATCH} tokens, batch {BATCH}")
     pipe = NOVAPointCloudGenerationPipeline(
         model, DDPMScheduler(beta_schedule="squaredcos_cap_v2"),
         text_encoder=DummyTextEncoder(256, 32))
@@ -1128,8 +1165,8 @@ PROMPTS = [f"a chair {i}" for i in range(BATCH)]
 PP_PROMPTS = PROMPTS[:PP_BATCH]
 
 
-def _sample(pipe, seed=1, prompts=None, **kw):
-    out = pipe(prompts or PROMPTS, num_points=POINTS, num_diffusion_steps=STEPS,
+def _sample(pipe, seed=1, prompts=None, num_points=POINTS, **kw):
+    out = pipe(prompts or PROMPTS, num_points=num_points, num_diffusion_steps=STEPS,
                guidance_scale=GUIDANCE, guidance_trunc=TRUNC,
                generator=torch.Generator(device=DEV).manual_seed(seed),
                output_type="pt", **kw)
@@ -1185,7 +1222,22 @@ def main_path():
           f"floor {floor:.3e}); for scale, int8 vs float {int8_vs_float:.3e}: "
           f"{'ok' if agree else 'FAIL'}")
 
-    # one forward of the 48-layer stack at the first (CFG) step, same inputs
+    fwd_ok, rel, rel_floor = _forward_vs_plain(pipe, latents, gen, DEPTH)
+    report["pipeline"].update(launches=launches, plain_launches=plain_launches,
+                              mean_abs_vs_plain=vs_plain, floor_mean_abs=floor,
+                              mean_abs_int8_vs_float=int8_vs_float,
+                              forward_rel_err=rel, forward_rel_floor=rel_floor,
+                              output_ok=ok)
+    if not (ok and agree and fwd_ok and counts_ok and not any(plain_launches.values())):
+        raise AssertionError("main path check failed")
+    return pipe
+
+
+def _forward_vs_plain(pipe, latents, gen, depth):
+    """One forward of the whole stack at the first (CFG) step, kernels vs
+    plain on the same inputs, gated at 2 x floor + 1e-3 (floor: kernels vs
+    kernels with the inputs moved by 1e-6, ``gen``'s next draw): (ok, mean
+    |diff| / mean |pred|, floor)."""
     qp = pipe.serving_qparams()
     text = torch.as_tensor(pipe.encode_prompt(PROMPTS), device=DEV)
     x_in = torch.cat([latents, latents])
@@ -1200,17 +1252,10 @@ def main_path():
     rel_floor = ((pred - pipe.model(x_shift, t, text, qp)).abs().mean() / scale).item()
     fwd_tol = 2 * rel_floor + 1e-3
     fwd_ok = rel <= fwd_tol
-    print(f"one forward ({DEPTH} layers, batch {2 * BATCH}), kernels vs plain: mean |diff| / "
+    print(f"one forward ({depth} layers, batch {2 * BATCH}), kernels vs plain: mean |diff| / "
           f"mean |pred| {rel:.3e} (tol 2 x floor + 1e-3 = {fwd_tol:.3e}; floor, kernels vs "
           f"kernels with inputs moved by 1e-6: {rel_floor:.3e}): {'ok' if fwd_ok else 'FAIL'}")
-    report["pipeline"].update(launches=launches, plain_launches=plain_launches,
-                              mean_abs_vs_plain=vs_plain, floor_mean_abs=floor,
-                              mean_abs_int8_vs_float=int8_vs_float,
-                              forward_rel_err=rel, forward_rel_floor=rel_floor,
-                              output_ok=ok)
-    if not (ok and agree and fwd_ok and counts_ok and not any(plain_launches.values())):
-        raise AssertionError("main path check failed")
-    return pipe
+    return fwd_ok, rel, rel_floor
 
 
 def _nonzero_head(model, gen):
@@ -2810,13 +2855,15 @@ def timing_ar(pipe_ar, pipe_ar_f, pipe_flagship, ar_train_state):
         raise AssertionError("no pipeline: phase 4 or 4h failed")
     fb.reset_launch_counts()
     calls = report["ar_timing"] = {}
-    for label, fn, batch in (
-            ("masked_ar_int8", lambda i: _ar_sample(pipe_ar, seed=20 + i), AR_BATCH),
-            ("masked_ar_float", lambda i: _ar_sample(pipe_ar_f, seed=20 + i), AR_BATCH),
+    for label, fn, batch, n in (
+            ("masked_ar_int8", lambda i: _ar_sample(pipe_ar, seed=20 + i), AR_BATCH, 3),
+            ("masked_ar_float", lambda i: _ar_sample(pipe_ar_f, seed=20 + i), AR_BATCH,
+             AR_SLOW_TIMED_CALLS),
             ("refinement", lambda i: _sample(pipe_flagship, seed=20 + i, use_autoregressive=True,
-                                             num_subsets=REFINE_SUBSETS), BATCH),
-            ("flagship", lambda i: _sample(pipe_flagship, seed=20 + i), BATCH)):
-        p50, times = _p50_call(fn)
+                                             num_subsets=REFINE_SUBSETS), BATCH,
+             AR_SLOW_TIMED_CALLS),
+            ("flagship", lambda i: _sample(pipe_flagship, seed=20 + i), BATCH, 3)):
+        p50, times = _p50_call(fn, n)
         print(f"{label}: batch {batch}, p50 {p50:.3f} s per call, {batch / p50:.2f} samples/s "
               f"(times {[round(t, 3) for t in times]})")
         calls[label] = dict(batch=batch, p50_s=p50, samples_per_s=batch / p50, times_s=times)
@@ -4458,6 +4505,192 @@ def xl_train():
         raise AssertionError("NOVA-1.4B training check failed")
 
 
+# row 1 at head dim 96 and at T != 128 (3h, 4u, 4v, 5i): bench.py --arch
+# pc_d48w1536 (16 heads of 96, T = 2048 / 16 = 128: the one-kernel route)
+# and bench.py --points 4096 (pc_d48w1024, T = 256: the split route); the
+# bf16 core's other admitted T at batch 8 (the fused rule's bounds: 161 at
+# D = 1536, 435 at 1024, 607 at 768)
+XLPC_ARCH, XLPC_D, XLPC_HEADS, XLPC_F = "pc_d48w1536", 1536, 16, 6144
+P4K_POINTS = 4096
+ROW1_NEW = {"pc_d48w1536": (T, XLPC_D, XLPC_HEADS, XLPC_F),  # (T, D, heads, F)
+            "points_4096": (P4K_POINTS // PATCH, D, HEADS, F)}
+ROW1_RAGGED = ((1, 1536, 16), (64, 1536, 16), (100, 1536, 16), (161, 1536, 16), (1, 1024, 16),
+               (64, 1024, 16), (100, 1024, 16), (435, 1024, 16), (607, 768, 12))
+ROW1_RAGGED_BATCH = 8
+# 4u / 4v calibrate on 16 prompts: at batch 128 the plain mirror (float64
+# int8 products) takes ~32 s at D = 1024 and T = 128 (phase 4), ~2.25x at
+# D = 1536 and ~2x at T = 256
+ROW1_CALIB_PROMPTS = 16
+
+
+@phase("3h row 1 at head dim 96 and T != 128 vs plain")
+def check_row1_shapes():
+    """fused_attention_block at the two shapes of 4u and 4v in every variant
+    (3 cores x static / per-row x smax on / off) at the CFG steps' 2x batch
+    and the 1x: (256 / 128, 128, 1536), 16 heads of 96 (the one-kernel
+    route at head dim 96), and (256 / 128, 256, 1024), 16 heads of 64 (the
+    split route: the bf16 qkv, then attn_core_bf16_kernel); the bf16 core's
+    four variants at batch 8 at ROW1_RAGGED's T (1, 64, 100 and the fused
+    rule's bounds 161, 435, 607), at T = 607 the f32 core (static, no smax)
+    and the int8 core (per row, no smax) too; fused_ln_int8_mlp at 4u's and 4v's 2x
+    batch rows, 32768 x 1536 -> 6144 and 65536 x 1024 -> 4096. Phase 3's
+    tolerances."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(1818)
+    bad = []
+
+    def check(name, label, kernel, plain, ops, kw):
+        y = kernel(*ops, **kw)
+        torch.cuda.synchronize()
+        if not _tol_check(name, label, y, plain(*ops, **kw), like=ops[0]):
+            bad.append(f"{name} {label}")
+
+    for label, (t, d, heads, f) in ROW1_NEW.items():
+        for n in (2 * BATCH, BATCH):
+            ops = _kernel_operands(gen, n, "attention", t, d, f)
+            for vlabel, kw in _variants("attention", heads):
+                check("fused_attention_block", f"{label} {n}x{t}x{d} {vlabel}",
+                      fb.fused_attention_block, fb.fused_attention_block_plain, ops, kw)
+            del ops
+            torch.cuda.empty_cache()
+    for t, d, heads in ROW1_RAGGED:
+        ops = _kernel_operands(gen, ROW1_RAGGED_BATCH, "attention", t, d, 4 * d)
+        variants = _variants("attention", heads)
+        # the bf16 core's four; at T = 607 also the f32 and int8 cores (a
+        # block of 607 threads, the int8 core over 48 KB of shared memory)
+        for vlabel, kw in variants[:4] + (variants[5:6] + variants[11:] if t == 607 else []):
+            check("fused_attention_block", f"{ROW1_RAGGED_BATCH}x{t}x{d} {vlabel}",
+                  fb.fused_attention_block, fb.fused_attention_block_plain, ops, kw)
+    for label, (t, d, heads, f) in ROW1_NEW.items():
+        ops = _kernel_operands(gen, 2 * BATCH * t, "mlp", t, d, f)
+        for vlabel, kw in _variants("mlp"):
+            check("fused_ln_int8_mlp", f"{label} {2 * BATCH * t}x{d}->{f} {vlabel}",
+                  fb.fused_ln_int8_mlp, fb.fused_ln_int8_mlp_plain, ops, kw)
+        del ops
+        torch.cuda.empty_cache()
+    fb.reset_launch_counts()  # these launches were comparisons, not a path
+    report["row1_3h_s"] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+
+
+def _row1_serving(label, arch, points, depth):
+    """4u / 4v: the int8 call of ``arch`` at ``points`` as phase 4 serves
+    the flagship (patch 16, calibrated static scales, bf16 core, DDPM 25
+    steps, CFG 7.5 cut at 800, batch 128, bf16 weights), calibrated on
+    ROW1_CALIB_PROMPTS prompts; a warm-up call, then one call's launches
+    (depth x 25 of rows 1 and 2, 0 of every other kernel) and output
+    (finite, in [-1, 1], a spread); one forward of the stack at the first
+    CFG step against the plain versions (phase 4's gate; no whole plain
+    call: its ~40 s at this width); the p50 of 3 calls and the peak memory
+    above what is held."""
+    pipe = _make_pipeline(arch, points)
+    t0 = time.perf_counter()
+    pipe.calibrate(prompt_embeds=pipe.encode_prompt(PROMPTS[:ROW1_CALIB_PROMPTS]),
+                   num_points=points, num_diffusion_steps=STEPS,
+                   generator=torch.Generator(device=DEV).manual_seed(2))
+    calib_s = time.perf_counter() - t0
+    print(f"{label}: calibrated on {ROW1_CALIB_PROMPTS} prompts (batch {BATCH} would take "
+          f"~{BATCH // ROW1_CALIB_PROMPTS}x as long) in {calib_s:.1f} s")
+    _sample(pipe, seed=9, num_points=points)  # warm-up: kernel loads, allocator
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    latents = torch.randn((BATCH, points, 3), generator=gen, device=DEV)
+    fb.reset_launch_counts()
+    out = _sample(pipe, latents=latents, num_points=points)
+    launches = dict(fb.LAUNCHES)
+    expected = depth * STEPS
+    counts_ok = launches == {n: expected if n in _kernels() else 0 for n in KERNELS}
+    print(f"{label}: launches in one call: {launches} (expected {expected} of rows 1 and 2, 0 "
+          f"of the others): {'ok' if counts_ok else 'FAIL'}")
+    for name in _kernels():
+        _record_launches(name, label, launches[name])
+    pts, cols = out.point_clouds.float(), out.colors.float()
+    ok = (tuple(pts.shape) == (BATCH, points, 3) and bool(torch.isfinite(pts).all())
+          and pts.abs().max().item() <= 1.0 and 0.0 <= cols.min().item()
+          and cols.max().item() <= 1.0 and pts.std().item() > 0.05)
+    print(f"{label}: output {tuple(pts.shape)} finite, in [-1, 1], std {pts.std().item():.4f}: "
+          f"{'ok' if ok else 'FAIL'}")
+    fwd_ok, rel, rel_floor = _forward_vs_plain(pipe, latents, gen, depth)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        _sample(pipe, seed=20 + i, num_points=points)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - held
+    p50 = float(np.percentile(times, 50))
+    print(f"{label}: batch {BATCH}, {STEPS} steps, p50 {p50:.3f} s per call, "
+          f"{BATCH / p50:.2f} samples/s (times {[round(x, 3) for x in times]}); peak "
+          f"{peak / 2 ** 30:.2f} GiB above {held / 2 ** 30:.2f} held")
+    report["pipeline"][label] = dict(
+        arch=arch, points=points, calibrate_s=calib_s, launches=launches, output_ok=ok,
+        forward_rel_err=rel, forward_rel_floor=rel_floor, p50_s=p50,
+        samples_per_s=BATCH / p50, times_s=times, peak_bytes_above_held=peak)
+    if not (ok and fwd_ok and counts_ok):
+        raise AssertionError(f"{label} check failed")
+    return pipe
+
+
+@phase("4u bench.py --arch pc_d48w1536 (head dim 96)")
+def xlpc_serving():
+    """pc_d48w1536 (48 x 1536, 16 heads of 96) at 2048 points: row 1 on
+    attn_qkv_core_kernel<96> (T = 128). Kept for phase 6's profile."""
+    return _row1_serving("pc_d48w1536", XLPC_ARCH, POINTS, DEPTH)
+
+
+@phase("4v bench.py --points 4096 (T = 256)")
+def points4096_serving():
+    """The flagship's pc_d48w1024 at 4096 points: T = 256, row 1 on the
+    split route (the bf16 qkv, attn_core_bf16_kernel<64>), row 2 at 65536
+    rows at the 2x batch. Freed after the phase."""
+    _row1_serving("points_4096", ARCH, P4K_POINTS, DEPTH)
+    torch.cuda.empty_cache()
+
+
+# the instances of row 1's cores added for head dim 96 and T != 128 that
+# are not wgmma instances (phase 5's gate prints those: the hd-96 QKV +
+# core kernel, the split route's TMA-store QKV GEMM), by their mangled
+# names (ptxas reports in 5i)
+ROW1_NEW_INSTANCES = {"split bf16 core, hd 64": "attn_core_bf16_kernelILi64E",
+                      "split bf16 core, hd 96": "attn_core_bf16_kernelILi96E",
+                      "f32 core, hd 96": "attn_core_scalar_kernelILi0ELi96E",
+                      "int8 core, hd 96": "attn_core_scalar_kernelILi2ELi96E",
+                      "f32 core, hd 64": "attn_core_scalar_kernelILi0ELi64E",
+                      "int8 core, hd 64": "attn_core_scalar_kernelILi2ELi64E"}
+
+
+@phase("5i timing of row 1 at head dim 96 and T = 256")
+def timing_row1_shapes():
+    """fused_attention_block at 4u's and 4v's shapes at the 2x and 1x batch,
+    the flagship variant (static, bf16 core, smax): events, a CUDA graph,
+    plain, the bound (_bound_ms); at T = 256 the byte time of the split
+    route's bf16 qkv round trip (M x 3D written and read back); ptxas of
+    each new instance (ROW1_NEW_INSTANCES)."""
+    gen = torch.Generator(device=DEV).manual_seed(1819)
+    for label, (t, d, heads, f) in ROW1_NEW.items():
+        kw = _variants("attention", heads)[0][1]
+        for n in (2 * BATCH, BATCH):
+            ops = _kernel_operands(gen, n, "attention", t, d, f)
+            row = _time_kernel("fused_attention_block", (label, n, t, d),
+                               lambda: fb.fused_attention_block(*ops, **kw),
+                               lambda: fb.fused_attention_block_plain(*ops, **kw),
+                               _bound_ms("attention", n, t, d, f), graph=True)
+            if t != fb.ATTN_T:
+                row["qkv_round_trip_ms"] = 2 * n * t * 3 * d * 2 / PEAK_BYTES * 1e3
+                print(f"    the split route's bf16 qkv ({n * t} x {3 * d}) written and read "
+                      f"back: {row['qkv_round_trip_ms']:.4f} ms at {PEAK_BYTES / 1e12} TB/s")
+            del ops
+            torch.cuda.empty_cache()
+    out = {}
+    for label, mangled in ROW1_NEW_INSTANCES.items():
+        out[label] = _ptxas_report(mangled, library="fused_attention_block")
+        print(f"  fused_attention_block ptxas ({label}): {out[label]}")
+    report["kernels"].setdefault("fused_attention_block", {})["ptxas_new"] = out
+    fb.reset_launch_counts()
+
+
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
     forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
@@ -4567,17 +4800,25 @@ INT8_INSTANCES = {
     "fused_ln_int8_mlp": {"fc1 relu -> int8 (static)": "gemm_s8_wgmma_kernelILi1E",
                           "fc1 relu -> f32 (per row)": "gemm_s8_wgmma_kernelILi2E",
                           "fc2 + residual": "gemm_s8_wgmma_kernelILi3E"},
-    "fused_attention_block": {"qkv + bf16 core": "attn_qkv_core_kernel",
-                              "qkv -> f32 (f32 / int8 cores)": "gemm_s8_wgmma_kernelILi0E",
-                              "out-projection + residual": "gemm_s8_wgmma_kernelILi3E"},
+    "fused_attention_block": {
+        "qkv + bf16 core, hd 64": "attn_qkv_core_kernelILi64E",
+        "qkv + bf16 core, hd 96": "attn_qkv_core_kernelILi96E",
+        "qkv -> f32 (f32 / int8 cores)": "gemm_s8_wgmma_kernelILi0ELi256ELb0E",
+        "qkv -> bf16 (split route), 128 x 256, TMA store": "gemm_s8_wgmma_kernelILi0ELi256ELb1E",
+        "qkv -> bf16 (split route), 128 x 128, TMA store": "gemm_s8_wgmma_kernelILi0ELi128ELb1E",
+        "out-projection + residual": "gemm_s8_wgmma_kernelILi3E"},
     "fused_int8_mlp_postln": {"fc1 gelu -> int8 (static)": "gemm_s8_wgmma_kernelILi4E",
                               "fc1 gelu -> f32 (per row)": "gemm_s8_wgmma_kernelILi5E",
                               "fc2 + post-LN, f32 x": "fc2_postln_kernelILb0E",
                               "fc2 + post-LN, bf16 x": "fc2_postln_kernelILb1E"}}
-HGMMA_INSTANCES = ("attn_qkv_core_kernel",)  # the bf16 products of the attention core
+# the bf16 products of the attention core
+HGMMA_INSTANCES = ("attn_qkv_core_kernelILi64E", "attn_qkv_core_kernelILi96E")
+# row 1's split-route core, a first design on mma.sync (HMMA): the one
+# function of the int8 libraries allowed it
+MMA_SYNC_FUNCTIONS = ("attn_core_bf16_kernel",)
 # the instances that store a bf16 output by TMA (UTMASTG)
 TMA_STORE_INSTANCES = tuple(m for lib in ("int8_linear", "fused_ln_int8_matmul",
-                                         "int8_matmul_residual")
+                                         "int8_matmul_residual", "fused_attention_block")
                             for label, m in INT8_INSTANCES[lib].items()
                             if "TMA store" in label or "TMA in and store" in label)
 
@@ -4606,13 +4847,15 @@ def _int8_ptxas():
     issues s8
     wgmma (IGMMA) and TMA loads (UTMALDG), row 1's core bf16 wgmma (HGMMA)
     too, with no spills and no C7514 note; no function of the libraries
-    issues mma.sync (IMMA, HMMA) or is the mma.sync GEMM of the first design
-    (gemm_s8_kernel); raises otherwise."""
+    issues mma.sync (IMMA, HMMA; MMA_SYNC_FUNCTIONS may issue HMMA) or is
+    the mma.sync GEMM of the first design (gemm_s8_kernel); raises
+    otherwise."""
     bad = []
     for library, instances in INT8_INSTANCES.items():
         out, sass = {}, _sass_ops(library)
         bad += [f"{library}: mma.sync {fn}" for fn, c in sass.items()
-                if "gemm_s8_kernel" in fn or c["IMMA"] or c["HMMA"]]
+                if "gemm_s8_kernel" in fn or c["IMMA"]
+                or (c["HMMA"] and not any(m in fn for m in MMA_SYNC_FUNCTIONS))]
         for label, mangled in instances.items():
             ops = next(c for fn, c in sass.items() if mangled in fn)
             regs, spills, serial = _ptxas_numbers(mangled, library)
@@ -4836,13 +5079,16 @@ def _bound(ops_s, nbytes):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def _bound_ms(kind, n):
-    """Bounds of the flagship kernels: n rows (MLP) or samples (attention)."""
+def _bound_ms(kind, n, t=T, d=D, f=F):
+    """Bounds of the flagship kernels (or at T = t, D = d, F = f): n rows
+    (MLP) or samples (attention: the int8 projections, 2 n t d 4d
+    operations, at the int8 peak plus the bf16 core, 4 n t^2 d FLOPs, at the
+    bf16 peak, against x read and y written in bf16 and the weights)."""
     if kind == "mlp":
-        return _bound(4 * n * D * F / PEAK_INT8_OPS, 2 * n * D * 2 + 2 * D * F)
-    rows = n * T
-    return _bound(2 * rows * D * 4 * D / PEAK_INT8_OPS + 4 * n * T * T * D / PEAK_BF16_FLOPS,
-                  2 * rows * D * 2 + 4 * D * D)
+        return _bound(4 * n * d * f / PEAK_INT8_OPS, 2 * n * d * 2 + 2 * d * f)
+    rows = n * t
+    return _bound(2 * rows * d * 4 * d / PEAK_INT8_OPS + 4 * n * t * t * d / PEAK_BF16_FLOPS,
+                  2 * rows * d * 2 + 4 * d * d)
 
 
 def _attention_floors(n):
@@ -5144,7 +5390,7 @@ def timing_t2i(pipe_int8, pipe_float):
         if pipe is None:
             raise AssertionError(f"no pipeline: {label} failed")
         times = []
-        for i in range(3):
+        for i in range(T2I_TIMED_CALLS):
             t0 = time.perf_counter()
             _t2i_sample(pipe, seed=20 + i)
             times.append(time.perf_counter() - t0)
@@ -5229,9 +5475,30 @@ def _device_kernels_per_call():
     torch.cuda.empty_cache()
 
 
+def _row1_split_profile():
+    """Device time by kernel of 10 calls of row 1's split route at 4v's 2x
+    batch, (256, 256, 1024), the flagship variant: the LN pass, the QKV
+    product writing the bf16 qkv, attn_core_bf16_kernel reading it, the
+    out-projection."""
+    t, d, heads, f = ROW1_NEW["points_4096"]
+    ops = _kernel_operands(torch.Generator(device=DEV).manual_seed(1820), 2 * BATCH,
+                           "attention", t, d, f)
+    kw = _variants("attention", heads)[0][1]
+
+    def calls():
+        for _ in range(10):
+            fb.fused_attention_block(*ops, **kw)
+        torch.cuda.synchronize()
+
+    calls()
+    profile_call(calls, "row1_split_10_calls", keep=10)
+    del ops
+    fb.reset_launch_counts()
+
+
 @phase("6 profiles")
 def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=None,
-             pipe_t2v=None, vaes=None):
+             pipe_t2v=None, vaes=None, pipe_xlpc=None):
     """One profiled call of each path (one step of training), after every
     timing: the profiler's hooks stay on the launch path once it has run,
     and would slow the host side of the per-launch timings. First, the
@@ -5242,11 +5509,14 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=
     _device_kernels_per_call()
     if pipe is not None:
         profile_call(lambda: _sample(pipe, seed=30))
+    if pipe_xlpc is not None:  # 4u's call: row 1 at head dim 96
+        profile_call(lambda: _sample(pipe_xlpc, seed=30), "pc_d48w1536")
+    _row1_split_profile()
     for label, p in (("path_a", pipe_a), ("path_b", pipe_b)):
         if p is not None:
             profile_call(lambda: _sample(p, seed=30, prompts=PP_PROMPTS), label)
     if pipe_t2i is not None:
-        profile_call(lambda: _t2i_sample(pipe_t2i, seed=30), "t2i_int8")
+        profile_call(lambda: _t2i_sample(pipe_t2i, ar_steps=T2I_PROFILE_AR, seed=30), "t2i_int8")
     if pipe_train is not None:
         data = itertools.repeat(_train_batch(5))
 
@@ -5265,7 +5535,8 @@ def profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes=None, pipe_ar=
 
         profile_call(pc_step, label)
     if pipe_ar is not None:
-        profile_call(lambda: _ar_sample(pipe_ar, seed=30), "masked_ar_int8")
+        profile_call(lambda: _ar_sample(pipe_ar, ar_steps=AR_PROFILE_STEPS, seed=30),
+                     "masked_ar_int8")
     if pipe_t2v is not None:
         profile_call(lambda: _t2v_sample(pipe_t2v, T2V_PROFILE_FRAMES, T2V_PROFILE_AR, seed=30),
                      "t2v_int8")
@@ -5421,8 +5692,17 @@ def main():
         print(f"phases 4r-4t took {report['hd96_4rt_s']:.1f} s; with the head-dim-96 checks of "
               f"3c-3e {report['hd96_4rt_s'] + report.get('hd96_3ce_s', 0.0):.1f} s (budget "
               f"180 s)")
+        # row 1 at head dim 96 and T = 256: bench.py --arch pc_d48w1536 and
+        # --points 4096
+        t_row1 = time.perf_counter()
+        check_row1_shapes()
+        pipe_xlpc = xlpc_serving()
+        points4096_serving()
+        timing_row1_shapes()
+        report["row1_3h_5i_s"] = time.perf_counter() - t_row1
+        print(f"phases 3h, 4u, 4v, 5i took {report['row1_3h_5i_s']:.1f} s (budget 90 s)")
         profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0], pipe_t2v,
-                 vaes)
+                 vaes, pipe_xlpc)
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})

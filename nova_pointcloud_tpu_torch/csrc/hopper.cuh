@@ -4,7 +4,7 @@
 // address, ldmatrix, named barriers, the f32 kernels' swizzled 64 x 64
 // tile layout, wgmma shared-memory descriptors (128B and 64B swizzle, K-
 // and MN-major; none), wgmma wrappers (bf16 m64n64k16, m64n96k16, m64n128k16
-// and m64n8k16, s8 m64n128k32, m64n192k32 and m64n256k32), setmaxnreg,
+// and m64n8k16, s8 m64n96k32, m64n128k32, m64n192k32 and m64n256k32), setmaxnreg,
 // thread-block clusters (ranks, distributed shared memory, remote mbarrier
 // arrivals) and, on the host, the TMA map encoder reached through
 // cudaGetDriverEntryPoint, so that no library links -lcuda. The int8
@@ -395,6 +395,17 @@ __device__ __forceinline__ void wgmma_s8_n192(int (&d)[96], uint64_t da, uint64_
       "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 " NOVA_WG_REGS96
       ", %96, %97, p;\n}\n"
       : NOVA_WG_D96("+r")
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 96, s32) (+)= A B, A (64 x 32 s8) and B (96 x 32 s8), both K-major
+// in shared memory (row 1's v columns at head dim 96)
+__device__ __forceinline__ void wgmma_s8_n96(int (&d)[48], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 " NOVA_WG_REGS48
+      ", %48, %49, p;\n}\n"
+      : NOVA_WG_D48("+r")
       : "l"(da), "l"(db), "r"(acc));
 }
 

@@ -317,40 +317,77 @@ def mlp_plan(m: int, d: int, f: int, sms: int) -> dict:
     return dict(fc1=gemm_plan(m, f, d, sms), fc2=gemm_plan(m, d, f, sms))
 
 
-# csrc/fused_attention_block.cu, attn_qkv_core_kernel: one tile is a sample's
-# ATTN_T rows x one head's q, k and v columns (3 x 64); k-steps of 128 bytes
-# through a ring of 4 stages (a 16 KB A tile and three 8 KB weight boxes
-# each), a full and an empty mbarrier a stage, K and V of the tile in bf16,
-# the tile's 192 column scales and biases for each of the two consumer
-# warpgroups, 1 KB to align the swizzled tiles
-ATTN_T, ATTN_HD, QKVC_STAGES = 128, 64, 4
-QKVC_SMEM = (QKVC_STAGES * (ATTN_T + 3 * ATTN_HD) * WG_BLOCK_K + 2 * ATTN_T * ATTN_HD * 2
-             + 2 * QKVC_STAGES * 8 + 2 * 2 * 3 * ATTN_HD * 4 + 1024)
+# csrc/fused_attention_block.cu. The bf16 core at T = ATTN_T runs the QKV
+# product and the attention in one kernel, attn_qkv_core_kernel<hd>: one
+# tile is a sample's ATTN_T rows x one head's q, k and v columns (3 x hd);
+# k-steps of 128 bytes through a ring of 4 stages at hd 64, 3 at hd 96 (a
+# 16 KB A tile and three hd x 128-byte weight boxes each), K and V of the
+# tile in bf16, a full and an empty mbarrier a stage, the tile's 3 hd column
+# scales and biases for each of the two consumer warpgroups, 1 KB to align
+# the swizzled tiles. At any other T the bf16 core is the split route: the
+# QKV product to a bf16 (M, 3D) qkv on the wgmma GEMM, then
+# attn_core_bf16_kernel<hd> (a block of 128 threads a (64 query rows, head,
+# sample), K and V chunks of 64 keys in rows of hd + 8 bf16). The f32 and
+# int8 cores: the QKV product to an f32 qkv, then a block of T threads a
+# (head, sample), the int8 core's K / V codes and row scales in dynamic
+# shared memory.
+ATTN_T = 128
+ATTN_HDS = (64, 96)
+ATTN_MAX_VMEM_BYTES = 14 * 2**20  # the JAX model's fused / split rule
+QKVC_STAGES = {64: 4, 96: 3}
+QKVC_SMEM = {hd: (QKVC_STAGES[hd] * (ATTN_T + 3 * hd) * WG_BLOCK_K + 2 * ATTN_T * hd * 2
+                  + 2 * QKVC_STAGES[hd] * 8 + 2 * 2 * 3 * hd * 4 + 1024) for hd in ATTN_HDS}
+CORE16_BLOCK_Q, CORE16_BLOCK_KEYS, CORE16_THREADS = 64, 64, 128
+CORE16_SMEM = {hd: 2 * CORE16_BLOCK_KEYS * (hd + 8) * 2 for hd in ATTN_HDS}
 
 
-def _attn_dims(t: int, d: int, heads: int) -> None:
-    if t != ATTN_T or heads <= 0 or d != heads * ATTN_HD or d % WG_BLOCK_K:
+def _attn_dims(t: int, d: int, heads: int) -> int:
+    """The head dim, or NotImplementedError for what the CUDA kernels do not
+    take: head dims other than 64 and 96, D off 128, and T outside 1 ..
+    the JAX model's fused rule (``attention_block_vmem_bytes`` <= 14 MiB;
+    above it the model takes the split path)."""
+    hd = d // heads if heads > 0 and d % heads == 0 else 0
+    if (hd not in ATTN_HDS or d % WG_BLOCK_K or t < 1
+            or attention_block_vmem_bytes(t, d) > ATTN_MAX_VMEM_BYTES):
         raise NotImplementedError(
-            f"the CUDA attention-block kernel takes T={ATTN_T} tokens and head dim "
-            f"{ATTN_HD} (D a multiple of 128), got T={t}, D={d}, heads={heads}")
+            f"the CUDA attention-block kernels take head dim {ATTN_HDS[0]} or "
+            f"{ATTN_HDS[1]}, D a multiple of {WG_BLOCK_K} and 1 <= T up to the fused "
+            f"rule's bound (attention_block_vmem_bytes <= 14 MiB), got T={t}, D={d}, "
+            f"heads={heads} (ROADMAP queue 2)")
+    return hd
 
 
 @functools.lru_cache(maxsize=256)
 def attn_block_plan(b: int, t: int, d: int, heads: int, sms: int) -> dict:
-    """:func:`fused_attention_block`'s launch plan: ``core``, the bf16
-    core's one kernel for the QKV product and the attention (a persistent
-    grid of at most one block an SM over the b x heads (sample, head) tiles,
-    head fastest), checked by ``csrc/fused_attention_block.cu``; ``qkv``,
-    the QKV product of the f32 and int8 cores on the wgmma GEMM; ``out``,
-    the out-projection on it. Raises NotImplementedError for what the
-    kernels do not take. Cached, as :func:`gemm_plan`."""
-    _attn_dims(t, d, heads)
+    """:func:`fused_attention_block`'s launch plan. ``route``: "fused" at T =
+    ATTN_T, else "split", the bf16 core's; ``core``, that route's core: at
+    T = ATTN_T the one kernel for the QKV product and the attention (a
+    persistent grid of at most one block an SM over the b x heads (sample,
+    head) tiles, head fastest), else attn_core_bf16_kernel (a block a (64
+    query rows, head, sample)), checked by ``csrc/fused_attention_block.cu``;
+    ``qkv_bf16``, the split route's QKV product on the wgmma GEMM (a bf16
+    output stored by TMA: :func:`store_plan`), else None; ``qkv``, the QKV
+    product of the f32 and int8 cores on the wgmma GEMM; ``scalar``, their
+    core kernel by core; ``out``, the out-projection. Raises
+    NotImplementedError for what the kernels do not take. Cached, as
+    :func:`gemm_plan`."""
+    hd = _attn_dims(t, d, heads)
     m, tiles = b * t, b * heads
-    grid = min(tiles, sms)
-    core = dict(tiles=tiles, block_m=ATTN_T, block_n=3 * ATTN_HD, k_tiles=d // WG_BLOCK_K,
-                grid=(grid,), stages=QKVC_STAGES, smem_bytes=QKVC_SMEM,
-                tiles_per_block=-(-tiles // grid))
-    return dict(core=core, qkv=gemm_plan(m, 3 * d, d, sms), out=gemm_plan(m, d, d, sms))
+    if t == ATTN_T:
+        grid = min(tiles, sms)
+        core = dict(tiles=tiles, block_m=ATTN_T, block_n=3 * hd, k_tiles=d // WG_BLOCK_K,
+                    grid=(grid,), stages=QKVC_STAGES[hd], smem_bytes=QKVC_SMEM[hd],
+                    tiles_per_block=-(-tiles // grid))
+    else:
+        q_tiles = -(-t // CORE16_BLOCK_Q)
+        core = dict(q_tiles=q_tiles, grid=(tiles * q_tiles,), threads=CORE16_THREADS,
+                    key_chunks=-(-t // CORE16_BLOCK_KEYS), smem_bytes=CORE16_SMEM[hd])
+    scalar = {c: dict(grid=(tiles,), threads=t,
+                      smem_bytes=2 * t * hd + 8 * t if c == "int8" else 0)
+              for c in ("f32", "int8")}
+    return dict(route="fused" if t == ATTN_T else "split", head_dim=hd, core=core,
+                qkv_bf16=None if t == ATTN_T else store_plan(m, 3 * d, d, sms, True),
+                qkv=gemm_plan(m, 3 * d, d, sms), scalar=scalar, out=gemm_plan(m, d, d, sms))
 
 
 # csrc/fused_int8_mlp_postln.cu, fc2_postln_kernel: the wgmma GEMM's tiles and
@@ -461,7 +498,7 @@ _ARGTYPES = {
                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "fused_attention_block": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
                               _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
-                              _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                              _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fused_ln_int8_matmul": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
                              _P, _P, _I, _I, _I, _P],
     "int8_matmul_residual": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
@@ -605,8 +642,10 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
     and the attention output (static quant), or both None (per row).
     ``core``: precision of the attention-core products ("f32", "bf16",
     "int8"). ``a_smax``: calibrated max logit replacing the row max. On a
-    CUDA tensor the bf16 core's QKV product and attention run as one kernel
-    that keeps q, k and v on chip (:func:`attn_block_plan`)."""
+    CUDA tensor, at head dim 64 or 96 and T up to the fused rule's bound,
+    the bf16 core's QKV product and attention run as one kernel that keeps
+    q, k and v on chip at T = 128, else through a bf16 qkv
+    (:func:`attn_block_plan`)."""
     if _plain_route(x):
         return fused_attention_block_plain(x, ln_scale, ln_bias, wqkv_q, wqkv_s,
                                            bqkv, wo_q, wo_s, bo, num_heads,
@@ -616,7 +655,7 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
         raise ValueError(f"core must be one of {ATTN_CORES}, got {core!r}")
     dev = x.device
     b, t, d = x.shape
-    _attn_dims(t, d, num_heads)
+    hd = _attn_dims(t, d, num_heads)
     x = _aligned(x.contiguous())
     x_bf16 = _dtype_flag(x, "x")
     wqkv_q = _aligned(_int8_weight(wqkv_q, (d, 3 * d), dev, "wqkv_q"))
@@ -630,8 +669,16 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
     m = b * t
     q1 = torch.empty((m, d), dtype=torch.int8, device=dev)
     sx1 = torch.empty((m,), dtype=torch.float32, device=dev)
-    # the bf16 core keeps q, k and v on chip: no (m, 3d) tensor
-    qkv = None if core == "bf16" else torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
+    # the one-kernel route keeps q, k and v on chip: no (m, 3d) tensor; the
+    # split route's qkv is bf16, the f32 and int8 cores' f32
+    if core != "bf16":
+        core_plan, qkv_plan = plan["scalar"][core], plan["qkv"]
+        qkv = torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
+    elif plan["route"] == "split":
+        core_plan, qkv_plan = plan["core"], plan["qkv_bf16"]
+        qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
+    else:
+        core_plan, qkv_plan, qkv = plan["core"], plan["qkv"], None
     av8 = torch.empty((m, d), dtype=torch.int8, device=dev)
     avf = None if a_av is not None else torch.empty((m, d), dtype=torch.float32, device=dev)
     sxo = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -641,11 +688,11 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, wqkv_s,
         _ptr(x), x_bf16, b, t, d, num_heads, _ptr(ln_w), _ptr(ln_b),
         _ptr(bqkv), _ptr(bo), vec_bf16, _ptr(wqkv_q), _ptr(wqkv_s), _ptr(wo_q),
         _ptr(wo_s), _ptr(a_in), _ptr(a_av), _ptr(a_smax),
-        ATTN_CORES.index(core), float(ATTN_HD ** -0.5),
+        ATTN_CORES.index(core), float(hd ** -0.5),
         _ptr(q1), _ptr(sx1), _ptr(qkv), _ptr(av8), _ptr(avf), _ptr(sxo), _ptr(y),
-        plan["core"]["grid"][0], plan["core"]["smem_bytes"], plan["qkv"]["grid"][0],
-        plan["qkv"]["smem_bytes"], plan["out"]["grid"][0], plan["out"]["smem_bytes"],
-        _stream(dev)])
+        core_plan["grid"][0], core_plan["smem_bytes"], qkv_plan["grid"][0],
+        qkv_plan["block_n"], qkv_plan["smem_bytes"], plan["out"]["grid"][0],
+        plan["out"]["smem_bytes"], _stream(dev)])
     LAUNCHES["fused_attention_block"] += 1
     return y
 

@@ -80,7 +80,7 @@ def test_float_c2i_sampler_matches_jax_replay():
     _, order, noise = _sampler_inputs(jm, 2, STEPS, DIFF, seed=21)
     c = _jax_label_cond(jm, params, LABELS)
     ref = _jax_sample(jm, {"params": params}, c, order, noise, STEPS, DIFF,
-                      jguid.GuidanceConfig(guidance_scale=5.0))
+                      jguid.GuidanceConfig(guidance_scale=5.0), jit=True)
     out = NOVAC2IPipeline(tm)(list(LABELS), num_inference_steps=STEPS, num_diffusion_steps=DIFF,
                               guidance_scale=5.0, order=order, noise=noise)
     got = _np(out.latents)

@@ -2,7 +2,8 @@
 ``fused_int8_mlp_postln``, on the CPU: their launch plans at the ported
 paths' shapes (the flagship's 2x and 1x batch; the t2i ViT's 8 x 1280 and 8 x
 768 rows) and at ragged ones; the plans refusing what the kernels cannot take
-(T != 128, head dim != 64, D off 256, a cluster over 8); the launch arguments
+(head dims other than 64 and 96, T above the fused rule's bound, D off 128
+or 256, a cluster over 8); the launch arguments
 both wrappers hand over (the launch, the card's SM count and its cluster
 count replaced by recorders and constants, so CPU tensors take the CUDA route
 up to the recorded launch); every argument check raising before a launch;
@@ -25,11 +26,12 @@ from nova_pointcloud_tpu_torch.ops.quantization import quantize_weight_kmajor
 SMS = 132  # the H100's streaming multiprocessors
 CLUSTERS = 33  # clusters of 4 fc2 blocks an H100 runs at once (the occupancy query's count varies)
 SMEM_LIMIT = 232448  # a block's shared memory on the H100
-# csrc/fused_attention_block.cu: 4 stages of a 128 x 128-byte A tile and three
-# 64 x 128-byte weight boxes, K and V (128 x 64 bf16 each), a full and an
-# empty mbarrier a stage, 192 column scales and biases for each of two
-# consumers, 1 KB to align
-QKVC_SMEM = 4 * (128 + 192) * 128 + 2 * 128 * 64 * 2 + 4 * 2 * 8 + 2 * 2 * 192 * 4 + 1024
+# csrc/fused_attention_block.cu, by head dim: 4 stages (3 at head dim 96) of a
+# 128 x 128-byte A tile and three hd x 128-byte weight boxes, K and V (128 x
+# hd bf16 each), a full and an empty mbarrier a stage, 3 hd column scales and
+# biases for each of two consumers, 1 KB to align
+QKVC_SMEM = {64: 4 * (128 + 192) * 128 + 2 * 128 * 64 * 2 + 4 * 2 * 8 + 2 * 2 * 192 * 4 + 1024,
+             96: 3 * (128 + 288) * 128 + 2 * 128 * 96 * 2 + 3 * 2 * 8 + 2 * 2 * 288 * 4 + 1024}
 # csrc/fused_int8_mlp_postln.cu: the wgmma GEMM's ring, 4 column vectors of
 # 256 for each consumer, 64 row sums x 2 rounds x 2 tile parities x 2
 # consumers and their mbarriers, 1 KB to align
@@ -41,32 +43,47 @@ ATTN_PLANS = [  # (b, t, d, heads): tiles, grid, tiles a block
     ((3, 128, 1024, 16), (48, 48, 1)),        # fewer tiles than SMs
     ((9, 128, 768, 12), (108, 108, 1)),       # pc_d*w768's width
     ((100, 128, 1024, 16), (1600, 132, 13)),  # a ragged last round
+    ((256, 128, 1536, 16), (4096, 132, 32)),  # pc_d48w1536: 16 heads of 96
+    ((5, 128, 768, 8), (40, 40, 1)),          # head dim 96 at D = 768
 ]
 
 
 @pytest.mark.parametrize("shape,want", ATTN_PLANS, ids=[str(s) for s, _ in ATTN_PLANS])
 def test_attn_block_plan(shape, want):
     b, t, d, heads = shape
+    hd = d // heads
     plan = fb.attn_block_plan(b, t, d, heads, SMS)
     core = plan["core"]
+    assert plan["route"] == "fused" and plan["head_dim"] == hd
     assert (core["tiles"], core["grid"], core["tiles_per_block"]) == (want[0], (want[1],), want[2])
     assert core["tiles"] == b * heads and core["grid"][0] <= min(SMS, core["tiles"])
     assert core["grid"][0] * core["tiles_per_block"] >= core["tiles"]
-    assert (core["block_m"], core["block_n"], core["k_tiles"]) == (128, 192, d // 128)
-    assert core["smem_bytes"] == fb.QKVC_SMEM == QKVC_SMEM <= SMEM_LIMIT
-    assert core["stages"] == fb.QKVC_STAGES == 4
+    assert (core["block_m"], core["block_n"], core["k_tiles"]) == (128, 3 * hd, d // 128)
+    assert core["smem_bytes"] == fb.QKVC_SMEM[hd] == QKVC_SMEM[hd] <= SMEM_LIMIT
+    assert core["stages"] == fb.QKVC_STAGES[hd] == (4 if hd == 64 else 3)
     # the f32 and int8 cores' QKV product and every core's out-projection
     # on the wgmma GEMM
     assert plan["qkv"] == fb.gemm_plan(b * t, 3 * d, d, SMS)
     assert plan["out"] == fb.gemm_plan(b * t, d, d, SMS)
 
 
-@pytest.mark.parametrize("t,d,heads", [(64, 1024, 16), (256, 1024, 16), (2048, 768, 12),
-                                       (128, 1536, 16), (128, 1024, 32), (128, 192, 3),
-                                       (128, 1024, 0)],
-                         ids=["T=64", "T=256", "T=2048", "hd=96", "hd=32", "D%128", "no heads"])
+# T off 128 (the split route) and head dim 96, up to the fused rule's bound
+@pytest.mark.parametrize("t,d,heads,route", [(64, 1024, 16, "split"), (256, 1024, 16, "split"),
+                                             (128, 1536, 16, "fused")],
+                         ids=["T=64", "T=256", "hd=96"])
+def test_attn_block_plan_takes_t_off_128_and_head_dim_96(t, d, heads, route):
+    plan = fb.attn_block_plan(8, t, d, heads, SMS)
+    assert plan["route"] == route and plan["head_dim"] == d // heads
+
+
+@pytest.mark.parametrize("t,d,heads", [(2048, 768, 12), (436, 1024, 16), (162, 1536, 16),
+                                       (608, 768, 12), (128, 1024, 32), (128, 1280, 16),
+                                       (128, 1024, 8), (128, 192, 3), (128, 1024, 0),
+                                       (0, 1024, 16)],
+                         ids=["T=2048", "T=436 at D=1024", "T=162 at D=1536", "T=608 at D=768",
+                              "hd=32", "hd=80", "hd=128", "D%128", "no heads", "T=0"])
 def test_attn_block_plan_refuses_what_the_kernel_cannot_take(t, d, heads):
-    with pytest.raises(NotImplementedError, match="T=128 tokens and head dim 64"):
+    with pytest.raises(NotImplementedError, match="head dim 64 or 96.*ROADMAP queue 2"):
         fb.attn_block_plan(8, t, d, heads, SMS)
 
 
@@ -211,9 +228,13 @@ def test_attention_launch_follows_the_plan(rec, monkeypatch, core, static, smax)
     assert any(tuple(t.shape) == (b * 128, 3 * d) for t in made) == (core != "bf16")
     assert (args[24] is None) == static  # the f32 attention rows on the per-row path only
     assert args[26] == y.data_ptr() and y.shape == ops[0].shape and y.dtype == ops[0].dtype
-    assert args[27:33] == [plan["core"]["grid"][0], fb.QKVC_SMEM, plan["qkv"]["grid"][0],
-                           fb.WG_SMEM, plan["out"]["grid"][0], fb.WG_SMEM]
-    assert args[33] == 0  # the stream
+    # the bf16 core's one kernel, or the f32 / int8 cores' block of T threads a
+    # (head, sample); their QKV product on the GEMM's 128 x 256 tiles
+    core_grid, core_smem = ((plan["core"]["grid"][0], fb.QKVC_SMEM[64]) if core == "bf16"
+                            else (b * heads, 0 if core == "f32" else 2 * 128 * 64 + 8 * 128))
+    assert args[27:34] == [core_grid, core_smem, plan["qkv"]["grid"][0], 256, fb.WG_SMEM,
+                           plan["out"]["grid"][0], fb.WG_SMEM]
+    assert args[34] == 0  # the stream
 
 
 @pytest.mark.parametrize("m,d,f", [(300, 256, 512), (2400, 1024, 4096), (77, 512, 384)])
@@ -260,13 +281,13 @@ def test_attention_argument_checks_raise_before_any_launch(rec):
     rng = np.random.default_rng(3)
     ops = _attn_operands(rng, 2, 256)
     s = torch.tensor(4.0)
-    # tokens, head dim, width
-    x64 = ops[0][:, :64]
+    # tokens above the fused rule's bound at D = 256 (1059), head dim
+    x_long = ops[0][:, :1].expand(2, 1060, 256)
     _raises_before_launch(rec, NotImplementedError,
-                          lambda: fb.fused_attention_block(x64, *ops[1:], num_heads=4),
-                          "T=128")
+                          lambda: fb.fused_attention_block(x_long, *ops[1:], num_heads=4),
+                          "T=1060")
     _raises_before_launch(rec, NotImplementedError,
-                          lambda: fb.fused_attention_block(*ops, num_heads=8), "head dim 64")
+                          lambda: fb.fused_attention_block(*ops, num_heads=8), "head dim 64 or 96")
     # static scales all or none; the core's name
     _raises_before_launch(rec, ValueError,
                           lambda: fb.fused_attention_block(*ops, num_heads=4, a_in=s))

@@ -61,7 +61,7 @@ def test_t2i_np_output_matches_jax_replay():
     guidance = jguid.GuidanceConfig(guidance_scale=5.0)
     c = jnp.concatenate([jm.apply({"params": params}, jnp.asarray(text), method=jm.embed_text),
                          jm.apply({"params": params}, 2, 4, method=jm.null_text)])
-    lat = _jax_sample(jm, {"params": params}, c, order, noise, STEPS, DIFF, guidance)
+    lat = _jax_sample(jm, {"params": params}, c, order, noise, STEPS, DIFF, guidance, jit=True)
     proc = JProcessor(jv, jp)
     ref = proc.postprocess(proc.decode_latents(jnp.asarray(lat)), "np")
     out = NOVAPipeline(tm, vae=tv)(prompt_embeds=text, num_inference_steps=STEPS,

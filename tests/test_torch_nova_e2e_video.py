@@ -27,7 +27,7 @@ def test_t2v_np_output_matches_jax_replay():
     text, order, noise, step_noise = _draws(jm, seed=43)
     guidance = jguid.GuidanceConfig(guidance_scale=5.0)
     lat = _jax_video(jm, {"params": params}, text, order, noise, step_noise, guidance,
-                     jfm.FlowMatchEulerScheduler())
+                     jfm.FlowMatchEulerScheduler(), jit=True)
     proc = JProcessor(jv, jp)
     ref = proc.postprocess(proc.decode_latents(jnp.asarray(lat)), "np")
     out = NOVAPipeline(tm, vae=tv)(prompt_embeds=text, num_inference_steps=4,

@@ -27,7 +27,7 @@ from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES
 from nova_pointcloud_tpu_torch.pipelines.nova import NOVAPipeline
 from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
 from tests.test_torch_nova import _bf16_gate, _f32_twin, _models, _np, _tpu_backend
-from tests.test_torch_nova_sampler import _jit_sow
+from tests.test_torch_nova_sampler import _jit_sow, _replay_apply
 from tests.test_torch_nova_video import VIDEO, VIDEO_ABS
 
 STEPS, DIFF, FRAMES, BATCH, TEXT = 4, 2, 3, 2, 4
@@ -109,9 +109,10 @@ def _jax_prompt(jm, v, text, guidance, motion_flow=5.0):
 
 
 def _jax_video(jm, v, text, order, noise, step_noise, guidance, scheduler, frames=FRAMES,
-               latents=None):
-    """The JAX sampler's frame loop (T > 1) through the model's methods."""
-    apply = lambda fn, *a, **kw: jm.apply(v, *a, method=fn, **kw)  # noqa: E731
+               latents=None, jit=False):
+    """The JAX sampler's frame loop (T > 1) through the model's methods
+    (``jit``: _replay_apply's, f32 replays only)."""
+    apply = _replay_apply(jm, v, jit)
     c = _jax_prompt(jm, v, text, guidance)
     nb, text_len = c.shape[:2]
     batch = nb // guidance.num_passes
@@ -185,7 +186,7 @@ def test_float_video_sampler_matches_jax_replay(case):
     js = jddpm.DDPMScheduler(**DDPM_KW) if sched == "ddpm" else jfm.FlowMatchEulerScheduler()
     ts = DDPMScheduler(**DDPM_KW) if sched == "ddpm" else None
     ref = _jax_video(jm, {"params": params}, text, order, noise, step_noise,
-                     jguid.GuidanceConfig(**gkw), js, frames, latents=latents)
+                     jguid.GuidanceConfig(**gkw), js, frames, latents=latents, jit=True)
     got = _port_call(_port(tm, ts), text, order, noise, step_noise, gkw, frames, latents)
     assert got.shape == ref.shape == (BATCH, frames, 8, 8, 4) and np.isfinite(got).all()
     assert np.abs(got - ref).mean() <= 5e-5, np.abs(got - ref).mean()
@@ -201,14 +202,15 @@ def test_bf16_video_sampler_matches_jax_replay():
     text, order, noise, step_noise = _draws(jm, seed=32, frames=2)
     g = jguid.GuidanceConfig(guidance_scale=5.0)
 
-    def replay(jmod, p):
+    def replay(jmod, p, jit):
         return _jax_video(jmod, {"params": p}, text, order, noise, step_noise, g,
-                          jfm.FlowMatchEulerScheduler(), frames=2)
+                          jfm.FlowMatchEulerScheduler(), frames=2, jit=jit)
 
     got = _port_call(_port(tm), text, order, noise, step_noise, dict(guidance_scale=5.0),
                      frames=2)
     assert np.isfinite(got).all()
-    _bf16_gate(got, replay(jm, params), replay(*_f32_twin(VIDEO, params)), "video sampler")
+    _bf16_gate(got, replay(jm, params, jit=False), replay(*_f32_twin(VIDEO, params), jit=True),
+               "video sampler")
 
 
 def test_one_frame_of_a_video_model_and_its_prefill():
