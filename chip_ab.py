@@ -2,6 +2,7 @@
 
     python3 chip_ab.py LABEL
     python3 chip_ab.py --row1 LABEL
+    python3 chip_ab.py --flash LABEL
     python3 chip_ab.py --compare LABEL_A LABEL_B
 
 Run from the root of a tree (this checkout, or another commit unpacked with
@@ -40,8 +41,16 @@ A. ``--row1`` builds fused_attention_block alone and does only its part:
 the registers and spill bytes of its hd-64 QKV + core kernel (ptxas), its
 flagship variant's ms per launch at the flagship's 2x and 1x batch (events
 and a CUDA graph), and its outputs on fixed inputs (the bf16 core's four
-variants at both batches) under ``build/ab/LABEL_row1.pt``; ``--compare``
-reads whichever of the saved files both labels have.
+variants at both batches) under ``build/ab/LABEL_row1.pt``; ``--flash``
+builds the three flash libraries alone and does only their part: the
+registers and spill bytes (ptxas) of every head-dim-64 and bf16 instance
+(FLASH_INSTANCES), their ms by events and from a CUDA graph at their
+paths' shapes, and their outputs on fixed inputs under
+``build/ab/LABEL_flash.pt`` (forward o and lse, the static attention's two
+cores, the bf16 backward at both head dims and the f32 one at 64 through
+autograd; their dq comes from atomic adds except at head dim 96, so only
+their dk and dv can be bitwise across trees); ``--compare`` reads
+whichever of the saved files both labels have.
 """
 
 import json
@@ -220,6 +229,90 @@ def row1(label: str) -> None:
     print("AB " + json.dumps(res), flush=True)
 
 
+# the head-dim-64 and bf16 instances of the flash libraries by label: the
+# mangled names (templated on the head dim since the f32 head-dim-96 slice,
+# or not) whose ptxas report --flash records
+FLASH_INSTANCES = {
+    "flash_attention": {
+        "f32 no bias": ("flash_fwd_f32_kernelILi64ELb0ELb0E", "flash_fwd_f32_kernelILb0ELb0E"),
+        "f32 key bias": ("flash_fwd_f32_kernelILi64ELb1ELb0E", "flash_fwd_f32_kernelILb1ELb0E"),
+        "f32 full bias": ("flash_fwd_f32_kernelILi64ELb0ELb1E", "flash_fwd_f32_kernelILb0ELb1E"),
+        **{f"bf16 hd {d} {b}": (f"attn_fwd_kernelILi{d}ELb0ELb0E{m}",)
+           for d in (64, 96) for b, m in (("no bias", "Lb0ELb0E"), ("key bias", "Lb1ELb0E"),
+                                          ("full bias", "Lb0ELb1E"))}},
+    "flash_attention_static": {
+        **{f"{core} hd {d} {b}": (f"attn_fwd_kernelILi{d}ELb1E{c}{m}",)
+           for core, c, ds in (("bf16", "Lb0E", (64, 96)), ("int8", "Lb1E", (64,))) for d in ds
+           for b, m in (("no bias", "Lb0ELb0E"), ("key bias", "Lb1ELb0E"))},
+        "quant hd 64": ("static_qk_quant_kernelILi64E", "static_qk_quant_kernelEPKv")},
+    "flash_attention_bwd": {
+        **{f"{k} {b}": (f"{k}ILb{i}E",) for k in ("flash_bwd_f32_kernel", "flash_bwd_dkvq_kernel",
+                                                   "flash_bwd_dkv96_kernel",
+                                                   "flash_bwd_dq96_kernel")
+           for i, b in ((0, "no bias"), (1, "full bias"))},
+        "prep bf16 hd 64": ("flash_bwd_prep_kernelI13__nv_bfloat16Li64E",),
+        "prep f32 hd 64": ("flash_bwd_prep_kernelIfLi64E",),
+        "prep bf16 hd 96": ("flash_bwd_prep_kernelI13__nv_bfloat16Li96E",),
+        "cast": ("flash_bwd_dq_cast_kernel",)}}
+
+
+def flash(label: str) -> None:
+    """--flash (see the module docstring)."""
+    if not torch.cuda.is_available():
+        cs._fail("CUDA is not available: this script runs on the GPU only", 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cs._build.build_all(list(FLASH_INSTANCES))
+    res = {"label": label, "build_s": time.perf_counter() - t0, "ptxas": {}}
+    for lib, instances in FLASH_INSTANCES.items():
+        for name, mangled in instances.items():
+            for m in mangled:
+                regs, spills, _ = cs._ptxas_numbers(m, lib)
+                if regs is not None:
+                    res["ptxas"][f"{lib} {name}"] = (regs, spills)
+                    break
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    outs, fa = {}, cs.fa
+    smax = torch.tensor(9.0, device="cuda")
+    # (label, b, h, L, d, dtype): the t2i step's and the 1024px calls' shapes
+    for tag, b, h, L, d, dt in (("f32", 8, 16, 1280, 64, torch.float32),
+                                ("bf16 hd 64", 2, 16, 5120, 64, torch.bfloat16),
+                                ("bf16 hd 96", 2, 16, 5120, 96, torch.bfloat16)):
+        q, k, v = cs._flash_operands(gen, b, h, L, L, d, dt)
+        for kind in ("none", "key"):
+            bias = cs._flash_bias(gen, kind, b, L, L)
+            o, lse = fa.flash_attention_with_lse(q, k, v, bias)
+            outs[f"fwd {tag} {kind} o"], outs[f"fwd {tag} {kind} lse"] = o.cpu(), lse.cpu()
+        res[f"fwd {tag} ms"] = cs.sync_ms(lambda: fa.flash_attention(q, k, v), 10)
+        res[f"fwd {tag} graph_ms"] = cs.graph_ms(lambda: fa.flash_attention(q, k, v), n=10, reps=3)
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention(*ins)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+        for name, g in zip(("dq", "dk", "dv"), torch.autograd.grad(o, ins, do, retain_graph=True)):
+            outs[f"bwd {tag} {name}"] = g.cpu()
+        res[f"bwd {tag} ms"] = cs.sync_ms(
+            lambda: torch.autograd.grad(o, ins, do, retain_graph=True), 5)
+        del q, k, v, ins, o, do
+        torch.cuda.empty_cache()
+    for tag, rows, L, d, core in (("bf16 hd 64", 8, 1280, 64, "bf16"),
+                                  ("int8 hd 64", 8, 1280, 64, "int8"),
+                                  ("bf16 hd 96", 2, 5120, 96, "bf16")):
+        for kind in ("none", "visibility"):
+            q, k, v, bias = cs._static_attention_operands(gen, L, kind, rows, d)
+            kw = dict(a_q=torch.tensor(4.5, device="cuda"),
+                      a_k=torch.tensor(4.0, device="cuda")) if core == "int8" else {}
+            outs[f"static {tag} {kind}"] = fa.flash_attention_static(q, k, v, smax, bias,
+                                                                     **kw).cpu()
+        res[f"static {tag} ms"] = cs.sync_ms(lambda: fa.flash_attention_static(q, k, v, smax,
+                                                                              **kw), 10)
+        res[f"static {tag} graph_ms"] = cs.graph_ms(
+            lambda: fa.flash_attention_static(q, k, v, smax, **kw), n=10, reps=3)
+        del q, k, v
+    os.makedirs(AB_DIR, exist_ok=True)
+    torch.save(outs, os.path.join(AB_DIR, f"{label}_flash.pt"))
+    print("AB " + json.dumps(res), flush=True)
+
+
 def _row1_outputs(gen):
     """Row 1's outputs at the flagship's 2x and 1x batch, the bf16 core's
     four variants, on inputs drawn from ``gen``."""
@@ -356,7 +449,7 @@ def compare(a: str, b: str) -> None:
     equal, and whether B is within phase 3's tolerance of A (the f32
     gradients: phase 3e's, 1e-4 / 1e-5 relative)."""
     res = {}
-    for suffix in ("", "_int8", "_linear", "_f32", "_row1"):
+    for suffix in ("", "_int8", "_linear", "_f32", "_row1", "_flash"):
         paths = [os.path.join(AB_DIR, f"{x}{suffix}.pt") for x in (a, b)]
         if not all(os.path.exists(path) for path in paths):
             continue
@@ -389,5 +482,7 @@ if __name__ == "__main__":
         compare(sys.argv[2], sys.argv[3])
     elif len(sys.argv) == 3 and sys.argv[1] == "--row1":
         row1(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--flash":
+        flash(sys.argv[2])
     else:
         main(sys.argv[1] if len(sys.argv) > 1 else "tree")

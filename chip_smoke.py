@@ -458,7 +458,57 @@ adds, after 4t:
 6.  one profiled 4u call (device activity, idle share) and 10 calls of the
     split route by kernel (the bf16 qkv written by the GEMM, read by the
     core).
-The sum of 3h, 4u, 4v and 5i is printed (budget 90 s).
+The sum of 3h, 4u, 4v and 5i is printed (budget 90 s). 5i also times row
+2 (fused_ln_int8_mlp) at 4u's and 4v's rows (32768 x 1536 -> 6144, 65536
+x 1024 -> 4096) beside its bound and torch._int_mm's two products.
+
+Head dim 96 in the f32 routes of flash_attention (the forward
+flash_fwd_f32_kernel<96>: 64 query rows a block; the backward as two new
+kernels, flash_attention_bwd_dkv_f32 and flash_attention_bwd_dq_f32) and
+in flash_attention_static's int8 score core (96-byte code rows as three
+32-byte panels in the 32B swizzle, three s8 k-steps) adds to 3c-3e and,
+after 4t, three phases (their time and the 3c-3e additions' together is
+printed beside its budget of 150 s):
+
+3c. the f32 forward at (2, 16, 5120, 96) with no bias and a key bias, at
+    the 1.4B step's 1024 + 1229 keys with a fully masked sample and 32 +
+    1024 at batch 1, a full bias at 1280, Lq 1000 / Lk 1531 and under one
+    tile, against its plain version (1e-4 / 1e-5 relative); timed at (2,
+    16, 5120, 96) beside SDPA's f32 forward and its bound (4 B H L^2 d at
+    67 TFLOP/s); 5d gates its three hd-96 instances' ptxas / SASS (no
+    spill, UTMALDG, no tensor-core instruction);
+3d. the int8 score core at head dim 96 at the 1.4B int8 call's shapes
+    (1280, 1536, 3072, 5120 keys, no bias and a visibility bias with a
+    fully masked sample; q, k bf16 and once f32), against its plain
+    version (2^-6 / 2^-10); timed at (2, 16, 5120, 96) beside its bound (2
+    B H L^2 d int8 operations at 1979 TOP/s plus p v's at 989 TFLOP/s; no
+    library call computes it); 5c gates its two instances (IGMMA, HGMMA,
+    UTMALDG, no spill);
+3e. the f32 backward at head dim 96 (prep, dkv_f32, dq_f32) at the 1.4B
+    shapes in every bias form (a fully masked sample's gradients exactly
+    0), prep exactly its plain version, dq, dk and dv of two runs bitwise
+    equal; each kernel timed at (2, 16, 5120, 96) beside the plain
+    backward, SDPA's f32 backward and the bounds (8 and 6 B H L^2 d; 10
+    for the whole); the two kernels' ptxas / SASS gated (no spill,
+    UTMALDG, no tensor-core instruction);
+4w. 4r's directory through from_pretrained(dir) at its default dtype,
+    float32: the weights exactly the written bf16 values upcast; one
+    prompt at W_AR AR x 25 steps, CFG 5.0, latent output: flash_attention
+    exactly the model's count for that call, every launch f32 at head dim
+    96; the wall time and peak; one encoder pass and one head eval
+    against plain at the f32 tolerance (2 x floor + 1e-5);
+4x. the t2i-1.4b step in f32 compute, loss and gradients at batch 2 (no
+    optimizer step): 96 flash_attention, 48 each of prep, dkv_f32 and
+    dq_f32; the gradient within 2 x floor + 1e-6 of the f32 plain step;
+    its time and peak;
+4y. 4s's weights with attn_core="int8", calibrated as 4s, one call at 64
+    AR x 25 steps: rows 8 / 5 / 6 / int8_linear exactly 2064 / 2064 / 9600
+    / 4128, every row-8 launch on the int8 core at head dim 96, 4d's
+    one-step check, samples/s and peak; then bench.py --mode t2i
+    --attn-core int8 (4d's model, the int8 core at head dim 64) at
+    T2I_CMP_AR AR steps: its exact launches and 4d's gate against plain.
+The kernels line lists each kernel's timed instances (dtype, head dim,
+score core) with their launches on the driven paths.
 
 The script prints its total time before the result lines.
 
@@ -476,6 +526,7 @@ The line before the last is a JSON object with one entry per kernel; the
 last line is the result object. Details go to build/chip_smoke.json.
 """
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -715,11 +766,13 @@ KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
            "flash_attention_bwd_f32", "flash_attention_bwd_prep",
            "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
 SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
 BWD_SOURCE_KERNELS = ("flash_attention_bwd_f32", "flash_attention_bwd_prep",
                       "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast",
-                      "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+                      "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
 SOURCES.update(dict.fromkeys(BWD_SOURCE_KERNELS,
                              "nova_pointcloud_tpu_torch/csrc/flash_attention_bwd.cu"))
 REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:412",
@@ -744,7 +797,10 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
                 "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346",
             # head dim 96: the dK/dV kernel and the dQ kernel, split as on the TPU
             "flash_attention_bwd_dkv": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
-            "flash_attention_bwd_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
+            "flash_attention_bwd_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346",
+            # the same split in f32 at head dim 96
+            "flash_attention_bwd_dkv_f32": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
+            "flash_attention_bwd_dq_f32": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
 OUT_DIR = "build"
 PC_TRAIN_DIR = os.path.join(OUT_DIR, "pc_train")  # checkpoints of phase 4g, removed after it
 AR_TRAIN_DIR = os.path.join(OUT_DIR, "pc_ar")  # phase 4j's stats and results, removed after it
@@ -1127,6 +1183,7 @@ def check_flash():
                           1e-4, 1e-5, like=r):
             bad.append(f"f32 strided backward {name}")
     bad += _hd96_forward_checks(gen)
+    bad += _f32_hd96_forward_checks(gen)
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain version: {bad}")
     fb.reset_launch_counts()
@@ -1139,6 +1196,33 @@ def _record_launches(name, path, n):
     k = report["kernels"].setdefault(name, {})
     k.setdefault("launches", n)
     k.setdefault("launches_by_path", {})[path] = n
+
+
+def _budget_timed(key):
+    """A decorator adding each call's seconds to report[key]."""
+    def wrap(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                report[key] = report.get(key, 0.0) + time.perf_counter() - t0
+        return run
+    return wrap
+
+
+def _instance(name, label, row):
+    """Record a timed instance of kernel ``name`` (the kernels line lists
+    each kernel's instances beside its main entry)."""
+    report["kernels"].setdefault(name, {}).setdefault("instances", {}).setdefault(
+        label, {}).update(row)
+
+
+def _instance_launches(name, label, path, n):
+    """An instance's launches on a driven path."""
+    inst = report["kernels"].setdefault(name, {}).setdefault("instances", {}).setdefault(label, {})
+    inst.setdefault("launches", n)
+    inst.setdefault("launches_by_path", {})[path] = n
 
 
 def _make_pipeline(arch=ARCH, points=POINTS):
@@ -1523,20 +1607,22 @@ def check_nova_kernels():
                 bad.append(f"int8_linear {m} {n}")
     torch.cuda.empty_cache()
     bad += _hd96_int8_checks(gen)
+    bad += _int8_core_hd96_checks(gen)
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     fb.reset_launch_counts()
 
 
-def _make_t2i_pipeline(quantize, state_dict=None):
+def _make_t2i_pipeline(quantize, state_dict=None, attn_core="bf16"):
     """bench.py --mode t2i's model at full width and depth, seeded random
     weights with the zero-initialised AdaLN projections (and the biases)
     filled, so every diffusion block's gate and modulation depend on its
-    inputs; bf16 weights and compute dtype, as the bench serves."""
+    inputs; bf16 weights and compute dtype, as the bench serves; the static
+    attention's score core ``attn_core`` (bench.py --attn-core)."""
     gen = torch.Generator(device=DEV).manual_seed(0)
     model = NOVATransformer(arch=T2I_ARCH, image_dim=4, image_base_size=T2I_BASE,
                             video_base_size=T2I_VIDEO_BASE, patch_size=2, text_token_dim=256,
-                            text_token_len=32, quantize=quantize, attn_core="bf16",
+                            text_token_len=32, quantize=quantize, attn_core=attn_core,
                             dtype=torch.bfloat16, device=DEV)
     if state_dict is None:
         model.init_weights(gen)
@@ -1600,12 +1686,13 @@ def _t2i_compare(pipe, label, ar_steps):
 
 
 def _t2i_step_check(pipe, label, kernel, expected, prompts=T2I_PROMPTS, prompt_embeds=None,
-                    batch=T2I_BATCH, pad_p=T2I_PAD_P):
+                    batch=T2I_BATCH, pad_p=T2I_PAD_P, tol=1e-3):
     """One image-encoder pass of the masking phase (half the tokens visible,
     256 + 1024 keys: every layer on the path's attention kernel) and one
     diffusion-head eval, kernels against plain, relative mean error gated at
-    2 x floor + 1e-3 (floor: kernels against kernels with the canvas and
-    x_t moved by 1e-6); ``expected`` launches of ``kernel`` in the pass.
+    2 x floor + ``tol`` (floor: kernels against kernels with the canvas and
+    x_t moved by 1e-6; ``tol`` 1e-3 for the int8 and bf16 paths, 1e-5 for
+    f32); ``expected`` launches of ``kernel`` in the pass.
     ``prompts``: the pipeline's prompts (class ids for c2i), or
     ``prompt_embeds``; ``batch`` prompts, ``pad_p`` tokens a head eval."""
     from nova_pointcloud_tpu_torch.models.guidance import GuidanceConfig
@@ -1642,10 +1729,10 @@ def _t2i_step_check(pipe, label, kernel, expected, prompts=T2I_PROMPTS, prompt_e
         scale = p.abs().mean()
         rel = ((a - p).abs().mean() / scale).item()
         floor = ((a - m).abs().mean() / scale).item()
-        good = bool(torch.isfinite(a).all()) and rel <= 2 * floor + 1e-3
+        good = bool(torch.isfinite(a).all()) and rel <= 2 * floor + tol
         ok = ok and good
         print(f"{label} one {name}, kernels vs plain: mean |diff| / mean |plain| {rel:.3e} "
-              f"(tol 2 x floor + 1e-3 = {2 * floor + 1e-3:.3e}; floor, inputs moved by 1e-6: "
+              f"(tol 2 x floor + {tol:g} = {2 * floor + tol:.3e}; floor, inputs moved by 1e-6: "
               f"{floor:.3e}): {'ok' if good else 'FAIL'}")
         res[name] = dict(rel_err=rel, rel_floor=floor)
     print(f"{label} one step: {launches} {kernel} launches (expected {expected}): "
@@ -1760,9 +1847,10 @@ def t2i_float(pipe_int8):
 def _bwd_kernel(dt, d=64, grad="dk"):
     """The kernel a gradient of the backward is held against: the bf16 or
     the f32 route's one-pass kernel; at head dim 96 the dq kernel for dq,
-    else the dkv kernel."""
+    else the dkv kernel (bf16, or their f32 twins)."""
     if d == XL_HD:
-        return "flash_attention_bwd_dq" if grad == "dq" else "flash_attention_bwd_dkv"
+        name = "flash_attention_bwd_dq" if grad == "dq" else "flash_attention_bwd_dkv"
+        return name if dt == torch.bfloat16 else name + "_f32"
     return "flash_attention_bwd_dkvq" if dt == torch.bfloat16 else "flash_attention_bwd_f32"
 
 
@@ -1875,6 +1963,7 @@ def check_flash_backward():
             bad.append(label)
         torch.cuda.empty_cache()
     bad += _hd96_backward_checks(gen)
+    bad += _f32_hd96_backward_checks(gen)
     if bad:
         raise AssertionError(f"the flash backward disagrees with its plain version: {bad}")
     fb.reset_launch_counts()
@@ -2031,6 +2120,8 @@ def t2i_train():
           f"{TRAIN_F32_LAUNCHES}, else 0): {'ok' if counts32_ok else 'FAIL'}")
     _record_launches("flash_attention_bwd_f32", "t2i_train_f32",
                      launches32["flash_attention_bwd_f32"])
+    _instance_launches("flash_attention", "f32 hd 64", "t2i_train_f32",
+                       launches32["flash_attention"])
     moved = dict(draws, latent_eps=draws["latent_eps"] + 1e-6 * torch.randn(
         draws["latent_eps"].shape, generator=torch.Generator(device=DEV).manual_seed(4),
         device=DEV))
@@ -3999,16 +4090,8 @@ XL_TRAIN_KEYS = {"decoder": XL_KEYS, "encoder": RELEASED_NV + round(0.3 * RELEAS
                  "video": XL_TRAIN_TEXT + RELEASED_NV}
 
 
-def _hd96_timed(fn):
-    """Adds each call's seconds to report["hd96_3ce_s"]: the head-dim-96
-    additions to phases 3c-3e, printed with 4r-4t's."""
-    def run(*a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return fn(*a, **kw)
-        finally:
-            report["hd96_3ce_s"] = report.get("hd96_3ce_s", 0.0) + time.perf_counter() - t0
-    return run
+# the head-dim-96 additions to phases 3c-3e, printed with 4r-4t's
+_hd96_timed = _budget_timed("hd96_3ce_s")
 
 
 @_hd96_timed
@@ -4045,13 +4128,15 @@ def _hd96_forward_checks(gen):
     bh = XL_ROWS * HEADS
     for L in (XL_KEYS, 1280):
         q, k, v = _flash_operands(gen, XL_ROWS, HEADS, L, L, XL_HD)
-        _time_kernel("flash_attention", (XL_ROWS, HEADS, L, XL_HD),
+        row = _time_kernel("flash_attention", (XL_ROWS, HEADS, L, XL_HD),
                      lambda: fa.flash_attention(q, k, v),
                      lambda: fa.flash_attention_plain(q, k, v),
                      _bound(4 * bh * L * L * XL_HD / PEAK_BF16_FLOPS,
                             4 * bh * L * XL_HD * 2 + bh * L * 4),
                      library=lambda: Fn.scaled_dot_product_attention(q, k, v), iters=10,
                      graph=True)
+        if L == XL_KEYS:
+            _instance("flash_attention", "bf16 hd 96", row)
         del q, k, v
     torch.cuda.empty_cache()
     return bad
@@ -4136,12 +4221,12 @@ def _hd96_int8_checks(gen):
     del ops
     q, k, v, _ = _static_attention_operands(gen, XL_KEYS, "none", XL_ROWS, XL_HD)
     bh = XL_ROWS * HEADS
-    _time_kernel("flash_attention_static", (XL_ROWS, HEADS, XL_KEYS, XL_HD),
-                 lambda: fa.flash_attention_static(q, k, v, smax),
-                 lambda: fa.flash_attention_static_plain(q, k, v, smax),
-                 _bound(4 * bh * XL_KEYS ** 2 * XL_HD / PEAK_BF16_FLOPS,
-                        4 * bh * XL_KEYS * XL_HD * 2),
-                 library=lambda: Fn.scaled_dot_product_attention(q, k, v), iters=10, graph=True)
+    _instance("flash_attention_static", "bf16 hd 96", _time_kernel(
+        "flash_attention_static", (XL_ROWS, HEADS, XL_KEYS, XL_HD),
+        lambda: fa.flash_attention_static(q, k, v, smax),
+        lambda: fa.flash_attention_static_plain(q, k, v, smax),
+        _bound(4 * bh * XL_KEYS ** 2 * XL_HD / PEAK_BF16_FLOPS, 4 * bh * XL_KEYS * XL_HD * 2),
+        library=lambda: Fn.scaled_dot_product_attention(q, k, v), iters=10, graph=True))
     del q, k, v
     torch.cuda.empty_cache()
     return bad
@@ -4231,7 +4316,9 @@ def _hd96_backward_checks(gen):
               f"{bound[0] / ms:.1%} of bound")
         entry = report["kernels"].setdefault(name, {})
         entry.setdefault("by_shape", {})[str((XL_ROWS, HEADS, L, XL_HD))] = row
-        if name != "flash_attention_bwd_prep":  # prep's line entry stays the t2i step's
+        if name == "flash_attention_bwd_prep":  # prep's line entry stays the t2i step's
+            _instance(name, "bf16 hd 96", row)
+        else:
             entry.update(row)
     route_graph = graph_ms(lambda: fa._launch_bwd(q, k, v, None, None, o, lse, do), n=5, reps=3)
     joint = _bound(10 * bh * L * L * XL_HD / PEAK_BF16_FLOPS, 8 * io + bh * L * 4)
@@ -4275,23 +4362,28 @@ def released_1p4b(emb):
     1024, 3) uint8, its flash_attention launches exactly
     _flash_route_launches of the model at head dim 96 and 0 of every other
     kernel, its time and peak memory. No build_pipeline twin (4p holds that
-    path). Returns the transformer's weights as written (bf16, on the host)
-    for 4s."""
+    path). Returns the transformer's and the VAE's weights as written
+    (bf16, on the host) for 4s, 4w and 4y. The directory stays for 4w,
+    which removes it (this phase removes it if it fails)."""
     if emb is None:
         raise AssertionError("no prompt embeddings: phase 4o failed")
+    kept = False
     try:
         pipe, written, _, out, rec, ok = _released_call(XL_DIR, XL_MODEL, emb, "released_1p4b")
         hd_ok = pipe.model.head_dim_i == pipe.model.head_dim_v == XL_HD
         print(f"every attention of the call at head dim 96: {'ok' if hd_ok else 'FAIL'}")
         report["released_1p4b"] = rec
-        state = written.pop("transformer")
-        del pipe, out, written
+        _instance_launches("flash_attention", "bf16 hd 96", "released_1p4b",
+                           rec["launches"]["flash_attention"])
+        del pipe, out
+        kept = ok and hd_ok
     finally:
-        shutil.rmtree(XL_DIR, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(XL_DIR, ignore_errors=True)
         torch.cuda.empty_cache()
-    if not (ok and hd_ok):
+    if not kept:
         raise AssertionError("released 1.4B 1024px check failed")
-    return state
+    return written
 
 
 def _int8_call_launches(pipe, ar_steps):
@@ -4310,25 +4402,23 @@ def _int8_call_launches(pipe, ar_steps):
             "fused_int8_diffusion_block": blocks * T2I_DIFF * s, "int8_linear": 2 * layers}
 
 
-@phase("4s NOVA-1.4B int8 serving")
-def xl_int8(emb, state):
-    """4r's weights with quantize=True and attn_core="bf16" (head dim 96 on
-    the static attention's bf16 core), calibrated as 4d (16 AR steps, margin
-    1.05), one prompt with 4o's embeddings at 64 AR x 25 steps, CFG 5.0,
-    latent output: the launches of rows 8, 5, 6 and int8_linear exactly
-    _int8_call_launches of the model (row 5's fc2 over clusters of 6, row
-    6 at 2 column groups a block) and 0 of every other kernel; finite
-    latents with a spread; samples/s and peak memory; one encoder pass and
-    one head eval against plain (_t2i_step_check, 4d's gate)."""
-    if emb is None or state is None:
-        raise AssertionError("no 1.4B weights or prompt embeddings: phase 4o or 4r failed")
+def _xl_int8_call(emb, state, attn_core, label):
+    """4r's weights with quantize=True and ``attn_core``, calibrated as 4d
+    (16 AR steps, margin 1.05), one prompt with 4o's embeddings at 64 AR x
+    25 steps, CFG 5.0, latent output: the launches of rows 8, 5, 6 and
+    int8_linear exactly _int8_call_launches of the model (row 5's fc2 over
+    clusters of 6, row 6 at 2 column groups a block) and 0 of every other
+    kernel, every row-8 launch on the ``attn_core`` score core at head dim
+    96; finite latents with a spread; samples/s and peak memory; one encoder
+    pass and one head eval against plain (_t2i_step_check, 4d's gate).
+    Returns (whether every check passed, the record)."""
     m = XL_MODEL
     model = NOVATransformer(arch=tuple(m["arch"]), image_dim=m["image_dim"],
                             image_base_size=tuple(m["image_base_size"]),
                             video_base_size=tuple(m["video_base_size"]), patch_size=2,
                             text_token_dim=m["text_token_dim"],
-                            text_token_len=m["text_token_len"], quantize=True, attn_core="bf16",
-                            dtype=torch.bfloat16, device=DEV)
+                            text_token_len=m["text_token_len"], quantize=True,
+                            attn_core=attn_core, dtype=torch.bfloat16, device=DEV)
     model.load_state_dict(state)
     model.to(torch.bfloat16)
     pipe = NOVAPipeline(model, FlowMatchEulerScheduler())
@@ -4349,36 +4439,51 @@ def xl_int8(emb, state):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     fb.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = pipe(**kw, num_inference_steps=RELEASED_AR,
-               generator=torch.Generator(device=DEV).manual_seed(53))
-    torch.cuda.synchronize()
-    call_s = time.perf_counter() - t0
+    with _static_cores() as cores:
+        t0 = time.perf_counter()
+        out = pipe(**kw, num_inference_steps=RELEASED_AR,
+                   generator=torch.Generator(device=DEV).manual_seed(53))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
     launches = dict(fb.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() - held
     counts_ok = launches == {n: expected.get(n, 0) for n in KERNELS}
+    core_ok = cores == {(attn_core, XL_HD): expected["flash_attention_static"]}
     lat = out.latents.float()
     shape = (1, 2 * m["image_base_size"][0], 2 * m["image_base_size"][1], 4)
     out_ok = (tuple(lat.shape) == shape and bool(torch.isfinite(lat).all())
               and lat.std().item() > 0.05)
-    print(f"NOVA-1.4B int8 (calibrated in {cal_s:.1f} s, launches {cal_launches}): one call "
-          f"{call_s:.2f} s, {1 / call_s:.4f} samples/s, peak {peak / 2 ** 30:.2f} GiB above "
-          f"{held / 2 ** 30:.2f}; launches {launches} (expected {expected}, else 0): "
-          f"{'ok' if counts_ok else 'FAIL'}; latents {tuple(lat.shape)} finite, std "
-          f"{lat.std().item():.4f}: {'ok' if out_ok else 'FAIL'}")
+    print(f"NOVA-1.4B int8, {attn_core} score core (calibrated in {cal_s:.1f} s, launches "
+          f"{cal_launches}): one call {call_s:.2f} s, {1 / call_s:.4f} samples/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB above {held / 2 ** 30:.2f}; launches {launches} (expected "
+          f"{expected}, else 0): {'ok' if counts_ok else 'FAIL'}; row 8's launches by (score "
+          f"core, head dim) {cores}: {'ok' if core_ok else 'FAIL'}; latents {tuple(lat.shape)} "
+          f"finite, std {lat.std().item():.4f}: {'ok' if out_ok else 'FAIL'}")
     for name in expected:
-        _record_launches(name, "xl_int8", launches[name])
+        _record_launches(name, label, launches[name])
+    _instance_launches("flash_attention_static", f"{attn_core} hd 96", label,
+                       launches["flash_attention_static"])
     step_ok, step = _t2i_step_check(
-        pipe, "xl_int8", "flash_attention_static",
+        pipe, label, "flash_attention_static",
         len(model.image_encoder.enc_layers) + len(model.image_encoder.dec_layers), prompts=None,
         prompt_embeds=pe, batch=1, pad_p=_xl_pad_p())
-    report["xl_int8"] = dict(call_s=call_s, samples_s=1 / call_s, calibrate_s=cal_s,
-                             calibration_launches=cal_launches, launches=launches,
-                             expected=expected, peak_bytes=peak, held_bytes=held,
-                             output_std=lat.std().item(), one_step=step)
+    rec = dict(call_s=call_s, samples_s=1 / call_s, calibrate_s=cal_s,
+               calibration_launches=cal_launches, launches=launches, expected=expected,
+               static_cores=str(cores), peak_bytes=peak, held_bytes=held,
+               output_std=lat.std().item(), one_step=step)
     del pipe, model, out, lat
     torch.cuda.empty_cache()
-    if not (counts_ok and out_ok and step_ok):
+    return counts_ok and core_ok and out_ok and step_ok, rec
+
+
+@phase("4s NOVA-1.4B int8 serving")
+def xl_int8(emb, written):
+    """4r's weights with quantize=True and attn_core="bf16" (head dim 96 on
+    the static attention's bf16 core): _xl_int8_call."""
+    if emb is None or written is None:
+        raise AssertionError("no 1.4B weights or prompt embeddings: phase 4o or 4r failed")
+    ok, report["xl_int8"] = _xl_int8_call(emb, written["transformer"], "bf16", "xl_int8")
+    if not ok:
         raise AssertionError("NOVA-1.4B int8 check failed")
 
 
@@ -4439,8 +4544,8 @@ def xl_train():
     other kernel); each of the step's backward calls against the plain
     backward on its own tensors at the flash bf16 tolerance (the gate, as
     4f); the step's gradients against the plain attention core's as a
-    reading (bf16 on random weights, no floor to gate on; the f32 route,
-    4f's gate, takes head dim 64 only); XL_TRAIN_STEPS timed steps: p50,
+    reading (bf16 on random weights, no floor to gate on; 4x holds the f32
+    twin to 4f's gate); XL_TRAIN_STEPS timed steps: p50,
     samples/s and peak memory."""
     model = NOVATransformer(arch=tuple(XL_MODEL["arch"]), image_dim=4,
                             image_base_size=tuple(XL_MODEL["image_base_size"]),
@@ -4467,6 +4572,9 @@ def xl_train():
           f"{'ok' if counts_ok else 'FAIL'}")
     for name in expected:
         _record_launches(name, "xl_train", launches[name])
+    _instance_launches("flash_attention", "bf16 hd 96", "xl_train", launches["flash_attention"])
+    _instance_launches("flash_attention_bwd_prep", "bf16 hd 96", "xl_train",
+                       launches["flash_attention_bwd_prep"])
     finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
     draws, batch = _xl_train_draws(model, 3), _xl_train_batch(1)
     loss_k, g_k, in_path, worst = _checked_step_grads(pipe, batch, draws, n)
@@ -4503,6 +4611,453 @@ def xl_train():
     torch.cuda.empty_cache()
     if not (counts_ok and finite and grads_ok):
         raise AssertionError("NOVA-1.4B training check failed")
+
+
+# ---------------------------------------------------------------------------
+# head dim 96 in f32 and on the static attention's int8 score core (3c-3e
+# additions, 4w-4y): the f32 forward (flash_fwd_f32_kernel<96>), the f32
+# backward's dkv_f32 and dq_f32 kernels, the int8 core at 96
+# ---------------------------------------------------------------------------
+# 4w: AR steps of the f32 1024px call (the full 64-step call would take
+# minutes of f32 GEMMs)
+W_AR = 8
+F32_HD96_SHAPE = (XL_ROWS, HEADS, XL_KEYS, XL_HD)  # (2, 16, 5120, 96): every new instance timed here
+
+
+@contextlib.contextmanager
+def _launches_by(route, key):
+    """Counts the calls of the wrapper's launch ``fa.<route>`` by ``key(its
+    arguments)`` while the block runs: {key: n}."""
+    seen, launch = {}, getattr(fa, route)
+
+    def counted(*args):
+        out = launch(*args)
+        k = key(*args)
+        seen[k] = seen.get(k, 0) + 1
+        return out
+
+    setattr(fa, route, counted)
+    try:
+        yield seen
+    finally:
+        setattr(fa, route, launch)
+
+
+def _flash_instances():
+    """flash_attention's forward launches by (dtype, head dim)."""
+    return _launches_by("_launch", lambda q, *_: (str(q.dtype)[6:], q.shape[-1]))
+
+
+def _static_cores():
+    """flash_attention_static's launches by (score core, head dim)."""
+    return _launches_by("_launch_static", lambda q, k, v, smax, kb, a_q, a_k: (
+        "int8" if a_q is not None else "bf16", q.shape[-1]))
+
+
+@_budget_timed("hd96_new_3ce_s")
+def _f32_hd96_forward_checks(gen):
+    """(3c) The f32 forward at head dim 96 (flash_fwd_f32_kernel<96>)
+    against its plain version at 3c's f32 tolerance (1e-4 max / 1e-5 mean
+    relative, lse 1e-4): the 1024px call's (2, 16, 5120, 96) with no bias
+    and a key bias, the training step's shapes (1024 + 1229 keys with a
+    fully masked sample; 32 + 1024 at batch 1), a full bias at 1280, Lq !=
+    Lk off the tiles with a key bias, and a shape under one tile. Then timed
+    at (2, 16, 5120, 96) by events and from a CUDA graph beside its plain
+    version, SDPA's f32 forward and the bound (4 B H L^2 d FLOPs at 67
+    TFLOP/s). Returns the failing labels."""
+    import torch.nn.functional as Fn
+
+    bad, f32 = [], torch.float32
+    cases = [(2, XL_KEYS, XL_KEYS, "none"), (2, XL_KEYS, XL_KEYS, "key"),
+             (2, 2253, 2253, "dead"), (1, 1056, 1056, "none"), (2, 1280, 1280, "full"),
+             (2, 1000, 1531, "key"), (2, 37, 45, "none")]
+    for b, lq, lk, kind in cases:
+        q, k, v = _flash_operands(gen, b, HEADS, lq, lk, XL_HD, f32)
+        bias = _flash_bias(gen, kind, b, lq, lk)
+        o, lse = fa.flash_attention_with_lse(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_attention_plain(q, k, v, bias)
+        label = f"f32 hd 96 bias={kind} {(b, HEADS, lq, lk)}"
+        ok = _tol_check("flash_attention", label, o, ref_o, 1e-4, 1e-5, like=ref_o)
+        e_lse = (lse - ref_lse).abs().max().item()
+        ok = ok and bool(torch.isfinite(lse).all()) and e_lse <= 1e-4
+        if kind == "dead":
+            ok = ok and bool((lse[0] == 1e30).all()) and bool((o[0] == 0).all())
+        print(f"    lse max_abs_err {e_lse:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(label)
+        del q, k, v, o, lse, ref_o, ref_lse, bias
+    b, h, L, d = F32_HD96_SHAPE
+    q, k, v = _flash_operands(gen, b, h, L, L, d, f32)
+    bh = b * h
+    row = _time_kernel("flash_attention", F32_HD96_SHAPE + ("f32",),
+                       lambda: fa.flash_attention(q, k, v),
+                       lambda: fa.flash_attention_plain(q, k, v),
+                       _bound(4 * bh * L * L * d / PEAK_F32_FLOPS, 4 * bh * L * d * 4 + bh * L * 4),
+                       library=lambda: Fn.scaled_dot_product_attention(q, k, v), iters=5,
+                       graph=True)
+    _instance("flash_attention", "f32 hd 96", row)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return bad
+
+
+@_budget_timed("hd96_new_3ce_s")
+def _int8_core_hd96_checks(gen):
+    """(3d) flash_attention_static's int8 score core at head dim 96 (the
+    quant pass into 96-byte code rows, three 32-byte panels in the 32B
+    swizzle, three s8 k-steps) against its plain version at 3d's int8
+    tolerance (2^-6 max / 2^-10 mean relative): the NOVA-1.4B int8 call's
+    shapes (one prompt x CFG 2; 1280, 1536, 3072 and 5120 keys), no bias
+    and a visibility bias with a fully masked sample (o = 0), bf16 q / k as
+    the ViT hands them over and once f32; a and k's amax as calibrated
+    (their max |x| x 1.05). Then timed at (2, 16, 5120, 96) by events and
+    from a graph beside its plain version and the bound (2 B H L^2 d int8
+    operations at 1979 TOP/s plus as many bf16 FLOPs for p v at 989
+    TFLOP/s); no library call computes the function (library_ms null).
+    Returns the failing labels."""
+    bad, smax = [], torch.tensor(9.0, device=DEV)
+    cases = [(L, kind, torch.bfloat16) for L in (RELEASED_TEXT + RELEASED_NV, RELEASED_NV + 512,
+                                               RELEASED_NV + 2048, XL_KEYS)
+             for kind in ("none", "visibility")] + [(1280, "visibility", torch.float32)]
+    for L, kind, dt in cases:
+        q, k, v, bias = _static_attention_operands(gen, L, kind, XL_ROWS, XL_HD)
+        q, k = q.to(dt), k.to(dt)
+        a_q, a_k = q.float().abs().amax() * 1.05, k.float().abs().amax() * 1.05
+        o = fa.flash_attention_static(q, k, v, smax, bias, a_q=a_q, a_k=a_k)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_static_plain(q, k, v, smax, bias, a_q=a_q, a_k=a_k)
+        label = f"hd 96 core=int8 bias={kind} L={L} q, k {str(dt)[6:]}"
+        ok = _tol_check("flash_attention_static", label, o, ref, like=ref)
+        if bias is not None:
+            ok = ok and bool((o[1] == 0).all())
+        if not ok:
+            bad.append(f"static attention {label}")
+        del q, k, v, o, ref
+    q, k, v, _ = _static_attention_operands(gen, XL_KEYS, "none", XL_ROWS, XL_HD)
+    a_q, a_k = q.float().abs().amax() * 1.05, k.float().abs().amax() * 1.05
+    b, h, L, d = F32_HD96_SHAPE
+    ops = 2 * b * h * L * L * d
+    row = _time_kernel("flash_attention_static", F32_HD96_SHAPE + ("int8",),
+                       lambda: fa.flash_attention_static(q, k, v, smax, a_q=a_q, a_k=a_k),
+                       lambda: fa.flash_attention_static_plain(q, k, v, smax, a_q=a_q, a_k=a_k),
+                       _bound(ops / PEAK_INT8_OPS + ops / PEAK_BF16_FLOPS, 4 * b * h * L * d * 2),
+                       iters=10, graph=True)
+    print("    library: none (no PyTorch call computes an int8 score product under a "
+          "calibrated softmax offset)")
+    _instance("flash_attention_static", "int8 hd 96", row)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return bad
+
+
+@_budget_timed("hd96_new_3ce_s")
+def _f32_hd96_backward_checks(gen):
+    """(3e) The f32 backward at head dim 96 (prep, dkv_f32, dq_f32) against
+    the plain backward on the kernels' own forward output and lse at 3e's
+    f32 tolerance (1e-4 / 1e-5 relative): (2, 16, 5120, 96) with no bias,
+    the step's encoder half (1024 + 1229 keys) with a key bias and a fully
+    masked sample (its gradients exactly 0), its video encoder at batch 1
+    (32 + 1024), a full bias at 1280 and Lq != Lk off the tiles with a key
+    bias; the prep kernel exactly its plain version; dq, dk and dv of two
+    runs bitwise equal (a gate: each is written once, no atomics). Then each
+    kernel timed at (2, 16, 5120, 96) by events beside the whole plain
+    backward, SDPA's f32 backward (an autograd graph built once) and the
+    bounds (8 and 6 B H L^2 d FLOPs at 67 TFLOP/s; 10 for the whole), the
+    route's launches from a CUDA graph, and the two kernels' ptxas / SASS
+    as gates: no spill, TMA loads (UTMALDG), no tensor-core instruction.
+    Returns the failing labels."""
+    import torch.nn.functional as Fn
+
+    bad, f32 = [], torch.float32
+    cases = [(2, XL_KEYS, XL_KEYS, "none"), (2, 2253, 2253, "dead"), (1, 1056, 1056, "none"),
+             (2, 1280, 1280, "full"), (2, 1000, 1531, "key")]
+    for b, lq, lk, kind in cases:
+        q, k, v = _flash_operands(gen, b, HEADS, lq, lk, XL_HD, f32)
+        label = f"f32 hd 96 bias={kind} {(b, HEADS, lq, lk)}"
+        if not _bwd_check(label, q, k, v, _flash_bias(gen, kind, b, lq, lk), f32, gen,
+                          dead=0 if kind == "dead" else None):
+            bad.append(label)
+        del q, k, v
+    b, h, L, d = F32_HD96_SHAPE
+    bh = b * h
+    q, k, v = _flash_operands(gen, b, h, L, L, d, f32)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device=DEV)
+    launches, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    plan = fa.bwd96_f32_plan(b, h, L, L)
+    fa.run_bwd(launches, ("flash_attention_bwd_prep",))
+    ref_lse, ref_delta = fa.bwd_prep_plain(o, do, lse, plan["lqp"], False)
+    tag = f"{F32_HD96_SHAPE}, exact"
+    if not (_tol_check("flash_attention_bwd_prep", f"f32 hd 96 delta {tag}", launches[0][3][4],
+                       ref_delta, 0.0, 0.0)
+            and _tol_check("flash_attention_bwd_prep", f"f32 hd 96 lse rows {tag}",
+                           launches[0][3][3], ref_lse, 0.0, 0.0)):
+        bad.append("f32 hd 96 prep")
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_port = fa.flash_attention(*ins)
+    g1 = torch.autograd.grad(o_port, ins, do, retain_graph=True)
+    g2 = torch.autograd.grad(o_port, ins, do, retain_graph=True)
+    same = all(torch.equal(x, y) for x, y in zip(g1, g2))
+    print(f"  repeatability, two f32 hd 96 backward runs on the same tensors {F32_HD96_SHAPE}: "
+          f"dq, dk and dv bitwise equal: {same}")
+    report.setdefault("bwd_repeatability", {})["f32 hd 96"] = dict(dq_dk_dv_equal=same)
+    if not same:
+        bad.append("f32 hd 96 repeatability")
+    del g1, g2
+    port_bwd = sync_ms(lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), 3)
+    o_lib = Fn.scaled_dot_product_attention(*ins)
+    library = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 3)
+    del o_lib, o_port
+    plain_ms = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 2)
+    io, rows = bh * L * d * 4, bh * plan["lqp"] * 4
+    bounds = {  # (operations in seconds, bytes)
+        "flash_attention_bwd_prep": (2 * bh * L * d / PEAK_F32_FLOPS, 2 * io + bh * L * 4 + 2 * rows),
+        "flash_attention_bwd_dkv_f32": (8 * bh * L * L * d / PEAK_F32_FLOPS, 6 * io + 2 * rows),
+        "flash_attention_bwd_dq_f32": (6 * bh * L * L * d / PEAK_F32_FLOPS, 5 * io + 2 * rows)}
+    total = 0.0
+    for name in fa.BWD96_F32_KERNELS:  # events (a prepared launch holds its stream: no graph)
+        ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), 3)
+        total += ms
+        bound = _bound(*bounds[name])
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=library if name != "flash_attention_bwd_prep" else None)
+        lib_txt = "" if row["library_ms"] is None else f", SDPA f32 backward {library:.3f} ms"
+        print(f"  {name} {F32_HD96_SHAPE} f32: {ms:.3f} ms/launch, plain backward "
+              f"{plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms ({bound[1]}), "
+              f"{bound[0] / ms:.1%} of bound")
+        entry = report["kernels"].setdefault(name, {})
+        entry.setdefault("by_shape", {})[str(F32_HD96_SHAPE + ("f32",))] = row
+        if name == "flash_attention_bwd_prep":  # prep's line entry stays the t2i step's
+            _instance(name, "f32 hd 96", row)
+        else:
+            entry.update(row)
+    route_graph = graph_ms(lambda: fa._launch_bwd(q, k, v, None, None, o, lse, do), n=3, reps=2)
+    joint = _bound(10 * bh * L * L * d / PEAK_F32_FLOPS, 8 * io + bh * L * 4)
+    print(f"  the whole f32 hd 96 backward at {F32_HD96_SHAPE}: prep + dkv_f32 + dq_f32 "
+          f"{total:.3f} ms, the route's launches from a graph {route_graph:.3f} ms, through "
+          f"autograd {port_bwd:.3f} ms, SDPA's f32 backward {library:.3f} ms; joint bound "
+          f"{joint[0]:.3f} ms (10 BH Lq Lk d FLOPs at 67 TFLOP/s), {joint[0] / port_bwd:.1%} of "
+          f"it through autograd")
+    sass = _sass_ops("flash_attention_bwd")
+    ptxas = {}
+    for kernel in ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"):
+        for fbias in (0, 1):
+            mangled = f"{kernel}ILb{fbias}E"
+            regs, spills, _ = _ptxas_numbers(mangled, "flash_attention_bwd")
+            ops = next((c for fn, c in sass.items() if mangled in fn), None)
+            ptxas[mangled] = (f"{_ptxas_report(mangled)}; SASS "
+                              + ", ".join(f"{op} {n}" for op, n in (ops or {}).items()))
+            print(f"  flash_attention_bwd ptxas ({mangled}): {ptxas[mangled]}")
+            if not (ops and ops["UTMALDG"] and spills == 0
+                    and not any(ops[op] for op in TENSOR_CORE_OPS)):
+                bad.append(f"f32 hd 96 {mangled}: a spill, a tensor-core instruction or no TMA")
+    report["f32_hd96_backward"] = dict(kernels_ms=total, route_graph_ms=route_graph,
+                                       autograd_ms=port_bwd, sdpa_f32_bwd_ms=library,
+                                       joint_bound_ms=joint[0], ptxas=ptxas)
+    del q, k, v, o, lse, do, launches, ins
+    torch.cuda.empty_cache()
+    return bad
+
+
+@phase("4w from_pretrained at the released NOVA-1.4B 1024px config, float32")
+def released_1p4b_f32(emb, written):
+    """4r's reference directory (removed at the end) through
+    from_pretrained(dir) at its default dtype, float32: the transformer's
+    and the VAE's weights exactly the written bf16 values upcast; one prompt
+    with 4o's embeddings, CFG 5.0, W_AR AR x 25 steps, latent output (the
+    cut: the full 64-step call takes minutes of f32 GEMMs, and the f32 SDXL
+    decode adds no kernel): flash_attention launches exactly
+    _flash_route_launches of the model for W_AR steps, every one f32 at
+    head dim 96, 0 of every other kernel; finite latents; the wall time and
+    the peak memory above what is held; one image-encoder pass and one head
+    eval against the same with use_plain_kernels() at the f32 tolerance (2 x
+    floor + 1e-5; the whole float call is chaotic on random weights)."""
+    try:
+        if emb is None or written is None or not os.path.isdir(XL_DIR):
+            raise AssertionError("no 1.4B directory or prompt embeddings: phase 4o or 4r failed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = from_pretrained(XL_DIR)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(XL_DIR, ignore_errors=True)
+    model = pipe.model
+    upcast = {name: {k: v.float() if v.is_floating_point() else v
+                     for k, v in written[name].items()} for name in ("transformer", "vae")}
+    same = {name: _same_weights(mod, upcast[name])
+            for name, mod in (("transformer", model), ("vae", pipe.vae))}
+    dtypes = {p.dtype for p in model.parameters()}
+    loaded = all(same.values()) and dtypes == {torch.float32} and model.head_dim_i == XL_HD
+    print(f"from_pretrained(dir) at its default dtype: {load_s:.2f} s, transformer dtypes "
+          f"{dtypes}, head dim {model.head_dim_i}; the weights exactly the written bf16 values "
+          f"upcast: {same}: {'ok' if loaded else 'FAIL'}")
+    del upcast
+    expected = _flash_route_launches(pipe, W_AR, text_len=RELEASED_TEXT)
+    kw = dict(prompt_embeds=emb.numpy(), num_inference_steps=W_AR,
+              num_diffusion_steps=RELEASED_DIFF, guidance_scale=RELEASED_GUIDANCE,
+              output_type="latent")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fb.reset_launch_counts()
+    with _flash_instances() as seen:
+        t0 = time.perf_counter()
+        out = pipe(**kw, generator=torch.Generator(device=DEV).manual_seed(54))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held
+    counts_ok = (launches == {n: expected if n == "flash_attention" else 0 for n in KERNELS}
+                 and seen == {("float32", XL_HD): expected})
+    lat = out.latents
+    shape = (1, 2 * XL_MODEL["image_base_size"][0], 2 * XL_MODEL["image_base_size"][1], 4)
+    out_ok = tuple(lat.shape) == shape and lat.dtype == torch.float32 and bool(
+        torch.isfinite(lat).all())
+    print(f"one f32 call, {W_AR} AR x {RELEASED_DIFF} steps: {call_s:.2f} s, peak "
+          f"{peak / 2 ** 30:.2f} GiB above {held / 2 ** 30:.2f}; flash_attention launches "
+          f"{launches['flash_attention']} (expected {expected}) by (dtype, head dim) {seen}, "
+          f"others {({k: v for k, v in launches.items() if v and k != 'flash_attention'} or 0)}: "
+          f"{'ok' if counts_ok else 'FAIL'}; latents {tuple(lat.shape)} f32 finite: "
+          f"{'ok' if out_ok else 'FAIL'}")
+    _instance_launches("flash_attention", "f32 hd 96", "released_1p4b_f32",
+                       launches["flash_attention"])
+    step_ok, step = _t2i_step_check(
+        pipe, "released_1p4b_f32", "flash_attention",
+        len(model.image_encoder.enc_layers) + len(model.image_encoder.dec_layers), prompts=None,
+        prompt_embeds=emb.numpy(), batch=1, pad_p=_xl_pad_p(W_AR), tol=1e-5)
+    report["released_1p4b_f32"] = dict(load_s=load_s, weights_upcast=same, call_s=call_s,
+                                       ar_steps=W_AR, peak_bytes=peak, held_bytes=held,
+                                       launches=launches, expected_flash=expected,
+                                       by_dtype_head_dim=str(seen), one_step=step)
+    del pipe, model, out, lat
+    torch.cuda.empty_cache()
+    if not (loaded and counts_ok and out_ok and step_ok):
+        raise AssertionError("released 1.4B 1024px f32 check failed")
+
+
+@phase("4x NOVA-1.4B training step in f32 (t2i-1.4b's f32 twin)")
+def xl_train_f32():
+    """4t's model (bench.py --train-arch t2i-1.4b: head dim 96, remat, f32
+    master weights) in f32 compute, the loss and gradients of one step on
+    fixed draws (no optimizer step, so no Adam state), 4t's batch 2: the
+    launches exactly 4t's derived counts in f32 (96
+    forward at head dim 96, 48 each of prep, dkv_f32 and dq_f32; 0 of every
+    other kernel); the gradient within 2 x floor + 1e-6 relative L2 of the
+    f32 plain step (floor: the f32 plain step against itself with the
+    latents moved by 1e-6, as 4f); the step's time and peak memory above
+    what is held."""
+    model = NOVATransformer(arch=tuple(XL_MODEL["arch"]), image_dim=4,
+                            image_base_size=tuple(XL_MODEL["image_base_size"]),
+                            video_base_size=tuple(XL_MODEL["video_base_size"]), patch_size=2,
+                            text_token_dim=256, text_token_len=XL_TRAIN_TEXT,
+                            noise_scheduler=FlowMatchEulerScheduler(), remat=True, device=DEV)
+    model.init_weights(torch.Generator(device=DEV).manual_seed(0))
+    pipe = _train_pipe(model)
+    n = _train_flash_layers(model, XL_TRAIN_TEXT)
+    expected = {"flash_attention": 2 * n, "flash_attention_bwd_prep": n,
+                "flash_attention_bwd_dkv_f32": n, "flash_attention_bwd_dq_f32": n}
+    batch, draws = _xl_train_batch(1), _xl_train_draws(model, 3)
+    _step_grads(pipe, batch, draws)  # warm-up: kernel loads, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fb.reset_launch_counts()
+    with _flash_instances() as seen:
+        t0 = time.perf_counter()
+        loss_k, g_k = _step_grads(pipe, batch, draws)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = dict(fb.LAUNCHES)
+    counts_ok = (launches == {name: expected.get(name, 0) for name in KERNELS}
+                 and seen == {("float32", XL_HD): 2 * n})
+    print(f"NOVA-1.4B f32 step (loss and gradients, batch {XL_TRAIN_BATCH}): {step_s:.3f} s, peak "
+          f"{peak / 2 ** 30:.2f} GiB above {held / 2 ** 30:.2f}; launches {launches} (expected "
+          f"{expected}, else 0), forward by (dtype, head dim) {seen}: "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, "xl_train_f32", launches[name])
+    _instance_launches("flash_attention", "f32 hd 96", "xl_train_f32", launches["flash_attention"])
+    _instance_launches("flash_attention_bwd_prep", "f32 hd 96", "xl_train_f32",
+                       launches["flash_attention_bwd_prep"])
+    g_k = {name: g.cpu() for name, g in g_k.items()}
+    moved = dict(draws, latent_eps=draws["latent_eps"] + 1e-6 * torch.randn(
+        draws["latent_eps"].shape, generator=torch.Generator(device=DEV).manual_seed(4),
+        device=DEV))
+    with fb.use_plain_kernels():
+        loss_p, g_p = _step_grads(pipe, batch, draws)
+        g_p = {name: g.cpu() for name, g in g_p.items()}
+        _, g_m = _step_grads(pipe, batch, moved)
+        g_m = {name: g.cpu() for name, g in g_m.items()}
+    vs_plain, floor = _rel_l2(g_k, g_p, "f32 kernels vs plain"), _rel_l2(g_m, g_p)
+    finite = np.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    tol = 2 * floor + 1e-6
+    grad_ok = finite and vs_plain <= tol
+    print(f"the step's gradient (relative L2 of the whole vector): f32 kernels vs plain "
+          f"{vs_plain:.3e} (tol 2 x floor + 1e-6 = {tol:.3e}; floor, f32 plain vs itself with "
+          f"the latents moved by 1e-6: {floor:.3e}); finite: {finite}; losses {loss_k:.6f} / "
+          f"plain {loss_p:.6f}: {'ok' if grad_ok else 'FAIL'}")
+    report["xl_train_f32"] = dict(batch=XL_TRAIN_BATCH, step_s=step_s, peak_bytes=peak,
+                                  held_bytes=held,
+                                  launches=launches, expected=expected,
+                                  grad_rel_l2_vs_plain=vs_plain, grad_floor=floor, loss=loss_k,
+                                  loss_plain=loss_p)
+    del pipe, model, g_k, g_p, g_m
+    torch.cuda.empty_cache()
+    if not (counts_ok and grad_ok):
+        raise AssertionError("NOVA-1.4B f32 training check failed")
+
+
+@phase("4y the static attention's int8 score core: NOVA-1.4B and bench.py --mode t2i")
+def int8_core_serving(emb, written):
+    """(a) 4s's weights with attn_core="int8" (_xl_int8_call): calibrated as
+    4s (the calibration records the amax of q and k), one call at 64 AR x
+    25 steps, rows 8 / 5 / 6 / int8_linear exactly 4s's counts with every
+    row-8 launch on the int8 score core at head dim 96, 4d's one-step check
+    against plain, samples/s and peak memory. (b) bench.py --mode t2i
+    --attn-core int8: 4d's model with the int8 core at head dim 64,
+    calibrated as 4d, one call at T2I_CMP_AR AR steps: the launches exactly
+    _int8_call_launches of the model for that call, every row-8 launch on
+    the int8 core at 64; the call against the same with the plain versions
+    (4d's gate: 2 x floor + 1e-3)."""
+    if emb is None or written is None:
+        raise AssertionError("no 1.4B weights or prompt embeddings: phase 4o or 4r failed")
+    ok_xl, rec = _xl_int8_call(emb, written["transformer"], "int8", "xl_int8_core")
+    report["xl_int8_core"] = rec
+    pipe = _make_t2i_pipeline(quantize=True, attn_core="int8")
+    t0 = time.perf_counter()
+    pipe.calibrate(T2I_PROMPTS, num_inference_steps=T2I_CAL_AR, num_diffusion_steps=T2I_DIFF,
+                   guidance_scale=T2I_GUIDANCE,
+                   generator=torch.Generator(device=DEV).manual_seed(2), margin=1.05)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    expected = _int8_call_launches(pipe, T2I_CMP_AR)
+    fb.reset_launch_counts()
+    with _static_cores() as cores:
+        t0 = time.perf_counter()
+        lat = _t2i_sample(pipe, ar_steps=T2I_CMP_AR, seed=1)
+        call_s = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    counts_ok = (launches == {n: expected.get(n, 0) for n in KERNELS}
+                 and cores == {("int8", 64): expected["flash_attention_static"]})
+    out_ok = bool(torch.isfinite(lat).all()) and lat.std().item() > 0.05
+    print(f"bench.py --mode t2i --attn-core int8 (calibrated in {cal_s:.1f} s): one call of "
+          f"{T2I_CMP_AR} AR steps {call_s:.2f} s; launches {launches} (expected {expected}, "
+          f"else 0), row 8 by (score core, head dim) {cores}: {'ok' if counts_ok else 'FAIL'}; "
+          f"latents finite, std {lat.std().item():.4f}: {'ok' if out_ok else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, "t2i_int8_core", launches[name])
+    _instance_launches("flash_attention_static", "int8 hd 64", "t2i_int8_core",
+                       launches["flash_attention_static"])
+    agree, cmp = _t2i_compare(pipe, "t2i_int8_core", T2I_CMP_AR)
+    report["t2i_int8_core"] = dict(call_s=call_s, calibrate_s=cal_s, launches=launches,
+                                   expected=expected, static_cores=str(cores), **cmp)
+    del pipe
+    torch.cuda.empty_cache()
+    if not (ok_xl and counts_ok and out_ok and agree):
+        raise AssertionError("int8 score core serving check failed")
 
 
 # row 1 at head dim 96 and at T != 128 (3h, 4u, 4v, 5i): bench.py --arch
@@ -4666,8 +5221,10 @@ def timing_row1_shapes():
     """fused_attention_block at 4u's and 4v's shapes at the 2x and 1x batch,
     the flagship variant (static, bf16 core, smax): events, a CUDA graph,
     plain, the bound (_bound_ms); at T = 256 the byte time of the split
-    route's bf16 qkv round trip (M x 3D written and read back); ptxas of
-    each new instance (ROW1_NEW_INSTANCES)."""
+    route's bf16 qkv round trip (M x 3D written and read back); row 2 at
+    the 2x batch's rows of both (32768 x 1536 -> 6144, 65536 x 1024 ->
+    4096), the same readings and torch._int_mm's time for its two products;
+    ptxas of each new instance (ROW1_NEW_INSTANCES)."""
     gen = torch.Generator(device=DEV).manual_seed(1819)
     for label, (t, d, heads, f) in ROW1_NEW.items():
         kw = _variants("attention", heads)[0][1]
@@ -4683,6 +5240,20 @@ def timing_row1_shapes():
                       f"back: {row['qkv_round_trip_ms']:.4f} ms at {PEAK_BYTES / 1e12} TB/s")
             del ops
             torch.cuda.empty_cache()
+    # row 2 (fused_ln_int8_mlp) at the rows 4u and 4v give it: 32768 x 1536
+    # -> 6144 and 65536 x 1024 -> 4096, beside torch._int_mm's two products
+    for label, (t, d, heads, f) in ROW1_NEW.items():
+        m = 2 * BATCH * t
+        ops = _kernel_operands(gen, m, "mlp", t, d, f)
+        kw = _variants("mlp")[0][1]
+        row = _time_kernel("fused_ln_int8_mlp", (label, m, d, f),
+                           lambda: fb.fused_ln_int8_mlp(*ops, **kw),
+                           lambda: fb.fused_ln_int8_mlp_plain(*ops, **kw),
+                           _bound_ms("mlp", m, t, d, f), graph=True)
+        row["int_mm_ms"] = _int_mm_ms(gen, (m, d, f), (m, f, d))
+        print(f"    torch._int_mm, its two products alone: {row['int_mm_ms']} ms")
+        del ops
+        torch.cuda.empty_cache()
     out = {}
     for label, mangled in ROW1_NEW_INSTANCES.items():
         out[label] = _ptxas_report(mangled, library="fused_attention_block")
@@ -4729,7 +5300,12 @@ FWD_INSTANCES = {
                                "int8": "attn_fwd_kernelILi64ELb1ELb1ELb0ELb0E",
                                "int8 key bias": "attn_fwd_kernelILi64ELb1ELb1ELb1ELb0E",
                                "hd 96 bf16": "attn_fwd_kernelILi96ELb1ELb0ELb0ELb0E",
-                               "hd 96 bf16 key bias": "attn_fwd_kernelILi96ELb1ELb0ELb1ELb0E"}}
+                               "hd 96 bf16 key bias": "attn_fwd_kernelILi96ELb1ELb0ELb1ELb0E",
+                               "hd 96 int8": "attn_fwd_kernelILi96ELb1ELb1ELb0ELb0E",
+                               "hd 96 int8 key bias": "attn_fwd_kernelILi96ELb1ELb1ELb1ELb0E"}}
+# the instances that must show no spill in ptxas's report (those of this
+# slice; the gate of the others stays wgmma and TMA)
+NO_SPILL_INSTANCES = ("hd 96 int8", "hd 96 int8 key bias")
 
 
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
@@ -4769,9 +5345,11 @@ def _fwd_ptxas(name):
             f"{op} {n}" for op, n in ops.items())
         print(f"  {name} ptxas ({label}): {out[label]}")
         int8 = "int8" in label
+        _, spills, _ = _ptxas_numbers(mangled, name)
         if not (ops["HGMMA"] and ops["UTMALDG"] and (ops["IGMMA"] or not int8)
-                and ops["HMMA"] == ops["IMMA"] == 0):
-            bad.append(f"{name} ({label}): {ops}")
+                and ops["HMMA"] == ops["IMMA"] == 0
+                and (spills == 0 or label not in NO_SPILL_INSTANCES)):
+            bad.append(f"{name} ({label}): {ops}, {spills} spill bytes")
     report["kernels"].setdefault(name, {})["ptxas"] = out
     if bad:
         raise AssertionError(f"the forward kernels are not on wgmma and TMA: {bad}")
@@ -4874,9 +5452,12 @@ def _int8_ptxas():
 
 # the instances of flash_attention.cu's f32 forward kernel,
 # flash_fwd_f32_kernel<KBIAS, FBIAS>, by their mangled template arguments
-F32_FWD_INSTANCES = {"no bias": "flash_fwd_f32_kernelILb0ELb0E",
-                     "key bias": "flash_fwd_f32_kernelILb1ELb0E",
-                     "full bias": "flash_fwd_f32_kernelILb0ELb1E"}
+F32_FWD_INSTANCES = {"no bias": "flash_fwd_f32_kernelILi64ELb0ELb0E",
+                     "key bias": "flash_fwd_f32_kernelILi64ELb1ELb0E",
+                     "full bias": "flash_fwd_f32_kernelILi64ELb0ELb1E",
+                     "hd 96 no bias": "flash_fwd_f32_kernelILi96ELb0ELb0E",
+                     "hd 96 key bias": "flash_fwd_f32_kernelILi96ELb1ELb0E",
+                     "hd 96 full bias": "flash_fwd_f32_kernelILi96ELb0ELb1E"}
 TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 
 
@@ -5013,11 +5594,11 @@ def timing_train(pipe):
             Fn.scaled_dot_product_attention(ins[0], ins[1], ins[2])
 
     io32 = 2 * io
-    _time_kernel("flash_attention", (T2I_ROWS, HEADS, L, 64, "f32"),
-                 lambda: fa.flash_attention_with_lse(q, k, v),
-                 lambda: fa.flash_attention_plain(q, k, v),
-                 _bound(4 * bh * L * L * 64 / PEAK_F32_FLOPS, 4 * io32 + bh * L * 4),
-                 library=sdpa_fwd32, iters=5, graph=True)
+    _instance("flash_attention", "f32 hd 64", _time_kernel(
+        "flash_attention", (T2I_ROWS, HEADS, L, 64, "f32"),
+        lambda: fa.flash_attention_with_lse(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+        _bound(4 * bh * L * L * 64 / PEAK_F32_FLOPS, 4 * io32 + bh * L * 4),
+        library=sdpa_fwd32, iters=5, graph=True))
     _f32_fwd_ptxas()
     plain32 = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 3)
 
@@ -5345,15 +5926,16 @@ def timing_t2i(pipe_int8, pipe_float):
             library=lambda: Fn.scaled_dot_product_attention(q, k, v), graph=True)
         if L == T2I_L["full"]:
             report["kernels"]["flash_attention_static"].update(row)
-            # the int8 score core (no ported path runs it): the quant pass and
-            # the kernel; q k^T's operations at the int8 rate
+            # the int8 score core (driven since 4y: bench.py --attn-core
+            # int8): the quant pass and the kernel; q k^T's operations at
+            # the int8 rate
             aq = torch.tensor(4.5, device=DEV)
-            _time_kernel(
+            _instance("flash_attention_static", "int8 hd 64", _time_kernel(
                 "flash_attention_static", (T2I_ROWS, HEADS, L, 64, "int8 core"),
                 lambda: fa.flash_attention_static(q, k, v, smax, a_q=aq, a_k=aq),
                 lambda: fa.flash_attention_static_plain(q, k, v, smax, a_q=aq, a_k=aq),
                 _bound(2 * bh * L * L * 64 / PEAK_INT8_OPS + 2 * bh * L * L * 64 / PEAK_BF16_FLOPS,
-                       4 * bh * L * 64 * 2), graph=True)
+                       4 * bh * L * 64 * 2), graph=True))
         del q, k, v
         for n in (3 * D, D):  # qkv (f32 x), the out-projection (bf16 x)
             x, w, ws, b = _linear_operands(gen, m, n)
@@ -5686,12 +6268,25 @@ def main():
         print(f"phases 4o-4q took {report['slice_7c_s']:.1f} s (budget 120 s)")
         # head dim 96: the NOVA-1.4B 1024px config served and trained
         t_xl = time.perf_counter()
-        xl_int8(emb, released_1p4b(emb))
+        xl_written = released_1p4b(emb)
+        xl_int8(emb, xl_written)
         xl_train()
         report["hd96_4rt_s"] = time.perf_counter() - t_xl
         print(f"phases 4r-4t took {report['hd96_4rt_s']:.1f} s; with the head-dim-96 checks of "
               f"3c-3e {report['hd96_4rt_s'] + report.get('hd96_3ce_s', 0.0):.1f} s (budget "
               f"180 s)")
+        # head dim 96 in f32 and on the int8 score core: from_pretrained's
+        # default dtype, the step's f32 twin, attn_core="int8"
+        t_new = time.perf_counter()
+        released_1p4b_f32(emb, xl_written)
+        shutil.rmtree(XL_DIR, ignore_errors=True)
+        xl_train_f32()
+        int8_core_serving(emb, xl_written)
+        del xl_written
+        report["hd96_new_4wy_s"] = time.perf_counter() - t_new
+        new_s = report["hd96_new_4wy_s"] + report.get("hd96_new_3ce_s", 0.0)
+        print(f"phases 4w-4y took {report['hd96_new_4wy_s']:.1f} s; with their checks and "
+              f"timings in 3c-3e {new_s:.1f} s (budget 150 s)")
         # row 1 at head dim 96 and T = 256: bench.py --arch pc_d48w1536 and
         # --points 4096
         t_row1 = time.perf_counter()
@@ -5711,9 +6306,16 @@ def main():
                         "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
                         "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                         "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
-                        "launches_by_path": k.get("launches_by_path")})
+                        "launches_by_path": k.get("launches_by_path"),
+                        "instances": {label: {key: inst.get(key) for key in
+                                              ("launches", "ms", "graph_ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms")}
+                                      for label, inst in k.get("instances", {}).items()}})
         missing = [key for key, val in kernels[-1].items()
                    if val is None and key != "library_ms"]
+        missing += [f"{label} {key}" for label, inst in kernels[-1]["instances"].items()
+                    for key, val in inst.items()
+                    if val is None and key not in ("library_ms", "graph_ms")]
         if missing or not kernels[-1]["launches"]:
             failures.append(f"kernels line: {name} lacks {missing or 'launches'}")
     total_s = time.perf_counter() - t_start

@@ -84,6 +84,24 @@
 //          one thread a row, computed both twice and read an operand of
 //          every FFMA from shared memory).
 //
+// f32 at head dim 96 (the NOVA-1.4B ViTs) runs the TPU kernels' split too:
+// the one-pass kernel's dV and dK would need 8 x 12 accumulators a thread
+// beside S^T and dP^T (it spills) and its dQ part would not fit P's buffer.
+// Prep as above (two halves of 48), then two register-tiled SIMT kernels of
+// 256 threads, every tile three 128-byte boxes a row in f32_chunk's layout:
+//   dkv_f32: one block per (key tile of 64, batch*head), query tiles of q,
+//          do, lse and delta through a two-stage ring; S^T and dP^T by all
+//          256 threads (4 x 4 each), P and dS to shared memory, then dV +=
+//          P^T dO (warps 0-3) and dK += dS^T Q (warps 4-7), 4 x 12
+//          accumulators a thread, written once;
+//   dq_f32: one block per (query tile of 64, batch*head), K and V tiles
+//          through a two-stage ring; S and dP (4 x 4 a thread), dS to
+//          shared memory, dQ += dS K by each half of the block over its 32
+//          keys of a tile, the halves summed through shared memory at the
+//          end and dq written once (no atomics: bitwise repeatable).
+// S and dP are computed twice: 14 B*H*Lq*Lk*d FLOPs against the 10 of the
+// bound (12.0 ms at (2, 16, 5120, 96) at 67 TFLOP/s).
+//
 // q, k, v, do, dq, dk, dv are (B, H, L, d) views given by their batch / head /
 // row strides with d contiguous (16-byte multiples), so the model's
 // (B, L, H, d) layouts are read and written in place; the TMA maps are 4-D
@@ -556,46 +574,65 @@ __device__ __forceinline__ void f32_score_products(float (&s)[4][8], float (&dp)
 }
 
 // acc[i][j] += sum_r A[r][4 ti + 32 (i >> 2) + (i & 3)] B[r][4 tj + 32 (j >>
-// 2) + (j & 3)] over the tiles' 64 rows r (queries): two chunks of a row of
-// each, each value loaded feeding eight FFMAs (dV += P^T dO, dK += dS^T Q)
-__device__ __forceinline__ void f32_cols_product(float (&acc)[8][8], uint32_t a, uint32_t b,
-                                                 int ti, int tj) {
+// 2) + (j & 3)] over the tiles' 64 rows r (queries): NA chunks of a row of A
+// and NB of B, each value loaded feeding 4 NB or 4 NA FFMAs (dV += P^T dO,
+// dK += dS^T Q; <2, 2> at head dim 64, <1, 3> at 96)
+template <int NA, int NB>
+__device__ __forceinline__ void f32_cols_product(float (&acc)[4 * NA][4 * NB], uint32_t a,
+                                                 uint32_t b, int ti, int tj) {
 #pragma unroll 8
   for (int r = 0; r < FQB; ++r) {
-    const float4 a0 = lds_f4(f32_chunk(a, r, ti)), a1 = lds_f4(f32_chunk(a, r, ti + 8));
-    const float4 b0 = lds_f4(f32_chunk(b, r, tj)), b1 = lds_f4(f32_chunk(b, r, tj + 8));
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float av[4 * NA], bv[4 * NB];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int x = 0; x < NA; ++x) {
+      const float4 v = lds_f4(f32_chunk(a, r, ti + 8 * x));
+      av[4 * x] = v.x;
+      av[4 * x + 1] = v.y;
+      av[4 * x + 2] = v.z;
+      av[4 * x + 3] = v.w;
+    }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int y = 0; y < NB; ++y) {
+      const float4 v = lds_f4(f32_chunk(b, r, tj + 8 * y));
+      bv[4 * y] = v.x;
+      bv[4 * y + 1] = v.y;
+      bv[4 * y + 2] = v.z;
+      bv[4 * y + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * NA; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * NB; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-// dq[i][j] = sum_key dS[tq + 16 i][key] K[key][4 td + 32 (j >> 2) + (j & 3)]
-// over the block's 64 keys, by all 128 threads
-__device__ __forceinline__ void f32_dq_product(float (&dq)[4][8], uint32_t ds, uint32_t k,
-                                               int tq, int td) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dq[i][j] = 0.0f;
+// dq[i][j] += sum_key dS[tq + 16 i][key] K[key][4 td + 32 (j >> 2) + (j & 3)]
+// over the tile's keys 4 c0 .. 4 (c0 + NCK) - 1 (all 64 by the one-pass
+// kernel's 128 threads; 32 by each half of the head-dim-96 dq kernel)
+template <int NB, int NCK>
+__device__ __forceinline__ void f32_dq_product(float (&dq)[4][4 * NB], uint32_t ds, uint32_t k,
+                                               int tq, int td, int c0) {
 #pragma unroll 2
-  for (int c = 0; c < 16; ++c) {  // keys 4c .. 4c + 3
+  for (int c = c0; c < c0 + NCK; ++c) {  // keys 4c .. 4c + 3
     float4 av[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) av[i] = lds_f4(f32_chunk(ds, tq + 16 * i, c));
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float4 b0 = lds_f4(f32_chunk(k, 4 * c + e, td)),
-                   b1 = lds_f4(f32_chunk(k, 4 * c + e, td + 8));
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float bv[4 * NB];
+#pragma unroll
+      for (int y = 0; y < NB; ++y) {
+        const float4 v = lds_f4(f32_chunk(k, 4 * c + e, td + 8 * y));
+        bv[4 * y] = v.x;
+        bv[4 * y + 1] = v.y;
+        bv[4 * y + 2] = v.z;
+        bv[4 * y + 3] = v.w;
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = e == 0 ? av[i].x : e == 1 ? av[i].y : e == 2 ? av[i].z : av[i].w;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) dq[i][j] = fmaf(a, bv[j], dq[i][j]);
+        for (int j = 0; j < 4 * NB; ++j) dq[i][j] = fmaf(a, bv[j], dq[i][j]);
       }
     }
   }
@@ -713,12 +750,16 @@ __global__ void __launch_bounds__(F_THREADS, 2)
         sts_f32(f32_at(ds_s, tj + 8 * n, kr + 8 * m), pv * (dp[m][n] - dl[n]) * p.scale);
       }
     __syncthreads();  // P and dS are written
-    f32_cols_product(acc, ca, cb, ti, tj);
+    f32_cols_product<2, 2>(acc, ca, cb, ti, tj);
     __syncthreads();  // q, do, lse, delta and P are read
     if (tid == 0 && qt + 1 < nq) load_tile(qt + 1);
 
     float dq[4][8];
-    f32_dq_product(dq, ds_s, k_s, tq, td);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dq[i][j] = 0.0f;
+    f32_dq_product<2, 16>(dq, ds_s, k_s, tq, td, 0);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1089,6 +1130,330 @@ __global__ void __launch_bounds__(bwd96::THREADS, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// head dim 96, f32: dK / dV, then dQ (two register-tiled SIMT kernels, the
+// TPU kernels' split)
+// ---------------------------------------------------------------------------
+namespace f32bwd96 {
+constexpr int HD = 96;
+constexpr int BK = 64;             // keys of a dkv block; keys of a dq kernel's tile
+constexpr int BQ = 64;             // queries of a dkv kernel's tile; queries of a dq block
+constexpr int THREADS = 256;       // eight warps, one block an SM
+constexpr int STAGES = 2;          // depth of the streamed-tile ring
+constexpr int TILE = 64 * HD * 4;  // a 64 x 96 f32 tile: three 64-row x 128-byte boxes
+constexpr int STILE = 64 * 64 * 4; // P or dS: 64 queries x 64 keys, two boxes
+// dkv: K, V; per stage q, do; P, dS; per stage the lse, delta rows
+constexpr int DKV_OFF_RING = 2 * TILE;
+constexpr int DKV_OFF_P = DKV_OFF_RING + STAGES * 2 * TILE;
+constexpr int DKV_OFF_DS = DKV_OFF_P + STILE;
+constexpr int DKV_OFF_ROWS = DKV_OFF_DS + STILE;
+constexpr int DKV_OFF_BAR = DKV_OFF_ROWS + STAGES * 2 * BQ * 4;  // full[s], kv
+constexpr int DKV_SMEM = ((DKV_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
+// dq: q, do; per stage K, V; dS (at the end stage 0's K holds one half's dQ)
+constexpr int DQ_OFF_RING = 2 * TILE;
+constexpr int DQ_OFF_DS = DQ_OFF_RING + STAGES * 2 * TILE;
+constexpr int DQ_OFF_BAR = DQ_OFF_DS + STILE;  // full[s], q
+constexpr int DQ_SMEM = ((DQ_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
+static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "over the 227 KB a block can use");
+
+// a 64-row tile of a (B, H, L, 96) f32 map at row `row` of (b, h): three boxes
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row,
+                                          int h, int b) {
+#pragma unroll
+  for (int c = 0; c < HD / 32; ++c) tma_load_4d(dst + (c << 13), m, bar, 32 * c, row, h, b);
+}
+}  // namespace f32bwd96
+
+// s[m][n] = sum_d X[xr + 4 m][d] Y[yr + 8 n][d] and t[m][n] = sum_d X2[xr +
+// 4 m][d] Y2[yr + 8 n][d] (m, n < 4) over the tiles' NC 16-byte chunks (64-row
+// f32 tiles in f32_chunk's layout): each X value loaded feeds four FFMAs,
+// each Y value four. A warp's X rows (xr: four, with distinct r & 7) and Y
+// rows (yr: eight, distinct r & 7) make every load one wavefront.
+template <int NC>
+__device__ __forceinline__ void f32_pair_products(float (&s)[4][4], float (&t)[4][4], uint32_t x,
+                                                  uint32_t x2, uint32_t y, uint32_t y2, int xr,
+                                                  int yr) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      s[m][n] = 0.0f;
+      t[m][n] = 0.0f;
+    }
+#pragma unroll 2
+  for (int c = 0; c < NC; ++c) {
+    float4 xa[4], xb[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      xa[m] = lds_f4(f32_chunk(x, xr + 4 * m, c));
+      xb[m] = lds_f4(f32_chunk(x2, xr + 4 * m, c));
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 ya = lds_f4(f32_chunk(y, yr + 8 * n, c)),
+                   yb = lds_f4(f32_chunk(y2, yr + 8 * n, c));
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        s[m][n] = fmaf(xa[m].x, ya.x, s[m][n]);
+        s[m][n] = fmaf(xa[m].y, ya.y, s[m][n]);
+        s[m][n] = fmaf(xa[m].z, ya.z, s[m][n]);
+        s[m][n] = fmaf(xa[m].w, ya.w, s[m][n]);
+        t[m][n] = fmaf(xb[m].x, yb.x, t[m][n]);
+        t[m][n] = fmaf(xb[m].y, yb.y, t[m][n]);
+        t[m][n] = fmaf(xb[m].z, yb.z, t[m][n]);
+        t[m][n] = fmaf(xb[m].w, yb.w, t[m][n]);
+      }
+    }
+  }
+}
+
+// dK and dV of one (key tile of 64, batch*head), f32 at head dim 96, 256
+// threads; K and V once, the query tiles (q, do by TMA, their lse and delta
+// rows by bulk copy) through a two-stage ring. Per query tile:
+//   all:       S^T = K Q^T and dP^T = V dO^T, a thread keys kr + 4 m and
+//              queries qr + 8 n (m, n < 4); P^T = exp(S^T scale + bias -
+//              lse) and dS^T = P^T (dP^T - delta) scale of its elements to
+//              shared memory as P and dS (rows queries);
+//   warps 0-3: dV += P^T dO; warps 4-7: dK += dS^T Q (keys 4 tkc + i,
+//              columns 4 tj + 32 h + e: 4 x 12 accumulators a thread, held
+//              over all tiles), written once at the end.
+// Keys past Lk are masked (-inf); query rows past Lq load as zeros with lse
+// 1e30 (p = 0).
+template <bool FULL_BIAS>
+__global__ void __launch_bounds__(f32bwd96::THREADS, 1)
+    flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do, const FlashBwdParams p) {
+  // block-scope names: they hide the one-pass kernels' TILE and STAGES
+  using f32bwd96::BK, f32bwd96::BQ, f32bwd96::HD, f32bwd96::STAGES, f32bwd96::TILE;
+  using f32bwd96::DKV_OFF_BAR, f32bwd96::DKV_OFF_DS, f32bwd96::DKV_OFF_P, f32bwd96::DKV_OFF_RING,
+      f32bwd96::DKV_OFF_ROWS, f32bwd96::load_tile;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int kt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Lq + BQ - 1) / BQ;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform
+  const uint32_t k_s = base, v_s = base + TILE, p_s = base + DKV_OFF_P, ds_s = base + DKV_OFF_DS;
+  const uint32_t bar_full = base + DKV_OFF_BAR, bar_kv = bar_full + STAGES * 8;
+  const float* lse_row = p.lse + static_cast<long>(bh) * p.Lqp;
+  const float* del_row = p.delta + static_cast<long>(bh) * p.Lqp;
+
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // query tile qt (q, do, lse and delta rows) into stage qt % STAGES
+  auto load_q_tile = [&](int qt) {
+    const int s = qt % STAGES;
+    const uint32_t full = bar_full + 8 * s, dst = base + DKV_OFF_RING + s * 2 * TILE;
+    const uint32_t rows = base + DKV_OFF_ROWS + s * 2 * BQ * 4;
+    mbar_expect_tx(full, 2 * TILE + 2 * BQ * 4);
+    load_tile(dst, &tm_q, full, qt * BQ, h, b);
+    load_tile(dst + TILE, &tm_do, full, qt * BQ, h, b);
+    bulk_load(rows, lse_row + qt * BQ, BQ * 4, full);
+    bulk_load(rows + BQ * 4, del_row + qt * BQ, BQ * 4, full);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * TILE);
+    load_tile(k_s, &tm_k, bar_kv, kt * BK, h, b);
+    load_tile(v_s, &tm_v, bar_kv, kt * BK, h, b);
+    for (int qt = 0; qt < STAGES && qt < nq; ++qt) load_q_tile(qt);
+  }
+
+  // the scores' keys kr + 4 m (the additive term of each; a key past Lk is
+  // masked) and queries qr + 8 n
+  const int kr = 16 * (warp & 3) + (lane >> 3), qr = 32 * (warp >> 2) + (lane & 7);
+  float kb[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int key = kt * BK + kr + 4 * m;
+    kb[m] = key < p.Lk ? (p.kbias != nullptr ? p.kbias[static_cast<long>(b) * p.Lk + key] : 0.0f)
+                       : -INFINITY;
+  }
+  // warps 0-3: dV += P^T dO; warps 4-7: dK += dS^T Q
+  const int grp = warp >> 2, tkc = (tid & 127) >> 3, tj = lane & 7;
+  float acc[4][12];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) acc[i][j] = 0.0f;
+  mbar_wait(bar_kv, 0);
+
+  for (int qt = 0; qt < nq; ++qt) {
+    const int s = qt % STAGES;
+    mbar_wait(bar_full + 8 * s, (qt / STAGES) & 1);
+    const uint32_t q_t = base + DKV_OFF_RING + s * 2 * TILE, do_t = q_t + TILE;
+    const uint32_t rows_s = base + DKV_OFF_ROWS + s * 2 * BQ * 4;
+    float st[4][4], dp[4][4];
+    f32_pair_products<HD / 4>(st, dp, k_s, v_s, q_t, do_t, kr, qr);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = qr + 8 * n;
+      const float lse = __uint_as_float(lds_u32(rows_s + 4 * c)),
+                  dl = __uint_as_float(lds_u32(rows_s + BQ * 4 + 4 * c));
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float x = fmaf(st[m][n], p.scale, kb[m]);
+        if (FULL_BIAS) {
+          const int qrow = qt * BQ + c, key = kt * BK + kr + 4 * m;
+          if (qrow < p.Lq && key < p.Lk) x += p.fbias[static_cast<long>(qrow) * p.Lk + key];
+        }
+        const float pv = expf(x - lse);
+        sts_f32(f32_at(p_s, c, kr + 4 * m), pv);
+        sts_f32(f32_at(ds_s, c, kr + 4 * m), pv * (dp[m][n] - dl) * p.scale);
+      }
+    }
+    __syncthreads();  // P and dS are written
+    f32_cols_product<1, 3>(acc, grp ? ds_s : p_s, grp ? q_t : do_t, tkc, tj);
+    __syncthreads();  // the stage, P and dS are read
+    if (tid == 0 && qt + STAGES < nq) load_q_tile(qt + STAGES);
+  }
+
+  // dV (warps 0-3) or dK (warps 4-7): keys kt * 64 + 4 tkc + i
+  float* out = grp ? static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh
+                   : static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  const long sl = grp ? p.dk_sl : p.dv_sl;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = kt * BK + 4 * tkc + i;
+    if (key < p.Lk)
+#pragma unroll
+      for (int hh = 0; hh < HD / 32; ++hh)
+        *reinterpret_cast<float4*>(out + key * sl + 4 * tj + 32 * hh) =
+            make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2],
+                        acc[i][4 * hh + 3]);
+  }
+}
+
+// dQ of one (query tile of 64, batch*head), f32 at head dim 96, 256 threads:
+// q and do once, K and V tiles of 64 keys through a two-stage ring. Per key
+// tile: S = Q K^T and dP = dO V^T (a thread queries qr + 4 m, keys kr + 8 n),
+// P and dS = P (dP - delta) scale of its elements, dS to shared memory; then
+// dQ += dS K, each half of the block over its 32 keys of the tile (a thread
+// queries tq + 16 i, columns 4 td + 32 h + e: 4 x 12 accumulators). At the
+// end the second half's dQ goes through shared memory to the first, which
+// adds it and writes dq once: no atomics, so dq is bitwise repeatable.
+template <bool FULL_BIAS>
+__global__ void __launch_bounds__(f32bwd96::THREADS, 1)
+    flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do, const FlashBwdParams p) {
+  using f32bwd96::BK, f32bwd96::BQ, f32bwd96::HD, f32bwd96::STAGES, f32bwd96::TILE;
+  using f32bwd96::DQ_OFF_BAR, f32bwd96::DQ_OFF_DS, f32bwd96::DQ_OFF_RING, f32bwd96::load_tile;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nk = (p.Lk + BK - 1) / BK;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform
+  const uint32_t q_s = base, do_s = base + TILE, ds_s = base + DQ_OFF_DS;
+  const uint32_t bar_full = base + DQ_OFF_BAR, bar_q = bar_full + STAGES * 8;
+
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // key tile j (K, V) into stage j % STAGES
+  auto load_kv_tile = [&](int j) {
+    const int s = j % STAGES;
+    const uint32_t full = bar_full + 8 * s, dst = base + DQ_OFF_RING + s * 2 * TILE;
+    mbar_expect_tx(full, 2 * TILE);
+    load_tile(dst, &tm_k, full, j * BK, h, b);
+    load_tile(dst + TILE, &tm_v, full, j * BK, h, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * TILE);
+    load_tile(q_s, &tm_q, bar_q, qt * BQ, h, b);
+    load_tile(do_s, &tm_do, bar_q, qt * BQ, h, b);
+    for (int j = 0; j < STAGES && j < nk; ++j) load_kv_tile(j);
+  }
+
+  // the scores' queries qr + 4 m (their lse and delta; rows past Lq have lse
+  // 1e30, so p = 0) and keys kr + 8 n
+  const int qr = 16 * (warp & 3) + (lane >> 3), kr = 32 * (warp >> 2) + (lane & 7);
+  const long rb = static_cast<long>(bh) * p.Lqp + qt * BQ + qr;
+  float lse[4], dl[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    lse[m] = p.lse[rb + 4 * m];
+    dl[m] = p.delta[rb + 4 * m];
+  }
+  const float* kbias = p.kbias == nullptr ? nullptr : p.kbias + static_cast<long>(b) * p.Lk;
+  // dQ += dS K: half 0 over keys 0-31 of each tile, half 1 over keys 32-63
+  const int half = tid >> 7, tq = (tid & 127) >> 3, td = lane & 7;
+  float dq[4][12];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) dq[i][j] = 0.0f;
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
+    const uint32_t k_t = base + DQ_OFF_RING + s * 2 * TILE, v_t = k_t + TILE;
+    float sf[4][4], dp[4][4];
+    f32_pair_products<HD / 4>(sf, dp, q_s, do_s, k_t, v_t, qr, kr);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int key = j * BK + kr + 8 * n;
+      const float kbv = kbias != nullptr && key < p.Lk ? __ldg(kbias + key) : 0.0f;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float x = -INFINITY;
+        if (key < p.Lk) {
+          x = fmaf(sf[m][n], p.scale, kbv);
+          if (FULL_BIAS) {
+            const int qrow = qt * BQ + qr + 4 * m;
+            if (qrow < p.Lq) x += p.fbias[static_cast<long>(qrow) * p.Lk + key];
+          }
+        }
+        const float pv = expf(x - lse[m]);
+        sts_f32(f32_at(ds_s, qr + 4 * m, kr + 8 * n), pv * (dp[m][n] - dl[m]) * p.scale);
+      }
+    }
+    __syncthreads();  // dS is written
+    f32_dq_product<3, 8>(dq, ds_s, k_t, tq, td, 8 * half);
+    __syncthreads();  // the stage's K and V and dS are read
+    if (tid == 0 && j + STAGES < nk) load_kv_tile(j + STAGES);
+  }
+
+  // the halves' sum: half 1's dQ through stage 0's K (every copy into the
+  // ring has landed and been read), half 0 adds it and writes the rows < Lq
+  const uint32_t red = base + DQ_OFF_RING;
+  if (half) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < HD / 32; ++hh)
+        sts_f4(f32_chunk(red, tq + 16 * i, td + 8 * hh),
+               make_float4(dq[i][4 * hh], dq[i][4 * hh + 1], dq[i][4 * hh + 2], dq[i][4 * hh + 3]));
+  }
+  __syncthreads();
+  if (!half) {
+    float* DQ = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = qt * BQ + tq + 16 * i;
+      if (row < p.Lq)
+#pragma unroll
+        for (int hh = 0; hh < HD / 32; ++hh) {
+          const float4 o2 = lds_f4(f32_chunk(red, tq + 16 * i, td + 8 * hh));
+          *reinterpret_cast<float4*>(DQ + static_cast<long>(row) * p.dq_sl + 4 * td + 32 * hh) =
+              make_float4(dq[i][4 * hh] + o2.x, dq[i][4 * hh + 1] + o2.y,
+                          dq[i][4 * hh + 2] + o2.z, dq[i][4 * hh + 3] + o2.w);
+        }
+    }
+  }
+}
+
 // the checks and TMA maps shared by the two head-dim-96 entry points:
 // strides (batch, head, row) of q, k, v, do in turn
 inline bool bwd96_setup(CUtensorMap* maps, Bwd96Params& p, const void* q, const void* k,
@@ -1117,11 +1482,10 @@ inline bool bwd96_setup(CUtensorMap* maps, Bwd96Params& p, const void* q, const 
 
 inline bool fill_params(FlashBwdParams& p, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta, int B, int H,
-                        int Lq, int Lk, int Lqp, int D, const long* strides,
+                        int Lq, int Lk, int Lqp, const long* strides,
                         const float* kbias, const float* fbias, float scale, void* dq,
                         void* dk, void* dv) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != BHD) return false;
-  if (Lqp < Lq || Lqp % LQ_PAD != 0) return false;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || Lqp < Lq || Lqp % LQ_PAD != 0) return false;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -1279,8 +1643,8 @@ extern "C" int nova_flash_attention_bwd_f32(
     int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
   using namespace nova;
   FlashBwdParams p;
-  if (!fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias, fbias,
-                   scale, dq, dk, dv))
+  if (D != BHD || !fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, strides, kbias,
+                               fbias, scale, dq, dk, dv))
     return cudaErrorInvalidValue;
   if (key_tiles != (Lk + FKB - 1) / FKB || q_tiles != (Lq + FQB - 1) / FQB ||
       smem_bytes != F32_SMEM || static_cast<long>(B) * H > 65535)
@@ -1357,6 +1721,78 @@ extern "C" int nova_flash_attention_bwd_dq(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd96::DQ_SMEM);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(q_tiles, B * H), bwd96::THREADS, bwd96::DQ_SMEM,
+           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+namespace nova {
+// the checks and TMA maps of the two f32 head-dim-96 entry points: the f32
+// one-pass kernel's arguments (21 strides: q, k, v, do, dq, dk, dv)
+inline bool f32_96_setup(CUtensorMap* maps, FlashBwdParams& p, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse, const float* delta,
+                         int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
+                         const float* kbias, const float* fbias, float scale, void* dq, void* dk,
+                         void* dv) {
+  if (D != f32bwd96::HD || static_cast<long>(B) * H > 65535 ||
+      !fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, strides, kbias, fbias, scale,
+                   dq, dk, dv))
+    return false;
+  const void* ptrs[4] = {q, k, v, dout};
+  const int lens[4] = {Lq, Lk, Lk, Lq};
+  for (int i = 0; i < 4; ++i)
+    if (!bhld_map(&maps[i], ptrs[i], B, H, lens[i], strides + 3 * i, 64, 4, f32bwd96::HD))
+      return false;
+  return true;
+}
+}  // namespace nova
+
+// dK and dV at head dim 96, f32 (the dkv_f32 kernel; dq is not touched):
+// the f32 one-pass kernel's arguments, lse (natural log) and delta from the
+// prep kernel. key_tiles and smem_bytes are the caller's launch plan,
+// checked against this kernel's.
+extern "C" int nova_flash_attention_bwd_dkv_f32(
+    const void* q, const void* k, const void* v, const void* dout, const float* lse,
+    const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
+    const float* kbias, const float* fbias, float scale, void* dq, void* dk, void* dv,
+    int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
+  using namespace nova;
+  CUtensorMap maps[4];
+  FlashBwdParams p;
+  if (!f32_96_setup(maps, p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
+                    fbias, scale, dq, dk, dv))
+    return cudaErrorInvalidValue;
+  if (key_tiles != (Lk + f32bwd96::BK - 1) / f32bwd96::BK || smem_bytes != f32bwd96::DKV_SMEM)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = fbias != nullptr ? flash_bwd_dkv_f32_kernel<true> : flash_bwd_dkv_f32_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         f32bwd96::DKV_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(key_tiles, B * H), f32bwd96::THREADS, f32bwd96::DKV_SMEM,
+           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+// dQ at head dim 96, f32 (the dq_f32 kernel; dk and dv are not touched), dq
+// written once. q_tiles and smem_bytes are the caller's launch plan, checked
+// against this kernel's.
+extern "C" int nova_flash_attention_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout, const float* lse,
+    const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
+    const float* kbias, const float* fbias, float scale, void* dq, void* dk, void* dv,
+    int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
+  using namespace nova;
+  CUtensorMap maps[4];
+  FlashBwdParams p;
+  if (!f32_96_setup(maps, p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
+                    fbias, scale, dq, dk, dv))
+    return cudaErrorInvalidValue;
+  if (q_tiles != (Lq + f32bwd96::BQ - 1) / f32bwd96::BQ || smem_bytes != f32bwd96::DQ_SMEM)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = fbias != nullptr ? flash_bwd_dq_f32_kernel<true> : flash_bwd_dq_f32_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         f32bwd96::DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(q_tiles, B * H), f32bwd96::THREADS, f32bwd96::DQ_SMEM,
            static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }

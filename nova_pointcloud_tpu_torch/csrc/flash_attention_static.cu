@@ -16,15 +16,20 @@
 // -inf keys give p = 0, and a row whose keys are all -inf ends with l = 0 and
 // o = 0. The int8 core's q and k are quantized with the static scales
 // 127 / a_q, 127 / a_k by a small pass before the kernel (as the JAX function
-// does in XLA) into contiguous (B, H, L, 64) codes; v stays bf16.
+// does in XLA) into contiguous (B, H, L, d) codes; v stays bf16.
 //
 // q, k, v, o are (B, H, L, d) views given by their batch / head / row strides
 // with the head dim contiguous, so the model's (B, L, H, d) projections are
 // read and written in place; ragged tails (L = 288, 384, 768, 1280 against
-// 128-row items and 128-key tiles) are masked in the main loop. d = 64, or
-// 96 for the bf16 core (the NOVA-1.4B ViTs: flash_fwd.cuh's Tiling<96>,
-// which puts bf16(q * 96^-0.5) in shared memory once an item, as the JAX
-// kernel scales q, since 96^-0.5 is no power of 2).
+// 128-row items and 128-key tiles) are masked in the main loop. d = 64 or
+// 96 (the NOVA-1.4B ViTs: flash_fwd.cuh's Tiling<96>; the bf16 core puts
+// bf16(q * 96^-0.5) in shared memory once an item, as the JAX kernel scales
+// q, since 96^-0.5 is no power of 2; the int8 core reads its 96-byte code
+// rows as three 32-byte panels in the 32B swizzle, three s8 k-steps, and
+// folds 96^-0.5 into its f32 dequant factor, as the JAX kernel). The int8
+// core's bound at (2, 16, 5120, 96): 2*B*H*Lq*Lk*96 int8 operations at
+// 1979 TOP/s plus as many bf16 FLOPs for p v at 989 TFLOP/s, 0.24 ms; its
+// one ex2 a score takes about as long as at the bf16 core.
 //
 // What bounds it on this card: operations, 4*B*H*Lq*Lk*64 (0.054 ms at B*H =
 // 128, L = 1280 against the 989 TFLOP/s bf16 peak), and at head dim 64 the
@@ -48,16 +53,19 @@
 
 namespace nova {
 
-// int8 core (head dim 64): q or k (B, H, L, 64), f32 or bf16 at the given strides ->
-// contiguous int8 codes clip(rint(x * (127 / max(amax, 1e-30)))), 8 a thread
+// int8 core: q or k (B, H, L, D), f32 or bf16 at the given strides ->
+// contiguous int8 codes clip(rint(x * (127 / max(amax, 1e-30)))), 8 a thread;
+// rows of D bytes (at 96 the kernel's TMA reads them as three 32-byte panels)
+template <int D>
 __global__ void static_qk_quant_kernel(const void* __restrict__ x, int x_bf16, long sb, long sh,
                                        long sl, int H, int L, long chunks,
                                        const float* __restrict__ amax, int8_t* __restrict__ out) {
+  constexpr int CPR = D / 8;  // chunks a row
   const long c = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (c >= chunks) return;
   const float inv = 127.0f / fmaxf(__ldg(amax), 1e-30f);
-  const int d8 = static_cast<int>(c % 8) * 8;
-  const long row = (c / 8) % L, bh = c / (8L * L);
+  const int d8 = static_cast<int>(c % CPR) * 8;
+  const long row = (c / CPR) % L, bh = c / (static_cast<long>(CPR) * L);
   const long base = (bh / H) * sb + (bh % H) * sh + row * sl + d8;
   char4 lo, hi;
   lo.x = q8_rint(ld_any(x, base + 0, x_bf16) * inv);
@@ -73,20 +81,22 @@ __global__ void static_qk_quant_kernel(const void* __restrict__ x, int x_bf16, l
 }
 
 inline cudaError_t launch_qk_quant(const void* x, int x_bf16, const long* st, int B, int H,
-                                   int L, const float* amax, int8_t* out, cudaStream_t stream) {
-  const long chunks = static_cast<long>(B) * H * L * 8;
+                                   int L, int D, const float* amax, int8_t* out,
+                                   cudaStream_t stream) {
+  const long chunks = static_cast<long>(B) * H * L * (D / 8);
   const long blocks = (chunks + 255) / 256;
   if (blocks > 2147483647L) return cudaErrorInvalidValue;
-  static_qk_quant_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      x, x_bf16, st[0], st[1], st[2], H, L, chunks, amax, out);
+  auto kernel = D == 64 ? static_qk_quant_kernel<64> : static_qk_quant_kernel<96>;
+  kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(x, x_bf16, st[0], st[1], st[2], H, L,
+                                                            chunks, amax, out);
   return cudaGetLastError();
 }
 
 }  // namespace nova
 
 // strides: 12 element strides, (batch, head, row) of q, k, v, o in turn.
-// q, k: bf16 for the bf16 core; for the int8 core (D = 64 only) f32 or bf16
-// (qk_bf16) and quantized into q8 (B*H*Lq*64) and k8 (B*H*Lk*64) first. v bf16; o bf16 or
+// q, k: bf16 for the bf16 core; for the int8 core f32 or bf16 (qk_bf16)
+// and quantized into q8 (B*H*Lq*D) and k8 (B*H*Lk*D) first. v bf16; o bf16 or
 // f32. kbias: key bias rows at row stride kb_sb (16-byte aligned, see
 // fwd::key_bias_ok) or nullptr. grid and smem_bytes are the caller's launch
 // plan, checked against this kernel's.
@@ -98,7 +108,7 @@ extern "C" int nova_flash_attention_static(
   using namespace nova;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool int8_core = a_q != nullptr;
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (D != 64 && !(D == 96 && !int8_core)))
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (D != 64 && D != 96))
     return cudaErrorInvalidValue;
   if (int8_core != (a_k != nullptr) || int8_core != (q8 != nullptr) ||
       int8_core != (k8 != nullptr) || smax == nullptr)
@@ -112,10 +122,10 @@ extern "C" int nova_flash_attention_static(
   CUtensorMap maps[3];
   if (!bhld_map(&maps[2], v, B, H, Lk, strides + 6, fwd::BK, 2, D)) return cudaErrorInvalidValue;
   if (int8_core) {
-    const long q8s[3] = {static_cast<long>(H) * Lq * 64, static_cast<long>(Lq) * 64, 64};
-    const long k8s[3] = {static_cast<long>(H) * Lk * 64, static_cast<long>(Lk) * 64, 64};
-    if (!bhld_map(&maps[0], q8, B, H, Lq, q8s, 64, 1) ||
-        !bhld_map(&maps[1], k8, B, H, Lk, k8s, fwd::BK, 1))
+    const long q8s[3] = {static_cast<long>(H) * Lq * D, static_cast<long>(Lq) * D, D};
+    const long k8s[3] = {static_cast<long>(H) * Lk * D, static_cast<long>(Lk) * D, D};
+    if (!bhld_map(&maps[0], q8, B, H, Lq, q8s, 64, 1, D) ||
+        !bhld_map(&maps[1], k8, B, H, Lk, k8s, fwd::BK, 1, D))
       return cudaErrorInvalidValue;
   } else if (!bhld_map(&maps[0], q, B, H, Lq, strides, 64, 2, D) ||
              !bhld_map(&maps[1], k, B, H, Lk, strides + 3, fwd::BK, 2, D)) {
@@ -140,10 +150,14 @@ extern "C" int nova_flash_attention_static(
     if (kbias != nullptr) return fwd::launch<64, true, false, true, false>(maps, p, grid, stream);
     return fwd::launch<64, true, false, false, false>(maps, p, grid, stream);
   }
-  cudaError_t err = launch_qk_quant(q, qk_bf16, strides, B, H, Lq, a_q, q8, stream);
+  cudaError_t err = launch_qk_quant(q, qk_bf16, strides, B, H, Lq, D, a_q, q8, stream);
   if (err != cudaSuccess) return err;
-  err = launch_qk_quant(k, qk_bf16, strides + 3, B, H, Lk, a_k, k8, stream);
+  err = launch_qk_quant(k, qk_bf16, strides + 3, B, H, Lk, D, a_k, k8, stream);
   if (err != cudaSuccess) return err;
+  if (D == 96) {
+    if (kbias != nullptr) return fwd::launch<96, true, true, true, false>(maps, p, grid, stream);
+    return fwd::launch<96, true, true, false, false>(maps, p, grid, stream);
+  }
   if (kbias != nullptr) return fwd::launch<64, true, true, true, false>(maps, p, grid, stream);
   return fwd::launch<64, true, true, false, false>(maps, p, grid, stream);
 }

@@ -21,7 +21,8 @@
 //
 // Per key tile g, each warpgroup:
 //   S_g = Q K_g^T         wgmma m64n128k16 bf16 (or m64n128k32 s8, 64B
-//                         swizzle: 8-bit wgmma is K-major only), both
+//                         swizzle, 32B at head dim 96: 8-bit wgmma is
+//                         K-major only), both
 //                         operands K-major in shared memory
 //   O  += P_{g-1} V_{g-1}  wgmma m64n64k16 (m64n96k16 at head dim 96), P
 //                         from registers (the previous tile's
@@ -51,7 +52,11 @@
 // its p v (the step after its scores), not at the next step, so the copy
 // of tile g + 1 still runs behind a whole step. The static kernel's bf16
 // core rounds q * hd^-0.5 to bf16 in shared memory once an item, as the
-// JAX kernel scales q (96^-0.5 is not a power of 2, unlike 64^-0.5).
+// JAX kernel scales q (96^-0.5 is not a power of 2, unlike 64^-0.5). The
+// int8 core at head dim 96 reads q and k codes as three 32-byte panels of
+// a 96-byte row each, in the 32B swizzle (one TMA box a panel, at the bf16
+// panels' places), one s8 k-step of 32 a panel; its scale stays on the f32
+// scores, folded into the dequant factor.
 #pragma once
 
 #include "hopper.cuh"
@@ -127,7 +132,6 @@ __global__ void __launch_bounds__(Tiling<HD>::THREADS, 1)
                     const __grid_constant__ CUtensorMap tm_v, const Params p) {
   static_assert(!(STATIC && FBIAS), "the static kernel takes a key bias only");
   static_assert(!INT8 || STATIC, "the int8 score core is the static kernel's");
-  static_assert(!INT8 || HD == 64, "the int8 score core takes head dim 64");
   using C = Tiling<HD>;
   constexpr int NWG = C::NWG, BQ = C::BQ, STAGES = C::STAGES, Q_SLOT = C::Q_SLOT,
                 KV_SLOT = C::KV_SLOT, OFF_Q = C::OFF_Q, OFF_K = C::OFF_K, OFF_V = C::OFF_V,
@@ -223,7 +227,7 @@ __global__ void __launch_bounds__(Tiling<HD>::THREADS, 1)
   // raw score -> units of log 2; static: the offset -smax in those units
   // (the static bf16 core at head dim 96 has the scale on q already)
   float c_scale = p.scale * kLog2e, c_off = 0.0f;
-  if constexpr (STATIC && HD != 64) c_scale = kLog2e;
+  if constexpr (STATIC && !INT8 && HD != 64) c_scale = kLog2e;
   if (STATIC) {
     c_off = -__ldg(p.smax) * kLog2e;
     if (INT8)
@@ -298,7 +302,7 @@ __global__ void __launch_bounds__(Tiling<HD>::THREADS, 1)
   auto open_item = [&](int j) {
     mbar_wait(bar_q + 8 * (2 * w + (j & 1)), (j >> 1) & 1);
     if (lt == 0 && j >= 1 && j + 1 < n_items) issue_q(j + 1);
-    if constexpr (STATIC && HD != 64) {
+    if constexpr (STATIC && !INT8 && HD != 64) {
       // q = bf16(q * scale) in place, 16 bytes a thread at a time (the
       // layout does not matter to an elementwise pass); then made visible
       // to wgmma and waited for by the whole warpgroup
@@ -322,10 +326,15 @@ __global__ void __launch_bounds__(Tiling<HD>::THREADS, 1)
   auto issue_s = [&](float (&sf)[64], int (&si)[64], int j, int s) {
     const uint32_t q_tile = base + OFF_Q + (2 * w + (j & 1)) * Q_SLOT;
     const uint32_t k_tile = base + OFF_K + s * KV_SLOT;
-    if (INT8) {
+    if constexpr (INT8 && HD == 64) {
       const uint64_t da = desc_sw64(q_tile), db = desc_sw64(k_tile);
       wgmma_s8_n128(si, da, db, 0);
       wgmma_s8_n128(si, da + 2, db + 2, 1);  // k-step: 32 bytes
+    } else if constexpr (INT8) {  // k-steps of 32 columns: one 32-byte panel each
+#pragma unroll
+      for (int kk = 0; kk < HD / 32; ++kk)
+        wgmma_s8_n128(si, desc_sw32(q_tile + kk * C::Q_PANEL),
+                      desc_sw32(k_tile + kk * C::KV_PANEL), kk > 0);
     } else if constexpr (HD == 64) {
       const uint64_t da = desc_sw128(q_tile, false), db = desc_sw128(k_tile, false);
 #pragma unroll

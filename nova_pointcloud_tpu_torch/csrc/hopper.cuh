@@ -2,8 +2,8 @@
 // (flash_attention.cu, flash_attention_static.cu, flash_attention_bwd.cu):
 // mbarriers, TMA tensor and bulk copies, shared-memory access by 32-bit
 // address, ldmatrix, named barriers, the f32 kernels' swizzled 64 x 64
-// tile layout, wgmma shared-memory descriptors (128B and 64B swizzle, K-
-// and MN-major; none), wgmma wrappers (bf16 m64n64k16, m64n96k16, m64n128k16
+// tile layout, wgmma shared-memory descriptors (128B, 64B and 32B swizzle,
+// K- and MN-major; none), wgmma wrappers (bf16 m64n64k16, m64n96k16, m64n128k16
 // and m64n8k16, s8 m64n96k32, m64n128k32, m64n192k32 and m64n256k32), setmaxnreg,
 // thread-block clusters (ranks, distributed shared memory, remote mbarrier
 // arrivals) and, on the host, the TMA map encoder reached through
@@ -192,6 +192,17 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
   d |= static_cast<uint64_t>(1) << 16;
   d |= static_cast<uint64_t>(32) << 32;
   d |= static_cast<uint64_t>(2) << 62;
+  return d;
+}
+
+// the same for a K-major 32B-swizzled tile with 32-byte rows (32 int8: a
+// 32-column panel of a 96-wide int8 row, one s8 k-step) and 8-row groups
+// 256 bytes apart
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1) << 16;
+  d |= static_cast<uint64_t>(16) << 32;
+  d |= static_cast<uint64_t>(3) << 62;
   return d;
 }
 
@@ -540,8 +551,9 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // a 4-D map (d, L, H, B) over a (B, H, L, d) view with element strides s
 // (batch, head, row), d = 64 or 96: boxes of 128 bytes of a row in the 128B
-// swizzle (64 bf16, or 32 f32 for the f32 kernels) or of 64 bytes in the
-// 64B swizzle (64 int8, or a 32-column panel of a 96-wide bf16 row), by
+// swizzle (64 bf16, or 32 f32 for the f32 kernels), of 64 bytes in the
+// 64B swizzle (64 int8, or a 32-column panel of a 96-wide bf16 row) or of
+// 32 bytes in the 32B swizzle (a 32-column panel of a 96-wide int8 row), by
 // `box_rows` rows; rows past L read as zeros (within each (b, h)) and are
 // not written
 inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const long* s,
@@ -563,8 +575,9 @@ inline bool bhld_map(CUtensorMap* m, const void* ptr, int B, int H, int L, const
                                                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   return encode(m, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols * elem_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                             : CU_TENSOR_MAP_SWIZZLE_64B,
+                box_cols * elem_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : box_cols * elem_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

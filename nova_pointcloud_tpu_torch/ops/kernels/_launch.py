@@ -23,7 +23,8 @@ LAUNCHES = {"fused_attention_block": 0, "fused_ln_int8_mlp": 0,
             "int8_linear": 0, "flash_attention_bwd_f32": 0,
             "flash_attention_bwd_prep": 0, "flash_attention_bwd_dkvq": 0,
             "flash_attention_bwd_dq_cast": 0, "flash_attention_bwd_dkv": 0,
-            "flash_attention_bwd_dq": 0}
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv_f32": 0,
+            "flash_attention_bwd_dq_f32": 0}
 
 
 class _Route:

@@ -19,8 +19,10 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   the prep kernel, the dkv kernel (dK, dV) and the dq kernel (dQ, written
   in bf16), launched as :func:`bwd96_plan` lays them out; in f32 the prep
   kernel and the one-pass register-tiled SIMT kernel (f32 FFMA; dQ added
-  into the zeroed dq), launched as :func:`bwd_f32_plan` lays it out. For CPU
-  tensors the forward runs
+  into the zeroed dq), launched as :func:`bwd_f32_plan` lays it out, or at
+  head dim 96 the prep kernel, the dkv_f32 kernel (dK, dV) and the dq_f32
+  kernel (dQ, written once), register-tiled SIMT too, launched as
+  :func:`bwd96_f32_plan` lays them out. For CPU tensors the forward runs
   :func:`flash_attention_plain` and the backward
   :func:`flash_attention_bwd_plain`. It never falls back from a kernel to its
   plain version: what a kernel does not take raises.
@@ -29,17 +31,20 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   the plain backward, written as the JAX kernels' math;
   :func:`bwd_prep_plain` and :func:`bwd_dq_cast_plain` are the plain
   versions of the prep and cast kernels, :func:`bwd_plan` the bf16 launch
-  plan, :func:`bwd_f32_plan` the f32 one; :func:`fwd_plan` and
+  plan, :func:`bwd96_plan` the bf16 one at head dim 96, :func:`bwd_f32_plan`
+  and :func:`bwd96_f32_plan` the f32 ones; :func:`fwd_plan` and
   :func:`fwd_f32_plan` the forward's.
 - ``LAUNCHES[name]`` counts each kernel's launches: ``flash_attention``;
   ``flash_attention_bwd_prep``, ``flash_attention_bwd_dkvq``,
   ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_bwd_dkv``,
   ``flash_attention_bwd_dq`` (bf16 at head dim 96, after the prep kernel);
-  ``flash_attention_bwd_f32`` (f32, after the prep kernel).
+  ``flash_attention_bwd_f32`` (f32, after the prep kernel);
+  ``flash_attention_bwd_dkv_f32``, ``flash_attention_bwd_dq_f32`` (f32 at
+  head dim 96, after the prep kernel).
 
 The CUDA kernels take float32 or bfloat16 q, k, v of one dtype with head dim
-64, or bfloat16 at head dim 96 (the NOVA-1.4B ViTs); any other head dim, and
-float32 at 96, raise before any launch (ROADMAP.md, queue 2). Any Lq and Lk,
+64 or 96 (the NOVA-1.4B ViTs); any other head dim raises before any launch
+(ROADMAP.md, queue 2). Any Lq and Lk,
 and the three bias forms of the TPU kernel. Biases are mask constants: their
 gradient is zero, as the JAX VJP declares it.
 
@@ -55,8 +60,8 @@ calibration (the JAX ``flash_attention_static``): the calibrated max logit
 summed into both ``p v`` and the denominator, and the score product is bf16
 or, with the calibrated ``a_q`` / ``a_k``, int8. Its CUDA kernel
 (``csrc/flash_attention_static.cu``: the forward's main loop without the
-running max, bf16 or s8 wgmma for the scores) takes head dim 64, or 96 with
-the bf16 score core, and a key bias or none;
+running max, bf16 or s8 wgmma for the scores) takes head dim 64 or 96 with
+either score core, and a key bias or none;
 :func:`flash_attention_static_plain` is its plain version, and
 ``LAUNCHES["flash_attention_static"]`` counts its launches. Forward only.
 """
@@ -72,8 +77,8 @@ from nova_pointcloud_tpu_torch.ops.kernels._launch import sms as _sms, stream as
 from nova_pointcloud_tpu_torch.ops.quantization import int_dot
 
 NEG_INF = -1e30
-CUDA_HEAD_DIM = 64  # the f32 routes' and the int8 score core's one head dim
-CUDA_BF16_HEAD_DIMS = (64, 96)  # the bf16 forward, backward and static bf16 core's
+CUDA_HEAD_DIMS = (64, 96)  # every kernel's, in f32 and bf16, with either score core
+ONE_PASS_HEAD_DIM = 64  # the one-pass backward kernels' (bf16 dkvq, f32)
 _STILL_TO_PORT = "still to port: ROADMAP.md, queue 2"
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
@@ -89,8 +94,11 @@ FWD_TILING = {64: (3, 4), 96: (2, 3)}
 FWD_WARPGROUPS, FWD_STAGES = FWD_TILING[64]
 FWD_BLOCK_Q = 64 * FWD_WARPGROUPS
 # the f32 forward kernel's (csrc/flash_attention.cu, flash_fwd_f32_kernel):
-# one block of 128 threads a (128-row query tile, batch*head), key tiles of 64
-FWD_F32_BLOCK_Q, FWD_F32_BLOCK_K, FWD_F32_THREADS = 128, 64, 128
+# one block of 128 threads a (query tile, batch*head), key tiles of 64; head
+# dim -> query rows a block (8 a thread at 64, 4 at 96)
+FWD_F32_BLOCK_QS = {64: 128, 96: 64}
+FWD_F32_BLOCK_Q = FWD_F32_BLOCK_QS[64]
+FWD_F32_BLOCK_K, FWD_F32_THREADS = 64, 128
 
 
 def _normalize_bias(bias: Optional[torch.Tensor], b: int, lq: int, lk: int
@@ -177,18 +185,22 @@ def fwd_plan(b: int, h: int, lq: int, lk: int, sms: int, d: int = 64) -> dict:
                 tiles_per_block=-(-items // grid) * key_tiles)
 
 
-def fwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
-    """The launch plan of ``flash_attention``'s f32 route, as
-    ``csrc/flash_attention.cu`` lays out ``flash_fwd_f32_kernel``'s shared
-    memory (the kernel checks the grid and the bytes): q as two 64 x 64 f32
-    tiles, one K and one V tile of 64 keys, P as two tiles, the key tile's
-    64 bias values, two mbarriers, and 1024 bytes to align the swizzled
-    tiles: two blocks an SM. One block a (128-row query tile, batch*head)."""
-    tile = 64 * CUDA_HEAD_DIM * 4
-    q_tiles, key_tiles = -(-lq // FWD_F32_BLOCK_Q), -(-lk // FWD_F32_BLOCK_K)
+def fwd_f32_plan(b: int, h: int, lq: int, lk: int, d: int = 64) -> dict:
+    """The launch plan of ``flash_attention``'s f32 route at head dim ``d``
+    (64 or 96), as ``csrc/flash_attention.cu`` lays out
+    ``flash_fwd_f32_kernel``'s shared memory (the kernel checks the grid and
+    the bytes): q as ``block_q`` / 64 tiles of 64 rows x d f32, one K and one
+    V tile of 64 keys, P as ``block_q`` / 64 tiles of 64 x 64, the key
+    tile's 64 bias values, two mbarriers, and 1024 bytes to align the
+    swizzled tiles: two blocks an SM at either head dim. One block a
+    (``block_q``-row query tile, batch*head): 128 rows at 64, 64 at 96."""
+    block_q = FWD_F32_BLOCK_QS[d]
+    tile, p_tile = 64 * d * 4, 64 * 64 * 4
+    q_tiles, key_tiles = -(-lq // block_q), -(-lk // FWD_F32_BLOCK_K)
     return dict(q_tiles=q_tiles, key_tiles=key_tiles, grid=(b * h * q_tiles,),
-                threads=FWD_F32_THREADS,
-                smem_bytes=6 * tile + FWD_F32_BLOCK_K * 4 + 2 * 8 + 1024,
+                threads=FWD_F32_THREADS, block_q=block_q,
+                smem_bytes=(block_q // 64) * (tile + p_tile) + 2 * tile + FWD_F32_BLOCK_K * 4
+                + 2 * 8 + 1024,
                 last_keys=lk - (key_tiles - 1) * FWD_F32_BLOCK_K)
 
 
@@ -214,7 +226,7 @@ def _checked_plan(b: int, h: int, lq: int, lk: int, dev, f32: bool = False, d: i
     (:func:`fwd_f32_plan` for the f32 route); raises where the kernel's int
     counts of items and key tiles, or of blocks, would overflow."""
     if f32:
-        plan = fwd_f32_plan(b, h, lq, lk)
+        plan = fwd_f32_plan(b, h, lq, lk, d)
         if plan["grid"][0] >= 2 ** 31:
             raise ValueError(f"{plan['grid'][0]} blocks: over the kernel's int range")
         return plan
@@ -225,15 +237,13 @@ def _checked_plan(b: int, h: int, lq: int, lk: int, dev, f32: bool = False, d: i
     return plan
 
 
-def _check_head_dim(d: int, is_bf16: int, what: str) -> None:
+def _check_head_dim(d: int, what: str) -> None:
     """Raise, before any launch, for a head dim the flash kernels do not
-    take: 64, or 96 in bf16."""
-    if d == CUDA_HEAD_DIM or (is_bf16 and d in CUDA_BF16_HEAD_DIMS):
-        return
-    takes = " or ".join(map(str, CUDA_BF16_HEAD_DIMS)) if is_bf16 else str(CUDA_HEAD_DIM)
-    raise NotImplementedError(
-        f"the CUDA {what} takes head dim {takes} in {'bfloat16' if is_bf16 else 'float32'}, "
-        f"got {d}: {_STILL_TO_PORT}")
+    take: 64 and 96, in f32 and bf16."""
+    if d not in CUDA_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the CUDA {what} takes head dim {' or '.join(map(str, CUDA_HEAD_DIMS))}, got {d}: "
+            f"{_STILL_TO_PORT}")
 
 
 def _launch(q, k, v, key_bias, full_bias):
@@ -244,7 +254,7 @@ def _launch(q, k, v, key_bias, full_bias):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     is_bf16 = dtype_flag(q, "q, k, v")
-    _check_head_dim(d, is_bf16, "flash kernel")
+    _check_head_dim(d, "flash kernel")
     if k.shape != (b, h, lk, d) or v.shape != k.shape or k.device != dev or v.device != dev:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"must be (B, H, L, D) on one device")
@@ -293,12 +303,17 @@ BWD_F32_BLOCK_K, BWD_F32_BLOCK_Q, BWD_F32_THREADS = 64, 64, 128
 # shared memory: dkv K, V and two stages of q, do and their lse / delta
 # rows, dq q, do and two stages of K, V; three mbarriers; 1 KB to align
 BWD96_BLOCK, BWD96_STAGES, BWD96_THREADS = 64, 2, 128
+# the head-dim-96 f32 kernels' (dkv_f32, dq_f32): the same blocks and stages,
+# 256 threads (eight warps of register-tiled SIMT products) a block
+BWD96_F32_THREADS = 256
 
 BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkvq",
                "flash_attention_bwd_dq_cast")  # bf16, in launch order
 BWD96_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq")  # bf16 at head dim 96
 BWD_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_f32")
+BWD96_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkv_f32",
+                     "flash_attention_bwd_dq_f32")  # f32 at head dim 96
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -371,15 +386,15 @@ def bwd_plan(b: int, h: int, lq: int, lk: int) -> dict:
     its two warpgroups: K and V of its 64 keys, its query-tile ring (q, do;
     lse and delta rows), its ds hi / lo tiles, two f32 dq buffers, its
     mbarriers; and 1024 bytes to align the swizzled tiles."""
-    tile = 64 * CUDA_HEAD_DIM * 2
+    tile = 64 * ONE_PASS_HEAD_DIM * 2
     rows_at = (4 * tile + 2 * BWD_STAGES * 2 * tile + 4 * tile
-               + 4 * BWD_BLOCK_Q * CUDA_HEAD_DIM * 4)
+               + 4 * BWD_BLOCK_Q * ONE_PASS_HEAD_DIM * 4)
     bars_at = rows_at + 2 * BWD_STAGES * 2 * BWD_BLOCK_Q * 4
     smem = -(-(bars_at + 2 * (BWD_STAGES + 1) * 8) // 16) * 16 + 1024
     lqp = -(-lq // _LQ_PAD) * _LQ_PAD
     key_tiles = -(-lk // BWD_BLOCK_K)
     return dict(lqp=lqp, key_tiles=key_tiles, q_tiles=-(-lq // BWD_BLOCK_Q),
-                grid=(key_tiles, b * h), smem_bytes=smem, workspace=(b * h, lqp, CUDA_HEAD_DIM))
+                grid=(key_tiles, b * h), smem_bytes=smem, workspace=(b * h, lqp, ONE_PASS_HEAD_DIM))
 
 
 def bwd96_plan(b: int, h: int, lq: int, lk: int) -> dict:
@@ -405,19 +420,40 @@ def bwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
     1024 bytes to align the swizzled tiles. ``workspace``: the dq the
     kernel adds into, zeroed, in the (B, L, H, D) layout (no other
     scratch)."""
-    tile = BWD_F32_BLOCK_Q * CUDA_HEAD_DIM * 4
+    tile = BWD_F32_BLOCK_Q * ONE_PASS_HEAD_DIM * 4
     smem = 6 * tile + 2 * BWD_F32_BLOCK_Q * 4 + 2 * 8 + 1024
     key_tiles = -(-lk // BWD_F32_BLOCK_K)
     return dict(lqp=-(-lq // _LQ_PAD) * _LQ_PAD, key_tiles=key_tiles,
                 q_tiles=-(-lq // BWD_F32_BLOCK_Q), grid=(key_tiles, b * h),
-                threads=BWD_F32_THREADS, smem_bytes=smem, workspace=(b, lq, h, CUDA_HEAD_DIM))
+                threads=BWD_F32_THREADS, smem_bytes=smem, workspace=(b, lq, h, ONE_PASS_HEAD_DIM))
+
+
+def bwd96_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
+    """The f32 backward's launch plan at head dim 96, as
+    ``csrc/flash_attention_bwd.cu`` lays out the dkv_f32 and dq_f32 kernels'
+    shared memory (which check it): one block of 256 threads per (64 keys,
+    B*H) for dkv_f32 (K, V, two stages of q, do and their lse / delta rows,
+    P and dS), per (64 queries, B*H) for dq_f32 (q, do, two stages of K, V,
+    dS); 24 KB tiles of 64 x 96 f32, 16 KB of P or dS; three mbarriers; 1 KB
+    to align. No workspace: each kernel writes its outputs once."""
+    tile, s_tile = BWD96_BLOCK * 96 * 4, BWD96_BLOCK * BWD96_BLOCK * 4
+    rows = BWD96_STAGES * 2 * BWD96_BLOCK * 4
+    bars = (BWD96_STAGES + 1) * 8
+    key_tiles, q_tiles = -(-lk // BWD96_BLOCK), -(-lq // BWD96_BLOCK)
+    ring = 2 * tile + BWD96_STAGES * 2 * tile
+    return dict(lqp=-(-lq // _LQ_PAD) * _LQ_PAD, key_tiles=key_tiles, q_tiles=q_tiles,
+                dkv_grid=(key_tiles, b * h), dq_grid=(q_tiles, b * h),
+                threads=BWD96_F32_THREADS,
+                dkv_smem=-(-(ring + 2 * s_tile + rows + bars) // 16) * 16 + 1024,
+                dq_smem=-(-(ring + s_tile + bars) // 16) * 16 + 1024)
 
 
 def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     """Every check of the backward kernels, then their launches in order
     (name, argtypes, ctypes arguments, the tensors behind the pointers) and
     the outputs (dq, dk, dv) they write. bf16: prep, dkvq, cast (head dim
-    96: prep, dkv, dq); f32: prep, the one-pass f32 kernel."""
+    96: prep, dkv, dq); f32: prep, the one-pass f32 kernel (head dim 96:
+    prep, dkv_f32, dq_f32)."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dev = q.device
@@ -425,7 +461,7 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
         raise TypeError(f"q, k, v, o, do must share one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}, {o.dtype}, {do.dtype}")
     is_bf16 = dtype_flag(q, "q, k, v")
-    _check_head_dim(d, is_bf16, "flash backward kernels")
+    _check_head_dim(d, "flash backward kernels")
     hd96 = d == 96
     if (k.shape != (b, h, lk, d) or v.shape != k.shape or o.shape != q.shape
             or do.shape != q.shape or lse.shape != (b, h, lq)
@@ -435,8 +471,8 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
                          f"must be (B, H, L, D) (lse (B, H, Lq)) on one device")
     if lse.dtype != torch.float32:
         raise TypeError(f"lse must be float32, got {lse.dtype}")
-    plan = (bwd96_plan(b, h, lq, lk) if hd96 else bwd_plan(b, h, lq, lk) if is_bf16
-            else bwd_f32_plan(b, h, lq, lk))
+    plan = ((bwd96_plan if is_bf16 else bwd96_f32_plan) if hd96
+            else bwd_plan if is_bf16 else bwd_f32_plan)(b, h, lq, lk)
     if b * h > 65535 or (is_bf16 and b * h * plan["lqp"] >= 2 ** 31):
         raise ValueError(f"B*H = {b * h} over the grid's 65535 rows, or B*H*Lq over the "
                          f"dq workspace map's 2^31 rows")
@@ -447,9 +483,9 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     lse_rows, delta = torch.empty((b * h, lqp), **f32), torch.empty((b * h, lqp), **f32)
     dk, dv = (torch.empty((b, lk, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
               for _ in range(2))
-    # the f32 kernel adds its dq parts into dq itself
-    dq = (torch.empty if is_bf16 else torch.zeros)((b, lq, h, d), dtype=q.dtype,
-                                                   device=dev).transpose(1, 2)
+    # the one-pass f32 kernel adds its dq parts into dq itself
+    dq = (torch.zeros if not is_bf16 and not hd96 else torch.empty)(
+        (b, lq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     if key_bias is not None:
         key_bias = key_bias.to(device=dev, dtype=torch.float32).contiguous()
     if full_bias is not None:
@@ -465,7 +501,17 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
                   ctypes.addressof(prep_s), is_bf16, ptr(lse_rows), ptr(delta), stream],
                  (o, do, lse, lse_rows, delta, prep_s))]
     scale = float(d ** -0.5)
-    if hd96:
+    if hd96 and not is_bf16:
+        all_s = strides(q, k, v, do, dq, dk, dv)
+        args = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp, d,
+                ctypes.addressof(all_s), ptr(key_bias), ptr(full_bias), scale, ptr(dq), ptr(dk),
+                ptr(dv), plan["key_tiles"], plan["q_tiles"]]
+        held = (q, k, v, do, lse_rows, delta, key_bias, full_bias, all_s)
+        launches += [("flash_attention_bwd_dkv_f32", _DKVQ_ARGTYPES,
+                      args + [plan["dkv_smem"], stream], held),
+                     ("flash_attention_bwd_dq_f32", _DKVQ_ARGTYPES,
+                      args + [plan["dq_smem"], stream], held)]
+    elif hd96:
         main_s = strides(q, k, v, do, dk, dv)
         dq_s = strides(q, k, v, do, dq)
         common = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp,
@@ -629,11 +675,7 @@ def _launch_static(q, k, v, smax, kb, a_q, a_k):
     lk = k.shape[2]
     dev = q.device
     int8_core = _int8_core(a_q, a_k)
-    if d != CUDA_HEAD_DIM and (int8_core or d not in CUDA_BF16_HEAD_DIMS):
-        raise NotImplementedError(
-            f"the CUDA static attention kernel takes head dim {CUDA_HEAD_DIM}, or "
-            f"{CUDA_BF16_HEAD_DIMS[1]} with the bf16 score core, got {d}"
-            f"{' with the int8 score core' if int8_core else ''}: {_STILL_TO_PORT}")
+    _check_head_dim(d, "static attention kernel")
     if k.shape != (b, h, lk, d) or v.shape != k.shape or k.device != dev or v.device != dev:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"must be (B, H, L, D) on one device")

@@ -148,14 +148,25 @@ def test_cuda_wrapper_checks_before_launch(monkeypatch):
     """What the CUDA kernel does not take raises before anything is built
     (the kernel route is forced here on CPU tensors, which it never is
     outside this test)."""
+    lib_before = tfa.lib
     monkeypatch.setattr(tfa, "plain_route", lambda x: False)
     x = torch.zeros((1, 2, 8, 64))
-    for d in (32, 96, 128):  # float32: head dim 64 only
-        with pytest.raises(NotImplementedError, match="head dim 64"):
-            tfa.flash_attention(*(torch.zeros((1, 2, 8, d)),) * 3)
-    for d in (32, 80, 128):  # bfloat16: 64 or 96
-        with pytest.raises(NotImplementedError, match="head dim 64 or 96"):
-            tfa.flash_attention(*(torch.zeros((1, 2, 8, d), dtype=torch.bfloat16),) * 3)
+    for dtype in (torch.float32, torch.bfloat16):  # either dtype: 64 or 96
+        for d in (32, 80, 128):
+            with pytest.raises(NotImplementedError, match="head dim 64 or 96"):
+                tfa.flash_attention(*(torch.zeros((1, 2, 8, d), dtype=dtype),) * 3)
+
+    class Launched(Exception):
+        pass
+
+    def launched(name, *a, **kw):
+        raise Launched(name)
+
+    # float32 at head dim 96 passes every check: the launch is reached
+    monkeypatch.setattr(tfa, "lib", launched)
+    with pytest.raises(Launched, match="flash_attention"):
+        tfa.flash_attention(*(torch.zeros((1, 2, 8, 96)),) * 3)
+    monkeypatch.setattr(tfa, "lib", lib_before)
     with pytest.raises(TypeError, match="share one dtype"):
         tfa.flash_attention(x, x.to(torch.bfloat16), x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

@@ -175,7 +175,7 @@ def test_cuda_backward_checks_before_launch(monkeypatch):
     with pytest.raises(TypeError, match="lse must be float32"):
         tfa._launch_bwd(**args(lse_dtype=torch.float64))
     for dtype in (torch.bfloat16, torch.float32):  # the bf16 and f32 argument lists
-        for d in (32, 80, 128) + ((96,) if dtype == torch.float32 else ()):
+        for d in (32, 80, 128):
             with pytest.raises(NotImplementedError, match="head dim 64"):
                 tfa._launch_bwd(**args(d=d, dtype=dtype))
         with pytest.raises(ValueError, match="one device"):
@@ -183,9 +183,11 @@ def test_cuda_backward_checks_before_launch(monkeypatch):
         # every check passed: the first thing reached is the prep kernel's launch
         with pytest.raises(Launched, match="flash_attention_bwd_prep"):
             tfa._launch_bwd(**args(dtype=dtype))
-    # bf16 at head dim 96 (the dkv / dq route) passes its checks too
-    with pytest.raises(Launched, match="flash_attention_bwd_prep"):
-        tfa._launch_bwd(**args(d=96, dtype=torch.bfloat16))
+    # head dim 96 in bf16 (the dkv / dq route) and f32 (the dkv_f32 / dq_f32
+    # route) passes its checks too
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(Launched, match="flash_attention_bwd_prep"):
+            tfa._launch_bwd(**args(d=96, dtype=dtype))
     # the bf16 grid holds B*H <= 65535 rows
     wide = torch.zeros((1, 65536, 1, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="65535"):

@@ -226,17 +226,14 @@ def test_argument_checks_raise_before_any_launch(rec):
     _raises_before_launch(rec, TypeError, lambda: tfa._launch(q, k.float(), v, None, None))
     _raises_before_launch(rec, TypeError, lambda: tfa._launch_static(
         q.half(), k, v, smax, None, None, None))
-    # head dim: 64, or 96 in bf16 (the bf16 route and the static bf16 core);
-    # any other head dim, and the int8 score core at 96, raise
+    # head dim: 64 or 96 (either dtype, either static score core); any
+    # other head dim raises
     for d in (80, 128):
         qd, kd, vd = (_blhd(rng, b, h, n, d) for n in (lq, lk, lk))
         _raises_before_launch(rec, NotImplementedError,
                               lambda: tfa._launch(qd, kd, vd, None, None))
         _raises_before_launch(rec, NotImplementedError,
                               lambda: tfa._launch_static(qd, kd, vd, smax, None, None, None))
-    q96, k96, v96 = (_blhd(rng, b, h, n, 96) for n in (lq, lk, lk))
-    _raises_before_launch(rec, NotImplementedError, lambda: tfa._launch_static(
-        q96, k96, v96, smax, None, torch.tensor(4.5), torch.tensor(4.0)))
     # bias forms: per-head, mismatched, a full bias on the static kernel
     for bias in (torch.zeros((b, h, 1, lk)), torch.zeros((b, 1, 1, lk + 1))):
         _raises_before_launch(rec, ValueError,
@@ -256,14 +253,18 @@ def test_argument_checks_raise_before_any_launch(rec):
     # the f32 route: head dim, shapes, a bias pair, and a grid over the
     # kernel's int range (expanded views: no memory behind them)
     qf, kf, vf = q.float(), k.float(), v.float()
-    _raises_before_launch(rec, NotImplementedError, lambda: tfa._launch(
-        q96.float(), k96.float(), v96.float(), None, None))
     _raises_before_launch(rec, ValueError, lambda: tfa._launch(qf, kf, vf[:, :, :-1], None, None))
     _raises_before_launch(rec, ValueError, lambda: tfa._launch(
         qf, kf, vf, torch.zeros((b, lk)), torch.zeros((lq, lk))))
     big = torch.zeros((1, 1, 1, 64)).expand(2 ** 14, 2 ** 10, 2 ** 14, 64)  # 2^31 blocks
     assert tfa.fwd_f32_plan(*big.shape[:3], big.shape[2])["grid"][0] == 2 ** 31
     _raises_before_launch(rec, ValueError, lambda: tfa._launch(big, big, big, None, None))
+    # at head dim 96 the f32 route and the static int8 score core pass every
+    # check: their launches are reached
+    q96, k96, v96 = (_blhd(rng, b, h, n, 96) for n in (lq, lk, lk))
+    tfa._launch(q96.float(), k96.float(), v96.float(), None, None)
+    tfa._launch_static(q96, k96, v96, smax, None, torch.tensor(4.5), torch.tensor(4.0))
+    assert [c[0] for c in rec.calls] == ["flash_attention", "flash_attention_static"]
 
 
 def test_unaligned_views_are_copied_before_the_launch(rec):

@@ -46,7 +46,8 @@ KERNEL_NAMES = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_mat
                 "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
                 "flash_attention_bwd_f32", "flash_attention_bwd_prep",
                 "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast",
-                "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+                "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
 
 
 def _port_sources():

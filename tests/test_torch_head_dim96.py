@@ -219,7 +219,8 @@ def test_backward_plan_at_head_dim_96(shape):
 
 def test_head_dim_96_launch_sequence(monkeypatch):
     """bf16 at d = 96 launches prep, dkv, dq (no workspace, no cast), each
-    with its plan's grid and bytes; f32 at 96 and d = 80 raise first."""
+    with its plan's grid and bytes; f32 at 96 prep, dkv_f32, dq_f32; d = 80
+    raises first."""
     calls = []
     monkeypatch.setattr(tfa, "lib", lambda name, argtypes, library=None: (name, argtypes))
     monkeypatch.setattr(tfa, "run", lambda so, fn, args: calls.append((so, len(fn), args)))
@@ -237,14 +238,15 @@ def test_head_dim_96_launch_sequence(monkeypatch):
                                                                           dv.data_ptr()]
     assert dq.shape == (b, h, lq, D) and dq.transpose(1, 2).is_contiguous()
     assert [LAUNCHES[n] for n in tfa.BWD96_KERNELS] == [1, 1, 1]
-    with pytest.raises(NotImplementedError, match="head dim 64 in float32"):
-        tfa._launch_bwd(q.float(), kv.float(), kv.float(), None, None, q.float(),
-                        torch.zeros((b, h, lq)), q.float())
+    # f32 at head dim 96 reaches its own kernels (prep, dkv_f32, dq_f32)
+    tfa._launch_bwd(q.float(), kv.float(), kv.float(), None, None, q.float(),
+                    torch.zeros((b, h, lq)), q.float())
+    assert [c[0] for c in calls[3:]] == list(tfa.BWD96_F32_KERNELS)
     x80 = torch.zeros((1, 2, 8, 80), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfa._launch_bwd(x80, x80, x80, None, None, x80, torch.zeros((1, 2, 8)), x80)
-    assert len(calls) == 3
-    for n in tfa.BWD96_KERNELS:
+    assert len(calls) == 6
+    for n in tfa.BWD96_KERNELS + tfa.BWD96_F32_KERNELS:
         LAUNCHES[n] = 0
 
 

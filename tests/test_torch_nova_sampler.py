@@ -33,11 +33,13 @@ def _replay_apply(jm, variables, jit=False):
     """A replay's call of a JAX model method. With ``jit``, the two calls a
     replay repeats every AR step, the encoder pass (its visible bucket
     static) and the head eval, run jitted, compiled once a shape (an eager
-    flax apply dispatches op by op). For the f32 replays only: jitted, an
-    f32 replay's latents move by at most ~1e-5 (measured 9e-6 on the video
-    sampler), its distance from the port stays ~2e-6 against the 5e-5 gate;
-    the bf16 and int8 replays stay eager (jit drops bf16 round trips, and
-    moves the int8 trajectory by about its gate)."""
+    flax apply dispatches op by op). For the f32 and int8 replays: jitted,
+    an f32 replay's latents move by at most ~1e-5 (measured 9e-6 on the
+    video sampler), its distance from the port stays ~2e-6 against the 5e-5
+    gate; the int8 replays' distance from the port stays well inside their
+    gates (measured on the CPU: t2i 0.0218 against 0.0881, eager 0.0335;
+    t2v 1.10e-6 against 0.148, eager the same). The bf16 replays stay eager
+    (jit drops bf16 round trips)."""
     jitted = {}
     if jit:
         jitted = {
@@ -57,7 +59,7 @@ def _replay_apply(jm, variables, jit=False):
 def _jax_sample(jm, variables, c_text, order, noise, steps, diff_steps, guidance, jit=False):
     """The JAX sampler's T=1 algorithm (pipelines/nova.py _make_sampler)
     through the JAX model's public methods, with given order and noise
-    (``jit``: _replay_apply's, f32 replays only)."""
+    (``jit``: _replay_apply's, f32 and int8 replays)."""
     apply = _replay_apply(jm, variables, jit)
     sched = jfm.FlowMatchEulerScheduler().set_timesteps(diff_steps)
     ni, pd = jm.num_image_tokens, jm.patch_size ** 2 * jm.image_dim
@@ -227,7 +229,7 @@ def test_int8_sampler_matches_jax_replay():
     qp = jquant.merge_act_scales(jquant.quantize_serving_params(params), jstats, margin=1.05)
     with _tpu_backend(), pltpu.force_tpu_interpret_mode():
         ref = _jax_sample(jm, {"params": params, "qparams": qp}, c, order, noise, STEPS, DIFF,
-                          jguid.GuidanceConfig(guidance_scale=5.0))
+                          jguid.GuidanceConfig(guidance_scale=5.0), jit=True)
     pipe.act_scales = convert_tree(jstats)
 
     def sample(n):

@@ -111,7 +111,7 @@ def _jax_prompt(jm, v, text, guidance, motion_flow=5.0):
 def _jax_video(jm, v, text, order, noise, step_noise, guidance, scheduler, frames=FRAMES,
                latents=None, jit=False):
     """The JAX sampler's frame loop (T > 1) through the model's methods
-    (``jit``: _replay_apply's, f32 replays only)."""
+    (``jit``: _replay_apply's, f32 and int8 replays)."""
     apply = _replay_apply(jm, v, jit)
     c = _jax_prompt(jm, v, text, guidance)
     nb, text_len = c.shape[:2]
@@ -337,7 +337,7 @@ def test_int8_video_sampler_and_calibration_match_jax_replay():
     g = jguid.GuidanceConfig(guidance_scale=5.0)
     with _tpu_backend(), pltpu.force_tpu_interpret_mode():
         ref = _jax_video(jm, {"params": params, "qparams": qp}, text, order, noise, step_noise,
-                         g, jfm.FlowMatchEulerScheduler(), frames=2)
+                         g, jfm.FlowMatchEulerScheduler(), frames=2, jit=True)
     pipe.act_scales = convert_tree(jstats)
     got = _port_call(pipe, text, order, noise, step_noise, dict(guidance_scale=5.0), frames=2)
     floor = max(np.abs(_port_call(pipe, text, order, noise + 1e-6 * rng.standard_normal(
