@@ -21,6 +21,17 @@ step of a query tile (the groups' steps differ only in dV against dK),
 printed per tile per warp for each group; and
 copies with other unroll factors of the products' loops, timed in turns
 against the source as built (as built, the copy, the copy, as built).
+
+``python3 chip_bwd_probe.py hd96`` probes the head-dim-96 one-pass kernels
+at (2, 16, 5120, 96), bf16 (``flash_bwd_dkvq96_kernel``) and f32
+(``flash_bwd_f32_96_kernel``): each kernel's time beside the port's whole
+backward through autograd and SDPA's; the cost of the ordered dQ sum, as
+the kernel's time against a copy whose turn waits are skipped (the sums
+then run in no fixed order), in turns (as built, the copy, the copy, as
+built); and a probed copy's cycles per query tile of each step of the loop
+(bf16: per warp of each warpgroup, and thread 0's turn waits and turn
+passes per tile; f32: per warp, warp 0, which waits for the turns and
+issues the adds, apart from the other seven).
 """
 
 import ctypes
@@ -218,9 +229,184 @@ def f32_main(res) -> None:
           f"{res['sdpa_f32_bwd_ms']:.3f} ms")
 
 
+# the steps of the head-dim-96 kernels' loops: (name, the line the probe
+# goes before; after it for "+"); the last step runs to the loop's end
+HD96_STEPS = [("wait for the tile's copies", "+    mbar_wait(full + 8 * s, (qt / STAGES) & 1);"),
+              ("S^T and dP^T issued, wait for S^T", "+    fence_regs(st);"),
+              ("p (exp2), P^T packed", "    // dV += P^T dO: A = P^T from registers"),
+              ("dV issued, wait for dP^T and dV", "+    fence_regs(pa);"),
+              ("dS, hi / lo to shared memory", "    // dK += dS^T Q (hi alone), B = Q MN-major"),
+              ("dK issued, the warpgroup's barrier", "+    named_sync(1 + c, 128);"),
+              ("dQ issued, dK and dQ waited for", "+    fence_regs(hi);"),
+              ("dQ parts summed, refill, turn wait, adds", None)]
+F32_96_STEPS = [("wait for the tile's copies", "+    mbar_wait(bar_full + 8 * s, (qt / STAGES) & 1);"),
+                ("S^T and dP^T products", "+    f32_pair_products<HD / 4>(st, dp,"),
+                ("the last tile's turn passed on", "+    if (tid == 0 && qt > 0) pass_turn("),
+                ("P and dS to shared memory, barrier", "+    __syncthreads();  // P and dS are written"),
+                ("dV (warps 0-3) / dK (4-7) product", "+    f32_cols_product<1, 3>(acc,"),
+                ("dQ product", "+    f32_dq96_product(dq, ds_s, k_s, tq, td);"),
+                ("barrier, refill, dq part staged, barrier", "+    __syncthreads();      // the dQ part is staged"),
+                ("the turn's wait, the adds issued", None)]
+HD96_SHAPE = (2, 16, 5120, 96)
+TURN_WAIT = "  while (ld_acquire_gpu(turn) != mine) {"
+
+
+def _probed_hd96_source(dst: Path) -> None:
+    """A copy of csrc/ with clock64 probes in both head-dim-96 kernels'
+    loops: nova_bwd_probe[0..7] / [8..15] dkvq96's steps in warpgroup 0 / 1
+    (lane 0 of each warp), [16] / [17] its thread 0's turn waits and turn
+    passes (the adds' completion, the release); [24..31] f32_96's steps in
+    warp 0, [32..39] in the other warps."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(cs._build.CSRC, dst)
+    src = dst / "flash_attention_bwd.cu"
+    lines = src.read_text().split("\n")
+    probes = {}
+
+    def loop_probes(kernel, loop_text, end_text, steps, sums):
+        start = next(i for i, x in enumerate(lines) if x.startswith(f"    {kernel}("))
+        loop = lines.index(loop_text, start)
+        end = next(i for i in range(loop, len(lines)) if lines[i].startswith(end_text))
+        probes.setdefault(loop, []).append(
+            "  unsigned long long probe_t = clock64(), probe_acc[8] = {};")
+        for n, (_, anchor) in enumerate(steps[:-1]):
+            i = next(i for i in range(loop, end) if lines[i].startswith(anchor.lstrip("+")))
+            probes.setdefault(i + anchor.startswith("+"), []).append(f"    PROBE({n})")
+        first = next(i for i in range(loop, end)
+                     if lines[i].startswith(steps[0][1].lstrip("+")))
+        probes.setdefault(first, []).insert(0, "    PROBE(7)")  # the previous tile's tail
+        probes.setdefault(end, []).extend(["  PROBE(7)", *sums])
+        return start
+
+    start = loop_probes("flash_bwd_dkvq96_kernel", "  for (int qt = 0; qt < nq; ++qt) {",
+                        "  // thread 0 passes on the turns of the adds issued so far", HD96_STEPS,
+                        ["  if (lane == 0)",
+                         "    for (int n = 0; n < 8; ++n) atomicAdd(&nova_bwd_probe[8 * c + n], "
+                         "probe_acc[n]);"])
+    # thread 0's turn waits, and its passes of the turns (the adds'
+    # completion and the release)
+    w = lines.index("    wait_turn(turns + m, kt);", start)
+    probes.setdefault(w, []).append("    unsigned long long probe_w = clock64();")
+    probes.setdefault(w + 1, []).append(
+        "    atomicAdd(&nova_bwd_probe[16], clock64() - probe_w);")
+    w = lines.index("      pass_turn(turns + qt - 2, kt);", start)
+    lines[w] = ("      { unsigned long long probe_w = clock64(); pass_turn(turns + qt - 2, kt); "
+                "atomicAdd(&nova_bwd_probe[17], clock64() - probe_w); }")
+    loop_probes("flash_bwd_f32_96_kernel", "  for (int qt = 0; qt < nq; ++qt) {",
+                "  if (tid == 0) pass_turn(turns + nq - 1, kt);", F32_96_STEPS,
+                ["  if (lane == 0)",
+                 "    for (int n = 0; n < 8; ++n) atomicAdd(&nova_bwd_probe[(warp ? 32 : 24) + n], "
+                 "probe_acc[n]);"])
+    out = []
+    for i, line in enumerate(lines):
+        out += probes.get(i, [])
+        out.append(line)
+    text = "\n".join(out).replace("namespace nova {", (
+        "__device__ unsigned long long nova_bwd_probe[40];\n"
+        "#define PROBE(n) { const unsigned long long c_ = clock64(); "
+        "probe_acc[n] += c_ - probe_t; probe_t = c_; }\n"
+        "namespace nova {"), 1)
+    text += ('\nextern "C" int nova_bwd_probe_read(unsigned long long* out, int reset) {\n'
+             "  unsigned long long zero[40] = {};\n"
+             "  if (reset) return cudaMemcpyToSymbol(nova_bwd_probe, zero, sizeof(zero));\n"
+             "  return cudaMemcpyFromSymbol(out, nova_bwd_probe, sizeof(zero));\n}\n")
+    src.write_text(text)
+
+
+def hd96_main(res) -> None:
+    fa, build = cs.fa, cs._build
+    build.build_all(["flash_attention", "flash_attention_bwd"])
+    probe_dir = Path(build.BUILD_DIR).parent / "bwd_probe_hd96"
+    no_wait = _edited_source(probe_dir / "no_turn_wait",
+                             [("flash_attention_bwd.cu", TURN_WAIT, "  while (false) {", 1)])
+    _probed_hd96_source(probe_dir / "probed")
+    built = build._loaded.get("flash_attention_bwd") or build.load("flash_attention_bwd")
+    copy_lib, probed = _load_copy(build, no_wait), _load_copy(build, probe_dir / "probed")
+    read = probed.nova_bwd_probe_read
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, h, L, d = HD96_SHAPE
+    for dt, name, iters in ((torch.bfloat16, "flash_attention_bwd_dkvq96", 20),
+                            (torch.float32, "flash_attention_bwd_f32_96", 3)):
+        tag = str(dt)[6:]
+        q, k, v = cs._flash_operands(gen, b, h, L, L, d, dt)
+        o, lse = fa.flash_attention_with_lse(q, k, v)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o_lib = torch.nn.functional.scaled_dot_product_attention(*ins)
+        res[f"{tag} sdpa_bwd_ms"] = cs.sync_ms(
+            lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), iters)
+        o_port = fa.flash_attention(*ins)
+        res[f"{tag} autograd_bwd_ms"] = cs.sync_ms(
+            lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), iters)
+        del o_lib, o_port
+        launches = []
+
+        def fresh():
+            # new launches and the prep kernel's rows (the entry points zero
+            # the counters in every launch)
+            launches[:] = fa._bwd_operands(q, k, v, None, None, o, lse, do)[0]
+            fa.run_bwd(launches, ("flash_attention_bwd_prep",))
+
+        call = lambda: fa.run_bwd(launches, (name,))  # noqa: E731
+        t = {"as built": 0.0, "turn wait skipped": 0.0}
+        for turn in ("as built", "turn wait skipped", "turn wait skipped", "as built"):
+            build._loaded["flash_attention_bwd"] = built if turn == "as built" else copy_lib
+            fresh()
+            t[turn] += cs.sync_ms(call, iters) / 2
+        build._loaded["flash_attention_bwd"] = probed
+        fresh()
+        res[f"{tag} probed_ms"] = cs.sync_ms(call, iters)
+        counts = (ctypes.c_ulonglong * 40)()
+        fresh()
+        torch.cuda.synchronize()
+        read(None, 1)
+        call()
+        torch.cuda.synchronize()
+        read(ctypes.addressof(counts), 0)
+        build._loaded["flash_attention_bwd"] = built
+        res[f"{tag} ms"] = t
+        plan = (fa.bwd96_plan if dt == torch.bfloat16 else fa.bwd96_f32_plan)(b, h, L, L)
+        tiles = plan["grid"][0] * plan["q_tiles"]  # blocks x query tiles
+        print(f"  {name} {HD96_SHAPE} {tag}: {t['as built']:.3f} ms as built, "
+              f"{t['turn wait skipped']:.3f} ms with the turn waits skipped "
+              f"({t['as built'] / t['turn wait skipped'] - 1:+.1%}); probed "
+              f"{res[f'{tag} probed_ms']:.3f} ms; through autograd "
+              f"{res[f'{tag} autograd_bwd_ms']:.3f} ms, SDPA {res[f'{tag} sdpa_bwd_ms']:.3f} ms")
+        if dt == torch.bfloat16:
+            groups = [(f"warpgroup {w}", {step: counts[8 * w + n] / (4 * tiles)
+                                          for n, (step, _) in enumerate(HD96_STEPS)})
+                      for w in (0, 1)]
+            res["bf16 thread 0 cycles_per_tile"] = {"turn wait": counts[16] / tiles,
+                                                    "turn passed": counts[17] / tiles}
+            print(f"    thread 0 per tile: turn wait {counts[16] / tiles:.1f}, the turn passed "
+                  f"(adds completed, released) {counts[17] / tiles:.1f} cycles")
+        else:
+            groups = [(label, {step: counts[base + n] / (warps * tiles)
+                               for n, (step, _) in enumerate(F32_96_STEPS)})
+                      for label, base, warps in (("warp 0", 24, 1), ("warps 1-7", 32, 7))]
+        for label, per in groups:
+            res[f"{tag} cycles_per_tile_per_warp {label}"] = per
+        for label, per in groups:
+            print(f"    {label} ({sum(per.values()):.1f} cycles per tile):")
+            for step, cyc in per.items():
+                print(f"      {step:<42} {cyc:8.1f}")
+        del q, k, v, o, lse, do, ins, launches
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         cs._fail("CUDA is not available: this script runs on the GPU only", 2)
+    if sys.argv[1:] == ["hd96"]:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+        res = {"card": smi, "shape": list(HD96_SHAPE)}
+        hd96_main(res)
+        print(f"card: {smi}")
+        print("PROBE " + json.dumps(res))
+        return
     if sys.argv[1:] == ["f32"]:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,

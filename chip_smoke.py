@@ -392,9 +392,9 @@ together is printed beside its budget of 120 s):
 
 Head dim 96 (the *w1536 models: flash_attention's bf16 forward and
 backward and flash_attention_static's bf16 core at head dim 96, the
-backward as two new kernels, flash_attention_bwd_dkv and
-flash_attention_bwd_dq) adds to 3c-3e and, after 4q, three phases (the
-additions' time together is printed beside its budget of 180 s):
+backward as one pass, flash_attention_bwd_dkvq96, between the prep and
+cast kernels) adds to 3c-3e and, after 4q, three phases (the additions'
+time together is printed beside its budget of 180 s):
 
 3c. the forward at (2, 16, 5120, 96) and (2, 16, 1280, 96) with no bias, a
     key bias and a full bias, at Lq 1000 / Lk 1531 with a key bias and a
@@ -407,13 +407,16 @@ additions' time together is printed beside its budget of 180 s):
     diffusion block at 2 column groups a block) and int8_linear at K =
     1536, against their plain versions; the static kernel timed at (2, 16,
     5120, 96);
-3e. the hd-96 backward (prep, dkv, dq) at the 1.4B training step's
+3e. the hd-96 backward (prep, dkvq96, cast) at the 1.4B training step's
     attentions (5120 keys; 1024 + 1229 with a visibility bias and a fully
     masked sample; 32 + 1024), a full bias and a ragged Lq != Lk, against
-    the plain backward; prep exactly its plain version; dq, dk and dv of
-    two runs bitwise equal; each kernel timed at (2, 16, 5120, 96) beside
-    the plain backward, SDPA's backward and the bounds; the two kernels'
-    ptxas / SASS (wgmma, TMA, no spill) as gates;
+    the plain backward; prep and cast exactly their plain versions; dq, dk
+    and dv of two runs bitwise equal (the dQ sums take a fixed order); a
+    backward at (1, 16, 32768, 96), more key tiles than the card holds
+    blocks, finishing within its own time limit, finite and repeatable;
+    each kernel timed at (2, 16, 5120, 96) by events and from a graph
+    beside the plain backward, SDPA's backward and the bounds; dkvq96's
+    ptxas / SASS (wgmma, TMA loads and reduce-adds, no spill) as gates;
 4r. the released NOVA-1.4B 1024px config (nova_d48w1536_sdxl1024.yaml)
     through from_pretrained over a reference directory written as 4p's:
     the weights loaded bitwise those written, load time and rate; one
@@ -426,8 +429,8 @@ additions' time together is printed beside its budget of 180 s):
     4d's one-step check against plain;
 4t. bench.py --mode train --train-arch t2i-1.4b's step (batch 2, f32
     master, bf16 compute, remat, AdamW 1e-4 / 0.02 / 0.9, 0.95): exactly
-    the derived launches (48 layers: 96 forward, 48 each of prep, dkv and
-    dq), every backward call of a step against the plain backward on its
+    the derived launches (48 layers: 96 forward, 48 each of prep, dkvq96
+    and cast), every backward call of a step against the plain backward on its
     own tensors (the gate), the step's gradients against the plain core
     as a reading, p50 of 3 timed steps, samples/s, peak memory.
 
@@ -463,8 +466,8 @@ The sum of 3h, 4u, 4v and 5i is printed (budget 90 s). 5i also times row
 x 1024 -> 4096) beside its bound and torch._int_mm's two products.
 
 Head dim 96 in the f32 routes of flash_attention (the forward
-flash_fwd_f32_kernel<96>: 64 query rows a block; the backward as two new
-kernels, flash_attention_bwd_dkv_f32 and flash_attention_bwd_dq_f32) and
+flash_fwd_f32_kernel<96>: 64 query rows a block; the backward
+as one pass, flash_attention_bwd_f32_96, after the prep kernel) and
 in flash_attention_static's int8 score core (96-byte code rows as three
 32-byte panels in the 32B swizzle, three s8 k-steps) adds to 3c-3e and,
 after 4t, three phases (their time and the 3c-3e additions' together is
@@ -484,13 +487,13 @@ printed beside its budget of 150 s):
     B H L^2 d int8 operations at 1979 TOP/s plus p v's at 989 TFLOP/s; no
     library call computes it); 5c gates its two instances (IGMMA, HGMMA,
     UTMALDG, no spill);
-3e. the f32 backward at head dim 96 (prep, dkv_f32, dq_f32) at the 1.4B
-    shapes in every bias form (a fully masked sample's gradients exactly
-    0), prep exactly its plain version, dq, dk and dv of two runs bitwise
-    equal; each kernel timed at (2, 16, 5120, 96) beside the plain
-    backward, SDPA's f32 backward and the bounds (8 and 6 B H L^2 d; 10
-    for the whole); the two kernels' ptxas / SASS gated (no spill,
-    UTMALDG, no tensor-core instruction);
+3e. the f32 backward at head dim 96 (prep, f32_96) at the 1.4B shapes in
+    every bias form (a fully masked sample's gradients exactly 0), prep
+    exactly its plain version, dq, dk and dv of two runs bitwise equal, the
+    many-tile case at (1, 16, 32768, 96); each kernel timed at (2, 16,
+    5120, 96) by events and from a graph beside the plain backward, SDPA's
+    f32 backward and the bounds (10 B H L^2 d); f32_96's ptxas / SASS gated
+    (no spill, UTMALDG and UTMAREDG, no tensor-core instruction);
 4w. 4r's directory through from_pretrained(dir) at its default dtype,
     float32: the weights exactly the written bf16 values upcast; one
     prompt at W_AR AR x 25 steps, CFG 5.0, latent output: flash_attention
@@ -498,8 +501,8 @@ printed beside its budget of 150 s):
     96; the wall time and peak; one encoder pass and one head eval
     against plain at the f32 tolerance (2 x floor + 1e-5);
 4x. the t2i-1.4b step in f32 compute, loss and gradients at batch 2 (no
-    optimizer step): 96 flash_attention, 48 each of prep, dkv_f32 and
-    dq_f32; the gradient within 2 x floor + 1e-6 of the f32 plain step;
+    optimizer step): 96 flash_attention, 48 each of prep and f32_96; the
+    gradient within 2 x floor + 1e-6 of the f32 plain step;
     its time and peak;
 4y. 4s's weights with attn_core="int8", calibrated as 4s, one call at 64
     AR x 25 steps: rows 8 / 5 / 6 / int8_linear exactly 2064 / 2064 / 9600
@@ -766,13 +769,11 @@ KERNELS = ("fused_attention_block", "fused_ln_int8_mlp", "fused_ln_int8_matmul",
            "fused_int8_diffusion_block", "flash_attention_static", "int8_linear",
            "flash_attention_bwd_f32", "flash_attention_bwd_prep",
            "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
+           "flash_attention_bwd_dkvq96", "flash_attention_bwd_f32_96")
 SOURCES = {n: f"nova_pointcloud_tpu_torch/csrc/{n}.cu" for n in KERNELS}
 BWD_SOURCE_KERNELS = ("flash_attention_bwd_f32", "flash_attention_bwd_prep",
                       "flash_attention_bwd_dkvq", "flash_attention_bwd_dq_cast",
-                      "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-                      "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
+                      "flash_attention_bwd_dkvq96", "flash_attention_bwd_f32_96")
 SOURCES.update(dict.fromkeys(BWD_SOURCE_KERNELS,
                              "nova_pointcloud_tpu_torch/csrc/flash_attention_bwd.cu"))
 REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block.py:412",
@@ -795,12 +796,12 @@ REPLACES = {"fused_attention_block": "nova_pointcloud_tpu/ops/pallas/fused_block
             # the dQ kernel's output
             "flash_attention_bwd_dq_cast":
                 "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346",
-            # head dim 96: the dK/dV kernel and the dQ kernel, split as on the TPU
-            "flash_attention_bwd_dkv": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
-            "flash_attention_bwd_dq": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346",
-            # the same split in f32 at head dim 96
-            "flash_attention_bwd_dkv_f32": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
-            "flash_attention_bwd_dq_f32": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:346"}
+            # head dim 96: the dK/dV kernel and the dQ kernel's products in
+            # one pass, the dQ sums in a fixed order (bf16; its output in the
+            # cast kernel)
+            "flash_attention_bwd_dkvq96": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297",
+            # the same one pass in f32 at head dim 96
+            "flash_attention_bwd_f32_96": "nova_pointcloud_tpu/ops/pallas/flash_attention.py:297"}
 OUT_DIR = "build"
 PC_TRAIN_DIR = os.path.join(OUT_DIR, "pc_train")  # checkpoints of phase 4g, removed after it
 AR_TRAIN_DIR = os.path.join(OUT_DIR, "pc_ar")  # phase 4j's stats and results, removed after it
@@ -1844,14 +1845,12 @@ def t2i_float(pipe_int8):
     return pipe
 
 
-def _bwd_kernel(dt, d=64, grad="dk"):
+def _bwd_kernel(dt, d=64):
     """The kernel a gradient of the backward is held against: the bf16 or
-    the f32 route's one-pass kernel; at head dim 96 the dq kernel for dq,
-    else the dkv kernel (bf16, or their f32 twins)."""
-    if d == XL_HD:
-        name = "flash_attention_bwd_dq" if grad == "dq" else "flash_attention_bwd_dkv"
-        return name if dt == torch.bfloat16 else name + "_f32"
-    return "flash_attention_bwd_dkvq" if dt == torch.bfloat16 else "flash_attention_bwd_f32"
+    the f32 route's one-pass kernel at head dim 64 or 96."""
+    name = "flash_attention_bwd_dkvq" if dt == torch.bfloat16 else "flash_attention_bwd_f32"
+    return name + "96" if d == XL_HD and dt == torch.bfloat16 else (
+        name + "_96" if d == XL_HD else name)
 
 
 def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
@@ -1868,7 +1867,7 @@ def _bwd_check(label, q, k, v, bias, dt, gen, dead=None):
     rel = (2.0 ** -6, 2.0 ** -8) if dt == torch.bfloat16 else (1e-4, 1e-5)
     ok = True
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-        ok = _tol_check(_bwd_kernel(dt, q.shape[-1], name), f"{name} {label}", g, r, *rel,
+        ok = _tol_check(_bwd_kernel(dt, q.shape[-1]), f"{name} {label}", g, r, *rel,
                         like=r) and ok
         if dead is not None:
             zero = bool((g[dead] == 0).all())
@@ -2051,7 +2050,7 @@ def _checked_step_grads(pipe, batch, draws, expected_calls):
         ref = fa.flash_attention_bwd_plain(*args)
         ok, worst = True, []
         for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-            ok = _tol_check(_bwd_kernel(g.dtype, g.shape[-1], name),
+            ok = _tol_check(_bwd_kernel(g.dtype, g.shape[-1]),
                             f"{name} of the step's backward call {len(calls) + 1} (do strides "
                             f"{tuple(args[-1].stride())})", g, r, 2.0 ** -6, 2.0 ** -8, like=r,
                             quiet=True) and ok
@@ -4232,19 +4231,105 @@ def _hd96_int8_checks(gen):
     return bad
 
 
+# more key tiles than the card holds blocks at once (one block an SM): the
+# head-dim-96 backward's ordered dQ sum must never deadlock
+MANY_TILES_SHAPE, MANY_TILES_LIMIT_S = (1, 16, 32768, 96), 120.0
+
+
+def _prepared_graph_ms(prepare, names, n=5, reps=3):
+    """Mean ms of the named backward kernels' launches from a CUDA graph of
+    ``n`` rounds captured once on a side stream, the launches prepared on
+    that stream by ``prepare()`` (a prepared launch holds the stream it was
+    prepared on; the head-dim-96 kernels' entry points zero their counters
+    in each launch, so replays run as the first launch does). Every kernel
+    runs once first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launches = prepare()
+        fa.run_bwd(launches)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fa.run_bwd(launches, names)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph, launches
+    return start.elapsed_time(end) / (reps * n)
+
+
+def _many_tiles_check(dt, gen):
+    """(3e) The head-dim-96 backward at MANY_TILES_SHAPE, more key tiles than
+    the card holds blocks (256 bf16 / 512 f32 key tiles x 16 heads): two
+    runs finish within MANY_TILES_LIMIT_S (a deadlocked turn would trap
+    first), finite, dq, dk and dv bitwise equal. Not held against the plain
+    backward, whose (L, L) scores would take 68 GB. True when it passes."""
+    b, h, L, d = MANY_TILES_SHAPE
+    q, k, v = _flash_operands(gen, b, h, L, L, d, dt)
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    t0 = time.perf_counter()
+    o = fa.flash_attention(*ins)
+    do = torch.randn(o.shape, generator=gen, device=DEV).to(dt)
+    g1 = torch.autograd.grad(o, ins, do, retain_graph=True)
+    g2 = torch.autograd.grad(o, ins, do)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(g).all()) for g in g1)
+    same = all(torch.equal(x, y) for x, y in zip(g1, g2))
+    tag = str(dt)[6:]
+    print(f"  many key tiles, {tag} {MANY_TILES_SHAPE}: the forward and two backward runs in "
+          f"{secs:.2f} s (limit {MANY_TILES_LIMIT_S:.0f} s), finite {finite}, dq, dk and dv "
+          f"bitwise equal {same}")
+    report.setdefault("bwd_many_tiles", {})[tag] = dict(seconds=secs, finite=finite, equal=same)
+    del q, k, v, ins, o, do, g1, g2
+    torch.cuda.empty_cache()
+    return secs <= MANY_TILES_LIMIT_S and finite and same
+
+
+def _bwd96_ptxas_gate(kernel, f32):
+    """The ptxas report and SASS counts of both instances (no bias / key
+    bias, full bias) of a head-dim-96 backward kernel, printed; the failing
+    labels: a spill, no TMA load (UTMALDG) or reduce-add (UTMAREDG); bf16
+    not on wgmma (HGMMA) or with mma.sync, f32 with any tensor-core
+    instruction."""
+    sass, out, bad = _sass_ops("flash_attention_bwd"), {}, []
+    for fbias in (0, 1):
+        mangled = f"{kernel}ILb{fbias}E"
+        _, spills, _ = _ptxas_numbers(mangled, "flash_attention_bwd")
+        ops = next((c for fn, c in sass.items() if mangled in fn), None)
+        out[mangled] = (f"{_ptxas_report(mangled)}; SASS "
+                        + ", ".join(f"{op} {n}" for op, n in (ops or {}).items()))
+        print(f"  flash_attention_bwd ptxas ({mangled}): {out[mangled]}")
+        cores = (not any(ops[op] for op in TENSOR_CORE_OPS) if f32
+                 else ops["HGMMA"] and ops["HMMA"] == ops["IMMA"] == 0) if ops else False
+        if not (ops and cores and ops["UTMALDG"] and ops["UTMAREDG"] and spills == 0):
+            bad.append(f"hd 96 {mangled}: a spill, no TMA load or reduce-add, or the wrong "
+                       f"tensor-core instructions")
+    return out, bad
+
+
 @_hd96_timed
 def _hd96_backward_checks(gen):
-    """(3e) The head-dim-96 bf16 backward (prep, dkv, dq) against the plain
-    backward on the kernels' own forward output and lse, at 3e's bf16
+    """(3e) The head-dim-96 bf16 backward (prep, dkvq96, cast) against the
+    plain backward on the kernels' own forward output and lse, at 3e's bf16
     tolerance: the 1.4B training step's attentions (XL_TRAIN_KEYS: no bias,
     the encoder half's visibility bias with a fully masked sample, whose
     gradients must be exactly 0), a full bias at 1280 and Lq != Lk off the
-    tiles with a key bias; the prep kernel exactly its plain version; two
-    runs bitwise equal in dq, dk and dv (the route has no atomics). Then
-    each kernel timed at (2, 16, 5120, 96) (events and a graph) beside the
-    whole plain backward, SDPA's backward (from a graph built once) and the
-    bounds, and the two kernels' ptxas / SASS (wgmma and TMA, no spill) as
-    gates. Returns the failing labels."""
+    tiles with a key bias; the prep kernel exactly its plain version, the
+    cast exactly its plain version on the dkvq96 kernel's own workspace; two
+    runs bitwise equal in dq, dk and dv (the dQ sums take a fixed order);
+    the many-tile case. Then each kernel timed at (2, 16, 5120, 96) by
+    events and from a graph beside the whole plain backward, SDPA's
+    backward (from an autograd graph built once) and the bounds, and the
+    dkvq96 kernel's ptxas / SASS (wgmma, TMA loads and reduce-adds, no
+    spill) as gates. Returns the failing labels."""
     import torch.nn.functional as Fn
 
     bad, bf16 = [], torch.bfloat16
@@ -4265,7 +4350,7 @@ def _hd96_backward_checks(gen):
     q, k, v = _flash_operands(gen, XL_ROWS, HEADS, L, L, XL_HD)
     o, lse = fa.flash_attention_with_lse(q, k, v)
     do = torch.randn(o.shape, generator=gen, device=DEV).to(bf16)
-    launches, _ = fa._bwd_operands(q, k, v, None, None, o, lse, do)
+    launches, grads = fa._bwd_operands(q, k, v, None, None, o, lse, do)
     plan = fa.bwd96_plan(XL_ROWS, HEADS, L, L)
     fa.run_bwd(launches, ("flash_attention_bwd_prep",))
     ref_lse, ref_delta = fa.bwd_prep_plain(o, do, lse, plan["lqp"], True)
@@ -4275,6 +4360,14 @@ def _hd96_backward_checks(gen):
             and _tol_check("flash_attention_bwd_prep", f"hd 96 lse rows {tag}",
                            launches[0][3][3], ref_lse, 0.0, 0.0)):
         bad.append("hd 96 prep")
+    fa.run_bwd(launches, ("flash_attention_bwd_dkvq96",))
+    ws = launches[1][3][8].clone()
+    fa.run_bwd(launches, ("flash_attention_bwd_dq_cast",))
+    if not _tol_check("flash_attention_bwd_dq_cast", f"hd 96 dq {tag}", grads[0],
+                      fa.bwd_dq_cast_plain(ws, XL_ROWS, HEADS, L, XL_HD ** -0.5), 0.0, 0.0,
+                      like=grads[0]):
+        bad.append("hd 96 cast")
+    del ws, grads
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     o_port = fa.flash_attention(*ins)
     g1 = torch.autograd.grad(o_port, ins, do, retain_graph=True)
@@ -4286,6 +4379,8 @@ def _hd96_backward_checks(gen):
     if not same:
         bad.append("hd 96 repeatability")
     del g1, g2
+    if not _many_tiles_check(bf16, gen):
+        bad.append("hd 96 many key tiles")
     # times: each kernel by events and from a graph; the whole backward
     # through autograd and SDPA's, each from an autograd graph built once
     port_bwd = sync_ms(lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), 10)
@@ -4293,57 +4388,61 @@ def _hd96_backward_checks(gen):
     library = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 10)
     del o_lib, o_port
     plain_ms = sync_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, None, o, lse, do), 2)
-    io, rows = bh * L * XL_HD * 2, bh * plan["lqp"] * 4
+    io, rows, ws_bytes = bh * L * XL_HD * 2, bh * plan["lqp"] * 4, bh * L * XL_HD * 4
     bounds = {  # (operations in seconds, bytes)
         "flash_attention_bwd_prep": (2 * bh * L * XL_HD / PEAK_F32_FLOPS,
                                      2 * io + bh * L * 4 + 2 * rows),
-        # s, dp, dv and dk: 8 BH L^2 d; q, k, v, do, lse, delta read, dk, dv written
-        "flash_attention_bwd_dkv": (8 * bh * L * L * XL_HD / PEAK_BF16_FLOPS,
-                                    4 * io + 2 * rows + 2 * io),
-        # s, dp and dq: 6 BH L^2 d; q, k, v, do, lse, delta read, dq written
-        "flash_attention_bwd_dq": (6 * bh * L * L * XL_HD / PEAK_BF16_FLOPS,
-                                   4 * io + 2 * rows + io)}
+        # s, dp, dv, dk and dq: 10 BH L^2 d; q, k, v, do, lse, delta read, dk,
+        # dv and the f32 dq sums written
+        "flash_attention_bwd_dkvq96": (10 * bh * L * L * XL_HD / PEAK_BF16_FLOPS,
+                                       6 * io + 2 * rows + ws_bytes),
+        # the f32 sums read, dq written
+        "flash_attention_bwd_dq_cast": (0.0, ws_bytes + io)}
     total = 0.0
-    for name in fa.BWD96_KERNELS:  # events (a prepared launch holds its stream: no graph)
+
+    def prepare():
+        return fa._bwd_operands(q, k, v, None, None, o, lse, do)[0]
+
+    # one PyTorch call for each kernel's function where there is one: SDPA's
+    # backward for dkvq96's, a strided torch.mul for the cast's (the dkvq96
+    # kernel's own f32 sums times the scale, written in bf16 into dq)
+    ws = launches[1][3][8]
+    dq = torch.empty((XL_ROWS, L, HEADS, XL_HD), dtype=bf16, device=DEV).transpose(1, 2)
+    libs = {"flash_attention_bwd_dkvq96": (library, "SDPA backward"),
+            "flash_attention_bwd_dq_cast": (sync_ms(
+                lambda: torch.mul(ws[:, :L].view(XL_ROWS, HEADS, L, XL_HD), XL_HD ** -0.5,
+                                  out=dq), 10), "one strided torch.mul")}
+    for name in fa.BWD96_KERNELS:
         ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), 10)
+        gms = _prepared_graph_ms(prepare, (name,))
         total += ms
         bound = _bound(*bounds[name])
-        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                   library_ms=library if name != "flash_attention_bwd_prep" else None)
-        lib_txt = "" if row["library_ms"] is None else f", SDPA backward {library:.3f} ms"
-        print(f"  {name} {(XL_ROWS, HEADS, L, XL_HD)}: {ms:.3f} ms/launch, plain backward "
-              f"{plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms ({bound[1]}), "
-              f"{bound[0] / ms:.1%} of bound")
+        lib_ms, lib_what = libs.get(name, (None, None))
+        row = dict(ms=ms, graph_ms=gms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=lib_ms)
+        lib_txt = "" if lib_ms is None else f", {lib_what} {lib_ms:.3f} ms"
+        print(f"  {name} {(XL_ROWS, HEADS, L, XL_HD)}: {ms:.3f} ms/launch (graph {gms:.3f}), "
+              f"plain backward {plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms "
+              f"({bound[1]}), {bound[0] / ms:.1%} of bound (graph {bound[0] / gms:.1%})")
         entry = report["kernels"].setdefault(name, {})
         entry.setdefault("by_shape", {})[str((XL_ROWS, HEADS, L, XL_HD))] = row
-        if name == "flash_attention_bwd_prep":  # prep's line entry stays the t2i step's
-            _instance(name, "bf16 hd 96", row)
-        else:
+        if name == "flash_attention_bwd_dkvq96":
             entry.update(row)
+        else:  # prep's and the cast's line entries stay the t2i step's
+            _instance(name, "bf16 hd 96", row)
     route_graph = graph_ms(lambda: fa._launch_bwd(q, k, v, None, None, o, lse, do), n=5, reps=3)
     joint = _bound(10 * bh * L * L * XL_HD / PEAK_BF16_FLOPS, 8 * io + bh * L * 4)
-    print(f"  the whole hd 96 backward at {(XL_ROWS, HEADS, L, XL_HD)}: prep + dkv + dq "
+    print(f"  the whole hd 96 backward at {(XL_ROWS, HEADS, L, XL_HD)}: prep + dkvq96 + cast "
           f"{total:.3f} ms, the route's launches from a graph {route_graph:.3f} ms, through "
           f"autograd {port_bwd:.3f} ms, SDPA's backward {library:.3f} ms; joint bound "
           f"{joint[0]:.3f} ms (10 BH Lq Lk d FLOPs), {joint[0] / port_bwd:.1%} of it through "
           f"autograd")
-    sass = _sass_ops("flash_attention_bwd")
-    ptxas = {}
-    for kernel in ("flash_bwd_dkv96_kernel", "flash_bwd_dq96_kernel"):
-        for fbias in (0, 1):
-            mangled = f"{kernel}ILb{fbias}E"
-            regs, spills, serial = _ptxas_numbers(mangled, "flash_attention_bwd")
-            ops = next((c for fn, c in sass.items() if mangled in fn), None)
-            ptxas[mangled] = (f"{_ptxas_report(mangled)}; SASS "
-                              + ", ".join(f"{op} {n}" for op, n in (ops or {}).items()))
-            print(f"  flash_attention_bwd ptxas ({mangled}): {ptxas[mangled]}")
-            if not (ops and ops["HGMMA"] and ops["UTMALDG"] and spills == 0
-                    and ops["HMMA"] == ops["IMMA"] == 0):
-                bad.append(f"hd 96 {mangled} not on wgmma and TMA without spills")
+    ptxas, gate = _bwd96_ptxas_gate("flash_bwd_dkvq96_kernel", f32=False)
+    bad += gate
     report["hd96_backward"] = dict(kernels_ms=total, route_graph_ms=route_graph,
                                    autograd_ms=port_bwd, sdpa_bwd_ms=library,
                                    joint_bound_ms=joint[0], ptxas=ptxas)
-    del q, k, v, o, lse, do, launches, ins
+    del q, k, v, o, lse, do, launches, ins, ws, dq
     torch.cuda.empty_cache()
     return bad
 
@@ -4540,7 +4639,7 @@ def xl_train():
     bf16 compute, remat, AdamW (lr 1e-4, wd 0.02, betas 0.9 / 0.95), batch
     2. A warm-up step, then one step's launches exactly as derived (every
     attention layer with >= 1024 keys, _train_flash_layers: its forward
-    twice (remat), prep, dkv and dq once each, at head dim 96; 0 of every
+    twice (remat), prep, dkvq96 and the cast once each, at head dim 96; 0 of every
     other kernel); each of the step's backward calls against the plain
     backward on its own tensors at the flash bf16 tolerance (the gate, as
     4f); the step's gradients against the plain attention core's as a
@@ -4558,7 +4657,7 @@ def xl_train():
     pipe = _train_pipe(model)
     n = _train_flash_layers(model, XL_TRAIN_TEXT)
     expected = {"flash_attention": 2 * n, "flash_attention_bwd_prep": n,
-                "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+                "flash_attention_bwd_dkvq96": n, "flash_attention_bwd_dq_cast": n}
     print(f"NOVA-1.4B training: {n_params / 1e6:.1f}M parameters (f32 master, bf16 compute, "
           f"remat), batch {XL_TRAIN_BATCH}, head dim {model.head_dim_i}, {n} attention layers "
           f"on the flash kernels (keys {XL_TRAIN_KEYS})")
@@ -4573,8 +4672,8 @@ def xl_train():
     for name in expected:
         _record_launches(name, "xl_train", launches[name])
     _instance_launches("flash_attention", "bf16 hd 96", "xl_train", launches["flash_attention"])
-    _instance_launches("flash_attention_bwd_prep", "bf16 hd 96", "xl_train",
-                       launches["flash_attention_bwd_prep"])
+    for name in ("flash_attention_bwd_prep", "flash_attention_bwd_dq_cast"):
+        _instance_launches(name, "bf16 hd 96", "xl_train", launches[name])
     finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
     draws, batch = _xl_train_draws(model, 3), _xl_train_batch(1)
     loss_k, g_k, in_path, worst = _checked_step_grads(pipe, batch, draws, n)
@@ -4616,7 +4715,7 @@ def xl_train():
 # ---------------------------------------------------------------------------
 # head dim 96 in f32 and on the static attention's int8 score core (3c-3e
 # additions, 4w-4y): the f32 forward (flash_fwd_f32_kernel<96>), the f32
-# backward's dkv_f32 and dq_f32 kernels, the int8 core at 96
+# backward's f32_96 kernel, the int8 core at 96
 # ---------------------------------------------------------------------------
 # 4w: AR steps of the f32 1024px call (the full 64-step call would take
 # minutes of f32 GEMMs)
@@ -4753,20 +4852,20 @@ def _int8_core_hd96_checks(gen):
 
 @_budget_timed("hd96_new_3ce_s")
 def _f32_hd96_backward_checks(gen):
-    """(3e) The f32 backward at head dim 96 (prep, dkv_f32, dq_f32) against
-    the plain backward on the kernels' own forward output and lse at 3e's
-    f32 tolerance (1e-4 / 1e-5 relative): (2, 16, 5120, 96) with no bias,
-    the step's encoder half (1024 + 1229 keys) with a key bias and a fully
+    """(3e) The f32 backward at head dim 96 (prep, f32_96) against the plain
+    backward on the kernels' own forward output and lse at 3e's f32
+    tolerance (1e-4 / 1e-5 relative): (2, 16, 5120, 96) with no bias, the
+    step's encoder half (1024 + 1229 keys) with a key bias and a fully
     masked sample (its gradients exactly 0), its video encoder at batch 1
     (32 + 1024), a full bias at 1280 and Lq != Lk off the tiles with a key
     bias; the prep kernel exactly its plain version; dq, dk and dv of two
-    runs bitwise equal (a gate: each is written once, no atomics). Then each
-    kernel timed at (2, 16, 5120, 96) by events beside the whole plain
-    backward, SDPA's f32 backward (an autograd graph built once) and the
-    bounds (8 and 6 B H L^2 d FLOPs at 67 TFLOP/s; 10 for the whole), the
-    route's launches from a CUDA graph, and the two kernels' ptxas / SASS
-    as gates: no spill, TMA loads (UTMALDG), no tensor-core instruction.
-    Returns the failing labels."""
+    runs bitwise equal (a gate: dk and dv are written once, the dQ sums take
+    a fixed order); the many-tile case. Then each kernel timed at (2, 16,
+    5120, 96) by events and from a graph beside the whole plain backward,
+    SDPA's f32 backward (an autograd graph built once) and the bounds (10 B
+    H L^2 d FLOPs at 67 TFLOP/s), the route's launches from a CUDA graph,
+    and the f32_96 kernel's ptxas / SASS as gates: no spill, TMA loads and
+    reduce-adds, no tensor-core instruction. Returns the failing labels."""
     import torch.nn.functional as Fn
 
     bad, f32 = [], torch.float32
@@ -4805,6 +4904,8 @@ def _f32_hd96_backward_checks(gen):
     if not same:
         bad.append("f32 hd 96 repeatability")
     del g1, g2
+    if not _many_tiles_check(f32, gen):
+        bad.append("f32 hd 96 many key tiles")
     port_bwd = sync_ms(lambda: torch.autograd.grad(o_port, ins, do, retain_graph=True), 3)
     o_lib = Fn.scaled_dot_product_attention(*ins)
     library = sync_ms(lambda: torch.autograd.grad(o_lib, ins, do, retain_graph=True), 3)
@@ -4813,19 +4914,24 @@ def _f32_hd96_backward_checks(gen):
     io, rows = bh * L * d * 4, bh * plan["lqp"] * 4
     bounds = {  # (operations in seconds, bytes)
         "flash_attention_bwd_prep": (2 * bh * L * d / PEAK_F32_FLOPS, 2 * io + bh * L * 4 + 2 * rows),
-        "flash_attention_bwd_dkv_f32": (8 * bh * L * L * d / PEAK_F32_FLOPS, 6 * io + 2 * rows),
-        "flash_attention_bwd_dq_f32": (6 * bh * L * L * d / PEAK_F32_FLOPS, 5 * io + 2 * rows)}
+        # s, dp, dv, dk and dq: 10 BH L^2 d; q, k, v, do, lse, delta read, dq, dk, dv written
+        "flash_attention_bwd_f32_96": (10 * bh * L * L * d / PEAK_F32_FLOPS, 7 * io + 2 * rows)}
     total = 0.0
-    for name in fa.BWD96_F32_KERNELS:  # events (a prepared launch holds its stream: no graph)
+
+    def prepare():
+        return fa._bwd_operands(q, k, v, None, None, o, lse, do)[0]
+
+    for name in fa.BWD96_F32_KERNELS:
         ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), 3)
+        gms = _prepared_graph_ms(prepare, (name,), n=2, reps=2)
         total += ms
         bound = _bound(*bounds[name])
-        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        row = dict(ms=ms, graph_ms=gms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                    library_ms=library if name != "flash_attention_bwd_prep" else None)
         lib_txt = "" if row["library_ms"] is None else f", SDPA f32 backward {library:.3f} ms"
-        print(f"  {name} {F32_HD96_SHAPE} f32: {ms:.3f} ms/launch, plain backward "
-              f"{plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms ({bound[1]}), "
-              f"{bound[0] / ms:.1%} of bound")
+        print(f"  {name} {F32_HD96_SHAPE} f32: {ms:.3f} ms/launch (graph {gms:.3f}), plain "
+              f"backward {plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms ({bound[1]}), "
+              f"{bound[0] / ms:.1%} of bound (graph {bound[0] / gms:.1%})")
         entry = report["kernels"].setdefault(name, {})
         entry.setdefault("by_shape", {})[str(F32_HD96_SHAPE + ("f32",))] = row
         if name == "flash_attention_bwd_prep":  # prep's line entry stays the t2i step's
@@ -4834,24 +4940,13 @@ def _f32_hd96_backward_checks(gen):
             entry.update(row)
     route_graph = graph_ms(lambda: fa._launch_bwd(q, k, v, None, None, o, lse, do), n=3, reps=2)
     joint = _bound(10 * bh * L * L * d / PEAK_F32_FLOPS, 8 * io + bh * L * 4)
-    print(f"  the whole f32 hd 96 backward at {F32_HD96_SHAPE}: prep + dkv_f32 + dq_f32 "
-          f"{total:.3f} ms, the route's launches from a graph {route_graph:.3f} ms, through "
-          f"autograd {port_bwd:.3f} ms, SDPA's f32 backward {library:.3f} ms; joint bound "
+    print(f"  the whole f32 hd 96 backward at {F32_HD96_SHAPE}: prep + f32_96 {total:.3f} ms, the "
+          f"route's launches from a graph {route_graph:.3f} ms, through autograd "
+          f"{port_bwd:.3f} ms, SDPA's f32 backward {library:.3f} ms; joint bound "
           f"{joint[0]:.3f} ms (10 BH Lq Lk d FLOPs at 67 TFLOP/s), {joint[0] / port_bwd:.1%} of "
           f"it through autograd")
-    sass = _sass_ops("flash_attention_bwd")
-    ptxas = {}
-    for kernel in ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"):
-        for fbias in (0, 1):
-            mangled = f"{kernel}ILb{fbias}E"
-            regs, spills, _ = _ptxas_numbers(mangled, "flash_attention_bwd")
-            ops = next((c for fn, c in sass.items() if mangled in fn), None)
-            ptxas[mangled] = (f"{_ptxas_report(mangled)}; SASS "
-                              + ", ".join(f"{op} {n}" for op, n in (ops or {}).items()))
-            print(f"  flash_attention_bwd ptxas ({mangled}): {ptxas[mangled]}")
-            if not (ops and ops["UTMALDG"] and spills == 0
-                    and not any(ops[op] for op in TENSOR_CORE_OPS)):
-                bad.append(f"f32 hd 96 {mangled}: a spill, a tensor-core instruction or no TMA")
+    ptxas, gate = _bwd96_ptxas_gate("flash_bwd_f32_96_kernel", f32=True)
+    bad += gate
     report["f32_hd96_backward"] = dict(kernels_ms=total, route_graph_ms=route_graph,
                                        autograd_ms=port_bwd, sdpa_f32_bwd_ms=library,
                                        joint_bound_ms=joint[0], ptxas=ptxas)
@@ -4943,8 +5038,8 @@ def xl_train_f32():
     master weights) in f32 compute, the loss and gradients of one step on
     fixed draws (no optimizer step, so no Adam state), 4t's batch 2: the
     launches exactly 4t's derived counts in f32 (96
-    forward at head dim 96, 48 each of prep, dkv_f32 and dq_f32; 0 of every
-    other kernel); the gradient within 2 x floor + 1e-6 relative L2 of the
+    forward at head dim 96, 48 each of prep and f32_96; 0 of every other
+    kernel); the gradient within 2 x floor + 1e-6 relative L2 of the
     f32 plain step (floor: the f32 plain step against itself with the
     latents moved by 1e-6, as 4f); the step's time and peak memory above
     what is held."""
@@ -4957,7 +5052,7 @@ def xl_train_f32():
     pipe = _train_pipe(model)
     n = _train_flash_layers(model, XL_TRAIN_TEXT)
     expected = {"flash_attention": 2 * n, "flash_attention_bwd_prep": n,
-                "flash_attention_bwd_dkv_f32": n, "flash_attention_bwd_dq_f32": n}
+                "flash_attention_bwd_f32_96": n}
     batch, draws = _xl_train_batch(1), _xl_train_draws(model, 3)
     _step_grads(pipe, batch, draws)  # warm-up: kernel loads, allocator
     torch.cuda.synchronize()
@@ -5308,7 +5403,7 @@ FWD_INSTANCES = {
 NO_SPILL_INSTANCES = ("hd 96 int8", "hd 96 int8 key bias")
 
 
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UTMAREDG", "HMMA", "IMMA")
 
 
 def _sass_ops(library):

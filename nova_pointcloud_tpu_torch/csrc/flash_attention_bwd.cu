@@ -44,26 +44,43 @@
 // The atomic dQ sums run in no fixed order: dq may differ in its last bits
 // from run to run; dk and dv do not.
 //
-// bf16 at head dim 96 (the NOVA-1.4B ViTs) runs the TPU kernels' split, in
-// three kernels: prep as above (two halves of 48), then
-//   dkv:   one block (a warpgroup) per (key tile of 64, batch*head): K and V
-//          once and query tiles of q and do through a two-stage TMA ring,
-//          every tile three 32-column panels of 64-byte rows in the 64B
-//          swizzle. Per query tile on wgmma: S^T = K Q^T and dP^T = V dO^T
-//          (both operands from shared memory, m64n64k16 over six k-steps),
-//          P^T and dS^T (hi) in registers, dV += P^T dO and dK += dS^T Q
-//          (m64n96k16, A from registers, B MN-major over the panels). dK and
-//          dV (48 accumulators a thread each) are written once, bitwise
-//          repeatable; the dkvq kernel's dQ part (its 255 registers and
-//          199,728 bytes at 64) does not fit beside them.
-//   dq:    one block per (query tile of 64, batch*head): q and do once, K
-//          and V tiles of 64 keys through a two-stage ring; S = Q K^T and
-//          dP = dO V^T, P and dS in registers, dQ += dS K with dS as hi +
-//          lo bf16 (as the dkvq kernel) from registers, B = K MN-major; dq
-//          written once in bf16, times the scale: no workspace, no cast,
-//          no atomics, so dq is bitwise repeatable too.
-// S and dP are computed twice (14 B*H*Lq*Lk*d FLOPs with the lo product,
-// against 12 in one pass).
+// bf16 at head dim 96 (the NOVA-1.4B ViTs) runs one pass, in three
+// kernels: prep as above (two halves of 48), then
+//   dkvq96: one block of two warpgroups of 64 keys each per (key tile of
+//          128, batch*head), 256 threads of up to 255 registers. K and V
+//          once and query tiles of q and do of 64 rows through a
+//          three-stage TMA ring, every tile three 32-column panels in the
+//          64B swizzle. Per query tile a warpgroup computes S^T = K Q^T and
+//          dP^T = V dO^T (m64n64k16 from shared memory), P^T and dS^T in
+//          registers, dV += P^T dO and dK += dS^T Q (m64n96k16, A from
+//          registers; 48 + 48 accumulators a thread, held over the pass),
+//          stores dS^T as hi and lo bf16 tiles and computes its part of dQ =
+//          dS K over its own 64 keys (m64n96k16, both from shared memory).
+//          Warpgroup 0 stores its part in an f32 buffer (two, alternating),
+//          warpgroup 1 adds its own to it, and one of its threads adds the
+//          sum into an f32 workspace (B*H, Lqp, 96) by TMA reduce-add in a
+//          fixed order (below). Only that sum couples the warpgroups, so one's
+//          element work runs beside the other's products. dK and dV are
+//          written once. (A producer warpgroup with setmaxnreg, or a
+//          producer warp, left ptxas fewer registers than the warpgroups
+//          need: they spilled and their wgmma were serialized; splitting dQ
+//          between the warpgroups by columns made them wait on each other's
+//          dS every tile.)
+//   cast:  the workspace times the scale -> dq in bf16, as at 64.
+// The pass computes S and dP once: 12 B*H*Lq*Lk*d FLOPs with the lo product
+// (the TPU kernels' split, ported first, took 16).
+//
+// The dQ sums at head dim 96 (bf16 and f32) take a fixed order, so dq is
+// bitwise repeatable (as dk and dv): a block takes its (key tile, b*h) from
+// an atomic ticket when it starts, key tiles fastest; for each (query tile,
+// b*h) an int32 turn counter in a zeroed workspace. The block of key tile kt
+// waits until the counter reads kt (one thread, an acquire load), adds its
+// part by TMA reduce-add, waits for the add to complete and stores kt + 1
+// (release). Every block walks the query tiles in the same order, so after
+// a start-up stagger of about a handoff a key tile the waits are short; a
+// block waits only on blocks with lower tickets, which have started, so no
+// count of resident blocks can deadlock it (FlashAttention-3's
+// deterministic backward does the same).
 //
 // f32 runs in one pass too, in f32 FFMA (no TF32: this route is the
 // exactness check of the training step), in two kernels:
@@ -84,23 +101,20 @@
 //          one thread a row, computed both twice and read an operand of
 //          every FFMA from shared memory).
 //
-// f32 at head dim 96 (the NOVA-1.4B ViTs) runs the TPU kernels' split too:
-// the one-pass kernel's dV and dK would need 8 x 12 accumulators a thread
-// beside S^T and dP^T (it spills) and its dQ part would not fit P's buffer.
-// Prep as above (two halves of 48), then two register-tiled SIMT kernels of
-// 256 threads, every tile three 128-byte boxes a row in f32_chunk's layout:
-//   dkv_f32: one block per (key tile of 64, batch*head), query tiles of q,
-//          do, lse and delta through a two-stage ring; S^T and dP^T by all
-//          256 threads (4 x 4 each), P and dS to shared memory, then dV +=
-//          P^T dO (warps 0-3) and dK += dS^T Q (warps 4-7), 4 x 12
-//          accumulators a thread, written once;
-//   dq_f32: one block per (query tile of 64, batch*head), K and V tiles
-//          through a two-stage ring; S and dP (4 x 4 a thread), dS to
-//          shared memory, dQ += dS K by each half of the block over its 32
-//          keys of a tile, the halves summed through shared memory at the
-//          end and dq written once (no atomics: bitwise repeatable).
-// S and dP are computed twice: 14 B*H*Lq*Lk*d FLOPs against the 10 of the
-// bound (12.0 ms at (2, 16, 5120, 96) at 67 TFLOP/s).
+// f32 at head dim 96 (the NOVA-1.4B ViTs) runs one pass too, in two
+// kernels: prep as above (two halves of 48, natural units), then
+//   f32_96: one block of 256 threads per (key tile of 64, batch*head), K and
+//          V once and the query tiles through a two-stage ring, every tile
+//          three 128-byte boxes a row in f32_chunk's layout. Per query tile
+//          S^T and dP^T by all 256 threads (4 x 4 each), P and dS (the scale
+//          folded in) to shared memory, dV += P^T dO (warps 0-3) and dK +=
+//          dS^T Q (warps 4-7), 4 x 12 accumulators a thread, then the dQ part
+//          dS K by all 256 threads (4 x 6 each, in the registers S^T and dP^T
+//          held), staged in its own buffer and added into the zeroed f32 dq
+//          by TMA reduce-add in the fixed order above. The hd-64 one-pass
+//          kernel's 8 x 8 dV / dK a thread would be 8 x 12 here beside S^T
+//          and dP^T (it spills), hence 256 threads and a kernel of its own.
+// 10 B*H*Lq*Lk*d FLOPs (the split ported first computed S and dP twice: 14).
 //
 // q, k, v, do, dq, dk, dv are (B, H, L, d) views given by their batch / head /
 // row strides with d contiguous (16-byte multiples), so the model's
@@ -164,7 +178,7 @@ struct FlashBwdParams {
   float scale;
 };
 
-constexpr int BHD = 64;        // head dim of the one-pass bf16 kernel, the cast and the f32 kernels
+constexpr int BHD = 64;        // head dim of the hd-64 one-pass kernels (bf16 dkvq, f32)
 constexpr int LQ_PAD = 128;    // lse / delta rows are padded to a multiple of this
 
 // ---------------------------------------------------------------------------
@@ -227,21 +241,22 @@ __global__ void __launch_bounds__(PREP_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// cast: f32 dq workspace (B*H, Lqp, 64) -> bf16 dq (strided), times the
-// softmax scale the dkvq kernel leaves out of ds
+// cast: f32 dq workspace (B*H, Lqp, D) -> bf16 dq (strided), times the
+// softmax scale the dkvq kernels leave out of ds (D = 64 or 96)
 // ---------------------------------------------------------------------------
 constexpr int CAST_THREADS = 256;
 
+template <int D>
 __global__ void __launch_bounds__(CAST_THREADS)
     flash_bwd_dq_cast_kernel(const float* ws, int H, int Lq, int Lqp, long sb, long sh, long sl,
                              float scale, __nv_bfloat16* dq, long chunks) {
   const long i = static_cast<long>(blockIdx.x) * CAST_THREADS + threadIdx.x;
   if (i >= chunks) return;  // one chunk: 8 values of one row
-  const long r = i / (BHD / 8);
-  const int c = static_cast<int>(i % (BHD / 8)) * 8;
+  const long r = i / (D / 8);
+  const int c = static_cast<int>(i % (D / 8)) * 8;
   const int bh = static_cast<int>(r / Lq), row = static_cast<int>(r % Lq);
   const float4* src =
-      reinterpret_cast<const float4*>(ws + (static_cast<long>(bh) * Lqp + row) * BHD + c);
+      reinterpret_cast<const float4*>(ws + (static_cast<long>(bh) * Lqp + row) * D + c);
   const float4 a = src[0], e = src[1];
   uint4 out;
   out.x = pack_bf16(a.x * scale, a.y * scale);
@@ -608,7 +623,7 @@ __device__ __forceinline__ void f32_cols_product(float (&acc)[4 * NA][4 * NB], u
 
 // dq[i][j] += sum_key dS[tq + 16 i][key] K[key][4 td + 32 (j >> 2) + (j & 3)]
 // over the tile's keys 4 c0 .. 4 (c0 + NCK) - 1 (all 64 by the one-pass
-// kernel's 128 threads; 32 by each half of the head-dim-96 dq kernel)
+// kernel's 128 threads: <2, 16>)
 template <int NB, int NCK>
 __device__ __forceinline__ void f32_dq_product(float (&dq)[4][4 * NB], uint32_t ds, uint32_t k,
                                                int tq, int td, int c0) {
@@ -793,25 +808,73 @@ __global__ void __launch_bounds__(F_THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// head dim 96, bf16: dK / dV, then dQ (two kernels, the TPU kernels' split)
+// head dim 96: the dQ sums in a fixed order. One block per (key tile, b*h),
+// handed out by a ticket; the dQ part of each (query tile, b*h) is added
+// into the f32 sum by one TMA reduce-add a block (key tile 0's is stored),
+// in ascending key-tile order: a block waits for the tile's turn counter to
+// read its key tile, adds, waits for the add to complete and passes the
+// turn on.
 // ---------------------------------------------------------------------------
+
+// the block's work item from the ticket counter (counters[0], zeroed by the
+// launch's entry point), which hands tickets out in the order blocks start:
+// every block a block waits on (a lower key tile of its b*h) has a lower
+// ticket, so it has started, and the waits cannot deadlock however many
+// blocks are resident. Key tiles run fastest, so the blocks in flight share
+// few heads.
+__device__ __forceinline__ int take_ticket(int* counters, uint32_t slot) {
+  if (threadIdx.x == 0) sts_u32(slot, static_cast<unsigned>(atomicAdd(counters, 1)));
+  __syncthreads();
+  return static_cast<int>(lds_u32(slot));
+}
+
+// waits (one thread) until the turn counter reads `mine`; traps (a launch
+// error, not a hung card) if it never does
+__device__ __forceinline__ void wait_turn(const int* turn, int mine) {
+  uint32_t polls = 0;
+  while (ld_acquire_gpu(turn) != mine) {
+    if (++polls == (1u << 24)) __trap();
+    __nanosleep(64);
+  }
+  fence_proxy_async_global();  // the earlier blocks' adds, before this block's
+}
+
+// after this thread's reduce-adds were committed: waits for them to
+// complete, then passes the turn `mine` on to the next key tile
+__device__ __forceinline__ void pass_turn(int* turn, int mine) {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  fence_proxy_async_global();
+  st_release_gpu(turn, mine + 1);
+}
+
 namespace bwd96 {
 constexpr int HD = 96;
-constexpr int BK = 64;         // keys of a dkv block; keys of a dq kernel's tile
-constexpr int BQ = 64;         // queries of a dkv kernel's tile; queries of a dq block
-constexpr int THREADS = 128;   // one warpgroup: 255 registers a thread, two blocks an SM
-constexpr int STAGES = 2;      // depth of the streamed-tile ring
-constexpr int PANEL = 64 * 64; // 64 rows x 32 bf16 columns, 64-byte rows, 64B swizzle
-constexpr int TILE = 3 * PANEL;  // a 64 x 96 bf16 tile, 12 KB
-// dkv: K, V; per stage q, do (2 TILE) and the lse, delta rows (2 BQ floats)
-constexpr int DKV_OFF_RING = 2 * TILE;
-constexpr int DKV_OFF_ROWS = DKV_OFF_RING + STAGES * 2 * TILE;
-constexpr int DKV_OFF_BAR = DKV_OFF_ROWS + STAGES * 2 * BQ * 4;  // full[s], kv
-constexpr int DKV_SMEM = ((DKV_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
-// dq: q, do; per stage K, V
-constexpr int DQ_OFF_RING = 2 * TILE;
-constexpr int DQ_OFF_BAR = DQ_OFF_RING + STAGES * 2 * TILE;  // full[s], q
-constexpr int DQ_SMEM = ((DQ_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
+constexpr int BK = 128;           // keys of a block: two warpgroups of 64
+constexpr int BQ = 64;            // queries of a streamed tile
+// two warpgroups and no producer warp: up to 255 registers a thread (ptxas
+// left a producer warpgroup's consumers 192 under setmaxnreg, and 168 a
+// thread at 288 threads: they spilled)
+constexpr int THREADS = 256;
+constexpr int STAGES = 3;         // depth of the query-tile ring
+constexpr int PANEL = 64 * 64;    // 64 rows x 32 bf16 columns, 64-byte rows, 64B swizzle
+constexpr int TILE = 3 * PANEL;   // a 64 x 96 bf16 tile, 12 KB
+constexpr int DS_TILE = 64 * 128; // dS^T of a warpgroup: 64 keys x 64 queries bf16, 128B swizzle
+constexpr int DQ_BOX = BQ * 128;  // 64 query rows x 32 f32 columns, 128B swizzle
+constexpr int DQ_BUF = 3 * DQ_BOX;  // a tile's dQ part, 64 x 96 f32, 24 KB
+// shared memory
+constexpr int OFF_K = 0;                              // + c TILE (warpgroup c's 64 keys)
+constexpr int OFF_V = 2 * TILE;                       // + c TILE
+constexpr int OFF_RING = 4 * TILE;                    // + s 2 TILE: q, do
+constexpr int OFF_DS = OFF_RING + STAGES * 2 * TILE;  // + c 2 DS_TILE: hi, lo
+constexpr int OFF_DQ = OFF_DS + 4 * DS_TILE;          // + j DQ_BUF (j: tile parity)
+constexpr int OFF_ROWS = OFF_DQ + 2 * DQ_BUF;         // + s 2 BQ floats: lse, delta
+constexpr int OFF_BAR = OFF_ROWS + STAGES * 2 * BQ * 4;
+// full[s], empty[s], kv, part[j], dq_full[j]; then the ticket
+constexpr int N_BARS = 2 * STAGES + 5;
+constexpr int OFF_TICKET = OFF_BAR + N_BARS * 8;
+constexpr int SMEM = ((OFF_TICKET + 4 + 15) / 16) * 16 + 1024;  // + alignment
+static_assert(SMEM <= 232448, "over the 227 KB a block can use");
+static_assert(OFF_DS % 1024 == 0 && OFF_DQ % 1024 == 0, "128B-swizzled tiles at 1024 bytes");
 
 // a 64-row tile of a (B, H, L, 96) map at row `row` of (b, h): three boxes
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row,
@@ -819,75 +882,128 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, ui
 #pragma unroll
   for (int c = 0; c < HD / 32; ++c) tma_load_4d(dst + c * PANEL, m, bar, 32 * c, row, h, b);
 }
-// k-step kk (16 columns) of a K-major tile: panel kk / 2, 32 bytes on for odd kk
-__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
-  return desc_sw64(tile + (kk >> 1) * PANEL) + 2 * (kk & 1);
+// k-step kk (16 columns) of a K-major tile of three panels: panel kk / 2,
+// 32 bytes on for odd kk, as a step of a descriptor's address field
+__device__ __forceinline__ uint64_t kstep(int kk) {
+  return static_cast<uint64_t>((kk >> 1) * (PANEL >> 4) + 2 * (kk & 1));
 }
 }  // namespace bwd96
 
-struct Bwd96Params {
+struct Dkvq96Params {
   const float* lse2;   // (B*H, Lqp), units of log 2
   const float* delta;  // (B*H, Lqp)
   const float* kbias;  // (B, Lk) or nullptr
   const float* fbias;  // (Lq, Lk) or nullptr
-  __nv_bfloat16* out;  // dkv: dk; dq: dq
-  __nv_bfloat16* out2; // dkv: dv
-  long sb, sh, sl, sb2, sh2, sl2;  // their strides: batch, head, row
-  int H, Lq, Lk, Lqp;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int* counters;       // [0] the ticket, then the turn of each (b*h, query tile), zeroed
+  long dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl;
+  int H, Lq, Lk, Lqp, key_tiles;
   float scale;
 };
 
-// dK and dV of one (key tile of 64, batch*head), one warpgroup. Accumulator
-// element i of a thread: row 16 warp + g + 8 ((i >> 1) & 1), column 8 (i >>
-// 2) + 2 t + (i & 1); S^T's rows are keys, its columns queries. The values
-// are the dkvq kernel's: p = 2^(s scale2 + bias2 - lse2), dV takes bf16(p),
-// dK takes bf16(p (dp - delta)), the scale on dk at the end.
+// dK, dV and the dQ sums at head dim 96, bf16, in one pass. One block per
+// (key tile of 128, batch*head), from the ticket; warpgroups c = 0, 1, each
+// with 64 keys, their K and V tiles loaded once. Per query tile a warpgroup
+// computes S^T = K Q^T and dP^T = V dO^T (m64n64k16 from shared memory), P^T
+// and dS^T in registers, dV += P^T dO and dK += dS^T Q (m64n96k16, A from
+// registers; 48 + 48 accumulators a thread, held over the pass), stores its
+// dS^T as hi and lo bf16 tiles, and its part of dQ = dS K over its 64 keys
+// (m64n96k16 from shared memory: A = dS^T MN-major, B = K MN-major), hi then
+// lo. Warpgroup 0 stores its part in the tile's buffer (two, alternating,
+// 128B-swizzled as the workspace's map reads them) and warpgroup 1 adds its
+// own to it (the two parts in a fixed order). Warpgroup 0 leads: at the end
+// of tile qt its thread 0 adds tile qt - 1's sum into the f32 workspace in
+// its turn, and passes the turn on in the middle of tile qt + 1, once the
+// adds have completed without waiting for them. Nothing else couples the
+// warpgroups, so one's element work runs beside the other's products.
+// Thread 160 loads by TMA: K and V once, then each query tile (q, do, their
+// lse and delta rows) through a three-stage ring, each stage refilled once
+// both warpgroups have read it.
+// The values are the one-pass hd-64 kernel's: p = 2^(s scale2 + bias2 -
+// lse2), dV takes bf16(p), dK takes bf16(p (dp - delta)), dQ hi + lo; the
+// scale on dk at the end and on dq in the cast kernel. Accumulator element i
+// of a thread: row 16 warp + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t +
+// (i & 1).
 template <bool FULL_BIAS>
-__global__ void __launch_bounds__(bwd96::THREADS, 2)
-    flash_bwd_dkv96_kernel(const __grid_constant__ CUtensorMap tm_q,
-                           const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v,
-                           const __grid_constant__ CUtensorMap tm_do, const Bwd96Params p) {
-  // block-scope names: they hide the one-pass kernel's TILE and STAGES
-  using bwd96::BK, bwd96::BQ, bwd96::HD, bwd96::PANEL, bwd96::STAGES, bwd96::TILE;
-  using bwd96::DKV_OFF_BAR, bwd96::DKV_OFF_RING, bwd96::DKV_OFF_ROWS, bwd96::kdesc,
-      bwd96::load_tile;
+__global__ void __launch_bounds__(bwd96::THREADS, 1)
+    flash_bwd_dkvq96_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_dq, const Dkvq96Params p) {
+  // block-scope names: they hide the hd-64 dkvq kernel's TILE, STAGES and offsets
+  using bwd96::BK, bwd96::BQ, bwd96::HD, bwd96::PANEL, bwd96::STAGES, bwd96::TILE,
+      bwd96::DS_TILE, bwd96::DQ_BOX, bwd96::DQ_BUF, bwd96::kstep, bwd96::load_tile;
+  using bwd96::OFF_BAR, bwd96::OFF_DQ, bwd96::OFF_DS, bwd96::OFF_K, bwd96::OFF_RING,
+      bwd96::OFF_ROWS, bwd96::OFF_TICKET, bwd96::OFF_V;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int kt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int nq = (p.Lq + BQ - 1) / BQ;
-  const int tid = threadIdx.x, wi = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t k_tile = base, v_tile = base + TILE;
-  const uint32_t bar_full = base + DKV_OFF_BAR, bar_kv = bar_full + STAGES * 8;
-  const float* lse_row = p.lse2 + static_cast<long>(bh) * p.Lqp;
-  const float* del_row = p.delta + static_cast<long>(bh) * p.Lqp;
-
+  const int tid = threadIdx.x;
+  const int c = __shfl_sync(0xffffffffu, tid >> 7, 0);  // the warpgroup, warp-uniform
+  const uint32_t full = base + OFF_BAR, empty = full + STAGES * 8, bar_kv = empty + STAGES * 8;
+  const uint32_t part = bar_kv + 8, dq_full = part + 16;
   if (tid == 0) {
-    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);  // every thread
+    }
+    mbar_init(bar_kv, 1);
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(part + 8 * j, 128);     // warpgroup 0's part is in the buffer
+      mbar_init(dq_full + 8 * j, 128);  // warpgroup 1 has added its own
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  const int item = take_ticket(p.counters, base + OFF_TICKET);  // syncs
+  const int kt = item % p.key_tiles, bh = item / p.key_tiles;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Lq + BQ - 1) / BQ;
+  int* turns = p.counters + 1 + static_cast<long>(bh) * nq;
+  const float* lse_row = p.lse2 + static_cast<long>(bh) * p.Lqp;
+  const float* del_row = p.delta + static_cast<long>(bh) * p.Lqp;
   // query tile qt (q, do, lse and delta rows) into stage qt % STAGES
   auto load_q_tile = [&](int qt) {
     const int s = qt % STAGES;
-    const uint32_t full = bar_full + 8 * s, dst = base + DKV_OFF_RING + s * 2 * TILE;
-    const uint32_t rows = base + DKV_OFF_ROWS + s * 2 * BQ * 4;
-    mbar_expect_tx(full, 2 * TILE + 2 * BQ * 4);
-    load_tile(dst, &tm_q, full, qt * BQ, h, b);
-    load_tile(dst + TILE, &tm_do, full, qt * BQ, h, b);
-    bulk_load(rows, lse_row + qt * BQ, BQ * 4, full);
-    bulk_load(rows + BQ * 4, del_row + qt * BQ, BQ * 4, full);
+    const uint32_t bar = full + 8 * s, dst = base + OFF_RING + s * 2 * TILE;
+    const uint32_t rows = base + OFF_ROWS + s * 2 * BQ * 4;
+    mbar_expect_tx(bar, 2 * TILE + 2 * BQ * 4);
+    load_tile(dst, &tm_q, bar, qt * BQ, h, b);
+    load_tile(dst + TILE, &tm_do, bar, qt * BQ, h, b);
+    bulk_load(rows, lse_row + qt * BQ, BQ * 4, bar);
+    bulk_load(rows + BQ * 4, del_row + qt * BQ, BQ * 4, bar);
   };
-  if (tid == 0) {
-    mbar_expect_tx(bar_kv, 2 * TILE);
-    load_tile(k_tile, &tm_k, bar_kv, kt * BK, h, b);
-    load_tile(v_tile, &tm_v, bar_kv, kt * BK, h, b);
+  // tile m's summed dQ part into the workspace in its turn (thread 0; the
+  // turn is passed on once the adds complete, by pass_turn). Key tile 0's
+  // part is stored, the others added, so the workspace needs no zeroing
+  auto add_in_turn = [&](int m) {
+    const uint32_t src = base + OFF_DQ + (m & 1) * DQ_BUF;
+    mbar_wait(dq_full + 8 * (m & 1), (m >> 1) & 1);
+    wait_turn(turns + m, kt);
+    const int row = bh * p.Lqp + m * BQ;
+    if (kt == 0) {
+#pragma unroll
+      for (int x = 0; x < 3; ++x) tma_store_2d(&tm_dq, src + x * DQ_BOX, 32 * x, row);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 3; ++x) tma_reduce_add_2d(&tm_dq, src + x * DQ_BOX, 32 * x, row);
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  };
+  if (tid == 160) {
+    mbar_expect_tx(bar_kv, 4 * TILE);
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      load_tile(base + OFF_K + w * TILE, &tm_k, bar_kv, kt * BK + 64 * w, h, b);
+      load_tile(base + OFF_V + w * TILE, &tm_v, bar_kv, kt * BK + 64 * w, h, b);
+    }
     for (int qt = 0; qt < STAGES && qt < nq; ++qt) load_q_tile(qt);
   }
 
+  const int lt = tid & 127, wi = lt >> 5, lane = lt & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int r0 = wi * 16 + g;  // this thread's rows (keys) of every accumulator: r0, r0 + 8
-  const int key0 = kt * BK + r0, key1 = key0 + 8;
+  const int key0 = kt * BK + 64 * c + r0, key1 = key0 + 8;
   const bool kl0 = key0 < p.Lk, kl1 = key1 < p.Lk;
   // per-key additive terms in units of log 2; a key past Lk is masked
   float kb0 = kl0 ? 0.0f : -INFINITY, kb1 = kl1 ? 0.0f : -INFINITY;
@@ -897,6 +1013,15 @@ __global__ void __launch_bounds__(bwd96::THREADS, 2)
     if (kl1) kb1 = kb[key1] * kBwdLog2e;
   }
   const float scale2 = p.scale * kBwdLog2e;
+  const uint32_t k_tile = base + OFF_K + c * TILE;
+  const uint32_t ds_hi = base + OFF_DS + c * 2 * DS_TILE, ds_lo = ds_hi + DS_TILE;
+  // descriptors as a base and an immediate step each (a tile's address
+  // field never carries past its 14 bits): S^T's A = K and dP^T's A = V,
+  // K-major; dQ's A = dS^T, MN-major (a k-step of 16 keys: 16 rows of 128
+  // bytes), and B = K, MN-major over its three panels (16 rows of 64 bytes)
+  const uint64_t ka_desc = desc_sw64(k_tile), va_desc = desc_sw64(base + OFF_V + c * TILE);
+  const uint64_t kq_desc = desc_sw64_mn(k_tile, PANEL);
+  const uint64_t dsh_desc = desc_sw128(ds_hi, true), dsl_desc = desc_sw128(ds_lo, true);
 
   float dk[48], dv[48];
 #pragma unroll
@@ -904,23 +1029,25 @@ __global__ void __launch_bounds__(bwd96::THREADS, 2)
     dk[i] = 0.0f;
     dv[i] = 0.0f;
   }
+  int passed = 0;  // thread 0: the first tile whose turn it has not passed on
   mbar_wait(bar_kv, 0);
   for (int qt = 0; qt < nq; ++qt) {
-    const int s = qt % STAGES;
-    mbar_wait(bar_full + 8 * s, (qt / STAGES) & 1);
-    const uint32_t q_tile = base + DKV_OFF_RING + s * 2 * TILE, do_tile = q_tile + TILE;
-    const uint32_t lse_u = base + DKV_OFF_ROWS + s * 2 * BQ * 4, del_u = lse_u + BQ * 4;
+    const int s = qt % STAGES, j = qt & 1;
+    mbar_wait(full + 8 * s, (qt / STAGES) & 1);
+    const uint32_t q_tile = base + OFF_RING + s * 2 * TILE, do_tile = q_tile + TILE;
+    const uint32_t lse_u = base + OFF_ROWS + s * 2 * BQ * 4, del_u = lse_u + BQ * 4;
+    const uint64_t q_desc = desc_sw64(q_tile), do_desc = desc_sw64(do_tile);
 
-    // S^T = K Q^T and dP^T = V dO^T, both operands K-major (k = d)
+    // S^T = K Q^T and dP^T = V dO^T, both K-major (k = d)
     float st[32], dp[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<0, 0>(st, kdesc(k_tile, kk), kdesc(q_tile, kk), kk > 0);
+      wgmma_ss<0, 0>(st, ka_desc + kstep(kk), q_desc + kstep(kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<0, 0>(dp, kdesc(v_tile, kk), kdesc(do_tile, kk), kk > 0);
+      wgmma_ss<0, 0>(dp, va_desc + kstep(kk), do_desc + kstep(kk), kk > 0);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
@@ -931,16 +1058,23 @@ __global__ void __launch_bounds__(bwd96::THREADS, 2)
       const float2 l2 = lds_f2(lse_u + (8 * jn + 2 * t) * 4);  // lse in units of log 2
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = 4 * jn + e, c = 8 * jn + 2 * t + (e & 1);
+        const int i = 4 * jn + e, col = 8 * jn + 2 * t + (e & 1);
         const bool hi_row = e >> 1;
         float x = fmaf(st[i], scale2, hi_row ? kb1 : kb0);
         if (FULL_BIAS) {
-          const int qrow = qt * BQ + c, key = hi_row ? key1 : key0;
+          const int qrow = qt * BQ + col, key = hi_row ? key1 : key0;
           if (qrow < p.Lq && key < p.Lk)
             x += p.fbias[static_cast<long>(qrow) * p.Lk + key] * kBwdLog2e;
         }
         st[i] = ex2(x - ((e & 1) ? l2.y : l2.x));
       }
+    }
+    // thread 0 passes on the turn of the adds it issued at the end of the
+    // last tile (they have completed meanwhile); the warpgroup's barrier
+    // below frees their buffer for this tile's part
+    if (tid == 0 && qt >= 2) {
+      pass_turn(turns + qt - 2, kt);
+      passed = qt - 1;
     }
     // dV += P^T dO: A = P^T from registers (k = queries), B = dO MN-major
     // over its three panels; a k-step of 16 queries is 16 rows of 64 bytes
@@ -949,212 +1083,145 @@ __global__ void __launch_bounds__(bwd96::THREADS, 2)
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
-    const uint64_t dot_desc = desc_sw64_mn(do_tile, PANEL), qt_desc = desc_sw64_mn(q_tile, PANEL);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dv, pa[kk], dot_desc + 64 * kk, 1);
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(dp);
-
-    // dS^T / scale = P^T (dP^T - delta), rounded to bf16 (dK's A fragments)
-    float2 dl[8];
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn) dl[jn] = lds_f2(del_u + (8 * jn + 2 * t) * 4);
-    unsigned hi[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 8 * kk + 2 * e, jn = 2 * kk + (e >> 1);
-        hi[kk][e] = pack_bf16(st[i] * (dp[i] - dl[jn].x), st[i + 1] * (dp[i + 1] - dl[jn].y));
-      }
-    // dK += dS^T Q, B = Q MN-major
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dk, hi[kk], qt_desc + 64 * kk, 1);
+      wgmma_rs_n96<1>(dv, pa[kk], desc_sw64_mn(do_tile, PANEL) + 64 * kk, 1);
     wgmma_commit();
+    // dP^T and dV: P^T's bf16 fragments die before dS^T is formed
     wgmma_wait<0>();
-    fence_regs(dk);
+    fence_regs(dp);
     fence_regs(dv);
     fence_regs(pa);
+
+    // dS^T / scale = P^T (dP^T - delta) as hi + lo bf16 into this
+    // warpgroup's dS^T tiles (rows keys, 64 queries of 128 bytes, 128B
+    // swizzle); hi stays in registers as dK's A fragments; delta a k-step at
+    // a time. Its own dQ product of the last tile has read them.
+    unsigned hi[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float2 dl0 = lds_f2(del_u + (16 * kk + 2 * t) * 4);
+      const float2 dl1 = lds_f2(del_u + (16 * kk + 8 + 2 * t) * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;
+        const float2 dl = (e >> 1) ? dl1 : dl0;
+        const float a = st[i] * (dp[i] - dl.x), x = st[i + 1] * (dp[i + 1] - dl.y);
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(a, x);
+        hi[kk][e] = *reinterpret_cast<const unsigned*>(&hv);
+        const uint32_t off = (r0 + 8 * (e & 1)) * 128 + (((2 * kk + (e >> 1)) ^ g) << 4) + 4 * t;
+        sts_u32(ds_hi + off, hi[kk][e]);
+        sts_u32(ds_lo + off, pack_bf16(a - __low2float(hv), x - __high2float(hv)));
+      }
+    }
+    // dK += dS^T Q (hi alone), B = Q MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n96<1>(dk, hi[kk], desc_sw64_mn(q_tile, PANEL) + 64 * kk, 1);
+    wgmma_commit();
+    // (a wait of one thread here, between the dK and dQ products, makes
+    // ptxas serialize every wgmma of the kernel: C7520)
+    fence_proxy_async();      // the dS^T stores, seen by wgmma
+    named_sync(1 + c, 128);   // the warpgroup's dS^T is in shared memory
+    // this warpgroup's part of dQ = dS K over its 64 keys, hi then lo
+    float dq[48];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n96<1, 1>(dq, dsh_desc + 128 * kk, kq_desc + 64 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n96<1, 1>(dq, dsl_desc + 128 * kk, kq_desc + 64 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dk);
     fence_regs(hi);
-    __syncthreads();  // the stage is read: q, do by wgmma, lse and delta by every thread
-    if (tid == 0 && qt + STAGES < nq) load_q_tile(qt + STAGES);
+    mbar_arrive(empty + 8 * s);  // the stage is read: q, do by wgmma, lse and delta
+
+    // the tile's buffer: 64 query rows x 96 f32 as three 64-row x 32-float
+    // boxes, 128B-swizzled as the workspace's map reads them; element i at
+    // row r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t
+    const uint32_t buf = base + OFF_DQ + j * DQ_BUF;
+    auto at = [&](int i) {
+      const int col = 8 * (i >> 2) + 2 * t;
+      return buf + (col >> 5) * DQ_BOX + (r0 + 8 * ((i >> 1) & 1)) * 128 +
+             ((((col & 31) >> 2) ^ g) << 4) + (t & 1) * 8;
+    };
+    if (c == 0) {
+      // warpgroup 0 leads: its thread 0 adds tile qt - 1's sum in its turn
+      // (and passes the turn on in the next tile); then warpgroup 0's part
+      // goes into the buffer (the adds that read it completed before this
+      // tile's warpgroup barrier)
+      if (tid == 0 && qt >= 1) add_in_turn(qt - 1);
+#pragma unroll
+      for (int i = 0; i < 48; i += 2) sts_f2(at(i), dq[i], dq[i + 1]);
+      mbar_arrive(part + 8 * j);
+    } else {
+      // warpgroup 1 adds its part to warpgroup 0's: the sum of the block's
+      // 128 keys, in a fixed order
+      mbar_wait(part + 8 * j, (qt >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 48; i += 2) {
+        const float2 w0 = lds_f2(at(i));
+        sts_f2(at(i), w0.x + dq[i], w0.y + dq[i + 1]);
+      }
+      fence_proxy_async();  // the sum, seen by TMA
+      mbar_arrive(dq_full + 8 * j);
+      if (tid == 160 && qt + STAGES < nq) {  // both warpgroups have read the stage: refill it
+        mbar_wait(empty + 8 * s, (qt / STAGES) & 1);
+        load_q_tile(qt + STAGES);
+      }
+    }
+  }
+  // thread 0 passes on the turns of the adds issued so far, then adds the
+  // last tile's sum in its turn: no turn waits behind another tile's turn
+  // (a block's last turns would chain behind the blocks before it)
+  if (tid == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    fence_proxy_async_global();
+    for (; passed < nq - 1; ++passed) st_release_gpu(turns + passed, kt + 1);
+    add_in_turn(nq - 1);
+    pass_turn(turns + nq - 1, kt);
   }
 
-  __nv_bfloat16* DK = p.out + b * p.sb + h * p.sh;
-  __nv_bfloat16* DV = p.out2 + b * p.sb2 + h * p.sh2;
+  __nv_bfloat16* DK = p.dk + b * p.dk_sb + h * p.dk_sh;
+  __nv_bfloat16* DV = p.dv + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
   for (int i = 0; i < 48; i += 2) {
     const bool hi_row = (i >> 1) & 1;
     const int key = hi_row ? key1 : key0, col = 8 * (i >> 2) + 2 * t;
     if (key < p.Lk) {
-      *reinterpret_cast<__nv_bfloat162*>(DK + static_cast<long>(key) * p.sl + col) =
+      *reinterpret_cast<__nv_bfloat162*>(DK + static_cast<long>(key) * p.dk_sl + col) =
           __floats2bfloat162_rn(dk[i] * p.scale, dk[i + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(DV + static_cast<long>(key) * p.sl2 + col) =
+      *reinterpret_cast<__nv_bfloat162*>(DV + static_cast<long>(key) * p.dv_sl + col) =
           __floats2bfloat162_rn(dv[i], dv[i + 1]);
     }
   }
 }
 
-// dQ of one (query tile of 64, batch*head), one warpgroup: S = Q K^T and dP
-// = dO V^T per key tile of 64 (rows queries, columns keys), P and dS in
-// registers, dQ += dS K with dS as hi + lo bf16; dq = bf16(dQ * scale).
-template <bool FULL_BIAS>
-__global__ void __launch_bounds__(bwd96::THREADS, 2)
-    flash_bwd_dq96_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v,
-                          const __grid_constant__ CUtensorMap tm_do, const Bwd96Params p) {
-  using bwd96::BK, bwd96::BQ, bwd96::HD, bwd96::PANEL, bwd96::STAGES, bwd96::TILE;
-  using bwd96::DQ_OFF_BAR, bwd96::DQ_OFF_RING, bwd96::kdesc, bwd96::load_tile;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int nk = (p.Lk + BK - 1) / BK;
-  const int tid = threadIdx.x, wi = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t q_tile = base, do_tile = base + TILE;
-  const uint32_t bar_full = base + DQ_OFF_BAR, bar_q = bar_full + STAGES * 8;
-
-  if (tid == 0) {
-    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  // key tile j (K, V) into stage j % STAGES
-  auto load_kv_tile = [&](int j) {
-    const int s = j % STAGES;
-    const uint32_t full = bar_full + 8 * s, dst = base + DQ_OFF_RING + s * 2 * TILE;
-    mbar_expect_tx(full, 2 * TILE);
-    load_tile(dst, &tm_k, full, j * BK, h, b);
-    load_tile(dst + TILE, &tm_v, full, j * BK, h, b);
-  };
-  if (tid == 0) {
-    mbar_expect_tx(bar_q, 2 * TILE);
-    load_tile(q_tile, &tm_q, bar_q, qt * BQ, h, b);
-    load_tile(do_tile, &tm_do, bar_q, qt * BQ, h, b);
-    for (int j = 0; j < STAGES && j < nk; ++j) load_kv_tile(j);
-  }
-
-  // this thread's rows (queries) r0, r0 + 8: their lse (units of log 2) and
-  // delta; rows past Lq have lse 1e30 (p = 0) and are not stored
-  const int row0 = qt * BQ + wi * 16 + g, row1 = row0 + 8;
-  const long rb = static_cast<long>(bh) * p.Lqp;
-  const float l0 = p.lse2[rb + row0], l1 = p.lse2[rb + row1];
-  const float d0 = p.delta[rb + row0], d1 = p.delta[rb + row1];
-  const float* kbias = p.kbias == nullptr ? nullptr : p.kbias + static_cast<long>(b) * p.Lk;
-  const float scale2 = p.scale * kBwdLog2e;
-
-  float dq[48];
-#pragma unroll
-  for (int i = 0; i < 48; ++i) dq[i] = 0.0f;
-  mbar_wait(bar_q, 0);
-  for (int j = 0; j < nk; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
-    const uint32_t k_tile = base + DQ_OFF_RING + s * 2 * TILE, v_tile = k_tile + TILE;
-
-    // S = Q K^T and dP = dO V^T, both operands K-major (k = d)
-    float sf[32], dp[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<0, 0>(sf, kdesc(q_tile, kk), kdesc(k_tile, kk), kk > 0);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<0, 0>(dp, kdesc(do_tile, kk), kdesc(v_tile, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(sf);
-
-    // p = 2^(s scale2 + bias2 - lse2); this thread's keys 8 jn + 2 t, + 1
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * jn + e, key = j * BK + 8 * jn + 2 * t + (e & 1);
-        const bool hi_row = e >> 1;
-        float x = -INFINITY;
-        if (key < p.Lk) {
-          x = fmaf(sf[i], scale2, kbias != nullptr ? __ldg(kbias + key) * kBwdLog2e : 0.0f);
-          if (FULL_BIAS) {
-            const int qrow = hi_row ? row1 : row0;
-            if (qrow < p.Lq) x += p.fbias[static_cast<long>(qrow) * p.Lk + key] * kBwdLog2e;
-          }
-        }
-        sf[i] = ex2(x - (hi_row ? l1 : l0));
-      }
-    }
-    wgmma_wait<0>();
-    fence_regs(dp);
-    // dS / scale = P (dP - delta) as hi + lo bf16, the A fragments of dS K
-    // (k = keys): element i = 8 kk + 2 e of a thread lies in row (e & 1)
-    unsigned hi[4][4], lo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 8 * kk + 2 * e;
-        const float dl = (e & 1) ? d1 : d0;
-        const float a = sf[i] * (dp[i] - dl), c = sf[i + 1] * (dp[i + 1] - dl);
-        const __nv_bfloat162 hv = __floats2bfloat162_rn(a, c);
-        hi[kk][e] = *reinterpret_cast<const unsigned*>(&hv);
-        lo[kk][e] = pack_bf16(a - __low2float(hv), c - __high2float(hv));
-      }
-    // dQ += dS K, B = K MN-major over its three panels (k-step: 16 keys)
-    const uint64_t kt_desc = desc_sw64_mn(k_tile, PANEL);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dq, hi[kk], kt_desc + 64 * kk, 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n96<1>(dq, lo[kk], kt_desc + 64 * kk, 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    fence_regs(hi);
-    fence_regs(lo);
-    __syncthreads();  // the stage's K and V are read
-    if (tid == 0 && j + STAGES < nk) load_kv_tile(j + STAGES);
-  }
-
-  __nv_bfloat16* DQ = p.out + b * p.sb + h * p.sh;
-#pragma unroll
-  for (int i = 0; i < 48; i += 2) {
-    const int row = (i >> 1) & 1 ? row1 : row0, col = 8 * (i >> 2) + 2 * t;
-    if (row < p.Lq)
-      *reinterpret_cast<__nv_bfloat162*>(DQ + static_cast<long>(row) * p.sl + col) =
-          __floats2bfloat162_rn(dq[i] * p.scale, dq[i + 1] * p.scale);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// head dim 96, f32: dK / dV, then dQ (two register-tiled SIMT kernels, the
-// TPU kernels' split)
+// head dim 96, f32: one register-tiled SIMT pass, the dQ sums in a fixed order
 // ---------------------------------------------------------------------------
 namespace f32bwd96 {
 constexpr int HD = 96;
-constexpr int BK = 64;             // keys of a dkv block; keys of a dq kernel's tile
-constexpr int BQ = 64;             // queries of a dkv kernel's tile; queries of a dq block
-constexpr int THREADS = 256;       // eight warps, one block an SM
-constexpr int STAGES = 2;          // depth of the streamed-tile ring
-constexpr int TILE = 64 * HD * 4;  // a 64 x 96 f32 tile: three 64-row x 128-byte boxes
-constexpr int STILE = 64 * 64 * 4; // P or dS: 64 queries x 64 keys, two boxes
-// dkv: K, V; per stage q, do; P, dS; per stage the lse, delta rows
-constexpr int DKV_OFF_RING = 2 * TILE;
-constexpr int DKV_OFF_P = DKV_OFF_RING + STAGES * 2 * TILE;
-constexpr int DKV_OFF_DS = DKV_OFF_P + STILE;
-constexpr int DKV_OFF_ROWS = DKV_OFF_DS + STILE;
-constexpr int DKV_OFF_BAR = DKV_OFF_ROWS + STAGES * 2 * BQ * 4;  // full[s], kv
-constexpr int DKV_SMEM = ((DKV_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
-// dq: q, do; per stage K, V; dS (at the end stage 0's K holds one half's dQ)
-constexpr int DQ_OFF_RING = 2 * TILE;
-constexpr int DQ_OFF_DS = DQ_OFF_RING + STAGES * 2 * TILE;
-constexpr int DQ_OFF_BAR = DQ_OFF_DS + STILE;  // full[s], q
-constexpr int DQ_SMEM = ((DQ_OFF_BAR + (STAGES + 1) * 8 + 15) / 16) * 16 + 1024;
-static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "over the 227 KB a block can use");
+constexpr int BK = 64;              // keys of a block
+constexpr int BQ = 64;              // queries of a streamed tile
+constexpr int THREADS = 256;        // eight warps, one block an SM
+constexpr int STAGES = 2;           // depth of the query-tile ring
+constexpr int TILE = 64 * HD * 4;   // a 64 x 96 f32 tile: three 64-row x 128-byte boxes
+constexpr int STILE = 64 * 64 * 4;  // P or dS: 64 queries x 64 keys, two boxes
+// K, V; per stage q, do; P, dS; the tile's dQ part; per stage the lse,
+// delta rows; full[s], kv; the ticket
+constexpr int OFF_RING = 2 * TILE;
+constexpr int OFF_P = OFF_RING + STAGES * 2 * TILE;
+constexpr int OFF_DS = OFF_P + STILE;
+constexpr int OFF_DQ = OFF_DS + STILE;
+constexpr int OFF_ROWS = OFF_DQ + TILE;
+constexpr int OFF_BAR = OFF_ROWS + STAGES * 2 * BQ * 4;
+constexpr int OFF_TICKET = OFF_BAR + (STAGES + 1) * 8;
+constexpr int SMEM = ((OFF_TICKET + 4 + 15) / 16) * 16 + 1024;  // + alignment
+static_assert(SMEM <= 232448, "over the 227 KB a block can use");
 
 // a 64-row tile of a (B, H, L, 96) f32 map at row `row` of (b, h): three boxes
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row,
@@ -1207,50 +1274,90 @@ __device__ __forceinline__ void f32_pair_products(float (&s)[4][4], float (&t)[4
   }
 }
 
-// dK and dV of one (key tile of 64, batch*head), f32 at head dim 96, 256
-// threads; K and V once, the query tiles (q, do by TMA, their lse and delta
-// rows by bulk copy) through a two-stage ring. Per query tile:
+// dq[i][j] += sum_key dS[tq + 16 i][key] K[key][2 td + 32 (j >> 1) + (j & 1)]
+// over the tile's 64 keys (i < 4, j < 6: the 64 x 96 dQ part by 256 threads,
+// tq < 16, td < 16): per 4 keys four 16-byte loads of dS and twelve 8-byte
+// loads of K for 96 FFMAs; a warp's K loads cover one 128-byte row (one
+// wavefront), its dS loads two rows with distinct r & 7
+__device__ __forceinline__ void f32_dq96_product(float (&dq)[4][6], uint32_t ds, uint32_t k, int tq,
+                                                 int td) {
+#pragma unroll 2
+  for (int c = 0; c < 16; ++c) {  // keys 4c .. 4c + 3
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = lds_f4(f32_chunk(ds, tq + 16 * i, c));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float bv[6];
+#pragma unroll
+      for (int y = 0; y < 3; ++y) {
+        const float2 v = lds_f2(f32_at(k, 4 * c + e, 2 * td + 32 * y));
+        bv[2 * y] = v.x;
+        bv[2 * y + 1] = v.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = e == 0 ? av[i].x : e == 1 ? av[i].y : e == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) dq[i][j] = fmaf(a, bv[j], dq[i][j]);
+      }
+    }
+  }
+}
+
+// dK, dV and the dQ sums at head dim 96, f32, in one pass: one block of 256
+// threads per (key tile of 64, batch*head), from the ticket; K and V once,
+// the query tiles (q, do by TMA, their lse and delta rows by bulk copy)
+// through a two-stage ring. Per query tile:
 //   all:       S^T = K Q^T and dP^T = V dO^T, a thread keys kr + 4 m and
 //              queries qr + 8 n (m, n < 4); P^T = exp(S^T scale + bias -
 //              lse) and dS^T = P^T (dP^T - delta) scale of its elements to
 //              shared memory as P and dS (rows queries);
 //   warps 0-3: dV += P^T dO; warps 4-7: dK += dS^T Q (keys 4 tkc + i,
 //              columns 4 tj + 32 h + e: 4 x 12 accumulators a thread, held
-//              over all tiles), written once at the end.
+//              over all tiles), written once at the end;
+//   all:       the dQ part = dS K (4 x 6 a thread, in the registers S^T and
+//              dP^T held), staged in its own buffer; thread 0 adds it into
+//              the zeroed dq by TMA reduce-add in the tile's turn, and passes
+//              the turn on once the add has completed, after the next tile's
+//              score products (which run meanwhile).
 // Keys past Lk are masked (-inf); query rows past Lq load as zeros with lse
-// 1e30 (p = 0).
+// 1e30 (p = 0), and their dq rows fall outside the reduce-add's map.
 template <bool FULL_BIAS>
 __global__ void __launch_bounds__(f32bwd96::THREADS, 1)
-    flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
-                             const __grid_constant__ CUtensorMap tm_k,
-                             const __grid_constant__ CUtensorMap tm_v,
-                             const __grid_constant__ CUtensorMap tm_do, const FlashBwdParams p) {
-  // block-scope names: they hide the one-pass kernels' TILE and STAGES
+    flash_bwd_f32_96_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_dq, const FlashBwdParams p,
+                            int* counters, int key_tiles) {
+  // block-scope names: they hide the one-pass hd-64 kernels' TILE and STAGES
   using f32bwd96::BK, f32bwd96::BQ, f32bwd96::HD, f32bwd96::STAGES, f32bwd96::TILE;
-  using f32bwd96::DKV_OFF_BAR, f32bwd96::DKV_OFF_DS, f32bwd96::DKV_OFF_P, f32bwd96::DKV_OFF_RING,
-      f32bwd96::DKV_OFF_ROWS, f32bwd96::load_tile;
+  using f32bwd96::OFF_BAR, f32bwd96::OFF_DQ, f32bwd96::OFF_DS, f32bwd96::OFF_P,
+      f32bwd96::OFF_RING, f32bwd96::OFF_ROWS, f32bwd96::OFF_TICKET, f32bwd96::load_tile;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int kt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int nq = (p.Lq + BQ - 1) / BQ;
   const int tid = threadIdx.x, lane = tid & 31;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform
-  const uint32_t k_s = base, v_s = base + TILE, p_s = base + DKV_OFF_P, ds_s = base + DKV_OFF_DS;
-  const uint32_t bar_full = base + DKV_OFF_BAR, bar_kv = bar_full + STAGES * 8;
-  const float* lse_row = p.lse + static_cast<long>(bh) * p.Lqp;
-  const float* del_row = p.delta + static_cast<long>(bh) * p.Lqp;
-
+  const uint32_t k_s = base, v_s = base + TILE, p_s = base + OFF_P, ds_s = base + OFF_DS,
+                 dq_s = base + OFF_DQ;
+  const uint32_t bar_full = base + OFF_BAR, bar_kv = bar_full + STAGES * 8;
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  const int item = take_ticket(counters, base + OFF_TICKET);  // syncs
+  const int kt = item % key_tiles, bh = item / key_tiles;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Lq + BQ - 1) / BQ;
+  int* turns = counters + 1 + static_cast<long>(bh) * nq;
+  const float* lse_row = p.lse + static_cast<long>(bh) * p.Lqp;
+  const float* del_row = p.delta + static_cast<long>(bh) * p.Lqp;
   // query tile qt (q, do, lse and delta rows) into stage qt % STAGES
   auto load_q_tile = [&](int qt) {
     const int s = qt % STAGES;
-    const uint32_t full = bar_full + 8 * s, dst = base + DKV_OFF_RING + s * 2 * TILE;
-    const uint32_t rows = base + DKV_OFF_ROWS + s * 2 * BQ * 4;
+    const uint32_t full = bar_full + 8 * s, dst = base + OFF_RING + s * 2 * TILE;
+    const uint32_t rows = base + OFF_ROWS + s * 2 * BQ * 4;
     mbar_expect_tx(full, 2 * TILE + 2 * BQ * 4);
     load_tile(dst, &tm_q, full, qt * BQ, h, b);
     load_tile(dst + TILE, &tm_do, full, qt * BQ, h, b);
@@ -1274,8 +1381,10 @@ __global__ void __launch_bounds__(f32bwd96::THREADS, 1)
     kb[m] = key < p.Lk ? (p.kbias != nullptr ? p.kbias[static_cast<long>(b) * p.Lk + key] : 0.0f)
                        : -INFINITY;
   }
-  // warps 0-3: dV += P^T dO; warps 4-7: dK += dS^T Q
+  // warps 0-3: dV += P^T dO; warps 4-7: dK += dS^T Q; all: the dQ part's
+  // queries tq + 16 i, columns 2 td + 32 h + e
   const int grp = warp >> 2, tkc = (tid & 127) >> 3, tj = lane & 7;
+  const int tq = tid >> 4, td = tid & 15;
   float acc[4][12];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -1286,32 +1395,55 @@ __global__ void __launch_bounds__(f32bwd96::THREADS, 1)
   for (int qt = 0; qt < nq; ++qt) {
     const int s = qt % STAGES;
     mbar_wait(bar_full + 8 * s, (qt / STAGES) & 1);
-    const uint32_t q_t = base + DKV_OFF_RING + s * 2 * TILE, do_t = q_t + TILE;
-    const uint32_t rows_s = base + DKV_OFF_ROWS + s * 2 * BQ * 4;
+    const uint32_t q_t = base + OFF_RING + s * 2 * TILE, do_t = q_t + TILE;
+    const uint32_t rows_s = base + OFF_ROWS + s * 2 * BQ * 4;
     float st[4][4], dp[4][4];
     f32_pair_products<HD / 4>(st, dp, k_s, v_s, q_t, do_t, kr, qr);
+    // the last tile's add has had the score products' time: pass its turn
+    if (tid == 0 && qt > 0) pass_turn(turns + qt - 1, kt);
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      const int c = qr + 8 * n;
-      const float lse = __uint_as_float(lds_u32(rows_s + 4 * c)),
-                  dl = __uint_as_float(lds_u32(rows_s + BQ * 4 + 4 * c));
+      const int col = qr + 8 * n;
+      const float lse = __uint_as_float(lds_u32(rows_s + 4 * col)),
+                  dl = __uint_as_float(lds_u32(rows_s + BQ * 4 + 4 * col));
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         float x = fmaf(st[m][n], p.scale, kb[m]);
         if (FULL_BIAS) {
-          const int qrow = qt * BQ + c, key = kt * BK + kr + 4 * m;
+          const int qrow = qt * BQ + col, key = kt * BK + kr + 4 * m;
           if (qrow < p.Lq && key < p.Lk) x += p.fbias[static_cast<long>(qrow) * p.Lk + key];
         }
         const float pv = expf(x - lse);
-        sts_f32(f32_at(p_s, c, kr + 4 * m), pv);
-        sts_f32(f32_at(ds_s, c, kr + 4 * m), pv * (dp[m][n] - dl) * p.scale);
+        sts_f32(f32_at(p_s, col, kr + 4 * m), pv);
+        sts_f32(f32_at(ds_s, col, kr + 4 * m), pv * (dp[m][n] - dl) * p.scale);
       }
     }
     __syncthreads();  // P and dS are written
     f32_cols_product<1, 3>(acc, grp ? ds_s : p_s, grp ? q_t : do_t, tkc, tj);
-    __syncthreads();  // the stage, P and dS are read
+    float dq[4][6];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) dq[i][j] = 0.0f;
+    f32_dq96_product(dq, ds_s, k_s, tq, td);
+    __syncthreads();  // the stage, P and dS are read; the dQ buffer's last add has completed
     if (tid == 0 && qt + STAGES < nq) load_q_tile(qt + STAGES);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int y = 0; y < 3; ++y)
+        sts_f2(f32_at(dq_s, tq + 16 * i, 2 * td + 32 * y), dq[i][2 * y], dq[i][2 * y + 1]);
+    fence_proxy_async();  // the dQ part, seen by TMA
+    __syncthreads();      // the dQ part is staged
+    if (tid == 0) {
+      wait_turn(turns + qt, kt);
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c)
+        tma_reduce_add_4d(&tm_dq, dq_s + (c << 13), 32 * c, qt * BQ, h, b);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
   }
+  if (tid == 0) pass_turn(turns + nq - 1, kt);
 
   // dV (warps 0-3) or dK (warps 4-7): keys kt * 64 + 4 tkc + i
   float* out = grp ? static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh
@@ -1327,157 +1459,6 @@ __global__ void __launch_bounds__(f32bwd96::THREADS, 1)
             make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2],
                         acc[i][4 * hh + 3]);
   }
-}
-
-// dQ of one (query tile of 64, batch*head), f32 at head dim 96, 256 threads:
-// q and do once, K and V tiles of 64 keys through a two-stage ring. Per key
-// tile: S = Q K^T and dP = dO V^T (a thread queries qr + 4 m, keys kr + 8 n),
-// P and dS = P (dP - delta) scale of its elements, dS to shared memory; then
-// dQ += dS K, each half of the block over its 32 keys of the tile (a thread
-// queries tq + 16 i, columns 4 td + 32 h + e: 4 x 12 accumulators). At the
-// end the second half's dQ goes through shared memory to the first, which
-// adds it and writes dq once: no atomics, so dq is bitwise repeatable.
-template <bool FULL_BIAS>
-__global__ void __launch_bounds__(f32bwd96::THREADS, 1)
-    flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
-                            const __grid_constant__ CUtensorMap tm_k,
-                            const __grid_constant__ CUtensorMap tm_v,
-                            const __grid_constant__ CUtensorMap tm_do, const FlashBwdParams p) {
-  using f32bwd96::BK, f32bwd96::BQ, f32bwd96::HD, f32bwd96::STAGES, f32bwd96::TILE;
-  using f32bwd96::DQ_OFF_BAR, f32bwd96::DQ_OFF_DS, f32bwd96::DQ_OFF_RING, f32bwd96::load_tile;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int nk = (p.Lk + BK - 1) / BK;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform
-  const uint32_t q_s = base, do_s = base + TILE, ds_s = base + DQ_OFF_DS;
-  const uint32_t bar_full = base + DQ_OFF_BAR, bar_q = bar_full + STAGES * 8;
-
-  if (tid == 0) {
-    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_full + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  // key tile j (K, V) into stage j % STAGES
-  auto load_kv_tile = [&](int j) {
-    const int s = j % STAGES;
-    const uint32_t full = bar_full + 8 * s, dst = base + DQ_OFF_RING + s * 2 * TILE;
-    mbar_expect_tx(full, 2 * TILE);
-    load_tile(dst, &tm_k, full, j * BK, h, b);
-    load_tile(dst + TILE, &tm_v, full, j * BK, h, b);
-  };
-  if (tid == 0) {
-    mbar_expect_tx(bar_q, 2 * TILE);
-    load_tile(q_s, &tm_q, bar_q, qt * BQ, h, b);
-    load_tile(do_s, &tm_do, bar_q, qt * BQ, h, b);
-    for (int j = 0; j < STAGES && j < nk; ++j) load_kv_tile(j);
-  }
-
-  // the scores' queries qr + 4 m (their lse and delta; rows past Lq have lse
-  // 1e30, so p = 0) and keys kr + 8 n
-  const int qr = 16 * (warp & 3) + (lane >> 3), kr = 32 * (warp >> 2) + (lane & 7);
-  const long rb = static_cast<long>(bh) * p.Lqp + qt * BQ + qr;
-  float lse[4], dl[4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    lse[m] = p.lse[rb + 4 * m];
-    dl[m] = p.delta[rb + 4 * m];
-  }
-  const float* kbias = p.kbias == nullptr ? nullptr : p.kbias + static_cast<long>(b) * p.Lk;
-  // dQ += dS K: half 0 over keys 0-31 of each tile, half 1 over keys 32-63
-  const int half = tid >> 7, tq = (tid & 127) >> 3, td = lane & 7;
-  float dq[4][12];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 12; ++j) dq[i][j] = 0.0f;
-  mbar_wait(bar_q, 0);
-
-  for (int j = 0; j < nk; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
-    const uint32_t k_t = base + DQ_OFF_RING + s * 2 * TILE, v_t = k_t + TILE;
-    float sf[4][4], dp[4][4];
-    f32_pair_products<HD / 4>(sf, dp, q_s, do_s, k_t, v_t, qr, kr);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int key = j * BK + kr + 8 * n;
-      const float kbv = kbias != nullptr && key < p.Lk ? __ldg(kbias + key) : 0.0f;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        float x = -INFINITY;
-        if (key < p.Lk) {
-          x = fmaf(sf[m][n], p.scale, kbv);
-          if (FULL_BIAS) {
-            const int qrow = qt * BQ + qr + 4 * m;
-            if (qrow < p.Lq) x += p.fbias[static_cast<long>(qrow) * p.Lk + key];
-          }
-        }
-        const float pv = expf(x - lse[m]);
-        sts_f32(f32_at(ds_s, qr + 4 * m, kr + 8 * n), pv * (dp[m][n] - dl[m]) * p.scale);
-      }
-    }
-    __syncthreads();  // dS is written
-    f32_dq_product<3, 8>(dq, ds_s, k_t, tq, td, 8 * half);
-    __syncthreads();  // the stage's K and V and dS are read
-    if (tid == 0 && j + STAGES < nk) load_kv_tile(j + STAGES);
-  }
-
-  // the halves' sum: half 1's dQ through stage 0's K (every copy into the
-  // ring has landed and been read), half 0 adds it and writes the rows < Lq
-  const uint32_t red = base + DQ_OFF_RING;
-  if (half) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int hh = 0; hh < HD / 32; ++hh)
-        sts_f4(f32_chunk(red, tq + 16 * i, td + 8 * hh),
-               make_float4(dq[i][4 * hh], dq[i][4 * hh + 1], dq[i][4 * hh + 2], dq[i][4 * hh + 3]));
-  }
-  __syncthreads();
-  if (!half) {
-    float* DQ = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = qt * BQ + tq + 16 * i;
-      if (row < p.Lq)
-#pragma unroll
-        for (int hh = 0; hh < HD / 32; ++hh) {
-          const float4 o2 = lds_f4(f32_chunk(red, tq + 16 * i, td + 8 * hh));
-          *reinterpret_cast<float4*>(DQ + static_cast<long>(row) * p.dq_sl + 4 * td + 32 * hh) =
-              make_float4(dq[i][4 * hh] + o2.x, dq[i][4 * hh + 1] + o2.y,
-                          dq[i][4 * hh + 2] + o2.z, dq[i][4 * hh + 3] + o2.w);
-        }
-    }
-  }
-}
-
-// the checks and TMA maps shared by the two head-dim-96 entry points:
-// strides (batch, head, row) of q, k, v, do in turn
-inline bool bwd96_setup(CUtensorMap* maps, Bwd96Params& p, const void* q, const void* k,
-                        const void* v, const void* dout, const float* lse2, const float* delta,
-                        int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
-                        const float* kbias, const float* fbias, float scale) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != bwd96::HD || Lqp < Lq ||
-      Lqp % LQ_PAD != 0 || static_cast<long>(B) * H > 65535)
-    return false;
-  const void* ptrs[4] = {q, k, v, dout};
-  const int lens[4] = {Lq, Lk, Lk, Lq};
-  for (int i = 0; i < 4; ++i)
-    if (!bhld_map(&maps[i], ptrs[i], B, H, lens[i], strides + 3 * i, 64, 2, bwd96::HD))
-      return false;
-  p.lse2 = lse2;
-  p.delta = delta;
-  p.kbias = kbias;
-  p.fbias = fbias;
-  p.H = H;
-  p.Lq = Lq;
-  p.Lk = Lk;
-  p.Lqp = Lqp;
-  p.scale = scale;
-  return true;
 }
 
 inline bool fill_params(FlashBwdParams& p, const void* q, const void* k, const void* v,
@@ -1509,13 +1490,14 @@ inline bool fill_params(FlashBwdParams& p, const void* q, const void* k, const v
   return true;
 }
 
-// a 2-D map (64, rows) over the f32 dq workspace, boxes of 64 rows x 32
-// floats (128 bytes), 128-byte swizzle: the dkvq kernel's reduce-adds
-inline bool ws_map(CUtensorMap* m, float* ws, long rows) {
+// a 2-D map (d, rows) over the f32 dq workspace (d = 64 or 96), boxes of 64
+// rows x 32 floats (128 bytes), 128-byte swizzle: the dkvq kernels'
+// reduce-adds
+inline bool ws_map(CUtensorMap* m, float* ws, long rows, int d = BHD) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(BHD), static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(BHD * 4)};
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(d * 4)};
   cuuint32_t box[2] = {32, QB};
   cuuint32_t elem[2] = {1, 1};
   return encode(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims, strides, box, elem,
@@ -1614,18 +1596,19 @@ extern "C" int nova_flash_attention_bwd_dkvq(
   return cudaGetLastError();
 }
 
-// the f32 dq workspace (B*H, Lqp, 64) times scale -> bf16 dq; strides:
-// (batch, head, row)
+// the f32 dq workspace (B*H, Lqp, D) times scale -> bf16 dq, D = 64 or 96;
+// strides: (batch, head, row)
 extern "C" int nova_flash_attention_bwd_dq_cast(const float* ws, int B, int H, int Lq, int Lqp,
                                                 int D, const long* strides, float scale,
                                                 void* dq, void* stream_ptr) {
   using namespace nova;
-  if (B <= 0 || H <= 0 || Lq <= 0 || D != BHD || Lqp < Lq) return cudaErrorInvalidValue;
-  const long chunks = static_cast<long>(B) * H * Lq * (BHD / 8);
+  if (B <= 0 || H <= 0 || Lq <= 0 || (D != BHD && D != 96) || Lqp < Lq)
+    return cudaErrorInvalidValue;
+  const long chunks = static_cast<long>(B) * H * Lq * (D / 8);
   const long blocks = (chunks + CAST_THREADS - 1) / CAST_THREADS;
   if (blocks > 2147483647L) return cudaErrorInvalidValue;
-  flash_bwd_dq_cast_kernel<<<static_cast<unsigned>(blocks), CAST_THREADS, 0,
-                             static_cast<cudaStream_t>(stream_ptr)>>>(
+  auto kernel = D == 96 ? flash_bwd_dq_cast_kernel<96> : flash_bwd_dq_cast_kernel<BHD>;
+  kernel<<<static_cast<unsigned>(blocks), CAST_THREADS, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
       ws, H, Lq, Lqp, strides[0], strides[1], strides[2], scale, static_cast<__nv_bfloat16*>(dq),
       chunks);
   return cudaGetLastError();
@@ -1666,133 +1649,105 @@ extern "C" int nova_flash_attention_bwd_f32(
   return cudaGetLastError();
 }
 
-// dK and dV at head dim 96, bf16 (the dkv kernel). strides: 18 element
-// strides, (batch, head, row) of q, k, v, do, dk, dv. lse2 (units of log 2)
-// and delta (B*H, Lqp) from the prep kernel. key_tiles and smem_bytes are
-// the caller's launch plan, checked against this kernel's.
-extern "C" int nova_flash_attention_bwd_dkv(
+// dK, dV and the dQ sums at head dim 96, bf16, in one pass (the dkvq96
+// kernel). strides: 18 element strides, (batch, head, row) of q, k, v, do,
+// dk, dv. lse2 (units of log 2) and delta (B*H, Lqp) from the prep kernel;
+// dq_ws (B*H, Lqp, 96) f32, written by the kernel (key tile 0 stores, the
+// others add); counters (1 + B*H*q_tiles) int32, zeroed here on the stream
+// before the launch. key_tiles, q_tiles and smem_bytes are the caller's
+// launch plan, checked against this kernel's; the grid is key_tiles * B * H
+// blocks.
+extern "C" int nova_flash_attention_bwd_dkvq96(
     const void* q, const void* k, const void* v, const void* dout, const float* lse2,
     const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
-    const float* kbias, const float* fbias, float scale, void* dk, void* dv, int key_tiles,
-    int smem_bytes, void* stream_ptr) {
+    const float* kbias, const float* fbias, float scale, float* dq_ws, void* dk, void* dv,
+    int* counters, int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
   using namespace nova;
-  CUtensorMap maps[4];
-  Bwd96Params p;
-  if (!bwd96_setup(maps, p, q, k, v, dout, lse2, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
-                   fbias, scale))
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != bwd96::HD || Lqp < Lq || Lqp % LQ_PAD != 0)
     return cudaErrorInvalidValue;
-  if (key_tiles != (Lk + bwd96::BK - 1) / bwd96::BK || smem_bytes != bwd96::DKV_SMEM)
+  const long blocks = static_cast<long>(key_tiles) * B * H;
+  if (key_tiles != (Lk + bwd96::BK - 1) / bwd96::BK || q_tiles != (Lq + bwd96::BQ - 1) / bwd96::BQ ||
+      smem_bytes != bwd96::SMEM || blocks > 2147483647L ||
+      static_cast<long>(B) * H * Lqp > 2147483647L)
     return cudaErrorInvalidConfiguration;
-  p.out = static_cast<__nv_bfloat16*>(dk);
-  p.out2 = static_cast<__nv_bfloat16*>(dv);
-  p.sb = strides[12], p.sh = strides[13], p.sl = strides[14];
-  p.sb2 = strides[15], p.sh2 = strides[16], p.sl2 = strides[17];
-  auto kernel = fbias != nullptr ? flash_bwd_dkv96_kernel<true> : flash_bwd_dkv96_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd96::DKV_SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(key_tiles, B * H), bwd96::THREADS, bwd96::DKV_SMEM,
-           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
-  return cudaGetLastError();
-}
-
-// dQ at head dim 96, bf16 (the dq kernel): strides: 15 element strides,
-// (batch, head, row) of q, k, v, do, dq; dq written in bf16. q_tiles and
-// smem_bytes are the caller's launch plan, checked against this kernel's.
-extern "C" int nova_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout, const float* lse2,
-    const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
-    const float* kbias, const float* fbias, float scale, void* dq, int q_tiles, int smem_bytes,
-    void* stream_ptr) {
-  using namespace nova;
-  CUtensorMap maps[4];
-  Bwd96Params p;
-  if (!bwd96_setup(maps, p, q, k, v, dout, lse2, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
-                   fbias, scale))
-    return cudaErrorInvalidValue;
-  if (q_tiles != (Lq + bwd96::BQ - 1) / bwd96::BQ || smem_bytes != bwd96::DQ_SMEM)
-    return cudaErrorInvalidConfiguration;
-  p.out = static_cast<__nv_bfloat16*>(dq);
-  p.out2 = nullptr;
-  p.sb = strides[12], p.sh = strides[13], p.sl = strides[14];
-  p.sb2 = p.sh2 = p.sl2 = 0;
-  auto kernel = fbias != nullptr ? flash_bwd_dq96_kernel<true> : flash_bwd_dq96_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd96::DQ_SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(q_tiles, B * H), bwd96::THREADS, bwd96::DQ_SMEM,
-           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
-  return cudaGetLastError();
-}
-
-namespace nova {
-// the checks and TMA maps of the two f32 head-dim-96 entry points: the f32
-// one-pass kernel's arguments (21 strides: q, k, v, do, dq, dk, dv)
-inline bool f32_96_setup(CUtensorMap* maps, FlashBwdParams& p, const void* q, const void* k,
-                         const void* v, const void* dout, const float* lse, const float* delta,
-                         int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
-                         const float* kbias, const float* fbias, float scale, void* dq, void* dk,
-                         void* dv) {
-  if (D != f32bwd96::HD || static_cast<long>(B) * H > 65535 ||
-      !fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, strides, kbias, fbias, scale,
-                   dq, dk, dv))
-    return false;
+  CUtensorMap maps[5];
   const void* ptrs[4] = {q, k, v, dout};
   const int lens[4] = {Lq, Lk, Lk, Lq};
   for (int i = 0; i < 4; ++i)
-    if (!bhld_map(&maps[i], ptrs[i], B, H, lens[i], strides + 3 * i, 64, 4, f32bwd96::HD))
-      return false;
-  return true;
-}
-}  // namespace nova
-
-// dK and dV at head dim 96, f32 (the dkv_f32 kernel; dq is not touched):
-// the f32 one-pass kernel's arguments, lse (natural log) and delta from the
-// prep kernel. key_tiles and smem_bytes are the caller's launch plan,
-// checked against this kernel's.
-extern "C" int nova_flash_attention_bwd_dkv_f32(
-    const void* q, const void* k, const void* v, const void* dout, const float* lse,
-    const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
-    const float* kbias, const float* fbias, float scale, void* dq, void* dk, void* dv,
-    int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
-  using namespace nova;
-  CUtensorMap maps[4];
-  FlashBwdParams p;
-  if (!f32_96_setup(maps, p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
-                    fbias, scale, dq, dk, dv))
+    if (!bhld_map(&maps[i], ptrs[i], B, H, lens[i], strides + 3 * i, 64, 2, bwd96::HD))
+      return cudaErrorInvalidValue;
+  if (!ws_map(&maps[4], dq_ws, static_cast<long>(B) * H * Lqp, bwd96::HD))
     return cudaErrorInvalidValue;
-  if (key_tiles != (Lk + f32bwd96::BK - 1) / f32bwd96::BK || smem_bytes != f32bwd96::DKV_SMEM)
-    return cudaErrorInvalidConfiguration;
-  auto kernel = fbias != nullptr ? flash_bwd_dkv_f32_kernel<true> : flash_bwd_dkv_f32_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         f32bwd96::DKV_SMEM);
+  Dkvq96Params p;
+  p.lse2 = lse2;
+  p.delta = delta;
+  p.kbias = kbias;
+  p.fbias = fbias;
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.counters = counters;
+  p.dk_sb = strides[12];
+  p.dk_sh = strides[13];
+  p.dk_sl = strides[14];
+  p.dv_sb = strides[15];
+  p.dv_sh = strides[16];
+  p.dv_sl = strides[17];
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.Lqp = Lqp;
+  p.key_tiles = key_tiles;
+  p.scale = scale;
+  // the full bias (read per score) gets its own instance
+  auto kernel = fbias != nullptr ? flash_bwd_dkvq96_kernel<true> : flash_bwd_dkvq96_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd96::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(key_tiles, B * H), f32bwd96::THREADS, f32bwd96::DKV_SMEM,
-           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
+  err = cudaMemsetAsync(counters, 0, (1 + static_cast<size_t>(B) * H * q_tiles) * sizeof(int),
+                        static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), bwd96::THREADS, bwd96::SMEM,
+           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], maps[4], p);
   return cudaGetLastError();
 }
 
-// dQ at head dim 96, f32 (the dq_f32 kernel; dk and dv are not touched), dq
-// written once. q_tiles and smem_bytes are the caller's launch plan, checked
-// against this kernel's.
-extern "C" int nova_flash_attention_bwd_dq_f32(
+// dK, dV and dQ at head dim 96, f32, in one pass (the f32_96 kernel): the
+// f32 one-pass kernel's arguments (21 strides: q, k, v, do, dq, dk, dv; lse
+// in natural units; dq zeroed, the kernel adds into it) and counters (1 +
+// B*H*q_tiles) int32, zeroed here on the stream before the launch.
+// key_tiles, q_tiles and smem_bytes are the caller's launch plan, checked
+// against this kernel's; the grid is key_tiles * B * H blocks.
+extern "C" int nova_flash_attention_bwd_f32_96(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, int B, int H, int Lq, int Lk, int Lqp, int D, const long* strides,
     const float* kbias, const float* fbias, float scale, void* dq, void* dk, void* dv,
-    int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
+    int* counters, int key_tiles, int q_tiles, int smem_bytes, void* stream_ptr) {
   using namespace nova;
-  CUtensorMap maps[4];
   FlashBwdParams p;
-  if (!f32_96_setup(maps, p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, D, strides, kbias,
-                    fbias, scale, dq, dk, dv))
+  if (D != f32bwd96::HD || !fill_params(p, q, k, v, dout, lse, delta, B, H, Lq, Lk, Lqp, strides,
+                                        kbias, fbias, scale, dq, dk, dv))
     return cudaErrorInvalidValue;
-  if (q_tiles != (Lq + f32bwd96::BQ - 1) / f32bwd96::BQ || smem_bytes != f32bwd96::DQ_SMEM)
+  const long blocks = static_cast<long>(key_tiles) * B * H;
+  if (key_tiles != (Lk + f32bwd96::BK - 1) / f32bwd96::BK ||
+      q_tiles != (Lq + f32bwd96::BQ - 1) / f32bwd96::BQ || smem_bytes != f32bwd96::SMEM ||
+      blocks > 2147483647L)
     return cudaErrorInvalidConfiguration;
-  auto kernel = fbias != nullptr ? flash_bwd_dq_f32_kernel<true> : flash_bwd_dq_f32_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         f32bwd96::DQ_SMEM);
+  CUtensorMap maps[5];
+  const void* ptrs[5] = {q, k, v, dout, dq};
+  const int lens[5] = {Lq, Lk, Lk, Lq, Lq};
+  const int at[5] = {0, 3, 6, 9, 12};  // their strides' place in `strides`
+  for (int i = 0; i < 5; ++i)
+    if (!bhld_map(&maps[i], ptrs[i], B, H, lens[i], strides + at[i], 64, 4, f32bwd96::HD))
+      return cudaErrorInvalidValue;
+  auto kernel = fbias != nullptr ? flash_bwd_f32_96_kernel<true> : flash_bwd_f32_96_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f32bwd96::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(q_tiles, B * H), f32bwd96::THREADS, f32bwd96::DQ_SMEM,
-           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], p);
+  err = cudaMemsetAsync(counters, 0, (1 + static_cast<size_t>(B) * H * q_tiles) * sizeof(int),
+                        static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), f32bwd96::THREADS, f32bwd96::SMEM,
+           static_cast<cudaStream_t>(stream_ptr)>>>(maps[0], maps[1], maps[2], maps[3], maps[4], p,
+                                                    counters, key_tiles);
   return cudaGetLastError();
 }

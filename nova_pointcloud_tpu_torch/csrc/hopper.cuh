@@ -4,7 +4,8 @@
 // address, ldmatrix, named barriers, the f32 kernels' swizzled 64 x 64
 // tile layout, wgmma shared-memory descriptors (128B, 64B and 32B swizzle,
 // K- and MN-major; none), wgmma wrappers (bf16 m64n64k16, m64n96k16, m64n128k16
-// and m64n8k16, s8 m64n96k32, m64n128k32, m64n192k32 and m64n256k32), setmaxnreg,
+// and m64n8k16, s8 m64n96k32, m64n128k32, m64n192k32 and m64n256k32),
+// acquire / release counters in global memory (an ordered sum across blocks), setmaxnreg,
 // thread-block clusters (ranks, distributed shared memory, remote mbarrier
 // arrivals) and, on the host, the TMA map encoder reached through
 // cudaGetDriverEntryPoint, so that no library links -lcuda. The int8
@@ -325,6 +326,18 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const unsigned (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 
+// d (64 x 96, f32) (+)= A B, both from shared memory; TA / TB: MN-major
+// (head dim 96: a warpgroup's part of the backward's dQ = dS K)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " NOVA_WG_REGS48
+      ", %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : NOVA_WG_D48("+f")
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
 // d (64 x 128, f32) (+)= A B, A (64 x 16 bf16) and B (128 x 16 bf16) both
 // K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
@@ -449,6 +462,23 @@ __device__ __forceinline__ uint32_t f32_at(uint32_t tile, int r, int col) {
 // wgmma and TMA (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a counter in global memory, read with acquire and written with release at
+// GPU scope: what one block wrote before its release is seen by a block
+// after its acquire (an ordered sum across blocks takes turns on it)
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_gpu(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+// global memory written or read by TMA (the async proxy), ordered against
+// this thread's generic loads and stores
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

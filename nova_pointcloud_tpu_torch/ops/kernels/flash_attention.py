@@ -16,13 +16,14 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   ``csrc/flash_attention_bwd.cu``: in bf16 the prep kernel (delta and lse
   rows), the one-pass dkvq kernel (wgmma and TMA: dK, dV, and dQ summed into
   an f32 workspace) and the cast of that workspace to dq, or at head dim 96
-  the prep kernel, the dkv kernel (dK, dV) and the dq kernel (dQ, written
-  in bf16), launched as :func:`bwd96_plan` lays them out; in f32 the prep
-  kernel and the one-pass register-tiled SIMT kernel (f32 FFMA; dQ added
-  into the zeroed dq), launched as :func:`bwd_f32_plan` lays it out, or at
-  head dim 96 the prep kernel, the dkv_f32 kernel (dK, dV) and the dq_f32
-  kernel (dQ, written once), register-tiled SIMT too, launched as
-  :func:`bwd96_f32_plan` lays them out. For CPU tensors the forward runs
+  the prep kernel, the warp-specialised one-pass dkvq96 kernel (its dQ sums
+  in a fixed order: dq bitwise repeatable) and the cast, launched as
+  :func:`bwd96_plan` lays them out; in f32 the prep kernel and the one-pass
+  register-tiled SIMT kernel (f32 FFMA; dQ added into the zeroed dq),
+  launched as :func:`bwd_f32_plan` lays it out, or at head dim 96 the prep
+  kernel and the one-pass f32_96 kernel (register-tiled SIMT too, dQ added
+  into the zeroed dq in a fixed order), launched as :func:`bwd96_f32_plan`
+  lays them out. For CPU tensors the forward runs
   :func:`flash_attention_plain` and the backward
   :func:`flash_attention_bwd_plain`. It never falls back from a kernel to its
   plain version: what a kernel does not take raises.
@@ -36,11 +37,11 @@ recomputes the probabilities from it (the JAX ``_flash_bwd``).
   :func:`fwd_f32_plan` the forward's.
 - ``LAUNCHES[name]`` counts each kernel's launches: ``flash_attention``;
   ``flash_attention_bwd_prep``, ``flash_attention_bwd_dkvq``,
-  ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_bwd_dkv``,
-  ``flash_attention_bwd_dq`` (bf16 at head dim 96, after the prep kernel);
+  ``flash_attention_bwd_dq_cast`` (bf16); ``flash_attention_bwd_dkvq96``
+  (bf16 at head dim 96, between the prep and cast kernels);
   ``flash_attention_bwd_f32`` (f32, after the prep kernel);
-  ``flash_attention_bwd_dkv_f32``, ``flash_attention_bwd_dq_f32`` (f32 at
-  head dim 96, after the prep kernel).
+  ``flash_attention_bwd_f32_96`` (f32 at head dim 96, after the prep
+  kernel).
 
 The CUDA kernels take float32 or bfloat16 q, k, v of one dtype with head dim
 64 or 96 (the NOVA-1.4B ViTs); any other head dim raises before any launch
@@ -283,9 +284,10 @@ _PREP_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P]
 _DKVQ_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P,
                   _I, _I, _I, _P]  # the f32 kernel's too
 _CAST_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _F, _P, _P]
-_DKV_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _I, _I,
-                 _P]
-_DQ_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _I, _I, _P]
+# the head-dim-96 kernels' (dkvq96 and f32_96): the one-pass kernels' list
+# with the counters (which the entry point zeroes) before the plan's numbers
+_ORDERED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P,
+                     _P, _I, _I, _I, _P]
 _LQ_PAD = 128  # lse / delta / dq workspace rows are padded to a multiple of this
 LOG2E = 1.4426950408889634
 # the bf16 kernel's tiling (csrc/flash_attention_bwd.cu): blocks of 128 keys,
@@ -298,22 +300,22 @@ BWD_BLOCK_K, BWD_BLOCK_Q, BWD_STAGES = 128, 64, 2
 # two mbarriers, 1 KB to align the swizzled tiles: two blocks an SM
 BWD_F32_BLOCK_K, BWD_F32_BLOCK_Q, BWD_F32_THREADS = 64, 64, 128
 
-# the head-dim-96 bf16 kernels' (the dkv and dq kernels): one warpgroup a
-# block, tiles of 64 rows (three 32-column panels) through two stages;
-# shared memory: dkv K, V and two stages of q, do and their lse / delta
-# rows, dq q, do and two stages of K, V; three mbarriers; 1 KB to align
-BWD96_BLOCK, BWD96_STAGES, BWD96_THREADS = 64, 2, 128
-# the head-dim-96 f32 kernels' (dkv_f32, dq_f32): the same blocks and stages,
-# 256 threads (eight warps of register-tiled SIMT products) a block
-BWD96_F32_THREADS = 256
+# the head-dim-96 bf16 kernel's (dkvq96): blocks of 128 keys, two
+# warpgroups of 64 keys each, query tiles of 64 through a ring of
+# BWD96_STAGES stages, a dS^T pair (hi, lo) a warpgroup and two dQ buffers
+BWD96_BLOCK_K, BWD96_BLOCK_Q, BWD96_STAGES, BWD96_THREADS = 128, 64, 3, 256
+# the head-dim-96 f32 kernel's (f32_96): blocks of 64 keys and 256 threads
+# (eight warps of register-tiled SIMT products), query tiles of 64 through
+# two stages
+BWD96_F32_BLOCK, BWD96_F32_THREADS = 64, 256
 
 BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkvq",
                "flash_attention_bwd_dq_cast")  # bf16, in launch order
-BWD96_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq")  # bf16 at head dim 96
+BWD96_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkvq96",
+                 "flash_attention_bwd_dq_cast")  # bf16 at head dim 96
 BWD_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_f32")
-BWD96_F32_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkv_f32",
-                     "flash_attention_bwd_dq_f32")  # f32 at head dim 96
+BWD96_F32_KERNELS = ("flash_attention_bwd_prep",
+                     "flash_attention_bwd_f32_96")  # f32 at head dim 96
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -397,19 +399,32 @@ def bwd_plan(b: int, h: int, lq: int, lk: int) -> dict:
                 grid=(key_tiles, b * h), smem_bytes=smem, workspace=(b * h, lqp, ONE_PASS_HEAD_DIM))
 
 
+def _ordered_plan(b: int, h: int, lq: int, lk: int, block_k: int) -> dict:
+    """What the head-dim-96 kernels' plans share: the grid of key_tiles *
+    B * H blocks (each takes its (key tile, b*h) from a ticket) and the
+    int32 counters, which the entry point zeroes before each launch: the
+    ticket, then one turn a (b*h, query tile)."""
+    key_tiles, q_tiles = -(-lk // block_k), -(-lq // 64)
+    return dict(lqp=-(-lq // _LQ_PAD) * _LQ_PAD, key_tiles=key_tiles, q_tiles=q_tiles,
+                grid=(key_tiles * b * h,), counters=(1 + b * h * q_tiles,))
+
+
 def bwd96_plan(b: int, h: int, lq: int, lk: int) -> dict:
     """The head-dim-96 bf16 backward's launch plan, as
-    ``csrc/flash_attention_bwd.cu`` lays out the dkv and dq kernels' shared
-    memory (which check it): one block of a warpgroup per (64 keys, B*H) for
-    dkv, per (64 queries, B*H) for dq; 12 KB tiles of 64 x 96 bf16."""
-    tile = BWD96_BLOCK * 96 * 2
-    rows = BWD96_STAGES * 2 * BWD96_BLOCK * 4
-    bars = (BWD96_STAGES + 1) * 8
-    key_tiles, q_tiles = -(-lk // BWD96_BLOCK), -(-lq // BWD96_BLOCK)
-    return dict(lqp=-(-lq // _LQ_PAD) * _LQ_PAD, key_tiles=key_tiles, q_tiles=q_tiles,
-                dkv_grid=(key_tiles, b * h), dq_grid=(q_tiles, b * h), threads=BWD96_THREADS,
-                dkv_smem=-(-(2 * tile + BWD96_STAGES * 2 * tile + rows + bars) // 16) * 16 + 1024,
-                dq_smem=-(-(2 * tile + BWD96_STAGES * 2 * tile + bars) // 16) * 16 + 1024)
+    ``csrc/flash_attention_bwd.cu`` lays out the dkvq96 kernel's shared
+    memory (which checks it): K and V of each warpgroup's 64 keys (12 KB
+    tiles of 64 x 96 bf16), the query-tile ring (q, do), each warpgroup's
+    dS^T tiles hi and lo (64 keys x 64 queries), two 24 KB f32 dQ buffers,
+    the stages' lse and delta rows, the mbarriers and the ticket word; 1 KB
+    to align.
+    ``workspace``: the f32 dq sums (B*H, Lqp, 96), written by the kernel
+    (key tile 0 stores, the others add: no zeroing), then cast."""
+    tile = 64 * 96 * 2
+    used = (4 * tile + BWD96_STAGES * 2 * tile + 4 * 64 * 128 + 2 * 64 * 96 * 4
+            + BWD96_STAGES * 2 * BWD96_BLOCK_Q * 4 + (2 * BWD96_STAGES + 5) * 8 + 4)
+    return dict(_ordered_plan(b, h, lq, lk, BWD96_BLOCK_K), threads=BWD96_THREADS,
+                smem_bytes=-(-used // 16) * 16 + 1024,
+                workspace=(b * h, -(-lq // _LQ_PAD) * _LQ_PAD, 96))
 
 
 def bwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
@@ -430,30 +445,25 @@ def bwd_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
 
 def bwd96_f32_plan(b: int, h: int, lq: int, lk: int) -> dict:
     """The f32 backward's launch plan at head dim 96, as
-    ``csrc/flash_attention_bwd.cu`` lays out the dkv_f32 and dq_f32 kernels'
-    shared memory (which check it): one block of 256 threads per (64 keys,
-    B*H) for dkv_f32 (K, V, two stages of q, do and their lse / delta rows,
-    P and dS), per (64 queries, B*H) for dq_f32 (q, do, two stages of K, V,
-    dS); 24 KB tiles of 64 x 96 f32, 16 KB of P or dS; three mbarriers; 1 KB
-    to align. No workspace: each kernel writes its outputs once."""
-    tile, s_tile = BWD96_BLOCK * 96 * 4, BWD96_BLOCK * BWD96_BLOCK * 4
-    rows = BWD96_STAGES * 2 * BWD96_BLOCK * 4
-    bars = (BWD96_STAGES + 1) * 8
-    key_tiles, q_tiles = -(-lk // BWD96_BLOCK), -(-lq // BWD96_BLOCK)
-    ring = 2 * tile + BWD96_STAGES * 2 * tile
-    return dict(lqp=-(-lq // _LQ_PAD) * _LQ_PAD, key_tiles=key_tiles, q_tiles=q_tiles,
-                dkv_grid=(key_tiles, b * h), dq_grid=(q_tiles, b * h),
-                threads=BWD96_F32_THREADS,
-                dkv_smem=-(-(ring + 2 * s_tile + rows + bars) // 16) * 16 + 1024,
-                dq_smem=-(-(ring + s_tile + bars) // 16) * 16 + 1024)
+    ``csrc/flash_attention_bwd.cu`` lays out the f32_96 kernel's shared
+    memory (which checks it): K and V of its 64 keys, two stages of q and
+    do (24 KB tiles of 64 x 96 f32), P and dS (16 KB each), the tile's dQ
+    part (24 KB), the stages' lse and delta rows, three mbarriers and the
+    ticket word; 1 KB to align. ``workspace``: the dq the kernel adds into,
+    zeroed, in the (B, L, H, D) layout."""
+    tile, s_tile = 64 * 96 * 4, 64 * 64 * 4
+    used = (2 * tile + 2 * 2 * tile + 2 * s_tile + tile + 2 * 2 * BWD96_F32_BLOCK * 4 + 3 * 8
+            + 4)
+    return dict(_ordered_plan(b, h, lq, lk, BWD96_F32_BLOCK), threads=BWD96_F32_THREADS,
+                smem_bytes=-(-used // 16) * 16 + 1024, workspace=(b, lq, h, 96))
 
 
 def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     """Every check of the backward kernels, then their launches in order
     (name, argtypes, ctypes arguments, the tensors behind the pointers) and
     the outputs (dq, dk, dv) they write. bf16: prep, dkvq, cast (head dim
-    96: prep, dkv, dq); f32: prep, the one-pass f32 kernel (head dim 96:
-    prep, dkv_f32, dq_f32)."""
+    96: prep, dkvq96, cast); f32: prep, the one-pass f32 kernel (head dim
+    96: prep, f32_96)."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dev = q.device
@@ -476,6 +486,8 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     if b * h > 65535 or (is_bf16 and b * h * plan["lqp"] >= 2 ** 31):
         raise ValueError(f"B*H = {b * h} over the grid's 65535 rows, or B*H*Lq over the "
                          f"dq workspace map's 2^31 rows")
+    if hd96 and plan["grid"][0] >= 2 ** 31:
+        raise ValueError(f"{plan['grid'][0]} blocks: over the kernel's int range")
     q, k, v, o, do = (_strided(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     lqp = plan["lqp"]
@@ -483,8 +495,8 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
     lse_rows, delta = torch.empty((b * h, lqp), **f32), torch.empty((b * h, lqp), **f32)
     dk, dv = (torch.empty((b, lk, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
               for _ in range(2))
-    # the one-pass f32 kernel adds its dq parts into dq itself
-    dq = (torch.zeros if not is_bf16 and not hd96 else torch.empty)(
+    # the one-pass f32 kernels add their dq parts into dq itself
+    dq = (torch.empty if is_bf16 else torch.zeros)(
         (b, lq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     if key_bias is not None:
         key_bias = key_bias.to(device=dev, dtype=torch.float32).contiguous()
@@ -501,50 +513,36 @@ def _bwd_operands(q, k, v, key_bias, full_bias, o, lse, do):
                   ctypes.addressof(prep_s), is_bf16, ptr(lse_rows), ptr(delta), stream],
                  (o, do, lse, lse_rows, delta, prep_s))]
     scale = float(d ** -0.5)
-    if hd96 and not is_bf16:
-        all_s = strides(q, k, v, do, dq, dk, dv)
-        args = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp, d,
-                ctypes.addressof(all_s), ptr(key_bias), ptr(full_bias), scale, ptr(dq), ptr(dk),
-                ptr(dv), plan["key_tiles"], plan["q_tiles"]]
-        held = (q, k, v, do, lse_rows, delta, key_bias, full_bias, all_s)
-        launches += [("flash_attention_bwd_dkv_f32", _DKVQ_ARGTYPES,
-                      args + [plan["dkv_smem"], stream], held),
-                     ("flash_attention_bwd_dq_f32", _DKVQ_ARGTYPES,
-                      args + [plan["dq_smem"], stream], held)]
-    elif hd96:
-        main_s = strides(q, k, v, do, dk, dv)
-        dq_s = strides(q, k, v, do, dq)
-        common = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp,
-                  d]
-        launches += [
-            ("flash_attention_bwd_dkv", _DKV_ARGTYPES,
-             common + [ctypes.addressof(main_s), ptr(key_bias), ptr(full_bias), scale, ptr(dk),
-                       ptr(dv), plan["key_tiles"], plan["dkv_smem"], stream],
-             (q, k, v, do, lse_rows, delta, key_bias, full_bias, main_s)),
-            ("flash_attention_bwd_dq", _DQ_ARGTYPES,
-             common + [ctypes.addressof(dq_s), ptr(key_bias), ptr(full_bias), scale, ptr(dq),
-                       plan["q_tiles"], plan["dq_smem"], stream],
-             (q, k, v, do, lse_rows, delta, key_bias, full_bias, dq_s))]
-    elif is_bf16:
-        ws = torch.zeros(plan["workspace"], **f32)
+    common = [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp, d]
+    # the head-dim-96 kernels' ticket and turns, zeroed by their entry
+    # points on the stream before each launch
+    counters = (torch.empty(plan["counters"], dtype=torch.int32, device=dev) if hd96 else None)
+    if is_bf16:
+        # the hd-64 kernel adds every dQ part into its workspace; at head dim
+        # 96 key tile 0 stores its part first
+        ws = (torch.empty if hd96 else torch.zeros)(plan["workspace"], **f32)
         main_s, cast_s = strides(q, k, v, do, dk, dv), strides(dq)
+        name, argtypes, tail = (("flash_attention_bwd_dkvq96", _ORDERED_ARGTYPES, [ptr(counters)])
+                                if hd96 else ("flash_attention_bwd_dkvq", _DKVQ_ARGTYPES, []))
         launches += [
-            ("flash_attention_bwd_dkvq", _DKVQ_ARGTYPES,
-             [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp, d,
-              ctypes.addressof(main_s), ptr(key_bias), ptr(full_bias), scale, ptr(ws), ptr(dk),
-              ptr(dv), plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"], stream],
-             (q, k, v, do, lse_rows, delta, key_bias, full_bias, ws, main_s)),
+            (name, argtypes,
+             common + [ctypes.addressof(main_s), ptr(key_bias), ptr(full_bias), scale, ptr(ws),
+                       ptr(dk), ptr(dv)] + tail
+             + [plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"], stream],
+             (q, k, v, do, lse_rows, delta, key_bias, full_bias, ws, main_s, counters, dk, dv)),
             ("flash_attention_bwd_dq_cast", _CAST_ARGTYPES,
              [ptr(ws), b, h, lq, lqp, d, ctypes.addressof(cast_s), scale, ptr(dq), stream],
-             (ws, cast_s))]
+             (ws, cast_s, dq))]
     else:
         all_s = strides(q, k, v, do, dq, dk, dv)
+        name, argtypes, tail = (("flash_attention_bwd_f32_96", _ORDERED_ARGTYPES, [ptr(counters)])
+                                if hd96 else ("flash_attention_bwd_f32", _DKVQ_ARGTYPES, []))
         launches.append(
-            ("flash_attention_bwd_f32", _DKVQ_ARGTYPES,
-             [ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse_rows), ptr(delta), b, h, lq, lk, lqp, d,
-              ctypes.addressof(all_s), ptr(key_bias), ptr(full_bias), scale, ptr(dq), ptr(dk),
-              ptr(dv), plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"], stream],
-             (q, k, v, do, lse_rows, delta, key_bias, full_bias, dq, all_s)))
+            (name, argtypes,
+             common + [ctypes.addressof(all_s), ptr(key_bias), ptr(full_bias), scale, ptr(dq),
+                       ptr(dk), ptr(dv)] + tail
+             + [plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"], stream],
+             (q, k, v, do, lse_rows, delta, key_bias, full_bias, dq, all_s, counters, dk, dv)))
     return launches, (dq, dk, dv)
 
 

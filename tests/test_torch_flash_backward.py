@@ -183,8 +183,8 @@ def test_cuda_backward_checks_before_launch(monkeypatch):
         # every check passed: the first thing reached is the prep kernel's launch
         with pytest.raises(Launched, match="flash_attention_bwd_prep"):
             tfa._launch_bwd(**args(dtype=dtype))
-    # head dim 96 in bf16 (the dkv / dq route) and f32 (the dkv_f32 / dq_f32
-    # route) passes its checks too
+    # head dim 96 in bf16 (the dkvq96 route) and f32 (the f32_96 route)
+    # passes its checks too
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(Launched, match="flash_attention_bwd_prep"):
             tfa._launch_bwd(**args(d=96, dtype=dtype))

@@ -64,6 +64,20 @@ def test_cast_plain_is_exact_in_the_model_layout():
     assert torch.equal(dq, want)
 
 
+def test_cast_plain_is_exact_at_head_dim_96():
+    """The cast's plain version at d = 96 (the dkvq96 kernel's workspace):
+    one rounding of ws * 96^-0.5, written in (B, L, H, D)."""
+    rng = np.random.default_rng(96)
+    b, h, lq, lqp = 2, 3, 77, 128
+    ws = torch.from_numpy(rng.standard_normal((b * h, lqp, 96)).astype(np.float32))
+    scale = 96 ** -0.5
+    dq = tfa.bwd_dq_cast_plain(ws, b, h, lq, scale)
+    assert dq.shape == (b, h, lq, 96) and dq.dtype == torch.bfloat16
+    assert dq.transpose(1, 2).is_contiguous()
+    want = (ws[:, :lq].reshape(b, h, lq, 96) * torch.tensor(scale, dtype=torch.float32))
+    assert torch.equal(dq, want.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("b,h,lq,lk,want", [
     (8, 16, 1280, 1280, dict(lqp=1280, key_tiles=10, q_tiles=20, grid=(10, 128),
                              workspace=(128, 1280, 64))),

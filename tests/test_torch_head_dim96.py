@@ -6,8 +6,9 @@ on the CPU.
   the same numpy inputs: no bias, a key bias (a fully masked sample), a full
   bias, lengths off every tile.
 - The launch plans of the head-dim-96 CUDA kernels (the forward's two
-  warpgroups and three stages, the backward's dkv and dq kernels) within the
-  card's shared memory, at the NOVA-1.4B paths' shapes and ragged ones.
+  warpgroups and three stages, the backward's one-pass dkvq96 kernel with
+  its workspace and turn counters) within the card's shared memory, at the
+  NOVA-1.4B paths' shapes and ragged ones.
 - A small NOVA at head dim 96 against the JAX model, on convert.py's
   weights: one serving step (the image encoder with every attention on the
   flash route, and the diffusion head), the calibrated int8 step (the static
@@ -203,24 +204,32 @@ def test_forward_plan_at_head_dim_96(shape):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
 def test_backward_plan_at_head_dim_96(shape):
-    """The dkv kernel: K and V (12 KB each), two stages of q and do and
-    their lse and delta rows, three mbarriers, 1 KB to align: 75,808 bytes;
-    the dq kernel: q, do and two stages of K and V: 74,784 bytes. Two blocks
-    of 128 threads an SM (255 registers each) have room."""
+    """The dkvq96 kernel: K and V of each warpgroup's 64 keys (12 KB tiles),
+    three stages of q and do (72 KB), each warpgroup's dS^T tiles hi / lo
+    (32 KB), two 24 KB dQ buffers, the stages' lse and delta rows, eleven
+    mbarriers and the ticket word, 1 KB to align: 207,456 bytes, one block
+    of 256 threads (two warpgroups) an SM. One block per (128 keys, B*H) on a 1-D grid;
+    the f32 workspace (B*H, Lqp, 96) and the counters (the ticket and a
+    turn per (B*H, 64-query tile))."""
     b, h, lq, lk = shape
     plan = tfa.bwd96_plan(b, h, lq, lk)
-    assert plan["dkv_smem"] == 75808 and plan["dq_smem"] == 74784
-    assert 2 * (max(plan["dkv_smem"], plan["dq_smem"]) + 1024) <= 228 * 1024
-    assert plan["dkv_grid"] == (-(-lk // 64), b * h) and plan["dq_grid"] == (-(-lq // 64), b * h)
-    assert plan["lqp"] % 128 == 0 and plan["lqp"] >= lq and plan["threads"] == 128
-    # the head-dim-64 route's one-pass kernel would not fit at 96
+    assert plan["smem_bytes"] == 207456 <= SMEM_LIMIT and plan["threads"] == 256
+    assert (plan["key_tiles"], plan["q_tiles"]) == (-(-lk // 128), -(-lq // 64))
+    assert plan["grid"] == (plan["key_tiles"] * b * h,)
+    assert plan["lqp"] % 128 == 0 and plan["lqp"] >= lq > plan["lqp"] - 128
+    assert plan["workspace"] == (b * h, plan["lqp"], D)
+    assert plan["counters"] == (1 + b * h * plan["q_tiles"],)
+    assert plan["q_tiles"] * 64 <= plan["lqp"]  # every tile's store / reduce-add lands in it
+    # the head-dim-64 route keeps its plan (its one-pass kernel would not fit at 96)
     assert tfa.bwd_plan(b, h, lq, lk)["smem_bytes"] == 199728
 
 
 def test_head_dim_96_launch_sequence(monkeypatch):
-    """bf16 at d = 96 launches prep, dkv, dq (no workspace, no cast), each
-    with its plan's grid and bytes; f32 at 96 prep, dkv_f32, dq_f32; d = 80
-    raises first."""
+    """bf16 at d = 96 launches prep, dkvq96 (its plan's tiles and bytes, the
+    workspace, which key tile 0's parts are stored into and so needs no
+    zeroing, the counters, which the entry point zeroes, dk and dv) and the
+    cast of that workspace to dq at d = 96; f32 at 96 prep and f32_96;
+    d = 80 raises first."""
     calls = []
     monkeypatch.setattr(tfa, "lib", lambda name, argtypes, library=None: (name, argtypes))
     monkeypatch.setattr(tfa, "run", lambda so, fn, args: calls.append((so, len(fn), args)))
@@ -228,24 +237,31 @@ def test_head_dim_96_launch_sequence(monkeypatch):
     b, h, lq, lk = 2, 3, 77, 131
     q = torch.zeros((b, lq, h, D), dtype=torch.bfloat16).transpose(1, 2)
     kv = torch.zeros((b, lk, h, D), dtype=torch.bfloat16).transpose(1, 2)
-    dq, dk, dv = tfa._launch_bwd(q, kv, kv, None, None, q, torch.zeros((b, h, lq)), q)
+    launches, (dq, dk, dv) = tfa._bwd_operands(q, kv, kv, None, None, q,
+                                               torch.zeros((b, h, lq)), q)
+    tfa.run_bwd(launches)
     plan = tfa.bwd96_plan(b, h, lq, lk)
     assert [c[0] for c in calls] == list(tfa.BWD96_KERNELS)
     assert all(n == len(args) for _, n, args in calls)
-    assert calls[1][2][-3:-1] == [plan["key_tiles"], plan["dkv_smem"]]
-    assert calls[2][2][-3:-1] == [plan["q_tiles"], plan["dq_smem"]]
-    assert calls[2][2][16] == dq.data_ptr() and calls[1][2][16:18] == [dk.data_ptr(),
-                                                                          dv.data_ptr()]
+    ws, counters = launches[1][3][8], launches[1][3][10]
+    assert ws.shape == plan["workspace"] and ws.dtype == torch.float32 and ws.is_contiguous()
+    assert counters.shape == plan["counters"] and counters.dtype == torch.int32
+    main = calls[1][2]
+    assert main[6:12] == [b, h, lq, lk, plan["lqp"], D] and main[15] == pytest.approx(D ** -0.5)
+    assert main[16:20] == [ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), counters.data_ptr()]
+    assert main[20:23] == [plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"]]
+    cast = calls[2][2]
+    assert cast[:6] == [ws.data_ptr(), b, h, lq, plan["lqp"], D] and cast[8] == dq.data_ptr()
     assert dq.shape == (b, h, lq, D) and dq.transpose(1, 2).is_contiguous()
     assert [LAUNCHES[n] for n in tfa.BWD96_KERNELS] == [1, 1, 1]
-    # f32 at head dim 96 reaches its own kernels (prep, dkv_f32, dq_f32)
+    # f32 at head dim 96 reaches its own kernels (prep, f32_96)
     tfa._launch_bwd(q.float(), kv.float(), kv.float(), None, None, q.float(),
                     torch.zeros((b, h, lq)), q.float())
     assert [c[0] for c in calls[3:]] == list(tfa.BWD96_F32_KERNELS)
     x80 = torch.zeros((1, 2, 8, 80), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfa._launch_bwd(x80, x80, x80, None, None, x80, torch.zeros((1, 2, 8)), x80)
-    assert len(calls) == 6
+    assert len(calls) == 5
     for n in tfa.BWD96_KERNELS + tfa.BWD96_F32_KERNELS:
         LAUNCHES[n] = 0
 

@@ -9,13 +9,13 @@ score core, on the CPU.
   with ``attn_core="int8"`` (every layer on the int8 score core at d = 96)
   against the JAX model on the same weights and calibration.
 - The launch plans of the f32 forward (``fwd_f32_plan``) and of the f32
-  backward's dkv_f32 and dq_f32 kernels (``bwd96_f32_plan``) at d = 96, at
-  the NOVA-1.4B paths' shapes and ragged ones, within a block's shared
-  memory.
-- The launch arguments of the three new instances (the f32 forward, the f32
-  backward's two kernels after the prep kernel, the static int8 core) with
-  ``lib`` / ``run`` / ``_stream`` monkeypatched, so CPU tensors take the CUDA
-  route up to the recorded launch.
+  backward's one-pass f32_96 kernel (``bwd96_f32_plan``) at d = 96, at the
+  NOVA-1.4B paths' shapes and ragged ones, within a block's shared memory.
+- The launch arguments of the head-dim-96 instances (the f32 forward, the
+  f32 backward's one pass after the prep kernel, the bf16 backward's prep,
+  dkvq96 and cast in every bias form, the static int8 core) with ``lib`` /
+  ``run`` / ``_stream`` monkeypatched, so CPU tensors take the CUDA route up
+  to the recorded launch.
 
 Tolerances: the int8 core as the head-dim-64 static test states them
 (tests/test_torch_nova_kernels.py: p rounds to bf16 on both sides, so a p on
@@ -146,17 +146,20 @@ def test_fwd_f32_plan_at_head_dim_96(shape):
 
 @pytest.mark.parametrize("shape", F32_SHAPES, ids=[str(s) for s in F32_SHAPES])
 def test_bwd96_f32_plan(shape):
-    """dkv_f32: K and V (24 KB each), two stages of q and do and their lse
-    and delta rows, P and dS (16 KB each), three mbarriers, 1 KB to align:
-    182,304 bytes; dq_f32: q, do, two stages of K and V, dS: 164,896 bytes.
-    One block of 256 threads an SM."""
+    """f32_96: K and V (24 KB each), two stages of q and do, P and dS (16 KB
+    each), the tile's dQ part (24 KB), the stages' lse and delta rows, three
+    mbarriers and the ticket word, 1 KB to align: 206,880 bytes, one block
+    of 256 threads an SM. One block per (64 keys, B*H) on a 1-D grid; dq
+    (the kernel adds into it) zeroed by the wrapper, the counters by the
+    entry point."""
     b, h, lq, lk = shape
     plan = tfa.bwd96_f32_plan(b, h, lq, lk)
-    assert plan["dkv_smem"] == 182304 and plan["dq_smem"] == 164896
-    assert max(plan["dkv_smem"], plan["dq_smem"]) <= SMEM_LIMIT
-    assert plan["dkv_grid"] == (-(-lk // 64), b * h) and plan["dq_grid"] == (-(-lq // 64), b * h)
+    assert plan["smem_bytes"] == 206880 <= SMEM_LIMIT and plan["threads"] == 256
     assert (plan["key_tiles"], plan["q_tiles"]) == (-(-lk // 64), -(-lq // 64))
-    assert plan["lqp"] % 128 == 0 and plan["lqp"] >= lq and plan["threads"] == 256
+    assert plan["grid"] == (plan["key_tiles"] * b * h,)
+    assert plan["counters"] == (1 + b * h * plan["q_tiles"],)
+    assert plan["workspace"] == (b, lq, h, D)
+    assert plan["lqp"] % 128 == 0 and plan["lqp"] >= lq
 
 
 # -- the launch arguments ------------------------------------------------------------
@@ -174,9 +177,10 @@ class _Recorder:
     def run(self, so, fn, args):
         name, argtypes = so, fn
         assert len(args) == len(argtypes), name
-        at = 12 if name.endswith("_f32") else 9  # the strides pointer's place
+        # the strides pointer's place and length
+        at, n = {"flash_attention_bwd_prep": (9, 6), "flash_attention_bwd_dq_cast": (6, 3)}.get(
+            name, (12 if name.startswith("flash_attention_bwd") else 9, self.n))
         arr = ctypes.cast(args[at], ctypes.POINTER(ctypes.c_long))
-        n = 6 if name == "flash_attention_bwd_prep" else self.n
         self.calls.append((name, args, [arr[i] for i in range(n)]))
 
 
@@ -223,31 +227,74 @@ def test_f32_forward_launch_at_head_dim_96(record, bias):
 
 @pytest.mark.parametrize("bias", ["none", "key", "full"])
 def test_f32_backward_launches_at_head_dim_96(record, bias):
-    """prep (natural lse), then dkv_f32 and dq_f32 with the f32 one-pass
-    kernel's argument list (21 strides), each with its plan's tiles and
-    bytes; dq written once by its kernel (no zeroed buffer, no workspace)."""
+    """prep (natural lse), then f32_96 with the f32 one-pass kernel's
+    argument list (21 strides) and the counters (which the entry point
+    zeroes), its plan's tiles and bytes; dq zeroed (the kernel adds its
+    parts into it, no workspace)."""
     rec = record(21)
     b, h, lq, lk = 2, 3, 77, 131
     rng = np.random.default_rng(lk)
     q, k, v = _blhd(rng, b, h, lq), _blhd(rng, b, h, lk), _blhd(rng, b, h, lk)
     kb = torch.zeros((b, lk)) if bias == "key" else None
     fb = torch.zeros((lq, lk)) if bias == "full" else None
-    dq, dk, dv = tfa._launch_bwd(q, k, v, kb, fb, q, torch.zeros((b, h, lq)), q)
+    launches, (dq, dk, dv) = tfa._bwd_operands(q, k, v, kb, fb, q, torch.zeros((b, h, lq)), q)
+    assert not dq.any()
+    counters = launches[1][3][10]
+    assert counters.shape == tfa.bwd96_f32_plan(b, h, lq, lk)["counters"]
+    assert counters.dtype == torch.int32
+    tfa.run_bwd(launches)
     plan = tfa.bwd96_f32_plan(b, h, lq, lk)
     assert [c[0] for c in rec.calls] == list(tfa.BWD96_F32_KERNELS)
-    assert [LAUNCHES[n] for n in tfa.BWD96_F32_KERNELS] == [1, 1, 1]
+    assert [LAUNCHES[n] for n in tfa.BWD96_F32_KERNELS] == [1, 1]
     prep = rec.calls[0][1]
     assert prep[3:9] == [0, b, h, lq, plan["lqp"], D] and prep[10] == 0  # natural units
-    for (name, args, strides), smem in zip(rec.calls[1:], (plan["dkv_smem"], plan["dq_smem"])):
-        assert args[6:12] == [b, h, lq, lk, plan["lqp"], D]
-        assert args[15] == pytest.approx(D ** -0.5)
-        assert args[16:19] == [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
-        assert args[19:22] == [plan["key_tiles"], plan["q_tiles"], smem]
-        assert strides[:3] == [lq * h * D, D, h * D]
-        assert strides[12:] == [lq * h * D, D, h * D, lk * h * D, D, h * D, lk * h * D, D, h * D]
-        assert (args[13] is not None) == (bias == "key") and (args[14] is not None) == (bias == "full")
+    (name, args, strides), = rec.calls[1:]
+    assert args[6:12] == [b, h, lq, lk, plan["lqp"], D]
+    assert args[15] == pytest.approx(D ** -0.5)
+    assert args[16:20] == [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), counters.data_ptr()]
+    assert args[20:23] == [plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"]]
+    assert strides[:3] == [lq * h * D, D, h * D]
+    assert strides[12:] == [lq * h * D, D, h * D, lk * h * D, D, h * D, lk * h * D, D, h * D]
+    assert (args[13] is not None) == (bias == "key") and (args[14] is not None) == (bias == "full")
     for g, n in ((dq, lq), (dk, lk), (dv, lk)):
         assert g.shape == (b, h, n, D) and g.dtype == torch.float32
+        assert g.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("bias", ["none", "key", "full"])
+def test_bf16_backward_launches_at_head_dim_96(record, bias):
+    """prep (lse in units of log 2), dkvq96 (18 strides: q, k, v, do, dk,
+    dv; the workspace, which key tile 0's parts are stored into, and the
+    counters, which the entry point zeroes; its plan's tiles and bytes),
+    then the cast of the workspace at d = 96 into dq in the (B, L, H, D)
+    layout."""
+    rec = record(18)
+    b, h, lq, lk = 2, 3, 77, 131
+    rng = np.random.default_rng(lq * lk)
+    q, k, v = (_blhd(rng, b, h, n, torch.bfloat16) for n in (lq, lk, lk))
+    kb = torch.zeros((b, lk)) if bias == "key" else None
+    fb = torch.zeros((lq, lk)) if bias == "full" else None
+    launches, (dq, dk, dv) = tfa._bwd_operands(q, k, v, kb, fb, q, torch.zeros((b, h, lq)), q)
+    ws, counters = launches[1][3][8], launches[1][3][10]
+    assert (ws.shape, ws.dtype, counters.dtype) == (tuple(tfa.bwd96_plan(b, h, lq, lk)["workspace"]),
+                                                    torch.float32, torch.int32)
+    tfa.run_bwd(launches)
+    plan = tfa.bwd96_plan(b, h, lq, lk)
+    assert [c[0] for c in rec.calls] == list(tfa.BWD96_KERNELS)
+    assert [LAUNCHES[n] for n in tfa.BWD96_KERNELS] == [1, 1, 1]
+    prep = rec.calls[0][1]
+    assert prep[3:9] == [1, b, h, lq, plan["lqp"], D] and prep[10] == 1  # units of log 2
+    _, args, strides = rec.calls[1]
+    assert args[6:12] == [b, h, lq, lk, plan["lqp"], D]
+    assert args[16:20] == [ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), counters.data_ptr()]
+    assert args[20:23] == [plan["key_tiles"], plan["q_tiles"], plan["smem_bytes"]]
+    assert strides[:3] == [lq * h * D, D, h * D] and strides[12:] == [lk * h * D, D, h * D] * 2
+    assert (args[13] is not None) == (bias == "key") and (args[14] is not None) == (bias == "full")
+    _, cast, cast_strides = rec.calls[2]
+    assert cast[:6] == [ws.data_ptr(), b, h, lq, plan["lqp"], D] and cast[8] == dq.data_ptr()
+    assert cast_strides == [lq * h * D, D, h * D]
+    for g, n in ((dq, lq), (dk, lk), (dv, lk)):
+        assert g.shape == (b, h, n, D) and g.dtype == torch.bfloat16
         assert g.transpose(1, 2).is_contiguous()
 
 
