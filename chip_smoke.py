@@ -63,9 +63,10 @@ The NOVA text-to-image slice adds, in their places in that order:
 5c. times of the t2i kernels (the MLP and the static attention at L = 1280
     and 768, the diffusion block at 200 rows), their plain versions, bounds,
     F.scaled_dot_product_attention beside the static attention, and both
-    t2i paths' samples/s (p50 of 2 calls since row 1's hd-96 slice, batch 4);
-6.  (in the profiles phase) one profiled t2i int8 call (16 AR steps since
-    row 1's hd-96 slice).
+    t2i paths' samples/s (batch 4; the int8 path's p50 of 2 calls, the float
+    path's one timed call since slice 7d);
+6.  (in the profiles phase) one profiled t2i int8 call (8 AR steps since
+    slice 7d).
 
 The NOVA t2i training slice adds:
 
@@ -297,10 +298,10 @@ phases' peak-memory readings:
     their plain versions and bounds; SDPA's f32 forward and backward at
     the t2pc step's (16, 12, 1024, 64) beside the f32 route's; p50 samples/s of the masked-AR int8
     and float calls, the refinement call and the flagship without it (the
-    float and refinement calls over 2 calls since row 1's hd-96 slice); the
-    masked-AR training step's p50 and peak memory;
-6.  (in the profiles phase) one profiled masked-AR int8 call (8 AR steps
-    since row 1's hd-96 slice).
+    float and refinement calls timed once since slice 7d); the masked-AR
+    training step's p50 and peak memory;
+6.  (in the profiles phase) one profiled masked-AR int8 call (4 AR steps
+    since slice 7d).
 
 NOVA text-to-video serving (RoPE, the motion tokens, the KV-cached frame
 decode, the AdaLN mixer, the latents= prefill) writes no kernel; its int8
@@ -329,9 +330,9 @@ and, after phase 5f:
     launches a frame (the dispatcher's rule), the step check;
 5g. the kernels at each t2v shape, their plain versions, bounds and SDPA's
     time; one more full int8 call (videos/s, ms per frame, peak memory) and
-    the float twin's s per frame;
-6.  (in the profiles phase) one profiled int8 call of 2 frames x 16 AR
-    steps.
+    the float twin's s per frame (4l's counted call since slice 7d);
+6.  (in the profiles phase) one profiled int8 call of 2 frames x 8 AR
+    steps (16 before slice 7d).
 
 The VAEs and the decode (AutoencoderKL, AutoencoderKLOpenSora,
 AutoencoderKLCogVideoX, AutoencoderKLLTXVideo, the image processor, the i2v
@@ -510,8 +511,28 @@ printed beside its budget of 150 s):
     one-step check, samples/s and peak; then bench.py --mode t2i
     --attn-core int8 (4d's model, the int8 core at head dim 64) at
     T2I_CMP_AR AR steps: its exact launches and 4d's gate against plain.
+Slice 7d, after phase 6 and with the earlier paths' pipelines deleted (the
+t2v step's peak is about 29 GiB on top of what the run holds):
+3i. rows 7, 7p, 7b and 7c at the t2v training step's (27, 16, 1800, 64),
+    bf16 and f32: the forward (lse too) and dq, dk, dv against the plain
+    versions (over three batch slices) at 3c / 3e's tolerances, prep and
+    cast exact, dk and dv of two backward runs bitwise equal; each kernel
+    timed by events and from a graph beside the plain versions, SDPA's
+    forward and backward and the bounds;
+4z. bench.py --mode train --train-arch t2v's step (NOVATrainT2VPipeline,
+    batch 3 x 9 frames): exactly 32 flash_attention and 16 each of prep,
+    dkvq and cast a step (the decoder half only: the video encoder's 2-D
+    block-causal bias and the encoder half's 792 keys stay on the plain
+    core, as JAX routes them), 0 of every other kernel; every backward
+    call against the plain backward on its own tensors; the f32 twin's
+    exact counts and its gradient within 2 x floor + 1e-6 of the f32 plain
+    step; a fixed batch's loss falling; p50 of 5 steps after 2 warm-ups,
+    samples/s, peak; one profiled step (idle share);
+4z2. a c2i step (NOVATrainC2IPipeline over 4q's model on DDPM, batch 8):
+    the t2i step's exact counts, a fixed batch's loss falling.
 The kernels line lists each kernel's timed instances (dtype, head dim,
-score core) with their launches on the driven paths.
+score core, the t2v training shape) with their launches on the driven
+paths.
 
 The script prints its total time before the result lines.
 
@@ -531,6 +552,7 @@ last line is the result object. Details go to build/chip_smoke.json.
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -560,7 +582,8 @@ try:
     from nova_pointcloud_tpu_torch.engine.lr_schedules import constant_lr
     from nova_pointcloud_tpu_torch.engine.optim import build_optimizer
     from nova_pointcloud_tpu_torch.ops import masking
-    from nova_pointcloud_tpu_torch.pipelines.train_nova import NOVATrainT2IPipeline
+    from nova_pointcloud_tpu_torch.pipelines.train_nova import (
+        NOVATrainC2IPipeline, NOVATrainT2IPipeline, NOVATrainT2VPipeline)
     from nova_pointcloud_tpu_torch.schedulers.ddpm import DDPMScheduler
     from nova_pointcloud_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
     from nova_pointcloud_tpu_torch.data.shapenet import GlobalNormalizer, make_synthetic_clouds
@@ -618,9 +641,10 @@ PP_T = POINTS // PP_PATCH
 T2I_ARCH = ("vit_d16w1024", "vit_d32w1024", "mlp_d6w1024")
 T2I_BATCH, T2I_AR, T2I_DIFF, T2I_CAL_AR, T2I_GUIDANCE = 4, 64, 25, 16, 5.0
 T2I_CMP_AR = 16  # AR steps of the plain / floor comparisons (the plain run is slow)
-# the t2i paths' p50 over 2 calls (5c), the profiled int8 call of 16 AR
-# steps (6): time freed for the slice of row 1 at head dim 96 and T = 256
-T2I_TIMED_CALLS, T2I_PROFILE_AR = 2, 16
+# the t2i int8 path's p50 over 2 calls and the float path's one timed call
+# (5c), the profiled int8 call of 8 AR steps (6): time freed for the slices
+# of row 1 at head dim 96 and T = 256 and of NOVA training beyond t2i
+T2I_TIMED_CALLS, T2I_FLOAT_TIMED_CALLS, T2I_PROFILE_AR = 2, 1, 8
 T2I_BASE, T2I_VIDEO_BASE = (32, 32), (1, 16, 16)
 T2I_VIT_LAYERS, T2I_V_LAYERS, T2I_DIFF_BLOCKS = 32, 16, 6
 T2I_PROMPTS = [f"a scene {i}" for i in range(T2I_BATCH)]
@@ -655,9 +679,9 @@ PC_EVAL_LAUNCHES = {"flash_attention": len(PC_EVAL_GUIDANCE) * STEPS * PP_DEPTH}
 # steps, CFG 5 (the pipeline's defaults), batch 32, bf16
 AR_ARCH, AR_POINTS, AR_PATCH, AR_TEXT, AR_BATCH = "pc_d32w768", 2048, 16, 32, 32
 AR_STEPS, AR_DIFF, AR_GUIDANCE, AR_CMP_STEPS = 16, 25, 5.0, 4
-# 5f: the masked-AR float and refinement calls' p50 over 2 calls; 6: the
-# profiled masked-AR int8 call of 8 AR steps (time freed as T2I_TIMED_CALLS)
-AR_SLOW_TIMED_CALLS, AR_PROFILE_STEPS = 2, 8
+# 5f: the masked-AR float and refinement calls timed once; 6: the
+# profiled masked-AR int8 call of 4 AR steps (time freed as T2I_TIMED_CALLS)
+AR_SLOW_TIMED_CALLS, AR_PROFILE_STEPS = 1, 4
 AR_DEPTH, AR_D, AR_F, AR_HEAD_BLOCKS = 32, 768, 3072, 6
 AR_T = AR_POINTS // AR_PATCH
 AR_ROWS = 2 * AR_BATCH  # CFG
@@ -691,9 +715,9 @@ T2V_FLASH_PER_FRAME = 1552  # the float twin's flash_attention launches a frame,
 T2V_L = (540, 720, 1080, 1800)
 T2V_VIDEO_L = (T2V_PREFIX + T2V_NV, T2V_NV)  # the video encoder's rows: frame 0, later frames
 T2V_CMP_FRAMES, T2V_CMP_AR, T2V_FLOAT_FRAMES = 2, 8, 2
-# the profiled int8 call: 2 frames of 16 AR steps (a 64-step call's events
+# the profiled int8 call: 2 frames of 8 AR steps (a 64-step call's events
 # took the profiler 300 s to process)
-T2V_PROFILE_FRAMES, T2V_PROFILE_AR = 2, 16
+T2V_PROFILE_FRAMES, T2V_PROFILE_AR = 2, 8
 T2V_PROMPTS = [f"a drone shot {i}" for i in range(T2V_BATCH)]
 # the VAEs of bench.py --mode t2i --e2e and --mode t2v --e2e: AutoencoderKL
 # and AutoencoderKLOpenSora at their default widths, 4 latent channels,
@@ -2037,17 +2061,20 @@ def _rel_l2(a, b, label=None):
 
 def _checked_step_grads(pipe, batch, draws, expected_calls):
     """``_step_grads`` with every backward call of the step also run by the
-    plain backward on the call's own tensors and held to it at the flash
-    bf16 tolerance (quietly recorded); prints the worst error / tolerance
-    of dq, dk and dv over the calls. Returns (loss, grads, ok: exactly
-    ``expected_calls`` calls, each within tolerance; the worst error /
-    tolerance of dq, dk and dv)."""
+    plain backward (over three batch slices, ``_chunked_plain``) on the
+    call's own tensors and held to it at the flash bf16 tolerance (quietly
+    recorded); prints the worst error / tolerance of dq, dk and dv over the
+    calls. Returns (loss, grads, ok: exactly ``expected_calls`` calls, each
+    within tolerance; the worst error / tolerance of dq, dk and dv)."""
     calls = []  # per backward call: (ok, worst err / tol of dq, dk, dv, q's shape)
     launch_bwd = fa._launch_bwd
 
     def check(*args):
         grads = launch_bwd(*args)
-        ref = fa.flash_attention_bwd_plain(*args)
+        q, k, v, key_bias, full_bias, o, lse, do = args
+        ref = _chunked_plain(lambda s: fa.flash_attention_bwd_plain(
+            q[s], k[s], v[s], None if key_bias is None else key_bias[s], full_bias, o[s],
+            lse[s], do[s]), q.shape[0])
         ok, worst = True, []
         for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
             ok = _tol_check(_bwd_kernel(g.dtype, g.shape[-1]),
@@ -3333,7 +3360,8 @@ def timing_t2v(pipe_int8, pipe_float):
     versions and bounds. Then the latent call's (4k) videos/s and ms per
     frame beside the e2e call's (4n: this phase's extra full call, to uint8
     frames), one call each, and each one's peak memory above what was
-    allocated before it; one float call of 2 frames (s per frame)."""
+    allocated before it; the float call of 2 frames (4l's counted call, s
+    per frame)."""
     import torch.nn.functional as Fn
 
     gen = torch.Generator(device=DEV).manual_seed(14)
@@ -3395,9 +3423,7 @@ def timing_t2v(pipe_int8, pipe_float):
     if e2e is None:
         raise AssertionError("no t2v e2e call: phase 4n failed")
     latent_s, e2e_s = report["t2v_int8"]["call_s"], e2e["call_s"]
-    t0 = time.perf_counter()
-    _t2v_sample(pipe_float, frames=T2V_FLOAT_FRAMES, seed=21)
-    float_s = time.perf_counter() - t0
+    float_s = report["t2v_float"]["call_s"]  # 4l's counted call, after its warm-up
     print(f"t2v_int8: batch {T2V_BATCH}, {T2V_FRAMES} frames x {T2V_AR} AR x {T2V_DIFF} steps: "
           f"the latent call (4k) {latent_s:.3f} s, {T2V_BATCH / latent_s:.4f} videos/s, "
           f"{latent_s / T2V_BATCH / T2V_FRAMES * 1e3:.1f} ms per frame; the e2e call to uint8 "
@@ -5357,6 +5383,465 @@ def timing_row1_shapes():
     fb.reset_launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# slice 7d, NOVA training beyond t2i (3i, 4z, 4z2): bench.py --mode train
+# --train-arch t2v's step and a c2i step
+# ---------------------------------------------------------------------------
+# bench.py --mode train --train-arch t2v (nova_d48w1024_osp480.yaml's shapes,
+# not cut): T2I_ARCH with RoPE and the rank-24 mixer, 30 x 48 image and 15 x
+# 24 video patches, 9 latent frames, text 32 x 256 and the 2 motion tokens,
+# batch 3, f32 master weights, bf16 compute, remat, AdamW (lr 1e-4, wd 0.02,
+# betas 0.9 / 0.95), the t2v freeze rule. Only the image encoder's decoder
+# half reaches the flash kernels, at its 360 video states + 1440 image
+# tokens for the 3 x 9 frames: the video encoder's 3274 keys carry the 2-D
+# block-causal bias (the dispatcher's rule, as JAX's, takes 4-D biases
+# only) and the encoder half sees 360 + round(0.3 x 1440) = 792 keys
+T2VT_BATCH, T2VT_TEXT, T2VT_FALL_STEPS = 3, 32, 5
+T2VT_ROWS = T2VT_BATCH * T2V_FRAMES
+T2VT_SHAPE = (T2VT_ROWS, HEADS, T2V_NV + T2V_NI, 64)  # (27, 16, 1800, 64)
+T2VT_VIDEO_KEYS = T2VT_TEXT + 2 + T2V_FRAMES * T2V_NV  # 3274
+# the c2i step: 4q's model (T2I_ARCH, 1000 classes, no text) on DDPM at the
+# t2i step's shapes and batch
+C2IT_FALL_STEPS = 6
+
+
+def _chunked_plain(fn, b):
+    """``fn(batch slice)`` over three slices of the batch, each output
+    concatenated on dim 0: the plain attention versions at the t2v step's
+    shape would otherwise hold several (27, 16, 1800, 1800) f32 tensors at
+    once (5.6 GB each)."""
+    step = -(-b // 3)
+    outs = [fn(slice(i, min(i + step, b))) for i in range(0, b, step)]
+    return tuple(torch.cat(x, 0) for x in zip(*outs))
+
+
+def _t2v_train_flash_layers(model):
+    """Attention layers of one t2v training forward on the flash kernel by
+    the dispatcher's rule (ops/attention.flash_route): the video encoder over
+    the text and motion prefix + the 9 frames' tokens under the 2-D
+    block-causal bias, the image encoder's encoder half over a frame's video
+    states + the visible bucket (a key bias), its decoder half over the
+    video states + every image token."""
+    from nova_pointcloud_tpu_torch.ops.attention import flash_route
+
+    ni, nv = model.num_image_tokens, model.num_video_tokens
+    vit_v, vit_i = model.video_encoder, model.image_encoder
+    lv, full = T2VT_VIDEO_KEYS, nv + ni
+    lk = nv + int(round((1.0 - masking.TRAIN_MASK_RATIO_MIN) * ni))
+    return ((len(vit_v.enc_layers) + len(vit_v.dec_layers))
+            * flash_route(lv, lv, model.head_dim_v, (lv, lv), "auto", True)
+            + len(vit_i.enc_layers) * flash_route(lk, lk, model.head_dim_i,
+                                                  (T2VT_ROWS, 1, 1, lk), "auto", True)
+            + len(vit_i.dec_layers) * flash_route(full, full, model.head_dim_i, None, "auto",
+                                                  True))
+
+
+def _t2v_train_model(dtype=torch.bfloat16, state_dict=None):
+    """bench.py --train-arch t2v's model: seeded init_weights (the JAX
+    initialisers' zero AdaLN and mixer projections) unless a state dict is
+    given."""
+    model = NOVATransformer(arch=T2I_ARCH, image_dim=4, image_base_size=T2V_BASE,
+                            video_base_size=T2V_VIDEO_BASE, rotary_pos_embed=True,
+                            video_mixer_rank=T2V_RANK, patch_size=2, text_token_dim=256,
+                            text_token_len=T2VT_TEXT, noise_scheduler=FlowMatchEulerScheduler(),
+                            remat=True, dtype=dtype, device=DEV)
+    if state_dict is None:
+        model.init_weights(torch.Generator(device=DEV).manual_seed(0))
+    else:
+        model.load_state_dict(state_dict)
+    return model
+
+
+def _t2v_train_pipe(model):
+    opt = build_optimizer(model, constant_lr(TRAIN_LR), weight_decay=0.02, betas=(0.9, 0.95))
+    return NOVATrainT2VPipeline(model, optimizer=opt, ema_decay=None, log_every=1)
+
+
+def _t2v_train_batch(seed):
+    """Batch 3 in the records layout: fp16 VAE moments of 9 frames of 60 x
+    96 x 4 latents (mean N(0, 0.8^2), logvar -6), f32 caption embeddings
+    32 x 256, motion_flow 5.0, fps 12.0 (bench.py's)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    lat = (T2VT_BATCH, T2V_FRAMES, 2 * T2V_BASE[0], 2 * T2V_BASE[1], 4)
+    return {"moments": torch.cat([torch.randn(lat, generator=gen, device=DEV) * 0.8,
+                                  torch.full(lat, -6.0, device=DEV)], -1).half(),
+            "text_embeds": torch.randn((T2VT_BATCH, T2VT_TEXT, 256), generator=gen, device=DEV),
+            "motion_flow": torch.full((T2VT_BATCH,), 5.0, device=DEV),
+            "fps": torch.full((T2VT_BATCH,), 12.0, device=DEV)}
+
+
+def _t2v_train_draws(model, seed):
+    """Every random draw of one t2v step, fixed: latent eps, prompt drop, the
+    27 frames' masks, timesteps, noise."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    ni, rows = model.num_image_tokens, model.loss_repeat * T2VT_ROWS
+    lat = (T2VT_BATCH, T2V_FRAMES, 2 * T2V_BASE[0], 2 * T2V_BASE[1], 4)
+    mask, _ = masking.sample_train_mask(gen, T2VT_ROWS, ni, device=DEV)
+    return {"latent_eps": torch.randn(lat, generator=gen, device=DEV),
+            "drop": torch.rand((T2VT_BATCH,), generator=gen, device=DEV) < 0.1, "mask": mask,
+            "timesteps": model.noise_scheduler.sample_timesteps(gen, (rows, ni), device=DEV),
+            "noise": torch.randn((rows, ni, model.patch_dim), generator=gen, device=DEV)}
+
+
+T2VT_LABEL = f"t2v train {T2VT_SHAPE}"
+T2VT_LABEL_F32 = f"t2v train f32 {T2VT_SHAPE}"
+
+
+@phase("3i flash kernels at the t2v training step's shape")
+def check_t2v_train_kernels():
+    """Rows 7, 7p, 7b and 7c at the t2v step's (27, 16, 1800, 64), bf16
+    (prep, dkvq, cast) and f32 (prep, the one-pass f32 kernel), q, k, v as
+    the ViT hands them over ((B, L, H, D) views of one projection), no bias;
+    1800 keys are 14 key tiles and 8 keys. Gates as 3c / 3e: the forward
+    (bf16 2^-6 / 2^-8 of max / mean |o|, f32 1e-4 / 1e-5; lse 1e-4
+    absolute) and dq, dk, dv against the plain versions (run over three
+    batch chunks), prep and cast exact, dk and dv of two backward runs
+    bitwise equal. Times: each kernel by events and from a CUDA graph
+    (the forward's 20 launches, the backward kernels' prepared launches,
+    _prepared_graph_ms), the plain versions, SDPA's forward and backward on
+    the same tensors (the backward from an autograd graph built once), each
+    against its bound: 4 BH L^2 d FLOPs forward, 10 BH L^2 d backward, at
+    the bf16 or f32 peak, or the bytes."""
+    import torch.nn.functional as Fn
+
+    t0 = time.perf_counter()
+    print(f"memory held by the run: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    gen = torch.Generator(device=DEV).manual_seed(7171)
+    b, h, L, d = T2VT_SHAPE
+    bh = b * h
+    bad = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt)[6:]
+        label = T2VT_LABEL if dt == torch.bfloat16 else T2VT_LABEL_F32
+        q, k, v, _ = _static_attention_operands(gen, L, "none", rows=b)
+        if dt == torch.float32:
+            q, k, v = (t.float() for t in (q, k, v))
+        rel = (2.0 ** -6, 2.0 ** -8) if dt == torch.bfloat16 else (1e-4, 1e-5)
+        o, lse = fa.flash_attention_with_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = _chunked_plain(lambda s: fa.flash_attention_plain(q[s], k[s], v[s]), b)
+        ok = _tol_check("flash_attention", label, o, ref_o, *rel, like=ref_o)
+        e_lse = (lse - ref_lse).abs().max().item()
+        ok_lse = bool(torch.isfinite(lse).all()) and e_lse <= 1e-4
+        print(f"    lse max_abs_err {e_lse:.3e} (tol 1e-4) {'ok' if ok_lse else 'FAIL'}")
+        report["checks"].append(dict(kernel="flash_attention", variant=label + " lse",
+                                     max_abs_err=e_lse, ok=ok_lse))
+        if not (ok and ok_lse):
+            bad.append(f"forward {tag}")
+        del ref_o, ref_lse
+        # the backward through autograd against the plain backward on the
+        # kernels' own o and lse
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o_k, lse_k = fa.flash_attention_with_lse(*ins)
+        do = torch.randn(o_k.shape, generator=gen, device=DEV).to(dt)
+        grads = torch.autograd.grad(o_k, ins, do)
+        torch.cuda.synchronize()
+        o_d = o_k.detach()
+        ref = _chunked_plain(lambda s: fa.flash_attention_bwd_plain(
+            q[s], k[s], v[s], None, None, o_d[s], lse_k[s], do[s]), b)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            if not _tol_check(_bwd_kernel(dt), f"{name} {label}", g, r, *rel, like=r):
+                bad.append(f"{name} {tag}")
+        del ins, o_k, grads, ref
+        if not _prep_cast_check(q, k, v, dt, gen):
+            bad.append(f"prep / cast {tag}")
+        if not _bwd_repeatability(q, k, v, gen):
+            bad.append(f"dk, dv repeatability {tag}")
+        torch.cuda.empty_cache()
+
+        # times
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        esize = 2 if dt == torch.bfloat16 else 4
+        io = bh * L * d * esize
+        sdpa_ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                Fn.scaled_dot_product_attention(sdpa_ins[0], sdpa_ins[1], sdpa_ins[2])
+
+        iters = 10 if dt == torch.bfloat16 else 3
+        row = _time_kernel("flash_attention", T2VT_SHAPE + (tag,),
+                           lambda: fa.flash_attention_with_lse(q, k, v),
+                           lambda: _chunked_plain(lambda s: fa.flash_attention_plain(
+                               q[s], k[s], v[s]), b),
+                           _bound(4 * bh * L * L * d / peak, 4 * io + bh * L * 4),
+                           library=sdpa_fwd, iters=iters, graph=True)
+        _instance("flash_attention", label, row)
+        o_lib = Fn.scaled_dot_product_attention(*sdpa_ins)
+        library = sync_ms(lambda: torch.autograd.grad(o_lib, sdpa_ins, do, retain_graph=True),
+                          iters)
+        o_port = fa.flash_attention(*sdpa_ins)
+        port_bwd = sync_ms(lambda: torch.autograd.grad(o_port, sdpa_ins, do, retain_graph=True),
+                           iters)
+        del o_lib, o_port
+        plain_ms = sync_ms(lambda: _chunked_plain(lambda s: fa.flash_attention_bwd_plain(
+            q[s], k[s], v[s], None, None, o[s], lse[s], do[s]), b), 1)
+
+        def prepare():
+            return fa._bwd_operands(q, k, v, None, None, o, lse, do)[0]
+
+        launches = prepare()
+        plan = fa.bwd_plan(b, h, L, L)
+        rows = bh * plan["lqp"] * 4
+        if dt == torch.bfloat16:
+            ws_bytes = bh * plan["lqp"] * d * 4
+            ws, dq = launches[1][3][8], torch.empty_like(q)
+            names = fa.BWD_KERNELS
+            bounds = {"flash_attention_bwd_prep": (2 * bh * L * d / PEAK_F32_FLOPS,
+                                                   2 * io + bh * L * 4 + 2 * rows),
+                      "flash_attention_bwd_dkvq": (10 * bh * L * L * d / peak,
+                                                   6 * io + 2 * rows + ws_bytes),
+                      "flash_attention_bwd_dq_cast": (0.0, ws_bytes + io)}
+            libs = {"flash_attention_bwd_dkvq": library,
+                    "flash_attention_bwd_dq_cast": sync_ms(lambda: torch.mul(
+                        ws.view(b, h, plan["lqp"], d)[:, :, :L], d ** -0.5, out=dq), 10)}
+        else:
+            names = fa.BWD_F32_KERNELS
+            bounds = {"flash_attention_bwd_prep": (2 * bh * L * d / PEAK_F32_FLOPS,
+                                                   2 * io + bh * L * 4 + 2 * rows),
+                      "flash_attention_bwd_f32": (10 * bh * L * L * d / peak, 7 * io + 2 * rows)}
+            libs = {"flash_attention_bwd_f32": library}
+        total = 0.0
+        for name in names:
+            ms = sync_ms(lambda: fa.run_bwd(launches, (name,)), iters)
+            g_ms = _prepared_graph_ms(prepare, (name,))
+            total += ms
+            bound = _bound(*bounds[name])
+            krow = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                        bound_by=bound[1], library_ms=libs.get(name))
+            lib_txt = ("" if krow["library_ms"] is None
+                       else f", library {krow['library_ms']:.3f} ms")
+            print(f"  {name} {T2VT_SHAPE} {tag}: {ms:.3f} ms/launch (graph {g_ms:.3f}), plain "
+                  f"backward {plain_ms:.3f} ms{lib_txt}, bound {bound[0]:.3f} ms ({bound[1]}), "
+                  f"{bound[0] / ms:.1%} of bound ({bound[0] / g_ms:.1%} from the graph)")
+            _instance(name, label, krow)
+        joint = _bound(10 * bh * L * L * d / peak, 8 * io + bh * L * 4)
+        print(f"  the whole {tag} backward at {T2VT_SHAPE}: its kernels {total:.3f} ms, through "
+              f"autograd {port_bwd:.3f} ms, SDPA's backward {library:.3f} ms (dq, dk and dv); "
+              f"joint bound {joint[0]:.3f} ms ({joint[1]}), {joint[0] / port_bwd:.1%} of it "
+              f"through autograd")
+        report.setdefault("t2v_train_kernels", {})[tag] = dict(
+            bwd_kernels_ms=total, bwd_autograd_ms=port_bwd, sdpa_bwd_ms=library,
+            bwd_joint_bound_ms=joint[0])
+        del q, k, v, o, lse, do, launches, sdpa_ins
+        torch.cuda.empty_cache()
+    report["t2v_train_3i_s"] = time.perf_counter() - t0
+    fb.reset_launch_counts()
+    if bad:
+        raise AssertionError(f"the flash kernels disagree with their plain versions at the "
+                             f"t2v training shape: {bad}")
+
+
+@phase("4z t2v training step (bench.py --mode train --train-arch t2v)")
+def t2v_train():
+    """bench.py --mode train --train-arch t2v's step (the model of
+    _t2v_train_model, batch 3 of 9 frames, NOVATrainT2VPipeline): a warm-up
+    step, then one step's launches exactly as derived from the code
+    (_t2v_train_flash_layers: 16 decoder-half layers, each forward twice
+    under remat, prep, dkvq and the cast once; 0 of every other kernel).
+    Gates: (a) every backward call of the step against the plain backward on
+    its own tensors at the flash bf16 tolerance; (b) the f32 twin (the same
+    weights in f32 compute: the f32 forward and prep + f32 route, exact
+    counts) kernels against plain within 2 x floor + 1e-6 relative L2, the
+    floor the plain f32 step against itself with the latents moved by
+    1e-6;
+    (c) the loss of a fixed batch with fixed draws falls over
+    T2VT_FALL_STEPS steps, the parameters stay finite. Then the step's p50
+    over 5 steps after 2 warm-ups, samples/s and peak memory, and one
+    profiled step (device time by kernel, idle share)."""
+    t_start = time.perf_counter()
+    model = _t2v_train_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = _t2v_train_pipe(model)
+    n = _t2v_train_flash_layers(model)
+    expected = {"flash_attention": 2 * n, "flash_attention_bwd_prep": n,
+                "flash_attention_bwd_dkvq": n, "flash_attention_bwd_dq_cast": n}
+    print(f"NOVA t2v training {T2I_ARCH}: {n_params / 1e6:.1f}M parameters (f32 master, bf16 "
+          f"compute, remat), batch {T2VT_BATCH} x {T2V_FRAMES} frames, {n} attention layers on "
+          f"the flash kernels at {T2VT_SHAPE} (the video encoder's {T2VT_VIDEO_KEYS} keys under "
+          f"the 2-D block-causal bias and the encoder half's 792 keys on the plain core)")
+    held = torch.cuda.memory_allocated()
+    pipe.train(iter([_t2v_train_batch(1)]), 1)  # warm-up: allocator, Adam state
+    fb.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _flash_instances() as seen:
+        out = pipe.train(iter([_t2v_train_batch(2)]), pipe.trainer.step + 1)
+        torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    print(f"memory: {held / 2 ** 30:.2f} GiB held before the model, the step's peak "
+          f"{step_peak / 2 ** 30:.2f} GiB")
+    launches = dict(fb.LAUNCHES)
+    counts_ok = (n == 16 and launches == {name: expected.get(name, 0) for name in KERNELS}
+                 and seen == {("bfloat16", 64): 2 * n})
+    print(f"launches in one training step: {launches} (expected {expected}, else 0), forward by "
+          f"(dtype, head dim) {seen}: {'ok' if counts_ok else 'FAIL'}")
+    for name in expected:
+        _record_launches(name, "t2v_train", launches[name])
+        _instance_launches(name, T2VT_LABEL, "t2v_train", launches[name])
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    print(f"step losses {({k: round(v, 5) for k, v in out.items()})}, parameters finite after "
+          f"the steps: {finite}")
+
+    # (a) every backward call of one step on fixed draws
+    batch, draws = _t2v_train_batch(1), _t2v_train_draws(model, 3)
+    loss_k, g_k, in_path, worst = _checked_step_grads(pipe, batch, draws, n)
+    grads_finite = np.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
+                                               for g in g_k.values())
+    del g_k
+    torch.cuda.empty_cache()
+    # (b) the f32 twin: kernels against plain, floor from moved latents
+    twin = _t2v_train_pipe(_t2v_train_model(torch.float32, model.state_dict()))
+    expected32 = {"flash_attention": 2 * n, "flash_attention_bwd_prep": n,
+                  "flash_attention_bwd_f32": n}
+    fb.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _flash_instances() as seen32:
+        loss_32k, g_32k = _step_grads(twin, batch, draws)
+        torch.cuda.synchronize()
+    twin_peak = torch.cuda.max_memory_allocated()
+    launches32 = dict(fb.LAUNCHES)
+    counts32_ok = (launches32 == {name: expected32.get(name, 0) for name in KERNELS}
+                   and seen32 == {("float32", 64): 2 * n})
+    print(f"launches in the f32 twin's loss and gradients: {launches32} (expected {expected32}, "
+          f"else 0), forward by (dtype, head dim) {seen32}: {'ok' if counts32_ok else 'FAIL'}; "
+          f"peak memory {twin_peak / 2 ** 30:.2f} GiB")
+    for name in expected32:
+        _record_launches(name, "t2v_train_f32", launches32[name])
+        _instance_launches(name, T2VT_LABEL_F32, "t2v_train_f32", launches32[name])
+    g_32k = {name: g.cpu() for name, g in g_32k.items()}
+    moved = dict(draws, latent_eps=draws["latent_eps"] + 1e-6 * torch.randn(
+        draws["latent_eps"].shape, generator=torch.Generator(device=DEV).manual_seed(4),
+        device=DEV))
+    with fb.use_plain_kernels():
+        loss_32, g_32 = _step_grads(twin, batch, draws)
+        g_32 = {name: g.cpu() for name, g in g_32.items()}
+        _, g_32m = _step_grads(twin, batch, moved)
+        g_32m = {name: g.cpu() for name, g in g_32m.items()}
+    del twin
+    torch.cuda.empty_cache()
+    vs_plain32 = _rel_l2(g_32k, g_32, "f32 kernels vs plain")
+    floor32 = _rel_l2(g_32m, g_32)
+    finite32 = np.isfinite(loss_32k) and all(bool(torch.isfinite(g).all())
+                                             for g in g_32k.values())
+    del g_32k, g_32, g_32m
+    tol32 = 2 * floor32 + 1e-6
+    grad_ok = grads_finite and finite32 and in_path and vs_plain32 <= tol32
+    print(f"one step's gradients (relative L2 of the whole vector): f32 kernels vs plain "
+          f"{vs_plain32:.3e} (tol 2 x floor + 1e-6 = {tol32:.3e}; floor, f32 plain vs itself "
+          f"with the latents moved by 1e-6: {floor32:.3e}); finite: {grads_finite and finite32}; "
+          f"losses {loss_k:.6f} / f32 {loss_32k:.6f} / f32 plain {loss_32:.6f}: "
+          f"{'ok' if grad_ok else 'FAIL'}")
+    # (c) the loss of one fixed batch with fixed draws falls
+    losses = [float(pipe.trainer.train_step(batch, draws=draws)["loss"])
+              for _ in range(T2VT_FALL_STEPS)]
+    finite = finite and all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    fall_ok = all(np.isfinite(losses)) and losses[-1] < losses[0] and finite
+    print(f"fixed batch and draws, {T2VT_FALL_STEPS} steps: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} ({[round(x, 5) for x in losses]}); parameters finite {finite}: "
+          f"{'ok' if fall_ok else 'FAIL'}")
+    # the step's time
+    data = itertools.repeat(_t2v_train_batch(4))
+    pipe.train(data, pipe.trainer.step + 2)  # warm-ups
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe.train(data, pipe.trainer.step + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.percentile(times, 50))
+    print(f"t2v training: batch {T2VT_BATCH} x {T2V_FRAMES} frames, p50 {p50:.3f} s per step, "
+          f"{T2VT_BATCH / p50:.3f} samples/s (times {[round(t, 3) for t in times]}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    # one profiled step (device time, idle share): after every timing of
+    # the run, as phase 6's profiles
+    data_p = itertools.repeat(_t2v_train_batch(5))
+
+    def step():
+        pipe.train(data_p, pipe.trainer.step + 1)
+        torch.cuda.synchronize()
+
+    profile_call(step, "t2v_train")
+    report["t2v_train"] = dict(params_m=n_params / 1e6, launches=launches, expected=expected,
+                               launches_f32_step=launches32, in_path_worst_err_over_tol=worst,
+                               grad_f32_rel_l2_vs_plain=vs_plain32, grad_f32_floor=floor32,
+                               losses=losses, step_losses=out, p50_s=p50,
+                               samples_per_s=T2VT_BATCH / p50, times_s=times, peak_bytes=peak,
+                               held_bytes=held, step_peak_bytes=step_peak,
+                               twin_peak_bytes=twin_peak, phase_s=time.perf_counter() - t_start)
+    del pipe, model
+    torch.cuda.empty_cache()
+    if not (counts_ok and counts32_ok and grad_ok and fall_ok):
+        raise AssertionError("t2v training check failed")
+
+
+def _c2i_train_batch(seed):
+    """The t2i step's batch 8 of fp16 moments (as _train_batch) with class
+    ids in [0, 1000)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return {"moments": _train_batch(seed)["moments"],
+            "labels": torch.randint(0, C2I_CLASSES, (TRAIN_BATCH,), generator=gen, device=DEV)}
+
+
+@phase("4z2 c2i training step (4q's model, DDPM)")
+def c2i_train():
+    """NOVATrainC2IPipeline over 4q's model (T2I_ARCH, 32 x 32 image
+    patches, num_classes=1000, no text) on the DDPM scheduler (x_t alone,
+    the noise the target, the integer timestep to the head), f32 master
+    weights, bf16 compute, remat, AdamW as 4f, batch 8: a warm-up step, then
+    one step's launches exactly the t2i step's (TRAIN_LAUNCHES: the 1-token
+    class prefix keeps the video encoder under 1024 keys; 0 of every other
+    kernel); the loss of a fixed batch with fixed draws (latent eps, label
+    drop, mask, timesteps, noise) falls over C2IT_FALL_STEPS steps, the
+    parameters stay finite."""
+    t_start = time.perf_counter()
+    model = NOVATransformer(arch=T2I_ARCH, image_dim=4, image_base_size=T2I_BASE,
+                            video_base_size=T2I_VIDEO_BASE, patch_size=2,
+                            num_classes=C2I_CLASSES, noise_scheduler=DDPMScheduler(), remat=True,
+                            dtype=torch.bfloat16, device=DEV)
+    model.init_weights(torch.Generator(device=DEV).manual_seed(0))
+    opt = build_optimizer(model, constant_lr(TRAIN_LR), weight_decay=0.02, betas=(0.9, 0.95))
+    pipe = NOVATrainC2IPipeline(model, optimizer=opt, ema_decay=None, log_every=1)
+    n = _train_flash_layers(model, 1)
+    pipe.train(iter([_c2i_train_batch(1)]), 1)  # warm-up
+    fb.reset_launch_counts()
+    out = pipe.train(iter([_c2i_train_batch(2)]), pipe.trainer.step + 1)
+    torch.cuda.synchronize()
+    launches = dict(fb.LAUNCHES)
+    counts_ok = (n == TRAIN_FLASH_LAYERS
+                 and launches == {name: TRAIN_LAUNCHES.get(name, 0) for name in KERNELS})
+    print(f"c2i training (DDPM, batch {TRAIN_BATCH}): launches in one step {launches} (the t2i "
+          f"step's {TRAIN_LAUNCHES}, else 0): {'ok' if counts_ok else 'FAIL'}; step loss "
+          f"{out['loss']:.4f}")
+    for name in TRAIN_LAUNCHES:
+        _record_launches(name, "c2i_train", launches[name])
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    ni, rows = model.num_image_tokens, model.loss_repeat * TRAIN_BATCH
+    lat = (TRAIN_BATCH, 2 * T2I_BASE[0], 2 * T2I_BASE[1], 4)
+    mask, _ = masking.sample_train_mask(gen, TRAIN_BATCH, ni, device=DEV)
+    draws = {"latent_eps": torch.randn(lat, generator=gen, device=DEV),
+             "label_drop": torch.rand((TRAIN_BATCH,), generator=gen, device=DEV) <= 0.1,
+             "mask": mask,
+             "timesteps": model.noise_scheduler.sample_timesteps(gen, (rows, ni), device=DEV),
+             "noise": torch.randn((rows, ni, model.patch_dim), generator=gen, device=DEV)}
+    batch = _c2i_train_batch(1)
+    losses = [float(pipe.trainer.train_step(batch, draws=draws)["loss"])
+              for _ in range(C2IT_FALL_STEPS)]
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    fall_ok = all(np.isfinite(losses)) and losses[-1] < losses[0] and finite
+    print(f"fixed batch and draws, {C2IT_FALL_STEPS} steps: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} ({[round(x, 5) for x in losses]}); parameters finite {finite}: "
+          f"{'ok' if fall_ok else 'FAIL'}")
+    report["c2i_train"] = dict(launches=launches, losses=losses, step_loss=out["loss"],
+                               phase_s=time.perf_counter() - t_start)
+    del pipe, model
+    torch.cuda.empty_cache()
+    if not (counts_ok and fall_ok):
+        raise AssertionError("c2i training check failed")
+
+
 def _flash_flops(lq, lk, bh=T2I_ROWS * HEADS, d=64):
     """FLOPs of the flash kernels of one training step, from their shapes:
     forward 4 BH Lq Lk d (twice: remat), backward 10 BH Lq Lk d (the
@@ -6063,11 +6548,12 @@ def timing_t2i(pipe_int8, pipe_float):
     _fwd_ptxas("flash_attention_static")
     torch.cuda.empty_cache()
     fb.reset_launch_counts()
-    for label, pipe in (("t2i_int8", pipe_int8), ("t2i_float", pipe_float)):
+    for label, pipe, n in (("t2i_int8", pipe_int8, T2I_TIMED_CALLS),
+                           ("t2i_float", pipe_float, T2I_FLOAT_TIMED_CALLS)):
         if pipe is None:
             raise AssertionError(f"no pipeline: {label} failed")
         times = []
-        for i in range(T2I_TIMED_CALLS):
+        for i in range(n):
             t0 = time.perf_counter()
             _t2i_sample(pipe, seed=20 + i)
             times.append(time.perf_counter() - t0)
@@ -6085,21 +6571,36 @@ def _kernels_per_call(groups, calls=10):
     torch.profiler trace (each trace costs seconds of set-up): each
     ``expected`` kernel-name substring once a call of every group that names
     it, and nothing else (outputs and workspaces come from torch.empty, which
-    launches nothing); raises otherwise."""
+    launches nothing), and each wrapper's own count at ``calls``; raises
+    otherwise. The trace has a warm-up step (one call of each group, not
+    recorded) before the recorded one, so the device tracer is running when
+    the recorded calls start, and 0.1 s of the host's sleep on each side of
+    them, so no kernel's device timestamp falls outside the recorded window
+    by a skew between the device's and the host's clocks: a trace that
+    started at its first launch once missed one of 50 kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _, call, _ in groups:
-        call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _, call, _ in groups:
+            call()
+        torch.cuda.synchronize()
+        prof.step()
+        fb.reset_launch_counts()
+        time.sleep(0.1)
         for _, call, _ in groups:
             for _ in range(calls):
                 call()
         torch.cuda.synchronize()
+        time.sleep(0.1)
+        launched = {name: fb.LAUNCHES[name] for name, _, _ in groups}
     kernels = {}
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) == DeviceType.CUDA and not e.key.startswith("Mem"):
+        # the recorded step's own range ("ProfilerStep#1") is a device-side
+        # annotation, not a kernel
+        if (getattr(e, "device_type", None) == DeviceType.CUDA
+                and not e.key.startswith(("Mem", "ProfilerStep"))):
             kernels[e.key] = kernels.get(e.key, 0) + e.count
     n = sum(kernels.values())
     names = [name for name, _, _ in groups]
@@ -6110,7 +6611,10 @@ def _kernels_per_call(groups, calls=10):
     each = {want: sum(c for k, c in kernels.items() if want in k) for want in wants}
     if n != len(wants) * calls or any(each[w] != calls * wants.count(w) for w in each):
         raise AssertionError(f"{names} ran {n} device kernels in {calls} calls each "
-                             f"({kernels}), not {wants} once a call")
+                             f"({kernels}; the wrappers counted {launched}), not {wants} "
+                             f"once a call")
+    if any(c != calls for c in launched.values()):
+        raise AssertionError(f"{names}: the wrappers counted {launched} launches, not {calls}")
 
 
 def _device_kernels_per_call():
@@ -6393,6 +6897,20 @@ def main():
         print(f"phases 3h, 4u, 4v, 5i took {report['row1_3h_5i_s']:.1f} s (budget 90 s)")
         profiles(pipe, pipe_a, pipe_b, pipe_t2i, pipe_train, pc_pipes, ar_pipes[0], pipe_t2v,
                  vaes, pipe_xlpc)
+        # slice 7d last: the t2v training step (its kernels at its shape
+        # first, its profiled step at its end) and a c2i step on DDPM; the
+        # t2v step's peak (about 55 GB with its model and Adam state) needs
+        # the card without the earlier paths' pipelines
+        del (pipe, pipe_a, pipe_b, pipe_t2i, pipe_t2i_f, pipe_train, pc_state, pc_pipes,
+             ar_pipes, pipe_refine, ar_state, pipe_t2v, pipe_t2v_f, vaes, emb, pipe_xlpc)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_7d = time.perf_counter()
+        check_t2v_train_kernels()
+        t2v_train()
+        c2i_train()
+        report["slice_7d_s"] = time.perf_counter() - t_7d
+        print(f"phases 3i, 4z, 4z2 took {report['slice_7d_s']:.1f} s (budget 150 s)")
     kernels = []
     for name in KERNELS:
         k = report["kernels"].get(name, {})

@@ -12,6 +12,13 @@ has one. Frozen parameters (``trainable`` False) get no update, no decay and
 no moments, and do not count in the global norm (optax ``multi_transform``
 with ``set_to_zero``).
 
+Gradient accumulation (``accum_steps`` k > 1) is ``optax.MultiSteps``
+around that chain: each call adds its gradients into a running mean, ``acc
++ (g - acc) / (n + 1)`` at mini-step n, and only every k-th call runs the
+chain (clip, transforms, Adam, decay, the schedule) on that mean and
+resets it; the parameters do not move on the other calls, and the
+schedule counts the chain's steps.
+
 Gradient transforms (``engine/grad_tools``: the per-layer clip, the
 adaptive lr multiplier) run after the global-norm clip and before Adam, in
 the order given, as an optax chain placed in front of ``adamw``; they group
@@ -65,14 +72,16 @@ class AdamW:
     ``- lr * (adam + wd * p)``, and a group's lr ``lr * scale`` scales both
     terms as optax's lr scale does. ``transforms`` scale the gradients
     after the clip (each ``update(grads, paths)``, in place); ``paths``
-    maps a port name to its JAX path for them."""
+    maps a port name to its JAX path for them. ``accum_steps`` > 1 wraps
+    the chain as ``optax.MultiSteps`` (module docstring)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  learning_rate: Union[float, Callable], weight_decay: float = 0.0,
                  betas=(0.9, 0.99), eps: float = 1e-8, grad_clip: Optional[float] = None,
                  decay: Optional[Dict[str, bool]] = None,
                  lr_scale: Optional[Dict[str, float]] = None,
-                 transforms: Sequence = (), paths: Optional[Dict[str, str]] = None):
+                 transforms: Sequence = (), paths: Optional[Dict[str, str]] = None,
+                 accum_steps: int = 1):
         self.named = list(named_params)
         self.transforms, self.paths = list(transforms), paths
         self.learning_rate = learning_rate
@@ -81,6 +90,7 @@ class AdamW:
         self.decay = decay or {}
         self.lr_scale = lr_scale or {}
         self.count = 0  # Adam's step count (the schedule reads it before the increment)
+        self.accum_steps, self.mini_step = accum_steps, 0
         self.set_trainable({})
 
     def set_trainable(self, trainable: Dict[str, bool]) -> None:
@@ -97,6 +107,9 @@ class AdamW:
         self.opt = torch.optim.AdamW(
             [dict(params=ps, weight_decay=wd, lr_scale=s) for (wd, s), ps in groups.items()],
             lr=0.0, betas=self.betas, eps=self.eps, fused=True)
+        # the running mean of the mini-steps' gradients (accum_steps > 1)
+        self.acc = ([torch.zeros_like(p) for p in self.live] if self.accum_steps > 1
+                    else None)
 
     def zero_grad(self) -> None:
         for _, p in self.named:
@@ -108,9 +121,23 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> None:
+        """One call: the chain's step, or with ``accum_steps`` k > 1 one
+        mini-step (the chain's step on every k-th)."""
         for p in self.live:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.acc is not None:
+            grads = [p.grad for p in self.live]
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, delta)
+            if self.mini_step < self.accum_steps - 1:
+                self.mini_step += 1
+                return
+            for p, a in zip(self.live, self.acc):
+                p.grad.copy_(a)
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
         if self.grad_clip:
             grads = [p.grad for p in self.live]
             norm = torch.nn.utils.get_total_norm(grads, foreach=True)
@@ -127,16 +154,25 @@ class AdamW:
         self.count += 1
 
     def state_dict(self) -> dict:
-        """Adam's moments and step, the schedule's count and the transforms'
-        states (a checkpoint's optimizer entry)."""
-        return {"count": self.count, "adam": self.opt.state_dict(),
-                "transforms": [t.state_dict() for t in self.transforms]}
+        """Adam's moments and step, the schedule's count, the transforms'
+        states and, when accumulating, the mini-step and the running mean (a
+        checkpoint's optimizer entry)."""
+        state = {"count": self.count, "adam": self.opt.state_dict(),
+                 "transforms": [t.state_dict() for t in self.transforms]}
+        if self.acc is not None:
+            state.update(mini_step=self.mini_step, acc=[a.clone() for a in self.acc])
+        return state
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         self.count = int(state["count"])
         self.opt.load_state_dict(state["adam"])
         for t, ts in zip(self.transforms, state["transforms"]):
             t.load_state_dict(ts)
+        if self.acc is not None:
+            self.mini_step = int(state["mini_step"])
+            for a, v in zip(self.acc, state["acc"]):
+                a.copy_(v)
 
 
 def build_optimizer(model: nn.Module, learning_rate: Union[float, Callable],
@@ -145,12 +181,11 @@ def build_optimizer(model: nn.Module, learning_rate: Union[float, Callable],
                     lr_scales: Optional[Dict[str, float]] = None, accum_steps: int = 1,
                     decay: Optional[Dict[str, bool]] = None, transforms: Sequence = ()) -> AdamW:
     """AdamW with norm-exempt decay (``decay_mask`` unless ``decay`` is
-    given), lr scaling, clipping and gradient ``transforms`` (grouped by
-    ``model``'s JAX paths), over ``model``'s parameters."""
-    if accum_steps > 1:
-        raise NotImplementedError("gradient accumulation (optax.MultiSteps) is not ported "
-                                  "yet: ROADMAP.md, module queue, NOVA training")
+    given), lr scaling, clipping, gradient ``transforms`` (grouped by
+    ``model``'s JAX paths) and accumulation over ``accum_steps`` calls, over
+    ``model``'s parameters."""
     paths = {n: p for n, (p, _) in jax_param_paths(model).items()}
     return AdamW(model.named_parameters(), learning_rate, weight_decay, betas, eps, grad_clip,
                  decay if decay is not None else decay_mask(model),
-                 lr_scale_mask(model, lr_scales) if lr_scales else None, transforms, paths)
+                 lr_scale_mask(model, lr_scales) if lr_scales else None, transforms, paths,
+                 accum_steps)

@@ -5,8 +5,11 @@ save / resume-latest (``engine/checkpoint.py``).
 
 A checkpoint holds the parameters, the optimizer's state (Adam's moments
 and step, the schedule's count, the gradient transforms' state such as the
-adaptive lr multiplier), the EMA, the step and the generator's state, so a
-resumed trainer's next step is bitwise the uninterrupted one's. The JAX
+adaptive lr multiplier, the accumulated gradients and mini-step), the EMA,
+the step and the generator's state, so a resumed trainer's next step is
+bitwise the uninterrupted one's. With gradient accumulation the step counts
+calls, as in the JAX trainer (the EMA updates on each), and the optimizer's
+schedule counts its own steps. The JAX
 trainer's mesh (DP / TP / ZeRO shardings), optimizer-state offload and
 ZeRO-3 are not ported yet and raise (``parallel/`` is queued in ROADMAP.md).
 """
@@ -144,7 +147,7 @@ class Trainer:
                 msg = ", ".join(f"{k}: {m.median:.4f} ({m.global_average:.4f})"
                                 for k, m in meters.items())
                 lr = (float(self.lr_schedule(self.step)) if self.lr_schedule
-                      else self.optimizer.lr(self.step))
+                      else self.optimizer.lr(self.optimizer.count))
                 self.logger.info("Iteration %d, time: %.3fs, lr: %.2e, %s", self.step,
                                  timer.average_time, lr, msg)
             if self.step % (10 * self.log_every) == 0:

@@ -14,12 +14,20 @@ scatters). Module names are the flax tree's (``blocks_{i}``, ``proj``,
   version on the CPU);
 - ``calibration_forward``, the plain mirror that records the three quant
   sites' ranges.
+
+``remat`` recomputes each float block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant; the same values), as the ViT
+stacks do: eager PyTorch keeps about 10 intermediates of each block's rows
+(the f32 LayerNorm and AdaLN chains, the f32 stats), about 60 GB at the t2v
+training step's 4 x 27 x 1440 rows, where XLA's fusions keep the JAX
+head's few.
 """
 
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nova_pointcloud_tpu_torch.models.embeddings import TORCH_LN_EPS, timestep_freq_embed
 from nova_pointcloud_tpu_torch.models.layers import dense, layer_norm, silu
@@ -122,9 +130,9 @@ class DiffusionMLP(nn.Module):
     timestep (B,) or (B, P), z (B, P, cond_dim) -> (B, P, out_dim)."""
 
     def __init__(self, depth: int, embed_dim: int, cond_dim: int, out_dim: int,
-                 quantize: bool = False, dtype=None, device=None):
+                 quantize: bool = False, dtype=None, remat: bool = False, device=None):
         super().__init__()
-        self.depth, self.dtype = depth, dtype
+        self.depth, self.dtype, self.remat = depth, dtype, remat
         self.patch_proj = nn.Linear(out_dim, embed_dim, device=device)
         self.time_cond_embed = TimeCondEmbed(cond_dim, embed_dim, dtype=dtype, device=device)
         for i in range(depth):
@@ -142,9 +150,12 @@ class DiffusionMLP(nn.Module):
         head's serving tree (``{"blocks_{i}": ...}``) on the int8 path."""
         h = dense(x, self.patch_proj, self.dtype)
         zc = self.time_cond_embed(timestep, z)
+        remat = self.remat and torch.is_grad_enabled() and qparams is None and not stg_rows
         for i, blk in enumerate(self.blocks()):
             q = None if qparams is None else qparams[f"blocks_{i}"]
-            if stg_rows and i == self.depth // 2:
+            if remat:
+                h = checkpoint(blk, h, zc, use_reentrant=False)
+            elif stg_rows and i == self.depth // 2:
                 h = torch.cat([blk(h[:-stg_rows], zc[:-stg_rows], q), h[-stg_rows:]])
             else:
                 h = blk(h, zc, q)

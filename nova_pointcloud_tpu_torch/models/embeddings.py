@@ -280,14 +280,29 @@ class TextEmbed(nn.Module):
 class LabelEmbed(nn.Module):
     """Class-label embedding: a (num_classes + 1, D) table whose last row is
     the null class (the CFG negative), then a LayerNorm (torch's eps, 1e-5).
-    Train-time label dropout belongs to c2i training, which is not ported
-    yet."""
+    In training, ``drop_labels`` sends ids to the null class at the JAX
+    module's rate."""
+
+    dropout = 0.1
 
     def __init__(self, embed_dim: int, num_classes: int = 1000, device=None):
         super().__init__()
         self.num_classes = num_classes
         self.weight = nn.Parameter(torch.zeros(num_classes + 1, embed_dim, device=device))
         self.norm = nn.LayerNorm(embed_dim, eps=TORCH_LN_EPS, device=device)
+
+    def drop_labels(self, input_ids: torch.Tensor, generator: Optional[torch.Generator] = None,
+                    drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Train-time CFG dropout of (B,) or (B, L) ids, as (B, 1) or (B,
+        L): each id whose uniform draw is not above ``dropout`` becomes the
+        null class. ``drop`` (bool, the ids' count) gives the draw."""
+        if input_ids.ndim == 1:
+            input_ids = input_ids[:, None]
+        if drop is None:
+            drop = torch.rand(tuple(input_ids.shape), generator=generator,
+                              device=input_ids.device) <= self.dropout
+        drop = drop.to(input_ids.device).reshape(input_ids.shape)
+        return torch.where(drop, torch.full_like(input_ids, self.num_classes), input_ids)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B,) or (B, L) ids -> (B, 1, D) or (B, L, D)."""

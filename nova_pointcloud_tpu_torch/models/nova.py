@@ -12,16 +12,16 @@ block-causal bias and the AdaLN mixer), ``frame_tokens`` /
 decode), ``tokens_from_patches``, ``encode_image_step`` (masked or
 bucket-gathered encoder half), ``denoise_step`` (the diffusion head), and
 ``train_losses`` (= ``forward``), the TAM + MAM + token-wise diffusion loss of
-one t2i training batch. Positions are absolute sincos tables or, with
-``rotary_pos_embed``, 3-axis RoPE inside attention. Shapes are
+one training batch (t2i, t2v over T frames, c2i; flow matching or DDPM).
+Positions are absolute sincos tables or, with ``rotary_pos_embed``, 3-axis
+RoPE inside attention. Shapes are
 channels-last, as in the JAX package. The step methods are differentiable;
 the serving pipelines run them under ``torch.no_grad()``.
 
 Each step method takes the model's serving tree ``qparams`` (the int8 path,
 ``ops/quantization.quantize_serving_params`` plus calibrated scales) and,
 where the JAX package sows calibration stats, ``calibrate=True``, which makes
-it return ``(out, stats)``. Not ported yet, and raising: t2v and c2i
-training, MoE.
+it return ``(out, stats)``. Not ported yet, and raising: MoE.
 """
 
 from typing import Dict, Optional, Tuple
@@ -78,7 +78,8 @@ class NOVATransformer(nn.Module):
     (``torch.bfloat16`` with bf16 weights is the serving setting; bf16 with
     f32 weights the training one: each layer casts its weights inside
     autograd, so gradients land in f32 on them). ``noise_scheduler``,
-    ``loss_repeat`` and ``remat`` (per-block recompute in the backward) are
+    ``loss_repeat`` and ``remat`` (per-block recompute in the backward: the
+    ViT blocks, as the JAX module's, and the diffusion head's blocks) are
     the training settings, as in the JAX module.
     ``device``: ``cuda`` unless ``"cpu"`` is asked for."""
 
@@ -114,7 +115,8 @@ class NOVATransformer(nn.Module):
         self.video_encoder = VisionTransformer(dv, wv, hv, **kw)
         self.image_encoder = VisionTransformer(di, wi, hi, **kw)
         self.image_decoder = DiffusionMLP(dd, wd, cond_dim=wi, out_dim=self.patch_dim,
-                                          quantize=quantize, dtype=dtype, device=dev)
+                                          quantize=quantize, dtype=dtype, remat=remat,
+                                          device=dev)
         self.mask_tokens = MaskTokens(wi, dev)
         self.text_embed = (TextEmbed(text_token_dim, wi, text_token_len, device=dev)
                            if text_token_dim else None)
@@ -372,43 +374,62 @@ class NOVATransformer(nn.Module):
     # -- training -------------------------------------------------------------
     def train_losses(self, x: torch.Tensor, text_embeds: Optional[torch.Tensor] = None,
                      labels: Optional[torch.Tensor] = None,
+                     motion_flow: Optional[torch.Tensor] = None,
+                     fps: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """TAM + MAM + token-wise diffusion loss of one batch, T = 1 (t2i).
+        """TAM + MAM + token-wise diffusion loss of one batch.
 
-        x: (B, H, W, C) or (B, 1, H, W, C) clean latents (float32). The text
-        prompts drop to the null bank (CFG dropout), the BOS frame with the
-        text prefix goes through the video encoder, a training mask (ratio
-        >= 0.7) hides tokens from the image encoder's visible-token gather
-        (bucket ``round(0.3 Ni)``), and the diffusion head regresses the
-        flow-matching target of every token, tiled ``loss_repeat`` times with
-        fresh timesteps and noise; the loss is the MSE over the masked
-        tokens. Random draws come from ``generator``; ``draws`` may give any
-        of them instead: ``drop`` (B,) bool, ``mask`` (B, Ni, 1),
-        ``timesteps`` (R*B, Ni) int, ``noise`` (R*B, Ni, patch_dim)."""
-        if labels is not None or self.text_embed is None:
-            raise NotImplementedError("label-conditioned (c2i) training is not ported yet: "
-                                      "ROADMAP.md, module queue, NOVA training")
+        x: (B, H, W, C) or (B, T, H, W, C) clean latents (float32). The text
+        prompts drop to the null bank and the class ids to the null class
+        (CFG dropout); the motion tokens (``motion_flow``, ``fps``; the
+        MotionEmbed's bases when None) follow them when T > 1 on a video
+        model. [BOS, frames 0..T-2] go through the video encoder
+        (teacher-forced, the block-causal bias and the mixer when T > 1);
+        each frame is masked (ratio >= 0.7, the visible-token gather at
+        bucket ``round(0.3 Ni)``) and encoded against its own frame's
+        states; the diffusion head regresses every token, tiled
+        ``loss_repeat`` times with fresh timesteps and noise: the
+        flow-matching target, or with a DDPM scheduler (``add_noise`` gives
+        x_t alone) the noise at the integer timestep. The loss is the MSE
+        over the masked tokens, ``{"loss"}`` at T = 1, else per frame
+        ``{"loss_t2i": frame 0 x T, "loss_i2i": frames 1.. x T / (T - 1)}``.
+        Random draws come from ``generator``; ``draws`` may give any of them
+        instead: ``drop`` (B,) bool (the prompts), ``label_drop`` (B,) bool
+        (the class ids), ``mask`` (B*T, Ni, 1), ``timesteps`` (R*B*T, Ni)
+        int, ``noise`` (R*B*T, Ni, patch_dim)."""
         if x.ndim == 4:
             x = x[:, None]
         b, t = x.shape[:2]
-        if t > 1:
-            raise NotImplementedError("video (T > 1, t2v) training is not ported yet: "
-                                      "ROADMAP.md, module queue, NOVA training")
-        sched = self.noise_scheduler
-        if sched is None or not hasattr(sched, "train_sigmas"):
-            raise NotImplementedError("NOVA training takes the flow-matching noise scheduler; "
-                                      "others are not ported yet: ROADMAP.md, module queue, "
-                                      "NOVA training")
         draws = draws or {}
         dev = self.device
         ni, nv = self.num_image_tokens, self.num_video_tokens
-        c_text = None
-        if text_embeds is not None:  # train-time CFG dropout, then the projection
-            c_text = self.embed_text(self.text_embed.drop_prompts(
-                text_embeds.to(dev), generator, draws.get("drop")))
-        states = self.encode_video(self.bos_frame(b), c_text, 1)  # (B, Nv, D)
 
+        c_parts = []
+        if self.text_token_dim and text_embeds is not None:
+            c_parts.append(self.embed_text(self.text_embed.drop_prompts(
+                text_embeds.to(dev), generator, draws.get("drop"))))
+        if self.num_classes and labels is not None:
+            c_parts.append(self.embed_label(self.label_embed.drop_labels(
+                labels.to(dev), generator, draws.get("label_drop"))))
+        if t > 1 and self.video_base_size[0] > 1:
+            c_parts.append(self.embed_motion(b, motion_flow, fps))
+        c_text = None
+        if c_parts:
+            dt = c_parts[0].dtype
+            for c in c_parts[1:]:
+                dt = torch.promote_types(dt, c.dtype)
+            c_text = torch.cat([c.to(dt) for c in c_parts], 1)
+
+        # TAM: [BOS, frames 0..T-2] -> per-frame states (B, T*Nv, D)
+        c_vid = self.bos_frame(b)
+        if t > 1:
+            vid = self.video_patch_embed(x[:, : t - 1])
+            dt = torch.promote_types(c_vid.dtype, vid.dtype)
+            c_vid = torch.cat([c_vid.to(dt), vid.to(dt)], 1)
+        states = self.encode_video(c_vid, c_text, t)
+
+        # MAM: each frame masked and encoded against its own states
         z_tok = self.image_patch_embed(x).reshape(b * t, ni, -1)
         mask = draws.get("mask")
         if mask is None:
@@ -423,16 +444,28 @@ class NOVATransformer(nn.Module):
         z_r = z.repeat(rep, 1, 1)
         x_r = x_patches.repeat(rep, 1, 1).float()
         mask_r = mask.repeat(rep, 1, 1)
+        sched = self.noise_scheduler
         tsteps = draws.get("timesteps")
         if tsteps is None:
             tsteps = sched.sample_timesteps(generator, z_r.shape[:2], device=dev)
+        tsteps = tsteps.to(dev)
         noise = draws.get("noise")
         if noise is None:
             noise = torch.randn(x_r.shape, generator=generator, device=dev)
         noise = noise.to(dev, torch.float32)
-        x_t, model_t = sched.add_noise(x_r, noise, tsteps.to(dev))
+        noised = sched.add_noise(x_r, noise, tsteps)
+        if isinstance(noised, tuple):  # flow matching: (x_t, the model's timestep)
+            (x_t, model_t), target = noised, sched.target(x_r, noise)
+        else:  # DDPM: x_t alone; the target is the noise
+            x_t, model_t, target = noised, tsteps, noise
         pred = self.denoise_step(x_t.to(z_r.dtype), model_t, z_r)
-        return {"loss": masked_diffusion_mse(pred, sched.target(x_r, noise), mask_r)}
+        if t > 1:
+            err = torch.mean((pred.float() - target) ** 2, dim=-1, keepdim=True) * mask_r
+            err = err / (torch.sum(mask_r) + 1e-5)
+            per_frame = err.reshape(rep * b, t, ni).sum(dim=(0, 2))  # (T,)
+            return {"loss_t2i": per_frame[0] * t,
+                    "loss_i2i": per_frame[1:].sum() * (t / (t - 1))}
+        return {"loss": masked_diffusion_mse(pred, target, mask_r)}
 
     def forward(self, x: torch.Tensor, text_embeds: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None, **kwargs) -> Dict[str, torch.Tensor]:

@@ -10,8 +10,8 @@ reference-style ``model:`` section (``nova_pointcloud_tpu/configs/*.yaml``)
 behind ``NOVAPipeline``, ``NOVAC2IPipeline`` (a ``num_classes`` model
 without text) or the training pipeline the config names. As the JAX
 function, it returns the pipeline without a text encoder: the caller sets
-``pipeline.text_encoder`` or passes ``prompt_embeds``. t2v / c2i training
-and mesh (pipeline-parallel) construction are not ported yet and raise.
+``pipeline.text_encoder`` or passes ``prompt_embeds``. Mesh
+(pipeline-parallel) construction is not ported yet and raises.
 """
 
 from typing import Dict, Optional
@@ -60,7 +60,7 @@ def build_pipeline(config: Dict, state_dict: Optional[Dict] = None, seed: int = 
 
     config["pipeline"]["name"]: "NOVAPointCloudGenerationPipeline",
     "NOVAPipeline" (the default), "NOVAC2IPipeline" or a NOVA training pipeline
-    ("NOVATrainT2IPipeline"). ``state_dict``: the model's weights (e.g.
+    ("NOVATrainT2IPipeline", "NOVATrainT2VPipeline", "NOVATrainC2IPipeline"). ``state_dict``: the model's weights (e.g.
     ``models.convert.convert_params`` of a JAX tree); without one the model is
     initialised from ``seed``. ``dtype`` is the compute dtype of the model;
     ``device`` is ``cuda`` unless ``"cpu"`` is asked for."""

@@ -4,7 +4,9 @@ Port of ``nova_pointcloud_tpu/schedulers/ddpm.py``: five beta schedules,
 zero-terminal-SNR rescale, all six variance types (the learned pair splits a
 2C-channel model output on the last axis), epsilon/sample/v prediction,
 leading/linspace/trailing spacing, and the training side: ``sample_timesteps``,
-``add_noise``, ``get_velocity`` and ``predict_x0``.
+``add_noise``, ``get_velocity`` and ``predict_x0``. NOVA's training loss reads
+``add_noise``'s x_t alone (a flow-matching scheduler gives a pair): its
+target is the noise and the model's timestep the integer one drawn.
 
 The tables are built in host numpy exactly as the JAX scheduler builds them;
 every tensor op below runs in float32 as the JAX one does. ``set_timesteps``

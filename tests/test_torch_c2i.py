@@ -26,6 +26,7 @@ from nova_pointcloud_tpu_torch.models.nova import NOVATransformer as TNOVA
 from nova_pointcloud_tpu_torch.ops.kernels import LAUNCHES
 from nova_pointcloud_tpu_torch.pipelines.builder import build_pipeline
 from nova_pointcloud_tpu_torch.pipelines.nova_c2i import NOVAC2IPipeline
+from nova_pointcloud_tpu_torch.pipelines.train_nova import NOVATrainC2IPipeline
 from tests.test_torch_nova import (ARCH, SMALL, _encoder_inputs, _head_inputs, _models, _np,
                                    _t, _tpu_backend)
 from tests.test_torch_nova_sampler import DIFF, STEPS, _jax_sample, _sampler_inputs
@@ -138,8 +139,8 @@ def test_int8_c2i_step_matches_jax():
 def test_build_pipeline_c2i_branch():
     """build_pipeline's c2i branch from a reference-style config (patch
     size from image_stride, num_classes passed through) on the JAX weights:
-    the same sampler as the pipeline built by hand, bitwise; c2i training
-    still raises."""
+    the same sampler as the pipeline built by hand, bitwise; its training
+    branch builds NOVATrainC2IPipeline, whose loss on labels is finite."""
     jm, params, tm = _models(C2I)
     cfg = {"pipeline": {"name": "NOVAC2IPipeline"},
            "model": {"arch": list(ARCH), "image_dim": 4, "image_stride": 8,
@@ -157,7 +158,9 @@ def test_build_pipeline_c2i_branch():
     b = NOVAC2IPipeline(tm)(list(LABELS), **kw).latents
     assert torch.equal(a, b)
     assert not any(LAUNCHES.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_pipeline({**cfg, "pipeline": {"name": "NOVATrainC2IPipeline"}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.model.train_losses(torch.zeros((1, 16, 16, 4)), labels=torch.zeros(1).long())
+    train, _ = build_pipeline({**cfg, "pipeline": {"name": "NOVATrainC2IPipeline"}},
+                              state_dict=sd, device="cpu")
+    assert isinstance(train, NOVATrainC2IPipeline) and train.model.num_classes == NUM_CLASSES
+    losses = pipe.model.train_losses(torch.zeros((1, 8, 8, 4)), labels=torch.zeros(1).long(),
+                                     generator=torch.Generator().manual_seed(0))
+    assert set(losses) == {"loss"} and torch.isfinite(losses["loss"])

@@ -80,6 +80,15 @@ def _cached_models(cfg_items, seed, quantize, bf16, attn_core):
     return _build_models(dict(cfg_items), seed, quantize, bf16, attn_core)
 
 
+@functools.lru_cache(maxsize=None)
+def _cached_params(cfg_items, seed):
+    """A configuration's JAX params (numpy), initialised once a process:
+    its variants (``quantize``, bf16 compute, ``attn_core``) initialise the
+    same tree to the same values."""
+    jm = JNOVA(**dict(cfg_items), noise_scheduler=jfm.FlowMatchEulerScheduler())
+    return _nonzero(jax.tree.map(np.asarray, init_transformer(jm, seed=seed)), seed + 1)
+
+
 def _models(cfg=SMALL, seed=0, quantize=False, bf16=False, attn_core="bf16"):
     """(jax model, jax params, torch model) on the same weights; built once
     per configuration (the tests do not modify them)."""
@@ -90,7 +99,7 @@ def _build_models(cfg, seed, quantize, bf16, attn_core):
     dt = jnp.bfloat16 if bf16 else None
     jm = JNOVA(**cfg, noise_scheduler=jfm.FlowMatchEulerScheduler(), quantize=quantize,
                dtype=dt, attn_core=attn_core)
-    params = _nonzero(jax.tree.map(np.asarray, init_transformer(jm, seed=seed)), seed + 1)
+    params = _cached_params(tuple(cfg.items()), seed)
     if bf16:
         params = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
     tm = TNOVA(**cfg, quantize=quantize, dtype=torch.bfloat16 if bf16 else None,

@@ -231,14 +231,14 @@ def test_optimizer_three_steps_match_optax(sched, clip):
     tm = _port_model(params)
     opt = ttrain.apply_freeze(toptim.build_optimizer(tm, tsched, **kw), tm, jtrain.T2I_FROZEN)
     named = dict(tm.named_parameters())
-    state, jp = tx.init(params), params
+    state, jp, update = tx.init(params), params, jax.jit(tx.update)  # compiled once
     rng = np.random.default_rng(8)
     nograd = "image_decoder/blocks_0/proj/fc1/kernel"
     for _ in range(3):
         grads = jax.tree_util.tree_map_with_path(
             lambda p, a: (np.zeros(a.shape, np.float32) if "/".join(k.key for k in p) == nograd
                           else rng.standard_normal(a.shape).astype(np.float32)), params)
-        updates, state = tx.update(grads, state, jp)
+        updates, state = update(grads, state, jp)
         jp = optax.apply_updates(jp, updates)
         tgrads = convert_params(grads)
         for name, p in named.items():

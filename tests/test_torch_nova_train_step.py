@@ -25,6 +25,7 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
@@ -34,6 +35,7 @@ from nova_pointcloud_tpu.engine.optim import build_optimizer as jbuild_optimizer
 from nova_pointcloud_tpu.models.nova import NOVATransformer as JNOVA
 from nova_pointcloud_tpu.pipelines.builder import init_transformer
 from nova_pointcloud_tpu.pipelines.train_nova import NOVATrainT2IPipeline as JPipe
+from nova_pointcloud_tpu.pipelines.train_nova import T2I_FROZEN, apply_freeze
 from nova_pointcloud_tpu.schedulers import flow_match as jfm
 from nova_pointcloud_tpu_torch.engine.lr_schedules import constant_lr
 from nova_pointcloud_tpu_torch.engine.optim import build_optimizer
@@ -107,7 +109,10 @@ def _jax_value_and_grad(pipe, params, batch, key):
 def _reference():
     """The JAX side, computed once: params, the first Trainer step's key and
     draws, the f32 and bf16-compute losses and gradients, and the params
-    after one JAX Trainer step (seed 0, one batch)."""
+    after one JAX Trainer step (seed 0, one batch). That step is the JAX
+    Trainer's ``_plain_step``: the gradients above (its loss at its first
+    step key) through the pipeline's optimizer (``apply_freeze`` over
+    ``build_optimizer``) and ``optax.apply_updates``."""
     rng = np.random.default_rng(1)
     jm = JNOVA(**TINY, noise_scheduler=jfm.FlowMatchEulerScheduler())
     params = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 0.05).astype(np.float32)
@@ -119,9 +124,9 @@ def _reference():
     loss, draws, grads = _jax_value_and_grad(pipe, params, batch, step_key)
     loss16, _, grads16 = _jax_value_and_grad(_jax_pipe(params, bf16=True), params, batch,
                                              step_key)
-    with pltpu.force_tpu_interpret_mode():
-        pipe.train(iter([batch]), 1)
-    stepped = jax.tree.map(np.asarray, pipe.params)
+    tx = apply_freeze(jbuild_optimizer(params, jconstant_lr(LR), **OPT), params, T2I_FROZEN)
+    updates, _ = jax.jit(tx.update)(grads, tx.init(params), params)
+    stepped = jax.tree.map(np.asarray, optax.apply_updates(params, updates))
     k_lat = jax.random.split(step_key, 5)[0]
     eps = np.asarray(jax.random.normal(k_lat, _batch()["moments"].shape[:-1] + (4,),
                                        jnp.float32))

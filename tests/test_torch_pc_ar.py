@@ -449,9 +449,9 @@ def test_script_optimizer_step_matches_optax():
     lr, steps = 2e-4, 4000
     schedule = jcosine_lr(lr, steps, warmup_steps=200)
     tx = optax.chain(optax.clip_by_global_norm(5.0), optax.adamw(schedule, weight_decay=0.01))
-    state = tx.init(params)
+    state, update = tx.init(params), jax.jit(tx.update)  # compiled once, not op by op
     for _ in range(3):
-        upd, state = tx.update(grads_ref, state, params)
+        upd, state = update(grads_ref, state, params)
         params = optax.apply_updates(params, upd)
     _, _, tm = _models()
     opt, _ = train_eval_pc_ar.build_optimizer_and_schedule(tm, lr, steps)

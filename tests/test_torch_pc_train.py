@@ -141,8 +141,11 @@ def _check_grads(got, jgrads, rtol):
 
 # -- the training forward ------------------------------------------------------------
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_training_forward_and_gradients_match_jax(remat):
+@functools.lru_cache(maxsize=None)
+def _jax_training_forward():
+    """The JAX side of the training-forward test, once a module (the port's
+    remat does not change it): the dropout forward's output, its cluster
+    dropout draw and the gradient of sum(out * w)."""
     params = _jax_params()
     x, t, text = _inputs()
     w = np.random.default_rng(2).standard_normal((2, POINTS, 3)).astype(np.float32)
@@ -155,6 +158,14 @@ def test_training_forward_and_gradients_match_jax(remat):
 
     (_, jout), keep = _cluster_keep(lambda: jloss(params))
     jgrads = jax.jit(jax.grad(lambda p: jloss(p)[0]))(params)
+    return jm, w, jout, keep, jgrads
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_training_forward_and_gradients_match_jax(remat):
+    params = _jax_params()
+    x, t, text = _inputs()
+    jm, w, jout, keep, jgrads = _jax_training_forward()
     tm = _port(params, remat=remat)
     masks = {"cluster": keep, "blocks": [{} for _ in range(DEPTH)]}
     out = tm(_t(x), _t(t), _t(text), deterministic=False, dropout_masks=masks)

@@ -9,6 +9,7 @@ mode, with ``jax.default_backend`` patched to report "tpu" inside the test
 only (the JAX package takes that path only on a TPU).
 """
 
+import functools
 from unittest import mock
 
 import jax
@@ -53,7 +54,10 @@ def _model_kw(quantize):
                 text_token_dim=TOK_DIM, quantize=quantize)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_params(seed=0):
+    """The JAX model's params (numpy, seeded noise on every leaf), built once
+    a module per seed (the tests do not modify them)."""
     model = JModel(**_model_kw(False), dropout=0.0)
     params = model.init(jax.random.PRNGKey(seed), jnp.zeros((2, POINTS, 3)),
                         jnp.zeros((2,), jnp.int32), jnp.zeros((2, N_TOK, TOK_DIM)))["params"]
@@ -152,11 +156,22 @@ def test_pipeline_float_matches_jax(postprocess):
 INT8_MEAN_ATOL = 5e-3
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_scales():
+    """The JAX pipeline's calibration (its act-scale tree), computed once a
+    module."""
+    jp, _ = _pipes(quantize=True)
+    return jp.calibrate(PROMPTS, num_points=POINTS, num_diffusion_steps=STEPS)
+
+
 def _int8_pair(calibrated):
+    """Fresh int8 pipelines (each test's own: the split-path tests patch the
+    route the pipelines compile), both serving the JAX calibration when
+    ``calibrated``."""
     jp, tp = _pipes(quantize=True)
     if calibrated:
-        scales = jp.calibrate(PROMPTS, num_points=POINTS, num_diffusion_steps=STEPS)
-        tp.act_scales = convert_tree(scales)
+        jp.act_scales = _jax_scales()
+        tp.act_scales = convert_tree(jp.act_scales)
     return jp, tp
 
 
